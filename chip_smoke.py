@@ -1,0 +1,263 @@
+#!/usr/bin/env python3
+"""Chip smoke check of the PyTorch / CUDA port (``ufm_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``ufm_torch/csrc`` (nvcc, sm_90a), holds
+each kernel against its plain PyTorch version at the main path's shapes, then
+drives the main path: UFM-Base at full width (ViT-L/14 encoder, 24 layers; 12
+info-sharing layers; both DPT heads; 560x420) with seeded random weights,
+answering a few requests through ``predict_correspondences_batched``. Each
+phase prints one JSON line; any failed check raises and the script exits
+non-zero without printing a result. The last three lines are the card's name
+and power limit (as ``nvidia-smi`` prints them), the kernels' summary, and
+``{"ok": true, "device": {...}}``.
+
+Needs a CUDA device and the ``ufm_torch`` package beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published dense peaks (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+# main-path attention shapes at batch 1 and their calls per forward
+ATTN_SHAPES = (
+    ("encoder", (2, 1201, 16, 64), 24),
+    ("info_sharing", (1, 2400, 12, 64), 12),
+    ("ragged", (1, 77, 2, 64), 0),
+)
+LAUNCHES_PER_FORWARD = sum(n for _, _, n in ATTN_SHAPES)  # 36
+
+# kernel vs the fp32 reference on the same bf16 inputs: at most twice the
+# plain bf16 version's error (which rounds the logits to bf16), and never
+# held tighter than 4e-3 (a few bf16 ulps of outputs of order 1)
+KERNEL_ERR_FLOOR = 4e-3
+# main path with the kernel vs the same weights with the plain attention:
+# bf16 rounding of 36 attention layers (the plain version rounds its logits to
+# bf16, the kernel keeps them in fp32) feeds the fp32 heads
+FLOW_REL_L2_BOUND = 2e-2
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def time_ms(fn, reps: int = 10, batches: int = 7) -> float:
+    """Median over ``batches`` of CUDA-event time per call, ``reps`` calls a
+    batch, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def phase_device() -> str:
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false: this check needs a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit(
+        "device",
+        nvidia_smi=smi,
+        name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(),
+        torch=torch.__version__,
+        cuda=torch.version.cuda,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+    )
+    return smi
+
+
+def phase_build():
+    import ufm_torch
+    from ufm_torch.ops import _build
+
+    pkg = os.path.dirname(os.path.abspath(ufm_torch.__file__))
+    check(os.path.dirname(pkg) == HERE, f"ufm_torch imported from {pkg}, not from this checkout")
+    t0 = time.perf_counter()
+    _build.build()
+    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+             for n, log in _build.BUILD_LOGS.items()}
+    emit("build", seconds=time.perf_counter() - t0, kernels=list(_build.KERNEL_SOURCES), ptxas=ptxas)
+
+
+def attention_bound_ms(b, s, h, d):
+    flops = 4 * b * h * s * s * d
+    nbytes = 4 * b * s * h * d * 2  # q, k, v read once, out written once, bf16
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernel():
+    import torch.nn.functional as F
+
+    from ufm_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, (b, s, h, d), calls in ATTN_SHAPES:
+        if calls:  # the main path's layout: strided views of the fused qkv projection
+            qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        scale = d**-0.5
+        out = fa.flash_attention(q, k, v, scale=scale)
+        plain = fa.attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        ref = fa.attention_reference(q.float(), k.float(), v.float(), scale)
+        err = (out.float() - ref).abs().max().item()
+        plain_err = (plain.float() - ref).abs().max().item()
+        tol = max(2 * plain_err, KERNEL_ERR_FLOOR)
+        check(bool(torch.isfinite(out).all()), f"{name}: kernel output not finite")
+        check(err <= tol, f"{name}: kernel error {err:.3e} > {tol:.3e}")
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
+        plain_ms = time_ms(lambda: fa.attention_reference(q, k, v, scale), reps=3, batches=5)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+        bound_ms, bound_by = attention_bound_ms(b, s, h, d)
+        rows[name] = dict(
+            shape=[b, s, h, d], calls_per_forward=calls, max_abs_err=err, plain_max_abs_err=plain_err, tol=tol,
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, tflops=4 * b * h * s * s * d / ms / 1e9,
+        )
+        emit("kernel", kernel="flash_attention_fwd", case=name, **rows[name])
+    return rows
+
+
+def _finite(t: torch.Tensor) -> bool:
+    return bool(torch.isfinite(t).all())
+
+
+def phase_main_path():
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    torch.cuda.synchronize()
+    emit("model", seconds=time.perf_counter() - t0, params=sum(p.numel() for p in model.parameters()),
+         device=str(model.device), compute_dtype=model.config.compute_dtype)
+
+    rng = np.random.default_rng(0)
+    requests = (
+        ("480x640_b1", rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)),
+        ("1080x1920_b1", rng.integers(0, 256, (2, 1080, 1920, 3), dtype=np.uint8)),
+        ("480x640_b2", rng.integers(0, 256, (2, 2, 480, 640, 3), dtype=np.uint8)),
+    )
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # the main path's count starts here
+    results, latencies = {}, {}
+    for name, pair in requests:
+        src, tgt = pair[0], pair[1]
+        b = src.shape[0] if src.ndim == 4 else 1
+        h, w = src.shape[-3], src.shape[-2]
+        times = []
+        for _ in range(4):  # one warm-up, three timed
+            before = fa.LAUNCHES
+            t = time.perf_counter()
+            res = model.predict_correspondences_batched(source_image=src, target_image=tgt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            check(fa.LAUNCHES - before == LAUNCHES_PER_FORWARD,
+                  f"{name}: {fa.LAUNCHES - before} kernel launches in one forward, expected {LAUNCHES_PER_FORWARD}")
+        flow, covis = res.flow.flow_output, res.covisibility.mask
+        cov, conf = res.flow.flow_covariance, res.keypoint_confidence
+        check(tuple(flow.shape) == (b, 2, h, w), f"{name}: flow shape {tuple(flow.shape)}")
+        check(tuple(covis.shape) == (b, h, w), f"{name}: covisibility shape {tuple(covis.shape)}")
+        check(tuple(cov.shape) == (b, 3, h, w), f"{name}: covariance shape {tuple(cov.shape)}")
+        check(tuple(conf.shape) == (b, h, w), f"{name}: confidence shape {tuple(conf.shape)}")
+        check(all(_finite(x) for x in (flow, covis, cov, conf)), f"{name}: non-finite outputs")
+        latencies[name] = statistics.median(times[1:])
+        results[name] = res
+        emit("request", request=name, batch=b, input_hw=[h, w], first_s=times[0], latency_s=latencies[name],
+             pairs_per_s=b / latencies[name], flow_abs_mean=flow.abs().mean().item(),
+             covis_mean=covis.mean().item())
+    launches = fa.LAUNCHES
+    emit("main_path", launches=launches, forwards=4 * len(requests), launches_per_forward=LAUNCHES_PER_FORWARD,
+         pairs_per_s_b1=1.0 / latencies["480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
+    return model, requests[0][1], results["480x640_b1"], launches
+
+
+def phase_self_check(model, pair, kernel_res):
+    from ufm_torch.ops import flash_attention as fa
+
+    model.attention_impl = "torch"
+    fa.LAUNCHES = 0
+    res = model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+    torch.cuda.synchronize()
+    check(fa.LAUNCHES == 0, "the plain-attention run launched the kernel")
+    model.attention_impl = None
+    f_k, f_t = kernel_res.flow.flow_output.float(), res.flow.flow_output.float()
+    rel = ((f_k - f_t).norm() / f_t.norm()).item()
+    covis_diff = (kernel_res.covisibility.mask - res.covisibility.mask).abs().max().item()
+    emit("self_check", flow_rel_l2=rel, flow_rel_l2_bound=FLOW_REL_L2_BOUND, covis_max_abs_diff=covis_diff)
+    check(rel <= FLOW_REL_L2_BOUND, f"kernel vs plain attention: flow relative L2 {rel:.3e} > {FLOW_REL_L2_BOUND}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
+        return 1
+    smi = phase_device()
+    phase_build()
+    rows = phase_kernel()
+    model, pair, kernel_res, launches = phase_main_path()
+    phase_self_check(model, pair, kernel_res)
+
+    # one batch-1 forward's attention: each number sums its 36 calls
+    fwd = [rows[n] for n, _, calls in ATTN_SHAPES for _ in range(calls)]
+    summary = {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "ufm_tpu/ops/flash_attention.py:558",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": sum(r["ms"] for r in fwd),
+        "plain_ms": sum(r["plain_ms"] for r in fwd),
+        "bound_ms": sum(r["bound_ms"] for r in fwd),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in fwd) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in fwd),
+        "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward",
+    }
+    print(smi)
+    print(json.dumps({"kernels": [summary]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

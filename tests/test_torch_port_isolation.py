@@ -1,0 +1,84 @@
+"""The port stands alone: ``ufm_torch``, ``chip_smoke.py`` and
+``profile_torch_port.py`` never import
+JAX, flax or the JAX package, and the port's entry points refuse to move to
+the CPU quietly."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ufm_tpu"}
+
+
+def _port_files():
+    return sorted((ROOT / "ufm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_torch_port.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__" and node.args:
+            arg = node.args[0]
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                yield arg.value.split(".")[0]
+
+
+def test_no_jax_imports_in_the_port():
+    files = _port_files()
+    assert len(files) > 20
+    bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN) for p in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of the package imports in a process where jax, flax and
+    ufm_tpu cannot be imported."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        f"for name in {sorted(FORBIDDEN)!r}: sys.modules[name] = None\n"
+        "import ufm_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(ufm_torch.__path__, 'ufm_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 15
+
+
+def test_from_config_without_device_needs_cuda(monkeypatch):
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UniFlowMatchConfidence.from_config(ufm_tiny_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UniFlowMatchConfidence.from_config(ufm_tiny_config(), device="cuda")
+    model = UniFlowMatchConfidence.from_config(ufm_tiny_config(), device="cpu")
+    assert model.device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_gpu_or_the_package(tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result where there is no
+    CUDA device, and where it stands alone without the package."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the smoke check would run")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    env = dict(os.environ, PYTHONPATH="")
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

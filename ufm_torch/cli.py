@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Command line for the PyTorch / CUDA port (counterpart of ``ufm_tpu/cli.py``).
+
+    python -m ufm_torch.cli infer SOURCE TARGET --random-init [-o DIR] [--device cpu]
+    python -m ufm_torch.cli test
+
+``infer`` runs UFM-Base on an image pair and writes ``flow_visualization.png``,
+``covisibility_mask.png`` and ``warped_source.png``. Checkpoints are not
+ported yet, so it runs seeded random weights (``--random-init``). It runs on
+the GPU unless ``--device cpu`` is given. ``test`` is an environment check.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+OUTPUT_FILES = ("flow_visualization.png", "covisibility_mask.png", "warped_source.png")
+
+
+def _fail(msg: str) -> None:
+    print(msg)
+    sys.exit(1)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="ufm_torch", description="UFM dense correspondence, PyTorch / CUDA port"
+    )
+    sub = parser.add_subparsers(dest="command", help="Available commands")
+
+    infer = sub.add_parser("infer", help="Run UFM-Base on an image pair")
+    infer.add_argument("source", help="Source image path")
+    infer.add_argument("target", help="Target image path")
+    infer.add_argument("--output", "-o", help="Output directory (default: current directory)")
+    infer.add_argument("--checkpoint", help="Local checkpoint directory (not supported by the port yet)")
+    infer.add_argument(
+        "--random-init",
+        action="store_true",
+        help="Run with seeded random weights (pipeline smoke test; no checkpoint needed)",
+    )
+    infer.add_argument("--device", default=None, help="torch device (default: cuda)")
+
+    sub.add_parser("test", help="Test installation")
+    return parser
+
+
+def main(argv=None) -> None:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    handler = {"infer": run_inference, "test": lambda _: test_installation()}.get(args.command)
+    if handler is None:
+        parser.print_help()
+        return
+    handler(args)
+
+
+def _read_rgb(path: str):
+    import cv2
+
+    bgr = cv2.imread(path)
+    return None if bgr is None else cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+
+
+def _write_rgb(path: Path, rgb) -> None:
+    import cv2
+
+    cv2.imwrite(str(path), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+
+
+def run_inference(args) -> None:
+    if args.checkpoint:
+        _fail(
+            "Error: loading checkpoints is not ported to ufm_torch yet (ROADMAP.md Queue 1, "
+            "checkpoint/); run with --random-init"
+        )
+    if not args.random_init:
+        _fail("Error: ufm_torch has no checkpoint loading yet: pass --random-init")
+    try:
+        import numpy as np
+
+        from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+        from ufm_torch.utils.viz import flow_to_color, warp_image_with_flow
+    except ImportError as e:
+        _fail(f"Error importing dependencies: {e}")
+
+    source_rgb = _read_rgb(args.source)
+    target_rgb = _read_rgb(args.target)
+    if source_rgb is None or target_rgb is None:
+        _fail(f"Error: could not read {args.source if source_rgb is None else args.target}")
+
+    try:
+        model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0, device=args.device)
+        print(f"Running inference on {model.device}...")
+        result = model.predict_correspondences_batched(source_image=source_rgb, target_image=target_rgb)
+    except (RuntimeError, ValueError) as e:
+        _fail(f"Error during inference: {e}")
+
+    flow_hwc = result.flow.flow_output[0].permute(1, 2, 0).cpu().numpy()
+    covis = result.covisibility.mask[0].cpu().numpy()
+
+    out_dir = Path(args.output) if args.output else Path.cwd()
+    out_dir.mkdir(exist_ok=True)
+
+    # Backward-warp the target into the source frame, whiting out non-covisible
+    # pixels so occlusions read as "no correspondence" in the panel.
+    warped = warp_image_with_flow(source_rgb, None, target_rgb, flow_hwc).astype(np.float32)
+    alpha = covis[..., None]
+    composite = (alpha * warped + (1.0 - alpha) * 255.0).astype(np.uint8)
+
+    _write_rgb(out_dir / OUTPUT_FILES[0], flow_to_color(flow_hwc))
+    _write_rgb(out_dir / OUTPUT_FILES[1], np.repeat((covis * 255).astype(np.uint8)[..., None], 3, axis=-1))
+    _write_rgb(out_dir / OUTPUT_FILES[2], composite)
+
+    print(f"Wrote {len(OUTPUT_FILES)} files to {out_dir}:")
+    for name in OUTPUT_FILES:
+        print(f"  {name}")
+
+
+def test_installation() -> None:
+    print("Testing ufm_torch installation...")
+    failures = []
+
+    def probe(label, fn, required=True):
+        try:
+            detail = fn()
+            print(f"+ {label}" + (f" {detail}" if detail else ""))
+        except Exception as e:  # noqa: BLE001 — a smoke check reports, never raises
+            mark = "x" if required else "!"
+            print(f"{mark} {label}: {e}")
+            if required:
+                failures.append(label)
+
+    probe("PyTorch", lambda: __import__("torch").__version__)
+    probe("NumPy", lambda: __import__("numpy").__version__)
+    probe("OpenCV (CLI image IO)", lambda: __import__("cv2").__version__, required=False)
+
+    def _import_models():
+        from ufm_torch.models import UniFlowMatchConfidence  # noqa: F401
+
+    probe("ufm_torch model imports", _import_models)
+
+    def _gpu():
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device (the port runs on the GPU; --device cpu for the CPU)")
+        return f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
+
+    probe("GPU", _gpu, required=False)
+
+    def _nvcc():
+        from ufm_torch.ops._build import _nvcc as find
+
+        return find()
+
+    probe("nvcc (builds the CUDA kernels on first use)", _nvcc, required=False)
+
+    if failures:
+        _fail(f"\nInstallation test FAILED: {', '.join(failures)}")
+    print("\nInstallation test completed successfully!")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,32 @@
+"""Models: the UFM family, its network and its output interfaces."""
+
+from ufm_torch.models.base import (
+    UFMClassificationRefinementOutput,
+    UFMFlowFieldOutput,
+    UFMMaskFieldOutput,
+    UFMOutputInterface,
+    UniFlowMatchModelsBase,
+)
+from ufm_torch.models.config import (
+    UFMArchConfig,
+    ufm_base_config,
+    ufm_refine_config,
+    ufm_tiny_config,
+)
+from ufm_torch.models.network import UFMNet
+from ufm_torch.models.ufm import UniFlowMatch, UniFlowMatchConfidence
+
+__all__ = [
+    "UFMArchConfig",
+    "UFMClassificationRefinementOutput",
+    "UFMFlowFieldOutput",
+    "UFMMaskFieldOutput",
+    "UFMNet",
+    "UFMOutputInterface",
+    "UniFlowMatch",
+    "UniFlowMatchConfidence",
+    "UniFlowMatchModelsBase",
+    "ufm_base_config",
+    "ufm_refine_config",
+    "ufm_tiny_config",
+]

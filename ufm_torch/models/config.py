@@ -1,0 +1,212 @@
+"""Architecture configuration for the UFM model family.
+
+Field names mirror the reference constructor kwargs exactly
+(uniflowmatch/models/ufm.py:130-152, 483-508, 720-751) so that a HuggingFace
+``config.json`` written for the reference models maps 1:1 onto this config
+(the config.json is the single source of architecture truth; reference
+ufm.py:120 + SURVEY.md §3.5).
+
+A verbatim copy of ``ufm_tpu/models/config.py``: the port never imports the
+JAX package, so it keeps its own. Fields the port does not use yet (training
+remat, refinement) are kept so one config dict drives both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+__all__ = ["UFMArchConfig", "ufm_base_config", "ufm_refine_config", "ufm_tiny_config"]
+
+
+def _d() -> Dict[str, Any]:
+    return {}
+
+
+@dataclasses.dataclass
+class UFMArchConfig:
+    # Encoder
+    encoder_str: str = "dinov2_large"
+    encoder_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    # Info sharing
+    info_sharing_and_head_structure: str = "dual+single"
+    info_sharing_str: str = "global_attention"
+    info_sharing_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    # Main head
+    head_type: str = "dpt"
+    feature_head_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    adaptors_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    # Uncertainty head (confidence variant)
+    has_uncertainty_head: bool = False
+    detach_uncertainty_head: bool = True
+    uncertainty_head_type: str = "dpt"
+    uncertainty_head_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    uncertainty_adaptors_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    # Classification refinement (refine variant)
+    has_classification_head: bool = False
+    classification_head_type: str = "patch_mlp"
+    classification_head_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    temperature: float = 4.0
+    use_unet_feature: bool = False
+    # UNet dims; {} keeps the reference's hardcoded UNet(3, 16, [64,128,256,512])
+    # (unet_encoder.py:26 via ufm.py:818) — overridable for tiny test models
+    unet_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
+    feature_combine_method: str = "conv"
+    refinement_range: int = 5
+    # Window-dots implementation for the refinement stage: "auto" picks the
+    # Pallas TPU kernel when shape-eligible, else the portable XLA path
+    refinement_impl: str = "auto"
+    # MXU precision of the kernel's selection matmul: "default" (bf16 input
+    # rounding; measured refined-flow drift ≤0.025 px max / 0.009 px p99.9 vs
+    # "highest" at flagship shapes — BENCH_NOTES.md) or "highest" (fp32)
+    refinement_matmul_precision: str = "default"
+    # Inference
+    inference_resolution: Union[Tuple[int, int], List[Tuple[int, int]]] = (560, 420)  # (W, H)
+    # Precision policy: backbone compute dtype; heads always fp32 (reference
+    # autocast policy, base.py:273 / ufm.py:414)
+    compute_dtype: str = "bfloat16"
+    # Training-time memory knob: rematerialize transformer-block activations
+    # in the backward pass (the flagship's saved residuals otherwise OOM a
+    # single chip's HBM at batch 2). True/"all" checkpoints both stacks;
+    # "encoder" checkpoints only the 24-layer encoder and keeps the
+    # info-sharing activations resident — less recompute when the encoder
+    # alone frees enough HBM (NOT the single-chip flagship at batch 2:
+    # measured 20.7G vs 15.75G HBM — use full remat there; the partial mode
+    # suits smaller configs or data-parallel meshes with smaller per-chip
+    # batches). No effect on forward-only graphs.
+    train_remat: Union[bool, str] = False
+    # Optional jax.checkpoint_policies member applied with remat (e.g.
+    # "dots_with_no_batch_dims_saveable" saves projection/MLP matmul outputs
+    # and recomputes only the cheap elementwise work). None = full remat.
+    # Measured on the single-chip v5e flagship at batch 2 (B/A/B,
+    # BENCH_NOTES.md round 3): dots_with_no_batch_dims_saveable fits HBM
+    # with donation and is ~6.5% faster than full remat (359/364 vs 385 ms).
+    # Round 5: the "+attn_out" composite additionally saves the tagged
+    # flash-attention core outputs so the backward skips the attention
+    # forward recompute — a further 3-5% (B/A/B 275/283 vs 267 ms) for
+    # ~10 MB/layer bf16 at flagship training shapes.
+    train_remat_policy: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "UFMArchConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def _dpt_kwargs(enc_dim: int, info_dim: int, output_dim: int) -> Dict[str, Any]:
+    return {
+        "dpt_feature": {
+            "input_dims": (enc_dim, info_dim, info_dim, info_dim),
+            "proj_dims": (96, 192, 384, 768),
+            "feature_dim": 256,
+        },
+        "dpt_processor": {"input_dim": 256, "hidden_dims": (128, 64), "output_dim": output_dim},
+    }
+
+
+def ufm_base_config(**overrides) -> UFMArchConfig:
+    """Flagship UFM-Base class config: DINOv2 ViT-L/14 encoder + dual-view
+    global attention + DPT flow head + DPT uncertainty head."""
+    enc_dim, info_dim = 1024, 768
+    cfg = UFMArchConfig(
+        encoder_str="dinov2_large",
+        encoder_kwargs={"intermediate_layer_idx": (0, 23)},
+        info_sharing_str="global_attention",
+        info_sharing_kwargs={
+            "input_embed_dim": enc_dim,
+            "dim": info_dim,
+            "depth": 12,
+            "num_heads": 12,
+            "intermediate_layer_idx": (5, 8),
+        },
+        head_type="dpt",
+        feature_head_kwargs=_dpt_kwargs(enc_dim, info_dim, 2),
+        adaptors_kwargs={"flow": {"class": "FlowAdaptor", "kwargs": {}}},
+        has_uncertainty_head=True,
+        uncertainty_head_kwargs=_dpt_kwargs(enc_dim, info_dim, 5),
+        uncertainty_adaptors_kwargs={
+            "flow_cov": {"class": "Covariance2DAdaptor", "kwargs": {}},
+            "keypoint_confidence": {"class": "ConfidenceAdaptor", "kwargs": {}},
+            "non_occluded_mask": {"class": "MaskAdaptor", "kwargs": {}},
+        },
+        inference_resolution=(560, 420),
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def ufm_refine_config(**overrides) -> UFMArchConfig:
+    """Flagship UFM-Refine class config: base + patch-MLP classification
+    refinement with UNet fine features."""
+    cfg = ufm_base_config()
+    cfg = dataclasses.replace(
+        cfg,
+        has_classification_head=True,
+        classification_head_kwargs={
+            "input_feature_dim": 1024 + 768,
+            "hidden_dims": (512,),
+            "output_dim": 16,
+            "patch_size": 14,
+        },
+        use_unet_feature=True,
+        feature_combine_method="conv",
+        refinement_range=5,
+        temperature=4.0,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def ufm_tiny_config(**overrides) -> UFMArchConfig:
+    """Tiny config for tests: same topology, minimal dims, 56x42 inputs."""
+    enc_dim, info_dim = 64, 48
+    cfg = UFMArchConfig(
+        encoder_str="dinov2_custom",
+        encoder_kwargs={
+            "embed_dim": enc_dim,
+            "depth": 2,
+            "num_heads": 2,
+            "pretrain_grid_size": 4,
+            "intermediate_layer_idx": (0, 1),
+        },
+        info_sharing_kwargs={
+            "input_embed_dim": enc_dim,
+            "dim": info_dim,
+            "depth": 2,
+            "num_heads": 2,
+            "intermediate_layer_idx": (0, 1),
+        },
+        feature_head_kwargs={
+            "dpt_feature": {
+                "input_dims": (enc_dim, info_dim, info_dim, info_dim),
+                "proj_dims": (8, 16, 24, 32),
+                "feature_dim": 16,
+            },
+            "dpt_processor": {"input_dim": 16, "hidden_dims": (8, 8), "output_dim": 2},
+        },
+        adaptors_kwargs={"flow": {"class": "FlowAdaptor", "kwargs": {}}},
+        has_uncertainty_head=True,
+        uncertainty_head_kwargs={
+            "dpt_feature": {
+                "input_dims": (enc_dim, info_dim, info_dim, info_dim),
+                "proj_dims": (8, 16, 24, 32),
+                "feature_dim": 16,
+            },
+            "dpt_processor": {"input_dim": 16, "hidden_dims": (8, 8), "output_dim": 5},
+        },
+        uncertainty_adaptors_kwargs={
+            "flow_cov": {"class": "Covariance2DAdaptor", "kwargs": {}},
+            "keypoint_confidence": {"class": "ConfidenceAdaptor", "kwargs": {}},
+            "non_occluded_mask": {"class": "MaskAdaptor", "kwargs": {}},
+        },
+        classification_head_kwargs={
+            "input_feature_dim": enc_dim + info_dim,
+            "hidden_dims": (32,),
+            "output_dim": 8,
+            "patch_size": 14,
+        },
+        inference_resolution=(56, 42),
+        compute_dtype="float32",
+    )
+    return dataclasses.replace(cfg, **overrides)

@@ -1,0 +1,219 @@
+"""The UFM network: encode -> info-share -> DPT heads.
+
+Counterpart of ``ufm_tpu/models/network.py`` for the UFM-Base forward:
+
+  1. both views are concatenated into one 2B batch for a single encoder pass,
+     in the compute dtype (bf16 for the flagship), so every encoder attention
+     call sees the (2B, S, H, D) shapes the TPU kernel saw;
+  2. the last encoder level of both views goes through the two-view
+     global-attention info-sharing transformer, which returns the final map
+     plus two intermediate taps per view;
+  3. a 4-level pyramid [encoder_last, tap0, tap1, final] of view 0, cast to
+     fp32, feeds the DPT flow head and the DPT uncertainty head (covariance,
+     keypoint confidence, covisibility).
+
+The classification-refinement stage (UFM-Refine) is not ported yet. All maps
+are channel-last; the output is a flat dict of tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+import torch.nn as nn
+
+from ufm_torch.models.config import UFMArchConfig
+from ufm_torch.nn.encoders import (
+    _BENIGN_CONFIG_KEYS,
+    ViTEncoderInput,
+    feature_returner_encoder_factory,
+    module_fields,
+)
+from ufm_torch.nn.info_sharing import INFO_SHARING_CLASSES, MultiViewTransformerInput
+from ufm_torch.nn.layers import as_dtype
+from ufm_torch.nn.prediction_heads import (
+    AdaptorMap,
+    ConfidenceAdaptor,
+    Covariance2DAdaptor,
+    DPTFeature,
+    DPTRegressionProcessor,
+    FlowAdaptor,
+    FlowWithConfidenceAdaptor,
+    MaskAdaptor,
+    PredictionHeadLayeredInput,
+)
+
+__all__ = ["UFMNet", "CLASSNAME_TO_ADAPTOR_CLASS", "interleave", "is_symmetrized"]
+
+CLASSNAME_TO_ADAPTOR_CLASS = {
+    "FlowWithConfidenceAdaptor": FlowWithConfidenceAdaptor,
+    "FlowAdaptor": FlowAdaptor,
+    "MaskAdaptor": MaskAdaptor,
+    "Covariance2DAdaptor": Covariance2DAdaptor,
+    "ConfidenceAdaptor": ConfidenceAdaptor,
+}
+
+
+def is_symmetrized(gt1: Dict[str, Any], gt2: Dict[str, Any]) -> bool:
+    """Detect (a,b),(b,a)-interleaved batches by instance ids."""
+    x = gt1["instance"]
+    y = gt2["instance"]
+    if len(x) == len(y) and len(x) == 1:
+        return False
+    ok = True
+    for i in range(0, len(x), 2):
+        ok = ok and (x[i] == y[i + 1]) and (x[i + 1] == y[i])
+    return ok
+
+
+def interleave(t1: torch.Tensor, t2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-expand per-pair features to the interleaved layout."""
+    r1 = torch.stack([t1, t2], dim=1).reshape(-1, *t1.shape[1:])
+    r2 = torch.stack([t2, t1], dim=1).reshape(-1, *t1.shape[1:])
+    return r1, r2
+
+
+def _filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    known = module_fields(cls)
+    unknown = set(kwargs) - known - _BENIGN_CONFIG_KEYS
+    if unknown:
+        # an unknown load-bearing key silently dropped would build a wrong
+        # network that still loads the checkpoint: hard-fail, like the encoder
+        # factory does
+        raise ValueError(
+            f"{cls.__name__} config carries load-bearing options this implementation "
+            f"does not support: {sorted(unknown)}. Refusing to build a silently-wrong "
+            f"architecture; supported fields: {sorted(known)}."
+        )
+    return {k: v for k, v in kwargs.items() if k in known}
+
+
+def _build_adaptor_map(adaptors_kwargs: Dict[str, Any]) -> AdaptorMap:
+    adaptors = []
+    for name, spec in adaptors_kwargs.items():
+        cls = CLASSNAME_TO_ADAPTOR_CLASS[spec["class"]]
+        adaptors.append(cls(name=name, **spec.get("kwargs", {})))
+    return AdaptorMap(*adaptors)
+
+
+class _DPTHead(nn.Module):
+    """DPTFeature + DPTRegressionProcessor pipeline."""
+
+    def __init__(self, feature_kwargs: Dict[str, Any], processor_kwargs: Dict[str, Any]):
+        super().__init__()
+        self.feature = DPTFeature(**_filter_kwargs(DPTFeature, feature_kwargs))
+        self.processor = DPTRegressionProcessor(**_filter_kwargs(DPTRegressionProcessor, processor_kwargs))
+
+    def forward(self, inp: PredictionHeadLayeredInput):
+        return self.processor(self.feature(inp), inp.target_output_shape)
+
+
+def _make_head(head_type: str, head_kwargs: Dict[str, Any]) -> _DPTHead:
+    if head_type != "dpt":
+        raise NotImplementedError(f"head type {head_type!r} is not ported yet (only 'dpt')")
+    return _DPTHead(head_kwargs.get("dpt_feature", {}), head_kwargs.get("dpt_processor", {}))
+
+
+class UFMNet(nn.Module):
+    """Encoder, info sharing and DPT heads of one UFM config. The backbone
+    runs in ``cfg.compute_dtype``; the heads are always fp32."""
+
+    def __init__(self, cfg: UFMArchConfig):
+        super().__init__()
+        if cfg.has_classification_head:
+            raise NotImplementedError(
+                "the classification-refinement stage (UFM-Refine) is not ported yet: "
+                "ROADMAP.md Queue 1, slice 2"
+            )
+        if cfg.info_sharing_and_head_structure != "dual+single":
+            raise ValueError("Only dual+single is supported")
+        self.cfg = cfg
+        dt = as_dtype(cfg.compute_dtype)
+        # cfg.train_remat / train_remat_policy are training-only (no effect on
+        # a forward pass); training is ROADMAP slice 3
+        self.encoder = feature_returner_encoder_factory(cfg.encoder_str, dtype=dt, **cfg.encoder_kwargs)
+        info_cls = INFO_SHARING_CLASSES[cfg.info_sharing_str][1]
+        self.info_sharing = info_cls(dtype=dt, **_filter_kwargs(info_cls, cfg.info_sharing_kwargs))
+
+        self.head1 = _make_head(cfg.head_type, cfg.feature_head_kwargs)
+        self._head1_adaptors = _build_adaptor_map(cfg.adaptors_kwargs)
+        if cfg.has_uncertainty_head:
+            self.uncertainty_head = _make_head(cfg.uncertainty_head_type, cfg.uncertainty_head_kwargs)
+            self._uncertainty_adaptors = _build_adaptor_map(cfg.uncertainty_adaptors_kwargs)
+
+    # ---- encoding -----------------------------------------------------------
+    def _encode_image_pairs(self, img1: torch.Tensor, img2: torch.Tensor):
+        """One encoder pass over the concatenated 2B batch."""
+        if img1.shape[1:3] != img2.shape[1:3]:
+            raise ValueError("Unequal image sizes are not supported")
+        stacked = torch.cat([img1, img2], dim=0)
+        outputs = self.encoder(
+            ViTEncoderInput(image=stacked, data_norm_type=self.cfg.encoder_kwargs.get("data_norm_type", "dinov2"))
+        )
+        b = img1.shape[0]
+        return [o.features[:b] for o in outputs], [o.features[b:] for o in outputs]
+
+    def _encode_symmetrized(self, img1, img2, symmetrized: bool):
+        """Symmetric-pair dedup: encode each unique pair once, then mirror."""
+        if symmetrized:
+            f1_half, f2_half = self._encode_image_pairs(img1[::2], img2[::2])
+            feat1, feat2 = [], []
+            for a, b_ in zip(f1_half, f2_half):
+                a2, b2 = interleave(a, b_)
+                feat1.append(a2)
+                feat2.append(b2)
+            return feat1, feat2
+        return self._encode_image_pairs(img1, img2)
+
+    # ---- forward ------------------------------------------------------------
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor, symmetrized: bool = False) -> Dict[str, torch.Tensor]:
+        """img1/img2: (B, H, W, 3) normalized. Returns a flat output dict."""
+        return self.backbone(img1, img2, symmetrized)
+
+    def backbone(self, img1: torch.Tensor, img2: torch.Tensor, symmetrized: bool = False) -> Dict[str, torch.Tensor]:
+        """Encoder -> info sharing -> DPT heads; ``out["flow"]`` is the
+        regression flow."""
+        c = self.cfg
+        shape1 = (img1.shape[1], img1.shape[2])
+
+        feat1_list, feat2_list = self._encode_symmetrized(img1, img2, symmetrized)
+        final, intermediates = self.info_sharing(MultiViewTransformerInput(features=[feat1_list[-1], feat2_list[-1]]))
+
+        pyr1: List[torch.Tensor] = [
+            feat1_list[-1].float(),
+            intermediates[0].features[0].float(),
+            intermediates[1].features[0].float(),
+            final.features[0].float(),
+        ]
+        out: Dict[str, torch.Tensor] = {}
+
+        head1_out = self._head1_adaptors(
+            self.head1(PredictionHeadLayeredInput(list_features=pyr1, target_output_shape=shape1))
+        )
+        flow = head1_out["flow"].value  # (B, H, W, 2)
+        if "flow_cov" in head1_out:
+            out["flow_cov"] = head1_out["flow_cov"].covariance
+            out["flow_cov_inv"] = head1_out["flow_cov"].inv_covariance
+            out["flow_cov_log_det"] = head1_out["flow_cov"].log_det
+        if "non_occluded_mask" in head1_out:
+            out["covis_mask"] = head1_out["non_occluded_mask"].mask
+            out["covis_logits"] = head1_out["non_occluded_mask"].logits
+
+        if c.has_uncertainty_head:
+            pyr_unc = [f.detach() for f in pyr1] if c.detach_uncertainty_head else pyr1
+            unc_out = self._uncertainty_adaptors(
+                self.uncertainty_head(PredictionHeadLayeredInput(list_features=pyr_unc, target_output_shape=shape1))
+            )
+            if "flow_cov" in unc_out:
+                out["flow_cov"] = unc_out["flow_cov"].covariance
+                out["flow_cov_inv"] = unc_out["flow_cov"].inv_covariance
+                out["flow_cov_log_det"] = unc_out["flow_cov"].log_det
+            if "keypoint_confidence" in unc_out:
+                out["keypoint_confidence"] = unc_out["keypoint_confidence"].value[..., 0]
+            if "non_occluded_mask" in unc_out:
+                out["covis_mask"] = unc_out["non_occluded_mask"].mask
+                out["covis_logits"] = unc_out["non_occluded_mask"].logits
+
+        out["flow"] = flow
+        return out

@@ -1,0 +1,30 @@
+from ufm_torch.nn.prediction_heads.adaptors import (
+    ConfidenceAdaptor,
+    Covariance2DAdaptor,
+    FlowAdaptor,
+    FlowWithConfidenceAdaptor,
+    MaskAdaptor,
+)
+from ufm_torch.nn.prediction_heads.base import (
+    AdaptorMap,
+    PredictionHeadInput,
+    PredictionHeadLayeredInput,
+    PredictionHeadOutput,
+    RegressionOutput,
+)
+from ufm_torch.nn.prediction_heads.dpt import DPTFeature, DPTRegressionProcessor
+
+__all__ = [
+    "AdaptorMap",
+    "ConfidenceAdaptor",
+    "Covariance2DAdaptor",
+    "DPTFeature",
+    "DPTRegressionProcessor",
+    "FlowAdaptor",
+    "FlowWithConfidenceAdaptor",
+    "MaskAdaptor",
+    "PredictionHeadInput",
+    "PredictionHeadLayeredInput",
+    "PredictionHeadOutput",
+    "RegressionOutput",
+]

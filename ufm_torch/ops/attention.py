@@ -1,0 +1,43 @@
+"""Multi-head attention dispatch (counterpart of ``ufm_tpu/ops/attention.py``).
+
+Both transformer stacks route their softmax-attention core through
+:func:`dot_product_attention`. The device of the tensors decides: a CUDA
+tensor takes the Hopper flash-attention kernel (which raises on what it does
+not take), a CPU tensor takes the plain PyTorch version. ``impl="torch"``
+asks for the plain version explicitly, on any device (tests and the chip
+check use it to hold the kernel to it).
+
+Shapes follow the JAX package: q/k/v are (batch, seq, heads, head_dim).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ufm_torch.ops.flash_attention import attention_reference, flash_attention
+
+__all__ = ["dot_product_attention", "IMPLS"]
+
+IMPLS = ("cuda", "torch")
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Softmax attention over (B, S, H, D) tensors; returns (B, Sq, H, D)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if impl is None:
+        impl = "cuda" if q.is_cuda else "torch"
+    if impl == "cuda":
+        return flash_attention(q, k, v, scale=scale)
+    if impl == "torch":
+        return attention_reference(q, k, v, scale)
+    raise ValueError(f"unknown attention impl: {impl!r} (expected one of {IMPLS} or None)")
