@@ -3,12 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``ufm_torch/csrc`` (nvcc, sm_90a), holds
-each kernel against its plain PyTorch version at the main path's shapes, then
-drives the main path: UFM-Base at full width (ViT-L/14 encoder, 24 layers; 12
-info-sharing layers; both DPT heads; 560x420) with seeded random weights,
-answering a few requests through ``predict_correspondences_batched``. Each
-phase prints one JSON line; any failed check raises and the script exits
+Builds the port's CUDA kernels from ``ufm_torch/csrc`` (nvcc, sm_90a, one
+process per source, all started together), holds each kernel against its
+plain PyTorch version at the main paths' shapes, then drives both main paths
+with seeded random weights at full width, answering a few requests through
+``predict_correspondences_batched``:
+
+- UFM-Base (ViT-L/14 encoder, 24 layers; 12 info-sharing layers; both DPT
+  heads; 560x420): 36 flash-attention launches per forward;
+- UFM-Refine (the same backbone and heads, the patch-MLP classification head,
+  the UNet and the window refinement): 36 flash-attention launches and 1
+  window-refinement launch per forward.
+
+Each path's launch counts are set to 0 just before it and read just after.
+Each phase prints one JSON line; any failed check raises and the script exits
 non-zero without printing a result. The last three lines are the card's name
 and power limit (as ``nvidia-smi`` prints them), the kernels' summary, and
 ``{"ok": true, "device": {...}}``.
@@ -32,6 +40,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # without tensor cores
 PEAK_BYTES = 3.35e12
 
 # main-path attention shapes at batch 1 and their calls per forward
@@ -50,6 +59,22 @@ KERNEL_ERR_FLOOR = 4e-3
 # bf16 rounding of 36 attention layers (the plain version rounds its logits to
 # bf16, the kernel keeps them in fp32) feeds the fp32 heads
 FLOW_REL_L2_BOUND = 2e-2
+
+# window-refinement cases: (B, H, W, C), P, flow scale in px. "flagship" is
+# the main path's shape at batch 1 (one call per forward); "edges" puts
+# windows across every border plus one far outside each image on both sides
+WINDOW_CASES = (
+    ("flagship", (1, 420, 560, 16), 5, 6.0, 1),
+    ("edges", (2, 24, 44, 8), 5, 40.0, 0),
+    ("small_window", (2, 24, 44, 4), 3, 15.0, 0),
+)
+# kernel vs plain version, both fp32 (the bars of tests/test_window_dots.py)
+WINDOW_RESIDUAL_ATOL = 2e-5
+WINDOW_LOG_SOFTMAX_ATOL = 2e-4
+# refined flow with the window kernel vs the plain refinement, same weights
+# and attention path: only the fp32 summation order differs
+REFINED_FLOW_MAX_ABS = 1e-3
+WINDOW_TEMPERATURE = 4.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -226,6 +251,184 @@ def phase_self_check(model, pair, kernel_res):
     check(rel <= FLOW_REL_L2_BOUND, f"kernel vs plain attention: flow relative L2 {rel:.3e} > {FLOW_REL_L2_BOUND}")
 
 
+def window_inputs(shape, p, scale, far, seed=0):
+    """Seeded q, f, flow, bias on the card; with ``far``, one window of each
+    image lies far outside it on each side."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, f = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+    flow = torch.randn((*shape[:3], 2), generator=gen, device="cuda") * scale
+    if far:
+        flow[:, 0, 0] = -500.0
+        flow[:, -1, -1] = 1e6
+    return q, f, flow, torch.randn(p * p, generator=gen, device="cuda")
+
+
+def window_taps(flow: torch.Tensor, p: int):
+    """In-image taps of each pixel's (P+3)^2 window (the kernel's clamp and
+    floor): (their total, the share of pixels whose window touches the
+    image)."""
+    from ufm_torch.ops.window_refinement import base_grid
+
+    _, h, w, _ = flow.shape
+    r, m = (p - 1) // 2, (p - 1) // 2 + 4
+    pos = flow.float() + base_grid(h, w, flow.device)
+    x0 = pos[..., 0].clamp(-m, w + m).floor()
+    y0 = pos[..., 1].clamp(-m, h + m).floor()
+    nx = ((x0 + r + 2).clamp(max=w - 1) - (x0 - r - 1).clamp(min=0) + 1).clamp(min=0)
+    ny = ((y0 + r + 2).clamp(max=h - 1) - (y0 - r - 1).clamp(min=0) + 1).clamp(min=0)
+    taps = nx * ny
+    return taps.sum().item(), (taps > 0).float().mean().item()
+
+
+def window_bound_ms(shape, p, in_image_taps):
+    """Bytes: q, f, flow read once, residual and log_softmax written once.
+    Operations: 2C per in-image tap (the taps outside the image are zeros the
+    kernel never reads), the cubic x pass (K rows x P x 4 FMA) and y pass
+    (P x P x 4 FMA), and ~10 per score for temperature, bias, softmax,
+    log_softmax and the residual."""
+    b, h, w, c = shape
+    n, k = b * h * w, p + 3
+    nbytes = 4 * (n * (2 * c + 2 + 2 + p * p) + p * p)
+    flops = 2 * c * in_image_taps + n * (8 * k * p + 8 * p * p + 10 * p * p)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_window_kernel():
+    from ufm_torch.ops import window_refinement as wr
+
+    rows = {}
+    for name, shape, p, scale, calls in WINDOW_CASES:
+        q, f, flow, bias = window_inputs(shape, p, scale, far=name == "edges")
+        res, ls = wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p)
+        ref_res, ref_ls = wr.window_refinement_reference(q, f, flow, bias, WINDOW_TEMPERATURE, p)
+        torch.cuda.synchronize()
+        res_err = (res - ref_res).abs().max().item()
+        ls_err = (ls - ref_ls).abs().max().item()
+        taps, share = window_taps(flow, p)
+        check(_finite(res) and _finite(ls), f"window {name}: kernel output not finite")
+        check(res_err <= WINDOW_RESIDUAL_ATOL, f"window {name}: residual error {res_err:.3e} > {WINDOW_RESIDUAL_ATOL}")
+        check(ls_err <= WINDOW_LOG_SOFTMAX_ATOL, f"window {name}: log_softmax error {ls_err:.3e} > {WINDOW_LOG_SOFTMAX_ATOL}")
+        if name == "flagship":
+            check(share > 0.5, f"window {name}: only {share:.3f} of the windows touch the image")
+
+        ms = time_ms(lambda: wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p))
+        plain_ms = time_ms(lambda: wr.window_refinement_reference(q, f, flow, bias, WINDOW_TEMPERATURE, p), reps=3, batches=5)
+        bound_ms, bound_by = window_bound_ms(shape, p, taps)
+        rows[name] = dict(
+            shape=list(shape), p=p, flow_scale=scale, calls_per_forward=calls, residual_max_abs_err=res_err,
+            log_softmax_max_abs_err=ls_err, in_image_share=share, in_image_taps=taps, ms=ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        )
+        emit("kernel", kernel="window_refinement_fwd", case=name, **rows[name])
+    return rows
+
+
+def _timed(fn, events):
+    """``fn`` with a CUDA event pair recorded around each call (device time
+    between the two points, waits for the host included)."""
+
+    def wrapper(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        events.append((start, end, args))
+        return out
+
+    return wrapper
+
+
+def phase_refine_path():
+    from ufm_torch.models import UniFlowMatchClassificationRefinement, ufm_refine_config
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+
+    t0 = time.perf_counter()
+    model = UniFlowMatchClassificationRefinement.from_config(ufm_refine_config(), seed=0)
+    torch.cuda.synchronize()
+    emit("refine_model", seconds=time.perf_counter() - t0, params=sum(p.numel() for p in model.parameters()),
+         device=str(model.device), compute_dtype=model.config.compute_dtype)
+    forward_events, tail_events = [], []
+    model.network_apply = _timed(model.network_apply, forward_events)
+    model.net.refine_tail = _timed(model.net.refine_tail, tail_events)
+
+    rng = np.random.default_rng(1)
+    requests = (
+        ("refine_480x640_b1", rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)),
+        ("refine_480x640_b2", rng.integers(0, 256, (2, 2, 480, 640, 3), dtype=np.uint8)),
+    )
+    p = model.config.refinement_range
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = wr.LAUNCHES = 0  # the refine path's counts start here
+    results, latencies = {}, {}
+    for name, pair in requests:
+        src, tgt = pair[0], pair[1]
+        b = src.shape[0] if src.ndim == 4 else 1
+        h, w = src.shape[-3], src.shape[-2]
+        times = []
+        forward_events.clear()
+        tail_events.clear()
+        for _ in range(4):  # one warm-up, three timed
+            before = (fa.LAUNCHES, wr.LAUNCHES)
+            t = time.perf_counter()
+            res = model.predict_correspondences_batched(source_image=src, target_image=tgt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1])
+            check(launched == (LAUNCHES_PER_FORWARD, 1),
+                  f"{name}: {launched} attention / window launches in one forward, expected ({LAUNCHES_PER_FORWARD}, 1)")
+        flow, covis = res.flow.flow_output, res.covisibility.mask
+        check(tuple(flow.shape) == (b, 2, h, w), f"{name}: flow shape {tuple(flow.shape)}")
+        check(tuple(covis.shape) == (b, h, w), f"{name}: covisibility shape {tuple(covis.shape)}")
+        check(_finite(flow) and _finite(covis) and _finite(res.flow.flow_covariance), f"{name}: non-finite outputs")
+        latencies[name] = statistics.median(times[1:])
+        results[name] = res
+        fwd_ms = statistics.median(s.elapsed_time(e) for s, e, _ in forward_events[1:])
+        tail_ms = statistics.median(s.elapsed_time(e) for s, e, _ in tail_events[1:])
+        regression_flow = tail_events[-1][2][2]
+        _, share = window_taps(regression_flow, p)
+        emit("refine_request", request=name, batch=b, input_hw=[h, w], first_s=times[0], latency_s=latencies[name],
+             pairs_per_s=b / latencies[name], forward_ms=fwd_ms, refine_tail_ms=tail_ms,
+             refine_tail_share=tail_ms / fwd_ms, window_in_image_share=share,
+             regression_flow_abs_max=regression_flow.abs().max().item(), flow_abs_mean=flow.abs().mean().item())
+    launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+    emit("refine_path", launches=launches, forwards=4 * len(requests),
+         pairs_per_s_b1=1.0 / latencies["refine_480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model.network_apply, model.net.refine_tail  # back to the unwrapped methods
+    return model, requests[0][1], results["refine_480x640_b1"], launches
+
+
+def phase_refine_self_check(model, pair, kernel_res):
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+
+    def run():
+        res = model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+        torch.cuda.synchronize()
+        return res.flow.flow_output.float()
+
+    f_k = kernel_res.flow.flow_output.float()
+    model.refinement_impl = "torch"
+    wr.LAUNCHES = 0
+    f_plain_window = run()
+    check(wr.LAUNCHES == 0, "the plain-refinement run launched the window kernel")
+    model.refinement_impl = None
+    window_diff = (f_k - f_plain_window).abs().max().item()
+
+    model.attention_impl = "torch"
+    fa.LAUNCHES = 0
+    f_plain_attn = run()
+    check(fa.LAUNCHES == 0, "the plain-attention run launched the attention kernel")
+    model.attention_impl = None
+    rel = ((f_k - f_plain_attn).norm() / f_plain_attn.norm()).item()
+    emit("refine_self_check", window_flow_max_abs_diff=window_diff, window_bound=REFINED_FLOW_MAX_ABS,
+         attention_flow_rel_l2=rel, attention_bound=FLOW_REL_L2_BOUND)
+    check(window_diff <= REFINED_FLOW_MAX_ABS,
+          f"window kernel vs plain refinement: refined flow max abs diff {window_diff:.3e} > {REFINED_FLOW_MAX_ABS}")
+    check(rel <= FLOW_REL_L2_BOUND, f"kernel vs plain attention (refine): flow relative L2 {rel:.3e} > {FLOW_REL_L2_BOUND}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
@@ -233,17 +436,22 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernel()
+    window_rows = phase_window_kernel()
     model, pair, kernel_res, launches = phase_main_path()
     phase_self_check(model, pair, kernel_res)
+    del model, kernel_res
+    refine_model, refine_pair, refine_res, refine_launches = phase_refine_path()
+    phase_refine_self_check(refine_model, refine_pair, refine_res)
 
     # one batch-1 forward's attention: each number sums its 36 calls
     fwd = [rows[n] for n, _, calls in ATTN_SHAPES for _ in range(calls)]
-    summary = {
+    attention = {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "ufm_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:558",
-        "launches": launches,
+        "launches": launches + refine_launches["flash_attention_fwd"],
+        "launches_by_path": {"ufm_base": launches, "ufm_refine": refine_launches["flash_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
         "plain_ms": sum(r["plain_ms"] for r in fwd),
@@ -252,8 +460,26 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in fwd),
         "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward",
     }
+    flagship = window_rows["flagship"]
+    window = {
+        "name": "window_refinement_fwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/window_refinement_fwd.cu",
+        "replaces": "ufm_tpu/ops/window_dots.py:280",
+        "replaces_also": "ufm_tpu/ops/window_dots.py:238",
+        "launches": refine_launches["window_refinement_fwd"],
+        "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"]},
+        "max_abs_err": max(max(r["residual_max_abs_err"], r["log_softmax_max_abs_err"]) for r in window_rows.values()),
+        "ms": flagship["ms"],
+        "plain_ms": flagship["plain_ms"],
+        "bound_ms": flagship["bound_ms"],
+        "bound_by": flagship["bound_by"],
+        "library_ms": None,
+        "per_forward": "the one call of a batch-1 UFM-Refine forward, (1, 420, 560, 16), P = 5",
+        "library_none": "no single PyTorch call computes this function",
+    }
     print(smi)
-    print(json.dumps({"kernels": [summary]}))
+    print(json.dumps({"kernels": [attention, window]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

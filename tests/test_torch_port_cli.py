@@ -1,4 +1,5 @@
-"""``python -m ufm_torch.cli``: the environment check and infer's refusals.
+"""``python -m ufm_torch.cli``: the environment check and infer's refusals,
+for both models.
 
 A full ``infer --random-init`` builds the flagship model (ViT-L); that is the
 GPU's job, so here only the paths that fail before the model are driven.
@@ -30,6 +31,7 @@ def test_cli_test_subcommand():
         (["--checkpoint", "some/dir"], "not ported"),
         ([], "--random-init"),
         (["--random-init"], "could not read"),
+        (["--model", "refine", "--random-init"], "could not read"),
     ],
 )
 def test_infer_refusals(tmp_path, capsys, extra, message):
@@ -38,3 +40,11 @@ def test_infer_refusals(tmp_path, capsys, extra, message):
         cli.main(["infer", missing, missing, "--device", "cpu", *extra])
     assert exc.value.code == 1
     assert message in capsys.readouterr().out
+
+
+def test_infer_unknown_model(tmp_path, capsys):
+    missing = str(tmp_path / "missing.png")
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["infer", missing, missing, "--model", "bogus", "--random-init"])
+    assert exc.value.code == 2
+    assert "invalid choice: 'bogus'" in capsys.readouterr().err

@@ -1,4 +1,4 @@
-"""ufm_torch on the card: the Hopper kernel and the model's kernel path.
+"""ufm_torch on the card: the Hopper kernels and the models' kernel paths.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -9,8 +9,9 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config
+from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_tiny_config
 from ufm_torch.ops import flash_attention as fa
+from ufm_torch.ops import window_refinement as wr
 
 pytestmark = pytest.mark.cuda
 
@@ -51,19 +52,40 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(y, y, y)
 
 
-def test_small_model_kernel_path(cuda):
-    """A small bf16 UFM-Base (head_dim 64) on the card: every attention call
-    of a forward goes through the kernel, and the outputs stay close to the
-    plain-attention path (bf16 rounding over 4 layers)."""
-    cfg = ufm_tiny_config(compute_dtype="bfloat16")
+def test_kernel_refuses_grad(cuda):
+    """No attention backward yet: a forward that autograd would record raises
+    instead of returning an output cut off from the graph."""
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        fa.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert fa.flash_attention(q, q, q).shape == q.shape
+
+
+def _small_config(**overrides):
+    """The tiny topology at head_dim 64 (the attention kernel's), bf16."""
+    cfg = ufm_tiny_config(compute_dtype="bfloat16", **overrides)
     cfg.encoder_kwargs = dict(cfg.encoder_kwargs, embed_dim=128, num_heads=2)
     cfg.info_sharing_kwargs = dict(cfg.info_sharing_kwargs, input_embed_dim=128, dim=128, num_heads=2)
     for head in (cfg.feature_head_kwargs, cfg.uncertainty_head_kwargs):
         head["dpt_feature"] = dict(head["dpt_feature"], input_dims=(128, 128, 128, 128))
-    model = UniFlowMatchConfidence.from_config(cfg, seed=0)
+    cfg.classification_head_kwargs = dict(cfg.classification_head_kwargs, input_feature_dim=256)
+    return cfg
+
+
+def _pairs():
     g = torch.Generator().manual_seed(1)
     src = torch.randint(0, 256, (2, 60, 80, 3), generator=g, dtype=torch.uint8)
     tgt = torch.randint(0, 256, (2, 60, 80, 3), generator=g, dtype=torch.uint8)
+    return src, tgt
+
+
+def test_small_model_kernel_path(cuda):
+    """A small bf16 UFM-Base (head_dim 64) on the card: every attention call
+    of a forward goes through the kernel, and the outputs stay close to the
+    plain-attention path (bf16 rounding over 4 layers)."""
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    src, tgt = _pairs()
     before = fa.LAUNCHES
     res = model.predict_correspondences_batched(src, tgt)
     torch.cuda.synchronize()
@@ -74,3 +96,84 @@ def test_small_model_kernel_path(cuda):
     f, p = res.flow.flow_output.float(), plain.flow.flow_output.float()
     assert torch.isfinite(f).all()
     assert ((f - p).norm() / p.norm()).item() < 2e-2
+
+
+# (B, H, W, C), P, flow scale: chip_smoke.py's window cases
+WINDOW_CASES = {
+    "flagship": ((1, 420, 560, 16), 5, 6.0),
+    "edges": ((2, 24, 44, 8), 5, 40.0),
+    "small_window": ((2, 24, 44, 4), 3, 15.0),
+}
+
+
+def _window_inputs(device, shape, p, scale, far=False, seed=0):
+    """Seeded q, f, flow, bias on the card; with ``far``, one window of each
+    image lies far outside it on each side."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, f = (torch.randn(shape, generator=g, device=device) for _ in range(2))
+    flow = torch.randn((*shape[:3], 2), generator=g, device=device) * scale
+    if far:
+        flow[:, 0, 0] = -500.0
+        flow[:, -1, -1] = 1e6
+    bias = torch.randn(p * p, generator=g, device=device)
+    return q, f, flow, bias
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_kernel_matches_plain(cuda, case):
+    """The kernel against its plain version on the same inputs, at the bars
+    of tests/test_window_dots.py (residual 2e-5, log_softmax 2e-4)."""
+    shape, p, scale = WINDOW_CASES[case]
+    q, f, flow, bias = _window_inputs(cuda, shape, p, scale, far=case == "edges")
+    before = wr.LAUNCHES
+    res, ls = wr.window_refinement(q, f, flow, bias, 4.0, p)
+    torch.cuda.synchronize()
+    assert wr.LAUNCHES == before + 1
+    ref_res, ref_ls = wr.window_refinement_reference(q, f, flow, bias, 4.0, p)
+    assert (res - ref_res).abs().max().item() <= 2e-5
+    assert (ls - ref_ls).abs().max().item() <= 2e-4
+
+
+def test_window_kernel_refuses_what_it_does_not_take(cuda):
+    q, f, flow, bias = _window_inputs(cuda, (1, 6, 7, 8), 5, 3.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        wr.window_refinement(q.cpu(), f.cpu(), flow.cpu(), bias.cpu(), 4.0, 5)
+    with pytest.raises(ValueError, match="float32"):
+        wr.window_refinement(q.half(), f.half(), flow, bias, 4.0, 5)
+    q5, f5, flow5, bias5 = _window_inputs(cuda, (1, 6, 7, 5), 5, 3.0)
+    with pytest.raises(ValueError, match="impl='torch'"):
+        wr.window_refinement(q5, f5, flow5, bias5, 4.0, 5)
+
+
+def test_window_kernel_gradients_match_plain(cuda):
+    """The autograd.Function's backward (autograd over the plain version)
+    against autograd through the plain version itself."""
+    inputs = _window_inputs(cuda, (1, 8, 8, 16), 5, 6.0)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in inputs]
+        res, ls = fn(*ins, 4.0, 5)
+        (res.pow(2).sum() + ls.mean()).backward()
+        return [t.grad for t in ins]
+
+    for got, want in zip(grads(wr.window_refinement), grads(wr.window_refinement_reference)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_small_refine_model_kernel_path(cuda):
+    """A small bf16 UFM-Refine with the UNet on the card: one window launch
+    per forward, and the refined flow within 1e-3 px of the same weights
+    with the plain refinement (attention kernel in both runs)."""
+    cfg = _small_config(has_classification_head=True, use_unet_feature=True, unet_kwargs={"out_channels": 8, "features": (8, 16)})
+    model = UniFlowMatchClassificationRefinement.from_config(cfg, seed=0)
+    src, tgt = _pairs()
+    before = wr.LAUNCHES
+    res = model.predict_correspondences_batched(src, tgt)
+    torch.cuda.synchronize()
+    assert wr.LAUNCHES - before == 1
+    model.refinement_impl = "torch"
+    plain = model.predict_correspondences_batched(src, tgt)
+    assert wr.LAUNCHES - before == 1
+    f, p = res.flow.flow_output, plain.flow.flow_output
+    assert torch.isfinite(f).all()
+    assert (f - p).abs().max().item() <= 1e-3

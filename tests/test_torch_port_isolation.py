@@ -51,11 +51,19 @@ def test_port_imports_with_jax_blocked():
         "import ufm_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ufm_torch.__path__, 'ufm_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) > 15
+    mods = set(out.stdout.split())
+    assert len(mods) > 15
+    assert {
+        "ufm_torch.ops.grid_sample",
+        "ufm_torch.ops.refinement",
+        "ufm_torch.ops.window_refinement",
+        "ufm_torch.nn.unet",
+        "ufm_torch.nn.prediction_heads.mlp_feature",
+    } <= mods
 
 
 def test_from_config_without_device_needs_cuda(monkeypatch):

@@ -134,8 +134,8 @@ def test_attention_impl_reaches_every_block(models):
 
 
 def test_unsupported_configs_raise():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        UniFlowMatch.from_config(ufm_tiny_config(has_classification_head=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="moge_conv"):
+        UniFlowMatch.from_config(ufm_tiny_config(head_type="moge_conv"), device="cpu")
     bad = ufm_tiny_config()
     bad.encoder_kwargs = dict(bad.encoder_kwargs, norm_eps=1e-5)
     with pytest.raises(ValueError, match="load-bearing"):

@@ -23,8 +23,11 @@ from ufm_tpu.nn.layers import TransformerBlock as JBlock
 from ufm_tpu.nn.prediction_heads import AdaptorMap as JAdaptorMap
 from ufm_tpu.nn.prediction_heads import DPTFeature as JDPTFeature
 from ufm_tpu.nn.prediction_heads import DPTRegressionProcessor as JDPTProcessor
+from ufm_tpu.nn.prediction_heads import MLPFeature as JMLPFeature
+from ufm_tpu.nn.prediction_heads import PredictionHeadInput as JHeadInput
 from ufm_tpu.nn.prediction_heads import PredictionHeadLayeredInput as JLayered
 from ufm_tpu.nn.prediction_heads import RegressionOutput as JRegression
+from ufm_tpu.nn.unet import UNet as JUNet
 from ufm_tpu.models.network import CLASSNAME_TO_ADAPTOR_CLASS as J_ADAPTORS
 from ufm_tpu.ops import resize as jresize
 from ufm_tpu.utils import flow_resizing as jfr
@@ -38,9 +41,12 @@ from ufm_torch.nn.prediction_heads import (
     AdaptorMap,
     DPTFeature,
     DPTRegressionProcessor,
+    MLPFeature,
+    PredictionHeadInput,
     PredictionHeadLayeredInput,
     RegressionOutput,
 )
+from ufm_torch.nn.unet import UNet
 from ufm_torch.ops import resize as tresize
 from ufm_torch.utils import flow_resizing as tfr
 
@@ -169,6 +175,55 @@ def test_dpt_head():
         reg = proc(fused, target)
     _close(fused, jfused)
     _close(reg.value, jreg.value)
+
+
+@pytest.mark.parametrize("hidden", [(32,), (32, 16)])
+def test_mlp_feature(hidden):
+    """fc<i> -> exact GELU -> fc_out, then depth-to-space to (2, 42, 56, 8)."""
+    x = np.random.default_rng(10).standard_normal((2, 3, 4, ENC + INFO)).astype(np.float32)
+    kw = dict(input_feature_dim=ENC + INFO, hidden_dims=hidden, output_dim=8, patch_size=14)
+    jmod, mod = JMLPFeature(**kw), MLPFeature(**kw)
+    params = _carry(jmod, mod, JHeadInput(last_feature=jnp.asarray(x)), seed=10)
+    want = jmod.apply({"params": params}, JHeadInput(last_feature=jnp.asarray(x))).decoded_channels
+    with torch.no_grad():
+        got = mod(PredictionHeadInput(last_feature=_t(x))).decoded_channels
+    assert got.shape == (2, 42, 56, 8)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("hw", [(42, 56), (28, 36)])
+def test_unet(hw):
+    """Features (8, 16). At 42 rows the pyramid goes 42 -> 21 -> 10, so the
+    up path meets a 21-row skip with 20 rows and takes the nearest resize (as
+    the flagship's 420 rows do at 105); 28 x 36 takes none."""
+    x = np.random.default_rng(11).standard_normal((2, *hw, 3)).astype(np.float32)
+    jmod, mod = JUNet(out_channels=8, features=(8, 16)), UNet(out_channels=8, features=(8, 16))
+    params = _carry(jmod, mod, jnp.asarray(x), seed=11)
+    want = jmod.apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        got = mod(_t(x))
+    assert got.shape == (2, *hw, 8)
+    _close(got, want)
+
+
+def test_converter_unet_transposed_convs():
+    """The UNet's ``up_<i>`` kernels are flax ConvTransposes (spatial flip,
+    (in, out, H, W)); ``up_conv_<i>`` is a regular DoubleConv, whatever its
+    prefix."""
+    rng = np.random.default_rng(1)
+    flat = {
+        "unet_feature/up_0/kernel": rng.standard_normal((2, 2, 6, 4)),
+        "unet_feature/up_12/kernel": rng.standard_normal((2, 2, 6, 4)),
+        "unet_feature/up_conv_0/conv1/kernel": rng.standard_normal((3, 3, 6, 4)),
+        "unet_feature/up_conv_0/kernel": rng.standard_normal((3, 3, 6, 4)),
+    }
+    sd = jax_params_to_state_dict(flat)
+    for name in ("up_0", "up_12"):
+        want = flat[f"unet_feature/{name}/kernel"][::-1, ::-1].transpose(2, 3, 0, 1).copy()
+        assert torch.equal(sd[f"unet_feature.{name}.weight"], _t(want))
+    for name in ("up_conv_0.conv1", "up_conv_0"):
+        want = flat[f"unet_feature/{name.replace('.', '/')}/kernel"].transpose(3, 2, 0, 1)
+        assert torch.equal(sd[f"unet_feature.{name}.weight"], _t(want))
 
 
 @pytest.mark.parametrize("order", ["listed", "reversed"])

@@ -5,9 +5,11 @@ fixed set of rules on flat ``"a/b/c"`` parameter paths (the port keeps its own
 copy of the layout rules of ``ufm_tpu/checkpoint/convert.py``):
 
 - ``kernel`` -> ``weight``: Dense kernels (in, out) are transposed to
-  ``Linear``'s (out, in); Conv kernels HWIO become OIHW; the two
-  ``ConvTranspose`` kernels of the DPT head (``resize_0``, ``resize_1``) are
-  HWIO *with a spatial flip* and become ``ConvTranspose2d``'s (in, out, H, W);
+  ``Linear``'s (out, in); Conv kernels HWIO become OIHW; the ``ConvTranspose``
+  kernels (the DPT head's ``resize_0`` / ``resize_1``, the UNet's ``up_<i>``)
+  are HWIO *with a spatial flip* and become ``ConvTranspose2d``'s
+  (in, out, H, W). The parent name must match exactly: the UNet's
+  ``up_conv_<i>`` is a regular DoubleConv;
 - LayerNorm ``scale`` -> ``weight``;
 - the transformer stacks store ``blocks/...`` with a leading layer axis;
   each layer becomes ``blocks.<i>...`` of an ``nn.ModuleList``;
@@ -19,6 +21,7 @@ Parameters arrive as numpy arrays: the port never imports JAX.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Mapping
 
 import numpy as np
@@ -27,7 +30,7 @@ import torch.nn as nn
 
 __all__ = ["jax_params_to_state_dict", "load_jax_params", "flatten_params"]
 
-_TRANSPOSED_CONVS = ("resize_0", "resize_1")
+_TRANSPOSED_CONV = re.compile(r"resize_[01]|up_\d+")
 
 
 def flatten_params(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -48,7 +51,7 @@ def _leaf(parts: List[str], arr: np.ndarray) -> Dict[str, torch.Tensor]:
     if leaf == "kernel":
         if arr.ndim == 2:
             arr = arr.T
-        elif arr.ndim == 4 and parent in _TRANSPOSED_CONVS:
+        elif arr.ndim == 4 and _TRANSPOSED_CONV.fullmatch(parent):
             arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Command line for the PyTorch / CUDA port (counterpart of ``ufm_tpu/cli.py``).
 
-    python -m ufm_torch.cli infer SOURCE TARGET --random-init [-o DIR] [--device cpu]
+    python -m ufm_torch.cli infer SOURCE TARGET --random-init [--model {base,refine}] [-o DIR] [--device cpu]
     python -m ufm_torch.cli test
 
-``infer`` runs UFM-Base on an image pair and writes ``flow_visualization.png``,
+``infer`` runs UFM-Base (``--model base``, the default) or UFM-Refine
+(``--model refine``) on an image pair and writes ``flow_visualization.png``,
 ``covisibility_mask.png`` and ``warped_source.png``. Checkpoints are not
 ported yet, so it runs seeded random weights (``--random-init``). It runs on
 the GPU unless ``--device cpu`` is given. ``test`` is an environment check.
@@ -30,9 +31,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", help="Available commands")
 
-    infer = sub.add_parser("infer", help="Run UFM-Base on an image pair")
+    infer = sub.add_parser("infer", help="Run UFM on an image pair")
     infer.add_argument("source", help="Source image path")
     infer.add_argument("target", help="Target image path")
+    infer.add_argument(
+        "--model", choices=("base", "refine"), default="base", help="UFM-Base or UFM-Refine (default: base)"
+    )
     infer.add_argument("--output", "-o", help="Output directory (default: current directory)")
     infer.add_argument("--checkpoint", help="Local checkpoint directory (not supported by the port yet)")
     infer.add_argument(
@@ -80,7 +84,12 @@ def run_inference(args) -> None:
     try:
         import numpy as np
 
-        from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+        from ufm_torch.models import (
+            UniFlowMatchClassificationRefinement,
+            UniFlowMatchConfidence,
+            ufm_base_config,
+            ufm_refine_config,
+        )
         from ufm_torch.utils.viz import flow_to_color, warp_image_with_flow
     except ImportError as e:
         _fail(f"Error importing dependencies: {e}")
@@ -91,7 +100,11 @@ def run_inference(args) -> None:
         _fail(f"Error: could not read {args.source if source_rgb is None else args.target}")
 
     try:
-        model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0, device=args.device)
+        if args.model == "refine":
+            cls, config = UniFlowMatchClassificationRefinement, ufm_refine_config()
+        else:
+            cls, config = UniFlowMatchConfidence, ufm_base_config()
+        model = cls.from_config(config, seed=0, device=args.device)
         print(f"Running inference on {model.device}...")
         result = model.predict_correspondences_batched(source_image=source_rgb, target_image=target_rgb)
     except (RuntimeError, ValueError) as e:

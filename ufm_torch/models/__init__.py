@@ -14,7 +14,7 @@ from ufm_torch.models.config import (
     ufm_tiny_config,
 )
 from ufm_torch.models.network import UFMNet
-from ufm_torch.models.ufm import UniFlowMatch, UniFlowMatchConfidence
+from ufm_torch.models.ufm import UniFlowMatch, UniFlowMatchClassificationRefinement, UniFlowMatchConfidence
 
 __all__ = [
     "UFMArchConfig",
@@ -24,6 +24,7 @@ __all__ = [
     "UFMNet",
     "UFMOutputInterface",
     "UniFlowMatch",
+    "UniFlowMatchClassificationRefinement",
     "UniFlowMatchConfidence",
     "UniFlowMatchModelsBase",
     "ufm_base_config",

@@ -1,6 +1,6 @@
-"""The UFM network: encode -> info-share -> DPT heads.
+"""The UFM network: encode -> info-share -> DPT heads -> refinement.
 
-Counterpart of ``ufm_tpu/models/network.py`` for the UFM-Base forward:
+Counterpart of ``ufm_tpu/models/network.py``:
 
   1. both views are concatenated into one 2B batch for a single encoder pass,
      in the compute dtype (bf16 for the flagship), so every encoder attention
@@ -10,10 +10,13 @@ Counterpart of ``ufm_tpu/models/network.py`` for the UFM-Base forward:
      plus two intermediate taps per view;
   3. a 4-level pyramid [encoder_last, tap0, tap1, final] of view 0, cast to
      fp32, feeds the DPT flow head and the DPT uncertainty head (covariance,
-     keypoint confidence, covisibility).
+     keypoint confidence, covisibility);
+  4. (UFM-Refine) patch-MLP classification features, optionally combined
+     with UNet fine features, drive the fused window refinement
+     (:func:`ufm_torch.ops.refinement.fused_refinement_attention`: the Hopper
+     kernel on the GPU), which adds a residual to the regression flow.
 
-The classification-refinement stage (UFM-Refine) is not ported yet. All maps
-are channel-last; the output is a flat dict of tensors.
+All maps are channel-last; the output is a flat dict of tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ufm_torch.models.config import UFMArchConfig
 from ufm_torch.nn.encoders import (
@@ -41,10 +45,14 @@ from ufm_torch.nn.prediction_heads import (
     FlowAdaptor,
     FlowWithConfidenceAdaptor,
     MaskAdaptor,
+    MLPFeature,
+    PredictionHeadInput,
     PredictionHeadLayeredInput,
 )
+from ufm_torch.nn.unet import UNet
+from ufm_torch.ops.refinement import fused_refinement_attention
 
-__all__ = ["UFMNet", "CLASSNAME_TO_ADAPTOR_CLASS", "interleave", "is_symmetrized"]
+__all__ = ["UFMNet", "CLASSNAME_TO_ADAPTOR_CLASS", "REFINEMENT_IMPL_FROM_CONFIG", "interleave", "is_symmetrized"]
 
 CLASSNAME_TO_ADAPTOR_CLASS = {
     "FlowWithConfidenceAdaptor": FlowWithConfidenceAdaptor,
@@ -53,6 +61,11 @@ CLASSNAME_TO_ADAPTOR_CLASS = {
     "Covariance2DAdaptor": Covariance2DAdaptor,
     "ConfidenceAdaptor": ConfidenceAdaptor,
 }
+
+# a config's ``refinement_impl`` (the JAX package's names) -> the port's impl:
+# "auto" lets the tensors' device decide; "pallas" asks for the kernel and
+# "xla" for the plain version, explicitly
+REFINEMENT_IMPL_FROM_CONFIG = {"auto": None, "pallas": "cuda", "xla": "torch"}
 
 
 def is_symmetrized(gt1: Dict[str, Any], gt2: Dict[str, Any]) -> bool:
@@ -116,16 +129,17 @@ def _make_head(head_type: str, head_kwargs: Dict[str, Any]) -> _DPTHead:
 
 
 class UFMNet(nn.Module):
-    """Encoder, info sharing and DPT heads of one UFM config. The backbone
-    runs in ``cfg.compute_dtype``; the heads are always fp32."""
+    """Encoder, info sharing, DPT heads and (UFM-Refine) the refinement stage
+    of one UFM config. The backbone and the UNet run in ``cfg.compute_dtype``;
+    the heads and the refinement are always fp32.
+
+    ``refinement_impl`` is the refinement implementation to request (``None``,
+    ``"cuda"`` or ``"torch"``, see :func:`fused_refinement_attention`); it
+    starts from the config's ``refinement_impl``
+    (:data:`REFINEMENT_IMPL_FROM_CONFIG`)."""
 
     def __init__(self, cfg: UFMArchConfig):
         super().__init__()
-        if cfg.has_classification_head:
-            raise NotImplementedError(
-                "the classification-refinement stage (UFM-Refine) is not ported yet: "
-                "ROADMAP.md Queue 1, slice 2"
-            )
         if cfg.info_sharing_and_head_structure != "dual+single":
             raise ValueError("Only dual+single is supported")
         self.cfg = cfg
@@ -141,6 +155,32 @@ class UFMNet(nn.Module):
         if cfg.has_uncertainty_head:
             self.uncertainty_head = _make_head(cfg.uncertainty_head_type, cfg.uncertainty_head_kwargs)
             self._uncertainty_adaptors = _build_adaptor_map(cfg.uncertainty_adaptors_kwargs)
+
+        if cfg.has_classification_head:
+            if cfg.classification_head_type != "patch_mlp":
+                raise NotImplementedError(
+                    f"classification head {cfg.classification_head_type!r} is not supported (only 'patch_mlp')"
+                )
+            if cfg.refinement_impl not in REFINEMENT_IMPL_FROM_CONFIG:
+                raise ValueError(
+                    f"unknown refinement_impl {cfg.refinement_impl!r} (expected one of {list(REFINEMENT_IMPL_FROM_CONFIG)})"
+                )
+            self.refinement_impl = REFINEMENT_IMPL_FROM_CONFIG[cfg.refinement_impl]
+            self.classification_head = MLPFeature(**_filter_kwargs(MLPFeature, cfg.classification_head_kwargs))
+            p = cfg.refinement_range
+            self.classification_bias = nn.Parameter(torch.zeros(p * p))
+            if cfg.use_unet_feature:
+                if cfg.feature_combine_method not in ("conv", "modulate"):
+                    raise ValueError(f"unknown feature_combine_method: {cfg.feature_combine_method}")
+                # the reference runs the UNet outside the heads' fp32 block:
+                # it gets the backbone's compute dtype
+                self.unet_feature = UNet(**{"dtype": dt, **_filter_kwargs(UNet, cfg.unet_kwargs)})
+                out_c = self.classification_head.output_dim
+                if cfg.feature_combine_method == "conv":
+                    self.conv1 = nn.Conv2d(out_c + self.unet_feature.final.out_channels, 2 * out_c, 1)
+                    self.conv2 = nn.Conv2d(2 * out_c, out_c, 1)
+                else:  # "modulate": conv1 is never called, so flax makes no parameters for it
+                    self.conv2 = nn.Conv2d(out_c, out_c, 1)
 
     # ---- encoding -----------------------------------------------------------
     def _encode_image_pairs(self, img1: torch.Tensor, img2: torch.Tensor):
@@ -169,11 +209,15 @@ class UFMNet(nn.Module):
     # ---- forward ------------------------------------------------------------
     def forward(self, img1: torch.Tensor, img2: torch.Tensor, symmetrized: bool = False) -> Dict[str, torch.Tensor]:
         """img1/img2: (B, H, W, 3) normalized. Returns a flat output dict."""
-        return self.backbone(img1, img2, symmetrized)
+        out = self.backbone(img1, img2, symmetrized)
+        if self.cfg.has_classification_head:
+            out.update(self.refine_tail(img1, img2, out["flow"], out.pop("cls_in_0"), out.pop("cls_in_1")))
+        return out
 
     def backbone(self, img1: torch.Tensor, img2: torch.Tensor, symmetrized: bool = False) -> Dict[str, torch.Tensor]:
         """Encoder -> info sharing -> DPT heads; ``out["flow"]`` is the
-        regression flow."""
+        regression flow. Refine configs also get the two classification-feature
+        inputs ``cls_in_0/1`` for :meth:`refine_tail`."""
         c = self.cfg
         shape1 = (img1.shape[1], img1.shape[2])
 
@@ -215,5 +259,50 @@ class UFMNet(nn.Module):
                 out["covis_mask"] = unc_out["non_occluded_mask"].mask
                 out["covis_logits"] = unc_out["non_occluded_mask"].logits
 
+        if c.has_classification_head:
+            # low-level + globally shared features of each view
+            out["cls_in_0"] = torch.cat([feat1_list[0].float(), pyr1[-1]], dim=-1)
+            out["cls_in_1"] = torch.cat([feat2_list[0].float(), final.features[1].float()], dim=-1)
+
         out["flow"] = flow
         return out
+
+    def refine_tail(
+        self,
+        img1: torch.Tensor,
+        img2: torch.Tensor,
+        flow: torch.Tensor,
+        cls_in_0: torch.Tensor,
+        cls_in_1: torch.Tensor,
+    ) -> Dict[str, torch.Tensor]:
+        """The classification refinement: patch-MLP features (+ UNet fine
+        features) -> fused window attention -> flow residual. ``flow`` is the
+        regression flow from :meth:`backbone`."""
+        c = self.cfg
+        cls_features = self.classification_head(
+            PredictionHeadInput(last_feature=torch.cat([cls_in_0, cls_in_1], dim=0))
+        ).decoded_channels
+
+        if c.use_unet_feature:
+            unet_feat = self.unet_feature(torch.cat([img1, img2], dim=0)).float()
+            if c.feature_combine_method == "conv":
+                combined = torch.cat([cls_features, unet_feat], dim=-1)
+                cls_features = self.conv2(F.relu(self.conv1(combined.permute(0, 3, 1, 2))))
+            else:  # "modulate"
+                cls_features = self.conv2((cls_features * torch.tanh(unet_feat)).permute(0, 3, 1, 2))
+            cls_features = cls_features.permute(0, 2, 3, 1)
+
+        b = img1.shape[0]
+        cls_feat_0, cls_feat_1 = cls_features[:b], cls_features[b:]
+        residual, log_softmax = fused_refinement_attention(
+            cls_feat_0, cls_feat_1, flow, self.classification_bias, c.temperature, c.refinement_range,
+            impl=self.refinement_impl,
+        )
+        return {
+            "regression_flow": flow,
+            "flow": flow + residual,
+            "refinement_residual": residual,
+            "refinement_log_softmax": log_softmax,
+            "refinement_feature_map_0": cls_feat_0,
+            "refinement_feature_map_1": cls_feat_1,
+        }

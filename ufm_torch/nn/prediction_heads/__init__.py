@@ -13,6 +13,7 @@ from ufm_torch.nn.prediction_heads.base import (
     RegressionOutput,
 )
 from ufm_torch.nn.prediction_heads.dpt import DPTFeature, DPTRegressionProcessor
+from ufm_torch.nn.prediction_heads.mlp_feature import MLPFeature
 
 __all__ = [
     "AdaptorMap",
@@ -23,6 +24,7 @@ __all__ = [
     "FlowAdaptor",
     "FlowWithConfidenceAdaptor",
     "MaskAdaptor",
+    "MLPFeature",
     "PredictionHeadInput",
     "PredictionHeadLayeredInput",
     "PredictionHeadOutput",

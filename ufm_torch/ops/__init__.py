@@ -1,10 +1,14 @@
-"""Ops: attention dispatch, the Hopper flash-attention kernel, resizes.
+"""Ops: attention and refinement dispatch, the Hopper kernels, resizes,
+``grid_sample``.
 
-The kernel's wrapper and launch count live in the submodule
-``ufm_torch.ops.flash_attention`` (not re-exported, so the name stays the module).
+Each kernel's wrapper and launch count live in its submodule
+(``ufm_torch.ops.flash_attention``, ``ufm_torch.ops.window_refinement``; not
+re-exported, so ``LAUNCHES`` stays the module's).
 """
 
 from ufm_torch.ops.attention import dot_product_attention
+from ufm_torch.ops.grid_sample import grid_sample
+from ufm_torch.ops.refinement import fused_refinement_attention
 from ufm_torch.ops.resize import (
     resize_chw,
     resize_hwc,
@@ -14,6 +18,8 @@ from ufm_torch.ops.resize import (
 
 __all__ = [
     "dot_product_attention",
+    "fused_refinement_attention",
+    "grid_sample",
     "resize_chw",
     "resize_hwc",
     "resize_matrix",

@@ -79,9 +79,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention on the card: q (B, Sq, H, 64), k/v (B, Sk, H, 64)
-    bf16 -> (B, Sq, H, 64) bf16, a fresh contiguous tensor."""
+    bf16 -> (B, Sq, H, 64) bf16, a fresh contiguous tensor. Forward only:
+    raises when grad is enabled and q, k or v requires grad."""
     global LAUNCHES
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward kernel yet (training is not ported, ROADMAP.md): "
+            "run the forward under torch.no_grad() or torch.inference_mode(), or use impl='torch'"
+        )
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if scale is None:

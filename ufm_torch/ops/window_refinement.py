@@ -1,0 +1,224 @@
+"""Window refinement: the Hopper kernel and its plain PyTorch version.
+
+One function of (q, f, flow, bias, temperature, P), the forward of
+``ufm_tpu/ops/refinement.py::_fused_refinement_pallas``: for each pixel, the
+dot products of its source feature q(p) with the (P+3)^2 integer taps of the
+zero-padded target map F around floor(flow + grid) - r - 1, combined
+bicubically (torch's A = -0.75) into P x P window scores, then
+``scores / temperature + bias``, softmax, log_softmax and the
+offset-weighted flow residual.
+
+- :func:`window_refinement_reference` is the plain version (the math of
+  ``_window_dots`` + ``_fused_refinement_xla`` + ``_scores_tail``), used for
+  CPU tensors, for the checks, and as the kernel's backward.
+- :func:`window_refinement` launches ``ufm_torch/csrc/window_refinement_fwd.cu``
+  (which replaces the Pallas window-dots kernels ``_dots16`` and ``_dots8``
+  and the XLA epilogue around them). It takes CUDA tensors only and raises on
+  anything the kernel does not take; it never falls back to the plain
+  version. Its gradient is autograd over the plain version, as in the JAX
+  package (a Pallas forward with the XLA VJP).
+
+Both clamp the sample position to [-(r+4), W+r+4] x [-(r+4), H+r+4] before
+the integer conversion, as the Pallas path does: a window wholly outside the
+image stays all zero, so no score changes, and a huge flow (seeded random
+weights can give one) never reaches an undefined float -> int conversion.
+
+Shapes are channel-last like the JAX package: q, f (B, H, W, C); flow
+(B, H, W, 2) xy; bias (P*P,). Outputs: residual (B, H, W, 2) and log_softmax
+(B, H, W, P, P), indexed [i, j] = (row offset i - R, column offset j - R).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ufm_torch.ops import _build
+from ufm_torch.ops.grid_sample import cubic_weights
+
+__all__ = [
+    "window_refinement",
+    "window_refinement_reference",
+    "base_grid",
+    "neighborhood_offsets_xy",
+    "supports_kernel",
+    "LAUNCHES",
+    "CHANNELS",
+    "PATCHES",
+]
+
+# the kernel's domain: the Pallas kernel's (window_dots.py::supports_pallas_window)
+CHANNELS = (4, 8, 16)
+PATCHES = (1, 3, 5)
+
+# kernel launches since the count was last reset (``LAUNCHES = 0``)
+LAUNCHES = 0
+
+_fn = None
+
+
+def supports_kernel(c: int, p: int) -> bool:
+    """Whether the kernel takes feature width ``c`` and window ``p``."""
+    return c in CHANNELS and p in PATCHES
+
+
+def base_grid(h: int, w: int, device=None) -> torch.Tensor:
+    """(H, W, 2) xy integer pixel grid."""
+    xs = torch.arange(w, dtype=torch.float32, device=device)
+    ys = torch.arange(h, dtype=torch.float32, device=device)
+    gx, gy = torch.meshgrid(xs, ys, indexing="xy")
+    return torch.stack([gx, gy], dim=-1)
+
+
+def neighborhood_offsets_xy(p: int, device=None) -> torch.Tensor:
+    """(P, P, 2) xy offsets in row-major (i, j) order: entry [i, j] is
+    (j - R, i - R), the values the attention weights."""
+    r = (p - 1) // 2
+    ar = torch.arange(p, device=device) - r
+    i, j = torch.meshgrid(ar, ar, indexing="ij")
+    return torch.stack([j, i], dim=-1).float()
+
+
+def _window_dots(q: torch.Tensor, f: torch.Tensor, x_base: torch.Tensor, y_base: torch.Tensor, k: int) -> torch.Tensor:
+    """q . F[tap] for each pixel's K x K integer tap window, zeros outside the
+    image: one gather and one reduction per tap, never the K^2 x C window.
+    Returns (B, H, W, Ky, Kx)."""
+    b, h, w, c = f.shape
+    flat = f.reshape(b, h * w, c)
+    ix_valid, ix_lin = [], []
+    for u in range(k):
+        ix = x_base + u
+        ix_valid.append((ix >= 0) & (ix < w))
+        ix_lin.append(ix.clamp(0, w - 1))
+    rows = []
+    for v in range(k):
+        iy = y_base + v
+        y_ok = (iy >= 0) & (iy < h)
+        y_lin = iy.clamp(0, h - 1) * w
+        row = []
+        for u in range(k):
+            idx = (y_lin + ix_lin[u]).reshape(b, h * w, 1).expand(-1, -1, c)
+            tap = torch.gather(flat, 1, idx).reshape(b, h, w, c)
+            d = (q * tap).sum(-1)
+            row.append(torch.where(y_ok & ix_valid[u], d, 0.0))
+        rows.append(torch.stack(row, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def _scores_tail(scores: torch.Tensor, bias: torch.Tensor, temperature: float, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw window scores -> (residual, log_softmax)."""
+    b, h, w = scores.shape[:3]
+    flat = (scores / temperature + bias.reshape(p, p)).reshape(b, h, w, p * p)
+    attn = torch.softmax(flat, dim=-1)
+    log_softmax = torch.log_softmax(flat, dim=-1).reshape(b, h, w, p, p)
+    residual = attn @ neighborhood_offsets_xy(p, flat.device).reshape(p * p, 2)
+    return residual, log_softmax
+
+
+def window_refinement_reference(
+    q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, temperature: float, p: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: (residual (B, H, W, 2), log_softmax (B, H, W, P, P)),
+    fp32, on any device, differentiable."""
+    if p % 2 != 1:
+        raise ValueError(f"the window size must be odd, got {p}")
+    r = (p - 1) // 2
+    b, h, w, _ = f.shape
+    q, f = q.float(), f.float()
+    pos = flow.float() + base_grid(h, w, f.device)[None]
+    m = float(r + 4)
+    pos_x = pos[..., 0].clamp(-m, w + m)
+    pos_y = pos[..., 1].clamp(-m, h + m)
+    x0, y0 = torch.floor(pos_x), torch.floor(pos_y)
+    wx = torch.stack(cubic_weights(pos_x - x0), dim=-1)  # (B, H, W, 4)
+    wy = torch.stack(cubic_weights(pos_y - y0), dim=-1)
+    dots = _window_dots(q, f, x0.long() - r - 1, y0.long() - r - 1, p + 3)  # (B, H, W, Ky, Kx)
+    # separable cubic combination: scores[i, j] = sum_l sum_m wy[l] wx[m] dots[i + l, j + m]
+    sx = sum(wx[..., None, mm, None] * dots[..., mm : mm + p] for mm in range(4))  # (B, H, W, Ky, P)
+    scores = sum(wy[..., ll, None, None] * sx[..., ll : ll + p, :] for ll in range(4))  # (B, H, W, P, P)
+    return _scores_tail(scores, bias.float(), temperature, p)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load_library("window_refinement_fwd").ufm_window_refinement_fwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, p: int) -> None:
+    plain = "the plain version is fused_refinement_attention(..., impl='torch')"
+    for name, t in (("q", q), ("f", f), ("flow", flow), ("bias", bias)):
+        if not t.is_cuda:
+            raise ValueError(f"window_refinement runs only on CUDA tensors ({name} is on {t.device}); {plain}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"window_refinement takes float32, got {name}.dtype={t.dtype}; {plain}")
+        if not t.is_contiguous():
+            raise ValueError(f"window_refinement needs contiguous tensors, got {name}.stride()={t.stride()}; {plain}")
+    if not (q.device == f.device == flow.device == bias.device):
+        raise ValueError("q, f, flow and bias must be on one device")
+    if q.dim() != 4 or q.shape != f.shape or not supports_kernel(q.shape[-1], p):
+        raise ValueError(
+            f"window_refinement takes q, f (B, H, W, C) with C in {CHANNELS} and P in {PATCHES}, "
+            f"got q {tuple(q.shape)}, f {tuple(f.shape)}, P={p}; {plain}"
+        )
+    if flow.shape != (*q.shape[:3], 2) or bias.shape != (p * p,):
+        raise ValueError(f"flow must be {(*q.shape[:3], 2)} and bias {(p * p,)}, got {tuple(flow.shape)}, {tuple(bias.shape)}")
+    # taps are read as 16-byte vectors, the flow as 8-byte pairs
+    if q.data_ptr() % 16 or f.data_ptr() % 16 or flow.data_ptr() % 8:
+        raise ValueError(f"window_refinement needs 16-byte aligned q and f; {plain}")
+
+
+def _launch(q, f, flow, bias, temperature: float, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global LAUNCHES
+    b, h, w, c = q.shape
+    residual = torch.empty((b, h, w, 2), dtype=torch.float32, device=q.device)
+    log_softmax = torch.empty((b, h, w, p, p), dtype=torch.float32, device=q.device)
+    if residual.numel() == 0:
+        return residual, log_softmax
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), f.data_ptr(), flow.data_ptr(), bias.data_ptr(), residual.data_ptr(), log_softmax.data_ptr(),
+            b, h, w, c, p, float(temperature), stream,
+        )
+        LAUNCHES += 1
+    if err != 0:
+        raise RuntimeError(f"window_refinement kernel launch failed: cudaError {err} at q {tuple(q.shape)}, P={p}")
+    return residual, log_softmax
+
+
+class _WindowRefinement(torch.autograd.Function):
+    """The kernel forward; the backward is autograd over the plain version
+    (the TPU kernel had no backward kernel either)."""
+
+    @staticmethod
+    def forward(ctx, q, f, flow, bias, temperature, p):
+        ctx.save_for_backward(q, f, flow, bias)
+        ctx.temperature, ctx.p = temperature, p
+        return _launch(q, f, flow, bias, temperature, p)
+
+    @staticmethod
+    def backward(ctx, g_residual, g_log_softmax):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad[:4])]
+            outs = window_refinement_reference(*ins, ctx.temperature, ctx.p)
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wanted, (g_residual, g_log_softmax)))
+        return (*[next(grads) if t.requires_grad else None for t in ins], None, None)
+
+
+def window_refinement(
+    q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, temperature: float, p: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The window refinement on the card: fp32 contiguous CUDA tensors ->
+    (residual (B, H, W, 2), log_softmax (B, H, W, P, P)), fresh tensors."""
+    _check(q, f, flow, bias, p)
+    return _WindowRefinement.apply(q, f, flow, bias, float(temperature), int(p))
