@@ -5,15 +5,19 @@
 
 Builds the port's CUDA kernels from ``ufm_torch/csrc`` (nvcc, sm_90a, one
 process per source, all started together), holds each kernel against its
-plain PyTorch version at the main paths' shapes, then drives both main paths
-with seeded random weights at full width, answering a few requests through
-``predict_correspondences_batched``:
+plain PyTorch version at the main paths' shapes, then drives three paths
+with seeded random weights at full width:
 
 - UFM-Base (ViT-L/14 encoder, 24 layers; 12 info-sharing layers; both DPT
-  heads; 560x420): 36 flash-attention launches per forward;
+  heads; 560x420), answering requests through
+  ``predict_correspondences_batched``: 36 flash-attention launches per
+  forward;
 - UFM-Refine (the same backbone and heads, the patch-MLP classification head,
-  the UNet and the window refinement): 36 flash-attention launches and 1
-  window-refinement launch per forward.
+  the UNet and the window refinement), the same way: 36 flash-attention
+  launches and 1 window-refinement launch per forward;
+- UFM-Base training at batch 2 on 420x560 (``make_train_step`` and ``fit``,
+  fp32 master weights): 36 flash-attention forward launches and 36 backward
+  calls per step.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase prints one JSON line; any failed check raises and the script exits
@@ -55,6 +59,38 @@ LAUNCHES_PER_FORWARD = sum(n for _, _, n in ATTN_SHAPES)  # 36
 # plain bf16 version's error (which rounds the logits to bf16), and never
 # held tighter than 4e-3 (a few bf16 ulps of outputs of order 1)
 KERNEL_ERR_FLOOR = 4e-3
+
+# main-path attention shapes of a batch-2 train step (the encoder sees both
+# views: 2B) and their backward calls per step
+ATTN_BWD_SHAPES = (
+    ("encoder", (4, 1201, 16, 64), 24),
+    ("info_sharing", (2, 2400, 12, 64), 12),
+    ("ragged", (1, 77, 2, 64), 0),
+)
+# backward kernel vs the fp32 reference: each of dq, dk, dv within twice the
+# plain bf16 backward's error, and never held tighter than two bf16 ulps of
+# the reference's largest element (2^-7 of it)
+BWD_ERR_FLOOR_REL = 2.0**-7
+# the forward's row log-sum-exp vs torch.logsumexp of the fp32 scores
+# (values ~10: fp32 rounding of the scores and of exp2 / log2)
+LSE_ATOL = 1e-4
+
+# training: batch 2 at the model resolution (the JAX package's train
+# benchmark shape, bench_train.py), one warm-up and 3 timed steps of
+# make_train_step at the JAX package's defaults (peak learning rate 1e-4,
+# 100 warm-up steps of 10000; the first step's rate is 0), then 2 steps of
+# fit. fit's schedule spans its own 2 steps and so cannot warm up: it runs
+# at 3e-6, the rate the warm-up has reached by then (1e-4 without warm-up
+# makes the loss of the random model jump, measured on an H100)
+TRAIN_BATCH, TRAIN_HW = 2, (420, 560)
+TRAIN_STEPS, FIT_STEPS = 4, 2
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL_STEPS = 1e-4, 100, 10000
+FIT_LR = 3e-6
+# kernel vs plain-attention gradients at batch 1, relative L2 per optimizer
+# group: the plain path rounds all 36 layers' logits to bf16 where the kernels
+# keep them in fp32 (forward flow relative L2 1.5e-2 for the same reason);
+# the gradients carry that rounding through the forward and the backward
+TRAIN_GRAD_REL_L2_BOUND = 1e-1
 # main path with the kernel vs the same weights with the plain attention:
 # bf16 rounding of 36 attention layers (the plain version rounds its logits to
 # bf16, the kernel keeps them in fp32) feeds the fp32 heads
@@ -178,6 +214,71 @@ def phase_kernel():
             share_of_bound=bound_ms / ms, tflops=4 * b * h * s * s * d / ms / 1e9,
         )
         emit("kernel", kernel="flash_attention_fwd", case=name, **rows[name])
+    return rows
+
+
+def attention_bwd_bound_ms(b, s, h, d):
+    """The backward's own cost: 10 B H S^2 D operations (five S x S x D
+    products, the TPU kernel's CostEstimate); q, k, v, o, g read once, dq,
+    dk, dv written once (bf16), lse read and delta written once (fp32)."""
+    flops = 10 * b * h * s * s * d
+    nbytes = 8 * b * s * h * d * 2 + 2 * b * h * s * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_bwd_kernel():
+    import torch.nn.functional as F
+
+    from ufm_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for name, (b, s, h, d), calls in ATTN_BWD_SHAPES:
+        if calls:  # the main path's layout: strided views of the fused qkv projection
+            qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        g = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        scale = d**-0.5
+        out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+        plain = fa.attention_backward_reference(q, k, v, g, scale)
+        torch.cuda.synchronize()
+        ref = fa.attention_backward_reference(q.float(), k.float(), v.float(), g.float(), scale)
+        errs = {}
+        for gname, got, want, pl in zip(("dq", "dk", "dv"), grads, ref, plain):
+            err = (got.float() - want).abs().max().item()
+            plain_err = (pl.float() - want).abs().max().item()
+            tol = max(2 * plain_err, BWD_ERR_FLOOR_REL * want.abs().max().item())
+            check(_finite(got), f"backward {name}: {gname} not finite")
+            check(err <= tol, f"backward {name}: {gname} error {err:.3e} > {tol:.3e}")
+            errs[gname] = dict(max_abs_err=err, plain_max_abs_err=plain_err, tol=tol)
+        del ref, plain
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        lse_err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
+        del scores
+        check(lse_err <= LSE_ATOL, f"backward {name}: lse error {lse_err:.3e} > {LSE_ATOL}")
+
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, g, scale))
+        plain_ms = time_ms(lambda: fa.attention_backward_reference(q, k, v, g, scale), reps=3, batches=5)
+        fwd_ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, scale))
+        fwd_lse_ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, scale, with_lse=True))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        gt = g.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True))
+        del lib_out
+        bound_ms, bound_by = attention_bwd_bound_ms(b, s, h, d)
+        rows[name] = dict(
+            shape=[b, s, h, d], calls_per_step=calls, **{f"{k}_{f}": v for k, e in errs.items() for f, v in e.items()},
+            lse_max_abs_err=lse_err, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, tflops=10 * b * h * s * s * d / ms / 1e9,
+            fwd_ms=fwd_ms, fwd_with_lse_ms=fwd_lse_ms,
+        )
+        emit("kernel", kernel="flash_attention_bwd", case=name, **rows[name])
     return rows
 
 
@@ -429,6 +530,116 @@ def phase_refine_self_check(model, pair, kernel_res):
     check(rel <= FLOW_REL_L2_BOUND, f"kernel vs plain attention (refine): flow relative L2 {rel:.3e} > {FLOW_REL_L2_BOUND}")
 
 
+def _group_grads(net):
+    from ufm_torch.training.trainer import group_of
+
+    out = {}
+    for name, p in net.named_parameters():
+        if p.grad is not None:
+            out.setdefault(group_of(name), []).append(p.grad.float().flatten())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def phase_train():
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
+
+    t0 = time.perf_counter()
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    net = model.net
+    batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
+    optimizer = make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS)
+    step = make_train_step(net, optimizer)
+    masters = optimizer.masters()
+    torch.cuda.synchronize()
+    emit("train_model", seconds=time.perf_counter() - t0, params=sum(p.numel() for p in net.parameters()),
+         bf16_params=sum(p.numel() for p in net.parameters() if p.dtype == torch.bfloat16),
+         fp32_masters=sum(m.numel() for m in masters.values()),
+         groups={label: sum(p.numel() for p, _ in pairs) for label, _, pairs in optimizer.groups})
+
+    fwd_events, opt_events = [], []
+    net.forward = _timed(net.forward, fwd_events)
+    optimizer.step = _timed(optimizer.step, opt_events)
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0  # the training path's counts start here
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+        t = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1])
+        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD),
+              f"train step {i}: {launched} attention forward launches / backward calls, expected 36 / 36")
+        vals = {k: v.item() for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"train step {i}: non-finite metrics {vals}")
+        losses.append(vals["total_loss"])
+        emit("train_step", step=i, seconds=times[-1], **vals)
+    del net.forward, optimizer.step  # back to the unwrapped methods
+    fwd_ms = [s.elapsed_time(e) for s, e, _ in fwd_events]
+    bwd_ms = [fe.elapsed_time(os_) for (_, fe, _), (os_, _, _) in zip(fwd_events, opt_events)]
+    opt_ms = [s.elapsed_time(e) for s, e, _ in opt_events]
+    step_s = statistics.median(times[1:])
+
+    fit_losses = []
+    out = fit(net, (batch for _ in range(FIT_STEPS)), num_steps=FIT_STEPS, learning_rate=FIT_LR,
+              warmup_steps=0, log_every=1, log_fn=lambda line: None,
+              on_metrics=lambda _, vals: fit_losses.append(vals["total_loss"]))
+    torch.cuda.synchronize()
+    check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"fit ran {out['step']} steps")
+    check(all(np.isfinite(v) for v in fit_losses), f"fit: non-finite losses {fit_losses}")
+    launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
+    steps = TRAIN_STEPS + FIT_STEPS
+    check(launches == {"flash_attention_fwd": steps * LAUNCHES_PER_FORWARD, "flash_attention_bwd": steps * LAUNCHES_PER_FORWARD},
+          f"training path launches {launches} over {steps} steps, expected 36 + 36 per step")
+    trajectory = losses + fit_losses
+    check(trajectory[-1] < trajectory[0], f"loss did not fall on the fixed batch: {trajectory}")
+    emit("train_path", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), learning_rate=TRAIN_LR,
+         warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS, fit_learning_rate=FIT_LR, steps=steps,
+         launches=launches,
+         first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s,
+         forward_loss_ms=statistics.median(fwd_ms[1:]), backward_ms=statistics.median(bwd_ms[1:]),
+         optimizer_ms=statistics.median(opt_ms[1:]), max_memory_allocated=torch.cuda.max_memory_allocated(),
+         loss_trajectory=trajectory)
+    return model, batch, launches
+
+
+def phase_train_self_check(model, batch):
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.training import ufm_total_loss
+
+    net = model.net
+    one = {k: v[:1] for k, v in batch.items()}
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        loss, _ = ufm_total_loss(net(one["img1"], one["img2"]), one)
+        loss.backward()
+        torch.cuda.synchronize()
+        return _group_grads(net)
+
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    g_kernel = grads()
+    check((fa.LAUNCHES, fa.BWD_LAUNCHES) == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD),
+          f"kernel gradient: {(fa.LAUNCHES, fa.BWD_LAUNCHES)} launches, expected 36 / 36")
+    model.attention_impl = "torch"
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    g_plain = grads()
+    plain_peak = torch.cuda.max_memory_allocated()
+    check((fa.LAUNCHES, fa.BWD_LAUNCHES) == (0, 0), "the plain-attention gradient launched a kernel")
+    model.attention_impl = None
+    net.zero_grad(set_to_none=True)
+    rel = {k: ((g_kernel[k] - g_plain[k]).norm() / g_plain[k].norm()).item() for k in g_plain}
+    emit("train_self_check", batch=1, grad_rel_l2=rel, bound=TRAIN_GRAD_REL_L2_BOUND,
+         plain_max_memory_allocated=plain_peak)
+    check(set(rel) == set(g_kernel), f"gradient groups differ: {sorted(g_kernel)} vs {sorted(rel)}")
+    for k, r in rel.items():
+        check(r <= TRAIN_GRAD_REL_L2_BOUND, f"kernel vs plain gradient, group {k}: relative L2 {r:.3e} > {TRAIN_GRAD_REL_L2_BOUND}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
@@ -436,22 +647,30 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernel()
+    bwd_rows = phase_bwd_kernel()
     window_rows = phase_window_kernel()
     model, pair, kernel_res, launches = phase_main_path()
     phase_self_check(model, pair, kernel_res)
     del model, kernel_res
     refine_model, refine_pair, refine_res, refine_launches = phase_refine_path()
     phase_refine_self_check(refine_model, refine_pair, refine_res)
+    del refine_model, refine_res
+    torch.cuda.empty_cache()
+    train_model, train_batch, train_launches = phase_train()
+    phase_train_self_check(train_model, train_batch)
 
     # one batch-1 forward's attention: each number sums its 36 calls
     fwd = [rows[n] for n, _, calls in ATTN_SHAPES for _ in range(calls)]
+    # one batch-2 train step's attention backward: each number sums its 36 calls
+    bwd = [bwd_rows[n] for n, _, calls in ATTN_BWD_SHAPES for _ in range(calls)]
     attention = {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "ufm_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:558",
-        "launches": launches + refine_launches["flash_attention_fwd"],
-        "launches_by_path": {"ufm_base": launches, "ufm_refine": refine_launches["flash_attention_fwd"]},
+        "launches": launches + refine_launches["flash_attention_fwd"] + train_launches["flash_attention_fwd"],
+        "launches_by_path": {"ufm_base": launches, "ufm_refine": refine_launches["flash_attention_fwd"],
+                             "ufm_base_train": train_launches["flash_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
         "plain_ms": sum(r["plain_ms"] for r in fwd),
@@ -459,6 +678,25 @@ def main() -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in fwd) else "bytes",
         "library_ms": sum(r["library_ms"] for r in fwd),
         "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward",
+        "train_step_ms_without_lse": sum(r["fwd_ms"] for r in bwd),
+        "train_step_ms_with_lse": sum(r["fwd_with_lse_ms"] for r in bwd),
+    }
+    backward = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "ufm_tpu/ops/flash_attention.py:452",
+        "launches": train_launches["flash_attention_bwd"],
+        "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
+        "ms": sum(r["ms"] for r in bwd),
+        "plain_ms": sum(r["plain_ms"] for r in bwd),
+        "bound_ms": sum(r["bound_ms"] for r in bwd),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in bwd) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in bwd),
+        "per_step": "times sum the 24 encoder and 12 info-sharing calls of one batch-2 train step; "
+                    "a launch is one backward call (three CUDA kernels: delta, dK/dV, dQ)",
+        "library": "backward of scaled_dot_product_attention, torch.autograd.grad on the same (B, H, S, D) views",
     }
     flagship = window_rows["flagship"]
     window = {
@@ -479,7 +717,7 @@ def main() -> int:
         "library_none": "no single PyTorch call computes this function",
     }
     print(smi)
-    print(json.dumps({"kernels": [attention, window]}))
+    print(json.dumps({"kernels": [attention, backward, window]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

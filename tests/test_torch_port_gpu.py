@@ -12,6 +12,8 @@ import torch
 from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_tiny_config
 from ufm_torch.ops import flash_attention as fa
 from ufm_torch.ops import window_refinement as wr
+from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
+from ufm_torch.training.trainer import group_of
 
 pytestmark = pytest.mark.cuda
 
@@ -52,14 +54,64 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(y, y, y)
 
 
-def test_kernel_refuses_grad(cuda):
-    """No attention backward yet: a forward that autograd would record raises
-    instead of returning an output cut off from the graph."""
-    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no_grad"):
-        fa.flash_attention(q, q, q)
+# the backward's bar: each gradient within twice the plain bf16 backward's
+# error of the fp32 reference, and never tighter than two bf16 ulps of the
+# reference's largest element (2^-7 of it)
+BWD_ERR_FLOOR_REL = 2.0**-7
+
+
+def _qkv_views(device, shape, seed=0):
+    b, s, h, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device=device).to(torch.bfloat16)
+    dout = torch.randn(b, s, h, d, generator=g, device=device).to(torch.bfloat16)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dout
+
+
+@pytest.mark.parametrize("shape", [(4, 1201, 16, 64), (2, 2400, 12, 64), (1, 77, 2, 64)])
+def test_backward_kernel_matches_fp32_reference(cuda, shape):
+    """dq, dk, dv of one backward call (views of a fused qkv tensor, as the
+    main path passes them) against the fp32 reference on the same inputs, at
+    most twice as far as the plain bf16 backward; the forward's lse against
+    torch.logsumexp of the fp32 scores."""
+    q, k, v, dout = _qkv_views(cuda, shape)
+    scale = shape[-1] ** -0.5
+    out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+    before = fa.BWD_LAUNCHES
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    ref = fa.attention_backward_reference(q.float(), k.float(), v.float(), dout.float(), scale)
+    plain = fa.attention_backward_reference(q, k, v, dout, scale)
+    for name, got, want, pl in zip(("dq", "dk", "dv"), grads, ref, plain):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        err = (got.float() - want).abs().max().item()
+        plain_err = (pl.float() - want).abs().max().item()
+        assert err <= max(2 * plain_err, BWD_ERR_FLOOR_REL * want.abs().max().item()), name
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1), rtol=0, atol=1e-4)
+
+
+def test_kernel_gradients_through_autograd(cuda):
+    """With grad enabled, flash_attention records the kernel pair: one forward
+    launch and one backward call, the backward's output equal to a direct
+    call's, and a non-contiguous output gradient is taken."""
+    q, k, v, _ = _qkv_views(cuda, (2, 130, 2, 64), seed=1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = fa.flash_attention(*leaves)
+    g = torch.randn(2, 130, 64, 2, device=cuda).to(torch.bfloat16).transpose(2, 3)  # head dim not contiguous
+    got = torch.autograd.grad(out, leaves, g)
+    assert (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd) == (1, 1)
+    o, lse = fa.flash_attention_forward(q, k, v, 64**-0.5, with_lse=True)
+    torch.testing.assert_close(out.detach(), o, rtol=0, atol=0)
+    want = fa.flash_attention_backward(q, k, v, o, lse, g.contiguous(), 64**-0.5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    bwd = fa.BWD_LAUNCHES
     with torch.no_grad():
-        assert fa.flash_attention(q, q, q).shape == q.shape
+        assert not fa.flash_attention(*leaves).requires_grad
+    assert fa.BWD_LAUNCHES == bwd
 
 
 def _small_config(**overrides):
@@ -177,3 +229,66 @@ def test_small_refine_model_kernel_path(cuda):
     f, p = res.flow.flow_output, plain.flow.flow_output
     assert torch.isfinite(f).all()
     assert (f - p).abs().max().item() <= 1e-3
+
+
+def _group_grads(net):
+    out = {}
+    for name, p in net.named_parameters():
+        if p.grad is not None:
+            out.setdefault(group_of(name), []).append(p.grad.float().flatten())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+# kernel vs plain-attention gradients of a small bf16 model, relative L2 per
+# optimizer group: the plain path rounds its logits to bf16 (the kernel keeps
+# them in fp32), and that rounding reaches every weight gradient through 4
+# bf16 attention layers; UFM-Refine's refinement loss also reaches them
+# through the window positions (the regression flow), a path more sensitive
+# to that rounding. The bound of chip_smoke.py's full-size check.
+TRAIN_GRAD_REL_L2 = 1e-1
+
+
+@pytest.mark.parametrize("refine", [False, True], ids=["base", "refine"])
+def test_small_model_train_step_kernel_vs_plain(cuda, refine):
+    """One train step of a small bf16 UFM-Base / UFM-Refine on the card: 4
+    forward launches and 4 backward calls, finite metrics, and gradients
+    close to the plain-attention path's (no kernel launched there). The
+    UFM-Refine window backward is autograd over its plain version in both.
+    For UFM-Refine the ground truth is the kernel path's regression flow plus
+    whole-pixel offsets: the refinement loss's class (the rounded offset) is
+    then the same on both paths, where a random flow would put pixels near a
+    half-pixel boundary whose class the two paths' rounding differences flip.
+    No offset is 0: a zero flow error sits on the Charbonnier loss's kink."""
+    cfg = _small_config(**({"has_classification_head": True, "use_unet_feature": True,
+                            "unet_kwargs": {"out_channels": 8, "features": (8, 16)}} if refine else {}))
+    cls = UniFlowMatchClassificationRefinement if refine else UniFlowMatchConfidence
+    model = cls.from_config(cfg, seed=0)
+    batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
+    opt = make_optimizer(model.net, learning_rate=1e-4, warmup_steps=0, total_steps=10)
+    step = make_train_step(model.net, opt)
+    if refine:
+        with torch.no_grad():
+            reg = model.net(batch["img1"], batch["img2"])["regression_flow"]
+        g = torch.Generator(device=cuda).manual_seed(1)
+        offsets = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=cuda)
+        batch["gt_flow"] = reg + offsets[torch.randint(0, 4, reg.shape, generator=g, device=cuda)]
+
+    def grads():
+        opt.zero_grad()
+        loss, _ = ufm_total_loss(model.net(batch["img1"], batch["img2"]), batch)
+        loss.backward()
+        return _group_grads(model.net)
+
+    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    g_kernel = grads()
+    assert (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd) == (4, 4)
+    model.attention_impl = "torch"
+    g_plain = grads()
+    assert (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd) == (4, 4)
+    model.attention_impl = None
+    for group, gp in g_plain.items():
+        rel = ((g_kernel[group] - gp).norm() / gp.norm()).item()
+        assert rel < TRAIN_GRAD_REL_L2, (group, rel)
+    metrics = step(batch)
+    assert (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd) == (8, 8)
+    assert all(torch.isfinite(v) for v in metrics.values())

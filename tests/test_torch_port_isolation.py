@@ -63,6 +63,11 @@ def test_port_imports_with_jax_blocked():
         "ufm_torch.ops.window_refinement",
         "ufm_torch.nn.unet",
         "ufm_torch.nn.prediction_heads.mlp_feature",
+        "ufm_torch.training",
+        "ufm_torch.training.losses",
+        "ufm_torch.training.trainer",
+        "ufm_torch.training.loop",
+        "ufm_torch.checkpoint.train_state",
     } <= mods
 
 

@@ -22,7 +22,10 @@
 //     accumulators are re-packed in registers as the A operand of P.V;
 //   * q, k, v are read through their batch / sequence / head strides (the
 //     main path passes views of the fused qkv projection); only D must be
-//     contiguous. The output is written with its own strides.
+//     contiguous. The output is written with its own strides;
+//   * for training, a second instance also writes each row's log-sum-exp
+//     (fp32, (B, H, Sq)), which flash_attention_bwd.cu reads to recompute P.
+//     Inference launches the instance without it.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the kernel does
 // 4 * B * H * Sq * Sk * D FLOPs and moves (3 * S * H * D + S * H * D) * 2 B
@@ -41,7 +44,11 @@
 
 #include <cmath>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace ufm;
 
 constexpr int kD = 64;          // head_dim, the main path's only value
 constexpr int kBlockQ = 64;     // query rows per CTA (16 per warp)
@@ -50,50 +57,15 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kLd = kD + 8;     // padded shared row (144 B): conflict-free fragment loads
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;  // 0 -> the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one register of two bf16, `lo` in the low half (lower column).
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t join_u16(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
-  const uint32_t a = *reinterpret_cast<const unsigned short*>(lo);
-  const uint32_t b = *reinterpret_cast<const unsigned short*>(hi);
-  return a | (b << 16);
-}
-
+// kWriteLse: also write each row's log-sum-exp (natural log, fp32) for the
+// backward. Inference instantiates the kernel without it.
+template <bool kWriteLse>
 __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int num_heads, int sq, int sk,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    float scale_log2) {
+    float* __restrict__ lse, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 k_tile[2][kBlockK * kLd];
   __shared__ __align__(16) __nv_bfloat16 v_tile[2][kBlockK * kLd];
 
@@ -251,6 +223,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    if (kWriteLse && t == 0) {
+      // log sum_j exp(s_ij * scale) = (max + log2(sum)) * ln 2, in the
+      // log2 domain of the scores above
+      const int row = r == 0 ? r0 : r1;
+      if (row < sq) lse[static_cast<long long>(blockIdx.y) * sq + row] = (row_max[r] + log2f(l)) * 0.6931471805599453f;
+    }
   }
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
@@ -268,18 +246,31 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
 }  // namespace
 
 // Plain C entry point for ctypes. Strides are in elements; D (= 64) must be
-// contiguous and every row 16-byte aligned (the wrapper checks both).
-// Launches on `stream` and returns cudaGetLastError().
-extern "C" int ufm_flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int batch,
-                                            int num_heads, int sq, int sk, long long q_sb, long long q_ss,
+// contiguous and every row 16-byte aligned (the wrapper checks both). `lse`
+// is null (inference) or a contiguous fp32 (B, H, Sq) buffer that receives
+// each row's log-sum-exp of the scaled scores (training: the backward's
+// input). Launches on `stream` and returns cudaGetLastError().
+extern "C" int ufm_flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                                            int batch, int num_heads, int sq, int sk, long long q_sb, long long q_ss,
                                             long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                             long long v_sb, long long v_ss, long long v_sh, long long o_sb,
                                             long long o_ss, long long o_sh, float scale, void* stream) {
   const float kLog2e = 1.4426950408889634f;
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * num_heads);
-  flash_attention_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), num_heads, sq, sk, q_sb, q_ss, q_sh,
-      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * kLog2e);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lp == nullptr) {
+    flash_attention_fwd_kernel<false><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, num_heads, sq, sk, q_sb, q_ss, q_sh,
+                                                                 k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                                                                 nullptr, scale * kLog2e);
+  } else {
+    flash_attention_fwd_kernel<true><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, num_heads, sq, sk, q_sb, q_ss, q_sh,
+                                                                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                                                                lp, scale * kLog2e);
+  }
   return static_cast<int>(cudaGetLastError());
 }

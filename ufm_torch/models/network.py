@@ -144,11 +144,24 @@ class UFMNet(nn.Module):
             raise ValueError("Only dual+single is supported")
         self.cfg = cfg
         dt = as_dtype(cfg.compute_dtype)
-        # cfg.train_remat / train_remat_policy are training-only (no effect on
-        # a forward pass); training is ROADMAP slice 3
-        self.encoder = feature_returner_encoder_factory(cfg.encoder_str, dtype=dt, **cfg.encoder_kwargs)
+        # training memory knob (no effect on a forward without grad):
+        # True / "all" checkpoints the blocks of both stacks, "encoder" only
+        # the encoder's, as ufm_tpu/models/network.py does
+        if cfg.train_remat_policy is not None:
+            raise NotImplementedError(
+                f"train_remat_policy={cfg.train_remat_policy!r}: the jax.checkpoint_policies remat policies "
+                "are not ported yet (ROADMAP.md Queue 1, item 11); use train_remat alone (full remat)"
+            )
+        if cfg.train_remat not in (False, True, "all", "encoder"):
+            raise ValueError(f"unknown train_remat {cfg.train_remat!r} (expected False, True, 'all' or 'encoder')")
+        remat_enc = cfg.train_remat in (True, "all", "encoder")
+        remat_info = cfg.train_remat in (True, "all")
+        self.encoder = feature_returner_encoder_factory(
+            cfg.encoder_str, dtype=dt, **{**cfg.encoder_kwargs, **({"remat": True} if remat_enc else {})}
+        )
         info_cls = INFO_SHARING_CLASSES[cfg.info_sharing_str][1]
-        self.info_sharing = info_cls(dtype=dt, **_filter_kwargs(info_cls, cfg.info_sharing_kwargs))
+        info_kwargs = _filter_kwargs(info_cls, cfg.info_sharing_kwargs)
+        self.info_sharing = info_cls(dtype=dt, **{**info_kwargs, **({"remat": True} if remat_info else {})})
 
         self.head1 = _make_head(cfg.head_type, cfg.feature_head_kwargs)
         self._head1_adaptors = _build_adaptor_map(cfg.adaptors_kwargs)

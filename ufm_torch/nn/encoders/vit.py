@@ -4,7 +4,8 @@ The encoder takes a normalized channel-last image batch and returns a list of
 tapped per-layer feature maps, (B, Hp, Wp, C) each. The patch embedding is a
 stride-14 convolution; attention goes through the shared dispatch (the Hopper
 flash-attention kernel on the card). Parameters live in the compute dtype
-given at construction (bf16 for the flagship backbone).
+given at construction (bf16 for the flagship backbone); training keeps fp32
+master copies of them in the optimizer (``ufm_torch/training/trainer.py``).
 """
 
 from __future__ import annotations
@@ -66,8 +67,11 @@ def _cubic_resize_matrix_np(in_size: int, out_size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _cubic_resize_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    # cached on the device: a forward pass never waits on a host-to-device copy
-    return torch.from_numpy(_cubic_resize_matrix_np(in_size, out_size)).to(device)
+    # cached on the device: a forward pass never waits on a host-to-device
+    # copy; built outside inference mode so that training may use it after
+    # the predict API
+    with torch.inference_mode(False):
+        return torch.from_numpy(_cubic_resize_matrix_np(in_size, out_size)).to(device)
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int]) -> torch.Tensor:
@@ -112,8 +116,11 @@ class ViTEncoder(nn.Module):
         data_norm_type: str = "dinov2",
         mlp_act: str = "gelu_exact",
         dtype: Union[str, torch.dtype] = torch.float32,
+        # training memory knob: checkpoint every block (run_blocks)
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.depth = depth
@@ -150,7 +157,7 @@ class ViTEncoder(nn.Module):
             cls = (self.cls_token + self.cls_pos_embed).expand(b, 1, self.embed_dim)
             x = torch.cat([cls, x], dim=1)
 
-        _, outputs = run_blocks(self.blocks, x, self.taps)
+        _, outputs = run_blocks(self.blocks, x, self.taps, remat=self.remat)
 
         results = []
         for feat in outputs:

@@ -58,7 +58,8 @@ def _sincos_pos_embed_2d(h: int, w: int, dim: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _sincos_pos_embed(h: int, w: int, dim: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_sincos_pos_embed_2d(h, w, dim)).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):  # cached: usable by training after the predict API
+        return torch.from_numpy(_sincos_pos_embed_2d(h, w, dim)).to(device=device, dtype=dtype)
 
 
 class MultiViewGlobalAttentionTransformer(nn.Module):
@@ -83,8 +84,11 @@ class MultiViewGlobalAttentionTransformer(nn.Module):
         use_pos_embed: bool = True,
         mlp_act: str = "gelu_exact",
         dtype: Union[str, torch.dtype] = torch.float32,
+        # training memory knob: checkpoint every block (run_blocks)
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.dim = dim
         self.num_views = num_views
         self.norm_intermediate = norm_intermediate
@@ -121,7 +125,7 @@ class MultiViewGlobalAttentionTransformer(nn.Module):
             y = y.reshape(b, self.num_views, hp, wp, self.dim)
             return MultiViewTransformerOutput(features=[y[:, v] for v in range(self.num_views)])
 
-        x, tap_outs = run_blocks(self.blocks, x, self.taps)
+        x, tap_outs = run_blocks(self.blocks, x, self.taps, remat=self.remat)
         intermediates = [split_views(self.norm(t) if self.norm_intermediate else t) for t in tap_outs]
         return split_views(self.norm(x)), intermediates
 

@@ -14,6 +14,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ufm_torch.ops.attention import dot_product_attention
 
@@ -115,15 +116,21 @@ class TransformerBlock(nn.Module):
 
 
 def run_blocks(
-    blocks: Sequence[nn.Module], x: torch.Tensor, taps: Sequence[int]
+    blocks: Sequence[nn.Module], x: torch.Tensor, taps: Sequence[int], remat: bool = False
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Run ``blocks`` in order; return the final output and the outputs of the
     layers in ``taps``, in the requested order, repeats included (the loop form
-    of ``ufm_tpu/nn/layers.py::scan_transformer_blocks``)."""
+    of ``ufm_tpu/nn/layers.py::scan_transformer_blocks``).
+
+    With ``remat`` and grad enabled, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept for the
+    backward, which runs the block's forward again (``nn.remat`` with no
+    policy in the JAX package). It changes memory and time, not values."""
     tapped = {}
     wanted = set(taps)
+    checkpointed = remat and torch.is_grad_enabled()
     for i, blk in enumerate(blocks):
-        x = blk(x)
+        x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if checkpointed else blk(x)
         if i in wanted:
             tapped[i] = x
     return x, [tapped[t] for t in taps]

@@ -2,10 +2,12 @@
 
 Both transformer stacks route their softmax-attention core through
 :func:`dot_product_attention`. The device of the tensors decides: a CUDA
-tensor takes the Hopper flash-attention kernel (which raises on what it does
-not take), a CPU tensor takes the plain PyTorch version. ``impl="torch"``
-asks for the plain version explicitly, on any device (tests and the chip
-check use it to hold the kernel to it).
+tensor takes the Hopper flash-attention kernels (which raise on what they do
+not take; with grad enabled, the forward and backward kernel pair), a CPU
+tensor takes the plain PyTorch version, whose gradient is autograd over it.
+``impl="torch"`` asks for the plain version explicitly, on any device (tests
+and the chip check use it to hold the kernels to it). There is no path from
+the kernels to the plain version.
 
 Shapes follow the JAX package: q/k/v are (batch, seq, heads, head_dim).
 """

@@ -113,14 +113,18 @@ def resize_matrix(
     align_corners: bool = False,
     device: torch.device = torch.device("cpu"),
 ) -> torch.Tensor:
-    """The (out_size, in_size) interpolation matrix as a tensor on ``device``."""
+    """The (out_size, in_size) interpolation matrix as a tensor on ``device``.
+    Cached, and built outside inference mode even when first asked for under
+    it (the predict API), so that training may use it later."""
     w = _resize_matrix_np(in_size, out_size, antialias, align_corners)
-    return torch.from_numpy(w).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(w).to(device=device, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=256)
 def _nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_nearest_index_np(in_size, out_size)).to(device)
+    with torch.inference_mode(False):  # cached: usable by training too
+        return torch.from_numpy(_nearest_index_np(in_size, out_size)).to(device)
 
 
 def _float_dtype(x: torch.Tensor) -> torch.dtype:
