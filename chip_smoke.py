@@ -4,9 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``ufm_torch/csrc`` (nvcc, sm_90a, one
-process per source, all started together), holds each kernel against its
-plain PyTorch version at the main paths' shapes, then drives three paths
-with seeded random weights at full width:
+process per source, all started together) and reads their SASS (the
+attention libraries must hold wgmma (HGMMA) instructions, and ptxas must not
+have serialized them), holds each kernel against its plain PyTorch version
+at the main paths' shapes (the attention backward also for bitwise
+repeatability), compares the card's bf16 GELU with the CPU's on every finite
+bf16 input, then drives three paths with seeded random weights at full
+width:
 
 - UFM-Base (ViT-L/14 encoder, 24 layers; 12 info-sharing layers; both DPT
   heads; 560x420), answering requests through
@@ -32,6 +36,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -74,6 +80,21 @@ BWD_ERR_FLOOR_REL = 2.0**-7
 # the forward's row log-sum-exp vs torch.logsumexp of the fp32 scores
 # (values ~10: fp32 rounding of the scores and of exp2 / log2)
 LSE_ATOL = 1e-4
+# time_ms queues each timed batch behind this many cycles of device sleep
+# (~25 ms at 1.98 GHz), far longer than the host takes to enqueue a batch
+QUEUE_SLEEP_CYCLES = 50_000_000
+# host time per launch: back-to-back launches without a sync at a shape whose
+# kernels take less device time than the host spends launching them
+LAUNCH_HOST_REPS = 1000
+# card vs CPU bf16 GELU (the JAX chain, four bf16 roundings): the two
+# frameworks' fp32 erfc may differ in the last fp32 bit, one bf16 ulp after
+# rounding
+GELU_MAX_ULP = 1
+# the MLP hidden activations of one batch-1 forward, and their MLPs per
+# forward: the encoder's (2 views x 1201 tokens, 4096) and the info
+# sharing's (2400 tokens, 3072)
+GELU_SHAPES = (("encoder", (2, 1201, 4096), 24), ("info_sharing", (1, 2400, 3072), 12))
+ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
 
 # training: batch 2 at the model resolution (the JAX package's train
 # benchmark shape, bench_train.py), one warm-up and 3 timed steps of
@@ -124,13 +145,16 @@ def check(cond: bool, msg: str) -> None:
 
 def time_ms(fn, reps: int = 10, batches: int = 7) -> float:
     """Median over ``batches`` of CUDA-event time per call, ``reps`` calls a
-    batch, after a warm-up."""
+    batch, after a warm-up. Each batch queues behind a device sleep, so the
+    events time the card even where a call's launch costs the host more than
+    the card's run of it."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -159,6 +183,26 @@ def phase_device() -> str:
     return smi
 
 
+def sass_counts(path) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in a library's SASS."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(path)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
+    output, by kernel name (template arguments kept, as mangled)."""
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+                         r".*?Used (\d+) registers", log, re.S):
+        short = re.search(r"[a-z][a-z_]*_kernel(?:I(?:L[ib]\d+E)+E)?", m.group(1))
+        out[short.group(0) if short else m.group(1)] = {
+            "registers": int(m.group(4)), "spill_stores": int(m.group(2)), "spill_loads": int(m.group(3))}
+    return out
+
+
 def phase_build():
     import ufm_torch
     from ufm_torch.ops import _build
@@ -166,10 +210,20 @@ def phase_build():
     pkg = os.path.dirname(os.path.abspath(ufm_torch.__file__))
     check(os.path.dirname(pkg) == HERE, f"ufm_torch imported from {pkg}, not from this checkout")
     t0 = time.perf_counter()
-    _build.build()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for n, log in _build.BUILD_LOGS.items()}
-    emit("build", seconds=time.perf_counter() - t0, kernels=list(_build.KERNEL_SOURCES), ptxas=ptxas)
+    paths = _build.build(force=True)  # from this checkout's sources, with nvcc's report
+    seconds = time.perf_counter() - t0
+    ptxas = {n: ptxas_report(log) for n, log in _build.BUILD_LOGS.items()}
+    sass = {n: sass_counts(p) for n, p in zip(_build.KERNEL_SOURCES, paths)}
+    # ptxas's warning when it cannot keep wgmma instructions in flight together
+    # ("... wgmma.mma_async instructions are serialized due to ...")
+    serialized = {n: [ln.strip() for ln in log.splitlines() if "wgmma" in ln and "serialized" in ln]
+                  for n, log in _build.BUILD_LOGS.items()}
+    serialized = {n: lines for n, lines in serialized.items() if lines}
+    emit("build", seconds=seconds, kernels=list(_build.KERNEL_SOURCES), ptxas=ptxas, sass=sass,
+         wgmma_serialized=serialized)
+    for name in ATTENTION_LIBRARIES:
+        check(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA (wgmma) instruction in its SASS")
+    check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
 
 
 def attention_bound_ms(b, s, h, d):
@@ -260,6 +314,10 @@ def phase_bwd_kernel():
         lse_err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
         del scores
         check(lse_err <= LSE_ATOL, f"backward {name}: lse error {lse_err:.3e} > {LSE_ATOL}")
+        again = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+        repeatable = all(torch.equal(a, b) for a, b in zip(grads, again))
+        check(repeatable, f"backward {name}: two calls on the same inputs differ")
+        del again
 
         ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, g, scale))
         plain_ms = time_ms(lambda: fa.attention_backward_reference(q, k, v, g, scale), reps=3, batches=5)
@@ -274,12 +332,73 @@ def phase_bwd_kernel():
         rows[name] = dict(
             shape=[b, s, h, d], calls_per_step=calls, **{f"{k}_{f}": v for k, e in errs.items() for f, v in e.items()},
             lse_max_abs_err=lse_err, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+            bitwise_repeatable=repeatable,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             share_of_bound=bound_ms / ms, tflops=10 * b * h * s * s * d / ms / 1e9,
             fwd_ms=fwd_ms, fwd_with_lse_ms=fwd_lse_ms,
         )
+        if not calls:  # a shape whose kernels are shorter than their launch: the host's cost
+            rows[name]["host_us_per_launch"] = {
+                "fwd": host_us_per_launch(lambda: fa.flash_attention_forward(q, k, v, scale)),
+                "fwd_with_lse": host_us_per_launch(lambda: fa.flash_attention_forward(q, k, v, scale, with_lse=True)),
+                "bwd": host_us_per_launch(lambda: fa.flash_attention_backward(q, k, v, out, lse, g, scale)),
+            }
         emit("kernel", kernel="flash_attention_bwd", case=name, **rows[name])
     return rows
+
+
+def host_us_per_launch(fn, reps: int = LAUNCH_HOST_REPS) -> float:
+    """Host wall time per call of ``reps`` back-to-back calls without a sync
+    (the device drains afterwards, outside the clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _bf16_order(t: torch.Tensor) -> torch.Tensor:
+    """bf16 bits as integers in the order of the values (adjacent values
+    differ by 1: an ulp)."""
+    i = t.view(torch.int16).to(torch.int32)
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def phase_gelu():
+    """The card's bf16 GELU (the JAX chain of ``gelu_exact``) against the
+    CPU's on every finite bf16 input, and what the chain costs at the MLP
+    shapes of one batch-1 forward against one ``F.gelu``."""
+    import torch.nn.functional as F
+
+    from ufm_torch.nn.layers import gelu_exact
+
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    check(x.numel() == 65280, f"{x.numel()} finite bf16 values")
+    cpu = gelu_exact(x)
+    card = gelu_exact(x.cuda()).cpu()
+    ulps = (_bf16_order(card) - _bf16_order(cpu)).abs()
+    mismatches = int((card.view(torch.int16) != cpu.view(torch.int16)).sum())
+    max_ulp = int(ulps.max())
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, shape, per_forward in GELU_SHAPES:
+        h = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        chain_ms = time_ms(lambda: gelu_exact(h))
+        f_gelu_ms = time_ms(lambda: F.gelu(h, approximate="none"))
+        rows[name] = dict(shape=list(shape), mlps_per_forward=per_forward, chain_ms=chain_ms, f_gelu_ms=f_gelu_ms)
+    small = torch.randn(1, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    host = {"chain": host_us_per_launch(lambda: gelu_exact(small)),
+            "f_gelu": host_us_per_launch(lambda: F.gelu(small, approximate="none"))}
+    extra_ms = sum(r["mlps_per_forward"] * (r["chain_ms"] - r["f_gelu_ms"]) for r in rows.values())
+    mlps = sum(r["mlps_per_forward"] for r in rows.values())
+    emit("gelu", inputs=x.numel(), card_vs_cpu_mismatches=mismatches, max_ulp=max_ulp, max_ulp_bound=GELU_MAX_ULP,
+         shapes=rows, launches_per_mlp={"chain": 4, "f_gelu": 1}, device_ms_added_per_forward=extra_ms,
+         host_us_per_call=host, host_us_added_per_forward=mlps * (host["chain"] - host["f_gelu"]))
+    check(max_ulp <= GELU_MAX_ULP, f"card vs CPU bf16 GELU: {max_ulp} ulps apart > {GELU_MAX_ULP}")
 
 
 def _finite(t: torch.Tensor) -> bool:
@@ -649,6 +768,7 @@ def main() -> int:
     rows = phase_kernel()
     bwd_rows = phase_bwd_kernel()
     window_rows = phase_window_kernel()
+    phase_gelu()
     model, pair, kernel_res, launches = phase_main_path()
     phase_self_check(model, pair, kernel_res)
     del model, kernel_res
@@ -680,6 +800,7 @@ def main() -> int:
         "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward",
         "train_step_ms_without_lse": sum(r["fwd_ms"] for r in bwd),
         "train_step_ms_with_lse": sum(r["fwd_with_lse_ms"] for r in bwd),
+        "host_us_per_launch": bwd_rows["ragged"]["host_us_per_launch"]["fwd"],
     }
     backward = {
         "name": "flash_attention_bwd",
@@ -695,8 +816,10 @@ def main() -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in bwd) else "bytes",
         "library_ms": sum(r["library_ms"] for r in bwd),
         "per_step": "times sum the 24 encoder and 12 info-sharing calls of one batch-2 train step; "
-                    "a launch is one backward call (three CUDA kernels: delta, dK/dV, dQ)",
+                    "a launch is one backward call (two CUDA kernels: delta, then one grid of dK/dV and dQ blocks)",
         "library": "backward of scaled_dot_product_attention, torch.autograd.grad on the same (B, H, S, D) views",
+        "bitwise_repeatable": all(r["bitwise_repeatable"] for r in bwd_rows.values()),
+        "host_us_per_launch": bwd_rows["ragged"]["host_us_per_launch"]["bwd"],
     }
     flagship = window_rows["flagship"]
     window = {

@@ -58,6 +58,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 # error of the fp32 reference, and never tighter than two bf16 ulps of the
 # reference's largest element (2^-7 of it)
 BWD_ERR_FLOOR_REL = 2.0**-7
+# a gradient that is zero in exact arithmetic (one key: P = 1, so dP = delta
+# and dS = 0) comes out of the kernel as the fp32 rounding of dP - delta
+ZERO_GRAD_ATOL = 1e-5
 
 
 def _qkv_views(device, shape, seed=0):
@@ -90,6 +93,88 @@ def test_backward_kernel_matches_fp32_reference(cuda, shape):
         assert err <= max(2 * plain_err, BWD_ERR_FLOOR_REL * want.abs().max().item()), name
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1), rtol=0, atol=1e-4)
+
+
+def _check_backward(q, k, v, dout, scale):
+    """One forward (with lse) and one backward call against the fp32
+    reference at the bars above (and ZERO_GRAD_ATOL where the reference
+    gradient is zero); returns the gradients."""
+    out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+    ref_out = fa.attention_reference(q.float(), k.float(), v.float(), scale)
+    plain_out = fa.attention_reference(q, k, v, scale)
+    err = (out.float() - ref_out).abs().max().item()
+    assert err <= max(2 * (plain_out.float() - ref_out).abs().max().item(), 4e-3)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1), rtol=0, atol=1e-4)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    ref = fa.attention_backward_reference(q.float(), k.float(), v.float(), dout.float(), scale)
+    plain = fa.attention_backward_reference(q, k, v, dout, scale)
+    for name, got, want, pl in zip(("dq", "dk", "dv"), grads, ref, plain):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        err = (got.float() - want).abs().max().item()
+        plain_err = (pl.float() - want).abs().max().item()
+        assert err <= max(2 * plain_err, BWD_ERR_FLOOR_REL * want.abs().max().item(), ZERO_GRAD_ATOL), name
+    return grads
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1201, 2400])
+def test_kernels_at_ragged_lengths(cuda, s):
+    """Forward, lse and backward at lengths around the 64- and 128-row tile
+    edges (the TMA boxes' zero fill and the key mask), fused qkv views."""
+    q, k, v, dout = _qkv_views(cuda, (1, s, 2, 64), seed=s)
+    _check_backward(q, k, v, dout, 64**-0.5)
+
+
+@pytest.mark.parametrize("sq,sk", [(65, 200), (300, 1), (129, 63), (1201, 2400)])
+def test_kernels_with_sq_not_sk(cuda, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(2, sq, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.randn(2, sk, 2, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
+    dout = torch.randn(2, sq, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
+    _check_backward(q, kv[:, :, 0], kv[:, :, 1], dout, 0.2)
+
+
+def test_kernels_with_one_batch_head(cuda):
+    q, k, v, dout = _qkv_views(cuda, (1, 300, 1, 64), seed=3)
+    _check_backward(q, k, v, dout, 64**-0.5)
+
+
+def test_backward_reads_strided_g_in_place_and_is_deterministic(cuda):
+    """A g that is a strided view (not contiguous, but rows TMA can read)
+    gives the same gradients as its contiguous copy, and two backward calls
+    on the same inputs give bitwise-equal dq, dk and dv (no atomics)."""
+    q, k, v, _ = _qkv_views(cuda, (2, 333, 3, 64), seed=4)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wide = torch.randn(2, 333, 2, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
+    dout = wide[:, :, 1]
+    assert not dout.is_contiguous() and fa.tma_layout_error(dout.shape, dout.stride(), dout.data_ptr(), 2) is None
+    first = _check_backward(q, k, v, dout, 64**-0.5)
+    out, lse = fa.flash_attention_forward(q, k, v, 64**-0.5, with_lse=True)
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout, 64**-0.5)
+    copied = fa.flash_attention_backward(q, k, v, out, lse, dout.contiguous(), 64**-0.5)
+    for a, b, c in zip(first, again, copied):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_kernels_refuse_layouts_tma_cannot_read(cuda):
+    base = torch.zeros(1, 16, 2, 68, device=cuda, dtype=torch.bfloat16)
+    padded = base[..., :64]  # heads 136 bytes apart: not a multiple of 16
+    with pytest.raises(ValueError, match="stride"):
+        fa.flash_attention(padded, padded, padded)
+    flat = torch.zeros(1 * 16 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 16, 2, 64)  # base 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, shifted, shifted)
+    swapped = torch.zeros(1, 16, 64, 2, device=cuda, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(swapped, swapped, swapped)
+    ok = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+    out, lse = fa.flash_attention_forward(ok, ok, ok, 0.125, with_lse=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_backward(ok.float(), ok, ok, out, lse, ok, 0.125)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward(ok, ok, ok, out, lse[:, :1], ok, 0.125)
 
 
 def test_kernel_gradients_through_autograd(cuda):

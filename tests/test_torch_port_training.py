@@ -170,7 +170,7 @@ def test_masters_start_from_a_given_fp32_state(base):
 
 
 def _batch_np(seed=3, b=2):
-    return {k: v.numpy() for k, v in synthetic_batch(b, H, W, seed=seed).items()}
+    return {k: v.numpy() for k, v in synthetic_batch(b, H, W, seed=seed, device="cpu").items()}
 
 
 @pytest.mark.parametrize("refine", [False, True], ids=["base", "refine"])

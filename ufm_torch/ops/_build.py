@@ -58,12 +58,13 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> List[Path]:
-    """Compile every library in ``names`` that is not built yet, one ``nvcc``
-    per source, all started together. Raises with nvcc's output on failure."""
+def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> List[Path]:
+    """Compile every library in ``names`` that is not built yet (with
+    ``force``, every one), one ``nvcc`` per source, all started together.
+    Raises with nvcc's output on failure."""
     names = list(names)
     paths = [_library_path(n) for n in names]
-    todo = [(n, p) for n, p in zip(names, paths) if not p.exists()]
+    todo = [(n, p) for n, p in zip(names, paths) if force or not p.exists()]
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

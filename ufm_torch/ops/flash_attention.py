@@ -12,14 +12,15 @@ and raise on anything the kernels do not take; they never fall back to
 versions of the same functions, which the CPU path and the kernel checks use.
 
 Inputs are (B, S, H, D) like the JAX package. q, k and v may be strided views
-(the fused qkv projection, reshaped (B, S, 3, H, D)); only D must be
-contiguous.
+(the fused qkv projection, reshaped (B, S, 3, H, D)): the kernels read them
+in place through TMA tensor maps, which need D contiguous, a 16-byte aligned
+base and the other strides multiples of 16 bytes (:func:`tma_layout_error`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -36,6 +37,7 @@ __all__ = [
     "LAUNCHES",
     "BWD_LAUNCHES",
     "HEAD_DIM",
+    "tma_layout_error",
 ]
 
 HEAD_DIM = 64  # the kernels' only head_dim (the main path's)
@@ -43,7 +45,8 @@ HEAD_DIM = 64  # the kernels' only head_dim (the main path's)
 # forward kernel launches since the count was last reset (``LAUNCHES = 0``)
 LAUNCHES = 0
 # backward calls since the count was last reset (``BWD_LAUNCHES = 0``); each
-# call runs three CUDA kernels in order: delta, dK/dV, dQ
+# call runs two CUDA kernels in order: delta, then one grid of dK/dV and dQ
+# blocks
 BWD_LAUNCHES = 0
 
 _fwd_fn = None
@@ -113,16 +116,54 @@ def _check_tensor(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"flash_attention takes bfloat16, got {name}.dtype={t.dtype}")
     if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
         raise ValueError(f"flash_attention takes (B, S, H, {HEAD_DIM}) tensors, got {name}.shape={tuple(t.shape)}")
-    if not _kernel_layout(t):
-        raise ValueError(
-            f"flash_attention needs a contiguous head dim and 16-byte aligned rows, got {name}.stride()={t.stride()}"
-        )
+    why = _layout_error(t)
+    if why is not None:
+        raise ValueError(f"flash_attention cannot read {name} in place: {why}")
 
 
-def _kernel_layout(t: torch.Tensor) -> bool:
-    # cp.async and the vector loads move 16-byte chunks: D contiguous and
-    # every row 16-byte aligned
-    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+# TMA's limits on a tensor map: global strides below 2^40 bytes, coordinates
+# (int32) below 2^31
+_TMA_MAX_STRIDE_BYTES = 1 << 40
+_TMA_MAX_DIM = 1 << 31
+
+
+def tma_layout_error(
+    shape: Sequence[int], strides: Sequence[int], data_ptr: int, itemsize: int
+) -> Optional[str]:
+    """Why the kernels' rank-4 TMA tensor map cannot cover a (B, S, H, D)
+    view with these element strides, base address and item size, or None
+    when it can: D contiguous, the base 16-byte aligned, and the B, S and H
+    strides positive multiples of 16 bytes below 2^40 (a dimension of size 1
+    is never stepped, so its stride is free; the C side replaces it)."""
+    if len(shape) != 4 or len(strides) != 4:
+        return f"expected a rank-4 (B, S, H, D) view, got shape {tuple(shape)}"
+    if strides[-1] != 1:
+        return f"the head dim is not contiguous (strides {tuple(strides)})"
+    if data_ptr % 16:
+        return f"the base address is not 16-byte aligned (offset {data_ptr % 16})"
+    for dim, (n, st) in zip("BSH", zip(shape[:3], strides[:3])):
+        if n >= _TMA_MAX_DIM:
+            return f"{dim} = {n} exceeds TMA's coordinate range"
+        nbytes = st * itemsize
+        if n > 1 and (nbytes <= 0 or nbytes % 16 or nbytes >= _TMA_MAX_STRIDE_BYTES):
+            return f"the {dim} stride is {nbytes} bytes, not a positive multiple of 16 below 2^40"
+    return None
+
+
+def _layout_error(t: torch.Tensor) -> Optional[str]:
+    return tma_layout_error(tuple(t.shape), t.stride(), t.data_ptr(), t.element_size())
+
+
+def _launch_error(what: str, err: int, q: torch.Tensor, k: torch.Tensor) -> RuntimeError:
+    # the C entry points return a cudaError_t, or 10000 (no cuTensorMapEncodeTiled
+    # in the driver) / 20000 + the CUresult of a refused tensor map
+    if err >= 20000:
+        cause = f"cuTensorMapEncodeTiled refused a tensor map (CUresult {err - 20000})"
+    elif err >= 10000:
+        cause = "the CUDA driver has no cuTensorMapEncodeTiled"
+    else:
+        cause = f"cudaError {err}"
+    return RuntimeError(f"{what} failed: {cause} at q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -162,7 +203,7 @@ def flash_attention_forward(
         )
         LAUNCHES += 1
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err} at q {tuple(q.shape)}, k {tuple(k.shape)}")
+        raise _launch_error("flash_attention kernel launch", err, q, k)
     return out, lse
 
 
@@ -175,7 +216,7 @@ def flash_attention_backward(
     g: torch.Tensor,
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One backward call (three CUDA kernels: delta, dK/dV, dQ): (dq, dk, dv),
+    """One backward call (two CUDA kernels: delta, then dK/dV and dQ): (dq, dk, dv),
     fresh contiguous (B, S, H, 64) bf16 tensors, from the forward's inputs,
     output and ``lse`` and the output gradient ``g``. ``g`` is read through
     its strides; one whose rows the kernel cannot read in place (a
@@ -183,7 +224,7 @@ def flash_attention_backward(
     first."""
     global BWD_LAUNCHES
     _check(q, k, v)
-    if not _kernel_layout(g):
+    if _layout_error(g) is not None:
         g = g.contiguous()
     for name, t in (("out", out), ("g", g)):
         _check_tensor(name, t)
@@ -212,9 +253,7 @@ def flash_attention_backward(
         )
         BWD_LAUNCHES += 1
     if err != 0:
-        raise RuntimeError(
-            f"flash_attention backward launch failed: cudaError {err} at q {tuple(q.shape)}, k {tuple(k.shape)}"
-        )
+        raise _launch_error("flash_attention backward launch", err, q, k)
     return dq, dk, dv
 
 

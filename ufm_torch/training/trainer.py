@@ -225,12 +225,13 @@ def make_train_step(
 
 
 def synthetic_batch(
-    batch_size: int, height: int, width: int, seed: int = 0, device=None
+    batch_size: int, height: int, width: int, seed: int = 0, device="cuda"
 ) -> Dict[str, torch.Tensor]:
     """Random-but-consistent batch for smoke tests, made by a seeded
-    ``torch.Generator`` on ``device`` (its values differ from the JAX
-    package's ``synthetic_batch``)."""
-    device = torch.device(device if device is not None else "cpu")
+    ``torch.Generator`` on ``device`` (the card unless the caller asks for
+    the CPU, like the package's other entry points; its values differ from
+    the JAX package's ``synthetic_batch``)."""
+    device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(*shape):
