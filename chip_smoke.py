@@ -6,11 +6,13 @@
 Builds the port's CUDA kernels from ``ufm_torch/csrc`` (nvcc, sm_90a, one
 process per source, all started together) and reads their SASS (the
 attention libraries must hold wgmma (HGMMA) instructions, and ptxas must not
-have serialized them), holds each kernel against its plain PyTorch version
+have serialized them; the window library must hold TMA loads (UTMALDG) and
+use no local memory), holds each kernel against its plain PyTorch version
 at the main paths' shapes (the attention backward also for bitwise
-repeatability), compares the card's bf16 GELU with the CPU's on every finite
-bf16 input, then drives three paths with seeded random weights at full
-width:
+repeatability; the window kernel on five flows, iid, smooth and split, with
+its count of TMA-staged tiles held equal to ``staged_tiles``), compares the
+card's bf16 GELU with the CPU's on every finite bf16 input, then drives
+three paths with seeded random weights at full width:
 
 - UFM-Base (ViT-L/14 encoder, 24 layers; 12 info-sharing layers; both DPT
   heads; 560x420), answering requests through
@@ -35,6 +37,7 @@ Needs a CUDA device and the ``ufm_torch`` package beside this script.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -117,14 +120,28 @@ TRAIN_GRAD_REL_L2_BOUND = 1e-1
 # bf16, the kernel keeps them in fp32) feeds the fp32 heads
 FLOW_REL_L2_BOUND = 2e-2
 
-# window-refinement cases: (B, H, W, C), P, flow scale in px. "flagship" is
-# the main path's shape at batch 1 (one call per forward); "edges" puts
-# windows across every border plus one far outside each image on both sides
+# window-refinement cases: (B, H, W, C), P, flow kind, its scale in px, calls
+# per forward. "flagship" is the main path's shape at batch 1 (one call per
+# forward) with iid flow of sigma 6 px; "edges" puts windows across every
+# border plus one far outside each image on both sides; "flagship_smooth" and
+# "flagship_split" give the flagship shape a smooth flow (MOTION, iid noise
+# of sigma 0.5 px) and two such motions split by a diagonal
 WINDOW_CASES = (
-    ("flagship", (1, 420, 560, 16), 5, 6.0, 1),
-    ("edges", (2, 24, 44, 8), 5, 40.0, 0),
-    ("small_window", (2, 24, 44, 4), 3, 15.0, 0),
+    ("flagship", (1, 420, 560, 16), 5, "iid", 6.0, 1),
+    ("edges", (2, 24, 44, 8), 5, "iid", 40.0, 0),
+    ("small_window", (2, 24, 44, 4), 3, "iid", 15.0, 0),
+    ("flagship_smooth", (1, 420, 560, 16), 5, "smooth", 0.5, 0),
+    ("flagship_split", (1, 420, 560, 16), 5, "split", 0.5, 0),
 )
+# the smooth motion, as of a wide-baseline pair after matching: an affine map
+# about the image centre (scale, rotation in degrees, translation in px); the
+# split flow moves the pixels below the diagonal y / H = x / W split_px
+# further along y (an occlusion edge; a tile across it spans more rows than
+# the kernel's staged box holds)
+MOTION = {"scale": 1.05, "degrees": 3.0, "shift": (25.0, -12.0), "split_px": 40.0}
+# the kernel's tiles that stage their taps in shared memory (TMA): nearly all
+# of a smooth flow's, some but not all of a split flow's
+SMOOTH_STAGED_SHARE_MIN = 0.95
 # kernel vs plain version, both fp32 (the bars of tests/test_window_dots.py)
 WINDOW_RESIDUAL_ATOL = 2e-5
 WINDOW_LOG_SOFTMAX_ATOL = 2e-4
@@ -192,14 +209,16 @@ def sass_counts(path) -> dict:
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
-    output, by kernel name (template arguments kept, as mangled)."""
+    """Registers, stack frame and spill bytes of each kernel in nvcc's
+    ``-Xptxas -v`` output, by kernel name (template arguments kept, as
+    mangled)."""
     out = {}
-    for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
-                         r".*?Used (\d+) registers", log, re.S):
+    for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S):
         short = re.search(r"[a-z][a-z_]*_kernel(?:I(?:L[ib]\d+E)+E)?", m.group(1))
         out[short.group(0) if short else m.group(1)] = {
-            "registers": int(m.group(4)), "spill_stores": int(m.group(2)), "spill_loads": int(m.group(3))}
+            "registers": int(m.group(5)), "stack_frame": int(m.group(2)), "spill_stores": int(m.group(3)),
+            "spill_loads": int(m.group(4))}
     return out
 
 
@@ -224,6 +243,10 @@ def phase_build():
     for name in ATTENTION_LIBRARIES:
         check(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA (wgmma) instruction in its SASS")
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
+    check(sass["window_refinement_fwd"]["UTMALDG"] > 0, "window_refinement_fwd: no UTMALDG (TMA load) in its SASS")
+    local = {k: v for k, v in ptxas["window_refinement_fwd"].items()
+             if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
+    check(bool(ptxas["window_refinement_fwd"]) and not local, f"window_refinement_fwd uses local memory: {local}")
 
 
 def attention_bound_ms(b, s, h, d):
@@ -471,12 +494,29 @@ def phase_self_check(model, pair, kernel_res):
     check(rel <= FLOW_REL_L2_BOUND, f"kernel vs plain attention: flow relative L2 {rel:.3e} > {FLOW_REL_L2_BOUND}")
 
 
-def window_inputs(shape, p, scale, far, seed=0):
-    """Seeded q, f, flow, bias on the card; with ``far``, one window of each
-    image lies far outside it on each side."""
+def motion_flow(h, w, split):
+    """(H, W, 2) xy flow of MOTION (with ``split``, the second motion below
+    the diagonal), on the card."""
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device="cuda"),
+                            torch.arange(w, dtype=torch.float32, device="cuda"), indexing="ij")
+    a, s = math.radians(MOTION["degrees"]), MOTION["scale"]
+    dx, dy = xs - (w - 1) / 2, ys - (h - 1) / 2
+    fx = s * (math.cos(a) * dx - math.sin(a) * dy) - dx + MOTION["shift"][0]
+    fy = s * (math.sin(a) * dx + math.cos(a) * dy) - dy + MOTION["shift"][1]
+    if split:
+        fy = fy + MOTION["split_px"] * (ys / h > xs / w)
+    return torch.stack([fx, fy], dim=-1)
+
+
+def window_inputs(shape, p, kind, scale, far, seed=0):
+    """Seeded q, f, flow, bias on the card. The flow is iid noise of sigma
+    ``scale`` ("iid"), or MOTION ("smooth", "split") plus such noise; with
+    ``far``, one window of each image lies far outside it on each side."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, f = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
     flow = torch.randn((*shape[:3], 2), generator=gen, device="cuda") * scale
+    if kind != "iid":
+        flow += motion_flow(*shape[1:3], split=kind == "split")
     if far:
         flow[:, 0, 0] = -500.0
         flow[:, -1, -1] = 1e6
@@ -518,26 +558,34 @@ def phase_window_kernel():
     from ufm_torch.ops import window_refinement as wr
 
     rows = {}
-    for name, shape, p, scale, calls in WINDOW_CASES:
-        q, f, flow, bias = window_inputs(shape, p, scale, far=name == "edges")
-        res, ls = wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p)
+    for name, shape, p, kind, scale, calls in WINDOW_CASES:
+        q, f, flow, bias = window_inputs(shape, p, kind, scale, far=name == "edges")
+        counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+        res, ls = wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p, staged_count=counter)
         ref_res, ref_ls = wr.window_refinement_reference(q, f, flow, bias, WINDOW_TEMPERATURE, p)
         torch.cuda.synchronize()
         res_err = (res - ref_res).abs().max().item()
         ls_err = (ls - ref_ls).abs().max().item()
         taps, share = window_taps(flow, p)
+        staged, tiles = wr.staged_tiles(flow, p), wr.tile_count(*shape[:3])
         check(_finite(res) and _finite(ls), f"window {name}: kernel output not finite")
         check(res_err <= WINDOW_RESIDUAL_ATOL, f"window {name}: residual error {res_err:.3e} > {WINDOW_RESIDUAL_ATOL}")
         check(ls_err <= WINDOW_LOG_SOFTMAX_ATOL, f"window {name}: log_softmax error {ls_err:.3e} > {WINDOW_LOG_SOFTMAX_ATOL}")
-        if name == "flagship":
+        check(counter.item() == staged, f"window {name}: the kernel staged {counter.item()} tiles, staged_tiles {staged}")
+        if name in ("flagship", "flagship_smooth", "flagship_split"):
             check(share > 0.5, f"window {name}: only {share:.3f} of the windows touch the image")
+        if name == "flagship_smooth":
+            check(staged >= SMOOTH_STAGED_SHARE_MIN * tiles, f"window {name}: {staged} of {tiles} tiles staged")
+        if name == "flagship_split":
+            check(0 < staged < tiles, f"window {name}: {staged} of {tiles} tiles staged, expected both paths")
 
         ms = time_ms(lambda: wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p))
         plain_ms = time_ms(lambda: wr.window_refinement_reference(q, f, flow, bias, WINDOW_TEMPERATURE, p), reps=3, batches=5)
         bound_ms, bound_by = window_bound_ms(shape, p, taps)
         rows[name] = dict(
-            shape=list(shape), p=p, flow_scale=scale, calls_per_forward=calls, residual_max_abs_err=res_err,
-            log_softmax_max_abs_err=ls_err, in_image_share=share, in_image_taps=taps, ms=ms, plain_ms=plain_ms,
+            shape=list(shape), p=p, flow=kind, flow_scale=scale, calls_per_forward=calls, residual_max_abs_err=res_err,
+            log_softmax_max_abs_err=ls_err, in_image_share=share, in_image_taps=taps, tiles=tiles,
+            staged_tiles=staged, staged_tile_share=staged / tiles, ms=ms, plain_ms=plain_ms,
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         )
         emit("kernel", kernel="window_refinement_fwd", case=name, **rows[name])
@@ -608,9 +656,10 @@ def phase_refine_path():
         tail_ms = statistics.median(s.elapsed_time(e) for s, e, _ in tail_events[1:])
         regression_flow = tail_events[-1][2][2]
         _, share = window_taps(regression_flow, p)
+        staged_share = wr.staged_tiles(regression_flow, p) / wr.tile_count(*regression_flow.shape[:3])
         emit("refine_request", request=name, batch=b, input_hw=[h, w], first_s=times[0], latency_s=latencies[name],
              pairs_per_s=b / latencies[name], forward_ms=fwd_ms, refine_tail_ms=tail_ms,
-             refine_tail_share=tail_ms / fwd_ms, window_in_image_share=share,
+             refine_tail_share=tail_ms / fwd_ms, window_in_image_share=share, window_staged_tile_share=staged_share,
              regression_flow_abs_max=regression_flow.abs().max().item(), flow_abs_mean=flow.abs().mean().item())
     launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
     emit("refine_path", launches=launches, forwards=4 * len(requests),
@@ -838,6 +887,9 @@ def main() -> int:
         "library_ms": None,
         "per_forward": "the one call of a batch-1 UFM-Refine forward, (1, 420, 560, 16), P = 5",
         "library_none": "no single PyTorch call computes this function",
+        "ms_by_case": {n: r["ms"] for n, r in window_rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in window_rows.items()},
+        "staged_tile_share_by_case": {n: r["staged_tile_share"] for n, r in window_rows.items()},
     }
     print(smi)
     print(json.dumps({"kernels": [attention, backward, window]}))

@@ -6,6 +6,8 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_port_gpu.py -m cuda --noconftest -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -271,6 +273,58 @@ def test_window_kernel_matches_plain(cuda, case):
     assert (ls - ref_ls).abs().max().item() <= 2e-4
 
 
+# chip_smoke.py's five window cases: (B, H, W, C), P, flow kind, its scale
+# in px ("smooth" / "split": MOTION plus iid noise of that sigma)
+WINDOW_PATH_CASES = {
+    "flagship": ((1, 420, 560, 16), 5, "iid", 6.0),
+    "edges": ((2, 24, 44, 8), 5, "iid", 40.0),
+    "small_window": ((2, 24, 44, 4), 3, "iid", 15.0),
+    "flagship_smooth": ((1, 420, 560, 16), 5, "smooth", 0.5),
+    "flagship_split": ((1, 420, 560, 16), 5, "split", 0.5),
+}
+
+
+def _motion_flow(device, h, w, split):
+    """chip_smoke.py's MOTION: scale 1.05, rotation 3 degrees, translation
+    (25, -12) px about the image centre; with ``split``, the pixels below the
+    diagonal move 40 px further along y."""
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                            torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
+    a = math.radians(3.0)
+    dx, dy = xs - (w - 1) / 2, ys - (h - 1) / 2
+    fx = 1.05 * (math.cos(a) * dx - math.sin(a) * dy) - dx + 25.0
+    fy = 1.05 * (math.sin(a) * dx + math.cos(a) * dy) - dy - 12.0
+    if split:
+        fy = fy + 40.0 * (ys / h > xs / w)
+    return torch.stack([fx, fy], dim=-1)
+
+
+@pytest.mark.parametrize("case", list(WINDOW_PATH_CASES))
+def test_window_kernel_paths(cuda, case):
+    """The kernel against its plain version (residual 2e-5, log_softmax 2e-4)
+    on chip_smoke.py's five cases, and its count of tiles staged through TMA
+    equal to staged_tiles: all but a few of a smooth flow's, both paths at a
+    split flow's edge."""
+    shape, p, kind, scale = WINDOW_PATH_CASES[case]
+    q, f, flow, bias = _window_inputs(cuda, shape, p, scale, far=case == "edges")
+    if kind != "iid":
+        flow += _motion_flow(cuda, *shape[1:3], split=kind == "split")
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    res, ls = wr.window_refinement(q, f, flow, bias, 4.0, p, staged_count=counter)
+    torch.cuda.synchronize()
+    ref_res, ref_ls = wr.window_refinement_reference(q, f, flow, bias, 4.0, p)
+    assert (res - ref_res).abs().max().item() <= 2e-5
+    assert (ls - ref_ls).abs().max().item() <= 2e-4
+    staged, tiles = wr.staged_tiles(flow, p), wr.tile_count(*shape[:3])
+    assert counter.item() == staged
+    if kind == "smooth":
+        assert staged >= 0.95 * tiles
+    if kind == "split":
+        assert 0 < staged < tiles
+    again, _ = wr.window_refinement(q, f, flow, bias, 4.0, p)  # no counter: the main path's call
+    assert torch.equal(again, res)
+
+
 def test_window_kernel_refuses_what_it_does_not_take(cuda):
     q, f, flow, bias = _window_inputs(cuda, (1, 6, 7, 8), 5, 3.0)
     with pytest.raises(ValueError, match="CUDA"):
@@ -280,6 +334,8 @@ def test_window_kernel_refuses_what_it_does_not_take(cuda):
     q5, f5, flow5, bias5 = _window_inputs(cuda, (1, 6, 7, 5), 5, 3.0)
     with pytest.raises(ValueError, match="impl='torch'"):
         wr.window_refinement(q5, f5, flow5, bias5, 4.0, 5)
+    with pytest.raises(ValueError, match="staged_count"):
+        wr.window_refinement(q, f, flow, bias, 4.0, 5, staged_count=torch.zeros(1, device=cuda))
 
 
 def test_window_kernel_gradients_match_plain(cuda):

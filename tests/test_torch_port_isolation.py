@@ -1,7 +1,7 @@
-"""The port stands alone: ``ufm_torch``, ``chip_smoke.py`` and
-``profile_torch_port.py`` never import
-JAX, flax or the JAX package, and the port's entry points refuse to move to
-the CPU quietly."""
+"""The port stands alone: ``ufm_torch`` and the port's scripts
+(``chip_smoke.py``, ``profile_torch_port.py``, ``profile_attention_trees.py``,
+``profile_window_trees.py``) never import JAX, flax or the JAX package, and
+the port's entry points refuse to move to the CPU quietly."""
 
 import ast
 import os
@@ -18,7 +18,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ufm_tpu"}
 
 
 def _port_files():
-    return sorted((ROOT / "ufm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_torch_port.py"]
+    scripts = ("chip_smoke.py", "profile_torch_port.py", "profile_attention_trees.py", "profile_window_trees.py")
+    return sorted((ROOT / "ufm_torch").rglob("*.py")) + [ROOT / name for name in scripts]
 
 
 def _imported_roots(path: Path):

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: mbarriers,
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile loads, wgmma shared-memory descriptors and products, setmaxnreg,
-// and the host-side encoding of the TMA tensor maps.
+// and the host-side encoding of the TMA tensor maps (the window kernel uses
+// the mbarriers, the TMA loads and the encoder).
 //
 // Shared-memory tiles. Every operand tile is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B in boxes of 64 rows x 64 bf16: one 128-byte
@@ -120,6 +121,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Order this thread's earlier shared-memory accesses (generic proxy) before
+// the TMA writes (async proxy) it issues next into the same bytes.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One box of a rank-4 tensor map into shared memory; completes on `bar`.

@@ -19,7 +19,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-__all__ = ["KERNEL_SOURCES", "build", "load_library", "BUILD_LOGS"]
+__all__ = ["KERNEL_SOURCES", "build", "load_library", "launch_error_cause", "BUILD_LOGS"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ufm_torch"
@@ -32,6 +32,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# extra flags of one library: at ptxas's default -O3 the window kernel's
+# direct path (hoisted global tap loads) takes all 128 registers a thread and
+# ptxas spills a few loop-carried values to local memory; at -O1 it uses 118
+# and spills nothing (2% slower on a smooth flow, 9% on an iid one, H100;
+# PERF.md)
+LIBRARY_FLAGS = {"window_refinement_fwd": ("-Xptxas", "-O1")}
 
 # nvcc's output (ptxas register / spill report) for each library built here
 BUILD_LOGS: Dict[str, str] = {}
@@ -51,7 +58,7 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LIBRARY_FLAGS.get(name, ())).encode())
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -72,7 +79,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> List[Pa
     procs = []
     for name, path in todo:
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs.append((name, path, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []
     for name, path, tmp, proc in procs:
@@ -85,6 +92,17 @@ def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> List[Pa
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths
+
+
+def launch_error_cause(err: int) -> str:
+    """What a nonzero return code of a kernel's C entry point means: a
+    cudaError_t, or 10000 (no cuTensorMapEncodeTiled in the driver) / 20000 +
+    the CUresult of a refused tensor map (the kErr* codes of sm90_async.cuh)."""
+    if err >= 20000:
+        return f"cuTensorMapEncodeTiled refused a tensor map (CUresult {err - 20000})"
+    if err >= 10000:
+        return "the CUDA driver has no cuTensorMapEncodeTiled"
+    return f"cudaError {err}"
 
 
 def load_library(name: str) -> ctypes.CDLL:

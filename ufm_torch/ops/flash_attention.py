@@ -155,15 +155,7 @@ def _layout_error(t: torch.Tensor) -> Optional[str]:
 
 
 def _launch_error(what: str, err: int, q: torch.Tensor, k: torch.Tensor) -> RuntimeError:
-    # the C entry points return a cudaError_t, or 10000 (no cuTensorMapEncodeTiled
-    # in the driver) / 20000 + the CUresult of a refused tensor map
-    if err >= 20000:
-        cause = f"cuTensorMapEncodeTiled refused a tensor map (CUresult {err - 20000})"
-    elif err >= 10000:
-        cause = "the CUDA driver has no cuTensorMapEncodeTiled"
-    else:
-        cause = f"cudaError {err}"
-    return RuntimeError(f"{what} failed: {cause} at q {tuple(q.shape)}, k {tuple(k.shape)}")
+    return RuntimeError(f"{what} failed: {_build.launch_error_cause(err)} at q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -17,6 +17,11 @@ offset-weighted flow residual.
   anything the kernel does not take; it never falls back to the plain
   version. Its gradient is autograd over the plain version, as in the JAX
   package (a Pallas forward with the XLA VJP).
+- :func:`staged_tiles` counts, in plain PyTorch, the tiles of
+  ``TILE`` pixels whose taps the kernel stages in shared memory: those whose
+  taps all fit one ``BOX`` of the target map. The kernel reads the other
+  tiles' taps from global memory; given a counter it adds the number it
+  staged, which equals this count.
 
 Both clamp the sample position to [-(r+4), W+r+4] x [-(r+4), H+r+4] before
 the integer conversion, as the Pallas path does: a window wholly outside the
@@ -31,7 +36,7 @@ Shapes are channel-last like the JAX package: q, f (B, H, W, C); flow
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,6 +49,8 @@ __all__ = [
     "base_grid",
     "neighborhood_offsets_xy",
     "supports_kernel",
+    "staged_tiles",
+    "tile_count",
     "LAUNCHES",
     "CHANNELS",
     "PATCHES",
@@ -55,6 +62,11 @@ PATCHES = (1, 3, 5)
 
 # kernel launches since the count was last reset (``LAUNCHES = 0``)
 LAUNCHES = 0
+
+# the kernel's tiles of pixels and the box of the target map it stages for a
+# tile, (x, y) in pixels (kTileW, kTileH, kBoxW, kBoxH of the CUDA source)
+TILE = (32, 8)
+BOX = (64, 22)
 
 _fn = None
 
@@ -117,6 +129,43 @@ def _scores_tail(scores: torch.Tensor, bias: torch.Tensor, temperature: float, p
     return residual, log_softmax
 
 
+def _sample_positions(flow: torch.Tensor, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flow + grid, clamped to [-(r+4), W+r+4] x [-(r+4), H+r+4]: (x, y),
+    each (B, H, W) fp32."""
+    _, h, w, _ = flow.shape
+    m = float((p - 1) // 2 + 4)
+    pos = flow.float() + base_grid(h, w, flow.device)[None]
+    return pos[..., 0].clamp(-m, w + m), pos[..., 1].clamp(-m, h + m)
+
+
+def tile_count(b: int, h: int, w: int) -> int:
+    """The kernel's tiles of an (B, H, W) map: each image in row-major tiles
+    of ``TILE`` pixels, the last row and column cut by the border."""
+    return b * -(-h // TILE[1]) * -(-w // TILE[0])
+
+
+def staged_tiles(flow: torch.Tensor, p: int) -> int:
+    """How many of the kernel's tiles (:func:`tile_count`) stage their taps:
+    those where the span of the pixels' leftmost taps plus P + 3 is at most
+    ``BOX[0]`` and that of their topmost taps plus P + 3 at most ``BOX[1]``
+    (the kernel's fit rule; pixels past the border take no part)."""
+    b, h, w, _ = flow.shape
+    r, k = (p - 1) // 2, p + 3
+    pos_x, pos_y = _sample_positions(flow, p)
+    ty, tx = -(-h // TILE[1]), -(-w // TILE[0])
+    spans = []
+    for pos in (pos_x, pos_y):
+        base = torch.floor(pos).long() - r - 1
+        lo = torch.full((b, ty * TILE[1], tx * TILE[0]), torch.iinfo(torch.int64).max, device=flow.device)
+        hi = torch.full_like(lo, torch.iinfo(torch.int64).min)
+        lo[:, :h, :w] = base
+        hi[:, :h, :w] = base
+        lo = lo.view(b, ty, TILE[1], tx, TILE[0]).amin(dim=(2, 4))
+        hi = hi.view(b, ty, TILE[1], tx, TILE[0]).amax(dim=(2, 4))
+        spans.append(hi - lo + k)
+    return int(((spans[0] <= BOX[0]) & (spans[1] <= BOX[1])).sum())
+
+
 def window_refinement_reference(
     q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, temperature: float, p: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,12 +174,8 @@ def window_refinement_reference(
     if p % 2 != 1:
         raise ValueError(f"the window size must be odd, got {p}")
     r = (p - 1) // 2
-    b, h, w, _ = f.shape
     q, f = q.float(), f.float()
-    pos = flow.float() + base_grid(h, w, f.device)[None]
-    m = float(r + 4)
-    pos_x = pos[..., 0].clamp(-m, w + m)
-    pos_y = pos[..., 1].clamp(-m, h + m)
+    pos_x, pos_y = _sample_positions(flow, p)
     x0, y0 = torch.floor(pos_x), torch.floor(pos_y)
     wx = torch.stack(cubic_weights(pos_x - x0), dim=-1)  # (B, H, W, 4)
     wy = torch.stack(cubic_weights(pos_y - y0), dim=-1)
@@ -145,13 +190,14 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load_library("window_refinement_fwd").ufm_window_refinement_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _check(q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, p: int) -> None:
+def _check(q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, p: int,
+           staged_count: Optional[torch.Tensor]) -> None:
     plain = "the plain version is fused_refinement_attention(..., impl='torch')"
     for name, t in (("q", q), ("f", f), ("flow", flow), ("bias", bias)):
         if not t.is_cuda:
@@ -169,12 +215,17 @@ def _check(q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Ten
         )
     if flow.shape != (*q.shape[:3], 2) or bias.shape != (p * p,):
         raise ValueError(f"flow must be {(*q.shape[:3], 2)} and bias {(p * p,)}, got {tuple(flow.shape)}, {tuple(bias.shape)}")
-    # taps are read as 16-byte vectors, the flow as 8-byte pairs
+    # taps are read as 16-byte vectors (and f through a TMA map), the flow as 8-byte pairs
     if q.data_ptr() % 16 or f.data_ptr() % 16 or flow.data_ptr() % 8:
         raise ValueError(f"window_refinement needs 16-byte aligned q and f; {plain}")
+    if staged_count is not None and (
+        staged_count.device != q.device or staged_count.dtype != torch.int32 or staged_count.numel() != 1
+    ):
+        raise ValueError(f"staged_count must be one int32 element on {q.device}, got {staged_count.dtype} "
+                         f"{tuple(staged_count.shape)} on {staged_count.device}")
 
 
-def _launch(q, f, flow, bias, temperature: float, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[torch.Tensor]):
     global LAUNCHES
     b, h, w, c = q.shape
     residual = torch.empty((b, h, w, 2), dtype=torch.float32, device=q.device)
@@ -186,11 +237,13 @@ def _launch(q, f, flow, bias, temperature: float, p: int) -> Tuple[torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), f.data_ptr(), flow.data_ptr(), bias.data_ptr(), residual.data_ptr(), log_softmax.data_ptr(),
-            b, h, w, c, p, float(temperature), stream,
+            None if staged_count is None else staged_count.data_ptr(), b, h, w, c, p, float(temperature), stream,
         )
         LAUNCHES += 1
     if err != 0:
-        raise RuntimeError(f"window_refinement kernel launch failed: cudaError {err} at q {tuple(q.shape)}, P={p}")
+        raise RuntimeError(
+            f"window_refinement kernel launch failed: {_build.launch_error_cause(err)} at q {tuple(q.shape)}, P={p}"
+        )
     return residual, log_softmax
 
 
@@ -199,10 +252,10 @@ class _WindowRefinement(torch.autograd.Function):
     (the TPU kernel had no backward kernel either)."""
 
     @staticmethod
-    def forward(ctx, q, f, flow, bias, temperature, p):
+    def forward(ctx, q, f, flow, bias, temperature, p, staged_count):
         ctx.save_for_backward(q, f, flow, bias)
         ctx.temperature, ctx.p = temperature, p
-        return _launch(q, f, flow, bias, temperature, p)
+        return _launch(q, f, flow, bias, temperature, p, staged_count)
 
     @staticmethod
     def backward(ctx, g_residual, g_log_softmax):
@@ -212,13 +265,22 @@ class _WindowRefinement(torch.autograd.Function):
             outs = window_refinement_reference(*ins, ctx.temperature, ctx.p)
             wanted = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad(outs, wanted, (g_residual, g_log_softmax)))
-        return (*[next(grads) if t.requires_grad else None for t in ins], None, None)
+        return (*[next(grads) if t.requires_grad else None for t in ins], None, None, None)
 
 
 def window_refinement(
-    q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, temperature: float, p: int
+    q: torch.Tensor,
+    f: torch.Tensor,
+    flow: torch.Tensor,
+    bias: torch.Tensor,
+    temperature: float,
+    p: int,
+    staged_count: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The window refinement on the card: fp32 contiguous CUDA tensors ->
-    (residual (B, H, W, 2), log_softmax (B, H, W, P, P)), fresh tensors."""
-    _check(q, f, flow, bias, p)
-    return _WindowRefinement.apply(q, f, flow, bias, float(temperature), int(p))
+    (residual (B, H, W, 2), log_softmax (B, H, W, P, P)), fresh tensors.
+    ``staged_count``, one int32 element on the same card, receives the number
+    of tiles whose taps the kernel staged in shared memory (added to it; the
+    model passes none)."""
+    _check(q, f, flow, bias, p, staged_count)
+    return _WindowRefinement.apply(q, f, flow, bias, float(temperature), int(p), staged_count)
