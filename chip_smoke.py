@@ -25,6 +25,16 @@ three paths with seeded random weights at full width:
   fp32 master weights): 36 flash-attention forward launches and 36 backward
   calls per step.
 
+Around them: the kernel path of two tiny models at head dim 64 held to the
+JAX package's bf16 goldens (``tests/golden/torch_port_bf16_d64_*.npz``, no JAX
+needed: ``bf16_golden``); the flagship UFM-Base saved with
+``save_pretrained`` and read back with ``from_pretrained``, its answer bitwise
+the same (``checkpoint``); tiled inference of a 1080x1920 pair (a coarse
+forward, then 20 tiles in forwards of 16 and 4: 108 attention launches;
+``tiled``, with its own plain-attention check); EPE and cycle metrics of
+three 540x720 pairs with analytic flow (``eval``); and the flow moved by
+cuDNN's TF32 in the fp32 heads (``tf32``).
+
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase prints one JSON line; any failed check raises and the script exits
 non-zero without printing a result. The last three lines are the card's name
@@ -63,6 +73,12 @@ ATTN_SHAPES = (
     ("ragged", (1, 77, 2, 64), 0),
 )
 LAUNCHES_PER_FORWARD = sum(n for _, _, n in ATTN_SHAPES)  # 36
+# the tiled path's attention shapes (16 tiles a forward) and their calls per
+# such forward; timed beside the batch-1 shapes
+TILED_ATTN_SHAPES = (
+    ("tiled_encoder", (32, 1201, 16, 64), 24),
+    ("tiled_info_sharing", (16, 2400, 12, 64), 12),
+)
 
 # kernel vs the fp32 reference on the same bf16 inputs: at most twice the
 # plain bf16 version's error (which rounds the logits to bf16), and never
@@ -149,6 +165,18 @@ WINDOW_LOG_SOFTMAX_ATOL = 2e-4
 # and attention path: only the fp32 summation order differs
 REFINED_FLOW_MAX_ABS = 1e-3
 WINDOW_TEMPERATURE = 4.0
+
+# the kernel path of the d = 64 tiny models vs the JAX package's bf16
+# forward: the cross-backend bar of tests/test_golden.py:110
+BF16_GOLDENS = ("base", "refine")
+BF16_GOLDEN_ATOL = 0.15
+# tiled inference: a 1080x1920 pair is 5 x 4 tiles of 560x420 at overlap 0.33,
+# answered by a coarse forward and forwards of 16 and 4 tiles
+TILED_HW, TILED_BATCHES, TILED_TILES = (1080, 1920), [1, 16, 4], 20
+# eval: three pairs with analytic flow, at the bundled pairs' size
+EVAL_HW, EVAL_SEEDS = (540, 720), (0, 1, 2)
+# the EPE budget the heads' TF32 convolutions are held to (SURVEY.md 6)
+TF32_BUDGET_PX = 0.1
 
 
 def emit(phase: str, **fields) -> None:
@@ -263,8 +291,8 @@ def phase_kernel():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, (b, s, h, d), calls in ATTN_SHAPES:
-        if calls:  # the main path's layout: strided views of the fused qkv projection
+    for name, (b, s, h, d), calls in ATTN_SHAPES + TILED_ATTN_SHAPES:
+        if name != "ragged":  # the main path's layout: strided views of the fused qkv projection
             qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(torch.bfloat16)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
@@ -492,6 +520,217 @@ def phase_self_check(model, pair, kernel_res):
     covis_diff = (kernel_res.covisibility.mask - res.covisibility.mask).abs().max().item()
     emit("self_check", flow_rel_l2=rel, flow_rel_l2_bound=FLOW_REL_L2_BOUND, covis_max_abs_diff=covis_diff)
     check(rel <= FLOW_REL_L2_BOUND, f"kernel vs plain attention: flow relative L2 {rel:.3e} > {FLOW_REL_L2_BOUND}")
+
+
+def _load_bf16_golden(name: str):
+    """(config, inputs, flat params, outputs) of a d = 64 golden written by
+    tests/test_torch_port_bf16.py (numpy only: the card has no JAX)."""
+    with np.load(os.path.join(HERE, "tests", "golden", f"torch_port_bf16_d64_{name}.npz")) as z:
+        files = {k: z[k] for k in z.files}
+    params = {k[len("params/"):]: v for k, v in files.items() if k.startswith("params/")}
+    out = {k[len("out/"):]: v for k, v in files.items() if k.startswith("out/")}
+    return json.loads(str(files["config"])), (files["input_1"], files["input_2"]), params, out
+
+
+def phase_bf16_golden():
+    """The kernel path (attention, and the window kernel for UFM-Refine) of
+    the d = 64 tiny models, from the goldens' JAX parameters, against the JAX
+    package's bf16 outputs."""
+    from ufm_torch.checkpoint import load_jax_params
+    from ufm_torch.models import UFMArchConfig, UFMNet
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+
+    fa.LAUNCHES = wr.LAUNCHES = 0  # this path's counts start here
+    for name in BF16_GOLDENS:
+        cfg, (i1, i2), params, want = _load_bf16_golden(name)
+        with torch.device("cuda"):
+            net = UFMNet(UFMArchConfig.from_dict(cfg))
+        load_jax_params(net, params)
+        refine = net.cfg.has_classification_head
+        if refine:
+            net.refinement_impl = None  # the window kernel (the golden's config asks for the plain "xla")
+        before = (fa.LAUNCHES, wr.LAUNCHES)
+        with torch.inference_mode():
+            got = net(torch.from_numpy(i1).cuda(), torch.from_numpy(i2).cuda())
+        torch.cuda.synchronize()
+        launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1])
+        layers = cfg["encoder_kwargs"]["depth"] + cfg["info_sharing_kwargs"]["depth"]
+        check(launched == (layers, int(refine)), f"bf16 golden {name}: {launched} attention / window launches")
+        diffs = {k: (got[k].float().cpu() - torch.from_numpy(v)).abs().max().item() for k, v in want.items()}
+        emit("bf16_golden", model=name, input_hw=list(i1.shape[1:3]), max_abs_diff=diffs, bound=BF16_GOLDEN_ATOL,
+             launches={"flash_attention_fwd": launched[0], "window_refinement_fwd": launched[1]})
+        for k, d in diffs.items():
+            check(d <= BF16_GOLDEN_ATOL, f"bf16 golden {name}: {k} differs from JAX by {d:.4f} > {BF16_GOLDEN_ATOL}")
+    return {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+
+
+def _outputs_equal(a, b) -> bool:
+    fields = lambda r: (r.flow.flow_output, r.flow.flow_covariance, r.covisibility.mask, r.keypoint_confidence)
+    return all(torch.equal(x, y) for x, y in zip(fields(a), fields(b)))
+
+
+def phase_checkpoint(model, pair):
+    """``save_pretrained`` of the flagship into the gitignored build/, read
+    back by ``from_pretrained`` on the card: the same answer, bit for bit."""
+    from ufm_torch.models import UniFlowMatchConfidence
+
+    directory = os.path.join(HERE, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        model.save_pretrained(directory)
+        save_s = time.perf_counter() - t
+        size = {name: os.path.getsize(os.path.join(directory, name)) for name in os.listdir(directory)}
+        t = time.perf_counter()
+        loaded = UniFlowMatchConfidence.from_pretrained(directory)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    same_params = all(torch.equal(a, b) for a, b in zip(model.net.state_dict().values(), loaded.net.state_dict().values()))
+    want = model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+    again = model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+    got = loaded.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+    torch.cuda.synchronize()
+    emit("checkpoint", file_bytes=size, save_s=save_s, load_s=load_s, device=str(loaded.device),
+         params_bitwise_equal=same_params, outputs_bitwise_equal=_outputs_equal(want, got),
+         original_repeats_bitwise=_outputs_equal(want, again),
+         flow_max_abs_diff=(want.flow.flow_output - got.flow.flow_output).abs().max().item())
+    check(loaded.device.type == "cuda", f"from_pretrained loaded onto {loaded.device}")
+    check(same_params, "parameters differ after save_pretrained / from_pretrained")
+    check(_outputs_equal(want, got), "outputs differ after save_pretrained / from_pretrained")
+
+
+def phase_tiled(model):
+    """Tiled inference of a 1080x1920 pair: a coarse forward, then the 20
+    tiles in forwards of 16 and 4. A warm-up call, then the counted and
+    timed one. Then the self-check: each of that call's forwards again, on
+    the same inputs, with the plain attention; and the whole call with the
+    plain attention. Its tile windows sit at the rounded median of its own
+    coarse flow, so the plain run may place a window 1 px away, and a model
+    with random weights does not follow the shift of its window: the whole
+    call is held to the bar only where no window moved."""
+    from ufm_torch.models import tiled
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.utils.example_pairs import synthetic_pair
+
+    src, tgt, gt, _ = synthetic_pair(h=TILED_HW[0], w=TILED_HW[1], seed=0)
+    calls = []  # (batch, host s, device ms, source, target, flow) of each model call
+    predict = model.predict_correspondences_batched
+
+    def timed_predict(source_image, target_image, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        res = predict(source_image=source_image, target_image=target_image, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        calls.append((res.flow.flow_output.shape[0], time.perf_counter() - t, start.elapsed_time(end),
+                      source_image, target_image, res.flow.flow_output))
+        return res
+
+    model.predict_correspondences_batched = timed_predict
+    try:
+        tiled.predict_correspondences_tiled(model, src, tgt)  # warm-up
+        calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = 0  # the tiled path's count starts here
+        t = time.perf_counter()
+        flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
+        total_s = time.perf_counter() - t
+        launches = fa.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(tiled.last_tile_stats)
+        kernel_calls = list(calls)
+
+        model.attention_impl = "torch"
+        fa.LAUNCHES = 0
+        forward_rel = []
+        for _, _, _, s_img, t_img, f_kernel in kernel_calls:
+            f_plain = predict(source_image=s_img, target_image=t_img).flow.flow_output.float()
+            forward_rel.append(((f_kernel.float() - f_plain).norm() / f_plain.norm()).item())
+        calls.clear()
+        plain_flow, _ = tiled.predict_correspondences_tiled(model, src, tgt)
+        plain_calls = list(calls)
+        plain_launches = fa.LAUNCHES
+    finally:
+        model.attention_impl = None
+        del model.predict_correspondences_batched  # back to the unwrapped method
+    batches = [c[0] for c in kernel_calls]
+    model_s = sum(c[1] for c in kernel_calls)
+    epe = np.linalg.norm(flow - gt, axis=-1)
+    emit("tiled", input_hw=list(TILED_HW), tile_stats=stats, batches=batches, launches=launches,
+         launches_expected=LAUNCHES_PER_FORWARD * len(TILED_BATCHES), total_s=total_s,
+         coarse_device_ms=kernel_calls[0][2], coarse_host_s=kernel_calls[0][1],
+         tiles_device_ms=sum(c[2] for c in kernel_calls[1:]), tiles_host_s=sum(c[1] for c in kernel_calls[1:]),
+         tiles_device_ms_by_forward=[c[2] for c in kernel_calls[1:]], stitch_host_s=total_s - model_s,
+         max_memory_allocated=peak, epe_random_weights_px=float(epe.mean()), covis_mean=float(covis.mean()))
+    check(stats.get("tiles") == TILED_TILES, f"tiled: {stats} (expected {TILED_TILES} tiles)")
+    check(batches == TILED_BATCHES, f"tiled: forwards at batches {batches}, expected {TILED_BATCHES}")
+    check(launches == LAUNCHES_PER_FORWARD * len(TILED_BATCHES), f"tiled: {launches} attention launches")
+    check(flow.shape == (*TILED_HW, 2) and covis.shape == TILED_HW, f"tiled: shapes {flow.shape} {covis.shape}")
+    check(bool(np.isfinite(flow).all() and np.isfinite(covis).all()), "tiled: non-finite outputs")
+
+    moved = sum(int(not np.array_equal(a, b)) for k, p in zip(kernel_calls[1:], plain_calls[1:])
+                for a, b in zip(k[4], p[4]))
+    rel = float(np.linalg.norm(flow - plain_flow) / np.linalg.norm(plain_flow))
+    emit("tiled_self_check", forward_flow_rel_l2=forward_rel, windows_moved=moved, call_flow_rel_l2=rel,
+         flow_rel_l2_bound=FLOW_REL_L2_BOUND)
+    check(plain_launches == 0, "the plain-attention tiled run launched the kernel")
+    check(max(forward_rel) <= FLOW_REL_L2_BOUND,
+          f"tiled forwards, kernel vs plain attention: flow relative L2 {max(forward_rel):.3e} > {FLOW_REL_L2_BOUND}")
+    if moved == 0:
+        check(rel <= FLOW_REL_L2_BOUND, f"tiled, kernel vs plain attention: flow relative L2 {rel:.3e} > {FLOW_REL_L2_BOUND}")
+    return launches
+
+
+def phase_eval(model):
+    """Flow metrics against the analytic flow, and forward-backward cycle
+    metrics, of three synthetic pairs held in memory (the card has no cv2).
+    With random weights this checks the pipeline, not accuracy: the cycle is
+    scored over every in-image pixel, not the model's covisibility."""
+    from ufm_torch.eval import cycle_consistency_metrics, flow_metrics
+    from ufm_torch.models.tiled import flow_and_covisibility
+    from ufm_torch.utils.example_pairs import synthetic_pair
+
+    rows = []
+    for seed in EVAL_SEEDS:
+        img0, img1, gt, valid = synthetic_pair(h=EVAL_HW[0], w=EVAL_HW[1], seed=seed)
+        fwd, _ = flow_and_covisibility(model.predict_correspondences_batched(source_image=img0, target_image=img1))
+        bwd, _ = flow_and_covisibility(model.predict_correspondences_batched(source_image=img1, target_image=img0))
+        rows.append({**flow_metrics(fwd[0], gt, valid), **cycle_consistency_metrics(fwd[0], bwd[0])})
+    agg = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+    emit("eval", pairs=len(rows), input_hw=list(EVAL_HW), aggregate=agg)
+    check(all(np.isfinite(v) for r in rows for v in r.values()), f"eval: non-finite metrics {rows}")
+
+
+def phase_tf32(model, pair):
+    """The flagship's flow on one request with cuDNN's TF32 on (PyTorch's
+    default, which the fp32 DPT heads' convolutions take), then off."""
+    prev = torch.backends.cudnn.allow_tf32
+    runs = {}
+    try:
+        for allow in (True, False):
+            torch.backends.cudnn.allow_tf32 = allow
+            model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+            torch.cuda.synchronize()
+            runs[allow] = (res, time.perf_counter() - t)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (on, on_s), (off, off_s) = runs[True], runs[False]
+    d = (on.flow.flow_output - off.flow.flow_output).float()
+    epe = d.norm(dim=1)
+    covis = (on.covisibility.mask - off.covisibility.mask).abs()
+    emit("tf32", input_hw=list(pair[0].shape[:2]), flow_abs_diff_max_px=d.abs().max().item(),
+         flow_abs_diff_mean_px=d.abs().mean().item(), epe_mean_px=epe.mean().item(), epe_max_px=epe.max().item(),
+         budget_px=TF32_BUDGET_PX, within_budget=epe.mean().item() <= TF32_BUDGET_PX,
+         covis_abs_diff_max=covis.max().item(), latency_s={"tf32_on": on_s, "tf32_off": off_s},
+         flow_abs_mean_px=off.flow.flow_output.abs().mean().item())
+    check(_finite(d), "tf32: non-finite flow")
 
 
 def motion_flow(h, w, split):
@@ -818,9 +1057,15 @@ def main() -> int:
     bwd_rows = phase_bwd_kernel()
     window_rows = phase_window_kernel()
     phase_gelu()
+    golden_launches = phase_bf16_golden()
     model, pair, kernel_res, launches = phase_main_path()
     phase_self_check(model, pair, kernel_res)
+    phase_checkpoint(model, pair)
+    tiled_launches = phase_tiled(model)
+    phase_eval(model)
+    phase_tf32(model, pair)
     del model, kernel_res
+    torch.cuda.empty_cache()
     refine_model, refine_pair, refine_res, refine_launches = phase_refine_path()
     phase_refine_self_check(refine_model, refine_pair, refine_res)
     del refine_model, refine_res
@@ -837,9 +1082,12 @@ def main() -> int:
         "route": "cuda",
         "source": "ufm_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:558",
-        "launches": launches + refine_launches["flash_attention_fwd"] + train_launches["flash_attention_fwd"],
-        "launches_by_path": {"ufm_base": launches, "ufm_refine": refine_launches["flash_attention_fwd"],
-                             "ufm_base_train": train_launches["flash_attention_fwd"]},
+        "launches": launches + tiled_launches + refine_launches["flash_attention_fwd"]
+        + train_launches["flash_attention_fwd"] + golden_launches["flash_attention_fwd"],
+        "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
+                             "ufm_refine": refine_launches["flash_attention_fwd"],
+                             "ufm_base_train": train_launches["flash_attention_fwd"],
+                             "bf16_golden": golden_launches["flash_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
         "plain_ms": sum(r["plain_ms"] for r in fwd),
@@ -847,6 +1095,12 @@ def main() -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in fwd) else "bytes",
         "library_ms": sum(r["library_ms"] for r in fwd),
         "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward",
+        "tiled_forward": {k: sum(rows[n][k] for n, _, calls in TILED_ATTN_SHAPES for _ in range(calls))
+                          for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "tiled_per_forward": "times sum the 36 calls of one forward of 16 tiles",
+        "ms_by_case": {n: r["ms"] for n, r in rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in rows.items()},
+        "library_ms_by_case": {n: r["library_ms"] for n, r in rows.items()},
         "train_step_ms_without_lse": sum(r["fwd_ms"] for r in bwd),
         "train_step_ms_with_lse": sum(r["fwd_with_lse_ms"] for r in bwd),
         "host_us_per_launch": bwd_rows["ragged"]["host_us_per_launch"]["fwd"],
@@ -877,8 +1131,9 @@ def main() -> int:
         "source": "ufm_torch/csrc/window_refinement_fwd.cu",
         "replaces": "ufm_tpu/ops/window_dots.py:280",
         "replaces_also": "ufm_tpu/ops/window_dots.py:238",
-        "launches": refine_launches["window_refinement_fwd"],
-        "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"]},
+        "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"],
+        "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"],
+                             "bf16_golden": golden_launches["window_refinement_fwd"]},
         "max_abs_err": max(max(r["residual_max_abs_err"], r["log_softmax_max_abs_err"]) for r in window_rows.values()),
         "ms": flagship["ms"],
         "plain_ms": flagship["plain_ms"],

@@ -1,19 +1,25 @@
-"""``python -m ufm_torch.cli``: the environment check and infer's refusals,
-for both models.
+"""``python -m ufm_torch.cli``: the environment check, infer's refusals for
+both models, ``infer`` and ``eval`` on the trained tiny checkpoint
+(``examples/checkpoints/tiny_real224``) on the CPU, and the golden-image check
+(``python -m ufm_torch.models.ufm``) on the tiny topology.
 
 A full ``infer --random-init`` builds the flagship model (ViT-L); that is the
-GPU's job, so here only the paths that fail before the model are driven.
+GPU's job, so here only the paths that fail before the model are driven with
+it.
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from ufm_torch import cli
 
 ROOT = Path(__file__).resolve().parents[1]
+TINY_REAL = str(ROOT / "examples" / "checkpoints" / "tiny_real224")
 
 
 def test_cli_test_subcommand():
@@ -28,7 +34,7 @@ def test_cli_test_subcommand():
 @pytest.mark.parametrize(
     "extra,message",
     [
-        (["--checkpoint", "some/dir"], "not ported"),
+        (["--checkpoint", "some/dir"], "could not read"),
         ([], "--random-init"),
         (["--random-init"], "could not read"),
         (["--model", "refine", "--random-init"], "could not read"),
@@ -48,3 +54,64 @@ def test_infer_unknown_model(tmp_path, capsys):
         cli.main(["infer", missing, missing, "--model", "bogus", "--random-init"])
     assert exc.value.code == 2
     assert "invalid choice: 'bogus'" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def pairs(tmp_path_factory):
+    pytest.importorskip("cv2")
+    from ufm_torch.utils.example_pairs import ensure_bundled_pairs
+
+    return Path(ensure_bundled_pairs(str(tmp_path_factory.mktemp("pairs"))))
+
+
+def test_infer_with_a_checkpoint(pairs, tmp_path, capsys):
+    out = tmp_path / "out"
+    src, tgt = str(pairs / "parallax_0.png"), str(pairs / "parallax_1.png")
+    cli.main(["infer", src, tgt, "--checkpoint", TINY_REAL, "--device", "cpu", "-o", str(out)])
+    assert "Running inference on cpu" in capsys.readouterr().out
+    assert sorted(p.name for p in out.iterdir()) == sorted(cli.OUTPUT_FILES)
+
+
+def test_infer_refuses_a_missing_checkpoint(pairs, tmp_path, capsys):
+    src = str(pairs / "parallax_0.png")
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["infer", src, src, "--checkpoint", str(tmp_path / "nowhere"), "--device", "cpu"])
+    assert exc.value.code == 1
+    out = capsys.readouterr().out
+    assert "Error loading model" in out and "local" in out
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["plain", "tiled"])
+def test_eval_with_a_checkpoint(pairs, tmp_path, capsys, tiled):
+    metrics = tmp_path / "metrics.json"
+    args = ["eval", str(pairs), "--checkpoint", TINY_REAL, "--device", "cpu", "-o", str(metrics)]
+    cli.main(args + (["--tiled"] if tiled else []))
+    assert "pairs: 3 (all flows finite: True)" in capsys.readouterr().out
+    agg = json.loads(metrics.read_text())["aggregate"]
+    assert agg["num_pairs"] == 3 and np.isfinite(agg["epe"])
+    if not tiled:
+        assert agg["epe"] < 2.0  # the trained checkpoint: 0.90 / 1.05 / 0.91 px on these pairs
+
+
+def test_eval_refusals(tmp_path, capsys):
+    for args, message in (
+        ([str(tmp_path), "--random-init"], "no evaluable pairs"),
+        ([str(tmp_path / "nowhere"), "--random-init"], "not a directory"),
+        ([str(tmp_path)], "--random-init"),
+    ):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["eval", *args, "--device", "cpu"])
+        assert exc.value.code == 1
+        assert message in capsys.readouterr().out
+
+
+def test_golden_image_check_tiny(pairs, tmp_path, monkeypatch):
+    from ufm_torch.models import ufm as ufm_module
+    from ufm_torch.utils import example_pairs
+
+    monkeypatch.setattr(example_pairs, "default_pair_dir", lambda: str(pairs))
+    out = str(tmp_path / "panel.png")
+    assert ufm_module._golden_image_main(["--tiny", "--device", "cpu", "--output", out]) == out
+    stats = json.loads(Path(out + ".json").read_text())
+    assert stats["pair"] == "wide_baseline" and np.isfinite(stats["epe_mean_px"])
+    assert stats["panel_wh"] == [3 * 720, 2 * 540]

@@ -8,6 +8,7 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -433,3 +434,76 @@ def test_small_model_train_step_kernel_vs_plain(cuda, refine):
     metrics = step(batch)
     assert (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd) == (8, 8)
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+# ---- checkpoints, tiled inference and the bf16 goldens on the card ----------------
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """``save_pretrained`` of a bf16 model on the card, ``from_pretrained``
+    back onto the card (the default device): the same parameters and the same
+    answer, bit for bit; and onto the CPU, the same parameters."""
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=3)
+    model.save_pretrained(str(tmp_path / "ckpt"))
+    loaded = UniFlowMatchConfidence.from_pretrained(str(tmp_path / "ckpt"))
+    assert loaded.device.type == "cuda"
+    for a, b in zip(model.net.state_dict().values(), loaded.net.state_dict().values()):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    src, tgt = _pairs()
+    want = model.predict_correspondences_batched(src, tgt)
+    got = loaded.predict_correspondences_batched(src, tgt)
+    assert torch.equal(want.flow.flow_output, got.flow.flow_output)
+    assert torch.equal(want.covisibility.mask, got.covisibility.mask)
+    on_cpu = UniFlowMatchConfidence.from_pretrained(str(tmp_path / "ckpt"), device="cpu")
+    for a, b in zip(model.net.state_dict().values(), on_cpu.net.state_dict().values()):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_tiled_inference_card_against_cpu(cuda):
+    """Tiled inference of the d = 64 tiny model: 4 tiles answered in one
+    batched forward on the card (4 attention launches each forward), held to
+    the same call on the CPU's plain path at the bar of the model's bf16
+    paths (relative L2 2e-2)."""
+    from ufm_torch.models import tiled
+
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=4)
+    cpu = UniFlowMatchConfidence.from_config(_small_config(), seed=4, device="cpu")
+    cpu.net.load_state_dict(model.net.state_dict())
+    g = torch.Generator().manual_seed(2)
+    src, tgt = (torch.randint(0, 256, (70, 90, 3), generator=g, dtype=torch.uint8).numpy() for _ in range(2))
+    before = fa.LAUNCHES
+    flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
+    assert fa.LAUNCHES - before == 2 * 4  # the coarse forward, then one of 4 tiles
+    assert tiled.last_tile_stats["tiles"] == 4
+    plain_flow, plain_covis = tiled.predict_correspondences_tiled(cpu, src, tgt)
+    assert np.isfinite(flow).all() and np.isfinite(covis).all()
+    assert np.linalg.norm(flow - plain_flow) / np.linalg.norm(plain_flow) < 2e-2
+
+
+@pytest.mark.parametrize("name", ["base", "refine"])
+def test_kernel_path_holds_the_bf16_golden(cuda, name):
+    """The d = 64 tiny models' kernel path (attention; the window kernel for
+    UFM-Refine), from the golden's JAX parameters, within the cross-backend
+    0.15 of the JAX package's bf16 outputs (tests/test_torch_port_bf16.py
+    writes the goldens)."""
+    import json
+    import os
+
+    from ufm_torch.checkpoint import load_jax_params
+    from ufm_torch.models import UFMArchConfig, UFMNet
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", f"torch_port_bf16_d64_{name}.npz")
+    with np.load(path) as z:
+        files = {k: z[k] for k in z.files}
+    with torch.device(cuda):
+        net = UFMNet(UFMArchConfig.from_dict(json.loads(str(files["config"]))))
+    load_jax_params(net, {k[len("params/"):]: v for k, v in files.items() if k.startswith("params/")})
+    if net.cfg.has_classification_head:
+        net.refinement_impl = None  # the window kernel
+    before = (fa.LAUNCHES, wr.LAUNCHES)
+    with torch.inference_mode():
+        got = net(torch.from_numpy(files["input_1"]).to(cuda), torch.from_numpy(files["input_2"]).to(cuda))
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1]) == (4, int(net.cfg.has_classification_head))
+    for k, want in ((k[len("out/"):], v) for k, v in files.items() if k.startswith("out/")):
+        assert (got[k].float().cpu() - torch.from_numpy(want)).abs().max().item() <= 0.15, k

@@ -69,7 +69,45 @@ def test_port_imports_with_jax_blocked():
         "ufm_torch.training.trainer",
         "ufm_torch.training.loop",
         "ufm_torch.checkpoint.train_state",
+        "ufm_torch.checkpoint.io",
+        "ufm_torch.eval",
+        "ufm_torch.data",
+        "ufm_torch.data.pairs",
+        "ufm_torch.models.tiled",
+        "ufm_torch.models.utils",
+        "ufm_torch.utils.flow_io",
+        "ufm_torch.utils.example_pairs",
+        "ufm_torch.utils.geometry",
+        "ufm_torch.utils.profiling",
     } <= mods
+
+
+# not installed on the GPU machine: the port imports each only inside the
+# function that needs it (flax msgpack checkpoints; PNG files)
+CARD_LACKS = ("msgpack", "safetensors", "cv2", "PIL")
+
+
+def test_port_imports_without_the_packages_the_card_lacks():
+    """Every module imports, and a checkpoint saves and loads
+    (``model.safetensors`` by the port's own reader and writer), in a process
+    where neither JAX nor msgpack, safetensors, cv2 or PIL can be imported."""
+    code = (
+        "import sys, pkgutil, importlib, tempfile\n"
+        f"for name in {sorted(FORBIDDEN) + list(CARD_LACKS)!r}: sys.modules[name] = None\n"
+        "import ufm_torch\n"
+        "for m in pkgutil.walk_packages(ufm_torch.__path__, 'ufm_torch.'): importlib.import_module(m.name)\n"
+        "import torch\n"
+        "from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config\n"
+        "m = UniFlowMatchConfidence.from_config(ufm_tiny_config(), device='cpu')\n"
+        "d = tempfile.mkdtemp()\n"
+        "m.save_pretrained(d)\n"
+        "n = UniFlowMatchConfidence.from_pretrained(d, device='cpu')\n"
+        "assert all(torch.equal(a, b) for a, b in zip(m.net.state_dict().values(), n.net.state_dict().values()))\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
 
 
 def test_from_config_without_device_needs_cuda(monkeypatch):
@@ -82,6 +120,16 @@ def test_from_config_without_device_needs_cuda(monkeypatch):
         UniFlowMatchConfidence.from_config(ufm_tiny_config(), device="cuda")
     model = UniFlowMatchConfidence.from_config(ufm_tiny_config(), device="cpu")
     assert model.device.type == "cpu"
+
+
+def test_from_pretrained_without_device_needs_cuda(monkeypatch):
+    from ufm_torch.models import UniFlowMatchConfidence
+
+    ckpt = str(ROOT / "examples" / "checkpoints" / "tiny_real224")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UniFlowMatchConfidence.from_pretrained(ckpt)
+    assert UniFlowMatchConfidence.from_pretrained(ckpt, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_package(tmp_path):

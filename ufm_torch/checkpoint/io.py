@@ -1,0 +1,286 @@
+"""Checkpoint I/O: ``save_pretrained`` / ``load_pretrained`` and torch
+checkpoints (counterpart of ``ufm_tpu/checkpoint/io.py``, local directories
+only: nothing is downloaded).
+
+A saved directory holds:
+
+- ``config.json``: ``{"model_class": ..., **constructor kwargs}`` (the JAX
+  package's schema; the device is not part of it);
+- ``model.safetensors``: every parameter of the network in fp32, under the
+  torch names that ``ufm_tpu/checkpoint/convert.py::torch_state_dict_to_params``
+  reads (the port's ``UFMNet`` names, ``blocks.N`` per layer). fp32 is exact
+  for the bf16-stored backbone, and it is what ``safetensors.numpy`` reads.
+
+``load_pretrained`` takes the weights in the JAX package's order:
+
+1. ``params.msgpack``, the JAX package's native format (a flax msgpack
+   tree), read with the ``msgpack`` package (imported only here; without it
+   the load raises ``ImportError`` and tries no other file), flax's array
+   extension decoded in the port, through :func:`load_jax_params`;
+2. ``model.safetensors``, read by the port's own reader (no ``safetensors``
+   package needed);
+3. ``pytorch_model.bin`` (``torch.load``).
+
+Torch-layout weights may carry the reference's names or the JAX package's
+canonical ones (:func:`ufm_torch.checkpoint.convert.torch_state_dict_to_port`).
+Each tensor is cast to its parameter's dtype and device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from ufm_torch.checkpoint.convert import (
+    load_jax_params,
+    migrate_unrolled_blocks,
+    modify_state_dict,
+    torch_state_dict_to_port,
+)
+
+__all__ = [
+    "save_pretrained",
+    "load_pretrained",
+    "load_pretrained_ckpt",
+    "load_torch_checkpoint_into",
+    "load_state_dict_into",
+    "read_safetensors",
+    "write_safetensors",
+    "read_flax_msgpack",
+]
+
+CONFIG_NAME = "config.json"
+PARAMS_NAME = "params.msgpack"
+SAFETENSORS_NAME = "model.safetensors"
+BIN_NAME = "pytorch_model.bin"
+
+# The reference's documented drops for Lightning training checkpoints.
+_REFERENCE_DROPS = {"feature_matching_proj": None, "encoder.model.mask_token": None}
+
+# ---- safetensors ------------------------------------------------------------
+# An 8-byte little-endian header length, a JSON header
+# {name: {"dtype", "shape", "data_offsets": [begin, end]}} (offsets into the
+# data that follows; an optional "__metadata__" entry of strings), then the
+# raw little-endian bytes.
+_ST_DTYPES = {
+    "F32": torch.float32,
+    "F16": torch.float16,
+    "BF16": torch.bfloat16,
+    "I64": torch.int64,
+    "I32": torch.int32,
+    "U8": torch.uint8,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor], metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write ``tensors`` (any device; dtypes F32, F16, BF16, I64, I32, U8) as
+    a safetensors file. Larger items first, so every tensor starts aligned to
+    its item size."""
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header: Dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
+    blobs, offset = [], 0
+    for name in order:
+        t = tensors[name].detach()
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"safetensors: {name} has unsupported dtype {t.dtype}")
+        raw = t.to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + raw.size]}
+        blobs.append(raw)
+        offset += raw.size
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(memoryview(raw))
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read a safetensors file into CPU tensors of their stored dtypes."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"safetensors: {name} has unsupported dtype {info['dtype']}")
+        dtype = _ST_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        count = (end - begin) // torch.empty((), dtype=dtype).element_size()
+        t = torch.frombuffer(data, dtype=dtype, count=count, offset=begin) if count else torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(info["shape"]).clone()
+    return out
+
+
+# ---- flax msgpack -------------------------------------------------------------
+# flax.serialization packs an array as msgpack ExtType 1 (a numpy scalar as 3) whose
+# payload is msgpack (shape, dtype name, C-order bytes); arrays above 2^30
+# bytes are split into {"__msgpack_chunked_array__", "shape", "chunks"} dicts.
+
+
+def _flax_array(payload: bytes, msgpack) -> np.ndarray:
+    shape, dtype_name, buf = msgpack.unpackb(payload, raw=True)
+    name = dtype_name.decode()
+    if name == "bfloat16":  # numpy has no bfloat16: widen it exactly to fp32
+        return torch.frombuffer(bytearray(buf), dtype=torch.bfloat16).float().numpy().reshape(shape)
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
+def _unchunk(node: Any) -> Any:
+    if not isinstance(node, dict):
+        return node
+    if "__msgpack_chunked_array__" in node:
+        shape = tuple(node["shape"][str(i)] for i in range(len(node["shape"])))
+        chunks = [node["chunks"][str(i)] for i in range(len(node["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in node.items()}
+
+
+def read_flax_msgpack(path: str) -> Dict[str, Any]:
+    """A flax msgpack file (``flax.serialization.to_bytes``) -> a nested dict
+    of numpy arrays (bf16 arrays widened to fp32)."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path} needs the 'msgpack' package, which is not installed; "
+            "save the checkpoint with ufm_torch's save_pretrained (model.safetensors) to load it without msgpack"
+        ) from e
+
+    def ext_hook(code: int, data: bytes):
+        if code == 1:
+            return _flax_array(data, msgpack)
+        if code == 3:  # a numpy scalar
+            return _flax_array(data, msgpack)[()]
+        return msgpack.ExtType(code, data)
+
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+    return _unchunk(tree)
+
+
+# ---- save / load --------------------------------------------------------------
+
+
+def _json_default(o):
+    if isinstance(o, (np.integer, np.floating)):
+        return o.item()
+    raise TypeError(f"not JSON-serializable: {type(o)}")
+
+
+def _constructor_kwargs(model) -> Dict[str, Any]:
+    cfg = model.config.to_dict()
+    cfg["inference_resolution"] = [list(r) for r in model.inference_resolution]
+    return cfg
+
+
+def save_pretrained(model, save_directory: str) -> None:
+    """Write ``config.json`` and ``model.safetensors`` (every parameter in
+    fp32) into ``save_directory``."""
+    os.makedirs(save_directory, exist_ok=True)
+    payload = {"model_class": type(model).__name__, **_constructor_kwargs(model)}
+    with open(os.path.join(save_directory, CONFIG_NAME), "w") as f:
+        json.dump(payload, f, indent=2, default=_json_default)
+    state = {k: v.float() for k, v in model.net.state_dict().items()}
+    write_safetensors(os.path.join(save_directory, SAFETENSORS_NAME), state, metadata={"format": "pt"})
+
+
+def _strip_non_constructor_keys(config: Mapping[str, Any]) -> Dict[str, Any]:
+    config = dict(config)
+    config.pop("model_class", None)
+    # HF-style extras the reference's mixin writes
+    for k in ("_name_or_path", "transformers_version", "architectures", "torch_dtype"):
+        config.pop(k, None)
+    return config
+
+
+def _build_from_config(cls, config: Mapping[str, Any], device: Union[None, str, torch.device]):
+    cfg = _strip_non_constructor_keys(config)
+    for internal in ("has_uncertainty_head", "has_classification_head"):
+        cfg.pop(internal, None)
+    return cls(**cfg, device=device)
+
+
+def load_pretrained(cls, path: str, device: Union[None, str, torch.device] = None):
+    """Build ``cls`` from a local directory (``config.json`` plus weights) on
+    ``device`` (default: the GPU)."""
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"'{path}' is not a local directory: ufm_torch loads local checkpoints only "
+            "(download the repository on a connected machine and pass its path)"
+        )
+    with open(os.path.join(path, CONFIG_NAME)) as f:
+        config = json.load(f)
+    model = _build_from_config(cls, config, device)
+
+    params_path = os.path.join(path, PARAMS_NAME)
+    if os.path.exists(params_path):
+        # checkpoints saved before the scan-over-layers layout load too
+        load_jax_params(model, migrate_unrolled_blocks(read_flax_msgpack(params_path)))
+        return model
+    st_path = os.path.join(path, SAFETENSORS_NAME)
+    if os.path.exists(st_path):
+        load_state_dict_into(model, read_safetensors(st_path))
+        return model
+    bin_path = os.path.join(path, BIN_NAME)
+    if os.path.exists(bin_path):
+        load_state_dict_into(model, torch.load(bin_path, map_location="cpu", weights_only=True))
+        return model
+    raise FileNotFoundError(f"no weights found in {path} ({PARAMS_NAME}, {SAFETENSORS_NAME}, {BIN_NAME})")
+
+
+def load_pretrained_ckpt(cls, path: str, strict: bool = True, device: Union[None, str, torch.device] = None):
+    """A torch checkpoint with embedded ``model_args`` (the constructor
+    kwargs) and ``model`` (the state dict). It is unpickled: load trusted
+    files only."""
+    if not os.path.isfile(path):
+        raise ValueError(f"Pretrained model {path} not found.")
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    model = _build_from_config(cls, ckpt["model_args"], device)
+    if not strict:  # parameters the checkpoint lacks keep the seeded init
+        model.init_params()
+    load_state_dict_into(model, ckpt["model"], strict=strict)
+    return model
+
+
+def load_torch_checkpoint_into(model, path: str) -> None:
+    """The constructor's ``pretrained_checkpoint_path``: a Lightning
+    checkpoint (``state_dict`` with ``model.`` prefixes) loads strictly after
+    the prefix is stripped and the reference's documented keys are dropped;
+    any other (``model``) loads what it holds."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" in ckpt:
+        sd = {k[6:]: v for k, v in ckpt["state_dict"].items() if k.startswith("model.")}
+        load_state_dict_into(model, modify_state_dict(sd, _REFERENCE_DROPS), strict=True)
+    else:
+        load_state_dict_into(model, ckpt["model"], strict=False)
+
+
+@torch.no_grad()
+def load_state_dict_into(model, state_dict: Mapping[str, Any], strict: bool = True) -> None:
+    """Copy a torch-layout state dict into ``model``'s network (a model or a
+    ``UFMNet``), each tensor cast to its parameter's dtype and device. With
+    ``strict`` a missing or unexpected key raises ``KeyError``; a shape
+    mismatch always raises ``ValueError`` naming the parameter."""
+    loaded = torch_state_dict_to_port(state_dict)
+    target = getattr(model, "net", model).state_dict()
+    missing = [k for k in target if k not in loaded]
+    unexpected = [k for k in loaded if k not in target]
+    if strict and (missing or unexpected):
+        raise KeyError(f"state dict mismatch: missing {missing[:5]}, unexpected {unexpected[:5]}")
+    for name, t in target.items():
+        if name not in loaded:
+            continue
+        v = loaded[name]
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch at {name}: checkpoint {tuple(v.shape)} vs model {tuple(t.shape)}")
+        t.copy_(v.to(dtype=t.dtype))

@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Command line for the PyTorch / CUDA port (counterpart of ``ufm_tpu/cli.py``).
 
-    python -m ufm_torch.cli infer SOURCE TARGET --random-init [--model {base,refine}] [-o DIR] [--device cpu]
+    python -m ufm_torch.cli infer SOURCE TARGET (--checkpoint DIR | --random-init) [--model {base,refine}] [-o DIR] [--device cpu]
+    python -m ufm_torch.cli eval DIR (--checkpoint DIR | --random-init) [--model {base,refine}] [--tiled] [-o JSON] [--device cpu]
     python -m ufm_torch.cli test
 
 ``infer`` runs UFM-Base (``--model base``, the default) or UFM-Refine
 (``--model refine``) on an image pair and writes ``flow_visualization.png``,
-``covisibility_mask.png`` and ``warped_source.png``. Checkpoints are not
-ported yet, so it runs seeded random weights (``--random-init``). It runs on
-the GPU unless ``--device cpu`` is given. ``test`` is an environment check.
+``covisibility_mask.png`` and ``warped_source.png``. ``eval`` scores a
+directory of pairs (``name_0.png`` / ``name_1.png`` with ``name_flow.npy``,
+``name.flo`` or ``name_flow.png`` ground truth; pairs without it by
+forward-backward cycle consistency), optionally with tiled high-resolution
+inference. Weights come from a local checkpoint directory (``--checkpoint``:
+``config.json`` plus ``params.msgpack``, ``model.safetensors`` or
+``pytorch_model.bin``) or are seeded random weights (``--random-init``).
+Both run on the GPU unless ``--device cpu`` is given. ``test`` is an
+environment check.
 """
 
 from __future__ import annotations
@@ -34,26 +41,36 @@ def build_parser() -> argparse.ArgumentParser:
     infer = sub.add_parser("infer", help="Run UFM on an image pair")
     infer.add_argument("source", help="Source image path")
     infer.add_argument("target", help="Target image path")
-    infer.add_argument(
-        "--model", choices=("base", "refine"), default="base", help="UFM-Base or UFM-Refine (default: base)"
-    )
     infer.add_argument("--output", "-o", help="Output directory (default: current directory)")
-    infer.add_argument("--checkpoint", help="Local checkpoint directory (not supported by the port yet)")
-    infer.add_argument(
-        "--random-init",
-        action="store_true",
-        help="Run with seeded random weights (pipeline smoke test; no checkpoint needed)",
-    )
-    infer.add_argument("--device", default=None, help="torch device (default: cuda)")
+    _add_model_arguments(infer)
+
+    ev = sub.add_parser("eval", help="Evaluate on a directory of pairs (with or without ground-truth flow)")
+    ev.add_argument("directory", help="Directory of name_0.png/name_1.png + name_flow.npy|.flo|_flow.png")
+    _add_model_arguments(ev)
+    ev.add_argument("--tiled", action="store_true", help="Coarse-to-fine tiled high-resolution inference")
+    ev.add_argument("--output", "-o", help="Write aggregate + per-pair metrics JSON here")
 
     sub.add_parser("test", help="Test installation")
     return parser
 
 
+def _add_model_arguments(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--model", choices=("base", "refine"), default="base", help="UFM-Base or UFM-Refine (default: base)"
+    )
+    p.add_argument("--checkpoint", help="Local checkpoint directory (config.json + weights)")
+    p.add_argument(
+        "--random-init",
+        action="store_true",
+        help="Run with seeded random weights (pipeline smoke test; no checkpoint needed)",
+    )
+    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+
+
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    handler = {"infer": run_inference, "test": lambda _: test_installation()}.get(args.command)
+    handler = {"infer": run_inference, "eval": run_eval, "test": lambda _: test_installation()}.get(args.command)
     if handler is None:
         parser.print_help()
         return
@@ -73,23 +90,33 @@ def _write_rgb(path: Path, rgb) -> None:
     cv2.imwrite(str(path), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
 
 
-def run_inference(args) -> None:
+def _load_model(args):
+    """The model of ``--model`` from ``--checkpoint`` or with seeded random
+    weights (``--random-init``), on ``--device``."""
+    from ufm_torch.models import (
+        UniFlowMatchClassificationRefinement,
+        UniFlowMatchConfidence,
+        ufm_base_config,
+        ufm_refine_config,
+    )
+
+    cls = UniFlowMatchClassificationRefinement if args.model == "refine" else UniFlowMatchConfidence
     if args.checkpoint:
-        _fail(
-            "Error: loading checkpoints is not ported to ufm_torch yet (ROADMAP.md Queue 1, "
-            "checkpoint/); run with --random-init"
-        )
-    if not args.random_init:
-        _fail("Error: ufm_torch has no checkpoint loading yet: pass --random-init")
+        return cls.from_pretrained(args.checkpoint, device=args.device)
+    config = ufm_refine_config() if args.model == "refine" else ufm_base_config()
+    return cls.from_config(config, seed=0, device=args.device)
+
+
+def _check_weights_given(args) -> None:
+    if not args.checkpoint and not args.random_init:
+        _fail("Error: pass --checkpoint DIR (a local checkpoint directory) or --random-init")
+
+
+def run_inference(args) -> None:
+    _check_weights_given(args)
     try:
         import numpy as np
 
-        from ufm_torch.models import (
-            UniFlowMatchClassificationRefinement,
-            UniFlowMatchConfidence,
-            ufm_base_config,
-            ufm_refine_config,
-        )
         from ufm_torch.utils.viz import flow_to_color, warp_image_with_flow
     except ImportError as e:
         _fail(f"Error importing dependencies: {e}")
@@ -100,11 +127,10 @@ def run_inference(args) -> None:
         _fail(f"Error: could not read {args.source if source_rgb is None else args.target}")
 
     try:
-        if args.model == "refine":
-            cls, config = UniFlowMatchClassificationRefinement, ufm_refine_config()
-        else:
-            cls, config = UniFlowMatchConfidence, ufm_base_config()
-        model = cls.from_config(config, seed=0, device=args.device)
+        model = _load_model(args)
+    except (OSError, ImportError, KeyError, RuntimeError, ValueError) as e:
+        _fail(f"Error loading model: {e}")
+    try:
         print(f"Running inference on {model.device}...")
         result = model.predict_correspondences_batched(source_image=source_rgb, target_image=target_rgb)
     except (RuntimeError, ValueError) as e:
@@ -129,6 +155,35 @@ def run_inference(args) -> None:
     print(f"Wrote {len(OUTPUT_FILES)} files to {out_dir}:")
     for name in OUTPUT_FILES:
         print(f"  {name}")
+
+
+def run_eval(args) -> None:
+    from ufm_torch.eval import evaluate_pairs, find_pairs
+
+    _check_weights_given(args)
+    if not Path(args.directory).is_dir():
+        _fail(f"Error: not a directory: {args.directory}")
+    if not any(True for _ in find_pairs(args.directory, require_gt=False)):
+        _fail(
+            f"Error: no evaluable pairs in {args.directory} "
+            "(expected name_0.png/name_1.png, optionally with name_flow.npy, name.flo or name_flow.png ground truth)"
+        )
+    try:
+        model = _load_model(args)
+    except (OSError, ImportError, KeyError, RuntimeError, ValueError) as e:
+        _fail(f"Error loading model: {e}")
+    # pairs without ground truth are scored by forward-backward cycle consistency
+    agg = evaluate_pairs(model, args.directory, tiled=args.tiled, out_json=args.output, require_gt=False)
+    for k in (
+        "epe", "epe_median", "acc_1px", "acc_3px", "acc_5px", "fl_outlier",
+        "cycle_epe", "cycle_epe_median", "cycle_acc_1px", "cycle_acc_3px",
+        "cycle_coverage", "covis_mean",
+    ):
+        if k in agg:
+            print(f"{k}: {agg[k]:.4f}")
+    print(f"pairs: {int(agg.get('num_pairs', 0))} (all flows finite: {agg.get('all_flows_finite')})")
+    if args.output:
+        print(f"Wrote metrics to {args.output}")
 
 
 def test_installation() -> None:

@@ -14,6 +14,14 @@ parameters to bf16 at use), and so does UFM-Refine's UNet; the DPT heads, the
 patch-MLP classification head and the window refinement run in fp32. fp32 convolutions on the
 card follow PyTorch's default, which lets cuDNN use TF32
 (``torch.backends.cudnn.allow_tf32``); fp32 matrix products stay full fp32.
+TF32 moves the flagship's flow by 0.0011 px EPE on average (0.0049 px at
+most) on a 480x640 request, far inside the 0.1 px budget (``chip_smoke.py``'s
+``tf32`` phase on an H100), so it stays on.
+
+Checkpoints: ``from_pretrained`` / ``save_pretrained`` /
+``from_pretrained_ckpt`` (:mod:`ufm_torch.checkpoint.io`) and the
+constructors' ``pretrained_checkpoint_path`` (Lightning checkpoints).
+``python -m ufm_torch.models.ufm`` is the golden-image check.
 """
 
 from __future__ import annotations
@@ -121,11 +129,6 @@ class UniFlowMatch(UniFlowMatchModelsBase, nn.Module):
         nn.Module.__init__(self)
         UniFlowMatchModelsBase.__init__(self, inference_resolution=inference_resolution)
         device = resolve_device(extra_config.pop("device", None))
-        if pretrained_checkpoint_path is not None:
-            raise NotImplementedError(
-                "loading checkpoints is not ported yet (ROADMAP.md Queue 1, checkpoint/); "
-                "JAX parameters load with ufm_torch.checkpoint.load_jax_params"
-            )
         fields = {f.name for f in dataclasses.fields(UFMArchConfig)}
         self.config = UFMArchConfig(
             encoder_str=encoder_str,
@@ -146,6 +149,12 @@ class UniFlowMatch(UniFlowMatchModelsBase, nn.Module):
             self.net = UFMNet(self.config)
         self._attention_impl: Optional[str] = None
 
+        if pretrained_checkpoint_path is not None:
+            from ufm_torch.checkpoint import load_torch_checkpoint_into
+
+            self.init_params()  # what the checkpoint does not hold keeps the seeded init
+            load_torch_checkpoint_into(self, pretrained_checkpoint_path)
+
     # ---- construction -------------------------------------------------------
     @classmethod
     def from_config(
@@ -161,6 +170,54 @@ class UniFlowMatch(UniFlowMatchModelsBase, nn.Module):
         model = cls(**config, device=device)
         model.init_params(seed)
         return model
+
+    @classmethod
+    def from_pretrained(
+        cls, pretrained_model_name_or_path: str, device: Union[None, str, torch.device] = None
+    ) -> "UniFlowMatch":
+        """Load from a local directory (``config.json`` plus ``params.msgpack``,
+        ``model.safetensors`` or ``pytorch_model.bin``) onto ``device``
+        (default: the GPU). Nothing is downloaded."""
+        from ufm_torch.checkpoint import load_pretrained
+
+        return load_pretrained(cls, pretrained_model_name_or_path, device=device)
+
+    @classmethod
+    def from_pretrained_ckpt(
+        cls, pretrained_model_name_or_path: str, strict: bool = True, device: Union[None, str, torch.device] = None
+    ) -> "UniFlowMatch":
+        """Load from a torch checkpoint with embedded ``model_args`` (unpickled:
+        trusted files only)."""
+        from ufm_torch.checkpoint import load_pretrained_ckpt
+
+        return load_pretrained_ckpt(cls, pretrained_model_name_or_path, strict=strict, device=device)
+
+    def save_pretrained(self, save_directory: str) -> None:
+        """Write ``config.json`` and ``model.safetensors`` (fp32), readable by
+        this package and by the JAX package's ``from_pretrained``."""
+        from ufm_torch.checkpoint import save_pretrained
+
+        save_pretrained(self, save_directory)
+
+    def get_parameter_groups(self) -> Dict[str, Dict[str, nn.Parameter]]:
+        """Parameters by group for per-group optimizer settings, with the JAX
+        package's group keys: ``{group: {name: parameter}}``, names relative
+        to ``self.net``; every parameter is in exactly one group."""
+        tops = {name.split(".")[0] for name, _ in self.net.named_parameters()}
+        members = {"encoder": ["encoder"], "info_sharing": ["info_sharing"], "output_head": ["head1"]}
+        if "uncertainty_head" in tops:
+            members["uncertainty_head"] = ["uncertainty_head"]
+        if "classification_head" in tops:
+            members["classification_head"] = ["classification_head"]
+        if "unet_feature" in tops:
+            members["unet_feature"] = [k for k in ("unet_feature", "conv1", "conv2", "classification_bias") if k in tops]
+        elif "classification_bias" in tops:
+            members["classification_head"] = ["classification_head", "classification_bias"]
+        group_of = {top: group for group, keys in members.items() for top in keys}
+        groups: Dict[str, Dict[str, nn.Parameter]] = {group: {} for group in members}
+        for name, p in self.net.named_parameters():
+            groups[group_of[name.split(".")[0]]][name] = p
+        return groups
 
     def init_params(self, seed: int = 0) -> None:
         """Seeded random weights from a ``torch.Generator`` on the model's
@@ -360,3 +417,105 @@ class UniFlowMatchClassificationRefinement(UniFlowMatch):
             refinement_range=refinement_range,
             **extra_config,
         )
+
+
+def _golden_image_main(argv: Optional[List[str]] = None) -> str:
+    """Golden-image check: ``python -m ufm_torch.models.ufm``.
+
+    Runs a model on a bundled example pair (analytic ground-truth flow,
+    ``ufm_torch.utils.example_pairs``) and writes a 2x3 panel: source /
+    target / flow color (top), covisibility / covisibility-masked warped
+    target / EPE heatmap (bottom), plus a JSON sidecar with the mean and p90
+    EPE. A pair without ground truth (the reference's photo pairs, where
+    ``UFM_REFERENCE_PAIRS`` names them) is scored by forward-backward cycle
+    consistency instead. With seeded random weights the panel only shows the
+    pipeline end to end. Runs on the GPU unless ``--device cpu``; writing the
+    panel needs ``cv2``.
+    """
+    import argparse
+    import json
+
+    import numpy as np
+
+    parser = argparse.ArgumentParser(description=_golden_image_main.__doc__)
+    parser.add_argument("--model", choices=("base", "refine"), default="base")
+    parser.add_argument("--checkpoint", default=None, help="config.json + weights dir (else seeded random init)")
+    parser.add_argument("--pair", default="wide_baseline", help="bundled pair name, or a reference photo pair")
+    parser.add_argument("--output", default="ufm_output.png")
+    parser.add_argument("--tiny", action="store_true", help="tiny seeded topology (smoke check; no checkpoint)")
+    parser.add_argument("--device", default=None, help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+
+    import cv2
+
+    from ufm_torch.eval import cycle_consistency_metrics
+    from ufm_torch.models.config import ufm_base_config, ufm_refine_config, ufm_tiny_config
+    from ufm_torch.models.tiled import flow_and_covisibility
+    from ufm_torch.utils.example_pairs import (
+        REFERENCE_PAIR_NAMES,
+        ensure_bundled_pairs,
+        load_pair,
+        reference_pair_dir,
+    )
+    from ufm_torch.utils.viz import flow_to_color, warp_image_with_flow
+
+    cls = UniFlowMatchClassificationRefinement if args.model == "refine" else UniFlowMatchConfidence
+    if args.checkpoint:
+        model = cls.from_pretrained(args.checkpoint, device=args.device)
+    elif args.tiny:
+        model = cls.from_config(ufm_tiny_config(has_classification_head=args.model == "refine"), device=args.device)
+    else:
+        print("No --checkpoint given: using seeded random weights.")
+        config = ufm_refine_config() if args.model == "refine" else ufm_base_config()
+        model = cls.from_config(config, device=args.device)
+
+    if args.pair in REFERENCE_PAIR_NAMES:
+        pair_dir = reference_pair_dir()
+        if pair_dir is None:
+            parser.error(f"--pair {args.pair} is a reference photo pair: set UFM_REFERENCE_PAIRS to their directory")
+    else:
+        pair_dir = ensure_bundled_pairs()
+    src, tgt, gt = load_pair(pair_dir, args.pair)
+
+    flow, covis = flow_and_covisibility(model.predict_correspondences_batched(source_image=src, target_image=tgt))
+    flow, covis = flow[0], covis[0]
+
+    def err_heatmap(err, full_scale):
+        vis = np.clip(err / full_scale, 0.0, 1.0)
+        return (np.stack([np.ones_like(vis), 1.0 - vis, 1.0 - vis], axis=-1) * 255).astype(np.uint8)
+
+    if gt is not None:
+        epe = np.linalg.norm(flow - gt, axis=-1)
+        print(f"EPE vs analytic ground truth: mean {epe.mean():.3f} px, p90 {np.percentile(epe, 90):.3f} px")
+        err_rgb = err_heatmap(epe, 8.0)
+        stats = {"epe_mean_px": float(epe.mean()), "epe_p90_px": float(np.percentile(epe, 90))}
+    else:
+        bwd, _ = flow_and_covisibility(model.predict_correspondences_batched(source_image=tgt, target_image=src))
+        m, cyc = cycle_consistency_metrics(flow, bwd[0], covis, return_map=True)
+        print(
+            "Cycle consistency (no ground truth): "
+            f"mean {m.get('cycle_epe', float('nan')):.3f} px, median {m.get('cycle_epe_median', float('nan')):.3f} px "
+            f"over {100 * m['cycle_coverage']:.1f}% of pixels"
+        )
+        err_rgb = err_heatmap(cyc, 8.0)
+        stats = {k: float(v) for k, v in m.items()}
+
+    warped = warp_image_with_flow(src, None, tgt, flow).astype(np.float32)
+    alpha = covis[..., None]
+    composite = (alpha * warped + (1.0 - alpha) * 255.0).astype(np.uint8)
+    covis_rgb = np.repeat((covis * 255).astype(np.uint8)[..., None], 3, axis=-1)
+    # the panel is laid out in the source frame; a target of another size is resized for display
+    tgt_disp = tgt if tgt.shape[:2] == src.shape[:2] else cv2.resize(tgt, (src.shape[1], src.shape[0]))
+    top = np.concatenate([src, tgt_disp, flow_to_color(flow)], axis=1)
+    bottom = np.concatenate([covis_rgb, composite, err_rgb], axis=1)
+    panel = np.concatenate([top, bottom], axis=0)
+    cv2.imwrite(args.output, cv2.cvtColor(panel, cv2.COLOR_RGB2BGR))
+    stats.update({"pair": args.pair, "panel_wh": [int(panel.shape[1]), int(panel.shape[0])]})
+    with open(args.output + ".json", "w") as f:
+        json.dump(stats, f, indent=1)
+    print(f"Wrote {args.output} ({panel.shape[1]}x{panel.shape[0]}) + stats sidecar.")
+    return args.output
+
+
+if __name__ == "__main__":
+    _golden_image_main()

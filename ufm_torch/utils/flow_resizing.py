@@ -11,12 +11,13 @@ matrix-product resizes of :mod:`ufm_torch.ops.resize` (torch-parity taps).
   resolution: crop to the representation ROI, upsample source coordinates
   bilinearly but flow values with *nearest*, rescale per axis, re-embed into
   a zeroed full-res canvas plus a validity mask;
-- ``unmap_predicted_channels`` nearest-upsamples scalar channels back.
+- ``unmap_predicted_channels`` nearest-upsamples scalar channels back;
+- ``unmap_predicted_pairs`` maps sparse point pairs back.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ __all__ = [
     "scale_axis",
     "unmap_predicted_flow",
     "unmap_predicted_channels",
+    "unmap_predicted_pairs",
 ]
 
 Region = np.ndarray  # shape (4,): [top, bottom, left, right]
@@ -366,3 +368,27 @@ def unmap_predicted_channels(
     out = torch.zeros((b, h0_full, w0_full, c), dtype=channel.dtype, device=channel.device)
     out[:, st : st + valid_h, sl : sl + valid_w, :] = roi_up
     return out, _valid_mask(b, (h0_full, w0_full), st, sl, valid_h, valid_w, channel.device)
+
+
+def unmap_predicted_pairs(
+    source_points: torch.Tensor,
+    target_points: torch.Tensor,
+    img0_region_representation: Region,
+    img1_region_representation: Region,
+    img0_region_source: Region,
+    img1_region_source: Region,
+    img0_source_shape: Optional[Tuple[int, int]] = None,
+    img1_source_shape: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Map sparse (B, N, 2) xy point pairs from the representations back to
+    the source images' pixel spaces."""
+    r0 = np.asarray(img0_region_representation, dtype=np.float64)
+    r1 = np.asarray(img1_region_representation, dtype=np.float64)
+    s0 = np.asarray(img0_region_source, dtype=np.float64)
+    s1 = np.asarray(img1_region_source, dtype=np.float64)
+
+    sx, _ = scale_axis(s0[2], s0[3], r0[2], r0[3], source_points[:, :, 0], 0.0)
+    sy, _ = scale_axis(s0[0], s0[1], r0[0], r0[1], source_points[:, :, 1], 0.0)
+    tx, _ = scale_axis(s1[2], s1[3], r1[2], r1[3], target_points[:, :, 0], 0.0)
+    ty, _ = scale_axis(s1[0], s1[1], r1[0], r1[1], target_points[:, :, 1], 0.0)
+    return torch.stack([sx, sy], dim=-1), torch.stack([tx, ty], dim=-1)

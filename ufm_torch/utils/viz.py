@@ -1,9 +1,10 @@
-"""Visualization for the CLI: flow coloring and flow-based warping.
+"""Visualization: flow coloring and flow-based warping (counterpart of
+``ufm_tpu/utils/viz.py``).
 
-Counterpart of ``ufm_tpu/utils/viz.py`` (the part ``ufm_torch.cli infer``
-needs). ``flow_to_color`` is a Middlebury colorwheel; the warp is
-``F.grid_sample`` bilinear with ``align_corners=False`` and zero padding, the
-semantics the JAX package's own ``grid_sample`` reproduces.
+``flow_to_color`` is a Middlebury colorwheel; ``visualize_flow`` the HSV
+rendering (``cv2``, imported when called); the warp is ``F.grid_sample``
+bilinear with ``align_corners=False`` and zero padding, the semantics the JAX
+package's own ``grid_sample`` reproduces.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["warp_image_with_flow", "flow_to_color"]
+__all__ = ["warp_image_with_flow", "visualize_flow", "flow_to_color"]
 
 
 def warp_image_with_flow(source_image, source_mask, target_image, flow) -> np.ndarray:
@@ -41,6 +42,23 @@ def warp_image_with_flow(source_image, source_mask, target_image, flow) -> np.nd
     if source_mask is not None:
         warped = warped * (np.asarray(source_mask)[..., None] > 0.5)
     return warped
+
+
+def visualize_flow(flow: np.ndarray, flow_scale: float) -> np.ndarray:
+    """HSV flow rendering: direction as hue, magnitude / ``flow_scale`` as
+    saturation. Returns BGR uint8, as cv2 gives it."""
+    import cv2
+
+    magnitude = np.sqrt(np.square(flow[..., 0]) + np.square(flow[..., 1]))
+    angle = np.arctan2(flow[..., 1], flow[..., 0])
+    magnitude = np.clip(magnitude / flow_scale, 0, 1)
+    angle_deg = np.degrees(angle) % 360
+
+    hsv = np.zeros((flow.shape[0], flow.shape[1], 3), dtype=np.uint8)
+    hsv[..., 0] = (angle_deg / 2).astype(np.uint8)
+    hsv[..., 1] = (magnitude * 255).astype(np.uint8)
+    hsv[..., 2] = 255
+    return cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)
 
 
 def _make_colorwheel() -> np.ndarray:
