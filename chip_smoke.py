@@ -35,6 +35,19 @@ forward, then 20 tiles in forwards of 16 and 4: 108 attention launches;
 three 540x720 pairs with analytic flow (``eval``); and the flow moved by
 cuDNN's TF32 in the fp32 heads (``tf32``).
 
+The models answer through captured predict programs (one CUDA
+graph per key, replayed): ``captured`` holds them against the eager pipeline
+(UFM-Base at batch 1 and 2, UFM-Refine at batch 1; latency, the idle share of
+one profiled window of requests, launches per replay by the counters and by
+the profiler); ``batch_rows`` shows that a pair's answer does not depend on
+the other pairs of its batch, and that its slot moves it only through
+cuDNN's TF32 convolutions; ``serve`` drives the HTTP daemon (``UFMServer``,
+lanes of 4) with 8 client threads over loopback, each response held to a
+direct predict of its pair among other neighbours; ``stream`` drives
+``stream_predict`` on the card.
+The UFM-Refine stage breakdown (``refine_path``) runs eagerly: its CUDA
+events sit around Python calls that a replay does not make.
+
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase prints one JSON line; any failed check raises and the script exits
 non-zero without printing a result. The last three lines are the card's name
@@ -55,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 
 import numpy as np
 import torch
@@ -177,6 +191,26 @@ TILED_HW, TILED_BATCHES, TILED_TILES = (1080, 1920), [1, 16, 4], 20
 EVAL_HW, EVAL_SEEDS = (540, 720), (0, 1, 2)
 # the EPE budget the heads' TF32 convolutions are held to (SURVEY.md 6)
 TF32_BUDGET_PX = 0.1
+# captured vs eager pipeline on the same inputs: the graph replays the eager
+# run's kernels, so only a kernel whose result depends on its launch could
+# move a bit; flow relative L2 and covisibility max abs difference
+CAPTURED_BAR = 1e-5
+# captured: (label, batch) of UFM-Base at 480x640; UFM-Refine at batch 1
+CAPTURED_BASE_BATCHES = (1, 2)
+# serve: client threads x requests each, the lane width and batching window
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_MAX_DELAY_MS = 8, 8, 4, 3.0
+SERVE_HW = (480, 640)
+# captured: requests in the one profiled window of each mode (idle share)
+PROFILE_REQUESTS = 5
+# batch_rows / serve: flow relative L2 and covisibility max abs difference
+# between one pair's answers at two slots of a lane-width batch. cuDNN's TF32
+# convolutions in the fp32 heads give the last slot another reduction order:
+# 1.39e-3 / 6.7e-4 at 480x640 with random weights (this script's batch_rows
+# and serve on an H100); 5e-3 leaves room for other weights and inputs while
+# a crossed or stale row (relative L2 ~1 between two pairs) fails it
+SLOT_BAR = 5e-3
+# stream: pairs through stream_predict in lane-width batches (the last padded)
+STREAM_PAIRS = 14
 
 
 def emit(phase: str, **fields) -> None:
@@ -275,6 +309,12 @@ def phase_build():
     local = {k: v for k, v in ptxas["window_refinement_fwd"].items()
              if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
     check(bool(ptxas["window_refinement_fwd"]) and not local, f"window_refinement_fwd uses local memory: {local}")
+    t0 = time.perf_counter()
+    host = _build._host_library_path("ufm_runtime")
+    if host.exists():
+        host.unlink()  # from this checkout's source
+    _build.load_host_library("ufm_runtime")
+    emit("build_host", library=host.name, seconds=time.perf_counter() - t0)
 
 
 def attention_bound_ms(b, s, h, d):
@@ -731,6 +771,9 @@ def phase_tf32(model, pair):
          covis_abs_diff_max=covis.max().item(), latency_s={"tf32_on": on_s, "tf32_off": off_s},
          flow_abs_mean_px=off.flow.flow_output.abs().mean().item())
     check(_finite(d), "tf32: non-finite flow")
+    # the TF32 flags are part of a program's key: a replay of the TF32
+    # graph for the fp32 request would show no difference at all
+    check(d.abs().max().item() > 0, "tf32: TF32 on and off gave the same flow (one program for both?)")
 
 
 def motion_flow(h, w, split):
@@ -853,6 +896,9 @@ def phase_refine_path():
 
     t0 = time.perf_counter()
     model = UniFlowMatchClassificationRefinement.from_config(ufm_refine_config(), seed=0)
+    # eager: the stage breakdown's CUDA events sit around Python calls that a
+    # graph replay does not make (``captured`` runs this model captured)
+    model.capture_graphs = False
     torch.cuda.synchronize()
     emit("refine_model", seconds=time.perf_counter() - t0, params=sum(p.numel() for p in model.parameters()),
          device=str(model.device), compute_dtype=model.config.compute_dtype)
@@ -1047,6 +1093,380 @@ def phase_train_self_check(model, batch):
         check(r <= TRAIN_GRAD_REL_L2_BOUND, f"kernel vs plain gradient, group {k}: relative L2 {r:.3e} > {TRAIN_GRAD_REL_L2_BOUND}")
 
 
+def _profile_requests(fn, reps: int = PROFILE_REQUESTS):
+    """``reps`` requests back to back, each waited for as a caller waits for
+    its answer, inside one ``torch.profiler`` window (CUDA activity only).
+    Per request: the window's host-clock time, the device busy time (the
+    union of the kernels' intervals; copies and memsets are not kernels) and
+    the idle share of the window; and the launches of each kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    spans, counts = [], {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or evt.name.startswith(("Memcpy", "Memset")):
+            continue
+        spans.append((evt.time_range.start, evt.time_range.end))
+        for name in ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel"):
+            if name in evt.name:
+                counts[name] = counts.get(name, 0) + 1
+    check(bool(spans), "the profiler recorded no kernel")
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    busy_ms = busy_us / 1e3 / reps
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}, counts
+
+
+def phase_captured(model, label, pair, batches, refine):
+    """One model, eager (``capture_graphs = False``) and then captured, at
+    each batch: one first call and three timed calls a mode; the captured
+    mode's launches counted per call; one batch-1 request of each mode
+    profiled; the modes' outputs compared. Returns the captured mode's
+    launches {kernel: n}."""
+    from ufm_torch.models import base
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+
+    # no other thread runs here: capture in the strictest mode, where any
+    # call unsafe during a capture (the window launch queries its device and
+    # its occupancy) fails the capture
+    with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
+        return _captured(model, label, pair, batches, refine)
+
+
+def _captured(model, label, pair, batches, refine):
+    from ufm_torch.models import base
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+
+    def request(b):
+        src, tgt = pair
+        if b > 1:
+            src, tgt = np.stack([src] * b), np.stack([tgt] * b)
+        return lambda: model.predict_correspondences_batched(source_image=src, target_image=tgt)
+
+    def timed(fn):
+        times = []
+        for _ in range(4):
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return res, times
+
+    per_call = (LAUNCHES_PER_FORWARD, 1 if refine else 0)
+    torch.cuda.reset_peak_memory_stats()
+    rows, launched = {}, {"flash_attention_fwd": 0, "window_refinement_fwd": 0}
+    for b in batches:
+        fn = request(b)
+        model.capture_graphs = False
+        eager, eager_times = timed(fn)
+        model.capture_graphs = True
+        fa.LAUNCHES = wr.LAUNCHES = 0  # the captured path's count starts here
+        captured_times, calls = [], []
+        for _ in range(4):  # the first call warms up and captures
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            captured_times.append(time.perf_counter() - t)
+            calls.append((fa.LAUNCHES - sum(c[0] for c in calls), wr.LAUNCHES - sum(c[1] for c in calls)))
+        launched["flash_attention_fwd"] += fa.LAUNCHES
+        launched["window_refinement_fwd"] += wr.LAUNCHES
+        check(all(c == per_call for c in calls), f"{label} b{b}: launches per call {calls}, expected {per_call} each")
+
+        f_c, f_e = res.flow.flow_output.float(), eager.flow.flow_output.float()
+        flow_rel = ((f_c - f_e).norm() / f_e.norm()).item()
+        covis_diff = (res.covisibility.mask - eager.covisibility.mask).abs().max().item()
+        row = dict(
+            batch=b, input_hw=list(pair[0].shape[:2]),
+            eager_first_s=eager_times[0], eager_latency_s=statistics.median(eager_times[1:]),
+            captured_first_s=captured_times[0], captured_latency_s=statistics.median(captured_times[1:]),
+            launches_per_call=calls, flow_max_abs_diff=(f_c - f_e).abs().max().item(), flow_rel_l2=flow_rel,
+            covis_max_abs_diff=covis_diff, bitwise_equal=_outputs_equal(res, eager), bar=CAPTURED_BAR,
+            capture_error_mode=base._CAPTURE_ERROR_MODE,
+        )
+        row["speedup"] = row["eager_latency_s"] / row["captured_latency_s"]
+        check(tuple(f_c.shape) == (b, 2, *pair[0].shape[:2]) and _finite(f_c), f"{label} b{b}: flow {tuple(f_c.shape)}")
+        check(flow_rel <= CAPTURED_BAR, f"{label} b{b}: captured vs eager flow relative L2 {flow_rel:.3e} > {CAPTURED_BAR}")
+        check(covis_diff <= CAPTURED_BAR, f"{label} b{b}: captured vs eager covisibility {covis_diff:.3e} > {CAPTURED_BAR}")
+
+        if b == 1:  # the profiler's view of each mode (after the path's count was read)
+            replay, replay_counts = _profile_requests(fn)
+            model.capture_graphs = False
+            eager_prof, _ = _profile_requests(fn)
+            model.capture_graphs = True
+            row.update(profiled_requests=PROFILE_REQUESTS, replay_profiled=replay, eager_profiled=eager_prof,
+                       profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()})
+            want = {"flash_attention_fwd_kernel": per_call[0], **({"window_refinement_fwd_kernel": 1} if refine else {})}
+            want = {k: v * PROFILE_REQUESTS for k, v in want.items()}
+            check(replay_counts == want,
+                  f"{label}: the profiler saw {replay_counts} in {PROFILE_REQUESTS} replays, expected {want}")
+        rows[f"b{b}"] = row
+        emit("captured", model=label, **row)
+    peak = torch.cuda.max_memory_allocated()
+    emit("captured_memory", model=label, programs=len(model._programs), max_memory_allocated=peak,
+         memory_allocated=torch.cuda.memory_allocated(), launches=launched)
+    return launched
+
+
+def _first_row_mixing_module(model, src, tgt):
+    """One eager run on a batch of n copies of one pair with a hook on every
+    module of the network: the first module, in call order, whose input rows
+    0 and n - 1 are equal and whose output rows are not (the encoder's batch
+    is 2n: both are source rows). (name, type, dtype) or None."""
+    found, last = [], len(src) - 1
+
+    def hook(name):
+        def f(mod, inp, out):
+            x = inp[0] if inp and isinstance(inp[0], torch.Tensor) else None
+            if found or x is None or not isinstance(out, torch.Tensor) or x.shape[0] != out.shape[0] or x.dim() < 2:
+                return
+            if out.shape[0] in (last + 1, 2 * last + 2) and torch.equal(x[0], x[last]) \
+                    and not torch.equal(out[0], out[last]):
+                found.append((name, type(mod).__name__, str(out.dtype).replace("torch.", "")))
+        return f
+
+    handles = [mod.register_forward_hook(hook(n)) for n, mod in model.net.named_modules() if n]
+    model.capture_graphs = False
+    try:
+        model.predict_correspondences_batched(src, tgt)
+    finally:
+        model.capture_graphs = True
+        for h in handles:
+            h.remove()
+    return found[0] if found else None
+
+
+def phase_batch_rows(model):
+    """Does a flagship pair's answer depend on its batch? The pair at each
+    slot of a lane-width batch (SERVE_MAX_BATCH, captured) among two sets of
+    other pairs, with cuDNN's TF32 on (the default) and off. Its neighbours
+    must not move it at any slot (bitwise). With TF32 off every slot must
+    give the same bits, and no module may make equal input rows unequal;
+    with TF32 on a slot may move it within SLOT_BAR, and the first module to
+    do so must be an fp32 convolution (the heads'). The batch's latency in
+    each mode is the price of slot-invariant answers."""
+    n = SERVE_MAX_BATCH
+    rng = np.random.default_rng(7)
+    pairs = rng.integers(0, 256, (2 * n - 1, 2, *SERVE_HW, 3), dtype=np.uint8)  # pairs[0] is the probe
+    neighbour_sets = (list(range(1, n)), list(range(n, 2 * n - 1)))
+
+    def at(slot, neighbours):
+        idx = neighbours[:slot] + [0] + neighbours[slot:]
+        res = model.predict_correspondences_batched(pairs[idx, 0], pairs[idx, 1])
+        return res.flow.flow_output[slot].float(), res.covisibility.mask[slot].float()
+
+    modes = {}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            got = [[at(slot, nb) for nb in neighbour_sets] for slot in range(n)]
+            times = []
+            for _ in range(4):  # the program exists: each call is a replay
+                t = time.perf_counter()
+                at(0, neighbour_sets[0])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            copies = np.stack([pairs[0, 0]] * n), np.stack([pairs[0, 1]] * n)
+            f0, c0 = got[0][0]
+            epe = [(got[slot][0][0] - f0).norm(dim=0) for slot in range(n)]
+            modes["tf32_on" if tf32 else "tf32_off"] = dict(
+                neighbours_bitwise=all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in got),
+                slots_bitwise=all(torch.equal(got[slot][0][0], f0) and torch.equal(got[slot][0][1], c0)
+                                  for slot in range(n)),
+                slot_flow_rel_l2=[((got[slot][0][0] - f0).norm() / f0.norm()).item() for slot in range(n)],
+                slot_covis_max_abs_diff=[(got[slot][0][1] - c0).abs().max().item() for slot in range(n)],
+                slot_epe_px_mean=[e.mean().item() for e in epe], slot_epe_px_max=[e.max().item() for e in epe],
+                first_row_mixing_module=_first_row_mixing_module(model, *copies),
+                batch_latency_s=statistics.median(times[1:]),
+            )
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    emit("batch_rows", input_hw=list(SERVE_HW), batch=n, slot_bar=SLOT_BAR, **modes)
+    on, off = modes["tf32_on"], modes["tf32_off"]
+    for name, m in modes.items():
+        check(m["neighbours_bitwise"], f"batch_rows {name}: a pair's answer moved with its neighbours")
+        check(max(m["slot_flow_rel_l2"]) <= SLOT_BAR and max(m["slot_covis_max_abs_diff"]) <= SLOT_BAR,
+              f"batch_rows {name}: the slot moved a pair's answer past {SLOT_BAR}: {m['slot_flow_rel_l2']}")
+    check(off["slots_bitwise"] and off["first_row_mixing_module"] is None,
+          f"batch_rows: with TF32 off a slot still moves the answer (first module {off['first_row_mixing_module']})")
+    mixer = on["first_row_mixing_module"]
+    check(on["slots_bitwise"] or (mixer is not None and mixer[1:] == ("Conv2d", "float32")),
+          f"batch_rows: the slot's effect starts at {mixer}, not at an fp32 convolution")
+
+
+def _http(port, path, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "application/x-npz"} if body is not None else {})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read()
+
+
+def phase_serve(model):
+    """``UFMServer`` on the flagship (lanes of SERVE_MAX_BATCH): a warm-up
+    request (the lane's capture), then SERVE_CLIENTS threads sending
+    SERVE_REQUESTS npz requests each over loopback. The slot each pair ran
+    in is recorded, and every response is held to a direct predict of that
+    pair among other neighbours (a batch of copies of it) at the same slot
+    within CAPTURED_BAR (a crossed, stale or mixed row fails it), and at
+    slot 0 within SLOT_BAR (``batch_rows``)."""
+    import concurrent.futures
+    import hashlib
+    import io
+
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.runtime import UFMServer
+
+    rng = np.random.default_rng(0)
+    n = SERVE_CLIENTS * SERVE_REQUESTS
+    pairs = rng.integers(0, 256, (n + 1, 2, *SERVE_HW, 3), dtype=np.uint8)  # the last: the warm-up's
+
+    def body(i):
+        buf = io.BytesIO()
+        np.savez(buf, source=pairs[i, 0], target=pairs[i, 1])
+        return buf.getvalue()
+
+    bodies = [body(i) for i in range(n + 1)]
+    server = UFMServer(model, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS)
+    lane_batches = []  # (source, target) of each batch the lane ran
+    predict_batch = server._predict_batch
+
+    def recording(src, tgt):
+        lane_batches.append((src.copy(), tgt.copy()))
+        return predict_batch(src, tgt)
+
+    server._predict_batch = recording
+    server.start()
+    try:
+        health = json.loads(_http(server.port, "/healthz"))
+        t = time.perf_counter()
+        _http(server.port, "/v1/predict", bodies[n])  # warm-up: the lane's first batch captures its program
+        warm_s = time.perf_counter() - t
+        fa.LAUNCHES = 0  # the served path's count starts here
+        served, latency = [None] * n, [0.0] * n
+
+        def client(k):
+            for i in range(k * SERVE_REQUESTS, (k + 1) * SERVE_REQUESTS):
+                t0 = time.perf_counter()
+                raw = _http(server.port, "/v1/predict", bodies[i])
+                latency[i] = time.perf_counter() - t0
+                with np.load(io.BytesIO(raw)) as z:
+                    served[i] = {k_: z[k_] for k_ in z.files}
+
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            for f in [pool.submit(client, k) for k in range(SERVE_CLIENTS)]:
+                f.result()
+        wall = time.perf_counter() - t
+        launches = fa.LAUNCHES
+        stats = json.loads(_http(server.port, "/stats"))
+    finally:
+        server.close()
+    (lane,) = stats.values()
+    batches_timed = lane["batches"] - 1  # the warm-up request was a batch of its own
+
+    def digest(src, tgt):
+        return hashlib.sha1(src.tobytes() + tgt.tobytes()).hexdigest()
+
+    slot_of = {}  # pair -> the slot it ran in (a pad repeats the pair before it)
+    for src, tgt in lane_batches:
+        for r in range(len(src)):
+            slot_of.setdefault(digest(src[r], tgt[r]), r)
+    slots = [slot_of[digest(pairs[i, 0], pairs[i, 1])] for i in range(n)]
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    same_slot = {"flow_rel_l2": 0.0, "covis_max_abs_diff": 0.0}
+    slot0 = {"flow_rel_l2": 0.0, "covis_max_abs_diff": 0.0}
+    batch1 = 0.0
+    bitwise = True
+    for i in range(n):
+        got, r = served[i], slots[i]
+        check(got["flow"].shape == (2, *SERVE_HW) and np.isfinite(got["flow"]).all(), f"serve: response {i}")
+        copies = model.predict_correspondences_batched(np.stack([pairs[i, 0]] * SERVE_MAX_BATCH),
+                                                       np.stack([pairs[i, 1]] * SERVE_MAX_BATCH))
+        flow, covis = copies.flow.flow_output.float().cpu().numpy(), copies.covisibility.mask.cpu().numpy()
+        bitwise &= np.array_equal(got["flow"], flow[r]) and np.array_equal(got["covisibility"], covis[r])
+        for worst, k in ((same_slot, r), (slot0, 0)):
+            worst["flow_rel_l2"] = max(worst["flow_rel_l2"], rel(got["flow"], flow[k]))
+            worst["covis_max_abs_diff"] = max(worst["covis_max_abs_diff"],
+                                              float(np.abs(got["covisibility"] - covis[k]).max()))
+        if i < SERVE_MAX_BATCH:  # the pair alone: batch 1, another program with other GEMM shapes
+            alone = model.predict_correspondences_batched(pairs[i, 0], pairs[i, 1]).flow.flow_output[0]
+            batch1 = max(batch1, rel(got["flow"], alone.float().cpu().numpy()))
+    lat = np.array(latency)
+    emit("serve", requests=n, clients=SERVE_CLIENTS, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS,
+         input_hw=list(SERVE_HW), warm_up_s=warm_s, wall_s=wall, pairs_per_s=n / wall,
+         latency_p50_s=float(np.percentile(lat, 50)), latency_p99_s=float(np.percentile(lat, 99)),
+         mean_batch_size=lane["mean_batch_size"], batcher=lane, healthz_backend=health["backend"],
+         healthz=health, launches=launches, launches_expected=LAUNCHES_PER_FORWARD * batches_timed,
+         responses_by_slot=[slots.count(k) for k in range(SERVE_MAX_BATCH)],
+         vs_copies_same_slot=same_slot, bitwise_equal=bool(bitwise), bar=CAPTURED_BAR,
+         vs_copies_slot0=slot0, slot_bar=SLOT_BAR, flow_rel_l2_vs_batch1_first_pairs=batch1)
+    check(health["backend"] == "cuda", f"serve: /healthz backend {health['backend']}")
+    check(lane["dispatched"] == n + 1 and len(lane_batches) == lane["batches"],
+          f"serve: the batcher dispatched {lane['dispatched']} of {n + 1} requests in {lane['batches']} batches")
+    check(launches == LAUNCHES_PER_FORWARD * batches_timed,
+          f"serve: {launches} attention launches for {batches_timed} batches")
+    check(same_slot["flow_rel_l2"] <= CAPTURED_BAR and same_slot["covis_max_abs_diff"] <= CAPTURED_BAR,
+          f"serve: a response differs from the direct predict of its pair at its slot: {same_slot}")
+    check(slot0["flow_rel_l2"] <= SLOT_BAR and slot0["covis_max_abs_diff"] <= SLOT_BAR,
+          f"serve: a response differs from the direct predict of its pair at slot 0: {slot0}")
+    return launches
+
+
+def phase_stream(model):
+    """``stream_predict`` on the card into the flagship's lane-width program:
+    STREAM_PAIRS pairs in batches of SERVE_MAX_BATCH (the last padded), through
+    pinned copies on the copy stream and the one-deep pipeline. Outputs come
+    in order, cut back to the valid pairs, each batch bitwise the direct
+    predict of the same stacked (padded) batch. Returns its launches."""
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.runtime import stream_predict
+
+    b = SERVE_MAX_BATCH
+    pairs = np.random.default_rng(3).integers(0, 256, (STREAM_PAIRS, 2, *SERVE_HW, 3), dtype=np.uint8)
+    batches = [list(range(k, min(k + b, STREAM_PAIRS))) for k in range(0, STREAM_PAIRS, b)]
+    batches = [idx + [idx[-1]] * (b - len(idx)) for idx in batches]
+    model.predict_correspondences_batched(pairs[batches[0], 0], pairs[batches[0], 1])  # the lane's program exists
+    torch.cuda.synchronize()
+    fa.LAUNCHES = 0  # the streamed path's count starts here
+    t = time.perf_counter()
+    outs = [(o.flow.flow_output, o.covisibility.mask)
+            for o in stream_predict(model.predict_correspondences_batched, ((p[0], p[1]) for p in pairs),
+                                    batch_size=b, device="cuda")]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = fa.LAUNCHES
+    sizes = [len(f) for f, _ in outs]
+    bitwise = True
+    for (f, c), idx in zip(outs, batches):
+        d = model.predict_correspondences_batched(pairs[idx, 0], pairs[idx, 1])
+        bitwise &= (f.is_cuda and torch.equal(f, d.flow.flow_output[:len(f)])
+                    and torch.equal(c, d.covisibility.mask[:len(f)]))
+    emit("stream", pairs=STREAM_PAIRS, batch=b, input_hw=list(SERVE_HW), wall_s=wall, pairs_per_s=STREAM_PAIRS / wall,
+         batch_sizes=sizes, bitwise_equal=bool(bitwise), launches=launches)
+    check(sizes == [b] * (len(batches) - 1) + [STREAM_PAIRS - b * (len(batches) - 1)],
+          f"stream: batch sizes {sizes}")
+    check(bitwise, "stream: a streamed batch differs from the direct predict of the same batch")
+    check(launches == LAUNCHES_PER_FORWARD * len(batches), f"stream: {launches} attention launches")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
@@ -1066,7 +1486,17 @@ def main() -> int:
     phase_tf32(model, pair)
     del model, kernel_res
     torch.cuda.empty_cache()
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)  # no program yet
+    captured_launches = phase_captured(model, "ufm_base", pair, CAPTURED_BASE_BATCHES, refine=False)
+    phase_batch_rows(model)
+    served_launches = phase_serve(model)
+    streamed_launches = phase_stream(model)
+    del model
+    torch.cuda.empty_cache()
     refine_model, refine_pair, refine_res, refine_launches = phase_refine_path()
+    refine_captured = phase_captured(refine_model, "ufm_refine", refine_pair, (1,), refine=True)
     phase_refine_self_check(refine_model, refine_pair, refine_res)
     del refine_model, refine_res
     torch.cuda.empty_cache()
@@ -1083,11 +1513,17 @@ def main() -> int:
         "source": "ufm_torch/csrc/flash_attention_fwd.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:558",
         "launches": launches + tiled_launches + refine_launches["flash_attention_fwd"]
-        + train_launches["flash_attention_fwd"] + golden_launches["flash_attention_fwd"],
+        + train_launches["flash_attention_fwd"] + golden_launches["flash_attention_fwd"]
+        + captured_launches["flash_attention_fwd"] + refine_captured["flash_attention_fwd"] + served_launches
+        + streamed_launches,
         "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
                              "ufm_refine": refine_launches["flash_attention_fwd"],
                              "ufm_base_train": train_launches["flash_attention_fwd"],
-                             "bf16_golden": golden_launches["flash_attention_fwd"]},
+                             "bf16_golden": golden_launches["flash_attention_fwd"],
+                             "ufm_base_captured": captured_launches["flash_attention_fwd"],
+                             "ufm_refine_captured": refine_captured["flash_attention_fwd"],
+                             "ufm_base_served": served_launches,
+                             "ufm_base_streamed": streamed_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
         "plain_ms": sum(r["plain_ms"] for r in fwd),
@@ -1131,9 +1567,11 @@ def main() -> int:
         "source": "ufm_torch/csrc/window_refinement_fwd.cu",
         "replaces": "ufm_tpu/ops/window_dots.py:280",
         "replaces_also": "ufm_tpu/ops/window_dots.py:238",
-        "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"],
+        "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"]
+        + refine_captured["window_refinement_fwd"],
         "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"],
-                             "bf16_golden": golden_launches["window_refinement_fwd"]},
+                             "bf16_golden": golden_launches["window_refinement_fwd"],
+                             "ufm_refine_captured": refine_captured["window_refinement_fwd"]},
         "max_abs_err": max(max(r["residual_max_abs_err"], r["log_softmax_max_abs_err"]) for r in window_rows.values()),
         "ms": flagship["ms"],
         "plain_ms": flagship["plain_ms"],

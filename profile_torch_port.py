@@ -5,7 +5,10 @@
 
 Builds UFM-Base at full width (seeded random weights, 560x420) on the GPU,
 warms it up, then times batch-1 and batch-2 requests of 480x640 uint8 pairs
-through ``predict_correspondences_batched``:
+through ``predict_correspondences_batched``, run eagerly
+(``capture_graphs = False``: the stage hooks are Python calls, which a
+captured graph's replay does not make; ``chip_smoke.py``'s ``captured`` phase
+profiles the captured programs):
 
 - wall time per request (host clock, ending in a synchronize);
 - device time per stage (encoder, info sharing, the two DPT heads, and the
@@ -90,6 +93,7 @@ def main() -> int:
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
 
     model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    model.capture_graphs = False
     spans = stage_timers(model.net)
     rng = np.random.default_rng(0)
 

@@ -507,3 +507,144 @@ def test_kernel_path_holds_the_bf16_golden(cuda, name):
     assert (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1]) == (4, int(net.cfg.has_classification_head))
     for k, want in ((k[len("out/"):], v) for k, v in files.items() if k.startswith("out/")):
         assert (got[k].float().cpu() - torch.from_numpy(want)).abs().max().item() <= 0.15, k
+
+
+# ---- captured predict programs (one CUDA graph per key) ---------------------------
+
+# captured vs eager pipeline on the same inputs: the graph replays the eager
+# run's kernels (chip_smoke.py's bar)
+CAPTURED_BAR = 1e-5
+
+
+def _small_refine_config():
+    return _small_config(has_classification_head=True, use_unet_feature=True,
+                         unet_kwargs={"out_channels": 8, "features": (8, 16)})
+
+
+def _fields(res):
+    return {"flow": res.flow.flow_output, "covisibility": res.covisibility.mask,
+            "flow_covariance": res.flow.flow_covariance, "keypoint_confidence": res.keypoint_confidence}
+
+
+@pytest.mark.parametrize("refine", [False, True], ids=["base", "refine"])
+def test_captured_program_matches_eager(cuda, refine):
+    """The first captured call (the warm-up's answer) and two replays against
+    the eager pipeline, every output field within the bar; one program."""
+    cls = UniFlowMatchClassificationRefinement if refine else UniFlowMatchConfidence
+    model = cls.from_config(_small_refine_config() if refine else _small_config(), seed=0)
+    src, tgt = _pairs()
+    model.capture_graphs = False
+    eager = _fields(model.predict_correspondences_batched(src, tgt))
+    model.capture_graphs = True
+    for _ in range(3):
+        got = _fields(model.predict_correspondences_batched(src, tgt))
+        for k, want in eager.items():
+            rel = ((got[k].float() - want.float()).norm() / want.float().norm()).item()
+            assert rel <= CAPTURED_BAR, (k, rel)
+    (program,) = model._programs.values()
+    assert program.graph is not None
+
+
+def test_captured_launch_counts(cuda):
+    """The counters count device launches: 4 attention launches and 1 window
+    launch per call, on the first call (the eager warm-up; the capture runs
+    nothing) and on every replay."""
+    model = UniFlowMatchClassificationRefinement.from_config(_small_refine_config(), seed=0)
+    src, tgt = _pairs()
+    for _ in range(3):
+        before = (fa.LAUNCHES, wr.LAUNCHES)
+        model.predict_correspondences_batched(src, tgt)
+        torch.cuda.synchronize()
+        assert (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1]) == (4, 1)
+    (program,) = model._programs.values()
+    assert program.launches == (4, 0, 1)  # attention forward, backward, window
+
+
+def test_captured_output_survives_the_next_call(cuda):
+    """Each call returns fresh tensors: a result stays as it was after the
+    next replay of the same program (inputs on the card and on the host)."""
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    src, tgt = _pairs()
+    model.predict_correspondences_batched(src, tgt)  # captures
+    first = model.predict_correspondences_batched(src, tgt).flow.flow_output
+    kept = first.clone()
+    model.predict_correspondences_batched(src.cuda(), tgt.flip(0).cuda())
+    second = model.predict_correspondences_batched(src, tgt.flip(0)).flow.flow_output
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept)
+    assert not torch.equal(first, second)
+
+
+def test_captured_programs_from_two_threads(cuda):
+    """Two threads calling two keys of one model at once (the server's
+    lanes): each answer equals the same call made alone."""
+    import threading
+
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    src, tgt = _pairs()
+    inputs = {"b2": (src, tgt), "b1": (src[:1], tgt[1:])}
+    alone = {k: model.predict_correspondences_batched(*v).flow.flow_output.cpu() for k, v in inputs.items()}
+    got, errors = {k: [] for k in inputs}, []
+
+    def worker(k):
+        try:
+            for _ in range(5):
+                got[k].append(model.predict_correspondences_batched(*inputs[k]).flow.flow_output.cpu())
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in inputs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for k, outs in got.items():
+        assert len(outs) == 5 and all(torch.equal(o, alone[k]) for o in outs), k
+
+
+def test_tf32_flag_reaches_the_program_key(cuda):
+    """cuDNN's TF32 flag is part of the key: toggling it builds a second
+    program, and toggling back replays the first."""
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    src, tgt = _pairs()
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for allow in (True, False, True):
+            torch.backends.cudnn.allow_tf32 = allow
+            model.predict_correspondences_batched(src, tgt)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert len(model._programs) == 2
+    assert all(p.graph is not None for p in model._programs.values())
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["stream_predict", "stream_predict_staged"])
+def test_stream_predict_on_the_card(cuda, staged):
+    """The streaming loops on the card: pinned copies on the copy stream, the
+    compute stream's wait, the one-deep pipeline into a captured program.
+    Five pairs in batches of 2: outputs in order, the padded last batch cut to
+    one row, each batch bitwise the direct predict of the same stacked batch,
+    4 attention launches a batch."""
+    from ufm_torch.runtime import stream_predict, stream_predict_staged
+
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    g = np.random.default_rng(5)
+    pairs = [tuple(g.integers(0, 256, (60, 80, 3), dtype=np.uint8) for _ in range(2)) for _ in range(5)]
+    batches = [pairs[0:2], pairs[2:4], [pairs[4], pairs[4]]]
+    direct = [model.predict_correspondences_batched(np.stack([p[0] for p in b]), np.stack([p[1] for p in b]))
+              for b in batches]
+    predict = model.predict_correspondences_batched
+    before = fa.LAUNCHES
+    if staged:
+        outs = list(stream_predict_staged(lambda s, t: (s, t), predict, iter(pairs), batch_size=2, device="cuda"))
+    else:
+        outs = list(stream_predict(predict, iter(pairs), batch_size=2, device="cuda"))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES - before == 4 * len(batches)
+    assert [o.flow.flow_output.shape[0] for o in outs] == [2, 2, 1]
+    for got, want in zip(outs, direct):
+        n = got.flow.flow_output.shape[0]
+        assert got.flow.flow_output.is_cuda
+        assert torch.equal(got.flow.flow_output, want.flow.flow_output[:n])
+        assert torch.equal(got.covisibility.mask, want.covisibility.mask[:n])

@@ -5,6 +5,7 @@ the port's entry points refuse to move to the CPU quietly."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -79,7 +80,21 @@ def test_port_imports_with_jax_blocked():
         "ufm_torch.utils.example_pairs",
         "ufm_torch.utils.geometry",
         "ufm_torch.utils.profiling",
+        "ufm_torch.ops.launches",
+        "ufm_torch.runtime",
+        "ufm_torch.runtime.batcher",
+        "ufm_torch.runtime.server",
+        "ufm_torch.runtime.streaming",
     } <= mods
+
+
+def test_port_loads_nothing_from_native():
+    """The port builds its own copy of the scheduler (csrc/host) and never
+    names the JAX package's native/ directory or its libraries."""
+    for path in _port_files():
+        text = path.read_text()
+        assert "libufm_runtime" not in text and "libufm_loader" not in text, path
+        assert not re.search(r"""["'/]native["'/]""", text), path
 
 
 # not installed on the GPU machine: the port imports each only inside the

@@ -3,6 +3,7 @@
 
     python -m ufm_torch.cli infer SOURCE TARGET (--checkpoint DIR | --random-init) [--model {base,refine}] [-o DIR] [--device cpu]
     python -m ufm_torch.cli eval DIR (--checkpoint DIR | --random-init) [--model {base,refine}] [--tiled] [-o JSON] [--device cpu]
+    python -m ufm_torch.cli serve (--checkpoint DIR | --random-init) [--model {base,refine}] [--host H] [--port P] [--max-batch N] [--max-delay-ms MS] [--device cpu]
     python -m ufm_torch.cli test
 
 ``infer`` runs UFM-Base (``--model base``, the default) or UFM-Refine
@@ -14,8 +15,11 @@ forward-backward cycle consistency), optionally with tiled high-resolution
 inference. Weights come from a local checkpoint directory (``--checkpoint``:
 ``config.json`` plus ``params.msgpack``, ``model.safetensors`` or
 ``pytorch_model.bin``) or are seeded random weights (``--random-init``).
-Both run on the GPU unless ``--device cpu`` is given. ``test`` is an
-environment check.
+``serve`` runs the HTTP daemon (``ufm_torch.runtime.server``: ``GET
+/healthz``, ``GET /stats``, ``POST /v1/predict``) with continuous batching
+per input-shape lane; each lane's batches are padded to ``--max-batch``, so
+each lane replays one captured predict program. All three run on the GPU
+unless ``--device cpu`` is given. ``test`` is an environment check.
 """
 
 from __future__ import annotations
@@ -50,6 +54,19 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--tiled", action="store_true", help="Coarse-to-fine tiled high-resolution inference")
     ev.add_argument("--output", "-o", help="Write aggregate + per-pair metrics JSON here")
 
+    srv = sub.add_parser("serve", help="Run the HTTP serving daemon")
+    srv.add_argument("--host", default="127.0.0.1")
+    srv.add_argument("--port", type=int, default=8000)
+    _add_model_arguments(srv)
+    srv.add_argument(
+        "--max-batch",
+        type=int,
+        default=4,
+        help="Continuous-batching lane width (short batches are padded to this, so each lane "
+        "replays one captured program; 1 disables coalescing)",
+    )
+    srv.add_argument("--max-delay-ms", type=float, default=3.0, help="Batching window before dispatch")
+
     sub.add_parser("test", help="Test installation")
     return parser
 
@@ -70,7 +87,9 @@ def _add_model_arguments(p: argparse.ArgumentParser) -> None:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    handler = {"infer": run_inference, "eval": run_eval, "test": lambda _: test_installation()}.get(args.command)
+    handler = {"infer": run_inference, "eval": run_eval, "serve": run_serve, "test": lambda _: test_installation()}.get(
+        args.command
+    )
     if handler is None:
         parser.print_help()
         return
@@ -184,6 +203,32 @@ def run_eval(args) -> None:
     print(f"pairs: {int(agg.get('num_pairs', 0))} (all flows finite: {agg.get('all_flows_finite')})")
     if args.output:
         print(f"Wrote metrics to {args.output}")
+
+
+def run_serve(args) -> None:
+    _check_weights_given(args)
+    if args.max_batch < 1:
+        _fail(f"Error: --max-batch must be at least 1, got {args.max_batch}")
+    try:
+        model = _load_model(args)
+    except (OSError, ImportError, KeyError, RuntimeError, ValueError) as e:
+        _fail(f"Error loading model: {e}")
+    from ufm_torch.runtime.server import UFMServer
+
+    server = UFMServer(model, host=args.host, port=args.port, max_batch=args.max_batch, max_delay_ms=args.max_delay_ms)
+    try:
+        server.start()
+    except OSError as e:
+        _fail(f"Error: cannot listen on {args.host}:{args.port}: {e}")
+    source = args.checkpoint or "seeded random weights"
+    print(f"Serving {type(model).__name__} ({source}) on {model.device} at http://{args.host}:{server.port}", flush=True)
+    print("  GET /healthz | GET /stats | POST /v1/predict (npz or JSON, see ufm_torch/runtime/server.py)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
 
 
 def test_installation() -> None:

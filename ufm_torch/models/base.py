@@ -3,21 +3,37 @@
 Counterpart of ``ufm_tpu/models/base.py``: the output dataclasses and
 ``predict_correspondences_batched``. Public tensors follow the reference's
 BCHW convention (flow (B, 2, H, W), masks (B, H, W)); inside, maps are
-channel-last. The pipeline runs eagerly on the model's device: normalize
-(uint8 or float input, both normalization paths), resize to the model
-resolution whose aspect is closest (antialiased), forward, unmap back to the
-input resolution, rescale the covariance.
+channel-last. The pipeline: normalize (uint8 or float input, both
+normalization paths), resize to the model resolution whose aspect is closest
+(antialiased), forward, unmap back to the input resolution, rescale the
+covariance.
+
+Like the JAX package, which compiles one program per key,
+``predict_correspondences_batched`` keeps one :class:`PredictProgram` per key:
+the source and target shapes and dtypes, the normalization, the scaler
+generation (bumped by every assignment to ``image_scaler``), the model's
+kernel choices, the TF32 flags (cuDNN and cuBLAS fix their algorithms when a
+graph is captured) and the device. A program holds what its key fixes: the
+selected manipulation, its region bookkeeping and the device constants. On a
+CUDA model the first call of a key runs the pipeline once eagerly on a side
+stream (the warm-up, whose answer that call returns) and captures it into a
+CUDA graph; later calls copy the inputs into the graph's static buffers,
+replay it and return fresh copies of its outputs. On a CPU model, or with
+``capture_graphs = False`` (the checks' eager path, as ``jax.disable_jit``),
+the program runs the pipeline eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ufm_torch.nn.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
+from ufm_torch.ops import launches
 from ufm_torch.utils.flow_resizing import (
     AutomaticShapeSelection,
     ResizeToFixedManipulation,
@@ -32,7 +48,14 @@ __all__ = [
     "UFMClassificationRefinementOutput",
     "UFMOutputInterface",
     "UniFlowMatchModelsBase",
+    "PredictProgram",
 ]
+
+# cudaStreamCaptureMode of every capture. "thread_local" refuses a call that
+# is unsafe during capture (a synchronizing query, a pageable copy) in the
+# capturing thread, as "global" does, but lets the server's other threads
+# copy their results to the host while one lane captures.
+_CAPTURE_ERROR_MODE = "thread_local"
 
 
 @dataclasses.dataclass
@@ -90,12 +113,186 @@ def _to_bchw(image) -> torch.Tensor:
     return t
 
 
+class PredictProgram:
+    """The predict pipeline of one key: the selected manipulation with its
+    regions, the device constants, and on a CUDA model the captured graph
+    with its static buffers. Built by ``predict_correspondences_batched``;
+    call it with the model and BCHW inputs."""
+
+    def __init__(self, model, src_shape, tgt_shape, src_dtype, tgt_dtype, data_norm_type, device):
+        b0, _, h0, w0 = src_shape
+        b1, _, h1, w1 = tgt_shape
+        shapes, manipulation = model.image_scaler.select(h0, w0, h1, w1)
+        if manipulation is None:
+            raise ValueError(f"no manipulation accepts inputs {(h0, w0)}/{(h1, w1)}")
+        th0, tw0, th1, tw1 = shapes
+        if (th0, tw0) != (th1, tw1):
+            raise ValueError("both views must map to one model resolution")
+        self.shapes = (tuple(src_shape), tuple(tgt_shape))
+        self.dtypes = (src_dtype, tgt_dtype)
+        self.device = device
+        self.manipulation = manipulation
+        self.source_hw = ((h0, w0), (h1, w1))
+        # the region bookkeeping is host numpy on static shapes: one run of
+        # the manipulation on meta tensors gives it without device work
+        probe = manipulation(
+            torch.empty((b0, h0, w0, 3), device="meta"),
+            torch.empty((b1, h1, w1, 3), device="meta"),
+            _identity_regions(h0, w0),
+            _identity_regions(h1, w1),
+            _identity_regions(h0, w0),
+            _identity_regions(h1, w1),
+        )
+        self.regions = probe[2:]  # src source, tgt source, src representation, tgt representation
+
+        # device constants, made once here: a host-to-device copy inside a
+        # capture is refused or would capture a dead host pointer
+        def const(a) -> torch.Tensor:
+            return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+
+        req = IMAGE_NORMALIZATION_DICT[model.data_norm_type]
+        self.uint8 = src_dtype == torch.uint8
+        self.mean, self.std = const(req.mean), const(req.std)
+        self.prev = None
+        if not self.uint8 and data_norm_type != model.data_norm_type:
+            prev = IMAGE_NORMALIZATION_DICT[data_norm_type]
+            self.prev = (const(prev.mean), const(prev.std))
+        w_ratio, h_ratio = w0 / tw0, h0 / th0
+        self.cov_scale = const([w_ratio**2, h_ratio**2, w_ratio * h_ratio])
+
+        # the captured graph: made by the first captured call
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static_in: Tuple[torch.Tensor, ...] = ()
+        self.staging: Tuple[torch.Tensor, ...] = ()
+        self.static_out: Dict[str, torch.Tensor] = {}
+        self.launches: Tuple[int, ...] = ()  # kernel launches one replay makes
+        self._h2d_done: Optional[torch.cuda.Event] = None
+
+    # ---- the eager pipeline -------------------------------------------------
+    def run(self, model, src_bchw: torch.Tensor, tgt_bchw: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The pipeline, op by op, on inputs on the program's device."""
+        (h0, w0), (h1, w1) = self.source_hw
+        src = src_bchw.permute(0, 2, 3, 1)
+        tgt = tgt_bchw.permute(0, 2, 3, 1)
+        if self.uint8:
+            src = (src.float() / 255.0 - self.mean) / self.std
+            tgt = (tgt.float() / 255.0 - self.mean) / self.std
+        elif self.prev is not None:
+            prev_mean, prev_std = self.prev
+            src = src * (prev_std / self.std) + (prev_mean - self.mean) / self.std
+            tgt = tgt * (prev_std / self.std) + (prev_mean - self.mean) / self.std
+
+        # the selected manipulation to the model grid (its regions are the probe's)
+        src_region_source, tgt_region_source, src_region_repr, tgt_region_repr = self.regions
+        src_s, tgt_s = self.manipulation(src, tgt, *(_identity_regions(*hw) for hw in self.source_hw * 2))[:2]
+        raw = model.network_apply(src_s, tgt_s)
+
+        out: Dict[str, torch.Tensor] = {}
+        flow_unmapped, _ = unmap_predicted_flow(
+            raw["flow"], src_region_repr, tgt_region_repr, src_region_source, tgt_region_source, (h0, w0), (h1, w1)
+        )
+        out["flow"] = flow_unmapped.permute(0, 3, 1, 2)
+
+        if "flow_cov" in raw:
+            cov_unmapped, _ = unmap_predicted_channels(raw["flow_cov"], src_region_repr, src_region_source, (h0, w0))
+            out["flow_covariance"] = (cov_unmapped * self.cov_scale).permute(0, 3, 1, 2)
+
+        if "covis_mask" in raw:
+            covis_unmapped, _ = unmap_predicted_channels(
+                raw["covis_mask"][..., None], src_region_repr, src_region_source, (h0, w0)
+            )
+            out["covisibility"] = covis_unmapped[..., 0]
+
+        if "keypoint_confidence" in raw:
+            conf_unmapped, _ = unmap_predicted_channels(
+                raw["keypoint_confidence"][..., None], src_region_repr, src_region_source, (h0, w0)
+            )
+            out["keypoint_confidence"] = conf_unmapped[..., 0]
+        return out
+
+    # ---- the captured graph -------------------------------------------------
+    def _load(self, src: torch.Tensor, tgt: torch.Tensor) -> None:
+        """Copy the inputs into the static buffers, host tensors through the
+        pinned staging buffers (asynchronously: the copy waits for nothing
+        on the host)."""
+        self._h2d_done.synchronize()  # the staging buffers are free again
+        for static, staging, x in zip(self.static_in, self.staging, (src, tgt)):
+            if x.is_cuda:
+                static.copy_(x)
+            else:
+                staging.copy_(x)
+                static.copy_(staging, non_blocking=True)
+        self._h2d_done.record()
+
+    def _capture(self, model, src: torch.Tensor, tgt: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Warm up on a side stream (its answer is this call's), then capture
+        the pipeline into a graph in the model's pool."""
+        dev = self.device
+
+        def channel_last(shape, dtype, **kw):  # a BCHW view of channel-last memory
+            b, c, h, w = shape
+            return torch.empty((b, h, w, c), dtype=dtype, **kw).permute(0, 3, 1, 2)
+
+        self.static_in = tuple(channel_last(s, d, device=dev) for s, d in zip(self.shapes, self.dtypes))
+        self.staging = tuple(channel_last(s, d, pin_memory=True) for s, d in zip(self.shapes, self.dtypes))
+        self._h2d_done = torch.cuda.Event()
+        self._load(src, tgt)
+
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            warm = self.run(model, *self.static_in)  # fills the cached constants, sets kernel attributes
+        stream.wait_stream(side)
+        for t in warm.values():  # made on the side stream, read on this one
+            t.record_stream(stream)
+
+        if model._graph_pool is None:
+            model._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = launches.snapshot()
+        try:
+            with torch.cuda.graph(graph, pool=model._graph_pool, capture_error_mode=_CAPTURE_ERROR_MODE):
+                static_out = self.run(model, *self.static_in)
+        finally:
+            # the wrappers counted launches that did not run: take them back
+            self.launches = launches.since(before)
+            launches.add(tuple(-d for d in self.launches))
+        self.graph, self.static_out = graph, static_out
+        return warm
+
+    def __call__(self, model, src_bchw: torch.Tensor, tgt_bchw: torch.Tensor, capture: bool) -> Dict[str, torch.Tensor]:
+        """The pipeline's outputs for one batch: fresh tensors on the
+        program's device. ``capture``: through the captured graph (CUDA);
+        otherwise eagerly."""
+        if not capture:
+            return self.run(model, src_bchw.to(self.device), tgt_bchw.to(self.device))
+        with model._predict_lock, torch.cuda.device(self.device):  # the server's lanes call from several threads
+            stream = torch.cuda.current_stream(self.device)
+            if model._replay_done is None:
+                model._replay_done = torch.cuda.Event()
+            stream.wait_event(model._replay_done)  # graphs of one pool never overlap
+            if self.graph is None:
+                out = self._capture(model, src_bchw, tgt_bchw)
+            else:
+                self._load(src_bchw, tgt_bchw)
+                self.graph.replay()
+                launches.add(self.launches)
+                out = {k: v.clone() for k, v in self.static_out.items()}
+            model._replay_done.record(stream)
+        return out
+
+
 class UniFlowMatchModelsBase:
     """Prediction API shared by the model variants.
 
     Subclasses provide ``network_apply(img1_bhwc, img2_bhwc) -> dict`` (the
     network on normalized channel-last inputs), ``data_norm_type`` and
-    ``device``.
+    ``device``; they may add to a program's key (:meth:`_program_key`) and
+    say when the parameters' storage moved (:meth:`_storage_generation`).
+
+    ``capture_graphs`` (default ``True``): a CUDA model replays one captured
+    graph per key; ``False`` runs the pipeline eagerly (for checks).
     """
 
     def __init__(self, inference_resolution: Optional[Union[List[Tuple[int, int]], Tuple[int, int]]] = None):
@@ -105,11 +302,29 @@ class UniFlowMatchModelsBase:
             inference_resolution = [tuple(inference_resolution)]
         # (W, H) tuples, the reference convention
         self.inference_resolution = [tuple(r) for r in inference_resolution]
-        # settable: crop / composite chains replace it
         self.image_scaler = AutomaticShapeSelection(
             *[ResizeToFixedManipulation((r[1], r[0])) for r in self.inference_resolution],
             strategy="closest_aspect",
         )
+        self.capture_graphs = True
+        self._programs: Dict[tuple, PredictProgram] = {}
+        self._programs_generation = None
+        self._predict_lock = threading.Lock()
+        self._graph_pool = None  # one memory pool for every graph of the model
+        self._replay_done: Optional[torch.cuda.Event] = None
+
+    # ``image_scaler`` is settable public API (crop / composite chains replace
+    # it); a program must never serve a previous scaler. ``id()`` of the
+    # scaler is unsafe as a key (a collected predecessor's id can be reused),
+    # so assignment bumps a generation that the key carries instead.
+    @property
+    def image_scaler(self):
+        return self._image_scaler
+
+    @image_scaler.setter
+    def image_scaler(self, value) -> None:
+        self._image_scaler = value
+        self._scaler_generation = getattr(self, "_scaler_generation", -1) + 1
 
     # ---- subclass interface -------------------------------------------------
     @property
@@ -125,6 +340,15 @@ class UniFlowMatchModelsBase:
         output dict (see models/network.py)."""
         raise NotImplementedError
 
+    def _program_key(self) -> tuple:
+        """The subclass's settings a program depends on."""
+        return ()
+
+    def _storage_generation(self) -> int:
+        """A count that changes whenever the parameters' storage moves (a
+        captured graph holds their addresses): every program is dropped then."""
+        return 0
+
     # ---- public API ---------------------------------------------------------
     def predict_correspondences_batched(
         self,
@@ -136,8 +360,8 @@ class UniFlowMatchModelsBase:
 
         Accepts numpy arrays or tensors shaped BCHW/BHWC/CHW/HWC, dtype uint8
         or float32 (float inputs must state their ``data_norm_type``). Returns
-        tensors on the model's device: flow (B, 2, H, W) in source-image pixel
-        space plus covisibility (B, H, W).
+        fresh tensors on the model's device: flow (B, 2, H, W) in source-image
+        pixel space plus covisibility (B, H, W).
         """
         src = _to_bchw(source_image)
         tgt = _to_bchw(target_image)
@@ -152,8 +376,10 @@ class UniFlowMatchModelsBase:
         else:
             raise ValueError("images must be uint8 or float32")
 
+        device = self.device
+        program = self._program(src, tgt, data_norm_type, device)
         with torch.inference_mode():
-            raw = self._pipeline(src.to(self.device), tgt.to(self.device), data_norm_type)
+            raw = program(self, src, tgt, capture=self.capture_graphs and device.type == "cuda")
 
         result = UFMOutputInterface()
         result.flow = UFMFlowFieldOutput(flow_output=raw["flow"])
@@ -165,65 +391,27 @@ class UniFlowMatchModelsBase:
             result.keypoint_confidence = raw["keypoint_confidence"]
         return result
 
-    def _pipeline(self, src_bchw: torch.Tensor, tgt_bchw: torch.Tensor, data_norm_type: Optional[str]):
-        h0, w0 = src_bchw.shape[2], src_bchw.shape[3]
-        h1, w1 = tgt_bchw.shape[2], tgt_bchw.shape[3]
-        shapes, manipulation = self.image_scaler.select(h0, w0, h1, w1)
-        if manipulation is None:
-            raise ValueError(f"no manipulation accepts inputs {(h0, w0)}/{(h1, w1)}")
-        th0, tw0, th1, tw1 = shapes
-        if (th0, tw0) != (th1, tw1):
-            raise ValueError("both views must map to one model resolution")
-
-        # layout + dtype + normalization
-        dev = src_bchw.device
-        req = IMAGE_NORMALIZATION_DICT[self.data_norm_type]
-        req_mean = torch.from_numpy(req.mean).to(dev)
-        req_std = torch.from_numpy(req.std).to(dev)
-        src = src_bchw.permute(0, 2, 3, 1)
-        tgt = tgt_bchw.permute(0, 2, 3, 1)
-        if src.dtype == torch.uint8:
-            src = (src.float() / 255.0 - req_mean) / req_std
-            tgt = (tgt.float() / 255.0 - req_mean) / req_std
-        elif data_norm_type != self.data_norm_type:
-            prev = IMAGE_NORMALIZATION_DICT[data_norm_type]
-            prev_mean = torch.from_numpy(prev.mean).to(dev)
-            prev_std = torch.from_numpy(prev.std).to(dev)
-            src = src * (prev_std / req_std) + (prev_mean - req_mean) / req_std
-            tgt = tgt * (prev_std / req_std) + (prev_mean - req_mean) / req_std
-
-        # the selected manipulation to the model grid, with region bookkeeping
-        src_s, tgt_s, src_region_source, tgt_region_source, src_region_repr, tgt_region_repr = manipulation(
-            src,
-            tgt,
-            _identity_regions(h0, w0),
-            _identity_regions(h1, w1),
-            _identity_regions(h0, w0),
-            _identity_regions(h1, w1),
+    def _program(self, src: torch.Tensor, tgt: torch.Tensor, data_norm_type: Optional[str], device) -> PredictProgram:
+        key = (
+            tuple(src.shape),
+            tuple(tgt.shape),
+            src.dtype,
+            tgt.dtype,
+            data_norm_type,
+            self._scaler_generation,
+            *self._program_key(),
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision(),
+            device,
         )
-        raw = self.network_apply(src_s, tgt_s)
-
-        out: Dict[str, torch.Tensor] = {}
-        flow_unmapped, _ = unmap_predicted_flow(
-            raw["flow"], src_region_repr, tgt_region_repr, src_region_source, tgt_region_source, (h0, w0), (h1, w1)
-        )
-        out["flow"] = flow_unmapped.permute(0, 3, 1, 2)
-
-        if "flow_cov" in raw:
-            cov_unmapped, _ = unmap_predicted_channels(raw["flow_cov"], src_region_repr, src_region_source, (h0, w0))
-            w_ratio, h_ratio = w0 / tw0, h0 / th0
-            scale = torch.tensor([w_ratio**2, h_ratio**2, w_ratio * h_ratio], dtype=torch.float32, device=dev)
-            out["flow_covariance"] = (cov_unmapped * scale).permute(0, 3, 1, 2)
-
-        if "covis_mask" in raw:
-            covis_unmapped, _ = unmap_predicted_channels(
-                raw["covis_mask"][..., None], src_region_repr, src_region_source, (h0, w0)
-            )
-            out["covisibility"] = covis_unmapped[..., 0]
-
-        if "keypoint_confidence" in raw:
-            conf_unmapped, _ = unmap_predicted_channels(
-                raw["keypoint_confidence"][..., None], src_region_repr, src_region_source, (h0, w0)
-            )
-            out["keypoint_confidence"] = conf_unmapped[..., 0]
-        return out
+        with self._predict_lock:
+            generation = self._storage_generation()
+            if generation != self._programs_generation:
+                self._programs = {}
+                self._programs_generation = generation
+            program = self._programs.get(key)
+            if program is None:
+                program = PredictProgram(self, src.shape, tgt.shape, src.dtype, tgt.dtype, data_norm_type, device)
+                self._programs[key] = program
+        return program

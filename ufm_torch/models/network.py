@@ -136,10 +136,16 @@ class UFMNet(nn.Module):
     ``refinement_impl`` is the refinement implementation to request (``None``,
     ``"cuda"`` or ``"torch"``, see :func:`fused_refinement_attention`); it
     starts from the config's ``refinement_impl``
-    (:data:`REFINEMENT_IMPL_FROM_CONFIG`)."""
+    (:data:`REFINEMENT_IMPL_FROM_CONFIG`).
+
+    ``storage_generation`` counts the moves of the parameters' storage
+    (``.to()`` and its kin, ``load_state_dict(assign=True)``): a model drops
+    its captured predict programs, which hold the old addresses, when it
+    changes. In-place updates (``copy_``) keep it."""
 
     def __init__(self, cfg: UFMArchConfig):
         super().__init__()
+        self.storage_generation = 0
         if cfg.info_sharing_and_head_structure != "dual+single":
             raise ValueError("Only dual+single is supported")
         self.cfg = cfg
@@ -194,6 +200,16 @@ class UFMNet(nn.Module):
                     self.conv2 = nn.Conv2d(2 * out_c, out_c, 1)
                 else:  # "modulate": conv1 is never called, so flax makes no parameters for it
                     self.conv2 = nn.Conv2d(out_c, out_c, 1)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.storage_generation += 1
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, *args, **kwargs):
+        # called for this module whichever module's load_state_dict recursed here
+        if local_metadata.get("assign_to_params_buffers", False):
+            self.storage_generation += 1
+        return super()._load_from_state_dict(state_dict, prefix, local_metadata, *args, **kwargs)
 
     # ---- encoding -----------------------------------------------------------
     def _encode_image_pairs(self, img1: torch.Tensor, img2: torch.Tensor):

@@ -266,6 +266,12 @@ class UniFlowMatch(UniFlowMatchModelsBase, nn.Module):
             raise ValueError(f"unknown refinement impl {impl!r} (expected one of {REFINEMENT_IMPLS} or None)")
         self.net.refinement_impl = impl
 
+    def _program_key(self) -> tuple:
+        return (self.attention_impl, self.refinement_impl)
+
+    def _storage_generation(self) -> int:
+        return self.net.storage_generation
+
     # ---- forward ------------------------------------------------------------
     def network_apply(self, img1_bhwc: torch.Tensor, img2_bhwc: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.net(img1_bhwc, img2_bhwc)

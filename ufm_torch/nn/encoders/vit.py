@@ -65,7 +65,8 @@ def _cubic_resize_matrix_np(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32).T
 
 
-@functools.lru_cache(maxsize=64)
+# unbounded: a captured CUDA graph keeps the address of what it read
+@functools.lru_cache(maxsize=None)
 def _cubic_resize_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     # cached on the device: a forward pass never waits on a host-to-device
     # copy; built outside inference mode so that training may use it after

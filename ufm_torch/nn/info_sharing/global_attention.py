@@ -56,7 +56,8 @@ def _sincos_pos_embed_2d(h: int, w: int, dim: int) -> np.ndarray:
     return np.concatenate(out, axis=1).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+# unbounded: a captured CUDA graph keeps the address of what it read
+@functools.lru_cache(maxsize=None)
 def _sincos_pos_embed(h: int, w: int, dim: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):  # cached: usable by training after the predict API
         return torch.from_numpy(_sincos_pos_embed_2d(h, w, dim)).to(device=device, dtype=dtype)

@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/ufm_torch/`` at the repository root (git-ignored) the first time it is
-needed, and loaded with :mod:`ctypes`. The library's file name carries a hash
-of the sources and flags, so an edited source is rebuilt. Nothing here runs at
-import time: the CPU tests import every module of the package.
+needed, and loaded with :mod:`ctypes`. The serving runtime's scheduler
+(``csrc/host/ufm_runtime.cc``, framework-free C++) is compiled the same way by
+the host C++ compiler (:func:`load_host_library`). A library's file name
+carries a hash of the sources and flags, so an edited source is rebuilt.
+Nothing here runs at import time: the CPU tests import every module of the
+package.
 """
 
 from __future__ import annotations
@@ -19,7 +22,15 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-__all__ = ["KERNEL_SOURCES", "build", "load_library", "launch_error_cause", "BUILD_LOGS"]
+__all__ = [
+    "KERNEL_SOURCES",
+    "HOST_SOURCES",
+    "build",
+    "load_library",
+    "load_host_library",
+    "launch_error_cause",
+    "BUILD_LOGS",
+]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ufm_torch"
@@ -32,6 +43,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# host libraries (csrc/host/<name>.cc), built by the host C++ compiler
+HOST_SOURCES = ("ufm_runtime",)
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 # extra flags of one library: at ptxas's default -O3 the window kernel's
 # direct path (hoisted global tap loads) takes all 128 registers a thread and
@@ -57,12 +72,51 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError(
+        "no host C++ compiler (c++ or g++ on PATH): the serving runtime's scheduler "
+        "(ufm_torch/csrc/host/ufm_runtime.cc) is built from source at first use"
+    )
+
+
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LIBRARY_FLAGS.get(name, ())).encode())
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _host_library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update((CSRC_DIR / "host" / f"{name}.cc").read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(jobs) -> None:
+    """Run each (name, library path, compiler command without ``-o``) at
+    once; each library appears whole (renamed into place) or not at all.
+    Raises with the compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, path, cmd in jobs:
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        procs.append((name, path, tmp, subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                                                        stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for name, path, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failures.append(f"{Path(proc.args[0]).name} failed building {name} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> List[Path]:
@@ -72,25 +126,9 @@ def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> List[Pa
     names = list(names)
     paths = [_library_path(n) for n in names]
     todo = [(n, p) for n, p in zip(names, paths) if force or not p.exists()]
-    if not todo:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for name, path in todo:
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs.append((name, path, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failures = []
-    for name, path, tmp, proc in procs:
-        log, _ = proc.communicate()
-        BUILD_LOGS[name] = log
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed building {name}.cu (exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    if failures:
-        raise RuntimeError("\n".join(failures))
+    if todo:
+        nvcc = _nvcc()
+        _compile([(n, p, [nvcc, *NVCC_FLAGS, *LIBRARY_FLAGS.get(n, ()), str(CSRC_DIR / f"{n}.cu")]) for n, p in todo])
     return paths
 
 
@@ -110,5 +148,17 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             (path,) = build([name])
+            _loaded[name] = ctypes.CDLL(str(path))
+        return _loaded[name]
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library ``csrc/host/<name>.cc``, built on first use by
+    the host C++ compiler (``-O2 -std=c++17 -fPIC -pthread -shared``)."""
+    with _lock:
+        if name not in _loaded:
+            path = _host_library_path(name)
+            if not path.exists():
+                _compile([(name, path, [_cxx(), *CXX_FLAGS, str(CSRC_DIR / "host" / f"{name}.cc")])])
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]

@@ -104,7 +104,8 @@ def _nearest_index_np(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
-@functools.lru_cache(maxsize=256)
+# unbounded: a captured CUDA graph keeps the address of what it read
+@functools.lru_cache(maxsize=None)
 def resize_matrix(
     in_size: int,
     out_size: int,
@@ -121,7 +122,8 @@ def resize_matrix(
         return torch.from_numpy(w).to(device=device, dtype=dtype)
 
 
-@functools.lru_cache(maxsize=256)
+# unbounded: a captured CUDA graph keeps the address of what it read
+@functools.lru_cache(maxsize=None)
 def _nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):  # cached: usable by training too
         return torch.from_numpy(_nearest_index_np(in_size, out_size)).to(device)

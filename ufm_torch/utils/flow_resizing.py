@@ -17,6 +17,7 @@ matrix-product resizes of :mod:`ufm_torch.ops.resize` (torch-parity taps).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -287,6 +288,25 @@ def _as_int_region(region) -> Tuple[int, int, int, int]:
     return int(r[0]), int(r[1]), int(r[2]), int(r[3])
 
 
+# Device constants of the unmap, cached on the device like the resize
+# matrices: a forward pass never makes a host-to-device copy, so it can be
+# captured into a CUDA graph. Unbounded, since a captured graph keeps their
+# addresses: an evicted constant would be freed under it.
+@functools.lru_cache(maxsize=None)
+def _pixel_centers(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """(1, H, W, 2) xy pixel-centre coordinates."""
+    xs = np.arange(w, dtype=np.float32) + 0.5
+    ys = np.arange(h, dtype=np.float32) + 0.5
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.stack(np.meshgrid(xs, ys, indexing="xy"), axis=-1))[None].to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _xy(x: float, y: float, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor([x, y], dtype=torch.float32, device=device)
+
+
 def _valid_mask(b: int, shape: Tuple[int, int], top: int, left: int, h: int, w: int, device) -> torch.Tensor:
     valid = torch.zeros(shape, dtype=torch.bool, device=device)
     valid[top : top + h, left : left + w] = True
@@ -316,9 +336,7 @@ def unmap_predicted_flow(
     rh, rw = r0b - r0t, r0r - r0l
 
     # source-pixel-center coordinate grid over the ROI
-    xs = np.arange(rw, dtype=np.float32) + 0.5
-    ys = np.arange(rh, dtype=np.float32) + 0.5
-    source_coords = torch.from_numpy(np.stack(np.meshgrid(xs, ys, indexing="xy"), axis=-1))[None].to(dev)
+    source_coords = _pixel_centers(rh, rw, dev)
 
     src_valid_h = int(round(s0[1] - s0[0]))
     src_valid_w = int(round(s0[3] - s0[2]))
@@ -329,13 +347,10 @@ def unmap_predicted_flow(
     source_coords_valid = resize_hwc(source_coords, (src_valid_h, src_valid_w), antialias=False)
     target_coords_valid = resize_nearest_hwc(flow_roi, (src_valid_h, src_valid_w)) + source_coords_valid
 
-    def vec(a, b_):
-        return torch.tensor([a, b_], dtype=torch.float32, device=dev)
-
-    source_coords_valid = source_coords_valid * vec(src_valid_w / rw, src_valid_h / rh)
-    target_coords_valid = target_coords_valid * vec(tgt_valid_w / rw, tgt_valid_h / rh)
-    source_coords_valid = source_coords_valid + vec(s0[2], s0[0])
-    target_coords_valid = target_coords_valid + vec(s1[2], s1[0])
+    source_coords_valid = source_coords_valid * _xy(src_valid_w / rw, src_valid_h / rh, dev)
+    target_coords_valid = target_coords_valid * _xy(tgt_valid_w / rw, tgt_valid_h / rh, dev)
+    source_coords_valid = source_coords_valid + _xy(float(s0[2]), float(s0[0]), dev)
+    target_coords_valid = target_coords_valid + _xy(float(s1[2]), float(s1[0]), dev)
 
     flow_source = target_coords_valid - source_coords_valid
 
