@@ -48,6 +48,21 @@ direct predict of its pair among other neighbours; ``stream`` drives
 The UFM-Refine stage breakdown (``refine_path``) runs eagerly: its CUDA
 events sit around Python calls that a replay does not make.
 
+Deployment (the kernels are dispatcher ops, ``ufm_torch/ops/library.py``, so
+``torch.export`` traces them as graph nodes): ``export`` exports the
+flagship UFM-Base on the card at batch 1 (parameters stored in fp32 and in
+bf16), loads it back and holds its raw outputs to the live network's (36
+attention launches a call, by the counters and the profiler); ``export_cpu``
+traces the flagship on the CPU and runs the moved program on the card;
+``artifact_predict`` holds ``ArtifactUFM`` (the artifact in the captured
+predict API) to the live model on a 480x640 pair; ``serve_artifact`` starts
+``python -m ufm_torch.cli serve --artifact`` and sends it one request;
+``artifact_refine`` exports UFM-Refine (36 + 1 launches a call);
+``loader`` decodes PNG files written here (with zlib) and the committed
+JPEG with the native loader and streams them, or says on its own line that
+this host lacks the loader's system headers. Artifacts are written under
+``build/`` and removed at the end.
+
 Each path's launch counts are set to 0 just before it and read just after.
 Each phase prints one JSON line; any failed check raises and the script exits
 non-zero without printing a result. The last three lines are the card's name
@@ -179,6 +194,8 @@ WINDOW_LOG_SOFTMAX_ATOL = 2e-4
 # and attention path: only the fp32 summation order differs
 REFINED_FLOW_MAX_ABS = 1e-3
 WINDOW_TEMPERATURE = 4.0
+# one tile of the window kernel: the shape its host cost per launch is taken at
+WINDOW_HOST_SHAPE = (1, 8, 32, 16)
 
 # the kernel path of the d = 64 tiny models vs the JAX package's bf16
 # forward: the cross-backend bar of tests/test_golden.py:110
@@ -211,6 +228,21 @@ PROFILE_REQUESTS = 5
 SLOT_BAR = 5e-3
 # stream: pairs through stream_predict in lane-width batches (the last padded)
 STREAM_PAIRS = 14
+# export: an artifact's raw outputs against the live network on the same
+# inputs (the same kernels and ops: bitwise expected), flow relative L2 and
+# covisibility max abs difference; parameters stored in bf16 against the fp32
+# artifact, max abs difference over the largest value of each output (the
+# JAX package's bound, tests/test_export.py:159); a program traced on the CPU
+# and moved to the card against the live card model, flow relative L2
+ARTIFACT_BAR = 1e-5
+ARTIFACT_BF16_DRIFT = 5e-2
+ARTIFACT_CPU_BAR = 2e-2
+# artifacts are written here (git-ignored) and removed at the end
+ARTIFACT_DIR = os.path.join(HERE, "build", "chip_smoke_artifacts")
+# loader: PNG pairs written by this script, decoded and streamed
+LOADER_PAIRS, LOADER_HW = 8, (480, 640)
+LOADER_JPEG = os.path.join(HERE, "tests", "golden", "loader_smooth")
+LOADER_JPEG_MEAN_ABS = 6  # tests/test_torch_port_loader.py's bar
 
 
 def emit(phase: str, **fields) -> None:
@@ -871,7 +903,11 @@ def phase_window_kernel():
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         )
         emit("kernel", kernel="window_refinement_fwd", case=name, **rows[name])
-    return rows
+    # the host's cost per launch, at one tile (the kernel is shorter than its launch)
+    q, f, flow, bias = window_inputs(WINDOW_HOST_SHAPE, 5, "iid", 6.0, far=False)
+    host_us = host_us_per_launch(lambda: wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, 5))
+    emit("kernel", kernel="window_refinement_fwd", case="host", shape=list(WINDOW_HOST_SHAPE), host_us_per_launch=host_us)
+    return rows, host_us
 
 
 def _timed(fn, events):
@@ -1467,15 +1503,328 @@ def phase_stream(model):
     return launches
 
 
+def _raw_diff(got, want) -> dict:
+    """Flow relative L2, covisibility max abs difference and bitwise
+    equality of two raw output dicts of the network."""
+    f_g, f_w = got["flow"].float(), want["flow"].float()
+    return {"flow_rel_l2": ((f_g - f_w).norm() / f_w.norm()).item(),
+            "covis_max_abs_diff": (got["covis_mask"] - want["covis_mask"]).abs().max().item(),
+            "bitwise_equal": set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)}
+
+
+def _artifact_inputs(model, seed):
+    w, h = model.inference_resolution[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(1, h, w, 3, generator=gen, device="cuda") for _ in range(2))
+
+
+def phase_export(model):
+    """The flagship UFM-Base exported on the card at batch 1 (parameters
+    stored in fp32, then in bf16) and loaded back: its raw outputs against
+    the live network's on the same inputs, 36 attention launches a call by
+    the counters and by the profiler; the bf16-stored artifact against the
+    fp32 one. Returns (the fp32 artifact's path, its loaded program, the
+    launches of this phase)."""
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.runtime import export_model, load_exported
+
+    paths = {d: os.path.join(ARTIFACT_DIR, f"ufm_base_{d}.ufmt") for d in ("fp32", "bf16")}
+    seconds, manifests, loaded = {}, {}, {}
+    for d, path in paths.items():
+        t = time.perf_counter()
+        manifests[d] = export_model(model, path, params_dtype=None if d == "fp32" else "bfloat16")
+        seconds[f"export_{d}_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded[d] = load_exported(path)
+        torch.cuda.synchronize()
+        seconds[f"load_{d}_s"] = time.perf_counter() - t
+    x, y = _artifact_inputs(model, seed=11)
+    art = loaded["fp32"]
+    with torch.inference_mode():
+        want = model.network_apply(x, y)
+        fa.LAUNCHES = 0  # this path's count starts here
+        got = art(x, y)
+        torch.cuda.synchronize()
+        per_call = fa.LAUNCHES
+        half = loaded["bf16"](x, y)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES
+        _, counts = _profile_requests(lambda: art(x, y))
+    diff = _raw_diff(got, want)
+    drift = {k: ((half[k].float() - got[k].float()).abs().max() / got[k].float().abs().max().clamp_min(1e-6)).item()
+             for k in got}
+    emit("export", model="ufm_base", batch=1, input_hw=list(x.shape[1:3]), **seconds,
+         program_bytes={d: m["program_bytes"] for d, m in manifests.items()},
+         param_bytes=manifests["fp32"]["param_bytes"],
+         stored_param_bytes={d: m["stored_param_bytes"] for d, m in manifests.items()},
+         file_bytes={d: os.path.getsize(p) for d, p in paths.items()}, ops=manifests["fp32"]["ops"],
+         launches_per_call=per_call, profiler_kernels_per_call={k: v / PROFILE_REQUESTS for k, v in counts.items()},
+         **diff, bar=ARTIFACT_BAR, bf16_relative_drift=drift, bf16_bound=ARTIFACT_BF16_DRIFT)
+    check(per_call == LAUNCHES_PER_FORWARD, f"export: {per_call} attention launches in one artifact call")
+    check(counts == {"flash_attention_fwd_kernel": LAUNCHES_PER_FORWARD * PROFILE_REQUESTS},
+          f"export: the profiler saw {counts} in {PROFILE_REQUESTS} artifact calls")
+    check(diff["flow_rel_l2"] <= ARTIFACT_BAR and diff["covis_max_abs_diff"] <= ARTIFACT_BAR,
+          f"export: the artifact differs from the live network: {diff}")
+    check(max(drift.values()) < ARTIFACT_BF16_DRIFT, f"export: bf16-stored parameters drift {drift}")
+    check(manifests["fp32"]["program_bytes"] < manifests["fp32"]["param_bytes"] / 10,
+          "export: the program file holds the weights")
+    del loaded["bf16"], half
+    return paths["fp32"], art, launches
+
+
+def phase_export_cpu():
+    """The flagship UFM-Base built and exported on the CPU (full depth and
+    widths), loaded onto the card (the program moved by
+    ``move_to_device_pass``): it must launch the kernels, and answer as the
+    same weights do in the live model on the card. Returns its launches."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.runtime import export_model, load_exported
+
+    path = os.path.join(ARTIFACT_DIR, "ufm_base_cpu.ufmt")
+    t = time.perf_counter()
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0, device="cpu")
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    manifest = export_model(model, path)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    art = load_exported(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    model.net.to("cuda")
+    x, y = _artifact_inputs(model, seed=12)
+    with torch.inference_mode():
+        fa.LAUNCHES = 0  # this path's count starts here
+        got = art(x, y)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES
+        want = model.network_apply(x, y)
+    diff = _raw_diff(got, want)
+    emit("export_cpu", model="ufm_base", traced_on=manifest["devices"], loaded_on=str(art.device), depth_cut=None,
+         build_cpu_s=build_s, export_s=export_s, load_s=load_s, program_bytes=manifest["program_bytes"],
+         launches_per_call=launches, **diff, bar=ARTIFACT_CPU_BAR)
+    check(manifest["devices"] == ["cpu"] and art.device.type == "cuda", "export_cpu: not traced on the CPU and run on the card")
+    check(launches == LAUNCHES_PER_FORWARD, f"export_cpu: {launches} attention launches in one call")
+    check(diff["flow_rel_l2"] <= ARTIFACT_CPU_BAR, f"export_cpu: the moved program differs from the card model: {diff}")
+    return launches
+
+
+def phase_artifact_predict(model, art, pair):
+    """``ArtifactUFM.predict_correspondences_batched`` (the artifact in the
+    predict API, captured) against the live model's on a 480x640 pair: a
+    first call (the capture) and three timed calls each; launches per replay.
+    Returns the artifact's launches."""
+    from ufm_torch.models import base
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.runtime.export import ArtifactUFM
+
+    art_model = ArtifactUFM(art)
+
+    def timed(m):
+        times, calls = [], []
+        for _ in range(4):
+            before = fa.LAUNCHES
+            t = time.perf_counter()
+            res = m.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            calls.append(fa.LAUNCHES - before)
+        return res, times, calls
+
+    with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
+        fa.LAUNCHES = 0  # this path's count starts here
+        got, art_times, art_calls = timed(art_model)
+        launches = fa.LAUNCHES
+        want, live_times, _ = timed(model)
+    f_g, f_w = got.flow.flow_output.float(), want.flow.flow_output.float()
+    rel = ((f_g - f_w).norm() / f_w.norm()).item()
+    covis = (got.covisibility.mask - want.covisibility.mask).abs().max().item()
+    emit("artifact_predict", input_hw=list(pair[0].shape[:2]), batch=1, launches_per_call=art_calls,
+         artifact_first_s=art_times[0], artifact_latency_s=statistics.median(art_times[1:]),
+         live_latency_s=statistics.median(live_times[1:]), programs=len(art_model._programs),
+         flow_rel_l2=rel, covis_max_abs_diff=covis, bitwise_equal=_outputs_equal(got, want), bar=ARTIFACT_BAR)
+    check(all(c == LAUNCHES_PER_FORWARD for c in art_calls), f"artifact_predict: launches per call {art_calls}")
+    check(rel <= ARTIFACT_BAR and covis <= ARTIFACT_BAR, f"artifact_predict: {rel:.3e} / {covis:.3e} from the live model")
+    return art_model, launches
+
+
+def phase_artifact_refine(model):
+    """UFM-Refine exported on the card and loaded: raw outputs against the
+    live network's, 36 attention and 1 window launch a call. Returns its
+    launches {kernel: n}."""
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+    from ufm_torch.runtime import export_model, load_exported
+
+    path = os.path.join(ARTIFACT_DIR, "ufm_refine.ufmt")
+    t = time.perf_counter()
+    manifest = export_model(model, path)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    art = load_exported(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    x, y = _artifact_inputs(model, seed=13)
+    with torch.inference_mode():
+        want = model.network_apply(x, y)
+        fa.LAUNCHES = wr.LAUNCHES = 0  # this path's count starts here
+        got = art(x, y)
+        torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+    diff = _raw_diff(got, want)
+    refined = (got["flow"] - want["flow"]).abs().max().item()
+    emit("artifact_refine", export_s=export_s, load_s=load_s, program_bytes=manifest["program_bytes"],
+         param_bytes=manifest["param_bytes"], ops=manifest["ops"], staged=manifest["staged"],
+         launches_per_call=launches, **diff, bar=ARTIFACT_BAR, refined_flow_max_abs_diff_px=refined,
+         refined_bound_px=REFINED_FLOW_MAX_ABS)
+    check(launches == {"flash_attention_fwd": LAUNCHES_PER_FORWARD, "window_refinement_fwd": 1},
+          f"artifact_refine: launches {launches} in one call")
+    check(diff["flow_rel_l2"] <= ARTIFACT_BAR and diff["covis_max_abs_diff"] <= ARTIFACT_BAR,
+          f"artifact_refine: the artifact differs from the live network: {diff}")
+    check(refined <= REFINED_FLOW_MAX_ABS, f"artifact_refine: refined flow {refined:.3e} px from the live model")
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_serve_artifact(path, art_model, pair):
+    """``python -m ufm_torch.cli serve --artifact`` in its own process
+    (asked for lanes of 4: pinned to the artifact's batch 1): ``/healthz``
+    must report the card, and one npz request must match ``ArtifactUFM``'s
+    answer for the pair (its slot is 0) in this process."""
+    import io
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", "ufm_torch.cli", "serve", "--artifact", path, "--port", str(port), "--max-batch", "4"]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        health = None
+        while health is None:
+            if proc.poll() is not None:
+                raise RuntimeError(f"chip_smoke check failed: serve --artifact exited {proc.returncode}:\n{proc.stdout.read()}")
+            check(time.perf_counter() - t < 300, "serve_artifact: no /healthz within 300 s")
+            try:
+                health = json.loads(_http(port, "/healthz"))
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t
+        buf = io.BytesIO()
+        np.savez(buf, source=pair[0], target=pair[1])
+        t = time.perf_counter()
+        with np.load(io.BytesIO(_http(port, "/v1/predict", buf.getvalue()))) as z:
+            served = {k: z[k] for k in z.files}
+        first_request_s = time.perf_counter() - t
+    finally:
+        proc.terminate()
+        try:
+            log, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+    direct = art_model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+    flow, covis = direct.flow.flow_output[0].float().cpu().numpy(), direct.covisibility.mask[0].cpu().numpy()
+    rel = float(np.linalg.norm(served["flow"] - flow) / np.linalg.norm(flow))
+    covis_diff = float(np.abs(served["covisibility"] - covis).max())
+    pinned = "using --max-batch 1 (requested 4)" in log
+    emit("serve_artifact", ready_s=ready_s, first_request_s=first_request_s, healthz=health, max_batch_pinned=pinned,
+         flow_rel_l2=rel, covis_max_abs_diff=covis_diff,
+         bitwise_equal=bool(np.array_equal(served["flow"], flow) and np.array_equal(served["covisibility"], covis)),
+         bar=CAPTURED_BAR, launches="in the server's process: not counted here")
+    check(health["backend"] == "cuda", f"serve_artifact: /healthz backend {health['backend']}")
+    check(pinned, f"serve_artifact: --max-batch was not pinned to the artifact's batch:\n{log}")
+    check(rel <= CAPTURED_BAR and covis_diff <= CAPTURED_BAR, f"serve_artifact: {rel:.3e} / {covis_diff:.3e} from ArtifactUFM")
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) uint8, written with zlib alone
+    (no image library): filter 0 on every row, one IDAT chunk."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(rgb, np.uint8).reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def phase_loader(model):
+    """The native image loader on this machine: PNG pairs written by this
+    script and the committed JPEG, decoded by ``NativeImageLoader`` (PNG
+    frames exact, the JPEG within the CPU test's bar) and streamed into
+    ``stream_predict``. Where the host lacks libjpeg's or libpng's headers the
+    loader cannot be built: the phase says so on its own line and runs
+    nothing. Returns its attention launches (0 when it did not run)."""
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.runtime import stream_predict
+    from ufm_torch.runtime.loader import NativeImageLoader, iter_decoded_pairs, missing_system_headers
+
+    missing = missing_system_headers()
+    if missing:
+        emit("loader", ran=False, missing_headers=missing,
+             reason="the loader (ufm_torch/csrc/host/ufm_loader.cc) includes these; this host cannot build it")
+        return 0
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (LOADER_PAIRS, 2, *LOADER_HW, 3), dtype=np.uint8)
+    paths = []
+    for i, pair in enumerate(frames):
+        paths.append(tuple(os.path.join(ARTIFACT_DIR, f"pair{i}_{j}.png") for j in (0, 1)))
+        for p, img in zip(paths[-1], pair):
+            write_png(p, img)
+    t = time.perf_counter()
+    decoded = list(iter_decoded_pairs(paths, LOADER_HW, num_threads=4))
+    decode_s = time.perf_counter() - t
+    exact = all(np.array_equal(a, frames[i, 0]) and np.array_equal(b, frames[i, 1]) for i, (a, b) in enumerate(decoded))
+    with np.load(LOADER_JPEG + ".npz") as z:
+        source = z["source"]
+    with NativeImageLoader(source.shape[:2], num_threads=1) as loader:
+        loader.submit(0, LOADER_JPEG + ".jpg")
+        _, jpeg = loader.poll()
+    jpeg_err = float(np.abs(jpeg.astype(int) - source.astype(int)).mean())
+    fa.LAUNCHES = 0  # this path's count starts here
+    t = time.perf_counter()
+    outs = [o.flow.flow_output for o in stream_predict(model.predict_correspondences_batched,
+                                                       iter_decoded_pairs(paths, LOADER_HW, num_threads=4),
+                                                       batch_size=SERVE_MAX_BATCH, device="cuda")]
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t
+    launches = fa.LAUNCHES
+    emit("loader", ran=True, pairs=LOADER_PAIRS, input_hw=list(LOADER_HW), png_frames_exact=exact,
+         frames_per_s=2 * LOADER_PAIRS / decode_s, jpeg_mean_abs_err=jpeg_err, jpeg_bar=LOADER_JPEG_MEAN_ABS,
+         streamed_pairs_per_s=LOADER_PAIRS / stream_s, launches=launches)
+    check(exact, "loader: a decoded PNG frame differs from the array written")
+    check(jpeg_err < LOADER_JPEG_MEAN_ABS, f"loader: the JPEG decodes {jpeg_err:.2f} from its source")
+    check(sum(len(f) for f in outs) == LOADER_PAIRS and all(_finite(f) for f in outs), "loader: streamed outputs")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
         return 1
-    smi = phase_device()
+    os.makedirs(ARTIFACT_DIR, exist_ok=True)
+    try:
+        return run_phases(phase_device())
+    finally:
+        shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+
+
+def run_phases(smi: str) -> int:
     phase_build()
     rows = phase_kernel()
     bwd_rows = phase_bwd_kernel()
-    window_rows = phase_window_kernel()
+    window_rows, window_host_us = phase_window_kernel()
     phase_gelu()
     golden_launches = phase_bf16_golden()
     model, pair, kernel_res, launches = phase_main_path()
@@ -1484,7 +1833,13 @@ def main() -> int:
     tiled_launches = phase_tiled(model)
     phase_eval(model)
     phase_tf32(model, pair)
-    del model, kernel_res
+    art_path, art, export_launches = phase_export(model)
+    art_model, artifact_launches = phase_artifact_predict(model, art, pair)
+    phase_serve_artifact(art_path, art_model, pair)
+    loader_launches = phase_loader(model)
+    del model, kernel_res, art, art_model
+    torch.cuda.empty_cache()
+    cpu_export_launches = phase_export_cpu()
     torch.cuda.empty_cache()
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
 
@@ -1498,6 +1853,7 @@ def main() -> int:
     refine_model, refine_pair, refine_res, refine_launches = phase_refine_path()
     refine_captured = phase_captured(refine_model, "ufm_refine", refine_pair, (1,), refine=True)
     phase_refine_self_check(refine_model, refine_pair, refine_res)
+    refine_artifact = phase_artifact_refine(refine_model)
     del refine_model, refine_res
     torch.cuda.empty_cache()
     train_model, train_batch, train_launches = phase_train()
@@ -1515,7 +1871,8 @@ def main() -> int:
         "launches": launches + tiled_launches + refine_launches["flash_attention_fwd"]
         + train_launches["flash_attention_fwd"] + golden_launches["flash_attention_fwd"]
         + captured_launches["flash_attention_fwd"] + refine_captured["flash_attention_fwd"] + served_launches
-        + streamed_launches,
+        + streamed_launches + export_launches + cpu_export_launches + artifact_launches
+        + refine_artifact["flash_attention_fwd"] + loader_launches,
         "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
                              "ufm_refine": refine_launches["flash_attention_fwd"],
                              "ufm_base_train": train_launches["flash_attention_fwd"],
@@ -1523,7 +1880,13 @@ def main() -> int:
                              "ufm_base_captured": captured_launches["flash_attention_fwd"],
                              "ufm_refine_captured": refine_captured["flash_attention_fwd"],
                              "ufm_base_served": served_launches,
-                             "ufm_base_streamed": streamed_launches},
+                             "ufm_base_streamed": streamed_launches,
+                             "ufm_base_artifact": export_launches,
+                             "ufm_base_artifact_cpu_export": cpu_export_launches,
+                             "ufm_base_artifact_captured": artifact_launches,
+                             "ufm_refine_artifact": refine_artifact["flash_attention_fwd"],
+                             "ufm_base_loader_streamed": loader_launches},
+        "op": "ufm_torch::flash_attention_fwd",
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
         "plain_ms": sum(r["plain_ms"] for r in fwd),
@@ -1548,6 +1911,7 @@ def main() -> int:
         "replaces": "ufm_tpu/ops/flash_attention.py:452",
         "launches": train_launches["flash_attention_bwd"],
         "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"]},
+        "op": "ufm_torch::flash_attention_bwd",
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
         "ms": sum(r["ms"] for r in bwd),
         "plain_ms": sum(r["plain_ms"] for r in bwd),
@@ -1568,10 +1932,12 @@ def main() -> int:
         "replaces": "ufm_tpu/ops/window_dots.py:280",
         "replaces_also": "ufm_tpu/ops/window_dots.py:238",
         "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"]
-        + refine_captured["window_refinement_fwd"],
+        + refine_captured["window_refinement_fwd"] + refine_artifact["window_refinement_fwd"],
         "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"],
                              "bf16_golden": golden_launches["window_refinement_fwd"],
-                             "ufm_refine_captured": refine_captured["window_refinement_fwd"]},
+                             "ufm_refine_captured": refine_captured["window_refinement_fwd"],
+                             "ufm_refine_artifact": refine_artifact["window_refinement_fwd"]},
+        "op": "ufm_torch::window_refinement",
         "max_abs_err": max(max(r["residual_max_abs_err"], r["log_softmax_max_abs_err"]) for r in window_rows.values()),
         "ms": flagship["ms"],
         "plain_ms": flagship["plain_ms"],
@@ -1583,6 +1949,7 @@ def main() -> int:
         "ms_by_case": {n: r["ms"] for n, r in window_rows.items()},
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in window_rows.items()},
         "staged_tile_share_by_case": {n: r["staged_tile_share"] for n, r in window_rows.items()},
+        "host_us_per_launch": window_host_us,
     }
     print(smi)
     print(json.dumps({"kernels": [attention, backward, window]}))

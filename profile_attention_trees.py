@@ -16,7 +16,13 @@ tree's sources and prints one JSON line per kernel and shape:
   ``chip_smoke.py`` times them;
 - ``host_us_per_launch``: host wall time per call of 1,000 back-to-back
   calls without a sync, at a shape (1, 77, 2, 64) whose kernels take less
-  device time than their launch, so the host's own cost per launch shows;
+  device time than their launch, so the host's own cost per launch shows:
+  the forward (with and without lse) and the backward through the tree's
+  kernel wrappers, ``dispatch`` (the models' call,
+  ``ops.attention.dot_product_attention`` with the tensors' device deciding)
+  and ``window`` (the window kernel's wrapper at (1, 8, 32, 16), P = 5),
+  with grad mode on (as training calls them) and in inference mode (as the
+  predict API does);
 - ``library_ms``: beside each kernel time, ``scaled_dot_product_attention``
   (forward, or its backward through autograd) on the same inputs in the same
   turn, the yardstick that shows how far the card's speed drifts;
@@ -48,6 +54,7 @@ import torch.nn.functional as F
 FWD_SHAPES = (("encoder", (2, 1201, 16, 64)), ("info_sharing", (1, 2400, 12, 64)))
 TRAIN_SHAPES = (("encoder", (4, 1201, 16, 64)), ("info_sharing", (2, 2400, 12, 64)))
 SMALL_SHAPE = (1, 77, 2, 64)
+WINDOW_SMALL_SHAPE = (1, 8, 32, 16)  # one tile of the window kernel, P = 5
 HOST_REPS = 1000
 QUEUE_SLEEP_CYCLES = 50_000_000  # ~25 ms at 1.98 GHz
 TRAIN_BATCH, TRAIN_HW = 2, (420, 560)
@@ -83,6 +90,9 @@ def host_us(fn, reps: int = HOST_REPS) -> float:
 def load_tree(root: str):
     """``ufm_torch.ops.flash_attention`` of the checkout at ``root``."""
     root = os.path.abspath(root)
+    library = sys.modules.get("ufm_torch.ops.library")
+    if library is not None:  # a tree with dispatcher ops: free their names for the next tree's
+        library._LIB._destroy()
     for name in [m for m in sys.modules if m == "ufm_torch" or m.startswith("ufm_torch.")]:
         del sys.modules[name]
     sys.path.insert(0, root)
@@ -92,7 +102,9 @@ def load_tree(root: str):
         sys.path.remove(root)
     if not os.path.abspath(fa.__file__).startswith(root + os.sep):
         raise RuntimeError(f"ufm_torch came from {fa.__file__}, not from {root}")
-    importlib.import_module("ufm_torch.ops._build").build(["flash_attention_fwd", "flash_attention_bwd"])
+    importlib.import_module("ufm_torch.ops._build").build(
+        ["flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd"]
+    )
     return fa
 
 
@@ -130,11 +142,26 @@ def run_tree(root: str, turn: int, train_steps: int = 0) -> dict:
              library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True)))
     q, k, v, g = views(SMALL_SHAPE, 2)
     o, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
-    emit("launch", "small", shape=list(SMALL_SHAPE), host_us_per_launch={
-        "fwd": host_us(lambda: fa.flash_attention_forward(q, k, v, scale)),
-        "fwd_with_lse": host_us(lambda: fa.flash_attention_forward(q, k, v, scale, with_lse=True)),
-        "bwd": host_us(lambda: fa.flash_attention_backward(q, k, v, o, lse, g, scale)),
-    })
+    dispatch = importlib.import_module("ufm_torch.ops.attention").dot_product_attention
+    wr = importlib.import_module("ufm_torch.ops.window_refinement")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    wq, wf = (torch.randn(WINDOW_SMALL_SHAPE, generator=gen, device="cuda") for _ in range(2))
+    wflow = torch.randn((*WINDOW_SMALL_SHAPE[:3], 2), generator=gen, device="cuda")
+    wbias = torch.randn(25, generator=gen, device="cuda")
+
+    def launch_costs():
+        return {
+            "fwd": host_us(lambda: fa.flash_attention_forward(q, k, v, scale)),
+            "fwd_with_lse": host_us(lambda: fa.flash_attention_forward(q, k, v, scale, with_lse=True)),
+            "bwd": host_us(lambda: fa.flash_attention_backward(q, k, v, o, lse, g, scale)),
+            "dispatch": host_us(lambda: dispatch(q, k, v, scale=scale)),
+            "window": host_us(lambda: wr.window_refinement(wq, wf, wflow, wbias, 4.0, 5)),
+        }
+
+    shapes = dict(shape=list(SMALL_SHAPE), window_shape=list(WINDOW_SMALL_SHAPE))
+    emit("launch", "small", **shapes, host_us_per_launch=launch_costs())
+    with torch.inference_mode():  # the predict API's mode: no autograd dispatch
+        emit("launch", "small_inference_mode", **shapes, host_us_per_launch=launch_costs())
     if train_steps:
         emit("train_step", "ufm_base_b2", **train_step(train_steps))
     return out
@@ -204,7 +231,7 @@ def main(argv) -> int:
             for field, val in fields.items():
                 if isinstance(val, dict):  # host_us_per_launch: one list per launch kind
                     for name in val:
-                        summary[root][f"{kernel}/{name}_host_us"] = [o[(kernel, case)][field][name] for o in outs]
+                        summary[root][f"{kernel}/{case}/{name}_host_us"] = [o[(kernel, case)][field][name] for o in outs]
                 elif isinstance(val, (int, float)):
                     summary[root][f"{kernel}/{case}_{field}"] = [o[(kernel, case)][field] for o in outs]
     print(json.dumps({"summary": summary, "device": smi}), flush=True)

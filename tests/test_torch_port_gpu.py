@@ -648,3 +648,67 @@ def test_stream_predict_on_the_card(cuda, staged):
         assert got.flow.flow_output.is_cuda
         assert torch.equal(got.flow.flow_output, want.flow.flow_output[:n])
         assert torch.equal(got.covisibility.mask, want.covisibility.mask[:n])
+
+
+def test_ops_on_the_card_match_their_plain_versions(cuda):
+    """Each dispatcher op on CUDA tensors runs its kernel (one launch each)
+    and agrees with the plain version on the same inputs: the attention op
+    with the bars above, the window op with chip_smoke's, its staged count
+    with ``staged_tiles``; a gradient through the attention op is the
+    backward op's."""
+    from ufm_torch.ops import library
+
+    q, k, v, dout = _qkv_views(cuda, (1, 200, 2, 64), seed=8)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    out, lse = library.flash_attention_fwd(q, k, v, 0.125, True)
+    dq, dk, dv = library.flash_attention_bwd(q, k, v, out, lse, dout, 0.125)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1]) == (1, 1)
+    ref, ref_lse = fa.attention_reference(q.float(), k.float(), v.float(), 0.125, with_lse=True)
+    plain = fa.attention_reference(q, k, v, 0.125)
+    assert (out.float() - ref).abs().max().item() <= max(2 * (plain.float() - ref).abs().max().item(), 4e-3)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(library.attention(*leaves, 0.125), leaves, dout)
+    for a, b in zip(grads, (dq, dk, dv)):
+        assert torch.equal(a, b)
+
+    wq, wf, wflow, wbias = _window_inputs(cuda, (1, 24, 44, 16), 5, 6.0)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    launched = wr.LAUNCHES
+    res, ls = library.window_refinement(wq, wf, wflow, wbias, 4.0, 5, counter)
+    torch.cuda.synchronize()
+    assert wr.LAUNCHES - launched == 1
+    ref_res, ref_ls = wr.window_refinement_reference(wq, wf, wflow, wbias, 4.0, 5)
+    assert (res - ref_res).abs().max().item() <= 2e-5 and (ls - ref_ls).abs().max().item() <= 2e-4
+    assert counter.item() == wr.staged_tiles(wflow, 5)
+
+
+@pytest.mark.parametrize("where", ["cpu", "cuda"])
+@pytest.mark.parametrize("refine", [False, True], ids=["base", "refine"])
+def test_artifact_launches_the_kernels_on_the_card(cuda, tmp_path, where, refine):
+    """A small bf16 model (head_dim 64) exported on the CPU or on the card,
+    loaded onto the card: its program launches the kernels (4 attention, 1
+    window for UFM-Refine) and answers as the live model on the card does."""
+    from ufm_torch.runtime import export_model, load_exported
+
+    cls = UniFlowMatchClassificationRefinement if refine else UniFlowMatchConfidence
+    model = cls.from_config(_small_config(has_classification_head=refine), seed=0, device=where)
+    path = str(tmp_path / "small.ufmt")
+    manifest = export_model(model, path)
+    assert manifest["devices"][0].startswith(where)
+    art = load_exported(path)
+    assert art.device.type == "cuda"
+    model.net.to(cuda)
+    w, h = model.inference_resolution[0]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, y = (torch.randn(1, h, w, 3, generator=g, device=cuda) for _ in range(2))
+    before = (fa.LAUNCHES, wr.LAUNCHES)
+    with torch.inference_mode():
+        got = art(x, y)
+        torch.cuda.synchronize()
+        assert (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1]) == (4, int(refine))
+        want = model.net(x, y)
+    for key in want:
+        a, b = got[key].float(), want[key].float()
+        assert ((a - b).norm() / b.norm().clamp_min(1e-12)).item() <= 1e-5, key

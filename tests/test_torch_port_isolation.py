@@ -85,7 +85,33 @@ def test_port_imports_with_jax_blocked():
         "ufm_torch.runtime.batcher",
         "ufm_torch.runtime.server",
         "ufm_torch.runtime.streaming",
+        "ufm_torch.runtime.export",
+        "ufm_torch.runtime.loader",
+        "ufm_torch.ops.library",
+        "ufm_torch.ops.cache",
+        "ufm_torch.demo",
     } <= mods
+
+
+def test_importing_ops_and_runtime_starts_no_compiler():
+    """Importing ``ufm_torch.ops`` (which registers the kernels' dispatcher
+    ops) and ``ufm_torch.runtime`` (and its lazily imported export and loader
+    names) starts no process and loads no library: a kernel or host library
+    is built at its first use."""
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k): raise AssertionError(f'process started: {a}')\n"
+        "subprocess.Popen = subprocess.run = refuse\n"
+        "import torch, ufm_torch.ops, ufm_torch.runtime\n"
+        "from ufm_torch.runtime import export_model, load_artifact_model, NativeImageLoader, iter_decoded_pairs\n"
+        "from ufm_torch.ops import _build\n"
+        "assert not _build._loaded, _build._loaded\n"
+        "assert hasattr(torch.ops.ufm_torch, 'flash_attention_fwd')\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
 
 
 def test_port_loads_nothing_from_native():
@@ -159,3 +185,18 @@ def test_chip_smoke_fails_without_a_gpu_or_the_package(tmp_path):
         out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_package_data_ships_every_source():
+    """``pip install`` ships each source the package builds at run time: the
+    kernels (``csrc/*.cu``, ``*.cuh``) and the host libraries
+    (``csrc/host/*.cc``)."""
+    import tomllib
+
+    from ufm_torch.ops import _build
+
+    globs = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]["ufm_torch"]
+    shipped = {p for g in globs for p in (ROOT / "ufm_torch").glob(g)}
+    needed = {_build.CSRC_DIR / f"{n}.cu" for n in _build.KERNEL_SOURCES}
+    needed |= set(_build.CSRC_DIR.glob("*.cuh")) | {_build.CSRC_DIR / "host" / f"{n}.cc" for n in _build.HOST_SOURCES}
+    assert needed <= shipped, sorted(str(p) for p in needed - shipped)

@@ -50,6 +50,8 @@ __all__ = [
     "load_state_dict_into",
     "read_safetensors",
     "write_safetensors",
+    "encode_safetensors",
+    "decode_safetensors",
     "read_flax_msgpack",
 ]
 
@@ -77,10 +79,10 @@ _ST_DTYPES = {
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 
-def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor], metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write ``tensors`` (any device; dtypes F32, F16, BF16, I64, I32, U8) as
-    a safetensors file. Larger items first, so every tensor starts aligned to
-    its item size."""
+def encode_safetensors(tensors: Mapping[str, torch.Tensor], metadata: Optional[Dict[str, str]] = None) -> bytes:
+    """``tensors`` (any device; dtypes F32, F16, BF16, I64, I32, U8) as the
+    bytes of a safetensors file. Larger items first, so every tensor starts
+    aligned to its item size."""
     order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
     header: Dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
     blobs, offset = [], 0
@@ -94,19 +96,15 @@ def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor], metadata: 
         offset += raw.size
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(len(head).to_bytes(8, "little"))
-        f.write(head)
-        for raw in blobs:
-            f.write(memoryview(raw))
+    return b"".join([len(head).to_bytes(8, "little"), head, *(memoryview(raw) for raw in blobs)])
 
 
-def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Read a safetensors file into CPU tensors of their stored dtypes."""
-    with open(path, "rb") as f:
-        n = int.from_bytes(f.read(8), "little")
-        header = json.loads(f.read(n))
-        data = bytearray(f.read())
+def decode_safetensors(data: bytes) -> Dict[str, torch.Tensor]:
+    """The tensors of a safetensors file's bytes, as CPU tensors of their
+    stored dtypes."""
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8 : 8 + n])
+    body = bytearray(data[8 + n :])
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
@@ -116,9 +114,21 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         dtype = _ST_DTYPES[info["dtype"]]
         begin, end = info["data_offsets"]
         count = (end - begin) // torch.empty((), dtype=dtype).element_size()
-        t = torch.frombuffer(data, dtype=dtype, count=count, offset=begin) if count else torch.empty(0, dtype=dtype)
+        t = torch.frombuffer(body, dtype=dtype, count=count, offset=begin) if count else torch.empty(0, dtype=dtype)
         out[name] = t.reshape(info["shape"]).clone()
     return out
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor], metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write ``tensors`` as a safetensors file (:func:`encode_safetensors`)."""
+    with open(path, "wb") as f:
+        f.write(encode_safetensors(tensors, metadata))
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read a safetensors file into CPU tensors of their stored dtypes."""
+    with open(path, "rb") as f:
+        return decode_safetensors(f.read())
 
 
 # ---- flax msgpack -------------------------------------------------------------

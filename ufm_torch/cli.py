@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Command line for the PyTorch / CUDA port (counterpart of ``ufm_tpu/cli.py``).
 
-    python -m ufm_torch.cli infer SOURCE TARGET (--checkpoint DIR | --random-init) [--model {base,refine}] [-o DIR] [--device cpu]
+    python -m ufm_torch.cli infer SOURCE TARGET (--checkpoint DIR | --random-init | --artifact PATH) [--model {base,refine}] [-o DIR] [--device cpu]
     python -m ufm_torch.cli eval DIR (--checkpoint DIR | --random-init) [--model {base,refine}] [--tiled] [-o JSON] [--device cpu]
-    python -m ufm_torch.cli serve (--checkpoint DIR | --random-init) [--model {base,refine}] [--host H] [--port P] [--max-batch N] [--max-delay-ms MS] [--device cpu]
+    python -m ufm_torch.cli export OUTPUT (--checkpoint DIR | --random-init) [--model {base,refine}] [--batch N] [--params-dtype {bfloat16,float16}] [--device cpu]
+    python -m ufm_torch.cli serve (--checkpoint DIR | --random-init | --artifact PATH) [--model {base,refine}] [--host H] [--port P] [--max-batch N] [--max-delay-ms MS] [--device cpu]
+    python -m ufm_torch.cli demo [--checkpoint DIR] [--model {base,refine}] [--port P] [--share] [--device cpu]
     python -m ufm_torch.cli test
 
 ``infer`` runs UFM-Base (``--model base``, the default) or UFM-Refine
@@ -18,8 +20,14 @@ inference. Weights come from a local checkpoint directory (``--checkpoint``:
 ``serve`` runs the HTTP daemon (``ufm_torch.runtime.server``: ``GET
 /healthz``, ``GET /stats``, ``POST /v1/predict``) with continuous batching
 per input-shape lane; each lane's batches are padded to ``--max-batch``, so
-each lane replays one captured predict program. All three run on the GPU
-unless ``--device cpu`` is given. ``test`` is an environment check.
+each lane replays one captured predict program. ``export`` writes a
+deployment artifact (``ufm_torch.runtime.export``: a fixed-shape
+``torch.export`` program of the network with its parameters beside it, one
+``.ufmt`` file); ``infer --artifact`` and ``serve --artifact`` run one in
+place of a live model (``serve`` pins ``--max-batch`` to the artifact's
+batch). ``demo`` runs the gradio app (``ufm_torch.demo``; needs ``gradio``).
+All of them run on the GPU unless ``--device cpu`` is given. ``test`` is an
+environment check.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     infer.add_argument("source", help="Source image path")
     infer.add_argument("target", help="Target image path")
     infer.add_argument("--output", "-o", help="Output directory (default: current directory)")
-    _add_model_arguments(infer)
+    _add_model_arguments(infer, artifact=True)
 
     ev = sub.add_parser("eval", help="Evaluate on a directory of pairs (with or without ground-truth flow)")
     ev.add_argument("directory", help="Directory of name_0.png/name_1.png + name_flow.npy|.flo|_flow.png")
@@ -54,10 +62,21 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--tiled", action="store_true", help="Coarse-to-fine tiled high-resolution inference")
     ev.add_argument("--output", "-o", help="Write aggregate + per-pair metrics JSON here")
 
-    srv = sub.add_parser("serve", help="Run the HTTP serving daemon")
+    exp = sub.add_parser("export", help="Write a deployment artifact (torch.export program + parameters, .ufmt)")
+    exp.add_argument("output", help="Artifact path (suffix .ufmt)")
+    _add_model_arguments(exp)
+    exp.add_argument("--batch", type=int, default=1, help="Fixed batch size of the exported program")
+    exp.add_argument(
+        "--params-dtype",
+        choices=("bfloat16", "float16"),
+        default=None,
+        help="Store floating parameters in half precision (cast back on load)",
+    )
+
+    srv = sub.add_parser("serve", help="Run the HTTP serving daemon (live model or artifact)")
     srv.add_argument("--host", default="127.0.0.1")
     srv.add_argument("--port", type=int, default=8000)
-    _add_model_arguments(srv)
+    _add_model_arguments(srv, artifact=True)
     srv.add_argument(
         "--max-batch",
         type=int,
@@ -67,11 +86,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     srv.add_argument("--max-delay-ms", type=float, default=3.0, help="Batching window before dispatch")
 
+    demo = sub.add_parser("demo", help="Launch the interactive gradio demo")
+    demo.add_argument("--port", type=int, default=7860, help="Port to run the demo on (default: 7860)")
+    demo.add_argument("--share", action="store_true", help="Create a public sharing link")
+    demo.add_argument(
+        "--model", choices=("base", "refine"), default="base", help="UFM-Base or UFM-Refine (default: base)"
+    )
+    demo.add_argument("--checkpoint", help="Local checkpoint directory (default: seeded random weights)")
+    demo.add_argument("--device", default=None, help="torch device (default: cuda)")
+
     sub.add_parser("test", help="Test installation")
     return parser
 
 
-def _add_model_arguments(p: argparse.ArgumentParser) -> None:
+def _add_model_arguments(p: argparse.ArgumentParser, artifact: bool = False) -> None:
     p.add_argument(
         "--model", choices=("base", "refine"), default="base", help="UFM-Base or UFM-Refine (default: base)"
     )
@@ -81,15 +109,22 @@ def _add_model_arguments(p: argparse.ArgumentParser) -> None:
         action="store_true",
         help="Run with seeded random weights (pipeline smoke test; no checkpoint needed)",
     )
+    if artifact:
+        p.add_argument("--artifact", help="Run a deployment artifact (cli export) in place of a live model")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
 
 
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    handler = {"infer": run_inference, "eval": run_eval, "serve": run_serve, "test": lambda _: test_installation()}.get(
-        args.command
-    )
+    handler = {
+        "infer": run_inference,
+        "eval": run_eval,
+        "export": run_export,
+        "serve": run_serve,
+        "demo": run_demo,
+        "test": lambda _: test_installation(),
+    }.get(args.command)
     if handler is None:
         parser.print_help()
         return
@@ -110,8 +145,13 @@ def _write_rgb(path: Path, rgb) -> None:
 
 
 def _load_model(args):
-    """The model of ``--model`` from ``--checkpoint`` or with seeded random
-    weights (``--random-init``), on ``--device``."""
+    """The artifact of ``--artifact`` in the predict API, else the model of
+    ``--model`` from ``--checkpoint`` or with seeded random weights
+    (``--random-init``), on ``--device``."""
+    if getattr(args, "artifact", None):
+        from ufm_torch.runtime.export import load_artifact_model
+
+        return load_artifact_model(args.artifact, device=args.device)
     from ufm_torch.models import (
         UniFlowMatchClassificationRefinement,
         UniFlowMatchConfidence,
@@ -127,16 +167,15 @@ def _load_model(args):
 
 
 def _check_weights_given(args) -> None:
-    if not args.checkpoint and not args.random_init:
-        _fail("Error: pass --checkpoint DIR (a local checkpoint directory) or --random-init")
+    if not args.checkpoint and not args.random_init and not getattr(args, "artifact", None):
+        artifact = " or --artifact PATH" if hasattr(args, "artifact") else ""
+        _fail(f"Error: pass --checkpoint DIR (a local checkpoint directory) or --random-init{artifact}")
 
 
 def run_inference(args) -> None:
     _check_weights_given(args)
     try:
-        import numpy as np
-
-        from ufm_torch.utils.viz import flow_to_color, warp_image_with_flow
+        from ufm_torch.utils.viz import correspondence_panels
     except ImportError as e:
         _fail(f"Error importing dependencies: {e}")
 
@@ -160,16 +199,8 @@ def run_inference(args) -> None:
 
     out_dir = Path(args.output) if args.output else Path.cwd()
     out_dir.mkdir(exist_ok=True)
-
-    # Backward-warp the target into the source frame, whiting out non-covisible
-    # pixels so occlusions read as "no correspondence" in the panel.
-    warped = warp_image_with_flow(source_rgb, None, target_rgb, flow_hwc).astype(np.float32)
-    alpha = covis[..., None]
-    composite = (alpha * warped + (1.0 - alpha) * 255.0).astype(np.uint8)
-
-    _write_rgb(out_dir / OUTPUT_FILES[0], flow_to_color(flow_hwc))
-    _write_rgb(out_dir / OUTPUT_FILES[1], np.repeat((covis * 255).astype(np.uint8)[..., None], 3, axis=-1))
-    _write_rgb(out_dir / OUTPUT_FILES[2], composite)
+    for name, panel in zip(OUTPUT_FILES, correspondence_panels(source_rgb, target_rgb, flow_hwc, covis)):
+        _write_rgb(out_dir / name, panel)
 
     print(f"Wrote {len(OUTPUT_FILES)} files to {out_dir}:")
     for name in OUTPUT_FILES:
@@ -215,12 +246,19 @@ def run_serve(args) -> None:
         _fail(f"Error loading model: {e}")
     from ufm_torch.runtime.server import UFMServer
 
-    server = UFMServer(model, host=args.host, port=args.port, max_batch=args.max_batch, max_delay_ms=args.max_delay_ms)
+    max_batch = args.max_batch
+    if args.artifact and max_batch != model.exported.batch:
+        # an artifact's program is fixed-shape and every lane batch is padded
+        # to max_batch: any other width would fail every request
+        print(f"note: artifact was exported at fixed batch {model.exported.batch}; "
+              f"using --max-batch {model.exported.batch} (requested {max_batch})", flush=True)
+        max_batch = model.exported.batch
+    server = UFMServer(model, host=args.host, port=args.port, max_batch=max_batch, max_delay_ms=args.max_delay_ms)
     try:
         server.start()
     except OSError as e:
         _fail(f"Error: cannot listen on {args.host}:{args.port}: {e}")
-    source = args.checkpoint or "seeded random weights"
+    source = args.artifact or args.checkpoint or "seeded random weights"
     print(f"Serving {type(model).__name__} ({source}) on {model.device} at http://{args.host}:{server.port}", flush=True)
     print("  GET /healthz | GET /stats | POST /v1/predict (npz or JSON, see ufm_torch/runtime/server.py)", flush=True)
     try:
@@ -229,6 +267,42 @@ def run_serve(args) -> None:
         pass
     finally:
         server.close()
+
+
+def run_export(args) -> None:
+    _check_weights_given(args)
+    if args.batch < 1:
+        _fail(f"Error: --batch must be at least 1, got {args.batch}")
+    try:
+        model = _load_model(args)
+    except (OSError, ImportError, KeyError, RuntimeError, ValueError) as e:
+        _fail(f"Error loading model: {e}")
+    from ufm_torch.runtime.export import export_model
+
+    try:
+        manifest = export_model(model, args.output, batch=args.batch, params_dtype=args.params_dtype)
+    except (OSError, RuntimeError, ValueError) as e:
+        _fail(f"Error exporting model: {e}")
+    w, h = manifest["resolution_wh"]
+    dtype = f", parameters stored in {manifest['params_dtype']}" if manifest["params_dtype"] else ""
+    print(
+        f"Exported {manifest['model_class']} (one program, batch {manifest['batch']}, {w}x{h}, traced on "
+        f"{manifest['devices'][0]}{dtype}) -> {args.output} ({Path(args.output).stat().st_size / 1e6:.1f} MB; "
+        f"program {manifest['program_bytes'] / 1e6:.1f} MB)"
+    )
+
+
+def run_demo(args) -> None:
+    try:
+        import gradio  # noqa: F401
+    except ImportError as e:
+        _fail(f"Error: the demo needs gradio, which is not installed ({e})")
+    from ufm_torch.demo import create_demo, initialize_model
+
+    print(f"Serving the {args.model} model at http://localhost:{args.port}")
+    if not initialize_model(use_refinement=args.model == "refine", checkpoint=args.checkpoint, device=args.device):
+        _fail("Error: the model failed to load (see above)")
+    create_demo().launch(share=args.share, server_port=args.port, server_name="127.0.0.1", show_error=True)
 
 
 def test_installation() -> None:

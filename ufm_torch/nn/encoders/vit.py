@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ufm_torch.ops.cache import device_constant
 from ufm_torch.nn.layers import LN_EPS, TransformerBlock, as_dtype, run_blocks
 
 __all__ = ["ViTEncoderInput", "ViTEncoderOutput", "ViTEncoder", "interpolate_pos_embed"]
@@ -62,11 +63,10 @@ def _cubic_resize_matrix_np(in_size: int, out_size: int) -> np.ndarray:
     total = w.sum(axis=0, keepdims=True, dtype=np.float32)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0)
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32).T
+    return np.ascontiguousarray(np.where(inside[None, :], w, 0).astype(np.float32).T)
 
 
-# unbounded: a captured CUDA graph keeps the address of what it read
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _cubic_resize_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     # cached on the device: a forward pass never waits on a host-to-device
     # copy; built outside inference mode so that training may use it after

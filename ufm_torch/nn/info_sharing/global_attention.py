@@ -11,13 +11,13 @@ a learned per-view embedding, position a fixed 2D sin-cos embedding. Returns
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ufm_torch.ops.cache import device_constant
 from ufm_torch.nn.layers import LN_EPS, TransformerBlock, as_dtype, run_blocks
 
 __all__ = [
@@ -56,8 +56,7 @@ def _sincos_pos_embed_2d(h: int, w: int, dim: int) -> np.ndarray:
     return np.concatenate(out, axis=1).astype(np.float32)
 
 
-# unbounded: a captured CUDA graph keeps the address of what it read
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _sincos_pos_embed(h: int, w: int, dim: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):  # cached: usable by training after the predict API
         return torch.from_numpy(_sincos_pos_embed_2d(h, w, dim)).to(device=device, dtype=dtype)

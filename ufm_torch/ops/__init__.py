@@ -3,9 +3,12 @@
 
 Each kernel's wrapper and launch count live in its submodule
 (``ufm_torch.ops.flash_attention``, ``ufm_torch.ops.window_refinement``; not
-re-exported, so ``LAUNCHES`` stays the module's).
+re-exported, so ``LAUNCHES`` stays the module's). The kernels are dispatcher
+ops (``torch.ops.ufm_torch.*``), registered by ``ufm_torch.ops.library``,
+which importing this package imports.
 """
 
+from ufm_torch.ops import library  # noqa: F401  (registers the ops)
 from ufm_torch.ops.attention import dot_product_attention
 from ufm_torch.ops.grid_sample import grid_sample
 from ufm_torch.ops.refinement import fused_refinement_attention

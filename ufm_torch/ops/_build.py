@@ -3,10 +3,12 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/ufm_torch/`` at the repository root (git-ignored) the first time it is
-needed, and loaded with :mod:`ctypes`. The serving runtime's scheduler
-(``csrc/host/ufm_runtime.cc``, framework-free C++) is compiled the same way by
-the host C++ compiler (:func:`load_host_library`). A library's file name
-carries a hash of the sources and flags, so an edited source is rebuilt.
+needed, and loaded with :mod:`ctypes`. The host libraries, framework-free
+C++ (``csrc/host/``: the serving runtime's scheduler ``ufm_runtime.cc`` and
+the image loader ``ufm_loader.cc``, which links libjpeg and libpng), are
+compiled the same way by the host C++ compiler (:func:`load_host_library`).
+A library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt.
 Nothing here runs at import time: the CPU tests import every module of the
 package.
 """
@@ -45,8 +47,10 @@ NVCC_FLAGS = (
 )
 
 # host libraries (csrc/host/<name>.cc), built by the host C++ compiler
-HOST_SOURCES = ("ufm_runtime",)
+HOST_SOURCES = ("ufm_runtime", "ufm_loader")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
+# the system libraries a host library links (after its source)
+HOST_LINK_FLAGS = {"ufm_loader": ("-ljpeg", "-lpng")}
 
 # extra flags of one library: at ptxas's default -O3 the window kernel's
 # direct path (hoisted global tap loads) takes all 128 registers a thread and
@@ -78,8 +82,8 @@ def _cxx() -> str:
         if path:
             return path
     raise RuntimeError(
-        "no host C++ compiler (c++ or g++ on PATH): the serving runtime's scheduler "
-        "(ufm_torch/csrc/host/ufm_runtime.cc) is built from source at first use"
+        "no host C++ compiler (c++ or g++ on PATH): the host libraries "
+        "(ufm_torch/csrc/host/*.cc) are built from source at first use"
     )
 
 
@@ -92,7 +96,7 @@ def _library_path(name: str) -> Path:
 
 
 def _host_library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join(CXX_FLAGS + HOST_LINK_FLAGS.get(name, ())).encode())
     h.update((CSRC_DIR / "host" / f"{name}.cc").read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -154,11 +158,13 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def load_host_library(name: str) -> ctypes.CDLL:
     """The loaded host library ``csrc/host/<name>.cc``, built on first use by
-    the host C++ compiler (``-O2 -std=c++17 -fPIC -pthread -shared``)."""
+    the host C++ compiler (``-O2 -std=c++17 -fPIC -pthread -shared``, then
+    its ``HOST_LINK_FLAGS``)."""
     with _lock:
         if name not in _loaded:
             path = _host_library_path(name)
             if not path.exists():
-                _compile([(name, path, [_cxx(), *CXX_FLAGS, str(CSRC_DIR / "host" / f"{name}.cc")])])
+                source = str(CSRC_DIR / "host" / f"{name}.cc")
+                _compile([(name, path, [_cxx(), *CXX_FLAGS, source, *HOST_LINK_FLAGS.get(name, ())])])
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]

@@ -1,13 +1,17 @@
 """Multi-head attention dispatch (counterpart of ``ufm_tpu/ops/attention.py``).
 
 Both transformer stacks route their softmax-attention core through
-:func:`dot_product_attention`. The device of the tensors decides: a CUDA
-tensor takes the Hopper flash-attention kernels (which raise on what they do
-not take; with grad enabled, the forward and backward kernel pair), a CPU
-tensor takes the plain PyTorch version, whose gradient is autograd over it.
-``impl="torch"`` asks for the plain version explicitly, on any device (tests
-and the chip check use it to hold the kernels to it). There is no path from
-the kernels to the plain version.
+:func:`dot_product_attention`. By default it calls the dispatcher op
+``ufm_torch::flash_attention_fwd`` (:mod:`ufm_torch.ops.library`), and the
+tensors' device picks the implementation inside the op: a CUDA tensor takes
+the Hopper flash-attention kernels (which raise on what they do not take;
+with grad enabled, the forward and backward kernel pair), a CPU tensor the
+plain PyTorch version, whose gradient is the plain backward. So a traced or
+exported model holds the op, not either implementation. ``impl="cuda"`` asks
+for the kernels (and raises on a CPU tensor); ``impl="torch"`` asks for the
+plain version, decomposed into PyTorch ops, on any device (tests and the chip
+check use it to hold the kernels to it). There is no path from the kernels
+to the plain version.
 
 Shapes follow the JAX package: q/k/v are (batch, seq, heads, head_dim).
 """
@@ -18,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ufm_torch.ops import library
 from ufm_torch.ops.flash_attention import attention_reference, flash_attention
 
 __all__ = ["dot_product_attention", "IMPLS"]
@@ -37,7 +42,7 @@ def dot_product_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl is None:
-        impl = "cuda" if q.is_cuda else "torch"
+        return library.attention(q, k, v, float(scale))
     if impl == "cuda":
         return flash_attention(q, k, v, scale=scale)
     if impl == "torch":

@@ -1,15 +1,19 @@
 """Flash attention: the Hopper kernels and their plain PyTorch versions.
 
-:func:`flash_attention` launches the hand-written CUDA forward
-(``ufm_torch/csrc/flash_attention_fwd.cu``), the port of
-``ufm_tpu/ops/flash_attention.py``'s Pallas forward. When grad is enabled and
-an input requires grad it goes through :class:`FlashAttentionFunction`, whose
-forward also writes each row's log-sum-exp and whose backward launches the
-hand-written CUDA backward (``ufm_torch/csrc/flash_attention_bwd.cu``), the
-port of the Pallas ``_flash_attention_bwd_impl``. Both take CUDA tensors only
-and raise on anything the kernels do not take; they never fall back to
-:func:`attention_reference` / :func:`attention_backward_reference`, the plain
-versions of the same functions, which the CPU path and the kernel checks use.
+The kernels are reached through the dispatcher ops
+``ufm_torch::flash_attention_fwd`` and ``ufm_torch::flash_attention_bwd``
+(:mod:`ufm_torch.ops.library`). :func:`launch_forward` launches the
+hand-written CUDA forward (``ufm_torch/csrc/flash_attention_fwd.cu``, the port
+of ``ufm_tpu/ops/flash_attention.py``'s Pallas forward), which also writes
+each row's log-sum-exp when asked; :func:`launch_backward` launches the
+hand-written CUDA backward (``ufm_torch/csrc/flash_attention_bwd.cu``, the
+port of the Pallas ``_flash_attention_bwd_impl``). They are the ops' CUDA
+implementations, and raise on anything the kernels do not take; they never
+fall back to :func:`attention_reference` / :func:`attention_backward_reference`,
+the plain versions of the same functions, which are the ops' CPU
+implementations and what the kernel checks use. :func:`flash_attention`,
+:func:`flash_attention_forward` and :func:`flash_attention_backward` call the
+ops on CUDA tensors and refuse any other.
 
 Inputs are (B, S, H, D) like the JAX package. q, k and v may be strided views
 (the fused qkv projection, reshaped (B, S, 3, H, D)): the kernels read them
@@ -23,7 +27,6 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from ufm_torch.ops import _build
 
@@ -31,7 +34,11 @@ __all__ = [
     "flash_attention",
     "flash_attention_forward",
     "flash_attention_backward",
-    "FlashAttentionFunction",
+    "launch_forward",
+    "launch_backward",
+    "plain_forward",
+    "plain_backward",
+    "needs_lse",
     "attention_reference",
     "attention_backward_reference",
     "LAUNCHES",
@@ -53,13 +60,18 @@ _fwd_fn = None
 _bwd_fn = None
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool = False):
     """Plain softmax attention over (B, S, H, D): logits in the input dtype
     times ``scale``, softmax in fp32, weights cast back, then times v (the math
-    of ``ufm_tpu/ops/attention.py::_xla_attention``)."""
+    of ``ufm_tpu/ops/attention.py::_xla_attention``). With ``with_lse`` it
+    returns (out, lse): ``lse`` (B, H, Sq) fp32 is each row's natural-log
+    log-sum-exp of the scaled logits, as the forward kernel writes it."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     weights = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    if with_lse:
+        return out, torch.logsumexp(logits.float(), dim=-1)
+    return out
 
 
 def attention_backward_reference(
@@ -169,26 +181,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention needs at least one key")
 
 
-def flash_attention_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool = False
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One forward launch: (out (B, Sq, H, 64) bf16, lse (B, H, Sq) fp32 or
-    None). ``lse`` is each row's natural-log log-sum-exp of the scaled scores,
-    written only when ``with_lse`` (the training forward); inference passes a
-    null pointer and launches the kernel instance without it."""
+def _empty_lse(q: torch.Tensor) -> torch.Tensor:
+    """The forward op's ``lse`` output when it was not asked for."""
+    return torch.empty((0,), dtype=torch.float32, device=q.device)
+
+
+def launch_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward op's CUDA implementation, one kernel launch: (out
+    (B, Sq, H, 64) bf16, lse (B, H, Sq) fp32, or an empty tensor when not
+    ``with_lse``). ``lse`` is each row's natural-log log-sum-exp of the scaled
+    scores, written only when ``with_lse`` (the training forward); inference
+    passes a null pointer and launches the kernel instance without it."""
     global LAUNCHES
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else _empty_lse(q)
     if sq == 0:
         return out, lse
     fn = _fwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
             b, h, sq, sk,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float(scale), stream,
@@ -199,7 +217,7 @@ def flash_attention_forward(
     return out, lse
 
 
-def flash_attention_backward(
+def launch_backward(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -208,12 +226,12 @@ def flash_attention_backward(
     g: torch.Tensor,
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One backward call (two CUDA kernels: delta, then dK/dV and dQ): (dq, dk, dv),
-    fresh contiguous (B, S, H, 64) bf16 tensors, from the forward's inputs,
-    output and ``lse`` and the output gradient ``g``. ``g`` is read through
-    its strides; one whose rows the kernel cannot read in place (a
-    non-contiguous head dim, unaligned rows) is copied to a contiguous tensor
-    first."""
+    """The backward op's CUDA implementation, one backward call (two CUDA
+    kernels: delta, then dK/dV and dQ): (dq, dk, dv), fresh contiguous
+    (B, S, H, 64) bf16 tensors, from the forward's inputs, output and ``lse``
+    and the output gradient ``g``. ``g`` is read through its strides; one
+    whose rows the kernel cannot read in place (a non-contiguous head dim,
+    unaligned rows) is copied to a contiguous tensor first."""
     global BWD_LAUNCHES
     _check(q, k, v)
     if _layout_error(g) is not None:
@@ -249,35 +267,78 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Flash attention with a kernel backward (the port of the JAX package's
-    ``jax.custom_vjp`` around the Pallas forward and backward). The forward
-    saves q, k, v, the output and the row log-sum-exp; the backward is one
-    :func:`flash_attention_backward` call."""
+def plain_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward op's CPU implementation: :func:`attention_reference`,
+    returned in the kernel's layout (contiguous, an empty ``lse`` when not
+    ``with_lse``)."""
+    if with_lse:
+        out, lse = attention_reference(q, k, v, scale, with_lse=True)
+        return out.contiguous(), lse.contiguous()
+    return attention_reference(q, k, v, scale).contiguous(), _empty_lse(q)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_forward(q, k, v, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g, ctx.scale)
-        return dq, dk, dv, None
+def plain_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward op's CPU implementation: :func:`attention_backward_reference`
+    (which recomputes P and so needs neither ``out`` nor ``lse``)."""
+    return tuple(t.contiguous() for t in attention_backward_reference(q, k, v, g, scale))
+
+
+def _require_cuda(*tensors: torch.Tensor) -> None:
+    for name, t in zip("qkv", tensors):
+        if not t.is_cuda:
+            raise ValueError(
+                f"flash_attention runs only on CUDA tensors ({name} is on {t.device}); "
+                "the plain version is dot_product_attention(..., impl='torch')"
+            )
+
+
+def needs_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a forward's output will be differentiated: then the forward
+    writes the row log-sum-exp, which the backward kernel reads."""
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
+def flash_attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool = False
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One forward op call on the card: (out (B, Sq, H, 64) bf16, lse
+    (B, H, Sq) fp32 or None); see :func:`launch_forward`."""
+    _require_cuda(q, k, v)
+    out, lse = torch.ops.ufm_torch.flash_attention_fwd(q, k, v, float(scale), with_lse)
+    return out, (lse if with_lse else None)
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One backward op call on the card; see :func:`launch_backward`."""
+    _require_cuda(q, k, v)
+    return torch.ops.ufm_torch.flash_attention_bwd(q, k, v, out, lse, g, float(scale))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention on the card: q (B, Sq, H, 64), k/v (B, Sk, H, 64)
     bf16 -> (B, Sq, H, 64) bf16, a fresh contiguous tensor. With grad enabled
-    and an input that requires grad, the output carries the kernel backward
-    (:class:`FlashAttentionFunction`); otherwise it is one plain forward
-    launch."""
+    and an input that requires grad, the forward also writes the row
+    log-sum-exp and the output's gradient is the backward kernel (the op's
+    autograd formula); otherwise it is one plain forward launch."""
+    _require_cuda(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFunction.apply(q, k, v, float(scale))
-    return flash_attention_forward(q, k, v, scale)[0]
+    return torch.ops.ufm_torch.flash_attention_fwd(q, k, v, float(scale), needs_lse(q, k, v))[0]

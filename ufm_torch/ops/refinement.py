@@ -12,9 +12,10 @@ flow residual and the log-softmax.
 - :func:`fused_refinement_attention` is what the network calls. It never
   builds the window: the score of each window position is bilinear in the
   (P+3)^2 integer taps, so each tap is reduced against q once and the scores
-  are a separable cubic combination of those scalars. A CUDA tensor takes the
-  Hopper kernel (:mod:`ufm_torch.ops.window_refinement`), a CPU tensor its
-  plain version.
+  are a separable cubic combination of those scalars. By default it calls the
+  dispatcher op ``ufm_torch::window_refinement`` (:mod:`ufm_torch.ops.library`):
+  a CUDA tensor takes the Hopper kernel
+  (:mod:`ufm_torch.ops.window_refinement`), a CPU tensor its plain version.
 
 All maps are channel-last; positions are in pixel-index space.
 """
@@ -25,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ufm_torch.ops import library
 from ufm_torch.ops.grid_sample import grid_sample
 from ufm_torch.ops.window_refinement import (
     base_grid,
@@ -97,17 +99,18 @@ def fused_refinement_attention(
     (B, H, W, 2) xy, bias (P*P,) -> (residual (B, H, W, 2), log_softmax
     (B, H, W, P, P)), equal to the materializing composition.
 
-    ``impl``: ``None`` lets the tensors' device decide (CUDA: the kernel, CPU:
-    the plain version); ``"cuda"`` asks for the kernel, which raises on what
-    it does not take; ``"torch"`` asks for the plain version on any device.
+    ``impl``: ``None`` calls the op, whose implementation the tensors' device
+    picks (CUDA: the kernel, CPU: the plain version); ``"cuda"`` asks for the
+    kernel, which raises on what it does not take; ``"torch"`` asks for the
+    plain version, decomposed, on any device.
     """
-    if impl is None:
-        impl = "cuda" if target_features.is_cuda else "torch"
-    if impl == "cuda":
+    if impl in (None, "cuda"):
         # the kernel's operands: fp32, contiguous (the flow head's output is
         # a permuted view)
-        q, f, fl = (t.float().contiguous() for t in (query_features, target_features, flow))
-        return window_refinement(q, f, fl, classification_bias.float().contiguous(), temperature, local_patch)
+        q, f, fl, bias = (t.float().contiguous() for t in (query_features, target_features, flow, classification_bias))
+        if impl is None:
+            return library.window_refinement(q, f, fl, bias, float(temperature), int(local_patch))
+        return window_refinement(q, f, fl, bias, temperature, local_patch)
     if impl == "torch":
         return window_refinement_reference(
             query_features, target_features, flow, classification_bias, temperature, local_patch

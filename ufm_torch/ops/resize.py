@@ -23,6 +23,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ufm_torch.ops.cache import device_constant
+
 __all__ = [
     "resize_matrix",
     "resize_hwc",
@@ -104,8 +106,7 @@ def _nearest_index_np(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
-# unbounded: a captured CUDA graph keeps the address of what it read
-@functools.lru_cache(maxsize=None)
+@device_constant
 def resize_matrix(
     in_size: int,
     out_size: int,
@@ -122,8 +123,7 @@ def resize_matrix(
         return torch.from_numpy(w).to(device=device, dtype=dtype)
 
 
-# unbounded: a captured CUDA graph keeps the address of what it read
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):  # cached: usable by training too
         return torch.from_numpy(_nearest_index_np(in_size, out_size)).to(device)

@@ -9,14 +9,17 @@ bicubically (torch's A = -0.75) into P x P window scores, then
 offset-weighted flow residual.
 
 - :func:`window_refinement_reference` is the plain version (the math of
-  ``_window_dots`` + ``_fused_refinement_xla`` + ``_scores_tail``), used for
-  CPU tensors, for the checks, and as the kernel's backward.
-- :func:`window_refinement` launches ``ufm_torch/csrc/window_refinement_fwd.cu``
-  (which replaces the Pallas window-dots kernels ``_dots16`` and ``_dots8``
-  and the XLA epilogue around them). It takes CUDA tensors only and raises on
-  anything the kernel does not take; it never falls back to the plain
-  version. Its gradient is autograd over the plain version, as in the JAX
-  package (a Pallas forward with the XLA VJP).
+  ``_window_dots`` + ``_fused_refinement_xla`` + ``_scores_tail``): the CPU
+  implementation of the dispatcher op ``ufm_torch::window_refinement``
+  (:mod:`ufm_torch.ops.library`), what the checks use, and the op's backward.
+- :func:`launch` is the op's CUDA implementation: it launches
+  ``ufm_torch/csrc/window_refinement_fwd.cu`` (which replaces the Pallas
+  window-dots kernels ``_dots16`` and ``_dots8`` and the XLA epilogue around
+  them) and raises on anything the kernel does not take; it never falls back
+  to the plain version. The op's gradient is autograd over the plain
+  version, as in the JAX package (a Pallas forward with the XLA VJP).
+  :func:`window_refinement` calls the op on CUDA tensors and refuses any
+  other.
 - :func:`staged_tiles` counts, in plain PyTorch, the tiles of
   ``TILE`` pixels whose taps the kernel stages in shared memory: those whose
   taps all fit one ``BOX`` of the target map. The kernel reads the other
@@ -46,6 +49,8 @@ from ufm_torch.ops.grid_sample import cubic_weights
 __all__ = [
     "window_refinement",
     "window_refinement_reference",
+    "launch",
+    "plain",
     "base_grid",
     "neighborhood_offsets_xy",
     "supports_kernel",
@@ -196,28 +201,30 @@ def _kernel():
     return _fn
 
 
+_PLAIN = "the plain version is fused_refinement_attention(..., impl='torch')"
+
+
 def _check(q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Tensor, p: int,
            staged_count: Optional[torch.Tensor]) -> None:
-    plain = "the plain version is fused_refinement_attention(..., impl='torch')"
     for name, t in (("q", q), ("f", f), ("flow", flow), ("bias", bias)):
         if not t.is_cuda:
-            raise ValueError(f"window_refinement runs only on CUDA tensors ({name} is on {t.device}); {plain}")
+            raise ValueError(f"window_refinement runs only on CUDA tensors ({name} is on {t.device}); {_PLAIN}")
         if t.dtype != torch.float32:
-            raise ValueError(f"window_refinement takes float32, got {name}.dtype={t.dtype}; {plain}")
+            raise ValueError(f"window_refinement takes float32, got {name}.dtype={t.dtype}; {_PLAIN}")
         if not t.is_contiguous():
-            raise ValueError(f"window_refinement needs contiguous tensors, got {name}.stride()={t.stride()}; {plain}")
+            raise ValueError(f"window_refinement needs contiguous tensors, got {name}.stride()={t.stride()}; {_PLAIN}")
     if not (q.device == f.device == flow.device == bias.device):
         raise ValueError("q, f, flow and bias must be on one device")
     if q.dim() != 4 or q.shape != f.shape or not supports_kernel(q.shape[-1], p):
         raise ValueError(
             f"window_refinement takes q, f (B, H, W, C) with C in {CHANNELS} and P in {PATCHES}, "
-            f"got q {tuple(q.shape)}, f {tuple(f.shape)}, P={p}; {plain}"
+            f"got q {tuple(q.shape)}, f {tuple(f.shape)}, P={p}; {_PLAIN}"
         )
     if flow.shape != (*q.shape[:3], 2) or bias.shape != (p * p,):
         raise ValueError(f"flow must be {(*q.shape[:3], 2)} and bias {(p * p,)}, got {tuple(flow.shape)}, {tuple(bias.shape)}")
     # taps are read as 16-byte vectors (and f through a TMA map), the flow as 8-byte pairs
     if q.data_ptr() % 16 or f.data_ptr() % 16 or flow.data_ptr() % 8:
-        raise ValueError(f"window_refinement needs 16-byte aligned q and f; {plain}")
+        raise ValueError(f"window_refinement needs 16-byte aligned q and f; {_PLAIN}")
     if staged_count is not None and (
         staged_count.device != q.device or staged_count.dtype != torch.int32 or staged_count.numel() != 1
     ):
@@ -225,8 +232,14 @@ def _check(q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Ten
                          f"{tuple(staged_count.shape)} on {staged_count.device}")
 
 
-def _launch(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[torch.Tensor]):
+def launch(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[torch.Tensor] = None):
+    """The op's CUDA implementation, one kernel launch: fp32 contiguous CUDA
+    tensors -> (residual (B, H, W, 2), log_softmax (B, H, W, P, P)), fresh
+    tensors. ``staged_count``, one int32 element on the same card, receives
+    the number of tiles whose taps the kernel staged in shared memory (added
+    to it)."""
     global LAUNCHES
+    _check(q, f, flow, bias, p, staged_count)
     b, h, w, c = q.shape
     residual = torch.empty((b, h, w, 2), dtype=torch.float32, device=q.device)
     log_softmax = torch.empty((b, h, w, p, p), dtype=torch.float32, device=q.device)
@@ -247,25 +260,14 @@ def _launch(q, f, flow, bias, temperature: float, p: int, staged_count: Optional
     return residual, log_softmax
 
 
-class _WindowRefinement(torch.autograd.Function):
-    """The kernel forward; the backward is autograd over the plain version
-    (the TPU kernel had no backward kernel either)."""
-
-    @staticmethod
-    def forward(ctx, q, f, flow, bias, temperature, p, staged_count):
-        ctx.save_for_backward(q, f, flow, bias)
-        ctx.temperature, ctx.p = temperature, p
-        return _launch(q, f, flow, bias, temperature, p, staged_count)
-
-    @staticmethod
-    def backward(ctx, g_residual, g_log_softmax):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad[:4])]
-            outs = window_refinement_reference(*ins, ctx.temperature, ctx.p)
-            wanted = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(outs, wanted, (g_residual, g_log_softmax)))
-        return (*[next(grads) if t.requires_grad else None for t in ins], None, None, None)
+def plain(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[torch.Tensor] = None):
+    """The op's CPU implementation: :func:`window_refinement_reference`;
+    ``staged_count`` receives :func:`staged_tiles`, the kernel's count of the
+    same rule."""
+    out = window_refinement_reference(q, f, flow, bias, temperature, p)
+    if staged_count is not None:
+        staged_count.add_(staged_tiles(flow, p))
+    return out
 
 
 def window_refinement(
@@ -277,10 +279,9 @@ def window_refinement(
     p: int,
     staged_count: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The window refinement on the card: fp32 contiguous CUDA tensors ->
-    (residual (B, H, W, 2), log_softmax (B, H, W, P, P)), fresh tensors.
-    ``staged_count``, one int32 element on the same card, receives the number
-    of tiles whose taps the kernel staged in shared memory (added to it; the
-    model passes none)."""
-    _check(q, f, flow, bias, p, staged_count)
-    return _WindowRefinement.apply(q, f, flow, bias, float(temperature), int(p), staged_count)
+    """The window refinement on the card (the op on CUDA tensors; see
+    :func:`launch`). The model passes no ``staged_count``."""
+    for name, t in (("q", q), ("f", f), ("flow", flow), ("bias", bias)):
+        if not t.is_cuda:
+            raise ValueError(f"window_refinement runs only on CUDA tensors ({name} is on {t.device}); {_PLAIN}")
+    return torch.ops.ufm_torch.window_refinement(q, f, flow, bias, float(temperature), int(p), staged_count)

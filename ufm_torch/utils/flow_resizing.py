@@ -17,12 +17,12 @@ matrix-product resizes of :mod:`ufm_torch.ops.resize` (torch-parity taps).
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ufm_torch.ops.cache import device_constant
 from ufm_torch.ops.resize import resize_hwc, resize_nearest_hwc
 
 __all__ = [
@@ -292,7 +292,7 @@ def _as_int_region(region) -> Tuple[int, int, int, int]:
 # matrices: a forward pass never makes a host-to-device copy, so it can be
 # captured into a CUDA graph. Unbounded, since a captured graph keeps their
 # addresses: an evicted constant would be freed under it.
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _pixel_centers(h: int, w: int, device: torch.device) -> torch.Tensor:
     """(1, H, W, 2) xy pixel-centre coordinates."""
     xs = np.arange(w, dtype=np.float32) + 0.5
@@ -301,7 +301,7 @@ def _pixel_centers(h: int, w: int, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(np.stack(np.meshgrid(xs, ys, indexing="xy"), axis=-1))[None].to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _xy(x: float, y: float, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor([x, y], dtype=torch.float32, device=device)

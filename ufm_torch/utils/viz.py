@@ -13,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["warp_image_with_flow", "visualize_flow", "flow_to_color"]
+__all__ = ["warp_image_with_flow", "visualize_flow", "flow_to_color", "correspondence_panels"]
 
 
 def warp_image_with_flow(source_image, source_mask, target_image, flow) -> np.ndarray:
@@ -122,3 +122,16 @@ def flow_to_color(flow_uv: np.ndarray, clip_flow: float | None = None) -> np.nda
         col = 1 - rad * (1 - col)  # saturate with magnitude
         img[..., i] = np.floor(255 * col)
     return img
+
+
+def correspondence_panels(source_rgb: np.ndarray, target_rgb: np.ndarray, flow: np.ndarray, covisibility: np.ndarray):
+    """The three panels of ``cli infer`` and the demo, uint8 RGB in the
+    source frame: the flow's colorwheel, the covisibility as gray, and the
+    target backward-warped into the source frame with non-covisible pixels
+    whited out (occlusions read as "no correspondence"). ``flow`` (H, W, 2),
+    ``covisibility`` (H, W) in [0, 1]."""
+    warped = warp_image_with_flow(source_rgb, None, target_rgb, flow).astype(np.float32)
+    alpha = covisibility[..., None]
+    composite = (alpha * warped + (1.0 - alpha) * 255.0).astype(np.uint8)
+    covis_rgb = np.repeat((covisibility * 255).astype(np.uint8)[..., None], 3, axis=-1)
+    return flow_to_color(flow), covis_rgb, composite
