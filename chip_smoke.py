@@ -25,6 +25,19 @@ three paths with seeded random weights at full width:
   fp32 master weights): 36 flash-attention forward launches and 36 backward
   calls per step.
 
+The port's parallel and training options, at the same width: the sharded
+step (``make_sharded_train_step``: FSDP2 over one NCCL rank, a (1, 1, 1)
+mesh; the card is alone) held to ``make_train_step`` from the same weights,
+and ``fit(mesh=...)`` through a checkpoint and its resumption
+(``sharded_train``); ``make_data_parallel_forward`` of UFM-Base and
+UFM-Refine at batch 2, held to their own forwards (``data_parallel``: 36 and
+36 + 1 launches); the batch-2 step under ``train_remat`` with no policy and
+each of the JAX package's policy names, with its time, peak memory and
+attention launches (72 where the backward runs the attention forward again,
+36 where a policy keeps its outputs), its gradients held to no remat's
+(``remat``); and UFM-Base with the ``moge_conv`` head, held to its
+plain-attention forward (``moge``).
+
 Around them: the kernel path of two tiny models at head dim 64 held to the
 JAX package's bf16 goldens (``tests/golden/torch_port_bf16_d64_*.npz``, no JAX
 needed: ``bf16_golden``); the flagship UFM-Base saved with
@@ -74,6 +87,7 @@ Needs a CUDA device and the ``ufm_torch`` package beside this script.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -160,6 +174,35 @@ FIT_LR = 3e-6
 # keep them in fp32 (forward flow relative L2 1.5e-2 for the same reason);
 # the gradients carry that rounding through the forward and the backward
 TRAIN_GRAD_REL_L2_BOUND = 1e-1
+# sharded training (ufm_torch.parallel) at world 1 over NCCL, on a
+# (data, fsdp, model) = (1, 1, 1) mesh: the batch-2 step of make_sharded_train_step
+# against make_train_step from the same weights and batch (3 steps each, at
+# FIT_LR), then fit(mesh=...) stopping after 1 step (its checkpoint) and
+# resuming for the 2nd. Step-0 metrics within SHARDED_METRIC_REL of the
+# unsharded step's; each group's change of the fp32 values the optimizer
+# steps (masters, fp32 parameters) within TRAIN_GRAD_REL_L2_BOUND
+SHARDED_STEPS, SHARDED_METRIC_REL = 3, 1e-3
+# data-parallel forward at batch 2 against the same network's forward: max
+# abs difference over the output's largest value
+DATA_PARALLEL_BATCH, DATA_PARALLEL_BAR = 2, 1e-5
+# train_remat and each train_remat_policy (the JAX package's names): label,
+# train_remat, policy, attention forward launches a step (the forward runs
+# again in the backward unless its outputs are kept)
+REMAT_CASES = (
+    ("none", False, None, 36),
+    ("full", True, None, 72),
+    ("everything_saveable", True, "everything_saveable", 36),
+    ("nothing_saveable", True, "nothing_saveable", 72),
+    ("dots_saveable", True, "dots_saveable", 72),
+    ("checkpoint_dots", True, "checkpoint_dots", 72),
+    ("dots_with_no_batch_dims_saveable", True, "dots_with_no_batch_dims_saveable", 72),
+    ("checkpoint_dots_with_no_batch_dims", True, "checkpoint_dots_with_no_batch_dims", 72),
+    ("attn_out", True, "dots_with_no_batch_dims_and_attn_out_saveable", 36),
+)
+REMAT_TIMED_STEPS = 3
+# the moge_conv head on UFM-Base: the JAX package's MoGeConvFeature defaults
+# (reads the 768-wide info-sharing output), flow output
+MOGE_HEAD = {"input_dim": 768, "dims": (256, 128, 64), "output_dim": 2}
 # main path with the kernel vs the same weights with the plain attention:
 # bf16 rounding of 36 attention layers (the plain version rounds its logits to
 # bf16, the kernel keeps them in fp32) feeds the fp32 heads
@@ -1129,6 +1172,336 @@ def phase_train_self_check(model, batch):
         check(r <= TRAIN_GRAD_REL_L2_BOUND, f"kernel vs plain gradient, group {k}: relative L2 {r:.3e} > {TRAIN_GRAD_REL_L2_BOUND}")
 
 
+def _world1_group():
+    """A process group of one rank over NCCL on a free localhost port (the
+    machine has one card); destroyed by the caller."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+
+
+def _param_snapshot(net):
+    """fp32 copies of every parameter on the host (kept off the card so the
+    peak-memory readings stay comparable)."""
+    return {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in net.named_parameters()}
+
+
+def _stepped_values(net, optimizer):
+    """(name, the whole fp32 tensor the optimizer steps): the master where the
+    parameter has one (a bf16 parameter moves by whole bf16 spacings, its
+    master by each update), else the parameter."""
+    from ufm_torch.parallel.sharding import unshard
+
+    masters = {id(p): m for _, _, pairs in optimizer.groups for p, m in pairs}
+    for name, p in net.named_parameters():
+        m = masters.get(id(p))
+        yield name, unshard((p if m is None else m).detach())
+
+
+def _group_deltas(named, initial):
+    """Per optimizer group: the parameters' change from ``initial``, on the
+    host, as one vector."""
+    from ufm_torch.training.trainer import group_of
+
+    out = {}
+    for name, t in named:
+        out.setdefault(group_of(name), []).append((t.float().cpu() - initial[name]).flatten())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def _span_ms(net, optimizer, run):
+    """Run ``run()`` with CUDA events around the net's forward and the
+    optimizer's step; return the median ms of forward + loss, backward and
+    optimizer over its steps after the first."""
+    fwd_events, opt_events = [], []
+    net.forward = _timed(net.forward, fwd_events)
+    optimizer.step = _timed(optimizer.step, opt_events)
+    try:
+        run()
+    finally:
+        del net.forward, optimizer.step  # back to the unwrapped methods
+    spans = {
+        "forward_loss_ms": [s.elapsed_time(e) for s, e, _ in fwd_events],
+        "backward_ms": [fe.elapsed_time(os_) for (_, fe, _), (os_, _, _) in zip(fwd_events, opt_events)],
+        "optimizer_ms": [s.elapsed_time(e) for s, e, _ in opt_events],
+    }
+    return {k: statistics.median(v[1:]) for k, v in spans.items()}
+
+
+def _free_card_memory():
+    """Free what earlier phases left: FSDP-wrapped and captured models hold
+    reference cycles, which only the cycle collector frees, and until then
+    their tensors count in the next peak-memory reading."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_steps(step, batch, n, label, launches_each=(LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD)):
+    """``n`` train steps on ``batch``: host seconds, metrics, launches of each."""
+    from ufm_torch.ops import flash_attention as fa
+
+    times, metrics = [], []
+    for i in range(n):
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1])
+        check(launched == launches_each, f"{label} step {i}: {launched} attention forward / backward launches, expected {launches_each}")
+        vals = {k: v.item() for k, v in m.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
+        metrics.append(vals)
+    return times, metrics
+
+
+def phase_sharded_train():
+    """make_sharded_train_step on a (1, 1, 1) mesh (FSDP2 over NCCL, one
+    rank) against make_train_step from the same weights and batch; then
+    fit(mesh=...) stopping after one step and resuming from its checkpoint."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.parallel import make_mesh
+    from ufm_torch.training import fit, make_optimizer, make_sharded_train_step, make_train_step, synthetic_batch
+
+    # fit's rate without warm-up (FIT_LR): the loss falls step by step
+    opt_kwargs = dict(learning_rate=FIT_LR, warmup_steps=0, total_steps=TRAIN_TOTAL_STEPS)
+    batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=1, device="cuda")
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    initial = _param_snapshot(model.net)
+    optimizer = make_optimizer(model.net, **opt_kwargs)
+    step = make_train_step(model.net, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    ran = {}
+    plain_spans = _span_ms(model.net, optimizer, lambda: ran.update(
+        zip(("times", "metrics"), _train_steps(step, batch, SHARDED_STEPS, "unsharded"))))
+    plain_times, plain_metrics = ran["times"], ran["metrics"]
+    plain_peak = torch.cuda.max_memory_allocated()
+    plain_delta = _group_deltas(_stepped_values(model.net, optimizer), initial)
+    del model, step, optimizer
+    _free_card_memory()
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    check(all(torch.equal(p.detach().float().cpu(), initial[n]) for n, p in model.net.named_parameters()),
+          "two models from seed 0 differ: the sharded step cannot be held to the unsharded one")
+    mesh = make_mesh(1)
+    t = time.perf_counter()
+    step, net, optimizer, place = make_sharded_train_step(model.net, mesh, **opt_kwargs)
+    placed = place(batch)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0  # the sharded path's counts start here
+    spans = _span_ms(net, optimizer, lambda: ran.update(
+        zip(("times", "metrics"), _train_steps(step, placed, SHARDED_STEPS, "sharded"))))
+    times, metrics = ran["times"], ran["metrics"]
+    peak = torch.cuda.max_memory_allocated()
+    step_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
+    delta = _group_deltas(_stepped_values(net, optimizer), initial)
+    metric_rel = {k: abs(metrics[0][k] - v) / max(abs(v), 1e-12) for k, v in plain_metrics[0].items()}
+    delta_rel = {k: ((delta[k] - d).norm() / d.norm()).item() for k, d in plain_delta.items()}
+    losses = [m["total_loss"] for m in metrics]
+    step_s, plain_s = statistics.median(times[1:]), statistics.median(plain_times[1:])
+    emit("sharded_train", mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), batch=TRAIN_BATCH, input_hw=list(TRAIN_HW),
+         steps=SHARDED_STEPS, shard_s=shard_s, step_s=times, step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s,
+         max_memory_allocated=peak, spans_ms=spans, unsharded_spans_ms=plain_spans,
+         unsharded_step_s=plain_times, unsharded_step_ms=plain_s * 1e3,
+         unsharded_pairs_per_s=TRAIN_BATCH / plain_s, unsharded_max_memory_allocated=plain_peak,
+         losses=losses, unsharded_losses=[m["total_loss"] for m in plain_metrics],
+         step0_metric_rel=metric_rel, param_delta_rel_l2=delta_rel, launches=step_launches)
+    check(set(metric_rel) == set(metrics[0]), f"metric names differ: {sorted(metrics[0])} vs {sorted(metric_rel)}")
+    for k, r in metric_rel.items():
+        check(r <= SHARDED_METRIC_REL, f"sharded vs unsharded step 0: {k} relative difference {r:.3e} > {SHARDED_METRIC_REL}")
+    for k, r in delta_rel.items():
+        check(r <= TRAIN_GRAD_REL_L2_BOUND, f"sharded vs unsharded parameter change, group {k}: relative L2 {r:.3e}")
+    check(losses[-1] < losses[0], f"sharded step: the loss did not fall on the fixed batch: {losses}")
+    del model, net, optimizer, step, placed, initial, plain_delta, delta
+    _free_card_memory()
+
+    # fit(mesh=...): 1 step and its checkpoint (the data runs out), then a
+    # new sharded net resumes it for the 2nd
+    ckpt = os.path.join(ARTIFACT_DIR, "sharded_fit")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    runs = []
+    for n_batches in (1, 1):
+        model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+        logs, seen = [], []
+        t = time.perf_counter()
+        out = fit(model.net, (batch for _ in range(n_batches)), num_steps=FIT_STEPS, learning_rate=FIT_LR, mesh=make_mesh(1),
+                  checkpoint_dir=ckpt, warmup_steps=0, log_every=1, log_fn=logs.append,
+                  on_metrics=lambda _, vals: seen.append(vals["total_loss"]))
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t, "step": out["step"], "losses": seen, "log": logs})
+        del model, out
+        _free_card_memory()
+    fit_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
+    last = os.path.join(ckpt, str(FIT_STEPS), "train_state.pt")
+    ckpt_bytes = os.path.getsize(last)  # one step's file
+    state = torch.load(last, map_location="cpu", weights_only=True, mmap=True)
+    tensor_bytes = sum(t.numel() * t.element_size() for t in _tensors(state))
+    emit("sharded_fit", runs=runs, checkpoint_bytes=ckpt_bytes, state_tensor_bytes=tensor_bytes, launches=fit_launches)
+    del state
+    check([r["step"] for r in runs] == [1, FIT_STEPS], f"fit(mesh=...) stopped at {[r['step'] for r in runs]}")
+    check(any("resumed from step 1" in line for line in runs[1]["log"]), f"the second fit did not resume: {runs[1]['log']}")
+    check(all(np.isfinite(v) for r in runs for v in r["losses"]), "fit(mesh=...): non-finite losses")
+    check(fit_launches == {"flash_attention_fwd": FIT_STEPS * LAUNCHES_PER_FORWARD, "flash_attention_bwd": FIT_STEPS * LAUNCHES_PER_FORWARD},
+          f"fit(mesh=...) launches {fit_launches} over {FIT_STEPS} steps")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return step_launches, fit_launches
+
+
+def _tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+
+
+def _normalized_pair(batch, hw, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((batch, *hw, 3), generator=g, device="cuda") for _ in range(2)]
+
+
+def phase_data_parallel():
+    """make_data_parallel_forward on a (1, 1, 1) mesh for UFM-Base and
+    UFM-Refine at batch 2, against each network's own forward."""
+    from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_base_config, ufm_refine_config
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+    from ufm_torch.parallel import make_data_parallel_forward, make_mesh
+
+    img1, img2 = _normalized_pair(DATA_PARALLEL_BATCH, TRAIN_HW, seed=2)
+    launches = {}
+    for label, cls, cfg in (("ufm_base", UniFlowMatchConfidence, ufm_base_config()),
+                            ("ufm_refine", UniFlowMatchClassificationRefinement, ufm_refine_config())):
+        model = cls.from_config(cfg, seed=0)
+        forward = make_data_parallel_forward(model, make_mesh(1))
+        fa.LAUNCHES = wr.LAUNCHES = 0  # this path's counts start here
+        t = time.perf_counter()
+        got = forward(img1, img2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches[label] = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+        with torch.no_grad():
+            want = model.net(img1, img2)
+        torch.cuda.synchronize()
+        diff = {k: ((got[k].float() - v.float()).abs().max() / v.float().abs().max().clamp(min=1e-12)).item()
+                for k, v in want.items()}
+        emit("data_parallel", model=label, batch=DATA_PARALLEL_BATCH, input_hw=list(TRAIN_HW), seconds=seconds,
+             launches=launches[label], max_rel_diff=diff, bar=DATA_PARALLEL_BAR)
+        check(set(got) == set(want), f"{label}: output names differ")
+        check(all(_finite(v) for v in got.values()), f"{label}: non-finite data-parallel outputs")
+        check(all(got[k].shape == v.shape for k, v in want.items()), f"{label}: output shapes differ")
+        for k, d in diff.items():
+            check(d <= DATA_PARALLEL_BAR, f"{label} data-parallel vs single forward: {k} differs by {d:.3e}")
+        want_launches = {"flash_attention_fwd": LAUNCHES_PER_FORWARD, "window_refinement_fwd": int(label == "ufm_refine")}
+        check(launches[label] == want_launches, f"{label} data-parallel forward launches {launches[label]}, expected {want_launches}")
+        del model, forward, got, want
+        _free_card_memory()
+    return launches
+
+
+def _set_remat(net, remat, policy):
+    for stack in (net.encoder, net.info_sharing):
+        stack.remat, stack.remat_policy = remat, policy
+
+
+def phase_remat():
+    """The batch-2 train step under train_remat with no policy and with each
+    of the JAX package's policy names: step time, peak memory and attention
+    forward launches a step; each policy's gradients against no remat's."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
+
+    _free_card_memory()
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    net = model.net
+    batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
+    step = make_train_step(net, make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS))
+    rows = {label: {"policy": policy, "train_remat": remat, "attention_fwd_launches_per_step": fwd, "step_s": [],
+                    "max_memory_allocated": [], "resident_before": []} for label, remat, policy, fwd in REMAT_CASES}
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0  # this path's counts start here
+    # two rounds, the second in the reverse order: a case's numbers do not
+    # depend on which case ran before it
+    for cases in (REMAT_CASES, REMAT_CASES[::-1]):
+        for label, remat, policy, fwd in cases:
+            _set_remat(net, remat, policy)
+            _train_steps(step, batch, 1, f"remat {label} warm-up", (fwd, LAUNCHES_PER_FORWARD))
+            torch.cuda.reset_peak_memory_stats()
+            rows[label]["resident_before"].append(torch.cuda.memory_allocated())
+            times, _ = _train_steps(step, batch, REMAT_TIMED_STEPS, f"remat {label}", (fwd, LAUNCHES_PER_FORWARD))
+            rows[label]["step_s"] += times
+            rows[label]["max_memory_allocated"].append(torch.cuda.max_memory_allocated())
+    for row in rows.values():
+        row["step_ms"] = statistics.median(row["step_s"]) * 1e3
+    launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
+    del step
+    net.zero_grad(set_to_none=True)
+    _free_card_memory()
+
+    # gradients of each case at the same weights, against no remat's
+    def grads():
+        net.zero_grad(set_to_none=True)
+        loss, _ = ufm_total_loss(net(batch["img1"], batch["img2"]), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return _group_grads(net)
+
+    _set_remat(net, False, None)
+    reference = grads()
+    for label, remat, policy, _ in REMAT_CASES[1:]:
+        _set_remat(net, remat, policy)
+        g = grads()
+        rows[label]["grad_rel_l2"] = {k: ((g[k] - r).norm() / r.norm()).item() for k, r in reference.items()}
+        del g
+    emit("remat", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), cases=rows, launches=launches, bound=TRAIN_GRAD_REL_L2_BOUND)
+    for label, row in rows.items():
+        for k, r in row.get("grad_rel_l2", {}).items():
+            check(r <= TRAIN_GRAD_REL_L2_BOUND, f"remat {label} vs no remat, group {k}: gradient relative L2 {r:.3e}")
+    del model, net, reference
+    _free_card_memory()
+    return launches
+
+
+def phase_moge():
+    """UFM-Base with the moge_conv head at batch 1, 420x560: finite, 36
+    attention launches, within FLOW_REL_L2_BOUND of its plain-attention
+    forward."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.ops import flash_attention as fa
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(head_type="moge_conv", feature_head_kwargs=MOGE_HEAD), seed=0)
+    img1, img2 = _normalized_pair(1, TRAIN_HW, seed=3)
+    with torch.no_grad():
+        model.net(img1, img2)  # warm-up
+        fa.LAUNCHES = 0  # this path's count starts here
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model.net(img1, img2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = fa.LAUNCHES
+        model.attention_impl = "torch"
+        plain = model.net(img1, img2)
+        model.attention_impl = None
+    flow, want = out["flow"].float(), plain["flow"].float()
+    rel = ((flow - want).norm() / want.norm()).item()
+    head = {n: list(p.shape) for n, p in model.net.head1.named_parameters() if n.endswith("weight")}
+    emit("moge", batch=1, input_hw=list(TRAIN_HW), head=head, forward_s=seconds, launches=launches,
+         flow_shape=list(flow.shape), flow_rel_l2_vs_plain=rel, bound=FLOW_REL_L2_BOUND)
+    check(tuple(flow.shape) == (1, *TRAIN_HW, 2), f"moge flow shape {tuple(flow.shape)}")
+    check(all(_finite(v) for v in out.values()), "moge: non-finite outputs")
+    check(launches == LAUNCHES_PER_FORWARD, f"moge forward: {launches} attention launches, expected 36")
+    check(rel <= FLOW_REL_L2_BOUND, f"moge kernel vs plain attention: flow relative L2 {rel:.3e}")
+    del model, out, plain
+    _free_card_memory()
+    return launches
+
+
 def _profile_requests(fn, reps: int = PROFILE_REQUESTS):
     """``reps`` requests back to back, each waited for as a caller waits for
     its answer, inside one ``torch.profiler`` window (CUDA activity only).
@@ -1858,6 +2231,18 @@ def run_phases(smi: str) -> int:
     torch.cuda.empty_cache()
     train_model, train_batch, train_launches = phase_train()
     phase_train_self_check(train_model, train_batch)
+    del train_model, train_batch
+    _free_card_memory()
+    import torch.distributed as dist
+
+    _world1_group()
+    try:
+        sharded_launches, sharded_fit_launches = phase_sharded_train()
+        dp_launches = phase_data_parallel()
+    finally:
+        dist.destroy_process_group()
+    remat_launches = phase_remat()
+    moge_launches = phase_moge()
 
     # one batch-1 forward's attention: each number sums its 36 calls
     fwd = [rows[n] for n, _, calls in ATTN_SHAPES for _ in range(calls)]
@@ -1872,7 +2257,10 @@ def run_phases(smi: str) -> int:
         + train_launches["flash_attention_fwd"] + golden_launches["flash_attention_fwd"]
         + captured_launches["flash_attention_fwd"] + refine_captured["flash_attention_fwd"] + served_launches
         + streamed_launches + export_launches + cpu_export_launches + artifact_launches
-        + refine_artifact["flash_attention_fwd"] + loader_launches,
+        + refine_artifact["flash_attention_fwd"] + loader_launches
+        + sharded_launches["flash_attention_fwd"] + sharded_fit_launches["flash_attention_fwd"]
+        + dp_launches["ufm_base"]["flash_attention_fwd"] + dp_launches["ufm_refine"]["flash_attention_fwd"]
+        + remat_launches["flash_attention_fwd"] + moge_launches,
         "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
                              "ufm_refine": refine_launches["flash_attention_fwd"],
                              "ufm_base_train": train_launches["flash_attention_fwd"],
@@ -1885,7 +2273,13 @@ def run_phases(smi: str) -> int:
                              "ufm_base_artifact_cpu_export": cpu_export_launches,
                              "ufm_base_artifact_captured": artifact_launches,
                              "ufm_refine_artifact": refine_artifact["flash_attention_fwd"],
-                             "ufm_base_loader_streamed": loader_launches},
+                             "ufm_base_loader_streamed": loader_launches,
+                             "ufm_base_sharded_train": sharded_launches["flash_attention_fwd"],
+                             "ufm_base_sharded_fit": sharded_fit_launches["flash_attention_fwd"],
+                             "ufm_base_data_parallel": dp_launches["ufm_base"]["flash_attention_fwd"],
+                             "ufm_refine_data_parallel": dp_launches["ufm_refine"]["flash_attention_fwd"],
+                             "ufm_base_remat": remat_launches["flash_attention_fwd"],
+                             "ufm_base_moge": moge_launches},
         "op": "ufm_torch::flash_attention_fwd",
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
@@ -1909,8 +2303,12 @@ def run_phases(smi: str) -> int:
         "route": "cuda",
         "source": "ufm_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:452",
-        "launches": train_launches["flash_attention_bwd"],
-        "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"]},
+        "launches": train_launches["flash_attention_bwd"] + sharded_launches["flash_attention_bwd"]
+        + sharded_fit_launches["flash_attention_bwd"] + remat_launches["flash_attention_bwd"],
+        "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"],
+                             "ufm_base_sharded_train": sharded_launches["flash_attention_bwd"],
+                             "ufm_base_sharded_fit": sharded_fit_launches["flash_attention_bwd"],
+                             "ufm_base_remat": remat_launches["flash_attention_bwd"]},
         "op": "ufm_torch::flash_attention_bwd",
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
         "ms": sum(r["ms"] for r in bwd),
@@ -1932,8 +2330,10 @@ def run_phases(smi: str) -> int:
         "replaces": "ufm_tpu/ops/window_dots.py:280",
         "replaces_also": "ufm_tpu/ops/window_dots.py:238",
         "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"]
-        + refine_captured["window_refinement_fwd"] + refine_artifact["window_refinement_fwd"],
+        + refine_captured["window_refinement_fwd"] + refine_artifact["window_refinement_fwd"]
+        + dp_launches["ufm_refine"]["window_refinement_fwd"],
         "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"],
+                             "ufm_refine_data_parallel": dp_launches["ufm_refine"]["window_refinement_fwd"],
                              "bf16_golden": golden_launches["window_refinement_fwd"],
                              "ufm_refine_captured": refine_captured["window_refinement_fwd"],
                              "ufm_refine_artifact": refine_artifact["window_refinement_fwd"]},

@@ -712,3 +712,60 @@ def test_artifact_launches_the_kernels_on_the_card(cuda, tmp_path, where, refine
     for key in want:
         a, b = got[key].float(), want[key].float()
         assert ((a - b).norm() / b.norm().clamp_min(1e-12)).item() <= 1e-5, key
+
+
+# ---- sharded training and the remat policies on the card ---------------------
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_sharded_step_at_world_one(cuda):
+    """make_sharded_train_step on a (1, 1, 1) mesh over NCCL (FSDP2, one
+    rank): a small bf16 UFM-Base's step launches 4 attention forwards and 4
+    backward calls, its metrics are finite and equal the unsharded step's
+    from the same weights at 1e-3 relative."""
+    import torch.distributed as dist
+
+    from ufm_torch.parallel import make_mesh
+    from ufm_torch.training import make_sharded_train_step
+
+    batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    want = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))(batch)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+        step, net, _, place = make_sharded_train_step(model.net, make_mesh(1), warmup_steps=0, total_steps=10)
+        placed = place(batch)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+        metrics = step(placed)
+        torch.cuda.synchronize()
+        assert (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1]) == (4, 4)
+    finally:
+        dist.destroy_process_group()
+    for k, v in want.items():
+        assert torch.isfinite(metrics[k])
+        assert abs(metrics[k].item() - v.item()) <= 1e-3 * abs(v.item()), k
+
+
+@pytest.mark.parametrize("policy, forwards", [("dots_with_no_batch_dims_and_attn_out_saveable", 4),
+                                              ("dots_with_no_batch_dims_saveable", 8), (None, 8)])
+def test_remat_step_attention_launches(cuda, policy, forwards):
+    """Under train_remat, the backward runs the attention forward kernel
+    again (8 launches a step of the small model) unless the policy keeps its
+    outputs (the "+attn_out" composite: 4); 4 backward calls either way."""
+    cfg = _small_config(train_remat=True, train_remat_policy=policy)
+    model = UniFlowMatchConfidence.from_config(cfg, seed=0)
+    step = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))
+    batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1]) == (forwards, 4)
+    assert all(torch.isfinite(v) for v in metrics.values())

@@ -1,7 +1,9 @@
 """The port stands alone: ``ufm_torch`` and the port's scripts
 (``chip_smoke.py``, ``profile_torch_port.py``, ``profile_attention_trees.py``,
-``profile_window_trees.py``) never import JAX, flax or the JAX package, and
-the port's entry points refuse to move to the CPU quietly."""
+``profile_window_trees.py``, ``profile_sharded_train.py``, and
+``tests/torch_port_ranks.py``, which the multi-process tests start as ranks)
+never import JAX, flax or the JAX package, and the port's entry points
+refuse to move to the CPU quietly."""
 
 import ast
 import os
@@ -19,8 +21,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ufm_tpu"}
 
 
 def _port_files():
-    scripts = ("chip_smoke.py", "profile_torch_port.py", "profile_attention_trees.py", "profile_window_trees.py")
-    return sorted((ROOT / "ufm_torch").rglob("*.py")) + [ROOT / name for name in scripts]
+    scripts = ("chip_smoke.py", "profile_torch_port.py", "profile_attention_trees.py", "profile_window_trees.py",
+               "profile_sharded_train.py")
+    return sorted((ROOT / "ufm_torch").rglob("*.py")) + [ROOT / name for name in scripts] + [ROOT / "tests" / "torch_port_ranks.py"]
 
 
 def _imported_roots(path: Path):
@@ -90,6 +93,10 @@ def test_port_imports_with_jax_blocked():
         "ufm_torch.ops.library",
         "ufm_torch.ops.cache",
         "ufm_torch.demo",
+        "ufm_torch.parallel",
+        "ufm_torch.parallel.sharding",
+        "ufm_torch.parallel.inference",
+        "ufm_torch.nn.prediction_heads.moge_conv",
     } <= mods
 
 

@@ -134,8 +134,12 @@ def test_attention_impl_reaches_every_block(models):
 
 
 def test_unsupported_configs_raise():
-    with pytest.raises(NotImplementedError, match="moge_conv"):
+    moge = {"head_type": "moge_conv", "feature_head_kwargs": {"input_dim": 48, "dims": (16, 8), "output_dim": 2}}
+    assert type(UniFlowMatch.from_config(ufm_tiny_config(**moge), device="cpu").net.head1).__name__ == "MoGeConvFeature"
+    with pytest.raises(ValueError, match="load-bearing"):  # DPT kwargs for the moge head
         UniFlowMatch.from_config(ufm_tiny_config(head_type="moge_conv"), device="cpu")
+    with pytest.raises(ValueError, match="not supported"):
+        UniFlowMatch.from_config(ufm_tiny_config(head_type="linear"), device="cpu")
     bad = ufm_tiny_config()
     bad.encoder_kwargs = dict(bad.encoder_kwargs, norm_eps=1e-5)
     with pytest.raises(ValueError, match="load-bearing"):

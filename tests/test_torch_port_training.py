@@ -13,9 +13,11 @@
   gradients), metrics at rtol 1e-4, parameters after 2 steps within two
   hundredths of one step's size (the learning rate) where the gradient is
   not zero.
-- ``train_remat``: the same gradients as no remat; a remat policy raises.
+- ``train_remat``: the same gradients as no remat; an unknown remat policy
+  raises (the policies: test_torch_port_remat.py).
 - ``fit``: finite metrics, and resume from a saved train state at the right
-  step.
+  step; a mesh that is no ``DeviceMesh`` is refused (the sharded path:
+  test_torch_port_parallel.py).
 """
 
 import jax
@@ -258,8 +260,10 @@ def test_remat_matches_plain_gradients(tiny_flat, mode):
 
 
 def test_remat_policy_and_unknown_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UFMNet(ufm_tiny_config(train_remat=True, train_remat_policy="dots_with_no_batch_dims_saveable"))
+    net = UFMNet(ufm_tiny_config(train_remat=True, train_remat_policy="dots_with_no_batch_dims_saveable"))
+    assert net.encoder.remat_policy == net.info_sharing.remat_policy == "dots_with_no_batch_dims_saveable"
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        UFMNet(ufm_tiny_config(train_remat=True, train_remat_policy="bogus"))
     with pytest.raises(ValueError, match="unknown train_remat"):
         UFMNet(ufm_tiny_config(train_remat="layers"))
     assert not UFMNet(ufm_tiny_config()).encoder.remat
@@ -283,7 +287,7 @@ def test_fit_trains_a_bf16_model():
     assert all(np.isfinite(float(v)) for v in out["metrics"].values())
     after = net.encoder.blocks[0].attn.qkv.weight.detach()
     assert after.dtype == torch.bfloat16 and not torch.equal(after, before)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit(net, _batches(1), num_steps=1, mesh=object())
 
 

@@ -53,12 +53,13 @@ class UFMArchConfig:
     unet_kwargs: Dict[str, Any] = dataclasses.field(default_factory=_d)
     feature_combine_method: str = "conv"
     refinement_range: int = 5
-    # Window-dots implementation for the refinement stage: "auto" picks the
-    # Pallas TPU kernel when shape-eligible, else the portable XLA path
+    # Window-refinement implementation (the JAX package's names): "auto" lets
+    # the tensors' device decide, "pallas" asks for the Hopper kernel,
+    # "xla" for the plain version (models/network.py::REFINEMENT_IMPL_FROM_CONFIG)
     refinement_impl: str = "auto"
-    # MXU precision of the kernel's selection matmul: "default" (bf16 input
-    # rounding; measured refined-flow drift ≤0.025 px max / 0.009 px p99.9 vs
-    # "highest" at flagship shapes — BENCH_NOTES.md) or "highest" (fp32)
+    # the JAX package's precision knob for its TPU kernel's selection matmul;
+    # accepted for config compatibility, no effect in the port (the Hopper
+    # kernel computes its taps in fp32)
     refinement_matmul_precision: str = "default"
     # Inference
     inference_resolution: Union[Tuple[int, int], List[Tuple[int, int]]] = (560, 420)  # (W, H)
@@ -66,25 +67,23 @@ class UFMArchConfig:
     # autocast policy, base.py:273 / ufm.py:414)
     compute_dtype: str = "bfloat16"
     # Training-time memory knob: rematerialize transformer-block activations
-    # in the backward pass (the flagship's saved residuals otherwise OOM a
-    # single chip's HBM at batch 2). True/"all" checkpoints both stacks;
-    # "encoder" checkpoints only the 24-layer encoder and keeps the
-    # info-sharing activations resident — less recompute when the encoder
-    # alone frees enough HBM (NOT the single-chip flagship at batch 2:
-    # measured 20.7G vs 15.75G HBM — use full remat there; the partial mode
-    # suits smaller configs or data-parallel meshes with smaller per-chip
-    # batches). No effect on forward-only graphs.
+    # in the backward pass (torch.utils.checkpoint around each block).
+    # True/"all" checkpoints both stacks; "encoder" checkpoints only the
+    # 24-layer encoder and keeps the info-sharing activations resident. No
+    # effect on forward-only graphs. UFM-Base's batch-2 step at 420x560 on
+    # an NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py, phase `remat`):
+    # peak 15.2 GB, 157 ms without remat; 10.6 GB, 257 ms with full remat.
     train_remat: Union[bool, str] = False
-    # Optional jax.checkpoint_policies member applied with remat (e.g.
-    # "dots_with_no_batch_dims_saveable" saves projection/MLP matmul outputs
-    # and recomputes only the cheap elementwise work). None = full remat.
-    # Measured on the single-chip v5e flagship at batch 2 (B/A/B,
-    # BENCH_NOTES.md round 3): dots_with_no_batch_dims_saveable fits HBM
-    # with donation and is ~6.5% faster than full remat (359/364 vs 385 ms).
-    # Round 5: the "+attn_out" composite additionally saves the tagged
-    # flash-attention core outputs so the backward skips the attention
-    # forward recompute — a further 3-5% (B/A/B 275/283 vs 267 ms) for
-    # ~10 MB/layer bf16 at flagship training shapes.
+    # Optional policy applied with remat, by the name of its
+    # jax.checkpoint_policies counterpart (nn/layers.py::REMAT_POLICIES): the
+    # ops whose outputs the backward keeps, e.g.
+    # "dots_with_no_batch_dims_saveable" keeps the projection / MLP matmul
+    # outputs and recomputes the elementwise work; the "+attn_out" composite
+    # also keeps the flash-attention forward's outputs, so the backward does
+    # not launch the attention forward again. None = full remat. On the card
+    # above (same phase): the dots policies 12.8 GB, 298-330 ms; "+attn_out"
+    # 13.1 GB, 300 ms; everything_saveable 19.8 GB, 350 ms: each policy's
+    # dispatch hook costs more host time than the recompute it saves.
     train_remat_policy: Optional[str] = None
 
     def to_dict(self) -> Dict[str, Any]:

@@ -46,6 +46,7 @@ from ufm_torch.nn.prediction_heads import (
     FlowWithConfidenceAdaptor,
     MaskAdaptor,
     MLPFeature,
+    MoGeConvFeature,
     PredictionHeadInput,
     PredictionHeadLayeredInput,
 )
@@ -122,10 +123,12 @@ class _DPTHead(nn.Module):
         return self.processor(self.feature(inp), inp.target_output_shape)
 
 
-def _make_head(head_type: str, head_kwargs: Dict[str, Any]) -> _DPTHead:
-    if head_type != "dpt":
-        raise NotImplementedError(f"head type {head_type!r} is not ported yet (only 'dpt')")
-    return _DPTHead(head_kwargs.get("dpt_feature", {}), head_kwargs.get("dpt_processor", {}))
+def _make_head(head_type: str, head_kwargs: Dict[str, Any]) -> nn.Module:
+    if head_type == "dpt":
+        return _DPTHead(head_kwargs.get("dpt_feature", {}), head_kwargs.get("dpt_processor", {}))
+    if head_type == "moge_conv":
+        return MoGeConvFeature(**_filter_kwargs(MoGeConvFeature, head_kwargs))
+    raise ValueError(f"Head type {head_type} not supported.")
 
 
 class UFMNet(nn.Module):
@@ -152,27 +155,24 @@ class UFMNet(nn.Module):
         dt = as_dtype(cfg.compute_dtype)
         # training memory knob (no effect on a forward without grad):
         # True / "all" checkpoints the blocks of both stacks, "encoder" only
-        # the encoder's, as ufm_tpu/models/network.py does
-        if cfg.train_remat_policy is not None:
-            raise NotImplementedError(
-                f"train_remat_policy={cfg.train_remat_policy!r}: the jax.checkpoint_policies remat policies "
-                "are not ported yet (ROADMAP.md Queue 1, item 11); use train_remat alone (full remat)"
-            )
+        # the encoder's, keeping what train_remat_policy saves, as
+        # ufm_tpu/models/network.py does
         if cfg.train_remat not in (False, True, "all", "encoder"):
             raise ValueError(f"unknown train_remat {cfg.train_remat!r} (expected False, True, 'all' or 'encoder')")
-        remat_enc = cfg.train_remat in (True, "all", "encoder")
-        remat_info = cfg.train_remat in (True, "all")
-        self.encoder = feature_returner_encoder_factory(
-            cfg.encoder_str, dtype=dt, **{**cfg.encoder_kwargs, **({"remat": True} if remat_enc else {})}
-        )
+        remat = {"remat": True, "remat_policy": cfg.train_remat_policy or None}
+        remat_enc = remat if cfg.train_remat in (True, "all", "encoder") else {}
+        remat_info = remat if cfg.train_remat in (True, "all") else {}
+        self.encoder = feature_returner_encoder_factory(cfg.encoder_str, dtype=dt, **{**cfg.encoder_kwargs, **remat_enc})
         info_cls = INFO_SHARING_CLASSES[cfg.info_sharing_str][1]
         info_kwargs = _filter_kwargs(info_cls, cfg.info_sharing_kwargs)
-        self.info_sharing = info_cls(dtype=dt, **{**info_kwargs, **({"remat": True} if remat_info else {})})
+        self.info_sharing = info_cls(dtype=dt, **{**info_kwargs, **remat_info})
 
         self.head1 = _make_head(cfg.head_type, cfg.feature_head_kwargs)
         self._head1_adaptors = _build_adaptor_map(cfg.adaptors_kwargs)
         if cfg.has_uncertainty_head:
-            self.uncertainty_head = _make_head(cfg.uncertainty_head_type, cfg.uncertainty_head_kwargs)
+            if cfg.uncertainty_head_type != "dpt":
+                raise ValueError("Only DPT is supported for the uncertainty head")
+            self.uncertainty_head = _make_head("dpt", cfg.uncertainty_head_kwargs)
             self._uncertainty_adaptors = _build_adaptor_map(cfg.uncertainty_adaptors_kwargs)
 
         if cfg.has_classification_head:

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from ufm_torch.ops.cache import device_constant
-from ufm_torch.nn.layers import LN_EPS, TransformerBlock, as_dtype, run_blocks
+from ufm_torch.nn.layers import LN_EPS, TransformerBlock, as_dtype, resolve_remat_policy, run_blocks
 
 __all__ = ["ViTEncoderInput", "ViTEncoderOutput", "ViTEncoder", "interpolate_pos_embed"]
 
@@ -117,11 +117,15 @@ class ViTEncoder(nn.Module):
         data_norm_type: str = "dinov2",
         mlp_act: str = "gelu_exact",
         dtype: Union[str, torch.dtype] = torch.float32,
-        # training memory knob: checkpoint every block (run_blocks)
+        # training memory knob: checkpoint every block (run_blocks), keeping
+        # what ``remat_policy`` saves (nn/layers.py::REMAT_POLICIES)
         remat: bool = False,
+        remat_policy: Optional[str] = None,
     ):
         super().__init__()
+        resolve_remat_policy(remat_policy)  # an unknown name fails here
         self.remat = remat
+        self.remat_policy = remat_policy
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.depth = depth
@@ -158,7 +162,7 @@ class ViTEncoder(nn.Module):
             cls = (self.cls_token + self.cls_pos_embed).expand(b, 1, self.embed_dim)
             x = torch.cat([cls, x], dim=1)
 
-        _, outputs = run_blocks(self.blocks, x, self.taps, remat=self.remat)
+        _, outputs = run_blocks(self.blocks, x, self.taps, remat=self.remat, remat_policy=self.remat_policy)
 
         results = []
         for feat in outputs:

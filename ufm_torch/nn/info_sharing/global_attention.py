@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from ufm_torch.ops.cache import device_constant
-from ufm_torch.nn.layers import LN_EPS, TransformerBlock, as_dtype, run_blocks
+from ufm_torch.nn.layers import LN_EPS, TransformerBlock, as_dtype, resolve_remat_policy, run_blocks
 
 __all__ = [
     "MultiViewTransformerInput",
@@ -84,11 +84,15 @@ class MultiViewGlobalAttentionTransformer(nn.Module):
         use_pos_embed: bool = True,
         mlp_act: str = "gelu_exact",
         dtype: Union[str, torch.dtype] = torch.float32,
-        # training memory knob: checkpoint every block (run_blocks)
+        # training memory knob: checkpoint every block (run_blocks), keeping
+        # what ``remat_policy`` saves (nn/layers.py::REMAT_POLICIES)
         remat: bool = False,
+        remat_policy: Optional[str] = None,
     ):
         super().__init__()
+        resolve_remat_policy(remat_policy)  # an unknown name fails here
         self.remat = remat
+        self.remat_policy = remat_policy
         self.dim = dim
         self.num_views = num_views
         self.norm_intermediate = norm_intermediate
@@ -125,7 +129,7 @@ class MultiViewGlobalAttentionTransformer(nn.Module):
             y = y.reshape(b, self.num_views, hp, wp, self.dim)
             return MultiViewTransformerOutput(features=[y[:, v] for v in range(self.num_views)])
 
-        x, tap_outs = run_blocks(self.blocks, x, self.taps, remat=self.remat)
+        x, tap_outs = run_blocks(self.blocks, x, self.taps, remat=self.remat, remat_policy=self.remat_policy)
         intermediates = [split_views(self.norm(t) if self.norm_intermediate else t) for t in tap_outs]
         return split_views(self.norm(x)), intermediates
 

@@ -9,16 +9,29 @@ renaming plus layout changes.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from functools import partial
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from ufm_torch.ops.attention import dot_product_attention
+from ufm_torch.ops.library import flash_attention_fwd
 
-__all__ = ["Mlp", "Attention", "LayerScale", "TransformerBlock", "run_blocks", "as_dtype", "LN_EPS"]
+__all__ = [
+    "Mlp",
+    "Attention",
+    "LayerScale",
+    "TransformerBlock",
+    "run_blocks",
+    "resolve_remat_policy",
+    "REMAT_POLICIES",
+    "as_dtype",
+    "LN_EPS",
+]
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -98,6 +111,10 @@ class Attention(nn.Module):
     kernel for CUDA tensors). ``impl`` is the attention implementation to
     request; ``None`` lets the tensors' device decide. The model sets it on
     every block at once (``UniFlowMatch.attention_impl``).
+
+    The head count of a call is read from the qkv output: under tensor
+    parallelism (:func:`ufm_torch.parallel.shard_params`) a rank's qkv
+    projection yields its own heads only.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, proj_bias: bool = True):
@@ -109,10 +126,10 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, c = x.shape
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, c // self.num_heads)
+        qkv = self.qkv(x).reshape(b, s, 3, -1, c // self.num_heads)
         # strided views of the fused projection: the kernel reads them in place
         out = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], impl=self.impl)
-        return self.proj(out.reshape(b, s, c))
+        return self.proj(out.reshape(b, s, -1))
 
 
 class LayerScale(nn.Module):
@@ -155,8 +172,56 @@ class TransformerBlock(nn.Module):
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
+# the JAX package's remat policy names (``jax.checkpoint_policies``, and the
+# composite of ufm_tpu/nn/layers.py::resolve_remat_policy) -> the ATen ops a
+# selective-checkpointing policy saves; every other op is recomputed in the
+# backward. JAX's "dots" are dot_general: with batch dims (bmm, baddbmm, and
+# convolutions, which XLA lowers to dots of their own) or without (mm, addmm:
+# the projections and MLPs). The composite also saves the flash-attention
+# forward op's outputs (the attention core and its row log-sum-exp), so the
+# backward does not run the attention forward again. ``None`` saves every op.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default, torch.ops.aten.convolution.default)
+REMAT_POLICIES = {
+    "everything_saveable": None,
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS + _BATCHED_DOTS,
+    "checkpoint_dots": _DOTS + _BATCHED_DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS,
+    "checkpoint_dots_with_no_batch_dims": _DOTS,
+    "dots_with_no_batch_dims_and_attn_out_saveable": _DOTS + (flash_attention_fwd,),
+}
+
+
+def _saving(ops: Optional[Tuple]) -> Callable:
+    def policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+        if ops is None or op in ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def resolve_remat_policy(name: Optional[str]) -> Optional[Callable]:
+    """A ``train_remat_policy`` name -> a selective-checkpointing policy
+    (``torch.utils.checkpoint.create_selective_checkpoint_contexts``), the
+    counterpart of ``jax.checkpoint_policies.<name>``. ``None`` or ``""``
+    means full remat (only each block's input is kept). The JAX package's
+    policy factories (``save_only_these_names``, ``save_from_both_policies``,
+    ...) are refused like unknown names."""
+    if not name:
+        return None
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}; valid: {sorted(REMAT_POLICIES)}")
+    return _saving(REMAT_POLICIES[name])
+
+
 def run_blocks(
-    blocks: Sequence[nn.Module], x: torch.Tensor, taps: Sequence[int], remat: bool = False
+    blocks: Sequence[nn.Module],
+    x: torch.Tensor,
+    taps: Sequence[int],
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Run ``blocks`` in order; return the final output and the outputs of the
     layers in ``taps``, in the requested order, repeats included (the loop form
@@ -165,12 +230,19 @@ def run_blocks(
     With ``remat`` and grad enabled, each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): only its input is kept for the
     backward, which runs the block's forward again (``nn.remat`` with no
-    policy in the JAX package). It changes memory and time, not values."""
+    policy in the JAX package). ``remat_policy`` (a name of
+    :data:`REMAT_POLICIES`) keeps the outputs of the ops it names as well,
+    and the backward recomputes only the rest. It changes memory and time,
+    not values."""
+    policy = resolve_remat_policy(remat_policy)
+    checkpointed = remat and torch.is_grad_enabled()
+    kwargs = {"use_reentrant": False}
+    if policy is not None:
+        kwargs["context_fn"] = partial(create_selective_checkpoint_contexts, policy)
     tapped = {}
     wanted = set(taps)
-    checkpointed = remat and torch.is_grad_enabled()
     for i, blk in enumerate(blocks):
-        x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if checkpointed else blk(x)
+        x = torch.utils.checkpoint.checkpoint(blk, x, **kwargs) if checkpointed else blk(x)
         if i in wanted:
             tapped[i] = x
     return x, [tapped[t] for t in taps]

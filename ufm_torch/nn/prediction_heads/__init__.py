@@ -14,6 +14,7 @@ from ufm_torch.nn.prediction_heads.base import (
 )
 from ufm_torch.nn.prediction_heads.dpt import DPTFeature, DPTRegressionProcessor
 from ufm_torch.nn.prediction_heads.mlp_feature import MLPFeature
+from ufm_torch.nn.prediction_heads.moge_conv import MoGeConvFeature
 
 __all__ = [
     "AdaptorMap",
@@ -25,6 +26,7 @@ __all__ = [
     "FlowWithConfidenceAdaptor",
     "MaskAdaptor",
     "MLPFeature",
+    "MoGeConvFeature",
     "PredictionHeadInput",
     "PredictionHeadLayeredInput",
     "PredictionHeadOutput",

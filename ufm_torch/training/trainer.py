@@ -17,7 +17,13 @@
   package's arithmetic: the forward sees the same rounded weights, and a
   bf16 weight gradient cast to fp32 is what flax's cast gives in the VJP.
 - :func:`make_train_step`: forward, :func:`ufm_total_loss`, backward, step.
-  The mesh-sharded step (``make_sharded_train_step``) is not ported yet.
+- :func:`make_sharded_train_step`: the same step over a ``("data", "fsdp",
+  "model")`` device mesh (:mod:`ufm_torch.parallel`): tensor parallelism on
+  ``model``, FSDP2 on ``("data", "fsdp")``, the batch split on ``data``, the
+  loss's masked means over the global batch, each group clipped at its
+  global norm over every shard. The masters and AdamW's moments are sharded
+  like their parameters; the optimizer and its state format are the
+  single-device ones.
 """
 
 from __future__ import annotations
@@ -26,13 +32,16 @@ import math
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch.distributed.tensor import DTensor
 
 from ufm_torch.training.losses import ufm_total_loss
 
 __all__ = [
     "make_optimizer",
     "make_train_step",
+    "make_sharded_train_step",
     "synthetic_batch",
     "warmup_cosine_decay",
     "group_of",
@@ -84,6 +93,30 @@ def warmup_cosine_decay(step: int, peak_value: float, warmup_steps: int, total_s
     return peak_value * 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
 
 
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of ``grads`` as one vector. Sharded (DTensor) gradients
+    add their local shards' squares, summed over the mesh dims on which they
+    are split; gradients of one layout share one reduction."""
+    if not any(isinstance(g, DTensor) for g in grads):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    layouts: Dict[tuple, List[torch.Tensor]] = {}
+    for g in grads:
+        if isinstance(g, DTensor):
+            if any(pl.is_partial() for pl in g.placements):
+                raise ValueError(f"a gradient with partial placements {g.placements}")
+            split = tuple(i for i, pl in enumerate(g.placements) if pl.is_shard())
+            layouts.setdefault((g.device_mesh, split), []).append(g.to_local())
+        else:
+            layouts.setdefault((None, ()), []).append(g)
+    squares = []
+    for (mesh, split), local in layouts.items():
+        sq = torch.stack(torch._foreach_norm(local)).square().sum()
+        for dim in split:
+            dist.all_reduce(sq, group=mesh.get_group(dim))
+        squares.append(sq)
+    return torch.stack(squares).sum().sqrt()
+
+
 class MasterWeightAdamW:
     """Per-group AdamW with per-group gradient clipping and fp32 masters.
 
@@ -91,7 +124,9 @@ class MasterWeightAdamW:
     A parameter with a master is stepped through it: the master's grad is the
     parameter's grad in fp32, AdamW updates the master, and the master is
     copied back into the parameter. A parameter without one (an fp32
-    parameter) is stepped in place.
+    parameter) is stepped in place. Sharded parameters (DTensors) have
+    masters with their layout; AdamW is elementwise, so each rank steps its
+    shards, and only the clip's norm needs the other ranks.
     """
 
     def __init__(
@@ -136,10 +171,11 @@ class MasterWeightAdamW:
                 else:
                     p.grad = g
                 grads.append(g)
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = _global_norm(grads)
             # optax's clip_by_global_norm: unchanged below the limit, else
             # times max / norm (no epsilon)
-            torch._foreach_mul_(grads, torch.where(norm < MAX_GRAD_NORM, 1.0, MAX_GRAD_NORM / norm))
+            local = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
+            torch._foreach_mul_(local, torch.where(norm < MAX_GRAD_NORM, 1.0, MAX_GRAD_NORM / norm))
         self.adamw.step()
         self.scheduler.step()
         for _, _, pairs in self.groups:
@@ -181,20 +217,26 @@ def make_optimizer(
     schedule and per-group learning-rate scales (:data:`GROUP_LR_SCALE`,
     updated by ``group_lr_scale``). Every parameter that is not fp32 gets an
     fp32 master, taken from ``master_params`` (an fp32 state dict, e.g.
-    ``jax_params_to_state_dict(...)``) when given, else from the parameter."""
+    ``jax_params_to_state_dict(...)``, in the unsharded layout) when given,
+    else from the parameter. On a sharded net the masters are laid out like
+    their parameters."""
+    from ufm_torch.parallel.sharding import qkv_permutations, reshard
+
     if total_steps <= warmup_steps:
         raise ValueError(f"total_steps ({total_steps}) must exceed warmup_steps ({warmup_steps})")
     scales = dict(GROUP_LR_SCALE)
     if group_lr_scale:
         scales.update(group_lr_scale)
     members: Dict[str, List[Tuple[nn.Parameter, Optional[torch.Tensor]]]] = {g: [] for g in scales}
+    perms = qkv_permutations(net)
     for name, p in net.named_parameters():
         if not p.requires_grad:
             continue
         master = None
-        if p.dtype != torch.float32:
-            src = master_params[name] if master_params is not None else p.detach()
-            master = src.detach().to(device=p.device, dtype=torch.float32, copy=True)
+        if p.dtype != torch.float32 and master_params is None:
+            master = p.detach().to(dtype=torch.float32, copy=True)
+        elif p.dtype != torch.float32:
+            master = reshard(master_params[name].detach(), p, perms.get(name), dtype=torch.float32)
         members.setdefault(group_of(name), []).append((p, master))
     groups = [(g, scales[g], pairs) for g, pairs in members.items() if pairs]
     return MasterWeightAdamW(
@@ -222,6 +264,48 @@ def make_train_step(
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def make_sharded_train_step(
+    net: nn.Module,
+    mesh,
+    loss_weights: Optional[Dict[str, float]] = None,
+    master_params: Optional[Mapping[str, torch.Tensor]] = None,
+    **optimizer_kwargs,
+):
+    """Mesh-sharded train step (the counterpart of the JAX package's
+    ``make_sharded_train_step``). Shards ``net`` (a ``UFMNet`` on this
+    rank's device; every rank holds the same parameters) in place over
+    ``mesh`` (:func:`ufm_torch.parallel.make_mesh`) and builds the optimizer
+    over the sharded parameters (:func:`make_optimizer`'s keyword arguments).
+
+    Returns ``(step, sharded_net, optimizer, place_batch)``:
+    ``place_batch(batch)`` takes the global batch (every rank holds all of
+    it, tensors or numpy arrays) to this rank's device and shard of it on
+    ``data``, and ``step(placed)`` runs one step and returns the global
+    metrics, the same on every rank, as detached device tensors."""
+    from ufm_torch.parallel.sharding import shard_batch, shard_params
+
+    device = next(net.parameters()).device
+    _, net = shard_params(net, mesh)
+    optimizer = make_optimizer(net, master_params=master_params, **optimizer_kwargs)
+    data_group, data_n = mesh.get_group("data"), mesh.size(0)
+
+    def place_batch(batch: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+        return {k: shard_batch(torch.as_tensor(v).to(device), mesh) for k, v in batch.items()}
+
+    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        out = net(batch["img1"], batch["img2"])
+        loss, metrics = ufm_total_loss(out, batch, loss_weights, group=data_group)
+        # FSDP averages the gradients over the data x fsdp ranks, and the
+        # ranks of one data index hold the same batch shard: times the data
+        # size, the average is the sum of the shares, the global gradient
+        (loss * data_n).backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step, net, optimizer, place_batch
 
 
 def synthetic_batch(
