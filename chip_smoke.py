@@ -10,14 +10,15 @@ have serialized them; the window library must hold TMA loads (UTMALDG) and
 use no local memory), holds each kernel against its plain PyTorch version
 at the main paths' shapes (the attention backward also for bitwise
 repeatability; the window kernel on five flows, iid, smooth and split, with
-its count of TMA-staged tiles held equal to ``staged_tiles``), compares the
-card's bf16 GELU with the CPU's on every finite bf16 input, then drives
-three paths with seeded random weights at full width:
+its count of TMA-staged tiles held equal to ``staged_tiles``), holds the
+bf16 GELU kernel bit for bit to the JAX package's output on every finite
+bf16 input (``tests/golden/gelu_bf16_table.npz``) and to its plain version,
+then drives three paths with seeded random weights at full width:
 
 - UFM-Base (ViT-L/14 encoder, 24 layers; 12 info-sharing layers; both DPT
   heads; 560x420), answering requests through
-  ``predict_correspondences_batched``: 36 flash-attention launches per
-  forward;
+  ``predict_correspondences_batched``: 36 flash-attention launches and 36
+  GELU launches (one per transformer block's MLP) per forward;
 - UFM-Refine (the same backbone and heads, the patch-MLP classification head,
   the UNet and the window refinement), the same way: 36 flash-attention
   launches and 1 window-refinement launch per forward;
@@ -76,7 +77,9 @@ JPEG with the native loader and streams them, or says on its own line that
 this host lacks the loader's system headers. Artifacts are written under
 ``build/`` and removed at the end.
 
-Each path's launch counts are set to 0 just before it and read just after.
+Each path's launch counts are set to 0 just before it and read just after;
+every path that runs the bf16 backbone launches the GELU kernel 36 times a
+forward (72 a train step under a remat policy that recomputes it).
 Each phase prints one JSON line; any failed check raises and the script exits
 non-zero without printing a result. The last three lines are the card's name
 and power limit (as ``nvidia-smi`` prints them), the kernels' summary, and
@@ -148,14 +151,21 @@ QUEUE_SLEEP_CYCLES = 50_000_000
 # host time per launch: back-to-back launches without a sync at a shape whose
 # kernels take less device time than the host spends launching them
 LAUNCH_HOST_REPS = 1000
-# card vs CPU bf16 GELU (the JAX chain, four bf16 roundings): the two
-# frameworks' fp32 erfc may differ in the last fp32 bit, one bf16 ulp after
-# rounding
-GELU_MAX_ULP = 1
+# the JAX package's bf16 GELU over every bf16 bit pattern (written by
+# tests/test_torch_port_gelu.py): the kernel must give these bits on every
+# finite input
+GELU_TABLE = os.path.join(HERE, "tests", "golden", "gelu_bf16_table.npz")
+# fp32 operations per element on the kernel's main branch (-x c, 0.5 x, t^2,
+# 8 Horner steps of 2, 1 - t P, h e): the operations bound's count
+GELU_OPS_PER_ELEMENT = 22
+# element counts off the 8-element vector and an empty tensor
+GELU_ODD_COUNTS = (1, 7, 8 * 1001 + 3, 0)
 # the MLP hidden activations of one batch-1 forward, and their MLPs per
 # forward: the encoder's (2 views x 1201 tokens, 4096) and the info
 # sharing's (2400 tokens, 3072)
 GELU_SHAPES = (("encoder", (2, 1201, 4096), 24), ("info_sharing", (1, 2400, 3072), 12))
+# GELU launches per forward of either model: one per transformer block's MLP
+GELU_PER_FORWARD = sum(n for _, _, n in GELU_SHAPES)  # 36
 ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
 
 # training: batch 2 at the model resolution (the JAX package's train
@@ -186,18 +196,19 @@ SHARDED_STEPS, SHARDED_METRIC_REL = 3, 1e-3
 # abs difference over the output's largest value
 DATA_PARALLEL_BATCH, DATA_PARALLEL_BAR = 2, 1e-5
 # train_remat and each train_remat_policy (the JAX package's names): label,
-# train_remat, policy, attention forward launches a step (the forward runs
-# again in the backward unless its outputs are kept)
+# train_remat, policy, attention forward launches and GELU launches a step
+# (the forward runs again in the backward unless its outputs are kept: no
+# policy keeps the GELU op's but everything_saveable, nn/layers.py::REMAT_POLICIES)
 REMAT_CASES = (
-    ("none", False, None, 36),
-    ("full", True, None, 72),
-    ("everything_saveable", True, "everything_saveable", 36),
-    ("nothing_saveable", True, "nothing_saveable", 72),
-    ("dots_saveable", True, "dots_saveable", 72),
-    ("checkpoint_dots", True, "checkpoint_dots", 72),
-    ("dots_with_no_batch_dims_saveable", True, "dots_with_no_batch_dims_saveable", 72),
-    ("checkpoint_dots_with_no_batch_dims", True, "checkpoint_dots_with_no_batch_dims", 72),
-    ("attn_out", True, "dots_with_no_batch_dims_and_attn_out_saveable", 36),
+    ("none", False, None, 36, 36),
+    ("full", True, None, 72, 72),
+    ("everything_saveable", True, "everything_saveable", 36, 36),
+    ("nothing_saveable", True, "nothing_saveable", 72, 72),
+    ("dots_saveable", True, "dots_saveable", 72, 72),
+    ("checkpoint_dots", True, "checkpoint_dots", 72, 72),
+    ("dots_with_no_batch_dims_saveable", True, "dots_with_no_batch_dims_saveable", 72, 72),
+    ("checkpoint_dots_with_no_batch_dims", True, "checkpoint_dots_with_no_batch_dims", 72, 72),
+    ("attn_out", True, "dots_with_no_batch_dims_and_attn_out_saveable", 36, 72),
 )
 REMAT_TIMED_STEPS = 3
 # the moge_conv head on UFM-Base: the JAX package's MoGeConvFeature defaults
@@ -297,6 +308,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+# each path's GELU kernel launches, by the name of its launches_by_path entry
+GELU_LAUNCHES = {}
+
+
+def gelu_path(path: str, launched: int, expected: int) -> None:
+    """Record a path's GELU launches and hold them to the count that the
+    code gives (GELU_PER_FORWARD a forward of the bf16 backbone)."""
+    GELU_LAUNCHES[path] = GELU_LAUNCHES.get(path, 0) + launched
+    check(launched == expected, f"{path}: {launched} GELU launches, expected {expected}")
+
+
 def time_ms(fn, reps: int = 10, batches: int = 7) -> float:
     """Median over ``batches`` of CUDA-event time per call, ``reps`` calls a
     batch, after a warm-up. Each batch queues behind a device sleep, so the
@@ -381,9 +403,9 @@ def phase_build():
         check(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA (wgmma) instruction in its SASS")
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
     check(sass["window_refinement_fwd"]["UTMALDG"] > 0, "window_refinement_fwd: no UTMALDG (TMA load) in its SASS")
-    local = {k: v for k, v in ptxas["window_refinement_fwd"].items()
-             if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
-    check(bool(ptxas["window_refinement_fwd"]) and not local, f"window_refinement_fwd uses local memory: {local}")
+    for name in ("window_refinement_fwd", "gelu_bf16_fwd"):
+        local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
+        check(bool(ptxas[name]) and not local, f"{name} uses local memory: {local}")
     t0 = time.perf_counter()
     host = _build._host_library_path("ufm_runtime")
     if host.exists():
@@ -526,45 +548,105 @@ def host_us_per_launch(fn, reps: int = LAUNCH_HOST_REPS) -> float:
     return us
 
 
-def _bf16_order(t: torch.Tensor) -> torch.Tensor:
-    """bf16 bits as integers in the order of the values (adjacent values
-    differ by 1: an ulp)."""
-    i = t.view(torch.int16).to(torch.int32)
-    return torch.where(i < 0, -(i & 0x7FFF), i)
+def gelu_bound_ms(numel: int):
+    """Bytes: x read once, y written once (bf16). Operations:
+    GELU_OPS_PER_ELEMENT fp32 operations an element."""
+    t_ops = GELU_OPS_PER_ELEMENT * numel / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 4 * numel / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16)
+
+
+def _gelu_chain(x: torch.Tensor) -> torch.Tensor:
+    """The port's bf16 GELU before the kernel: jax.nn.gelu's chain as four
+    PyTorch ops (mul, mul, erfc, mul), each rounding to bf16; timed here as
+    what the kernel replaced."""
+    return (x * 0.5) * torch.special.erfc(x * -0.70703125)
 
 
 def phase_gelu():
-    """The card's bf16 GELU (the JAX chain of ``gelu_exact``) against the
-    CPU's on every finite bf16 input, and what the chain costs at the MLP
-    shapes of one batch-1 forward against one ``F.gelu``."""
+    """The bf16 GELU kernel (``ufm_torch::gelu_bf16``) against the JAX
+    package's output (the committed table) on all 65,536 bf16 bit patterns,
+    bit for bit on the 65,280 finite ones, and against its plain version on
+    the card and on the CPU; odd element counts, an empty, a misaligned and a
+    non-contiguous input against the plain version; fp32 refused. Then the
+    kernel, ``F.gelu`` (the library call), the plain version and the 4-op
+    chain it replaced timed at the MLP shapes of one batch-1 forward, and
+    the host's cost per launch. Returns (rows by shape, host us per launch,
+    max abs error against the table)."""
     import torch.nn.functional as F
 
-    from ufm_torch.nn.layers import gelu_exact
+    from ufm_torch.ops import gelu
 
-    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
-    x = x[torch.isfinite(x)]
-    check(x.numel() == 65280, f"{x.numel()} finite bf16 values")
-    cpu = gelu_exact(x)
-    card = gelu_exact(x.cuda()).cpu()
-    ulps = (_bf16_order(card) - _bf16_order(cpu)).abs()
-    mismatches = int((card.view(torch.int16) != cpu.view(torch.int16)).sum())
-    max_ulp = int(ulps.max())
+    with np.load(GELU_TABLE) as z:
+        want_bits, finite = torch.from_numpy(z["y_bits"].view(np.int16).copy()), torch.from_numpy(z["finite"])
+    x = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16)).view(torch.bfloat16)  # x[i] has bits i
+    check(torch.equal(finite, torch.isfinite(x)) and int(finite.sum()) == 65280, "the GELU table's finite mask")
+    card = gelu.gelu_bf16(x.cuda()).cpu()
+    plain_card = gelu.fast_exact_gelu_reference(x.cuda()).cpu()
+    plain_cpu = gelu.gelu_bf16(x)  # the op's CPU implementation
+    mismatches = {
+        "kernel_vs_table": int((_bits(card) != want_bits)[finite].sum()),
+        "kernel_vs_plain_on_card": int((_bits(card) != _bits(plain_card))[finite].sum()),
+        "kernel_vs_plain_on_cpu": int((_bits(card) != _bits(plain_cpu))[finite].sum()),
+        "plain_on_cpu_vs_table": int((_bits(plain_cpu) != want_bits)[finite].sum()),
+    }
+    want = want_bits.view(torch.bfloat16)
+    max_abs_err = (card.float() - want.float())[finite].abs().max().item()
+    nonfinite_nan_agree = bool(torch.equal(torch.isnan(card)[~finite], torch.isnan(want)[~finite]))
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    odd = {}
+    base = (torch.randn(8 * 1001 + 16, generator=gen, device="cuda") * 4).to(torch.bfloat16)
+    cases = {f"n{n}": base[:n] for n in GELU_ODD_COUNTS}
+    cases["misaligned"] = base[3:8 * 1001 + 3]  # base address 6 bytes past a 16-byte boundary
+    cases["non_contiguous"] = base[:40 * 200].view(40, 200).t()
+    for name, t in cases.items():
+        before = gelu.LAUNCHES
+        got = gelu.gelu_bf16(t)
+        launched = gelu.LAUNCHES - before
+        plain = gelu.fast_exact_gelu_reference(t.contiguous())
+        ok = got.shape == t.shape and torch.equal(_bits(got.contiguous()), _bits(plain))
+        odd[name] = dict(numel=t.numel(), bitwise_plain=ok, launches=launched)
+        check(ok, f"gelu {name}: the kernel differs from the plain version")
+        check(launched == int(t.numel() > 0), f"gelu {name}: {launched} launches")
+    try:
+        gelu.gelu_bf16(base.float())
+        refused = False
+    except ValueError:
+        refused = True
+
     rows = {}
-    gen = torch.Generator(device="cuda").manual_seed(5)
     for name, shape, per_forward in GELU_SHAPES:
         h = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        chain_ms = time_ms(lambda: gelu_exact(h))
-        f_gelu_ms = time_ms(lambda: F.gelu(h, approximate="none"))
-        rows[name] = dict(shape=list(shape), mlps_per_forward=per_forward, chain_ms=chain_ms, f_gelu_ms=f_gelu_ms)
+        check(torch.equal(_bits(gelu.gelu_bf16(h)), _bits(gelu.fast_exact_gelu_reference(h))),
+              f"gelu {name}: the kernel differs from the plain version")
+        ms = time_ms(lambda: gelu.gelu_bf16(h))
+        library_ms = time_ms(lambda: F.gelu(h, approximate="none"))
+        plain_ms = time_ms(lambda: gelu.fast_exact_gelu_reference(h), reps=3, batches=5)
+        chain_ms = time_ms(lambda: _gelu_chain(h))
+        bound_ms, bound_by = gelu_bound_ms(h.numel())
+        rows[name] = dict(shape=list(shape), mlps_per_forward=per_forward, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          share_of_bound=bound_ms / ms, gbytes_per_s=4 * h.numel() / ms / 1e6)
+        emit("kernel", kernel="gelu_bf16_fwd", case=name, **rows[name])
+        del h
     small = torch.randn(1, 64, generator=gen, device="cuda").to(torch.bfloat16)
-    host = {"chain": host_us_per_launch(lambda: gelu_exact(small)),
-            "f_gelu": host_us_per_launch(lambda: F.gelu(small, approximate="none"))}
-    extra_ms = sum(r["mlps_per_forward"] * (r["chain_ms"] - r["f_gelu_ms"]) for r in rows.values())
-    mlps = sum(r["mlps_per_forward"] for r in rows.values())
-    emit("gelu", inputs=x.numel(), card_vs_cpu_mismatches=mismatches, max_ulp=max_ulp, max_ulp_bound=GELU_MAX_ULP,
-         shapes=rows, launches_per_mlp={"chain": 4, "f_gelu": 1}, device_ms_added_per_forward=extra_ms,
-         host_us_per_call=host, host_us_added_per_forward=mlps * (host["chain"] - host["f_gelu"]))
-    check(max_ulp <= GELU_MAX_ULP, f"card vs CPU bf16 GELU: {max_ulp} ulps apart > {GELU_MAX_ULP}")
+    host = {"kernel": host_us_per_launch(lambda: gelu.gelu_bf16(small)),
+            "f_gelu": host_us_per_launch(lambda: F.gelu(small, approximate="none")),
+            "chain": host_us_per_launch(lambda: _gelu_chain(small))}
+    per_forward = {k: sum(r["mlps_per_forward"] * r[k] for r in rows.values())
+                   for k in ("ms", "plain_ms", "library_ms", "chain_ms", "bound_ms")}
+    emit("gelu", inputs=int(finite.sum()), mismatches=mismatches, max_abs_err=max_abs_err,
+         nonfinite_nan_agree=nonfinite_nan_agree, odd=odd, fp32_refused=refused, per_forward_ms=per_forward,
+         launches_per_mlp={"kernel": 1, "f_gelu": 1, "chain": 4}, host_us_per_call=host)
+    for k, n in mismatches.items():
+        check(n == 0, f"gelu: {n} finite bf16 inputs differ ({k})")
+    check(refused, "gelu: the kernel took an fp32 tensor")
+    return rows, host["kernel"], max_abs_err
 
 
 def _finite(t: torch.Tensor) -> bool:
@@ -574,6 +656,7 @@ def _finite(t: torch.Tensor) -> bool:
 def phase_main_path():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
 
     t0 = time.perf_counter()
     model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
@@ -588,7 +671,7 @@ def phase_main_path():
         ("480x640_b2", rng.integers(0, 256, (2, 2, 480, 640, 3), dtype=np.uint8)),
     )
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = 0  # the main path's count starts here
+    fa.LAUNCHES = ge.LAUNCHES = 0  # the main path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -596,13 +679,15 @@ def phase_main_path():
         h, w = src.shape[-3], src.shape[-2]
         times = []
         for _ in range(4):  # one warm-up, three timed
-            before = fa.LAUNCHES
+            before = (fa.LAUNCHES, ge.LAUNCHES)
             t = time.perf_counter()
             res = model.predict_correspondences_batched(source_image=src, target_image=tgt)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-            check(fa.LAUNCHES - before == LAUNCHES_PER_FORWARD,
-                  f"{name}: {fa.LAUNCHES - before} kernel launches in one forward, expected {LAUNCHES_PER_FORWARD}")
+            check(fa.LAUNCHES - before[0] == LAUNCHES_PER_FORWARD,
+                  f"{name}: {fa.LAUNCHES - before[0]} kernel launches in one forward, expected {LAUNCHES_PER_FORWARD}")
+            check(ge.LAUNCHES - before[1] == GELU_PER_FORWARD,
+                  f"{name}: {ge.LAUNCHES - before[1]} GELU launches in one forward, expected {GELU_PER_FORWARD}")
         flow, covis = res.flow.flow_output, res.covisibility.mask
         cov, conf = res.flow.flow_covariance, res.keypoint_confidence
         check(tuple(flow.shape) == (b, 2, h, w), f"{name}: flow shape {tuple(flow.shape)}")
@@ -616,7 +701,9 @@ def phase_main_path():
              pairs_per_s=b / latencies[name], flow_abs_mean=flow.abs().mean().item(),
              covis_mean=covis.mean().item())
     launches = fa.LAUNCHES
+    gelu_path("ufm_base", ge.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
     emit("main_path", launches=launches, forwards=4 * len(requests), launches_per_forward=LAUNCHES_PER_FORWARD,
+         gelu_launches=ge.LAUNCHES,
          pairs_per_s_b1=1.0 / latencies["480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
     return model, requests[0][1], results["480x640_b1"], launches
 
@@ -654,9 +741,10 @@ def phase_bf16_golden():
     from ufm_torch.checkpoint import load_jax_params
     from ufm_torch.models import UFMArchConfig, UFMNet
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.ops import window_refinement as wr
 
-    fa.LAUNCHES = wr.LAUNCHES = 0  # this path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
     for name in BF16_GOLDENS:
         cfg, (i1, i2), params, want = _load_bf16_golden(name)
         with torch.device("cuda"):
@@ -665,13 +753,14 @@ def phase_bf16_golden():
         refine = net.cfg.has_classification_head
         if refine:
             net.refinement_impl = None  # the window kernel (the golden's config asks for the plain "xla")
-        before = (fa.LAUNCHES, wr.LAUNCHES)
+        before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES)
         with torch.inference_mode():
             got = net(torch.from_numpy(i1).cuda(), torch.from_numpy(i2).cuda())
         torch.cuda.synchronize()
         launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1])
         layers = cfg["encoder_kwargs"]["depth"] + cfg["info_sharing_kwargs"]["depth"]
         check(launched == (layers, int(refine)), f"bf16 golden {name}: {launched} attention / window launches")
+        gelu_path("bf16_golden", ge.LAUNCHES - before[2], layers if net.cfg.compute_dtype == "bfloat16" else 0)
         diffs = {k: (got[k].float().cpu() - torch.from_numpy(v)).abs().max().item() for k, v in want.items()}
         emit("bf16_golden", model=name, input_hw=list(i1.shape[1:3]), max_abs_diff=diffs, bound=BF16_GOLDEN_ATOL,
              launches={"flash_attention_fwd": launched[0], "window_refinement_fwd": launched[1]})
@@ -728,6 +817,7 @@ def phase_tiled(model):
     call is held to the bar only where no window moved."""
     from ufm_torch.models import tiled
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.utils.example_pairs import synthetic_pair
 
     src, tgt, gt, _ = synthetic_pair(h=TILED_HW[0], w=TILED_HW[1], seed=0)
@@ -750,11 +840,11 @@ def phase_tiled(model):
         tiled.predict_correspondences_tiled(model, src, tgt)  # warm-up
         calls.clear()
         torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = 0  # the tiled path's count starts here
+        fa.LAUNCHES = ge.LAUNCHES = 0  # the tiled path's counts start here
         t = time.perf_counter()
         flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
         total_s = time.perf_counter() - t
-        launches = fa.LAUNCHES
+        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
         stats = dict(tiled.last_tile_stats)
         kernel_calls = list(calls)
@@ -784,6 +874,7 @@ def phase_tiled(model):
     check(stats.get("tiles") == TILED_TILES, f"tiled: {stats} (expected {TILED_TILES} tiles)")
     check(batches == TILED_BATCHES, f"tiled: forwards at batches {batches}, expected {TILED_BATCHES}")
     check(launches == LAUNCHES_PER_FORWARD * len(TILED_BATCHES), f"tiled: {launches} attention launches")
+    gelu_path("ufm_base_tiled", gelu_launches, GELU_PER_FORWARD * len(TILED_BATCHES))
     check(flow.shape == (*TILED_HW, 2) and covis.shape == TILED_HW, f"tiled: shapes {flow.shape} {covis.shape}")
     check(bool(np.isfinite(flow).all() and np.isfinite(covis).all()), "tiled: non-finite outputs")
 
@@ -971,6 +1062,7 @@ def _timed(fn, events):
 def phase_refine_path():
     from ufm_torch.models import UniFlowMatchClassificationRefinement, ufm_refine_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.ops import window_refinement as wr
 
     t0 = time.perf_counter()
@@ -992,7 +1084,7 @@ def phase_refine_path():
     )
     p = model.config.refinement_range
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = wr.LAUNCHES = 0  # the refine path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # the refine path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -1002,14 +1094,15 @@ def phase_refine_path():
         forward_events.clear()
         tail_events.clear()
         for _ in range(4):  # one warm-up, three timed
-            before = (fa.LAUNCHES, wr.LAUNCHES)
+            before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES)
             t = time.perf_counter()
             res = model.predict_correspondences_batched(source_image=src, target_image=tgt)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-            launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1])
-            check(launched == (LAUNCHES_PER_FORWARD, 1),
-                  f"{name}: {launched} attention / window launches in one forward, expected ({LAUNCHES_PER_FORWARD}, 1)")
+            launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2])
+            check(launched == (LAUNCHES_PER_FORWARD, 1, GELU_PER_FORWARD),
+                  f"{name}: {launched} attention / window / GELU launches in one forward, "
+                  f"expected ({LAUNCHES_PER_FORWARD}, 1, {GELU_PER_FORWARD})")
         flow, covis = res.flow.flow_output, res.covisibility.mask
         check(tuple(flow.shape) == (b, 2, h, w), f"{name}: flow shape {tuple(flow.shape)}")
         check(tuple(covis.shape) == (b, h, w), f"{name}: covisibility shape {tuple(covis.shape)}")
@@ -1026,6 +1119,7 @@ def phase_refine_path():
              refine_tail_share=tail_ms / fwd_ms, window_in_image_share=share, window_staged_tile_share=staged_share,
              regression_flow_abs_max=regression_flow.abs().max().item(), flow_abs_mean=flow.abs().mean().item())
     launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+    gelu_path("ufm_refine", ge.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
     emit("refine_path", launches=launches, forwards=4 * len(requests),
          pairs_per_s_b1=1.0 / latencies["refine_480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
     del model.network_apply, model.net.refine_tail  # back to the unwrapped methods
@@ -1075,6 +1169,7 @@ def _group_grads(net):
 def phase_train():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
 
     t0 = time.perf_counter()
@@ -1094,17 +1189,18 @@ def phase_train():
     net.forward = _timed(net.forward, fwd_events)
     optimizer.step = _timed(optimizer.step, opt_events)
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0  # the training path's counts start here
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # the training path's counts start here
     losses, times = [], []
     for i in range(TRAIN_STEPS):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)
         t = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1])
-        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD),
-              f"train step {i}: {launched} attention forward launches / backward calls, expected 36 / 36")
+        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2])
+        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD),
+              f"train step {i}: {launched} attention forward launches / backward calls / GELU launches, "
+              "expected 36 / 36 / 36")
         vals = {k: v.item() for k, v in metrics.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"train step {i}: non-finite metrics {vals}")
         losses.append(vals["total_loss"])
@@ -1126,6 +1222,7 @@ def phase_train():
     steps = TRAIN_STEPS + FIT_STEPS
     check(launches == {"flash_attention_fwd": steps * LAUNCHES_PER_FORWARD, "flash_attention_bwd": steps * LAUNCHES_PER_FORWARD},
           f"training path launches {launches} over {steps} steps, expected 36 + 36 per step")
+    gelu_path("ufm_base_train", ge.LAUNCHES, steps * GELU_PER_FORWARD)
     trajectory = losses + fit_losses
     check(trajectory[-1] < trajectory[0], f"loss did not fall on the fixed batch: {trajectory}")
     emit("train_path", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), learning_rate=TRAIN_LR,
@@ -1140,6 +1237,7 @@ def phase_train():
 
 def phase_train_self_check(model, batch):
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.training import ufm_total_loss
 
     net = model.net
@@ -1152,10 +1250,10 @@ def phase_train_self_check(model, batch):
         torch.cuda.synchronize()
         return _group_grads(net)
 
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0
     g_kernel = grads()
-    check((fa.LAUNCHES, fa.BWD_LAUNCHES) == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD),
-          f"kernel gradient: {(fa.LAUNCHES, fa.BWD_LAUNCHES)} launches, expected 36 / 36")
+    check((fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES) == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD),
+          f"kernel gradient: {(fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)} launches, expected 36 / 36 / 36")
     model.attention_impl = "torch"
     fa.LAUNCHES = fa.BWD_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1236,19 +1334,23 @@ def _free_card_memory():
     torch.cuda.empty_cache()
 
 
-def _train_steps(step, batch, n, label, launches_each=(LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD)):
-    """``n`` train steps on ``batch``: host seconds, metrics, launches of each."""
+def _train_steps(step, batch, n, label,
+                 launches_each=(LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD)):
+    """``n`` train steps on ``batch``: host seconds, metrics; each step's
+    attention forward, backward and GELU launches held to ``launches_each``."""
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
 
     times, metrics = [], []
     for i in range(n):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)
         t = time.perf_counter()
         m = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1])
-        check(launched == launches_each, f"{label} step {i}: {launched} attention forward / backward launches, expected {launches_each}")
+        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2])
+        check(launched == launches_each,
+              f"{label} step {i}: {launched} attention forward / backward / GELU launches, expected {launches_each}")
         vals = {k: v.item() for k, v in m.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
         metrics.append(vals)
@@ -1261,6 +1363,7 @@ def phase_sharded_train():
     fit(mesh=...) stopping after one step and resuming from its checkpoint."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.parallel import make_mesh
     from ufm_torch.training import fit, make_optimizer, make_sharded_train_step, make_train_step, synthetic_batch
 
@@ -1292,12 +1395,13 @@ def phase_sharded_train():
     torch.cuda.synchronize()
     shard_s = time.perf_counter() - t
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0  # the sharded path's counts start here
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # the sharded path's counts start here
     spans = _span_ms(net, optimizer, lambda: ran.update(
         zip(("times", "metrics"), _train_steps(step, placed, SHARDED_STEPS, "sharded"))))
     times, metrics = ran["times"], ran["metrics"]
     peak = torch.cuda.max_memory_allocated()
     step_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
+    gelu_path("ufm_base_sharded_train", ge.LAUNCHES, SHARDED_STEPS * GELU_PER_FORWARD)
     delta = _group_deltas(_stepped_values(net, optimizer), initial)
     metric_rel = {k: abs(metrics[0][k] - v) / max(abs(v), 1e-12) for k, v in plain_metrics[0].items()}
     delta_rel = {k: ((delta[k] - d).norm() / d.norm()).item() for k, d in plain_delta.items()}
@@ -1323,7 +1427,7 @@ def phase_sharded_train():
     # new sharded net resumes it for the 2nd
     ckpt = os.path.join(ARTIFACT_DIR, "sharded_fit")
     shutil.rmtree(ckpt, ignore_errors=True)
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # the sharded fit's counts start here
     runs = []
     for n_batches in (1, 1):
         model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
@@ -1337,6 +1441,7 @@ def phase_sharded_train():
         del model, out
         _free_card_memory()
     fit_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
+    gelu_path("ufm_base_sharded_fit", ge.LAUNCHES, FIT_STEPS * GELU_PER_FORWARD)
     last = os.path.join(ckpt, str(FIT_STEPS), "train_state.pt")
     ckpt_bytes = os.path.getsize(last)  # one step's file
     state = torch.load(last, map_location="cpu", weights_only=True, mmap=True)
@@ -1370,6 +1475,7 @@ def phase_data_parallel():
     UFM-Refine at batch 2, against each network's own forward."""
     from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_base_config, ufm_refine_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.ops import window_refinement as wr
     from ufm_torch.parallel import make_data_parallel_forward, make_mesh
 
@@ -1379,12 +1485,13 @@ def phase_data_parallel():
                             ("ufm_refine", UniFlowMatchClassificationRefinement, ufm_refine_config())):
         model = cls.from_config(cfg, seed=0)
         forward = make_data_parallel_forward(model, make_mesh(1))
-        fa.LAUNCHES = wr.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
         t = time.perf_counter()
         got = forward(img1, img2)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches[label] = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+        gelu_path(f"{label}_data_parallel", ge.LAUNCHES, GELU_PER_FORWARD)
         with torch.no_grad():
             want = model.net(img1, img2)
         torch.cuda.synchronize()
@@ -1412,9 +1519,11 @@ def _set_remat(net, remat, policy):
 def phase_remat():
     """The batch-2 train step under train_remat with no policy and with each
     of the JAX package's policy names: step time, peak memory and attention
-    forward launches a step; each policy's gradients against no remat's."""
+    forward and GELU launches a step; each policy's gradients against no
+    remat's."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
 
     _free_card_memory()
@@ -1422,23 +1531,26 @@ def phase_remat():
     net = model.net
     batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
     step = make_train_step(net, make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS))
-    rows = {label: {"policy": policy, "train_remat": remat, "attention_fwd_launches_per_step": fwd, "step_s": [],
-                    "max_memory_allocated": [], "resident_before": []} for label, remat, policy, fwd in REMAT_CASES}
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0  # this path's counts start here
+    rows = {label: {"policy": policy, "train_remat": remat, "attention_fwd_launches_per_step": fwd,
+                    "gelu_launches_per_step": gelu_fwd, "step_s": [], "max_memory_allocated": [], "resident_before": []}
+            for label, remat, policy, fwd, gelu_fwd in REMAT_CASES}
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
     # two rounds, the second in the reverse order: a case's numbers do not
     # depend on which case ran before it
     for cases in (REMAT_CASES, REMAT_CASES[::-1]):
-        for label, remat, policy, fwd in cases:
+        for label, remat, policy, fwd, gelu_fwd in cases:
+            each = (fwd, LAUNCHES_PER_FORWARD, gelu_fwd)
             _set_remat(net, remat, policy)
-            _train_steps(step, batch, 1, f"remat {label} warm-up", (fwd, LAUNCHES_PER_FORWARD))
+            _train_steps(step, batch, 1, f"remat {label} warm-up", each)
             torch.cuda.reset_peak_memory_stats()
             rows[label]["resident_before"].append(torch.cuda.memory_allocated())
-            times, _ = _train_steps(step, batch, REMAT_TIMED_STEPS, f"remat {label}", (fwd, LAUNCHES_PER_FORWARD))
+            times, _ = _train_steps(step, batch, REMAT_TIMED_STEPS, f"remat {label}", each)
             rows[label]["step_s"] += times
             rows[label]["max_memory_allocated"].append(torch.cuda.max_memory_allocated())
     for row in rows.values():
         row["step_ms"] = statistics.median(row["step_s"]) * 1e3
     launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
+    gelu_path("ufm_base_remat", ge.LAUNCHES, 2 * (1 + REMAT_TIMED_STEPS) * sum(c[4] for c in REMAT_CASES))
     del step
     net.zero_grad(set_to_none=True)
     _free_card_memory()
@@ -1453,7 +1565,7 @@ def phase_remat():
 
     _set_remat(net, False, None)
     reference = grads()
-    for label, remat, policy, _ in REMAT_CASES[1:]:
+    for label, remat, policy, _, _ in REMAT_CASES[1:]:
         _set_remat(net, remat, policy)
         g = grads()
         rows[label]["grad_rel_l2"] = {k: ((g[k] - r).norm() / r.norm()).item() for k, r in reference.items()}
@@ -1473,18 +1585,19 @@ def phase_moge():
     forward."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
 
     model = UniFlowMatchConfidence.from_config(ufm_base_config(head_type="moge_conv", feature_head_kwargs=MOGE_HEAD), seed=0)
     img1, img2 = _normalized_pair(1, TRAIN_HW, seed=3)
     with torch.no_grad():
         model.net(img1, img2)  # warm-up
-        fa.LAUNCHES = 0  # this path's count starts here
+        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = model.net(img1, img2)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches = fa.LAUNCHES
+        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
         model.attention_impl = "torch"
         plain = model.net(img1, img2)
         model.attention_impl = None
@@ -1496,6 +1609,7 @@ def phase_moge():
     check(tuple(flow.shape) == (1, *TRAIN_HW, 2), f"moge flow shape {tuple(flow.shape)}")
     check(all(_finite(v) for v in out.values()), "moge: non-finite outputs")
     check(launches == LAUNCHES_PER_FORWARD, f"moge forward: {launches} attention launches, expected 36")
+    gelu_path("ufm_base_moge", gelu_launches, GELU_PER_FORWARD)
     check(rel <= FLOW_REL_L2_BOUND, f"moge kernel vs plain attention: flow relative L2 {rel:.3e}")
     del model, out, plain
     _free_card_memory()
@@ -1523,7 +1637,7 @@ def _profile_requests(fn, reps: int = PROFILE_REQUESTS):
         if evt.device_type != DeviceType.CUDA or evt.name.startswith(("Memcpy", "Memset")):
             continue
         spans.append((evt.time_range.start, evt.time_range.end))
-        for name in ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel"):
+        for name in ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "gelu_bf16_fwd_kernel"):
             if name in evt.name:
                 counts[name] = counts.get(name, 0) + 1
     check(bool(spans), "the profiler recorded no kernel")
@@ -1556,6 +1670,7 @@ def phase_captured(model, label, pair, batches, refine):
 def _captured(model, label, pair, batches, refine):
     from ufm_torch.models import base
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.ops import window_refinement as wr
 
     def request(b):
@@ -1573,7 +1688,7 @@ def _captured(model, label, pair, batches, refine):
             times.append(time.perf_counter() - t)
         return res, times
 
-    per_call = (LAUNCHES_PER_FORWARD, 1 if refine else 0)
+    per_call = (LAUNCHES_PER_FORWARD, 1 if refine else 0, GELU_PER_FORWARD)
     torch.cuda.reset_peak_memory_stats()
     rows, launched = {}, {"flash_attention_fwd": 0, "window_refinement_fwd": 0}
     for b in batches:
@@ -1581,17 +1696,20 @@ def _captured(model, label, pair, batches, refine):
         model.capture_graphs = False
         eager, eager_times = timed(fn)
         model.capture_graphs = True
-        fa.LAUNCHES = wr.LAUNCHES = 0  # the captured path's count starts here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # the captured path's counts start here
         captured_times, calls = [], []
         for _ in range(4):  # the first call warms up and captures
             t = time.perf_counter()
             res = fn()
             torch.cuda.synchronize()
             captured_times.append(time.perf_counter() - t)
-            calls.append((fa.LAUNCHES - sum(c[0] for c in calls), wr.LAUNCHES - sum(c[1] for c in calls)))
+            calls.append((fa.LAUNCHES - sum(c[0] for c in calls), wr.LAUNCHES - sum(c[1] for c in calls),
+                          ge.LAUNCHES - sum(c[2] for c in calls)))
         launched["flash_attention_fwd"] += fa.LAUNCHES
         launched["window_refinement_fwd"] += wr.LAUNCHES
-        check(all(c == per_call for c in calls), f"{label} b{b}: launches per call {calls}, expected {per_call} each")
+        check(all(c == per_call for c in calls),
+              f"{label} b{b}: attention / window / GELU launches per call {calls}, expected {per_call} each")
+        gelu_path(f"{label}_captured", ge.LAUNCHES, len(calls) * GELU_PER_FORWARD)
 
         f_c, f_e = res.flow.flow_output.float(), eager.flow.flow_output.float()
         flow_rel = ((f_c - f_e).norm() / f_e.norm()).item()
@@ -1616,7 +1734,8 @@ def _captured(model, label, pair, batches, refine):
             model.capture_graphs = True
             row.update(profiled_requests=PROFILE_REQUESTS, replay_profiled=replay, eager_profiled=eager_prof,
                        profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()})
-            want = {"flash_attention_fwd_kernel": per_call[0], **({"window_refinement_fwd_kernel": 1} if refine else {})}
+            want = {"flash_attention_fwd_kernel": per_call[0], "gelu_bf16_fwd_kernel": per_call[2],
+                    **({"window_refinement_fwd_kernel": 1} if refine else {})}
             want = {k: v * PROFILE_REQUESTS for k, v in want.items()}
             check(replay_counts == want,
                   f"{label}: the profiler saw {replay_counts} in {PROFILE_REQUESTS} replays, expected {want}")
@@ -1737,6 +1856,7 @@ def phase_serve(model):
     import io
 
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.runtime import UFMServer
 
     rng = np.random.default_rng(0)
@@ -1764,7 +1884,7 @@ def phase_serve(model):
         t = time.perf_counter()
         _http(server.port, "/v1/predict", bodies[n])  # warm-up: the lane's first batch captures its program
         warm_s = time.perf_counter() - t
-        fa.LAUNCHES = 0  # the served path's count starts here
+        fa.LAUNCHES = ge.LAUNCHES = 0  # the served path's counts start here
         served, latency = [None] * n, [0.0] * n
 
         def client(k):
@@ -1780,7 +1900,7 @@ def phase_serve(model):
             for f in [pool.submit(client, k) for k in range(SERVE_CLIENTS)]:
                 f.result()
         wall = time.perf_counter() - t
-        launches = fa.LAUNCHES
+        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
         stats = json.loads(_http(server.port, "/stats"))
     finally:
         server.close()
@@ -1831,6 +1951,7 @@ def phase_serve(model):
           f"serve: the batcher dispatched {lane['dispatched']} of {n + 1} requests in {lane['batches']} batches")
     check(launches == LAUNCHES_PER_FORWARD * batches_timed,
           f"serve: {launches} attention launches for {batches_timed} batches")
+    gelu_path("ufm_base_served", gelu_launches, GELU_PER_FORWARD * batches_timed)
     check(same_slot["flow_rel_l2"] <= CAPTURED_BAR and same_slot["covis_max_abs_diff"] <= CAPTURED_BAR,
           f"serve: a response differs from the direct predict of its pair at its slot: {same_slot}")
     check(slot0["flow_rel_l2"] <= SLOT_BAR and slot0["covis_max_abs_diff"] <= SLOT_BAR,
@@ -1845,6 +1966,7 @@ def phase_stream(model):
     in order, cut back to the valid pairs, each batch bitwise the direct
     predict of the same stacked (padded) batch. Returns its launches."""
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.runtime import stream_predict
 
     b = SERVE_MAX_BATCH
@@ -1853,14 +1975,14 @@ def phase_stream(model):
     batches = [idx + [idx[-1]] * (b - len(idx)) for idx in batches]
     model.predict_correspondences_batched(pairs[batches[0], 0], pairs[batches[0], 1])  # the lane's program exists
     torch.cuda.synchronize()
-    fa.LAUNCHES = 0  # the streamed path's count starts here
+    fa.LAUNCHES = ge.LAUNCHES = 0  # the streamed path's counts start here
     t = time.perf_counter()
     outs = [(o.flow.flow_output, o.covisibility.mask)
             for o in stream_predict(model.predict_correspondences_batched, ((p[0], p[1]) for p in pairs),
                                     batch_size=b, device="cuda")]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = fa.LAUNCHES
+    launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
     sizes = [len(f) for f, _ in outs]
     bitwise = True
     for (f, c), idx in zip(outs, batches):
@@ -1873,6 +1995,7 @@ def phase_stream(model):
           f"stream: batch sizes {sizes}")
     check(bitwise, "stream: a streamed batch differs from the direct predict of the same batch")
     check(launches == LAUNCHES_PER_FORWARD * len(batches), f"stream: {launches} attention launches")
+    gelu_path("ufm_base_streamed", gelu_launches, GELU_PER_FORWARD * len(batches))
     return launches
 
 
@@ -1899,6 +2022,7 @@ def phase_export(model):
     fp32 one. Returns (the fp32 artifact's path, its loaded program, the
     launches of this phase)."""
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.runtime import export_model, load_exported
 
     paths = {d: os.path.join(ARTIFACT_DIR, f"ufm_base_{d}.ufmt") for d in ("fp32", "bf16")}
@@ -1915,13 +2039,13 @@ def phase_export(model):
     art = loaded["fp32"]
     with torch.inference_mode():
         want = model.network_apply(x, y)
-        fa.LAUNCHES = 0  # this path's count starts here
+        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
-        per_call = fa.LAUNCHES
+        per_call, gelu_per_call = fa.LAUNCHES, ge.LAUNCHES
         half = loaded["bf16"](x, y)
         torch.cuda.synchronize()
-        launches = fa.LAUNCHES
+        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
         _, counts = _profile_requests(lambda: art(x, y))
     diff = _raw_diff(got, want)
     drift = {k: ((half[k].float() - got[k].float()).abs().max() / got[k].float().abs().max().clamp_min(1e-6)).item()
@@ -1931,10 +2055,13 @@ def phase_export(model):
          param_bytes=manifests["fp32"]["param_bytes"],
          stored_param_bytes={d: m["stored_param_bytes"] for d, m in manifests.items()},
          file_bytes={d: os.path.getsize(p) for d, p in paths.items()}, ops=manifests["fp32"]["ops"],
-         launches_per_call=per_call, profiler_kernels_per_call={k: v / PROFILE_REQUESTS for k, v in counts.items()},
+         launches_per_call=per_call, gelu_launches_per_call=gelu_per_call,
+         profiler_kernels_per_call={k: v / PROFILE_REQUESTS for k, v in counts.items()},
          **diff, bar=ARTIFACT_BAR, bf16_relative_drift=drift, bf16_bound=ARTIFACT_BF16_DRIFT)
     check(per_call == LAUNCHES_PER_FORWARD, f"export: {per_call} attention launches in one artifact call")
-    check(counts == {"flash_attention_fwd_kernel": LAUNCHES_PER_FORWARD * PROFILE_REQUESTS},
+    gelu_path("ufm_base_artifact", gelu_launches, 2 * GELU_PER_FORWARD)  # the fp32- and the bf16-stored artifact
+    check(counts == {"flash_attention_fwd_kernel": LAUNCHES_PER_FORWARD * PROFILE_REQUESTS,
+                     "gelu_bf16_fwd_kernel": GELU_PER_FORWARD * PROFILE_REQUESTS},
           f"export: the profiler saw {counts} in {PROFILE_REQUESTS} artifact calls")
     check(diff["flow_rel_l2"] <= ARTIFACT_BAR and diff["covis_max_abs_diff"] <= ARTIFACT_BAR,
           f"export: the artifact differs from the live network: {diff}")
@@ -1952,6 +2079,7 @@ def phase_export_cpu():
     same weights do in the live model on the card. Returns its launches."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.runtime import export_model, load_exported
 
     path = os.path.join(ARTIFACT_DIR, "ufm_base_cpu.ufmt")
@@ -1968,10 +2096,10 @@ def phase_export_cpu():
     model.net.to("cuda")
     x, y = _artifact_inputs(model, seed=12)
     with torch.inference_mode():
-        fa.LAUNCHES = 0  # this path's count starts here
+        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
-        launches = fa.LAUNCHES
+        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
         want = model.network_apply(x, y)
     diff = _raw_diff(got, want)
     emit("export_cpu", model="ufm_base", traced_on=manifest["devices"], loaded_on=str(art.device), depth_cut=None,
@@ -1979,6 +2107,7 @@ def phase_export_cpu():
          launches_per_call=launches, **diff, bar=ARTIFACT_CPU_BAR)
     check(manifest["devices"] == ["cpu"] and art.device.type == "cuda", "export_cpu: not traced on the CPU and run on the card")
     check(launches == LAUNCHES_PER_FORWARD, f"export_cpu: {launches} attention launches in one call")
+    gelu_path("ufm_base_artifact_cpu_export", gelu_launches, GELU_PER_FORWARD)
     check(diff["flow_rel_l2"] <= ARTIFACT_CPU_BAR, f"export_cpu: the moved program differs from the card model: {diff}")
     return launches
 
@@ -1990,6 +2119,7 @@ def phase_artifact_predict(model, art, pair):
     Returns the artifact's launches."""
     from ufm_torch.models import base
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.runtime.export import ArtifactUFM
 
     art_model = ArtifactUFM(art)
@@ -1997,18 +2127,18 @@ def phase_artifact_predict(model, art, pair):
     def timed(m):
         times, calls = [], []
         for _ in range(4):
-            before = fa.LAUNCHES
+            before = (fa.LAUNCHES, ge.LAUNCHES)
             t = time.perf_counter()
             res = m.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-            calls.append(fa.LAUNCHES - before)
+            calls.append((fa.LAUNCHES - before[0], ge.LAUNCHES - before[1]))
         return res, times, calls
 
     with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
-        fa.LAUNCHES = 0  # this path's count starts here
+        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
         got, art_times, art_calls = timed(art_model)
-        launches = fa.LAUNCHES
+        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
         want, live_times, _ = timed(model)
     f_g, f_w = got.flow.flow_output.float(), want.flow.flow_output.float()
     rel = ((f_g - f_w).norm() / f_w.norm()).item()
@@ -2017,7 +2147,9 @@ def phase_artifact_predict(model, art, pair):
          artifact_first_s=art_times[0], artifact_latency_s=statistics.median(art_times[1:]),
          live_latency_s=statistics.median(live_times[1:]), programs=len(art_model._programs),
          flow_rel_l2=rel, covis_max_abs_diff=covis, bitwise_equal=_outputs_equal(got, want), bar=ARTIFACT_BAR)
-    check(all(c == LAUNCHES_PER_FORWARD for c in art_calls), f"artifact_predict: launches per call {art_calls}")
+    check(all(c == (LAUNCHES_PER_FORWARD, GELU_PER_FORWARD) for c in art_calls),
+          f"artifact_predict: attention / GELU launches per call {art_calls}")
+    gelu_path("ufm_base_artifact_captured", gelu_launches, len(art_calls) * GELU_PER_FORWARD)
     check(rel <= ARTIFACT_BAR and covis <= ARTIFACT_BAR, f"artifact_predict: {rel:.3e} / {covis:.3e} from the live model")
     return art_model, launches
 
@@ -2027,6 +2159,7 @@ def phase_artifact_refine(model):
     live network's, 36 attention and 1 window launch a call. Returns its
     launches {kernel: n}."""
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.ops import window_refinement as wr
     from ufm_torch.runtime import export_model, load_exported
 
@@ -2041,10 +2174,11 @@ def phase_artifact_refine(model):
     x, y = _artifact_inputs(model, seed=13)
     with torch.inference_mode():
         want = model.network_apply(x, y)
-        fa.LAUNCHES = wr.LAUNCHES = 0  # this path's count starts here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
     launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+    gelu_path("ufm_refine_artifact", ge.LAUNCHES, GELU_PER_FORWARD)
     diff = _raw_diff(got, want)
     refined = (got["flow"] - want["flow"]).abs().max().item()
     emit("artifact_refine", export_s=export_s, load_s=load_s, program_bytes=manifest["program_bytes"],
@@ -2140,6 +2274,7 @@ def phase_loader(model):
     loader cannot be built: the phase says so on its own line and runs
     nothing. Returns its attention launches (0 when it did not run)."""
     from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
     from ufm_torch.runtime import stream_predict
     from ufm_torch.runtime.loader import NativeImageLoader, iter_decoded_pairs, missing_system_headers
 
@@ -2165,7 +2300,7 @@ def phase_loader(model):
         loader.submit(0, LOADER_JPEG + ".jpg")
         _, jpeg = loader.poll()
     jpeg_err = float(np.abs(jpeg.astype(int) - source.astype(int)).mean())
-    fa.LAUNCHES = 0  # this path's count starts here
+    fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
     t = time.perf_counter()
     outs = [o.flow.flow_output for o in stream_predict(model.predict_correspondences_batched,
                                                        iter_decoded_pairs(paths, LOADER_HW, num_threads=4),
@@ -2173,6 +2308,7 @@ def phase_loader(model):
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t
     launches = fa.LAUNCHES
+    gelu_path("ufm_base_loader_streamed", ge.LAUNCHES, GELU_PER_FORWARD * -(-LOADER_PAIRS // SERVE_MAX_BATCH))
     emit("loader", ran=True, pairs=LOADER_PAIRS, input_hw=list(LOADER_HW), png_frames_exact=exact,
          frames_per_s=2 * LOADER_PAIRS / decode_s, jpeg_mean_abs_err=jpeg_err, jpeg_bar=LOADER_JPEG_MEAN_ABS,
          streamed_pairs_per_s=LOADER_PAIRS / stream_s, launches=launches)
@@ -2198,7 +2334,7 @@ def run_phases(smi: str) -> int:
     rows = phase_kernel()
     bwd_rows = phase_bwd_kernel()
     window_rows, window_host_us = phase_window_kernel()
-    phase_gelu()
+    gelu_rows, gelu_host_us, gelu_err = phase_gelu()
     golden_launches = phase_bf16_golden()
     model, pair, kernel_res, launches = phase_main_path()
     phase_self_check(model, pair, kernel_res)
@@ -2351,8 +2487,33 @@ def run_phases(smi: str) -> int:
         "staged_tile_share_by_case": {n: r["staged_tile_share"] for n, r in window_rows.items()},
         "host_us_per_launch": window_host_us,
     }
+    # one batch-1 forward's GELU: each number sums its 36 calls
+    gelu_fwd = [gelu_rows[n] for n, _, calls in GELU_SHAPES for _ in range(calls)]
+    gelu = {
+        "name": "gelu_bf16_fwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/gelu_bf16_fwd.cu",
+        "replaces": "ufm_tpu/ops/gelu.py:106",
+        "replaces_note": "fast_exact_gelu is XLA code (one fused elementwise pass on the TPU), not a pallas_call",
+        "launches": sum(GELU_LAUNCHES.values()),
+        "launches_by_path": dict(GELU_LAUNCHES),
+        "op": "ufm_torch::gelu_bf16",
+        "max_abs_err": gelu_err,
+        "ms": sum(r["ms"] for r in gelu_fwd),
+        "plain_ms": sum(r["plain_ms"] for r in gelu_fwd),
+        "bound_ms": sum(r["bound_ms"] for r in gelu_fwd),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in gelu_fwd) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in gelu_fwd),
+        "per_forward": "times sum the 24 encoder and 12 info-sharing MLPs of one batch-1 forward",
+        "library": "F.gelu(x, approximate='none') on the same bf16 tensor (rounds once: not the JAX package's bits)",
+        "replaced_chain_ms": sum(r["chain_ms"] for r in gelu_fwd),
+        "ms_by_case": {n: r["ms"] for n, r in gelu_rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in gelu_rows.items()},
+        "library_ms_by_case": {n: r["library_ms"] for n, r in gelu_rows.items()},
+        "host_us_per_launch": gelu_host_us,
+    }
     print(smi)
-    print(json.dumps({"kernels": [attention, backward, window]}))
+    print(json.dumps({"kernels": [attention, backward, window, gelu]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the attention kernels of several checkouts of the port in one process.
 
-    python3 profile_attention_trees.py PARENT . . PARENT [--train-steps 8]
+    python3 profile_attention_trees.py PARENT . . PARENT [--train-steps 8] [--requests 5]
 
 Each argument is the root of a checkout that holds ``ufm_torch`` (an
 unpacked ``git archive`` of another commit, or this one). The trees are
@@ -31,7 +31,13 @@ tree's sources and prints one JSON line per kernel and shape:
   in a synchronize (after 2 warm-up steps), the kernel time of one step
   (``torch.profiler``; the rest of the step the card is idle), the peak
   memory, and both times once more with every MLP's activation swapped for
-  one ``F.gelu`` (what the JAX GELU chain of ``gelu_exact`` costs a step).
+  one ``F.gelu`` (what the tree's ``gelu_exact`` costs a step beyond it);
+- with ``--requests N``, a batch-1 480x640 UFM-Base request through the
+  predict API, captured (a CUDA graph replay) and eager: N requests, each
+  waited for, inside one ``torch.profiler`` window: the host clock a
+  request, the device busy time (the union of the kernels' intervals) and
+  the idle share, and the kernels a request (as ``chip_smoke.py``'s
+  ``captured`` phase reads them).
 
 The last line sums each tree's runs. Needs a CUDA device.
 """
@@ -48,6 +54,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -116,7 +123,7 @@ def views(shape, seed):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], g
 
 
-def run_tree(root: str, turn: int, train_steps: int = 0) -> dict:
+def run_tree(root: str, turn: int, train_steps: int = 0, requests: int = 0) -> dict:
     fa = load_tree(root)
     scale = 64**-0.5
     out = {}
@@ -164,6 +171,58 @@ def run_tree(root: str, turn: int, train_steps: int = 0) -> dict:
         emit("launch", "small_inference_mode", **shapes, host_us_per_launch=launch_costs())
     if train_steps:
         emit("train_step", "ufm_base_b2", **train_step(train_steps))
+    if requests:
+        for mode, fields in predict_requests(requests).items():
+            emit("request", f"ufm_base_480x640_b1_{mode}", **fields)
+    return out
+
+
+def profile_requests(fn, reps: int) -> dict:
+    """``reps`` calls of ``fn``, each waited for, in one profiler window
+    (CUDA activity): host ms, device busy ms and kernels a request, idle
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")))
+    busy_us, end = 0.0, -float("inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    busy_ms = busy_us / 1e3 / reps
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "kernels_per_request": len(spans) / reps}
+
+
+def predict_requests(reps: int) -> dict:
+    """A batch-1 480x640 UFM-Base request of the tree loaded last, captured
+    and eager (after warm-up calls), profiled over ``reps`` requests each."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    src, tgt = np.random.default_rng(0).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+
+    def request():
+        model.predict_correspondences_batched(source_image=src, target_image=tgt)
+
+    out = {}
+    for mode, capture in (("captured", True), ("eager", False)):
+        model.capture_graphs = capture
+        for _ in range(3):  # the first captured call warms up and captures
+            request()
+        out[mode] = profile_requests(request, reps)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -213,6 +272,8 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("trees", nargs="+", help="checkout roots, timed in this order")
     parser.add_argument("--train-steps", type=int, default=0, help="also time N batch-2 train steps per tree")
+    parser.add_argument("--requests", type=int, default=0,
+                        help="also profile N batch-1 UFM-Base requests per tree, captured and eager")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_attention_trees: needs a CUDA device", file=sys.stderr)
@@ -223,7 +284,7 @@ def main(argv) -> int:
     print(json.dumps({"device": smi, "torch": torch.__version__, "trees": argv}), flush=True)
     runs = {}
     for turn, root in enumerate(argv):
-        runs.setdefault(root, []).append(run_tree(root, turn, args.train_steps))
+        runs.setdefault(root, []).append(run_tree(root, turn, args.train_steps, args.requests))
     summary = {}
     for root, outs in runs.items():
         summary[root] = {}

@@ -105,7 +105,9 @@ def test_exported_graph_holds_the_ops(exported):
     assert targets.count(library.flash_attention_fwd) == layers
     assert targets.count(library.window_refinement) == (variant == "refine")
     assert library.flash_attention_bwd not in targets
-    assert len(manifest["ops"]) == 1 + (variant == "refine")
+    bf16 = cfg.compute_dtype == "bfloat16"  # the MLPs' GELU is an op node on bf16 only
+    assert targets.count(library.gelu_bf16) == (layers if bf16 else 0)
+    assert len(manifest["ops"]) == 1 + (variant == "refine") + bf16
 
 
 def test_export_shape_enforcement(exported):

@@ -7,6 +7,7 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_tiny_config
 from ufm_torch.ops import flash_attention as fa
+from ufm_torch.ops import gelu as ge
 from ufm_torch.ops import window_refinement as wr
 from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
 from ufm_torch.training.trainer import group_of
@@ -226,10 +228,10 @@ def test_small_model_kernel_path(cuda):
     plain-attention path (bf16 rounding over 4 layers)."""
     model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
     src, tgt = _pairs()
-    before = fa.LAUNCHES
+    before, gelu_before = fa.LAUNCHES, ge.LAUNCHES
     res = model.predict_correspondences_batched(src, tgt)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES - before == 4
+    assert (fa.LAUNCHES - before, ge.LAUNCHES - gelu_before) == (4, 4)  # one GELU per block's MLP
     model.attention_impl = "torch"
     plain = model.predict_correspondences_batched(src, tgt)
     assert fa.LAUNCHES - before == 4
@@ -546,18 +548,18 @@ def test_captured_program_matches_eager(cuda, refine):
 
 
 def test_captured_launch_counts(cuda):
-    """The counters count device launches: 4 attention launches and 1 window
-    launch per call, on the first call (the eager warm-up; the capture runs
-    nothing) and on every replay."""
+    """The counters count device launches: 4 attention launches, 1 window
+    launch and 4 GELU launches per call, on the first call (the eager
+    warm-up; the capture runs nothing) and on every replay."""
     model = UniFlowMatchClassificationRefinement.from_config(_small_refine_config(), seed=0)
     src, tgt = _pairs()
     for _ in range(3):
-        before = (fa.LAUNCHES, wr.LAUNCHES)
+        before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES)
         model.predict_correspondences_batched(src, tgt)
         torch.cuda.synchronize()
-        assert (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1]) == (4, 1)
+        assert (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2]) == (4, 1, 4)
     (program,) = model._programs.values()
-    assert program.launches == (4, 0, 1)  # attention forward, backward, window
+    assert program.launches == (4, 0, 1, 4)  # attention forward, backward, window, GELU
 
 
 def test_captured_output_survives_the_next_call(cuda):
@@ -759,13 +761,101 @@ def test_sharded_step_at_world_one(cuda):
 def test_remat_step_attention_launches(cuda, policy, forwards):
     """Under train_remat, the backward runs the attention forward kernel
     again (8 launches a step of the small model) unless the policy keeps its
-    outputs (the "+attn_out" composite: 4); 4 backward calls either way."""
+    outputs (the "+attn_out" composite: 4); 4 backward calls either way. No
+    policy here keeps the GELU op's output: 8 GELU launches a step."""
     cfg = _small_config(train_remat=True, train_remat_policy=policy)
     model = UniFlowMatchConfidence.from_config(cfg, seed=0)
     step = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))
     batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
-    before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)
     metrics = step(batch)
     torch.cuda.synchronize()
-    assert (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1]) == (forwards, 4)
+    assert (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2]) == (forwards, 4, 8)
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+# ---- the bf16 GELU kernel ------------------------------------------------------
+
+GELU_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "gelu_bf16_table.npz")
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+def test_gelu_kernel_matches_the_table_bit_for_bit(cuda):
+    """The kernel on every bf16 bit pattern: the JAX package's bits
+    (tests/golden/gelu_bf16_table.npz) at every finite input, and the plain
+    version's on the card, one launch."""
+    with np.load(GELU_TABLE) as z:
+        want, finite = torch.from_numpy(z["y_bits"].view(np.int16).copy()), torch.from_numpy(z["finite"])
+    x = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16)).view(torch.bfloat16).to(cuda)
+    before = ge.LAUNCHES
+    got = ge.gelu_bf16(x)
+    torch.cuda.synchronize()
+    assert ge.LAUNCHES - before == 1
+    assert int((_bits(got).cpu() != want)[finite].sum()) == 0
+    plain = ge.fast_exact_gelu_reference(x)
+    assert int((_bits(got) != _bits(plain))[finite.to(cuda)].sum()) == 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 8 * 1001 + 3, 2 * 1201 * 4096 + 5, 0])
+@pytest.mark.parametrize("offset", [0, 3], ids=["aligned", "misaligned"])
+def test_gelu_kernel_odd_counts_and_alignment(cuda, n, offset):
+    """Element counts off the 8-element vector (the scalar tail), an empty
+    tensor (no launch), and a base 6 bytes past a 16-byte boundary (the
+    scalar instance): bitwise the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    base = (torch.randn(n + 8, generator=g, device=cuda) * 4).to(torch.bfloat16)
+    x = base[offset:offset + n]
+    before = ge.LAUNCHES
+    got = ge.gelu_bf16(x)
+    torch.cuda.synchronize()
+    assert ge.LAUNCHES - before == int(n > 0)
+    assert got.shape == x.shape and torch.equal(_bits(got), _bits(ge.fast_exact_gelu_reference(x)))
+
+
+def test_gelu_kernel_non_contiguous_input_and_refusals(cuda):
+    """A transposed input is read through a contiguous copy; fp32 is refused
+    by the entry point and by the op; an input on the CPU never reaches the
+    kernel wrapper."""
+    from ufm_torch.ops import library
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(2, 300, 4096, generator=g, device=cuda) * 3).to(torch.bfloat16).transpose(1, 2)
+    got = ge.gelu_bf16(x)
+    assert got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(_bits(got), _bits(ge.fast_exact_gelu_reference(x.contiguous())))
+    for fn in (ge.gelu_bf16, library.gelu_bf16, ge.launch):
+        with pytest.raises(ValueError, match="bfloat16"):
+            fn(x.float())
+    with pytest.raises(ValueError, match="CUDA"):
+        ge.launch(x.cpu())
+
+
+def test_gelu_kernel_in_a_captured_graph(cuda):
+    """The launch syncs nothing and allocates only from the caching
+    allocator: it captures in the strictest mode, and each replay computes
+    the new input's GELU."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    static_in = torch.randn(1, 2400, 3072, generator=g, device=cuda).to(torch.bfloat16)
+    ge.gelu_bf16(static_in)  # warm-up: builds and loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        static_out = ge.gelu_bf16(static_in)
+    for seed in (3, 4):
+        static_in.copy_(torch.randn(static_in.shape, generator=g.manual_seed(seed), device=cuda).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(static_out), _bits(ge.fast_exact_gelu_reference(static_in)))
+
+
+def test_gelu_op_gradient_on_the_card(cuda):
+    """The op's backward on the card is F.gelu's gelu_backward on the saved
+    input, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(4, 1201, 512, generator=g, device=cuda) * 3).to(torch.bfloat16).requires_grad_(True)
+    dy = torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
+    (got,) = torch.autograd.grad(ge.gelu_bf16(x), x, dy)
+    assert torch.equal(got, torch.ops.aten.gelu_backward(dy, x.detach(), approximate="none"))

@@ -8,6 +8,8 @@ the CPU, where each op runs its plain version.
   ``jax.vjp``), fp32, at 1e-5.
 - The window op's outputs, gradients (autograd over the plain version) and
   staged-tile count.
+- The GELU op (``tests/test_torch_port_gelu.py`` holds its values to the JAX
+  package on every bf16 input).
 - The device picks the implementation: the CPU never launches a kernel, and
   the kernel wrappers refuse CPU tensors; the fake implementation refuses
   what the kernels do not take for a tensor on the card.
@@ -25,6 +27,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from ufm_tpu.ops.attention import dot_product_attention as jax_attention
 from ufm_torch.nn.layers import Attention
 from ufm_torch.ops import flash_attention as fa
+from ufm_torch.ops import gelu
 from ufm_torch.ops import library
 from ufm_torch.ops import window_refinement as wr
 from ufm_torch.ops.attention import dot_product_attention
@@ -53,6 +56,7 @@ def _opcheck_cases():
     grad = [t.clone().requires_grad_(True) for t in (q, k, v)]
     wq, wf, wflow, wbias = _window()
     wgrad = [t.clone().requires_grad_(True) for t in (wq, wf, wbias)]
+    h = (torch.from_numpy(_qkv(2, 7, 3, 5, seed=2)[0]) * 3).to(torch.bfloat16)
     return {
         "fwd": (library.flash_attention_fwd, (q, k, v, 0.25, False)),
         "fwd_lse": (library.flash_attention_fwd, (q, k, v, 0.25, True)),
@@ -61,6 +65,8 @@ def _opcheck_cases():
         "window": (library.window_refinement, (wq, wf, wflow, wbias, TEMPERATURE, 5)),
         "window_staged": (library.window_refinement, (wq, wf, wflow, wbias, TEMPERATURE, 5, torch.zeros(1, dtype=torch.int32))),
         "window_grad": (library.window_refinement, (wgrad[0], wgrad[1], wflow, wgrad[2], TEMPERATURE, 5)),
+        "gelu": (library.gelu_bf16, (h,)),
+        "gelu_grad": (library.gelu_bf16, (h.clone().requires_grad_(True),)),
     }
 
 
@@ -122,7 +128,7 @@ def test_window_op_matches_plain_version_and_its_gradient():
 
 def test_cpu_tensors_take_the_plain_version_and_the_kernel_wrappers_refuse_them():
     q, k, v, g = (torch.from_numpy(x) for x in _qkv(1, 16, 2, 64, seed=3))
-    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, wr.LAUNCHES)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, wr.LAUNCHES, gelu.LAUNCHES)
     assert torch.equal(library.attention(q, k, v, 0.125), fa.attention_reference(q, k, v, 0.125))
     out, lse = library.flash_attention_fwd(q, k, v, 0.125, True)
     for got, want in zip(library.flash_attention_bwd(q, k, v, out, lse, g, 0.125),
@@ -132,7 +138,11 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_wrappers_refuse_them(
         fa.flash_attention_forward(q, k, v, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         wr.window_refinement(*_window(), TEMPERATURE, 5)
-    assert (fa.LAUNCHES, fa.BWD_LAUNCHES, wr.LAUNCHES) == before
+    h = q.to(torch.bfloat16)
+    assert torch.equal(library.gelu_bf16(h), gelu.fast_exact_gelu_reference(h))
+    with pytest.raises(ValueError, match="CUDA"):
+        gelu.launch(h)
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES, wr.LAUNCHES, gelu.LAUNCHES) == before
 
 
 def test_fake_implementation_checks_shapes_and_the_kernels_domain_on_the_card():
@@ -152,6 +162,11 @@ def test_fake_implementation_checks_shapes_and_the_kernels_domain_on_the_card():
         with pytest.raises(ValueError, match="bias"):
             library.window_refinement(q, q, torch.empty(1, 4, 5, 2, device="cuda"), torch.empty(9, device="cuda"),
                                       TEMPERATURE, 5)
+        h = torch.empty(2, 9, 40, device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+        y = library.gelu_bf16(h)
+        assert (y.shape, y.dtype, y.device.type) == (h.shape, torch.bfloat16, "cuda")
+        with pytest.raises(ValueError, match="bfloat16"):
+            library.gelu_bf16(h.float())
 
 
 def test_exported_attention_block_holds_the_op():

@@ -19,6 +19,7 @@ import torch.utils.checkpoint
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from ufm_torch.ops.attention import dot_product_attention
+from ufm_torch.ops.gelu import gelu_bf16
 from ufm_torch.ops.library import flash_attention_fwd
 
 __all__ = [
@@ -45,44 +46,17 @@ def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
         raise ValueError(f"unknown dtype {dtype!r}")
     return out
 
-# sqrt(0.5) rounded to bf16 (1.0110101b x 2^-1), exact in fp32: jax.nn.gelu
-# rounds the constant to the input dtype first
-_SQRT_HALF_BF16 = 0.70703125
-
-
-def _gelu_chain_bf16(x: torch.Tensor) -> torch.Tensor:
-    return (x * 0.5) * torch.special.erfc(x * -_SQRT_HALF_BF16)
-
-
-class _GeluChainBf16(torch.autograd.Function):
-    """The chain forward; the backward is one ``gelu_backward`` on the saved
-    input (the exact derivative in fp32, rounded once). Autograd through the
-    chain itself would save three bf16 intermediates of every MLP's hidden
-    activation and run about ten elementwise kernels per backward."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _gelu_chain_bf16(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (x,) = ctx.saved_tensors
-        return torch.ops.aten.gelu_backward(grad, x, approximate="none")
-
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU as the JAX package computes it. On bf16 it is
-    ``jax.nn.gelu(approximate=False)``'s op-for-op chain
-    ``bf16(bf16(0.5 x) * bf16(erfc(bf16(-x * bf16(sqrt(0.5))))))``: four
-    elementwise ops, each rounding its fp32 result to bf16 (``x * -c`` is
-    ``-x * c`` exactly), where ``F.gelu`` on bf16 rounds once; its gradient
-    is ``F.gelu``'s. Other dtypes take ``F.gelu``."""
+    """Exact (erf) GELU as the JAX package computes it. On bf16 it is the
+    op ``ufm_torch::gelu_bf16`` (:func:`ufm_torch.ops.gelu.gelu_bf16`: one
+    kernel on the card, bit for bit ``jax.nn.gelu(approximate=False)`` as the
+    JAX package's ``fast_exact_gelu`` computes it); its gradient is
+    ``F.gelu``'s. Other dtypes take ``F.gelu``, as the JAX package's take
+    ``jax.nn.gelu``."""
     if x.dtype != torch.bfloat16:
         return F.gelu(x, approximate="none")
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _GeluChainBf16.apply(x)
-    return _gelu_chain_bf16(x)
+    return gelu_bf16(x)
 
 
 _ACTIVATIONS = {
@@ -180,6 +154,8 @@ class TransformerBlock(nn.Module):
 # the projections and MLPs). The composite also saves the flash-attention
 # forward op's outputs (the attention core and its row log-sum-exp), so the
 # backward does not run the attention forward again. ``None`` saves every op.
+# The GELU op (``ufm_torch::gelu_bf16``) is in no list, as JAX's activation is
+# no dot: every policy but ``None`` runs it again (72 launches a UFM-Base step).
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 _BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default, torch.ops.aten.convolution.default)
 REMAT_POLICIES = {

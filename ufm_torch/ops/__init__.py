@@ -2,8 +2,9 @@
 ``grid_sample``.
 
 Each kernel's wrapper and launch count live in its submodule
-(``ufm_torch.ops.flash_attention``, ``ufm_torch.ops.window_refinement``; not
-re-exported, so ``LAUNCHES`` stays the module's). The kernels are dispatcher
+(``ufm_torch.ops.flash_attention``, ``ufm_torch.ops.window_refinement``,
+``ufm_torch.ops.gelu``; not re-exported, so ``LAUNCHES`` stays the
+module's). The kernels are dispatcher
 ops (``torch.ops.ufm_torch.*``), registered by ``ufm_torch.ops.library``,
 which importing this package imports.
 """

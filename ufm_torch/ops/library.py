@@ -1,6 +1,6 @@
 """The port's Hopper kernels as dispatcher ops (``torch.library``).
 
-Three ops in the ``ufm_torch`` namespace:
+Four ops in the ``ufm_torch`` namespace:
 
 - ``flash_attention_fwd(q, k, v, scale, with_lse) -> (out, lse)``: softmax
   attention over (B, S, H, D); ``lse`` (B, H, Sq) fp32 is each row's
@@ -8,26 +8,30 @@ Three ops in the ``ufm_torch`` namespace:
 - ``flash_attention_bwd(q, k, v, out, lse, g, scale) -> (dq, dk, dv)``;
 - ``window_refinement(q, f, flow, bias, temperature, p, staged_count?) ->
   (residual, log_softmax)``; ``staged_count`` (optional, mutated) receives
-  the number of tiles whose taps the kernel staged.
+  the number of tiles whose taps the kernel staged;
+- ``gelu_bf16(x) -> y``: the JAX package's exact GELU of a bf16 tensor, bit
+  for bit (``ufm_torch/ops/gelu.py``).
 
 The tensors' device picks the implementation inside the op: CUDA runs the
 hand-written kernel (``flash_attention.launch_forward`` / ``launch_backward``,
-``window_refinement.launch``: every pointer, stride and alignment check and
-the launch counters live there, and they raise on what the kernels do not
-take), CPU runs the plain version. A fake implementation gives each output's
-shape and dtype from the inputs' (with the shape checks, and on a CUDA
-tensor the kernels' dtype and head-dim checks), so ``torch.export`` and
-``torch.compile`` trace the model with the ops as graph nodes and an
-exported program launches the kernels wherever it is moved to.
+``window_refinement.launch``, ``gelu.launch``: every pointer, stride and
+alignment check and the launch counters live there, and they raise on what
+the kernels do not take), CPU runs the plain version. A fake implementation
+gives each output's shape and dtype from the inputs' (with the shape checks,
+and on a CUDA tensor the kernels' dtype and head-dim checks), so
+``torch.export`` and ``torch.compile`` trace the model with the ops as graph
+nodes and an exported program launches the kernels wherever it is moved to.
 
 Gradients: the forward attention op's backward is the backward op (its
 forward then writes ``lse``, which the backward kernel reads); the window
 op's backward is autograd over its plain version, as in the JAX package
-(the TPU kernel had no backward). Each is an ``Autograd`` kernel around an
-``autograd.Function``, which is what ``torch.library.register_autograd``
-registers, written out: ``register_autograd`` refuses an op with a mutated
-argument (the window op's ``staged_count``), and its generic kernel does more
-host work a call. The backward op has no gradient of its own.
+(the TPU kernel had no backward); the GELU op's backward is one
+``aten.gelu_backward`` on the saved input. Each is an ``Autograd`` kernel
+around an ``autograd.Function``, which is what
+``torch.library.register_autograd`` registers, written out:
+``register_autograd`` refuses an op with a mutated argument (the window op's
+``staged_count``), and its generic kernel does more host work a call. The
+backward op has no gradient of its own.
 
 Registration runs when the module is imported (``ufm_torch.ops`` imports
 it); it builds nothing: a kernel is compiled at its first CUDA launch.
@@ -38,9 +42,12 @@ from __future__ import annotations
 import torch
 
 from ufm_torch.ops import flash_attention as _fa
+from ufm_torch.ops import gelu as _gelu
 from ufm_torch.ops import window_refinement as _wr
 
-__all__ = ["NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "OPS", "attention"]
+__all__ = [
+    "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "gelu_bf16", "OPS", "attention",
+]
 
 NAMESPACE = "ufm_torch"
 
@@ -54,11 +61,13 @@ _LIB.define(
     "window_refinement(Tensor q, Tensor f, Tensor flow, Tensor bias, float temperature, int p,"
     " Tensor(a!)? staged_count=None) -> (Tensor, Tensor)"
 )
+_LIB.define("gelu_bf16(Tensor x) -> Tensor")
 
 flash_attention_fwd = torch.ops.ufm_torch.flash_attention_fwd.default
 flash_attention_bwd = torch.ops.ufm_torch.flash_attention_bwd.default
 window_refinement = torch.ops.ufm_torch.window_refinement.default
-OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement)
+gelu_bf16 = torch.ops.ufm_torch.gelu_bf16.default
+OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, gelu_bf16)
 
 _LIB.impl("flash_attention_fwd", _fa.launch_forward, "CUDA")
 _LIB.impl("flash_attention_fwd", _fa.plain_forward, "CPU")
@@ -66,6 +75,8 @@ _LIB.impl("flash_attention_bwd", _fa.launch_backward, "CUDA")
 _LIB.impl("flash_attention_bwd", _fa.plain_backward, "CPU")
 _LIB.impl("window_refinement", _wr.launch, "CUDA")
 _LIB.impl("window_refinement", _wr.plain, "CPU")
+_LIB.impl("gelu_bf16", _gelu.launch, "CUDA")
+_LIB.impl("gelu_bf16", _gelu.fast_exact_gelu_reference, "CPU")
 
 
 # ---- fake implementations: shapes and dtypes --------------------------------
@@ -108,6 +119,13 @@ def _window_fake(q, f, flow, bias, temperature, p, staged_count=None):
         )
     b, h, w, _ = q.shape
     return q.new_empty((b, h, w, 2), dtype=torch.float32), q.new_empty((b, h, w, p, p), dtype=torch.float32)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::gelu_bf16", lib=_LIB)
+def _gelu_fake(x):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"gelu_bf16 takes bfloat16, got {x.dtype}")
+    return x.new_empty(x.shape)
 
 
 # ---- autograd --------------------------------------------------------------
@@ -170,8 +188,34 @@ def _window_autograd(q, f, flow, bias, temperature, p, staged_count=None):
         return window_refinement(q, f, flow, bias, temperature, p, staged_count)
 
 
+class _GeluBf16(torch.autograd.Function):
+    """The GELU op below autograd; the backward is ``F.gelu``'s exact
+    derivative (``aten.gelu_backward``) on the saved input: one op, where
+    autograd through the plain chain would keep three intermediates."""
+
+    @staticmethod
+    def forward(ctx, x):
+        with torch._C._AutoDispatchBelowAutograd():
+            y = gelu_bf16(x)
+        ctx.save_for_backward(x)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(grad, x, approximate="none")
+
+
+def _gelu_autograd(x):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GeluBf16.apply(x)
+    with torch._C._AutoDispatchBelowAutograd():
+        return gelu_bf16(x)
+
+
 _LIB.impl("flash_attention_fwd", _fwd_autograd, "Autograd")
 _LIB.impl("window_refinement", _window_autograd, "Autograd")
+_LIB.impl("gelu_bf16", _gelu_autograd, "Autograd")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
