@@ -13,12 +13,18 @@ repeatability; the window kernel on five flows, iid, smooth and split, with
 its count of TMA-staged tiles held equal to ``staged_tiles``), holds the
 bf16 GELU kernel bit for bit to the JAX package's output on every finite
 bf16 input (``tests/golden/gelu_bf16_table.npz``) and to its plain version,
+holds the fused fc1 + GELU kernel (``linear_gelu``: the MLP's first product
+with the GELU as its epilogue) to the GELU of its own pre-activation bit for
+bit, to the exact product and to its plain version at the MLP shapes and at
+row, K and N tails, and to the table on every finite bf16 pre-activation,
 then drives three paths with seeded random weights at full width:
 
 - UFM-Base (ViT-L/14 encoder, 24 layers; 12 info-sharing layers; both DPT
   heads; 560x420), answering requests through
   ``predict_correspondences_batched``: 36 flash-attention launches and 36
-  GELU launches (one per transformer block's MLP) per forward;
+  fused fc1 + GELU launches (one per transformer block's MLP) per forward;
+  the same forward on the two-op path (grad mode: fc1, then the GELU
+  kernel) holds the fused one's flow (``fused_mlp_model``);
 - UFM-Refine (the same backbone and heads, the patch-MLP classification head,
   the UNet and the window refinement), the same way: 36 flash-attention
   launches and 1 window-refinement launch per forward;
@@ -78,8 +84,10 @@ this host lacks the loader's system headers. Artifacts are written under
 ``build/`` and removed at the end.
 
 Each path's launch counts are set to 0 just before it and read just after;
-every path that runs the bf16 backbone launches the GELU kernel 36 times a
-forward (72 a train step under a remat policy that recomputes it).
+every inference path that runs the bf16 backbone launches the fused fc1 +
+GELU kernel 36 times a forward and the standalone GELU kernel never; every
+training path the GELU kernel 36 times a step (72 under a remat policy that
+recomputes it) and the fused kernel never.
 Each phase prints one JSON line; any failed check raises and the script exits
 non-zero without printing a result. The last three lines are the card's name
 and power limit (as ``nvidia-smi`` prints them), the kernels' summary, and
@@ -166,7 +174,24 @@ GELU_ODD_COUNTS = (1, 7, 8 * 1001 + 3, 0)
 GELU_SHAPES = (("encoder", (2, 1201, 4096), 24), ("info_sharing", (1, 2400, 3072), 12))
 # GELU launches per forward of either model: one per transformer block's MLP
 GELU_PER_FORWARD = sum(n for _, _, n in GELU_SHAPES)  # 36
+# the fused fc1 + GELU kernel (ufm_torch::linear_gelu_bf16): (M, K, N) of
+# the MLPs of one batch-1 forward and their calls, of one forward of 16 tiles
+# (the encoder at batch 32, info sharing at 16), and rows off the 128-row
+# tile with K / N tails
+LINEAR_GELU_SHAPES = (("encoder", (2402, 1024, 4096), 24), ("info_sharing", (2400, 768, 3072), 12))
+LINEAR_GELU_TILED_SHAPES = (("encoder_tiled", (38432, 1024, 4096), 24), ("info_sharing_tiled", (38400, 768, 3072), 12))
+LINEAR_GELU_ODD = ((1, 1024, 4096), (7, 1024, 4096), (129, 1024, 4096), (130, 48, 200))
+# y against the plain version (F.linear, then the GELU's plain chain), relative L2
+LINEAR_GELU_REL_L2 = 4e-3
+# the bias's spread in the kernel's cases (phase_linear_gelu.operands)
+LINEAR_GELU_BIAS_STD = 0.1
+# the share of h allowed more than one bf16 ulp from the exact product + bias
+# (fp32 sums in another order than the reference's)
+LINEAR_GELU_ULP_SHARE = 1e-3
 ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
+# the kernels the profiler counts, by the name of their __global__ function
+KERNEL_NAMES = ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "gelu_bf16_fwd_kernel",
+                "linear_gelu_bf16_fwd_kernel")
 
 # training: batch 2 at the model resolution (the JAX package's train
 # benchmark shape, bench_train.py), one warm-up and 3 timed steps of
@@ -308,15 +333,21 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-# each path's GELU kernel launches, by the name of its launches_by_path entry
-GELU_LAUNCHES = {}
+# each path's launches of the standalone GELU kernel and of the fused fc1 +
+# GELU kernel, by the name of its launches_by_path entry
+GELU_LAUNCHES, FUSED_LAUNCHES = {}, {}
 
 
-def gelu_path(path: str, launched: int, expected: int) -> None:
-    """Record a path's GELU launches and hold them to the count that the
-    code gives (GELU_PER_FORWARD a forward of the bf16 backbone)."""
-    GELU_LAUNCHES[path] = GELU_LAUNCHES.get(path, 0) + launched
-    check(launched == expected, f"{path}: {launched} GELU launches, expected {expected}")
+def mlp_path(path: str, gelu: int, fused: int, mlps: int, grad: bool = False) -> None:
+    """Record a path's launches of the two MLP kernels and hold them to what
+    the code gives for ``mlps`` MLP forwards (GELU_PER_FORWARD a forward of
+    the bf16 backbone): where no gradient is recorded each is one fused fc1 +
+    GELU launch; where one is (``grad``: training), fc1 and one standalone
+    GELU launch."""
+    GELU_LAUNCHES[path] = GELU_LAUNCHES.get(path, 0) + gelu
+    FUSED_LAUNCHES[path] = FUSED_LAUNCHES.get(path, 0) + fused
+    want = (mlps, 0) if grad else (0, mlps)
+    check((gelu, fused) == want, f"{path}: {gelu} GELU / {fused} fused fc1 + GELU launches, expected {want}")
 
 
 def time_ms(fn, reps: int = 10, batches: int = 7) -> float:
@@ -399,11 +430,12 @@ def phase_build():
     serialized = {n: lines for n, lines in serialized.items() if lines}
     emit("build", seconds=seconds, kernels=list(_build.KERNEL_SOURCES), ptxas=ptxas, sass=sass,
          wgmma_serialized=serialized)
-    for name in ATTENTION_LIBRARIES:
+    for name in ATTENTION_LIBRARIES + ("linear_gelu_bf16_fwd",):
         check(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA (wgmma) instruction in its SASS")
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
-    check(sass["window_refinement_fwd"]["UTMALDG"] > 0, "window_refinement_fwd: no UTMALDG (TMA load) in its SASS")
-    for name in ("window_refinement_fwd", "gelu_bf16_fwd"):
+    for name in ("window_refinement_fwd", "linear_gelu_bf16_fwd"):
+        check(sass[name]["UTMALDG"] > 0, f"{name}: no UTMALDG (TMA load) in its SASS")
+    for name in ("window_refinement_fwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
         local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
         check(bool(ptxas[name]) and not local, f"{name} uses local memory: {local}")
     t0 = time.perf_counter()
@@ -649,6 +681,150 @@ def phase_gelu():
     return rows, host["kernel"], max_abs_err
 
 
+def linear_gelu_bound_ms(m: int, k: int, n: int):
+    """Operations: 2 M N K on the tensor cores. Bytes: x, W and b read once,
+    y written once (bf16)."""
+    t_ops = 2 * m * n * k / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 2 * (m * k + n * k + n + m * n) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _ordered_bf16(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in the order of the values (one apart for one ulp)."""
+    u = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(u < 0x8000, u + 0x8000, 0xFFFF - u)
+
+
+def _preact_check(pre, x, w, b) -> dict:
+    """The kernel's h against the exact product + bias (float64): the share
+    of elements more than one bf16 ulp from it rounded to bf16, the most
+    ulps, the most where fp32 summation cannot move the sum by half an ulp,
+    and whether every element lies within one ulp plus fp32 summation's
+    error bound (K 2^-24 sum |x w| + 2^-24 |b|: a sum that cancels to near
+    zero has few correct bits in any fp32 order)."""
+    xd, wd, bd = x.double(), w.double(), b.double()
+    ref = xd @ wd.t() + bd
+    gamma = x.shape[-1] * 2.0**-24 * (xd.abs() @ wd.abs().t() + bd.abs())
+    ulp = torch.ldexp(torch.ones_like(ref), (torch.frexp(ref).exponent - 8).clamp_min(-133))
+    ulps = (_ordered_bf16(pre) - _ordered_bf16(ref.to(torch.bfloat16))).abs()
+    bounded = gamma <= 0.5 * ulp
+    return dict(share_over_1ulp=(ulps > 1).double().mean().item(), max_ulps=int(ulps.max()),
+                max_ulps_where_summation_bounded=int(ulps[bounded].max()) if bool(bounded.any()) else 0,
+                within_ulp_plus_summation_bound=bool(((pre.double() - ref).abs() <= ulp + gamma).all()))
+
+
+def phase_linear_gelu():
+    """The fused fc1 + GELU kernel (``ufm_torch::linear_gelu_bf16``) at the
+    MLP shapes of a batch-1 forward and of a tiled forward, at rows off the
+    128-row tile and at K / N tails: y is the bf16 GELU of its own h bit for
+    bit (h read back through ``preact_out``), h against the exact product +
+    bias, y against the plain version (F.linear, then the GELU's plain
+    chain). Every finite bf16 value as h (W = 0, the bias holds the values)
+    against the JAX package's table. An empty x launches nothing; fp32, a
+    wrong shape and a misaligned operand are refused. Then the kernel under
+    each schedule, ``F.linear`` alone, the parent's pair (``F.linear`` + the
+    GELU op), the library pair (``F.linear`` + ``F.gelu``) and the plain
+    version timed at each MLP shape, the bound, and the host's cost per
+    call. Returns (rows by case, host us per call, max abs error against the
+    plain version)."""
+    import torch.nn.functional as F
+
+    from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def operands(m, k, n):
+        """h's spread as in the flagship: a LayerNorm output times W of std
+        1 / sqrt(K) (the seeded init) gives h ~ N(0, 1); the bias adds 1%.
+        (The GELU kernel of the parent's pair slows down as more of h lies
+        on the erfc's tail, where it leaves its fast path.)"""
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device="cuda") * k**-0.5).to(torch.bfloat16)
+        b = (torch.randn(n, generator=gen, device="cuda") * LINEAR_GELU_BIAS_STD).to(torch.bfloat16)
+        return x, w, b
+
+    rows = {}
+    cases = [(name, shape, calls, True) for name, shape, calls in LINEAR_GELU_SHAPES + LINEAR_GELU_TILED_SHAPES]
+    cases += [(f"m{m}_k{k}_n{n}", (m, k, n), 0, False) for m, k, n in LINEAR_GELU_ODD]
+    for name, (m, k, n), calls, timed in cases:
+        x, w, b = operands(m, k, n)
+        pre = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        before = lg.LAUNCHES
+        y = lg.launch(x, w, b, preact_out=pre)
+        plain = lg.linear_gelu_reference(x, w, b)
+        torch.cuda.synchronize()
+        diff = y.float() - plain.float()
+        row = dict(shape=[m, k, n], calls_per_forward=calls, launches=lg.LAUNCHES - before,
+                   gelu_of_h_mismatches=int((_bits(y) != _bits(ge.fast_exact_gelu_reference(pre))).sum()),
+                   **_preact_check(pre, x, w, b), max_abs_diff_vs_plain=diff.abs().max().item(),
+                   rel_l2_vs_plain=(diff.norm() / plain.float().norm()).item(),
+                   share_differs_from_plain=(y != plain).double().mean().item())
+        del diff, plain
+        check(row["launches"] == 1, f"linear_gelu {name}: {row['launches']} launches")
+        check(row["gelu_of_h_mismatches"] == 0, f"linear_gelu {name}: y is not gelu_bf16(h) on "
+                                                 f"{row['gelu_of_h_mismatches']} elements")
+        check(row["within_ulp_plus_summation_bound"] and row["share_over_1ulp"] <= LINEAR_GELU_ULP_SHARE
+              and row["max_ulps_where_summation_bounded"] <= 2, f"linear_gelu {name}: h {row}")
+        check(row["rel_l2_vs_plain"] <= LINEAR_GELU_REL_L2, f"linear_gelu {name}: y vs plain {row['rel_l2_vs_plain']:.3e}")
+        if timed:
+            row["ms"] = time_ms(lambda: lg.launch(x, w, b))
+            for schedule in ("serial", "cooperative"):
+                row[f"{schedule}_ms"] = time_ms(lambda: lg.launch(x, w, b, schedule=schedule))
+            row["linear_only_ms"] = time_ms(lambda: F.linear(x, w, b))
+            row["parent_pair_ms"] = time_ms(lambda: ge.gelu_bf16(F.linear(x, w, b)))
+            row["library_ms"] = time_ms(lambda: F.gelu(F.linear(x, w, b), approximate="none"))
+            row["plain_ms"] = time_ms(lambda: lg.linear_gelu_reference(x, w, b), reps=3, batches=5)
+            row["bound_ms"], row["bound_by"] = linear_gelu_bound_ms(m, k, n)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["tflops"] = 2 * m * n * k / row["ms"] / 1e9
+        rows[name] = row
+        emit("kernel", kernel="linear_gelu_bf16_fwd", case=name, **row)
+        del x, w, b, pre, y
+
+    # every finite bf16 value as h: W = 0 and the bias holds the values (h =
+    # 0 + b; -0 comes out +0, so it is left out)
+    with np.load(GELU_TABLE) as z:
+        want_bits = torch.from_numpy(z["y_bits"].view(np.int16).copy())
+    values = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16)).view(torch.bfloat16)
+    held = torch.isfinite(values) & (_bits(values) != -32768)
+    bias = torch.where(held, values, torch.zeros_like(values)).cuda()
+    table = {}
+    for schedule in lg.SCHEDULES:
+        y = lg.launch(torch.zeros(3, 64, dtype=torch.bfloat16, device="cuda"),
+                      torch.zeros(65536, 64, dtype=torch.bfloat16, device="cuda"), bias, schedule=schedule).cpu()
+        table[schedule] = int(((_bits(y) != want_bits) & held).sum())
+    before = lg.LAUNCHES
+    x, w, b = operands(8, 64, 128)
+    empty = lg.linear_gelu_bf16(x[:0], w, b)
+    refused = {}
+    flat = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16, device="cuda")
+    for what, args in (("fp32", (x.float(), w, b)), ("k_mismatch", (x[:, :56], w, b)),
+                       ("bias_length", (x, w, b[:64])), ("misaligned", (flat[1:1 + 8 * 64].view(8, 64), w, b))):
+        try:
+            lg.launch(*args)
+            refused[what] = False
+        except ValueError:
+            refused[what] = True
+    no_launch = lg.LAUNCHES == before
+    host = {"kernel": host_us_per_launch(lambda: lg.linear_gelu_bf16(x, w, b)),
+            "parent_pair": host_us_per_launch(lambda: ge.gelu_bf16(F.linear(x, w, b))),
+            "linear_only": host_us_per_launch(lambda: F.linear(x, w, b))}
+    keys = ("ms", "serial_ms", "cooperative_ms", "linear_only_ms", "parent_pair_ms", "library_ms", "plain_ms",
+            "bound_ms")
+    per_forward = {k: sum(rows[n]["calls_per_forward"] * rows[n][k] for n, _, _ in LINEAR_GELU_SHAPES) for k in keys}
+    tiled = {k: sum(rows[n]["calls_per_forward"] * rows[n][k] for n, _, _ in LINEAR_GELU_TILED_SHAPES) for k in keys}
+    max_abs_err = max(r["max_abs_diff_vs_plain"] for r in rows.values())
+    emit("linear_gelu", table_mismatches=table, empty_shape=list(empty.shape), refused=refused,
+         refusals_launched_nothing=no_launch, per_forward_ms=per_forward, tiled_forward_ms=tiled,
+         launches_per_mlp={"kernel": 1, "parent_pair": 2, "library_pair": 2}, host_us_per_call=host,
+         max_abs_err=max_abs_err)
+    check(all(v == 0 for v in table.values()), f"linear_gelu: the GELU of a bf16 h differs from the table {table}")
+    check(tuple(empty.shape) == (0, 128) and no_launch, "linear_gelu: an empty x or a refused call launched")
+    check(all(refused.values()), f"linear_gelu: the kernel took what it refuses: {refused}")
+    return rows, host["kernel"], max_abs_err
+
+
 def _finite(t: torch.Tensor) -> bool:
     return bool(torch.isfinite(t).all())
 
@@ -657,6 +833,7 @@ def phase_main_path():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
 
     t0 = time.perf_counter()
     model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
@@ -671,7 +848,7 @@ def phase_main_path():
         ("480x640_b2", rng.integers(0, 256, (2, 2, 480, 640, 3), dtype=np.uint8)),
     )
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = ge.LAUNCHES = 0  # the main path's counts start here
+    fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the main path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -679,15 +856,16 @@ def phase_main_path():
         h, w = src.shape[-3], src.shape[-2]
         times = []
         for _ in range(4):  # one warm-up, three timed
-            before = (fa.LAUNCHES, ge.LAUNCHES)
+            before = (fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
             t = time.perf_counter()
             res = model.predict_correspondences_batched(source_image=src, target_image=tgt)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             check(fa.LAUNCHES - before[0] == LAUNCHES_PER_FORWARD,
                   f"{name}: {fa.LAUNCHES - before[0]} kernel launches in one forward, expected {LAUNCHES_PER_FORWARD}")
-            check(ge.LAUNCHES - before[1] == GELU_PER_FORWARD,
-                  f"{name}: {ge.LAUNCHES - before[1]} GELU launches in one forward, expected {GELU_PER_FORWARD}")
+            mlps = (ge.LAUNCHES - before[1], lg.LAUNCHES - before[2])
+            check(mlps == (0, GELU_PER_FORWARD),
+                  f"{name}: {mlps} GELU / fused fc1 + GELU launches in one forward, expected (0, {GELU_PER_FORWARD})")
         flow, covis = res.flow.flow_output, res.covisibility.mask
         cov, conf = res.flow.flow_covariance, res.keypoint_confidence
         check(tuple(flow.shape) == (b, 2, h, w), f"{name}: flow shape {tuple(flow.shape)}")
@@ -701,11 +879,45 @@ def phase_main_path():
              pairs_per_s=b / latencies[name], flow_abs_mean=flow.abs().mean().item(),
              covis_mean=covis.mean().item())
     launches = fa.LAUNCHES
-    gelu_path("ufm_base", ge.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
+    mlp_path("ufm_base", ge.LAUNCHES, lg.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
     emit("main_path", launches=launches, forwards=4 * len(requests), launches_per_forward=LAUNCHES_PER_FORWARD,
-         gelu_launches=ge.LAUNCHES,
+         gelu_launches=ge.LAUNCHES, linear_gelu_launches=lg.LAUNCHES,
          pairs_per_s_b1=1.0 / latencies["480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
     return model, requests[0][1], results["480x640_b1"], launches
+
+
+def phase_fused_mlp_model(model):
+    """The flagship UFM-Base forward at batch 1 on the fused path (no
+    gradient: 36 fused fc1 + GELU launches) and on the two-op path of the
+    same weights (grad mode with parameters that require grad: fc1, then 36
+    GELU launches): flow within FLOW_REL_L2_BOUND."""
+    from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
+
+    net = model.net
+    img1, img2 = _normalized_pair(1, TRAIN_HW, seed=4)
+    ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+    with torch.no_grad():
+        fused = net(img1, img2)["flow"].float()
+    torch.cuda.synchronize()
+    mlp_path("ufm_base_fused_check", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD)
+    wanted = [p.requires_grad for p in net.parameters()]
+    net.requires_grad_(True)
+    ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+    try:
+        with torch.enable_grad():
+            two_op = net(img1, img2)["flow"].detach().float()
+        torch.cuda.synchronize()
+    finally:
+        for p, want in zip(net.parameters(), wanted):
+            p.requires_grad_(want)
+    mlp_path("ufm_base_two_op_check", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD, grad=True)
+    rel = ((fused - two_op).norm() / two_op.norm()).item()
+    emit("fused_mlp_model", input_hw=list(TRAIN_HW), flow_rel_l2=rel, flow_max_abs_diff=(fused - two_op).abs().max().item(),
+         bound=FLOW_REL_L2_BOUND)
+    check(_finite(fused) and rel <= FLOW_REL_L2_BOUND, f"fused vs two-op MLPs: flow relative L2 {rel:.3e}")
+    del fused, two_op
+    _free_card_memory()
 
 
 def phase_self_check(model, pair, kernel_res):
@@ -742,9 +954,10 @@ def phase_bf16_golden():
     from ufm_torch.models import UFMArchConfig, UFMNet
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.ops import window_refinement as wr
 
-    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
     for name in BF16_GOLDENS:
         cfg, (i1, i2), params, want = _load_bf16_golden(name)
         with torch.device("cuda"):
@@ -753,14 +966,15 @@ def phase_bf16_golden():
         refine = net.cfg.has_classification_head
         if refine:
             net.refinement_impl = None  # the window kernel (the golden's config asks for the plain "xla")
-        before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES)
+        before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
         with torch.inference_mode():
             got = net(torch.from_numpy(i1).cuda(), torch.from_numpy(i2).cuda())
         torch.cuda.synchronize()
         launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1])
         layers = cfg["encoder_kwargs"]["depth"] + cfg["info_sharing_kwargs"]["depth"]
         check(launched == (layers, int(refine)), f"bf16 golden {name}: {launched} attention / window launches")
-        gelu_path("bf16_golden", ge.LAUNCHES - before[2], layers if net.cfg.compute_dtype == "bfloat16" else 0)
+        mlp_path("bf16_golden", ge.LAUNCHES - before[2], lg.LAUNCHES - before[3],
+                 layers if net.cfg.compute_dtype == "bfloat16" else 0)
         diffs = {k: (got[k].float().cpu() - torch.from_numpy(v)).abs().max().item() for k, v in want.items()}
         emit("bf16_golden", model=name, input_hw=list(i1.shape[1:3]), max_abs_diff=diffs, bound=BF16_GOLDEN_ATOL,
              launches={"flash_attention_fwd": launched[0], "window_refinement_fwd": launched[1]})
@@ -818,6 +1032,7 @@ def phase_tiled(model):
     from ufm_torch.models import tiled
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.utils.example_pairs import synthetic_pair
 
     src, tgt, gt, _ = synthetic_pair(h=TILED_HW[0], w=TILED_HW[1], seed=0)
@@ -840,11 +1055,11 @@ def phase_tiled(model):
         tiled.predict_correspondences_tiled(model, src, tgt)  # warm-up
         calls.clear()
         torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = ge.LAUNCHES = 0  # the tiled path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the tiled path's counts start here
         t = time.perf_counter()
         flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
         total_s = time.perf_counter() - t
-        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
+        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
         stats = dict(tiled.last_tile_stats)
         kernel_calls = list(calls)
@@ -874,7 +1089,7 @@ def phase_tiled(model):
     check(stats.get("tiles") == TILED_TILES, f"tiled: {stats} (expected {TILED_TILES} tiles)")
     check(batches == TILED_BATCHES, f"tiled: forwards at batches {batches}, expected {TILED_BATCHES}")
     check(launches == LAUNCHES_PER_FORWARD * len(TILED_BATCHES), f"tiled: {launches} attention launches")
-    gelu_path("ufm_base_tiled", gelu_launches, GELU_PER_FORWARD * len(TILED_BATCHES))
+    mlp_path("ufm_base_tiled", gelu_launches, fused_launches, GELU_PER_FORWARD * len(TILED_BATCHES))
     check(flow.shape == (*TILED_HW, 2) and covis.shape == TILED_HW, f"tiled: shapes {flow.shape} {covis.shape}")
     check(bool(np.isfinite(flow).all() and np.isfinite(covis).all()), "tiled: non-finite outputs")
 
@@ -1063,6 +1278,7 @@ def phase_refine_path():
     from ufm_torch.models import UniFlowMatchClassificationRefinement, ufm_refine_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.ops import window_refinement as wr
 
     t0 = time.perf_counter()
@@ -1084,7 +1300,7 @@ def phase_refine_path():
     )
     p = model.config.refinement_range
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # the refine path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the refine path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -1094,15 +1310,16 @@ def phase_refine_path():
         forward_events.clear()
         tail_events.clear()
         for _ in range(4):  # one warm-up, three timed
-            before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES)
+            before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
             t = time.perf_counter()
             res = model.predict_correspondences_batched(source_image=src, target_image=tgt)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-            launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2])
-            check(launched == (LAUNCHES_PER_FORWARD, 1, GELU_PER_FORWARD),
-                  f"{name}: {launched} attention / window / GELU launches in one forward, "
-                  f"expected ({LAUNCHES_PER_FORWARD}, 1, {GELU_PER_FORWARD})")
+            launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2],
+                        lg.LAUNCHES - before[3])
+            check(launched == (LAUNCHES_PER_FORWARD, 1, 0, GELU_PER_FORWARD),
+                  f"{name}: {launched} attention / window / GELU / fused fc1 + GELU launches in one forward, "
+                  f"expected ({LAUNCHES_PER_FORWARD}, 1, 0, {GELU_PER_FORWARD})")
         flow, covis = res.flow.flow_output, res.covisibility.mask
         check(tuple(flow.shape) == (b, 2, h, w), f"{name}: flow shape {tuple(flow.shape)}")
         check(tuple(covis.shape) == (b, h, w), f"{name}: covisibility shape {tuple(covis.shape)}")
@@ -1119,7 +1336,7 @@ def phase_refine_path():
              refine_tail_share=tail_ms / fwd_ms, window_in_image_share=share, window_staged_tile_share=staged_share,
              regression_flow_abs_max=regression_flow.abs().max().item(), flow_abs_mean=flow.abs().mean().item())
     launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
-    gelu_path("ufm_refine", ge.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
+    mlp_path("ufm_refine", ge.LAUNCHES, lg.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
     emit("refine_path", launches=launches, forwards=4 * len(requests),
          pairs_per_s_b1=1.0 / latencies["refine_480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
     del model.network_apply, model.net.refine_tail  # back to the unwrapped methods
@@ -1170,6 +1387,7 @@ def phase_train():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
 
     t0 = time.perf_counter()
@@ -1189,18 +1407,19 @@ def phase_train():
     net.forward = _timed(net.forward, fwd_events)
     optimizer.step = _timed(optimizer.step, opt_events)
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # the training path's counts start here
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the training path's counts start here
     losses, times = [], []
     for i in range(TRAIN_STEPS):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
         t = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2])
-        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD),
-              f"train step {i}: {launched} attention forward launches / backward calls / GELU launches, "
-              "expected 36 / 36 / 36")
+        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2],
+                    lg.LAUNCHES - before[3])
+        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD, 0),
+              f"train step {i}: {launched} attention forward launches / backward calls / GELU / fused fc1 + GELU "
+              "launches, expected 36 / 36 / 36 / 0")
         vals = {k: v.item() for k, v in metrics.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"train step {i}: non-finite metrics {vals}")
         losses.append(vals["total_loss"])
@@ -1222,7 +1441,7 @@ def phase_train():
     steps = TRAIN_STEPS + FIT_STEPS
     check(launches == {"flash_attention_fwd": steps * LAUNCHES_PER_FORWARD, "flash_attention_bwd": steps * LAUNCHES_PER_FORWARD},
           f"training path launches {launches} over {steps} steps, expected 36 + 36 per step")
-    gelu_path("ufm_base_train", ge.LAUNCHES, steps * GELU_PER_FORWARD)
+    mlp_path("ufm_base_train", ge.LAUNCHES, lg.LAUNCHES, steps * GELU_PER_FORWARD, grad=True)
     trajectory = losses + fit_losses
     check(trajectory[-1] < trajectory[0], f"loss did not fall on the fixed batch: {trajectory}")
     emit("train_path", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), learning_rate=TRAIN_LR,
@@ -1238,6 +1457,7 @@ def phase_train():
 def phase_train_self_check(model, batch):
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.training import ufm_total_loss
 
     net = model.net
@@ -1250,10 +1470,11 @@ def phase_train_self_check(model, batch):
         torch.cuda.synchronize()
         return _group_grads(net)
 
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0
     g_kernel = grads()
-    check((fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES) == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD),
-          f"kernel gradient: {(fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)} launches, expected 36 / 36 / 36")
+    launched = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
+    check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD, 0),
+          f"kernel gradient: {launched} launches, expected 36 / 36 / 36 / 0")
     model.attention_impl = "torch"
     fa.LAUNCHES = fa.BWD_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1340,17 +1561,19 @@ def _train_steps(step, batch, n, label,
     attention forward, backward and GELU launches held to ``launches_each``."""
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
 
     times, metrics = [], []
     for i in range(n):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
         t = time.perf_counter()
         m = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2])
-        check(launched == launches_each,
-              f"{label} step {i}: {launched} attention forward / backward / GELU launches, expected {launches_each}")
+        check(launched == launches_each and lg.LAUNCHES == before[3],
+              f"{label} step {i}: {launched} attention forward / backward / GELU launches, expected {launches_each}, "
+              f"and {lg.LAUNCHES - before[3]} fused fc1 + GELU launches, expected 0")
         vals = {k: v.item() for k, v in m.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
         metrics.append(vals)
@@ -1364,6 +1587,7 @@ def phase_sharded_train():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.parallel import make_mesh
     from ufm_torch.training import fit, make_optimizer, make_sharded_train_step, make_train_step, synthetic_batch
 
@@ -1395,13 +1619,13 @@ def phase_sharded_train():
     torch.cuda.synchronize()
     shard_s = time.perf_counter() - t
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # the sharded path's counts start here
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the sharded path's counts start here
     spans = _span_ms(net, optimizer, lambda: ran.update(
         zip(("times", "metrics"), _train_steps(step, placed, SHARDED_STEPS, "sharded"))))
     times, metrics = ran["times"], ran["metrics"]
     peak = torch.cuda.max_memory_allocated()
     step_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
-    gelu_path("ufm_base_sharded_train", ge.LAUNCHES, SHARDED_STEPS * GELU_PER_FORWARD)
+    mlp_path("ufm_base_sharded_train", ge.LAUNCHES, lg.LAUNCHES, SHARDED_STEPS * GELU_PER_FORWARD, grad=True)
     delta = _group_deltas(_stepped_values(net, optimizer), initial)
     metric_rel = {k: abs(metrics[0][k] - v) / max(abs(v), 1e-12) for k, v in plain_metrics[0].items()}
     delta_rel = {k: ((delta[k] - d).norm() / d.norm()).item() for k, d in plain_delta.items()}
@@ -1427,7 +1651,7 @@ def phase_sharded_train():
     # new sharded net resumes it for the 2nd
     ckpt = os.path.join(ARTIFACT_DIR, "sharded_fit")
     shutil.rmtree(ckpt, ignore_errors=True)
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # the sharded fit's counts start here
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the sharded fit's counts start here
     runs = []
     for n_batches in (1, 1):
         model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
@@ -1441,7 +1665,7 @@ def phase_sharded_train():
         del model, out
         _free_card_memory()
     fit_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
-    gelu_path("ufm_base_sharded_fit", ge.LAUNCHES, FIT_STEPS * GELU_PER_FORWARD)
+    mlp_path("ufm_base_sharded_fit", ge.LAUNCHES, lg.LAUNCHES, FIT_STEPS * GELU_PER_FORWARD, grad=True)
     last = os.path.join(ckpt, str(FIT_STEPS), "train_state.pt")
     ckpt_bytes = os.path.getsize(last)  # one step's file
     state = torch.load(last, map_location="cpu", weights_only=True, mmap=True)
@@ -1476,6 +1700,7 @@ def phase_data_parallel():
     from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_base_config, ufm_refine_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.ops import window_refinement as wr
     from ufm_torch.parallel import make_data_parallel_forward, make_mesh
 
@@ -1485,13 +1710,13 @@ def phase_data_parallel():
                             ("ufm_refine", UniFlowMatchClassificationRefinement, ufm_refine_config())):
         model = cls.from_config(cfg, seed=0)
         forward = make_data_parallel_forward(model, make_mesh(1))
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         t = time.perf_counter()
         got = forward(img1, img2)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches[label] = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
-        gelu_path(f"{label}_data_parallel", ge.LAUNCHES, GELU_PER_FORWARD)
+        mlp_path(f"{label}_data_parallel", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD)
         with torch.no_grad():
             want = model.net(img1, img2)
         torch.cuda.synchronize()
@@ -1524,6 +1749,7 @@ def phase_remat():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
 
     _free_card_memory()
@@ -1534,7 +1760,7 @@ def phase_remat():
     rows = {label: {"policy": policy, "train_remat": remat, "attention_fwd_launches_per_step": fwd,
                     "gelu_launches_per_step": gelu_fwd, "step_s": [], "max_memory_allocated": [], "resident_before": []}
             for label, remat, policy, fwd, gelu_fwd in REMAT_CASES}
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
     # two rounds, the second in the reverse order: a case's numbers do not
     # depend on which case ran before it
     for cases in (REMAT_CASES, REMAT_CASES[::-1]):
@@ -1550,7 +1776,8 @@ def phase_remat():
     for row in rows.values():
         row["step_ms"] = statistics.median(row["step_s"]) * 1e3
     launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
-    gelu_path("ufm_base_remat", ge.LAUNCHES, 2 * (1 + REMAT_TIMED_STEPS) * sum(c[4] for c in REMAT_CASES))
+    mlp_path("ufm_base_remat", ge.LAUNCHES, lg.LAUNCHES, 2 * (1 + REMAT_TIMED_STEPS) * sum(c[4] for c in REMAT_CASES),
+             grad=True)
     del step
     net.zero_grad(set_to_none=True)
     _free_card_memory()
@@ -1586,18 +1813,19 @@ def phase_moge():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
 
     model = UniFlowMatchConfidence.from_config(ufm_base_config(head_type="moge_conv", feature_head_kwargs=MOGE_HEAD), seed=0)
     img1, img2 = _normalized_pair(1, TRAIN_HW, seed=3)
     with torch.no_grad():
         model.net(img1, img2)  # warm-up
-        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = model.net(img1, img2)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
+        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
         model.attention_impl = "torch"
         plain = model.net(img1, img2)
         model.attention_impl = None
@@ -1609,7 +1837,7 @@ def phase_moge():
     check(tuple(flow.shape) == (1, *TRAIN_HW, 2), f"moge flow shape {tuple(flow.shape)}")
     check(all(_finite(v) for v in out.values()), "moge: non-finite outputs")
     check(launches == LAUNCHES_PER_FORWARD, f"moge forward: {launches} attention launches, expected 36")
-    gelu_path("ufm_base_moge", gelu_launches, GELU_PER_FORWARD)
+    mlp_path("ufm_base_moge", gelu_launches, fused_launches, GELU_PER_FORWARD)
     check(rel <= FLOW_REL_L2_BOUND, f"moge kernel vs plain attention: flow relative L2 {rel:.3e}")
     del model, out, plain
     _free_card_memory()
@@ -1637,8 +1865,8 @@ def _profile_requests(fn, reps: int = PROFILE_REQUESTS):
         if evt.device_type != DeviceType.CUDA or evt.name.startswith(("Memcpy", "Memset")):
             continue
         spans.append((evt.time_range.start, evt.time_range.end))
-        for name in ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "gelu_bf16_fwd_kernel"):
-            if name in evt.name:
+        for name in KERNEL_NAMES:  # "gelu_bf16_fwd_kernel" is not counted inside "linear_gelu_bf16_fwd_kernel"
+            if re.search(rf"(?<![A-Za-z_]){name}", evt.name):
                 counts[name] = counts.get(name, 0) + 1
     check(bool(spans), "the profiler recorded no kernel")
     busy_us, end = 0.0, -math.inf
@@ -1671,6 +1899,7 @@ def _captured(model, label, pair, batches, refine):
     from ufm_torch.models import base
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.ops import window_refinement as wr
 
     def request(b):
@@ -1688,7 +1917,7 @@ def _captured(model, label, pair, batches, refine):
             times.append(time.perf_counter() - t)
         return res, times
 
-    per_call = (LAUNCHES_PER_FORWARD, 1 if refine else 0, GELU_PER_FORWARD)
+    per_call = (LAUNCHES_PER_FORWARD, 1 if refine else 0, 0, GELU_PER_FORWARD)
     torch.cuda.reset_peak_memory_stats()
     rows, launched = {}, {"flash_attention_fwd": 0, "window_refinement_fwd": 0}
     for b in batches:
@@ -1696,7 +1925,7 @@ def _captured(model, label, pair, batches, refine):
         model.capture_graphs = False
         eager, eager_times = timed(fn)
         model.capture_graphs = True
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # the captured path's counts start here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the captured path's counts start here
         captured_times, calls = [], []
         for _ in range(4):  # the first call warms up and captures
             t = time.perf_counter()
@@ -1704,12 +1933,13 @@ def _captured(model, label, pair, batches, refine):
             torch.cuda.synchronize()
             captured_times.append(time.perf_counter() - t)
             calls.append((fa.LAUNCHES - sum(c[0] for c in calls), wr.LAUNCHES - sum(c[1] for c in calls),
-                          ge.LAUNCHES - sum(c[2] for c in calls)))
+                          ge.LAUNCHES - sum(c[2] for c in calls), lg.LAUNCHES - sum(c[3] for c in calls)))
         launched["flash_attention_fwd"] += fa.LAUNCHES
         launched["window_refinement_fwd"] += wr.LAUNCHES
         check(all(c == per_call for c in calls),
-              f"{label} b{b}: attention / window / GELU launches per call {calls}, expected {per_call} each")
-        gelu_path(f"{label}_captured", ge.LAUNCHES, len(calls) * GELU_PER_FORWARD)
+              f"{label} b{b}: attention / window / GELU / fused fc1 + GELU launches per call {calls}, "
+              f"expected {per_call} each")
+        mlp_path(f"{label}_captured", ge.LAUNCHES, lg.LAUNCHES, len(calls) * GELU_PER_FORWARD)
 
         f_c, f_e = res.flow.flow_output.float(), eager.flow.flow_output.float()
         flow_rel = ((f_c - f_e).norm() / f_e.norm()).item()
@@ -1734,7 +1964,7 @@ def _captured(model, label, pair, batches, refine):
             model.capture_graphs = True
             row.update(profiled_requests=PROFILE_REQUESTS, replay_profiled=replay, eager_profiled=eager_prof,
                        profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()})
-            want = {"flash_attention_fwd_kernel": per_call[0], "gelu_bf16_fwd_kernel": per_call[2],
+            want = {"flash_attention_fwd_kernel": per_call[0], "linear_gelu_bf16_fwd_kernel": per_call[3],
                     **({"window_refinement_fwd_kernel": 1} if refine else {})}
             want = {k: v * PROFILE_REQUESTS for k, v in want.items()}
             check(replay_counts == want,
@@ -1857,6 +2087,7 @@ def phase_serve(model):
 
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.runtime import UFMServer
 
     rng = np.random.default_rng(0)
@@ -1884,7 +2115,7 @@ def phase_serve(model):
         t = time.perf_counter()
         _http(server.port, "/v1/predict", bodies[n])  # warm-up: the lane's first batch captures its program
         warm_s = time.perf_counter() - t
-        fa.LAUNCHES = ge.LAUNCHES = 0  # the served path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the served path's counts start here
         served, latency = [None] * n, [0.0] * n
 
         def client(k):
@@ -1900,7 +2131,7 @@ def phase_serve(model):
             for f in [pool.submit(client, k) for k in range(SERVE_CLIENTS)]:
                 f.result()
         wall = time.perf_counter() - t
-        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
+        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
         stats = json.loads(_http(server.port, "/stats"))
     finally:
         server.close()
@@ -1951,7 +2182,7 @@ def phase_serve(model):
           f"serve: the batcher dispatched {lane['dispatched']} of {n + 1} requests in {lane['batches']} batches")
     check(launches == LAUNCHES_PER_FORWARD * batches_timed,
           f"serve: {launches} attention launches for {batches_timed} batches")
-    gelu_path("ufm_base_served", gelu_launches, GELU_PER_FORWARD * batches_timed)
+    mlp_path("ufm_base_served", gelu_launches, fused_launches, GELU_PER_FORWARD * batches_timed)
     check(same_slot["flow_rel_l2"] <= CAPTURED_BAR and same_slot["covis_max_abs_diff"] <= CAPTURED_BAR,
           f"serve: a response differs from the direct predict of its pair at its slot: {same_slot}")
     check(slot0["flow_rel_l2"] <= SLOT_BAR and slot0["covis_max_abs_diff"] <= SLOT_BAR,
@@ -1967,6 +2198,7 @@ def phase_stream(model):
     predict of the same stacked (padded) batch. Returns its launches."""
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.runtime import stream_predict
 
     b = SERVE_MAX_BATCH
@@ -1975,14 +2207,14 @@ def phase_stream(model):
     batches = [idx + [idx[-1]] * (b - len(idx)) for idx in batches]
     model.predict_correspondences_batched(pairs[batches[0], 0], pairs[batches[0], 1])  # the lane's program exists
     torch.cuda.synchronize()
-    fa.LAUNCHES = ge.LAUNCHES = 0  # the streamed path's counts start here
+    fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the streamed path's counts start here
     t = time.perf_counter()
     outs = [(o.flow.flow_output, o.covisibility.mask)
             for o in stream_predict(model.predict_correspondences_batched, ((p[0], p[1]) for p in pairs),
                                     batch_size=b, device="cuda")]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
+    launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
     sizes = [len(f) for f, _ in outs]
     bitwise = True
     for (f, c), idx in zip(outs, batches):
@@ -1995,7 +2227,7 @@ def phase_stream(model):
           f"stream: batch sizes {sizes}")
     check(bitwise, "stream: a streamed batch differs from the direct predict of the same batch")
     check(launches == LAUNCHES_PER_FORWARD * len(batches), f"stream: {launches} attention launches")
-    gelu_path("ufm_base_streamed", gelu_launches, GELU_PER_FORWARD * len(batches))
+    mlp_path("ufm_base_streamed", gelu_launches, fused_launches, GELU_PER_FORWARD * len(batches))
     return launches
 
 
@@ -2023,6 +2255,7 @@ def phase_export(model):
     launches of this phase)."""
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.runtime import export_model, load_exported
 
     paths = {d: os.path.join(ARTIFACT_DIR, f"ufm_base_{d}.ufmt") for d in ("fp32", "bf16")}
@@ -2039,13 +2272,13 @@ def phase_export(model):
     art = loaded["fp32"]
     with torch.inference_mode():
         want = model.network_apply(x, y)
-        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
-        per_call, gelu_per_call = fa.LAUNCHES, ge.LAUNCHES
+        per_call, fused_per_call = fa.LAUNCHES, lg.LAUNCHES
         half = loaded["bf16"](x, y)
         torch.cuda.synchronize()
-        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
+        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
         _, counts = _profile_requests(lambda: art(x, y))
     diff = _raw_diff(got, want)
     drift = {k: ((half[k].float() - got[k].float()).abs().max() / got[k].float().abs().max().clamp_min(1e-6)).item()
@@ -2055,13 +2288,14 @@ def phase_export(model):
          param_bytes=manifests["fp32"]["param_bytes"],
          stored_param_bytes={d: m["stored_param_bytes"] for d, m in manifests.items()},
          file_bytes={d: os.path.getsize(p) for d, p in paths.items()}, ops=manifests["fp32"]["ops"],
-         launches_per_call=per_call, gelu_launches_per_call=gelu_per_call,
+         launches_per_call=per_call, linear_gelu_launches_per_call=fused_per_call,
          profiler_kernels_per_call={k: v / PROFILE_REQUESTS for k, v in counts.items()},
          **diff, bar=ARTIFACT_BAR, bf16_relative_drift=drift, bf16_bound=ARTIFACT_BF16_DRIFT)
     check(per_call == LAUNCHES_PER_FORWARD, f"export: {per_call} attention launches in one artifact call")
-    gelu_path("ufm_base_artifact", gelu_launches, 2 * GELU_PER_FORWARD)  # the fp32- and the bf16-stored artifact
+    # the fp32- and the bf16-stored artifact
+    mlp_path("ufm_base_artifact", gelu_launches, fused_launches, 2 * GELU_PER_FORWARD)
     check(counts == {"flash_attention_fwd_kernel": LAUNCHES_PER_FORWARD * PROFILE_REQUESTS,
-                     "gelu_bf16_fwd_kernel": GELU_PER_FORWARD * PROFILE_REQUESTS},
+                     "linear_gelu_bf16_fwd_kernel": GELU_PER_FORWARD * PROFILE_REQUESTS},
           f"export: the profiler saw {counts} in {PROFILE_REQUESTS} artifact calls")
     check(diff["flow_rel_l2"] <= ARTIFACT_BAR and diff["covis_max_abs_diff"] <= ARTIFACT_BAR,
           f"export: the artifact differs from the live network: {diff}")
@@ -2080,6 +2314,7 @@ def phase_export_cpu():
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.runtime import export_model, load_exported
 
     path = os.path.join(ARTIFACT_DIR, "ufm_base_cpu.ufmt")
@@ -2096,10 +2331,10 @@ def phase_export_cpu():
     model.net.to("cuda")
     x, y = _artifact_inputs(model, seed=12)
     with torch.inference_mode():
-        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
-        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
+        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
         want = model.network_apply(x, y)
     diff = _raw_diff(got, want)
     emit("export_cpu", model="ufm_base", traced_on=manifest["devices"], loaded_on=str(art.device), depth_cut=None,
@@ -2107,7 +2342,7 @@ def phase_export_cpu():
          launches_per_call=launches, **diff, bar=ARTIFACT_CPU_BAR)
     check(manifest["devices"] == ["cpu"] and art.device.type == "cuda", "export_cpu: not traced on the CPU and run on the card")
     check(launches == LAUNCHES_PER_FORWARD, f"export_cpu: {launches} attention launches in one call")
-    gelu_path("ufm_base_artifact_cpu_export", gelu_launches, GELU_PER_FORWARD)
+    mlp_path("ufm_base_artifact_cpu_export", gelu_launches, fused_launches, GELU_PER_FORWARD)
     check(diff["flow_rel_l2"] <= ARTIFACT_CPU_BAR, f"export_cpu: the moved program differs from the card model: {diff}")
     return launches
 
@@ -2120,6 +2355,7 @@ def phase_artifact_predict(model, art, pair):
     from ufm_torch.models import base
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.runtime.export import ArtifactUFM
 
     art_model = ArtifactUFM(art)
@@ -2127,18 +2363,18 @@ def phase_artifact_predict(model, art, pair):
     def timed(m):
         times, calls = [], []
         for _ in range(4):
-            before = (fa.LAUNCHES, ge.LAUNCHES)
+            before = (fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
             t = time.perf_counter()
             res = m.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-            calls.append((fa.LAUNCHES - before[0], ge.LAUNCHES - before[1]))
+            calls.append((fa.LAUNCHES - before[0], ge.LAUNCHES - before[1], lg.LAUNCHES - before[2]))
         return res, times, calls
 
     with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
-        fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         got, art_times, art_calls = timed(art_model)
-        launches, gelu_launches = fa.LAUNCHES, ge.LAUNCHES
+        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
         want, live_times, _ = timed(model)
     f_g, f_w = got.flow.flow_output.float(), want.flow.flow_output.float()
     rel = ((f_g - f_w).norm() / f_w.norm()).item()
@@ -2147,9 +2383,9 @@ def phase_artifact_predict(model, art, pair):
          artifact_first_s=art_times[0], artifact_latency_s=statistics.median(art_times[1:]),
          live_latency_s=statistics.median(live_times[1:]), programs=len(art_model._programs),
          flow_rel_l2=rel, covis_max_abs_diff=covis, bitwise_equal=_outputs_equal(got, want), bar=ARTIFACT_BAR)
-    check(all(c == (LAUNCHES_PER_FORWARD, GELU_PER_FORWARD) for c in art_calls),
-          f"artifact_predict: attention / GELU launches per call {art_calls}")
-    gelu_path("ufm_base_artifact_captured", gelu_launches, len(art_calls) * GELU_PER_FORWARD)
+    check(all(c == (LAUNCHES_PER_FORWARD, 0, GELU_PER_FORWARD) for c in art_calls),
+          f"artifact_predict: attention / GELU / fused fc1 + GELU launches per call {art_calls}")
+    mlp_path("ufm_base_artifact_captured", gelu_launches, fused_launches, len(art_calls) * GELU_PER_FORWARD)
     check(rel <= ARTIFACT_BAR and covis <= ARTIFACT_BAR, f"artifact_predict: {rel:.3e} / {covis:.3e} from the live model")
     return art_model, launches
 
@@ -2160,6 +2396,7 @@ def phase_artifact_refine(model):
     launches {kernel: n}."""
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.ops import window_refinement as wr
     from ufm_torch.runtime import export_model, load_exported
 
@@ -2174,11 +2411,11 @@ def phase_artifact_refine(model):
     x, y = _artifact_inputs(model, seed=13)
     with torch.inference_mode():
         want = model.network_apply(x, y)
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
     launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
-    gelu_path("ufm_refine_artifact", ge.LAUNCHES, GELU_PER_FORWARD)
+    mlp_path("ufm_refine_artifact", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD)
     diff = _raw_diff(got, want)
     refined = (got["flow"] - want["flow"]).abs().max().item()
     emit("artifact_refine", export_s=export_s, load_s=load_s, program_bytes=manifest["program_bytes"],
@@ -2275,6 +2512,7 @@ def phase_loader(model):
     nothing. Returns its attention launches (0 when it did not run)."""
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.runtime import stream_predict
     from ufm_torch.runtime.loader import NativeImageLoader, iter_decoded_pairs, missing_system_headers
 
@@ -2300,7 +2538,7 @@ def phase_loader(model):
         loader.submit(0, LOADER_JPEG + ".jpg")
         _, jpeg = loader.poll()
     jpeg_err = float(np.abs(jpeg.astype(int) - source.astype(int)).mean())
-    fa.LAUNCHES = ge.LAUNCHES = 0  # this path's counts start here
+    fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
     t = time.perf_counter()
     outs = [o.flow.flow_output for o in stream_predict(model.predict_correspondences_batched,
                                                        iter_decoded_pairs(paths, LOADER_HW, num_threads=4),
@@ -2308,7 +2546,7 @@ def phase_loader(model):
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t
     launches = fa.LAUNCHES
-    gelu_path("ufm_base_loader_streamed", ge.LAUNCHES, GELU_PER_FORWARD * -(-LOADER_PAIRS // SERVE_MAX_BATCH))
+    mlp_path("ufm_base_loader_streamed", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD * -(-LOADER_PAIRS // SERVE_MAX_BATCH))
     emit("loader", ran=True, pairs=LOADER_PAIRS, input_hw=list(LOADER_HW), png_frames_exact=exact,
          frames_per_s=2 * LOADER_PAIRS / decode_s, jpeg_mean_abs_err=jpeg_err, jpeg_bar=LOADER_JPEG_MEAN_ABS,
          streamed_pairs_per_s=LOADER_PAIRS / stream_s, launches=launches)
@@ -2335,9 +2573,11 @@ def run_phases(smi: str) -> int:
     bwd_rows = phase_bwd_kernel()
     window_rows, window_host_us = phase_window_kernel()
     gelu_rows, gelu_host_us, gelu_err = phase_gelu()
+    lg_rows, lg_host_us, lg_err = phase_linear_gelu()
     golden_launches = phase_bf16_golden()
     model, pair, kernel_res, launches = phase_main_path()
     phase_self_check(model, pair, kernel_res)
+    phase_fused_mlp_model(model)
     phase_checkpoint(model, pair)
     tiled_launches = phase_tiled(model)
     phase_eval(model)
@@ -2511,9 +2751,44 @@ def run_phases(smi: str) -> int:
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in gelu_rows.items()},
         "library_ms_by_case": {n: r["library_ms"] for n, r in gelu_rows.items()},
         "host_us_per_launch": gelu_host_us,
+        "main_path_note": "inference paths take the fused fc1 + GELU kernel; the launches here are the paths "
+                          "that record a gradient (training)",
+    }
+    # one batch-1 forward's fc1 + GELU: each number sums its 36 calls
+    lg_fwd = [lg_rows[n] for n, _, calls in LINEAR_GELU_SHAPES for _ in range(calls)]
+    linear_gelu = {
+        "name": "linear_gelu_bf16_fwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/linear_gelu_bf16_fwd.cu",
+        "replaces": "ufm_tpu/ops/gelu.py:106",
+        "replaces_also": "ufm_tpu/nn/layers.py:50",
+        "replaces_note": "fast_exact_gelu of fc1's output (XLA code, no pallas_call): the pair fc1 -> GELU of "
+                         "every backbone MLP as one kernel",
+        "launches": sum(FUSED_LAUNCHES.values()),
+        "launches_by_path": dict(FUSED_LAUNCHES),
+        "op": "ufm_torch::linear_gelu_bf16",
+        "max_abs_err": lg_err,
+        "ms": sum(r["ms"] for r in lg_fwd),
+        "plain_ms": sum(r["plain_ms"] for r in lg_fwd),
+        "bound_ms": sum(r["bound_ms"] for r in lg_fwd),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in lg_fwd) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in lg_fwd),
+        "parent_pair_ms": sum(r["parent_pair_ms"] for r in lg_fwd),
+        "linear_only_ms": sum(r["linear_only_ms"] for r in lg_fwd),
+        "serial_ms": sum(r["serial_ms"] for r in lg_fwd),
+        "cooperative_ms": sum(r["cooperative_ms"] for r in lg_fwd),
+        "per_forward": "times sum the 24 encoder and 12 info-sharing MLPs of one batch-1 forward",
+        "library": "F.gelu(F.linear(x, w, b), approximate='none'): no single PyTorch call computes fc1 + the exact "
+                   "GELU (cuBLASLt's GELU epilogue is the tanh form)",
+        "parent_pair": "F.linear + ufm_torch::gelu_bf16, the two kernels this one replaces on the parent's main path",
+        "tiled_forward": {k: sum(lg_rows[n][k] for n, _, calls in LINEAR_GELU_TILED_SHAPES for _ in range(calls))
+                          for k in ("ms", "parent_pair_ms", "linear_only_ms", "library_ms", "bound_ms")},
+        "ms_by_case": {n: r["ms"] for n, r in lg_rows.items() if "ms" in r},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in lg_rows.items() if "ms" in r},
+        "host_us_per_launch": lg_host_us,
     }
     print(smi)
-    print(json.dumps({"kernels": [attention, backward, window, gelu]}))
+    print(json.dumps({"kernels": [attention, backward, window, gelu, linear_gelu]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -36,8 +36,9 @@ tree's sources and prints one JSON line per kernel and shape:
   predict API, captured (a CUDA graph replay) and eager: N requests, each
   waited for, inside one ``torch.profiler`` window: the host clock a
   request, the device busy time (the union of the kernels' intervals) and
-  the idle share, and the kernels a request (as ``chip_smoke.py``'s
-  ``captured`` phase reads them).
+  the idle share, the kernels a request (as ``chip_smoke.py``'s
+  ``captured`` phase reads them) and the device ms a request of the
+  kernels that take the most, by name.
 
 The last line sums each tree's runs. Needs a CUDA device.
 """
@@ -180,7 +181,8 @@ def run_tree(root: str, turn: int, train_steps: int = 0, requests: int = 0) -> d
 def profile_requests(fn, reps: int) -> dict:
     """``reps`` calls of ``fn``, each waited for, in one profiler window
     (CUDA activity): host ms, device busy ms and kernels a request, idle
-    share."""
+    share, and the device ms a request of the kernels that take the most,
+    by name (the first 12)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,16 +193,20 @@ def profile_requests(fn, reps: int) -> dict:
             fn()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / reps
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
     busy_us, end = 0.0, -float("inf")
     for start, stop in spans:
         if stop > end:
             busy_us += stop - max(start, end)
             end = stop
     busy_ms = busy_us / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "kernels_per_request": len(spans) / reps}
+            "kernels_per_request": len(spans) / reps, "ms_by_kernel": {name[:120]: ms for name, ms in top}}
 
 
 def predict_requests(reps: int) -> dict:
@@ -290,9 +296,11 @@ def main(argv) -> int:
         summary[root] = {}
         for (kernel, case), fields in outs[0].items():
             for field, val in fields.items():
-                if isinstance(val, dict):  # host_us_per_launch: one list per launch kind
+                if isinstance(val, dict):  # host_us_per_launch, ms_by_kernel: one list per name
+                    suffix = "host_us" if field == "host_us_per_launch" else field
                     for name in val:
-                        summary[root][f"{kernel}/{case}/{name}_host_us"] = [o[(kernel, case)][field][name] for o in outs]
+                        summary[root][f"{kernel}/{case}/{name}_{suffix}"] = [o[(kernel, case)][field].get(name)
+                                                                             for o in outs]
                 elif isinstance(val, (int, float)):
                     summary[root][f"{kernel}/{case}_{field}"] = [o[(kernel, case)][field] for o in outs]
     print(json.dumps({"summary": summary, "device": smi}), flush=True)

@@ -105,8 +105,11 @@ def test_exported_graph_holds_the_ops(exported):
     assert targets.count(library.flash_attention_fwd) == layers
     assert targets.count(library.window_refinement) == (variant == "refine")
     assert library.flash_attention_bwd not in targets
-    bf16 = cfg.compute_dtype == "bfloat16"  # the MLPs' GELU is an op node on bf16 only
-    assert targets.count(library.gelu_bf16) == (layers if bf16 else 0)
+    # the MLPs' fc1 + GELU is one op node on bf16 only (no gradient is recorded
+    # in the trace, so never the standalone GELU op)
+    bf16 = cfg.compute_dtype == "bfloat16"
+    assert targets.count(library.linear_gelu_bf16) == (layers if bf16 else 0)
+    assert targets.count(library.gelu_bf16) == 0
     assert len(manifest["ops"]) == 1 + (variant == "refine") + bf16
 
 

@@ -224,13 +224,13 @@ def _normalized_pair(model, seed):
 
 
 def test_cpu_forward_launches_nothing():
-    """A tiny bf16 model's CPU forward runs the op's plain version in every
-    MLP: no counter moves, and each block's MLP output is the plain
-    version's."""
+    """A tiny bf16 model's CPU forward runs the plain version of the fused
+    fc1 + GELU op in every MLP: no counter moves, and every block's MLP
+    reaches fc2 with a bf16 hidden activation."""
     model = _bf16_tiny_model()
     x, y = _normalized_pair(model, seed=4)
     before = launches.snapshot()
-    assert len(before) == 4
+    assert len(before) == 5
     seen = []
     handles = [m.register_forward_hook(lambda mod, inp, out: seen.append(inp[0])) for n, m in model.net.named_modules()
                if n.endswith("mlp.fc2")]
@@ -240,7 +240,7 @@ def test_cpu_forward_launches_nothing():
     finally:
         for h in handles:
             h.remove()
-    assert launches.since(before) == (0, 0, 0, 0)
+    assert launches.since(before) == (0, 0, 0, 0, 0)
     cfg = model.config
     assert len(seen) == cfg.encoder_kwargs["depth"] + cfg.info_sharing_kwargs["depth"]
     assert all(t.dtype == torch.bfloat16 for t in seen)
@@ -248,10 +248,11 @@ def test_cpu_forward_launches_nothing():
 
 
 def test_exported_bf16_model_has_one_gelu_node_per_mlp(tmp_path):
-    """``torch.export`` on the CPU of a tiny bf16 UFM-Base: one
-    ``ufm_torch::gelu_bf16`` node per transformer block's MLP, named in the
-    manifest's ops, and the loaded artifact answers bitwise as the live
-    network."""
+    """``torch.export`` on the CPU of a tiny bf16 UFM-Base: one GELU node per
+    transformer block's MLP, the fused ``ufm_torch::linear_gelu_bf16`` (fc1
+    with the GELU as its epilogue; the trace records no gradient), named in
+    the manifest's ops, no standalone ``ufm_torch::gelu_bf16``, and the
+    loaded artifact answers bitwise as the live network."""
     from ufm_torch.runtime import export_model, load_exported
 
     model = _bf16_tiny_model()
@@ -261,9 +262,10 @@ def test_exported_bf16_model_has_one_gelu_node_per_mlp(tmp_path):
     targets = [n.target for n in art.program.graph.nodes if n.op == "call_function"]
     cfg = model.config
     layers = cfg.encoder_kwargs["depth"] + cfg.info_sharing_kwargs["depth"]
-    assert targets.count(library.gelu_bf16) == layers
+    assert targets.count(library.linear_gelu_bf16) == layers
+    assert targets.count(library.gelu_bf16) == 0
     assert targets.count(library.flash_attention_fwd) == layers
-    assert str(library.gelu_bf16) in manifest["ops"]
+    assert str(library.linear_gelu_bf16) in manifest["ops"] and str(library.gelu_bf16) not in manifest["ops"]
     x, y = _normalized_pair(model, seed=5)
     got = art(x, y)
     with torch.no_grad():

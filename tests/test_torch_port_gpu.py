@@ -16,6 +16,7 @@ import torch
 from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_tiny_config
 from ufm_torch.ops import flash_attention as fa
 from ufm_torch.ops import gelu as ge
+from ufm_torch.ops import linear_gelu as lg
 from ufm_torch.ops import window_refinement as wr
 from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
 from ufm_torch.training.trainer import group_of
@@ -224,14 +225,16 @@ def _pairs():
 
 def test_small_model_kernel_path(cuda):
     """A small bf16 UFM-Base (head_dim 64) on the card: every attention call
-    of a forward goes through the kernel, and the outputs stay close to the
+    of a forward goes through the kernel, every MLP through the fused fc1 +
+    GELU kernel (no standalone GELU), and the outputs stay close to the
     plain-attention path (bf16 rounding over 4 layers)."""
     model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
     src, tgt = _pairs()
-    before, gelu_before = fa.LAUNCHES, ge.LAUNCHES
+    before, gelu_before, fused_before = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
     res = model.predict_correspondences_batched(src, tgt)
     torch.cuda.synchronize()
-    assert (fa.LAUNCHES - before, ge.LAUNCHES - gelu_before) == (4, 4)  # one GELU per block's MLP
+    # one fused fc1 + GELU per block's MLP
+    assert (fa.LAUNCHES - before, ge.LAUNCHES - gelu_before, lg.LAUNCHES - fused_before) == (4, 0, 4)
     model.attention_impl = "torch"
     plain = model.predict_correspondences_batched(src, tgt)
     assert fa.LAUNCHES - before == 4
@@ -549,17 +552,19 @@ def test_captured_program_matches_eager(cuda, refine):
 
 def test_captured_launch_counts(cuda):
     """The counters count device launches: 4 attention launches, 1 window
-    launch and 4 GELU launches per call, on the first call (the eager
-    warm-up; the capture runs nothing) and on every replay."""
+    launch and 4 fused fc1 + GELU launches per call (no standalone GELU), on
+    the first call (the eager warm-up; the capture runs nothing) and on every
+    replay."""
     model = UniFlowMatchClassificationRefinement.from_config(_small_refine_config(), seed=0)
     src, tgt = _pairs()
     for _ in range(3):
-        before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES)
+        before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
         model.predict_correspondences_batched(src, tgt)
         torch.cuda.synchronize()
-        assert (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2]) == (4, 1, 4)
+        got = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3])
+        assert got == (4, 1, 0, 4)
     (program,) = model._programs.values()
-    assert program.launches == (4, 0, 1, 4)  # attention forward, backward, window, GELU
+    assert program.launches == (4, 0, 1, 0, 4)  # attention forward, backward, window, GELU, fused fc1 + GELU
 
 
 def test_captured_output_survives_the_next_call(cuda):
@@ -762,15 +767,17 @@ def test_remat_step_attention_launches(cuda, policy, forwards):
     """Under train_remat, the backward runs the attention forward kernel
     again (8 launches a step of the small model) unless the policy keeps its
     outputs (the "+attn_out" composite: 4); 4 backward calls either way. No
-    policy here keeps the GELU op's output: 8 GELU launches a step."""
+    policy here keeps the GELU op's output: 8 GELU launches a step, and
+    training never takes the fused fc1 + GELU op."""
     cfg = _small_config(train_remat=True, train_remat_policy=policy)
     model = UniFlowMatchConfidence.from_config(cfg, seed=0)
     step = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))
     batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
-    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
     metrics = step(batch)
     torch.cuda.synchronize()
-    assert (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2]) == (forwards, 4, 8)
+    got = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3])
+    assert got == (forwards, 4, 8, 0)
     assert all(torch.isfinite(v) for v in metrics.values())
 
 
@@ -859,3 +866,101 @@ def test_gelu_op_gradient_on_the_card(cuda):
     dy = torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
     (got,) = torch.autograd.grad(ge.gelu_bf16(x), x, dy)
     assert torch.equal(got, torch.ops.aten.gelu_backward(dy, x.detach(), approximate="none"))
+
+
+# ---- the fused fc1 + GELU kernel ----------------------------------------------
+
+
+def _linear_gelu_inputs(device, m, k, n, seed=0, lead=()):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(*lead, m, k, generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=g, device=device) * k**-0.5).to(torch.bfloat16)
+    b = torch.randn(n, generator=g, device=device).to(torch.bfloat16)
+    return x, w, b
+
+
+@pytest.mark.parametrize("schedule", list(lg.SCHEDULES))
+@pytest.mark.parametrize("m,k,n", [(1, 64, 256), (7, 48, 200), (129, 1024, 4096), (2402, 1024, 4096),
+                                   (2400, 768, 3072), (300, 8, 8)])
+def test_linear_gelu_kernel_against_plain(cuda, schedule, m, k, n):
+    """The fused kernel at the MLP shapes and at M, K and N tails: y is the
+    bf16 GELU of its own h bit for bit (read back through preact_out); h is
+    within one bf16 ulp of the exact product + bias (float64) on all but
+    0.1% of the elements, within 2 ulps wherever fp32 summation cannot move
+    the sum by half an ulp, and within an ulp plus fp32 summation's error
+    bound (K 2^-24 sum |x w| + |b| 2^-24) everywhere (a sum that cancels to
+    near zero has few correct bits in any fp32 order); y is within 4e-3
+    relative L2 of the plain version (F.linear, then the GELU's plain chain)."""
+    x, w, b = _linear_gelu_inputs(cuda, m, k, n, seed=m + k + n)
+    pre = torch.empty(m, n, dtype=torch.bfloat16, device=cuda)
+    before = lg.LAUNCHES
+    y = lg.launch(x, w, b, preact_out=pre, schedule=schedule)
+    torch.cuda.synchronize()
+    assert lg.LAUNCHES - before == 1
+    assert torch.equal(_bits(y), _bits(ge.fast_exact_gelu_reference(pre)))
+    err, ulp, gamma, ulps = _preact_errors(pre, x, w, b)
+    assert bool((err <= ulp + gamma).all())
+    assert (ulps <= 1).double().mean().item() >= 0.999
+    assert int(ulps[gamma <= 0.5 * ulp].max()) <= 2
+    plain = lg.linear_gelu_reference(x, w, b).float()
+    assert ((y.float() - plain).norm() / plain.norm().clamp_min(1e-30)).item() <= 4e-3
+
+
+def _ordered(t):
+    """bf16 values as integers in the order of the values (one apart for one ulp)."""
+    u = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(u < 0x8000, u + 0x8000, 0xFFFF - u)
+
+
+def _preact_errors(pre, x, w, b):
+    """|h - exact| (float64), one bf16 ulp of the exact value, fp32
+    summation's error bound, and h's distance in bf16 ulps from the exact
+    value rounded to bf16."""
+    xd, wd, bd = x.double(), w.double(), b.double()
+    ref = xd @ wd.t() + bd
+    gamma = x.shape[-1] * 2.0**-24 * (xd.abs() @ wd.abs().t() + bd.abs())
+    ulp = torch.ldexp(torch.ones_like(ref), (torch.frexp(ref).exponent - 8).clamp_min(-133))
+    return (pre.double() - ref).abs(), ulp, gamma, (_ordered(pre) - _ordered(ref.to(torch.bfloat16))).abs()
+
+
+def test_linear_gelu_kernel_layouts_and_refusals(cuda):
+    """A 3-D and a non-contiguous x, an empty x (no launch); fp32, a K that
+    does not match, K or N off a multiple of 8, a misaligned operand and a
+    CPU tensor are refused without a launch."""
+    x, w, b = _linear_gelu_inputs(cuda, 130, 64, 96, seed=1, lead=(2,))
+    plain = lg.linear_gelu_reference(x, w, b)
+    got = lg.linear_gelu_bf16(x, w, b)
+    strided = x.transpose(0, 1).contiguous().transpose(0, 1)  # the same values, not contiguous
+    assert torch.equal(_bits(got), _bits(lg.linear_gelu_bf16(strided, w, b)))
+    assert got.shape == (2, 130, 96)
+    assert ((got.float() - plain.float()).norm() / plain.float().norm()).item() <= 4e-3
+    before = lg.LAUNCHES
+    assert lg.linear_gelu_bf16(x[:, :0], w, b).shape == (2, 0, 96) and lg.LAUNCHES == before
+    flat = torch.zeros(65 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    refusals = [
+        ((x.float(), w, b), "bfloat16"),
+        ((x[..., :56], w, b), "x \\(\\.\\.\\., K\\)"),
+        ((x[..., :60], w[:, :60], b), "multiples of 8"),
+        ((flat[1:1 + 65 * 64].view(65, 64), w, b), "aligned"),
+        ((x.cpu(), w, b), "CUDA"),
+    ]
+    for args, match in refusals:
+        with pytest.raises(ValueError, match=match):
+            lg.launch(*args)
+    assert lg.LAUNCHES == before
+
+
+def test_linear_gelu_kernel_in_a_captured_graph(cuda):
+    """The launch captures in the strictest mode, and each replay computes
+    the new input's output."""
+    x, w, b = _linear_gelu_inputs(cuda, 2400, 768, 3072, seed=3)
+    lg.linear_gelu_bf16(x, w, b)  # warm-up: builds and loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        out = lg.linear_gelu_bf16(x, w, b)
+    for seed in (4, 5):
+        x.copy_(_linear_gelu_inputs(cuda, 2400, 768, 3072, seed=seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(lg.launch(x, w, b)))

@@ -16,11 +16,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from ufm_torch.ops.attention import dot_product_attention
 from ufm_torch.ops.gelu import gelu_bf16
-from ufm_torch.ops.library import flash_attention_fwd
+from ufm_torch.ops.library import flash_attention_fwd, linear_gelu_bf16
 
 __all__ = [
     "Mlp",
@@ -66,7 +67,15 @@ _ACTIVATIONS = {
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 -> act -> fc2."""
+    """Transformer MLP: fc1 -> act -> fc2.
+
+    With the exact GELU on a bf16 ``fc1`` and no gradient recorded, fc1 and
+    the GELU are one op, ``ufm_torch::linear_gelu_bf16`` (on the card one
+    kernel with the GELU in the product's epilogue; on the CPU the same bits
+    as the two ops). Under grad mode with a tensor that requires grad, and
+    for a tensor-parallel (DTensor) ``fc1``, they stay two ops: the fused op
+    has no gradient and no sharding rule.
+    """
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None, act: str = "gelu_exact"):
         super().__init__()
@@ -74,7 +83,17 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, out_dim or dim)
         self.act = _ACTIVATIONS[act]
 
+    def _fused(self, x: torch.Tensor) -> bool:
+        w, b = self.fc1.weight, self.fc1.bias
+        if self.act is not gelu_exact or w.dtype != torch.bfloat16 or x.dtype != torch.bfloat16 or b is None:
+            return False
+        if isinstance(w, DTensor) or isinstance(x, DTensor):
+            return False
+        return not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fused(x):
+            return self.fc2(linear_gelu_bf16(x, self.fc1.weight, self.fc1.bias))
         return self.fc2(self.act(self.fc1(x)))
 
 

@@ -2,7 +2,8 @@
 
 Each kernel wrapper adds one to its module's counter where it launches its
 kernel (``flash_attention.LAUNCHES``, ``flash_attention.BWD_LAUNCHES``,
-``window_refinement.LAUNCHES``, ``gelu.LAUNCHES``). A CUDA graph runs its kernels without the
+``window_refinement.LAUNCHES``, ``gelu.LAUNCHES``,
+``linear_gelu.LAUNCHES``). A CUDA graph runs its kernels without the
 wrappers, so a captured predict program takes back what the wrappers counted
 during its capture (no kernel runs then) and adds that many on every replay:
 the counters go on counting device launches.
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from ufm_torch.ops import flash_attention, gelu, window_refinement
+from ufm_torch.ops import flash_attention, gelu, linear_gelu, window_refinement
 
 __all__ = ["snapshot", "since", "add"]
 
@@ -21,6 +22,7 @@ _COUNTERS = (
     (flash_attention, "BWD_LAUNCHES"),
     (window_refinement, "LAUNCHES"),
     (gelu, "LAUNCHES"),
+    (linear_gelu, "LAUNCHES"),
 )
 
 

@@ -1,6 +1,6 @@
 """The port's Hopper kernels as dispatcher ops (``torch.library``).
 
-Four ops in the ``ufm_torch`` namespace:
+Five ops in the ``ufm_torch`` namespace:
 
 - ``flash_attention_fwd(q, k, v, scale, with_lse) -> (out, lse)``: softmax
   attention over (B, S, H, D); ``lse`` (B, H, Sq) fp32 is each row's
@@ -10,13 +10,17 @@ Four ops in the ``ufm_torch`` namespace:
   (residual, log_softmax)``; ``staged_count`` (optional, mutated) receives
   the number of tiles whose taps the kernel staged;
 - ``gelu_bf16(x) -> y``: the JAX package's exact GELU of a bf16 tensor, bit
-  for bit (``ufm_torch/ops/gelu.py``).
+  for bit (``ufm_torch/ops/gelu.py``);
+- ``linear_gelu_bf16(x, w, b) -> y``: ``gelu_bf16(F.linear(x, w, b))`` on
+  bf16, the MLP's ``fc1`` with the GELU as its epilogue
+  (``ufm_torch/ops/linear_gelu.py``).
 
 The tensors' device picks the implementation inside the op: CUDA runs the
 hand-written kernel (``flash_attention.launch_forward`` / ``launch_backward``,
-``window_refinement.launch``, ``gelu.launch``: every pointer, stride and
-alignment check and the launch counters live there, and they raise on what
-the kernels do not take), CPU runs the plain version. A fake implementation
+``window_refinement.launch``, ``gelu.launch``, ``linear_gelu.launch``:
+every pointer, stride and alignment check and the launch counters live
+there, and they raise on what the kernels do not take), CPU runs the plain
+version. A fake implementation
 gives each output's shape and dtype from the inputs' (with the shape checks,
 and on a CUDA tensor the kernels' dtype and head-dim checks), so
 ``torch.export`` and ``torch.compile`` trace the model with the ops as graph
@@ -31,7 +35,9 @@ around an ``autograd.Function``, which is what
 ``torch.library.register_autograd`` registers, written out:
 ``register_autograd`` refuses an op with a mutated argument (the window op's
 ``staged_count``), and its generic kernel does more host work a call. The
-backward op has no gradient of its own.
+backward op has no gradient of its own, and the fused ``linear_gelu_bf16``
+none: its ``Autograd`` kernel refuses inputs that require grad under grad
+mode (the MLP takes the two ops there).
 
 Registration runs when the module is imported (``ufm_torch.ops`` imports
 it); it builds nothing: a kernel is compiled at its first CUDA launch.
@@ -43,10 +49,12 @@ import torch
 
 from ufm_torch.ops import flash_attention as _fa
 from ufm_torch.ops import gelu as _gelu
+from ufm_torch.ops import linear_gelu as _lg
 from ufm_torch.ops import window_refinement as _wr
 
 __all__ = [
-    "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "gelu_bf16", "OPS", "attention",
+    "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "gelu_bf16", "linear_gelu_bf16",
+    "OPS", "attention",
 ]
 
 NAMESPACE = "ufm_torch"
@@ -62,12 +70,14 @@ _LIB.define(
     " Tensor(a!)? staged_count=None) -> (Tensor, Tensor)"
 )
 _LIB.define("gelu_bf16(Tensor x) -> Tensor")
+_LIB.define("linear_gelu_bf16(Tensor x, Tensor w, Tensor b) -> Tensor")
 
 flash_attention_fwd = torch.ops.ufm_torch.flash_attention_fwd.default
 flash_attention_bwd = torch.ops.ufm_torch.flash_attention_bwd.default
 window_refinement = torch.ops.ufm_torch.window_refinement.default
 gelu_bf16 = torch.ops.ufm_torch.gelu_bf16.default
-OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, gelu_bf16)
+linear_gelu_bf16 = torch.ops.ufm_torch.linear_gelu_bf16.default
+OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, gelu_bf16, linear_gelu_bf16)
 
 _LIB.impl("flash_attention_fwd", _fa.launch_forward, "CUDA")
 _LIB.impl("flash_attention_fwd", _fa.plain_forward, "CPU")
@@ -77,6 +87,8 @@ _LIB.impl("window_refinement", _wr.launch, "CUDA")
 _LIB.impl("window_refinement", _wr.plain, "CPU")
 _LIB.impl("gelu_bf16", _gelu.launch, "CUDA")
 _LIB.impl("gelu_bf16", _gelu.fast_exact_gelu_reference, "CPU")
+_LIB.impl("linear_gelu_bf16", _lg.launch, "CUDA")
+_LIB.impl("linear_gelu_bf16", _lg.linear_gelu_reference, "CPU")
 
 
 # ---- fake implementations: shapes and dtypes --------------------------------
@@ -126,6 +138,12 @@ def _gelu_fake(x):
     if x.dtype != torch.bfloat16:
         raise ValueError(f"gelu_bf16 takes bfloat16, got {x.dtype}")
     return x.new_empty(x.shape)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::linear_gelu_bf16", lib=_LIB)
+def _linear_gelu_fake(x, w, b):
+    _lg._check(x, w, b)
+    return x.new_empty((*x.shape[:-1], w.shape[0]))
 
 
 # ---- autograd --------------------------------------------------------------
@@ -216,6 +234,19 @@ def _gelu_autograd(x):
 _LIB.impl("flash_attention_fwd", _fwd_autograd, "Autograd")
 _LIB.impl("window_refinement", _window_autograd, "Autograd")
 _LIB.impl("gelu_bf16", _gelu_autograd, "Autograd")
+
+
+def _linear_gelu_autograd(x, w, b):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        raise RuntimeError(
+            "ufm_torch::linear_gelu_bf16 has no gradient: under grad mode take fc1 and "
+            "ufm_torch::gelu_bf16 (nn.layers.Mlp does)"
+        )
+    with torch._C._AutoDispatchBelowAutograd():
+        return linear_gelu_bf16(x, w, b)
+
+
+_LIB.impl("linear_gelu_bf16", _linear_gelu_autograd, "Autograd")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
