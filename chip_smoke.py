@@ -45,6 +45,18 @@ attention launches (72 where the backward runs the attention forward again,
 (``remat``); and UFM-Base with the ``moge_conv`` head, held to its
 plain-attention forward (``moge``).
 
+The rest of the attention forward's domain (fp32 at any head dim, bf16 at
+D != 64) runs the fp32-FMA kernel (``csrc/flash_attention_fwd_any.cu``),
+held to its plain version at eight cases (``kernel``, ``flash_attention_fwd_any``);
+the repository's two tiny fp32 anchors run on it against their CPU goldens,
+built from ``tests/golden/torch_port_fp32_anchor.npz`` (``fp32_anchor``);
+UFM-Base at full width in fp32 answers a 480x640 request eagerly and
+captured, 36 launches of it a forward, none of the wgmma kernel, its flow
+held to plain attention (``fp32_path``); and ``ufm infer`` runs in this
+process on the bundled parallax pair with the trained tiny checkpoint, its
+pair, checkpoint and panels read and written by the port's own codecs, its
+flow held to the port's CPU run (``entry``).
+
 Around them: the kernel path of two tiny models at head dim 64 held to the
 JAX package's bf16 goldens (``tests/golden/torch_port_bf16_d64_*.npz``, no JAX
 needed: ``bf16_golden``); the flagship UFM-Base saved with
@@ -98,6 +110,7 @@ Needs a CUDA device and the ``ufm_torch`` package beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -191,7 +204,50 @@ LINEAR_GELU_ULP_SHARE = 1e-3
 ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
 # the kernels the profiler counts, by the name of their __global__ function
 KERNEL_NAMES = ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "gelu_bf16_fwd_kernel",
-                "linear_gelu_bf16_fwd_kernel")
+                "linear_gelu_bf16_fwd_kernel", "flash_attention_fwd_any_kernel")
+
+# the fp32-FMA attention forward (csrc/flash_attention_fwd_any.cu), the rest
+# of the TPU kernel's domain: (case, dtype, (B, S, H, D), calls a batch-1
+# forward of UFM-Base in fp32). The fp32 flagship's two shapes, the fp32
+# anchors' (head dims 32 and 24), fp32 at D = 128 and 256 (the kernel's wider
+# instances), and bf16 at D = 32 and 128 (the ViT-L width in 32 or 8 heads);
+# S = 1201 leaves a ragged last 64-key tile (49 keys)
+ANY_ATTN_CASES = (
+    ("fp32_encoder", "float32", (2, 1201, 16, 64), 24),
+    ("fp32_info_sharing", "float32", (1, 2400, 12, 64), 12),
+    ("fp32_anchor_encoder", "float32", (4, 13, 2, 32), 0),
+    ("fp32_anchor_info_sharing", "float32", (2, 24, 2, 24), 0),
+    ("fp32_d128", "float32", (2, 1201, 8, 128), 0),
+    ("fp32_d256", "float32", (1, 1201, 4, 256), 0),
+    ("bf16_d32", "bfloat16", (2, 1201, 32, 32), 0),
+    ("bf16_d128", "bfloat16", (2, 1201, 8, 128), 0),
+)
+ANY_PER_FORWARD = sum(n for *_, n in ANY_ATTN_CASES)  # 36
+# fp32: within max(2x the plain fp32 version's error against fp64, this).
+# bf16 (the kernel computes in fp32, then rounds once): besides the plain
+# bf16 bar, every element within one bf16 ulp of the fp64 reference rounded
+# to bf16, plus this for the fp32 sums' own error near zero
+ANY_FP32_ERR_FLOOR = 1e-5
+# the repository's two tiny fp32 anchors, from tests/golden/torch_port_fp32_anchor.npz
+# (written by tests/test_torch_port_fp32.py), against their CPU goldens at the
+# port's CPU bar, cuDNN TF32 off; the inputs are seeded_inputs()'s numpy draws
+FP32_ANCHORS = ("ufm_base_tiny", "ufm_refine_tiny_pallas")
+FP32_ANCHOR_ATOL = 1e-4
+FP32_ANCHOR_SEED, FP32_ANCHOR_SHAPE = 20260817, (2, 42, 56, 3)
+# UFM-Base at full width in fp32, 480x640 batch 1: flow against the same model
+# on plain attention
+FP32_FLOW_BAR_PX = 1e-3
+# the same with cuDNN's and the matmuls' TF32 on (the port's default): the
+# heads' TF32 rounding turns the attentions' last-bit differences into ~1e-3
+# relative ones (5.8e-3 px measured on an H100); held with room
+FP32_FLOW_BAR_TF32_ON_PX = 2e-2
+# `ufm infer` on the bundled parallax pair with the trained tiny checkpoint,
+# against the port's CPU run of the same checkpoint
+TINY_REAL = os.path.join(HERE, "examples", "checkpoints", "tiny_real224")
+ENTRY_FLOW_BAR_PX = 1e-3
+# the same with TF32 on, the default `ufm infer` runs with (0.045 px measured
+# on an H100: the CPU run has no TF32); held with room
+ENTRY_FLOW_BAR_TF32_ON_PX = 0.1
 
 # training: batch 2 at the model resolution (the JAX package's train
 # benchmark shape, bench_train.py), one warm-up and 3 timed steps of
@@ -405,7 +461,7 @@ def ptxas_report(log: str) -> dict:
     out = {}
     for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes spill stores, "
                          r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S):
-        short = re.search(r"[a-z][a-z_]*_kernel(?:I(?:L[ib]\d+E)+E)?", m.group(1))
+        short = re.search(r"[a-z][a-z_]*_kernel(?:I(?:L[ib]\d+E|f|13__nv_bfloat16)+E)?", m.group(1))
         out[short.group(0) if short else m.group(1)] = {
             "registers": int(m.group(5)), "stack_frame": int(m.group(2)), "spill_stores": int(m.group(3)),
             "spill_loads": int(m.group(4))}
@@ -488,6 +544,86 @@ def phase_kernel():
             share_of_bound=bound_ms / ms, tflops=4 * b * h * s * s * d / ms / 1e9,
         )
         emit("kernel", kernel="flash_attention_fwd", case=name, **rows[name])
+    return rows
+
+
+def any_attention_bound_ms(b, s, h, d, dtype):
+    """The bound of a forward on ``dtype`` inputs: its 4 B H S^2 D
+    operations at the card's peak for that type (fp32 without tensor cores,
+    bf16 on them: the card's rate for the inputs, whatever unit the kernel
+    uses) against q, k, v read once and the output written once."""
+    flops = 4 * b * h * s * s * d
+    nbytes = 4 * b * s * h * d * dtype.itemsize
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers (8 significant bits) at each of ``x``'s
+    bf16 values (0 at 0)."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x), torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def phase_any_kernel():
+    """The fp32-FMA attention forward against its plain version (matmul TF32
+    off) at each of ANY_ATTN_CASES, against an fp64 reference: fp32 within
+    max(2x the plain fp32 error, 1e-5); bf16 within max(2x the plain bf16
+    error, 4e-3) and every element within one bf16 ulp of the reference
+    rounded to bf16 (+1e-5); the row log-sum-exp against fp64; one launch of
+    it and none of the wgmma kernel per call; timed beside its plain version
+    and SDPA on the same tensors."""
+    import torch.nn.functional as F
+
+    from ufm_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, dtype, (b, s, h, d), calls in ANY_ATTN_CASES:
+        dt = getattr(torch, dtype)
+        qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(dt)  # the models' fused qkv views
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        scale = d**-0.5
+        before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
+        out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+        torch.cuda.synchronize()
+        launched = (fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1])
+        wide = torch.float64
+        ref, ref_lse = fa.attention_reference(q.to(wide), k.to(wide), v.to(wide), scale, with_lse=True)
+        plain = fa.attention_reference(q, k, v, scale)
+        err = (out.to(wide) - ref).abs().max().item()
+        plain_err = (plain.to(wide) - ref).abs().max().item()
+        lse_err = (lse.to(wide) - ref_lse).abs().max().item()
+        tol = max(2 * plain_err, ANY_FP32_ERR_FLOOR if dt == torch.float32 else KERNEL_ERR_FLOOR)
+        ulp_excess = None
+        if dt == torch.bfloat16:
+            ref_bf = ref.to(dt).to(wide)
+            ulp_excess = ((out.to(wide) - ref_bf).abs() - bf16_ulp(ref_bf)).max().item()
+            check(ulp_excess <= ANY_FP32_ERR_FLOOR,
+                  f"{name}: an element is {ulp_excess:.3e} past one bf16 ulp of the fp64 reference")
+            del ref_bf
+        del ref, ref_lse, plain
+        check(launched == (0, 1), f"{name}: {launched} wgmma / fp32-FMA launches for one call, expected (0, 1)")
+        check(out.dtype == dt and bool(torch.isfinite(out).all()), f"{name}: kernel output {out.dtype}, not finite")
+        check(err <= tol, f"{name}: fp32-FMA kernel error {err:.3e} > {tol:.3e}")
+        check(lse_err <= LSE_ATOL, f"{name}: row log-sum-exp error {lse_err:.3e} > {LSE_ATOL}")
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
+        plain_ms = time_ms(lambda: fa.attention_reference(q, k, v, scale), reps=3, batches=5)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+        bound_ms, bound_by = any_attention_bound_ms(b, s, h, d, dt)
+        rows[name] = dict(
+            dtype=dtype, shape=[b, s, h, d], calls_per_fp32_forward=calls, max_abs_err=err,
+            plain_max_abs_err=plain_err, tol=tol, bf16_ulp_excess_max=ulp_excess, lse_max_abs_err=lse_err,
+            ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+            tflops=4 * b * h * s * s * d / ms / 1e9,
+        )
+        emit("kernel", kernel="flash_attention_fwd_any", case=name, **rows[name])
+        del qkv, q, k, v, out, lse
     return rows
 
 
@@ -848,7 +984,7 @@ def phase_main_path():
         ("480x640_b2", rng.integers(0, 256, (2, 2, 480, 640, 3), dtype=np.uint8)),
     )
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the main path's counts start here
+    fa.LAUNCHES = fa.ANY_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the main path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -879,8 +1015,10 @@ def phase_main_path():
              pairs_per_s=b / latencies[name], flow_abs_mean=flow.abs().mean().item(),
              covis_mean=covis.mean().item())
     launches = fa.LAUNCHES
+    check(fa.ANY_LAUNCHES == 0, f"the bf16 d = 64 path launched the fp32-FMA attention kernel {fa.ANY_LAUNCHES} times")
     mlp_path("ufm_base", ge.LAUNCHES, lg.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
-    emit("main_path", launches=launches, forwards=4 * len(requests), launches_per_forward=LAUNCHES_PER_FORWARD,
+    emit("main_path", launches=launches, fp32_fma_launches=fa.ANY_LAUNCHES, forwards=4 * len(requests),
+         launches_per_forward=LAUNCHES_PER_FORWARD,
          gelu_launches=ge.LAUNCHES, linear_gelu_launches=lg.LAUNCHES,
          pairs_per_s_b1=1.0 / latencies["480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
     return model, requests[0][1], results["480x640_b1"], launches
@@ -1108,7 +1246,7 @@ def phase_tiled(model):
 
 def phase_eval(model):
     """Flow metrics against the analytic flow, and forward-backward cycle
-    metrics, of three synthetic pairs held in memory (the card has no cv2).
+    metrics, of three synthetic pairs held in memory (no image files).
     With random weights this checks the pipeline, not accuracy: the cycle is
     scored over every in-image pixel, not the model's covisibility."""
     from ufm_torch.eval import cycle_consistency_metrics, flow_metrics
@@ -2488,19 +2626,11 @@ def phase_serve_artifact(path, art_model, pair):
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
-    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) uint8, written with zlib alone
-    (no image library): filter 0 on every row, one IDAT chunk."""
-    import struct
-    import zlib
+    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) uint8, written by the port's own
+    codec (``ufm_torch.utils.image_io``: zlib alone, no image library)."""
+    from ufm_torch.utils import image_io
 
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
-
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(rgb, np.uint8).reshape(h, w * 3)], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+    image_io.write_png(path, rgb)
 
 
 def phase_loader(model):
@@ -2556,6 +2686,249 @@ def phase_loader(model):
     return launches
 
 
+class _TF32:
+    """Set cuDNN's and the matmuls' TF32 flags inside a with block, and put
+    back what they were."""
+
+    def __init__(self, allow: bool):
+        self.allow = allow
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = self.allow
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+# the packages `ufm infer` must not need: made unimportable while it runs,
+# whether or not this machine has them
+ENTRY_BLOCKED_IMPORTS = ("cv2", "msgpack", "safetensors", "PIL")
+
+
+@contextlib.contextmanager
+def _blocked_imports(names):
+    """Make ``import name`` raise ImportError inside the with block (a None
+    entry in sys.modules), and put back what sys.modules held."""
+    saved = {n: sys.modules[n] for n in names if n in sys.modules}
+    sys.modules.update(dict.fromkeys(names))
+    try:
+        yield
+    finally:
+        for n in names:
+            if n in saved:
+                sys.modules[n] = saved[n]
+            else:
+                sys.modules.pop(n, None)
+
+
+def _max_diffs(got: dict, want: dict) -> dict:
+    return {k: float(np.abs(got[k].float().cpu().numpy() - want[k]).max()) for k in want}
+
+
+def phase_fp32_anchor():
+    """The repository's two tiny fp32 anchors (UFM-Base, and UFM-Refine on
+    the window kernel; head dims 32 and 24: the fp32-FMA attention forward)
+    built from tests/golden/torch_port_fp32_anchor.npz (no JAX here), their
+    inputs drawn from seeded_inputs()'s numpy generator: every output within
+    FP32_ANCHOR_ATOL of the CPU goldens with TF32 off (held); the gap to the
+    goldens the JAX package made on a TPU, and with TF32 on (reported).
+    Returns the path's launches {kernel: n}."""
+    from ufm_torch.checkpoint import load_jax_params
+    from ufm_torch.models import UFMArchConfig, UFMNet
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import window_refinement as wr
+
+    golden_dir = os.path.join(HERE, "tests", "golden")
+    with np.load(os.path.join(golden_dir, "torch_port_fp32_anchor.npz")) as z:
+        files = {k: z[k] for k in z.files}
+    params = {k[len("params/"):]: v for k, v in files.items() if k.startswith("params/")}
+    rng = np.random.default_rng(FP32_ANCHOR_SEED)
+    i1, i2 = (torch.from_numpy(rng.standard_normal(FP32_ANCHOR_SHAPE).astype(np.float32)).cuda() for _ in range(2))
+    fa.LAUNCHES = fa.ANY_LAUNCHES = wr.LAUNCHES = 0  # this path's counts start here
+    for name in FP32_ANCHORS:
+        cfg = json.loads(str(files[f"config/{name}"]))
+        with torch.device("cuda"):
+            net = UFMNet(UFMArchConfig.from_dict(cfg))
+        refine = net.cfg.has_classification_head
+        load_jax_params(net, {k: v for k, v in params.items() if refine or not k.startswith("classification")})
+        net.refinement_impl = None  # the window kernel (the config's "pallas")
+        outs, launched = {}, {}
+        for tf32 in (False, True):
+            before = (fa.LAUNCHES, fa.ANY_LAUNCHES, wr.LAUNCHES)
+            with _TF32(tf32), torch.inference_mode():
+                outs[tf32] = net(i1, i2)
+            torch.cuda.synchronize()
+            launched[tf32] = (fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1], wr.LAUNCHES - before[2])
+        layers = cfg["encoder_kwargs"]["depth"] + cfg["info_sharing_kwargs"]["depth"]
+        with np.load(os.path.join(golden_dir, f"{name}.npz")) as z:
+            cpu = {k: z[k] for k in z.files}
+        with np.load(os.path.join(golden_dir, f"{name}_tpu.npz")) as z:
+            tpu = {k: z[k] for k in z.files}
+        diffs = _max_diffs(outs[False], cpu)
+        emit("fp32_anchor", model=name, bar=FP32_ANCHOR_ATOL, max_abs_diff_cpu_golden=diffs,
+             max_abs_diff_tpu_golden=_max_diffs(outs[False], tpu),
+             max_abs_diff_cpu_golden_tf32_on=_max_diffs(outs[True], cpu),
+             launches={"flash_attention_fwd": launched[False][0], "flash_attention_fwd_any": launched[False][1],
+                       "window_refinement_fwd": launched[False][2]})
+        for tf32 in (False, True):
+            check(launched[tf32] == (0, layers, int(refine)),
+                  f"fp32 anchor {name}: {launched[tf32]} wgmma / fp32-FMA / window launches, "
+                  f"expected (0, {layers}, {int(refine)})")
+        for k, d in diffs.items():
+            check(d <= FP32_ANCHOR_ATOL, f"fp32 anchor {name}: {k} differs from the CPU golden by {d:.3e}")
+    return {"flash_attention_fwd_any": fa.ANY_LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+
+
+def phase_fp32_path():
+    """UFM-Base at full width with compute_dtype="float32", 480x640 batch 1,
+    through predict_correspondences_batched, eagerly and captured: host clock,
+    device busy and idle share of a profiled window, peak memory; 36
+    fp32-FMA attention launches a forward and none of the wgmma kernel (nor
+    of the bf16 MLP kernels); flow against the same model on plain attention
+    within FP32_FLOW_BAR_PX with TF32 off (with cuDNN's TF32 on, the
+    default, the heads round their inputs to TF32, which turns the two
+    attentions' last-bit differences into ~1e-3 relative ones: held within
+    FP32_FLOW_BAR_TF32_ON_PX).
+    Returns the path's fp32-FMA launches by mode."""
+    from ufm_torch.models import UniFlowMatchConfidence, base, ufm_base_config
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(compute_dtype="float32"), seed=0)
+    src, tgt = np.random.default_rng(0).integers(0, 256, (2, *SERVE_HW, 3), dtype=np.uint8)
+
+    def request():
+        return model.predict_correspondences_batched(source_image=src, target_image=tgt)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, results, launched = {}, {}, {}
+    for mode in ("eager", "captured"):
+        model.capture_graphs = mode == "captured"
+        fa.LAUNCHES = fa.ANY_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        times, calls = [], []
+        with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
+            for _ in range(4):  # one first call (the captured mode's warm-up and capture), three timed
+                before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
+                t = time.perf_counter()
+                res = request()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                calls.append((fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1]))
+            launched[mode] = fa.ANY_LAUNCHES
+            check(all(c == (0, ANY_PER_FORWARD) for c in calls),
+                  f"fp32 {mode}: wgmma / fp32-FMA launches per call {calls}, expected (0, {ANY_PER_FORWARD})")
+            check((ge.LAUNCHES, lg.LAUNCHES) == (0, 0), f"fp32 {mode}: bf16 MLP kernels launched")
+            profiled, counts = _profile_requests(request)
+        want = {"flash_attention_fwd_any_kernel": ANY_PER_FORWARD * PROFILE_REQUESTS}
+        check(counts == want, f"fp32 {mode}: the profiler saw {counts} in {PROFILE_REQUESTS} requests, expected {want}")
+        flow = res.flow.flow_output
+        check(tuple(flow.shape) == (1, 2, *SERVE_HW) and _finite(flow), f"fp32 {mode}: flow {tuple(flow.shape)}")
+        results[mode] = res
+        rows[mode] = dict(first_s=times[0], latency_s=statistics.median(times[1:]), launches_per_call=calls,
+                          profiled=profiled)
+    peak = torch.cuda.max_memory_allocated()
+    model.capture_graphs = False
+    flows = {}
+    for tf32 in (False, True):
+        with _TF32(tf32):
+            for impl in (None, "torch"):
+                model.attention_impl = impl
+                before = fa.ANY_LAUNCHES
+                flows[tf32, impl] = request().flow.flow_output.float()
+                torch.cuda.synchronize()
+                check((fa.ANY_LAUNCHES - before) == (0 if impl else ANY_PER_FORWARD),
+                      f"fp32 TF32 {tf32} attention {impl}: {fa.ANY_LAUNCHES - before} fp32-FMA launches")
+    model.attention_impl = None
+    diff_px = (flows[False, None] - flows[False, "torch"]).abs().max().item()
+    diff_on_px = (flows[True, None] - flows[True, "torch"]).abs().max().item()
+    f_k, f_c = (r.flow.flow_output.float() for r in (results["eager"], results["captured"]))
+    captured_diff_px = (f_c - f_k).abs().max().item()
+    emit("fp32_path", model="ufm_base", compute_dtype=model.config.compute_dtype, input_hw=list(SERVE_HW), batch=1,
+         max_memory_allocated=peak, flow_max_abs_diff_px_vs_plain_tf32_off=diff_px, bar_px=FP32_FLOW_BAR_PX,
+         flow_max_abs_diff_px_vs_plain_tf32_on=diff_on_px, bar_tf32_on_px=FP32_FLOW_BAR_TF32_ON_PX,
+         flow_max_abs_diff_px_captured_vs_eager=captured_diff_px, flow_abs_max_px=f_k.abs().max().item(), **rows)
+    check(diff_px <= FP32_FLOW_BAR_PX, f"fp32 flagship: flow {diff_px:.3e} px from plain attention")
+    check(diff_on_px <= FP32_FLOW_BAR_TF32_ON_PX,
+          f"fp32 flagship, TF32 on: flow {diff_on_px:.3e} px from plain attention")
+    check(captured_diff_px <= FP32_FLOW_BAR_PX, f"fp32 flagship: captured flow {captured_diff_px:.3e} px from eager")
+    del model, results, flows
+    _free_card_memory()
+    return launched
+
+
+def phase_entry():
+    """`ufm infer` as a user calls it (``ufm_torch.cli.main`` in this
+    process) on the bundled parallax pair (written and read by the port's
+    PNG codec) with the trained tiny checkpoint (``params.msgpack``, decoded
+    by the port), with ENTRY_BLOCKED_IMPORTS unimportable while it runs
+    (whether cv2 and msgpack are installed here is reported); the panels it
+    writes decoded by the port's reader; its flow (recorded from the
+    predict call) against the port's CPU run of the same checkpoint on the
+    same pair, with TF32 off (held within ENTRY_FLOW_BAR_PX) and on, the
+    default (held within ENTRY_FLOW_BAR_TF32_ON_PX). Returns the path's
+    fp32-FMA launches."""
+    import importlib.util
+    import io
+
+    from ufm_torch import cli
+    from ufm_torch.models import UniFlowMatchConfidence
+    from ufm_torch.models.base import UniFlowMatchModelsBase
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.utils.example_pairs import ensure_bundled_pairs
+    from ufm_torch.utils.image_io import read_png, read_rgb
+
+    importable = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "msgpack")}
+    pairs = ensure_bundled_pairs(os.path.join(ARTIFACT_DIR, "pairs"))
+    src_path, tgt_path = (os.path.join(pairs, f"parallax_{i}.png") for i in (0, 1))
+    predict = UniFlowMatchModelsBase.predict_correspondences_batched
+    flows = []
+
+    def recording(self, *args, **kwargs):
+        res = predict(self, *args, **kwargs)
+        flows.append(res.flow.flow_output[0].float().cpu())
+        return res
+
+    runs = {}
+    fa.LAUNCHES = fa.ANY_LAUNCHES = 0  # this path's counts start here
+    for tf32 in (False, True):
+        out_dir = os.path.join(ARTIFACT_DIR, f"infer_tf32_{'on' if tf32 else 'off'}")
+        log = io.StringIO()
+        before = fa.ANY_LAUNCHES
+        t = time.perf_counter()
+        try:
+            with _TF32(tf32), contextlib.redirect_stdout(log), _blocked_imports(ENTRY_BLOCKED_IMPORTS), \
+                    unittest.mock.patch.object(UniFlowMatchModelsBase, "predict_correspondences_batched", recording):
+                cli.main(["infer", src_path, tgt_path, "--checkpoint", TINY_REAL, "-o", out_dir])
+        except SystemExit as e:
+            check(False, f"ufm infer exited {e.code}:\n{log.getvalue()}")
+        seconds = time.perf_counter() - t
+        panels = {name: read_png(os.path.join(out_dir, name)) for name in cli.OUTPUT_FILES}
+        runs[tf32] = dict(seconds=seconds, launches=fa.ANY_LAUNCHES - before, flow=flows[-1],
+                          panels={n: [list(p.shape), str(p.dtype)] for n, p in panels.items()},
+                          said=log.getvalue().strip().splitlines())
+        check(all(p.shape == (540, 720, 3) and p.dtype == np.uint8 for p in panels.values()),
+              f"ufm infer panels: {runs[tf32]['panels']}")
+    cpu_model = UniFlowMatchConfidence.from_pretrained(TINY_REAL, device="cpu")
+    cpu_flow = cpu_model.predict_correspondences_batched(source_image=read_rgb(src_path),
+                                                         target_image=read_rgb(tgt_path)).flow.flow_output[0]
+    layers = cpu_model.config.encoder_kwargs["depth"] + cpu_model.config.info_sharing_kwargs["depth"]
+    diffs = {tf32: (runs[tf32]["flow"] - cpu_flow).abs().max().item() for tf32 in runs}
+    emit("entry", command="ufm_torch.cli.main(['infer', parallax_0.png, parallax_1.png, '--checkpoint', "
+         "'examples/checkpoints/tiny_real224', '-o', DIR])", importable=importable,
+         imports_blocked_during_infer=list(ENTRY_BLOCKED_IMPORTS),
+         flow_max_abs_diff_px_vs_cpu_tf32_off=diffs[False], flow_max_abs_diff_px_vs_cpu_tf32_on=diffs[True],
+         bar_px=ENTRY_FLOW_BAR_PX, bar_tf32_on_px=ENTRY_FLOW_BAR_TF32_ON_PX, cpu_flow_abs_max_px=cpu_flow.abs().max().item(),
+         **{f"tf32_{'on' if k else 'off'}": {n: v for n, v in r.items() if n != "flow"} for k, r in runs.items()})
+    for tf32, r in runs.items():
+        check(r["launches"] == layers, f"ufm infer: {r['launches']} fp32-FMA attention launches, expected {layers}")
+    check(diffs[False] <= ENTRY_FLOW_BAR_PX, f"ufm infer: flow {diffs[False]:.3e} px from the CPU run")
+    check(diffs[True] <= ENTRY_FLOW_BAR_TF32_ON_PX, f"ufm infer, TF32 on: flow {diffs[True]:.3e} px from the CPU run")
+    return fa.ANY_LAUNCHES
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
@@ -2570,11 +2943,13 @@ def main() -> int:
 def run_phases(smi: str) -> int:
     phase_build()
     rows = phase_kernel()
+    any_rows = phase_any_kernel()
     bwd_rows = phase_bwd_kernel()
     window_rows, window_host_us = phase_window_kernel()
     gelu_rows, gelu_host_us, gelu_err = phase_gelu()
     lg_rows, lg_host_us, lg_err = phase_linear_gelu()
     golden_launches = phase_bf16_golden()
+    anchor_launches = phase_fp32_anchor()
     model, pair, kernel_res, launches = phase_main_path()
     phase_self_check(model, pair, kernel_res)
     phase_fused_mlp_model(model)
@@ -2605,6 +2980,8 @@ def run_phases(smi: str) -> int:
     refine_artifact = phase_artifact_refine(refine_model)
     del refine_model, refine_res
     torch.cuda.empty_cache()
+    fp32_launches = phase_fp32_path()
+    entry_launches = phase_entry()
     train_model, train_batch, train_launches = phase_train()
     phase_train_self_check(train_model, train_batch)
     del train_model, train_batch
@@ -2787,8 +3164,36 @@ def run_phases(smi: str) -> int:
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in lg_rows.items() if "ms" in r},
         "host_us_per_launch": lg_host_us,
     }
+    # one batch-1 forward of UFM-Base in fp32: each number sums its 36 calls
+    any_fwd = [any_rows[n] for n, _, _, calls in ANY_ATTN_CASES for _ in range(calls)]
+    any_by_path = {"ufm_base_fp32": fp32_launches["eager"], "ufm_base_fp32_captured": fp32_launches["captured"],
+                   "fp32_anchor": anchor_launches["flash_attention_fwd_any"], "ufm_infer_tiny_real224": entry_launches}
+    attention_any = {
+        "name": "flash_attention_fwd_any",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/flash_attention_fwd_any.cu",
+        "replaces": "ufm_tpu/ops/flash_attention.py:558",
+        "replaces_note": "the rest of the TPU kernel's domain: fp32 at any head dim and bf16 at D != 64 "
+                         "(bf16 at D = 64 keeps flash_attention_fwd)",
+        "launches": sum(any_by_path.values()),
+        "launches_by_path": any_by_path,
+        "op": "ufm_torch::flash_attention_fwd",
+        "max_abs_err": max(r["max_abs_err"] for r in any_rows.values()),
+        "ms": sum(r["ms"] for r in any_fwd),
+        "plain_ms": sum(r["plain_ms"] for r in any_fwd),
+        "bound_ms": sum(r["bound_ms"] for r in any_fwd),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in any_fwd) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in any_fwd),
+        "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward of UFM-Base "
+                       "in fp32; the bound is fp32 FMA's 67 TFLOP/s (bf16 cases: the bf16 tensor-core peak)",
+        "library": "scaled_dot_product_attention on the same (B, H, S, D) views",
+        "ms_by_case": {n: r["ms"] for n, r in any_rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in any_rows.items()},
+        "library_ms_by_case": {n: r["library_ms"] for n, r in any_rows.items()},
+        "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in any_rows.items()},
+    }
     print(smi)
-    print(json.dumps({"kernels": [attention, backward, window, gelu, linear_gelu]}))
+    print(json.dumps({"kernels": [attention, backward, window, gelu, linear_gelu, attention_any]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

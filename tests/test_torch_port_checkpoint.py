@@ -145,14 +145,23 @@ def test_msgpack_reader_bf16_scalars_and_chunks(tmp_path, monkeypatch):
 
 
 def test_msgpack_needs_the_package_and_never_falls_through(tmp_path, monkeypatch):
+    """``params.msgpack`` no longer needs the ``msgpack`` package (the port
+    decodes it): with the package blocked it still loads first, ahead of the
+    directory's ``model.safetensors``, bitwise what the package reads."""
     model = UniFlowMatchConfidence.from_config(ufm_tiny_config(), device="cpu")
     d = str(tmp_path / "both")
-    model.save_pretrained(d)  # config.json + model.safetensors
+    model.save_pretrained(d)  # config.json + model.safetensors of other (random) weights
     with open(os.path.join(TINY_REAL, "params.msgpack"), "rb") as f:
-        (tmp_path / "both" / "params.msgpack").write_bytes(f.read())
+        raw = f.read()
+    (tmp_path / "both" / "params.msgpack").write_bytes(raw)
+    want = UniFlowMatchConfidence.from_config(ufm_tiny_config(), device="cpu")
+    want.net.load_state_dict(jax_params_to_state_dict(jax_flatten(flax.serialization.msgpack_restore(raw))))
     monkeypatch.setitem(sys.modules, "msgpack", None)
-    with pytest.raises(ImportError, match="msgpack"):
-        UniFlowMatchConfidence.from_pretrained(d, device="cpu")
+    got = UniFlowMatchConfidence.from_pretrained(d, device="cpu")
+    got_sd, want_sd, other_sd = got.net.state_dict(), want.net.state_dict(), model.net.state_dict()
+    assert set(got_sd) == set(want_sd)
+    assert all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd)
+    assert not all(torch.equal(got_sd[k], other_sd[k]) for k in other_sd)
 
 
 # ---- the trained checkpoint -----------------------------------------------------

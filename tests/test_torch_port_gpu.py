@@ -52,12 +52,16 @@ def test_kernel_matches_fp32_reference(cuda, shape):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 8, 2, 64, device=cuda)
+    """fp16 and D > 256 lie outside the TPU kernel's domain the port takes
+    (fp32 and bf16 at 1 <= D <= 256); both raise before any launch."""
+    before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
+    x = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention(x, x, x)
-    y = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="64"):
+    y = torch.zeros(1, 8, 2, 320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="256"):
         fa.flash_attention(y, y, y)
+    assert (fa.LAUNCHES, fa.ANY_LAUNCHES) == before
 
 
 # the backward's bar: each gradient within twice the plain bf16 backward's
@@ -564,7 +568,8 @@ def test_captured_launch_counts(cuda):
         got = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3])
         assert got == (4, 1, 0, 4)
     (program,) = model._programs.values()
-    assert program.launches == (4, 0, 1, 0, 4)  # attention forward, backward, window, GELU, fused fc1 + GELU
+    # attention forward, backward, window, GELU, fused fc1 + GELU, fp32-FMA attention forward
+    assert program.launches == (4, 0, 1, 0, 4, 0)
 
 
 def test_captured_output_survives_the_next_call(cuda):
@@ -964,3 +969,125 @@ def test_linear_gelu_kernel_in_a_captured_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(_bits(out), _bits(lg.launch(x, w, b)))
+
+
+# ---- the fp32-FMA attention forward (csrc/flash_attention_fwd_any.cu) ------
+# (dtype, (B, Sq, Sk, H, D)): the fp32 flagship's two shapes, the fp32
+# anchors' D = 32 and 24, bf16 at D != 64, head dims across the domain at
+# ragged lengths and Sq != Sk
+ANY_CASES = [
+    ("float32", (2, 1201, 1201, 16, 64)),
+    ("float32", (1, 2400, 2400, 12, 64)),
+    ("float32", (2, 13, 13, 2, 32)),
+    ("float32", (1, 26, 26, 2, 24)),
+    ("float32", (1, 77, 130, 3, 80)),
+    ("float32", (2, 130, 65, 2, 128)),
+    ("float32", (1, 65, 200, 2, 256)),
+    ("float32", (1, 1, 1, 1, 1)),
+    ("bfloat16", (2, 1201, 1201, 16, 32)),
+    ("bfloat16", (1, 300, 300, 4, 128)),
+    ("bfloat16", (1, 77, 130, 3, 24)),
+    ("bfloat16", (1, 129, 63, 2, 256)),
+]
+ANY_FP32_FLOOR = 1e-5
+ANY_BF16_FLOOR = 4e-3
+LSE_ATOL = 1e-4
+
+
+def _any_inputs(device, dtype, shape, seed=0):
+    """q, k, v as strided views of one (B, S, 3, H, D) tensor where Sq == Sk
+    (the models' fused qkv), else three contiguous tensors."""
+    b, sq, sk, h, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if sq == sk:
+        qkv = torch.randn(b, sq, 3, h, d, generator=g, device=device).to(dt)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    return (torch.randn(b, s, h, d, generator=g, device=device).to(dt) for s in (sq, sk, sk))
+
+
+def _any_bar(q, k, v, out, scale):
+    """(error, bar): the kernel's largest error against an fp64 (fp32 inputs)
+    or fp32 (bf16 inputs) reference, and max(2x the plain version's, floor)."""
+    fp32 = q.dtype == torch.float32
+    wide = torch.float64 if fp32 else torch.float32
+    ref = fa.attention_reference(q.to(wide), k.to(wide), v.to(wide), scale)
+    plain = fa.attention_reference(q, k, v, scale)
+    err = (out.to(wide) - ref).abs().max().item()
+    plain_err = (plain.to(wide) - ref).abs().max().item()
+    return err, max(2 * plain_err, ANY_FP32_FLOOR if fp32 else ANY_BF16_FLOOR)
+
+
+@pytest.mark.parametrize("dtype, shape", ANY_CASES, ids=[f"{t}-{'x'.join(map(str, s))}" for t, s in ANY_CASES])
+def test_any_kernel_matches_its_plain_version(cuda, dtype, shape):
+    """The fp32-FMA kernel (matmul TF32 off) against its plain version's
+    error, with the row log-sum-exp; one launch of it, none of the wgmma
+    kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _any_inputs(cuda, dtype, shape)
+    scale = shape[-1] ** -0.5
+    before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
+    out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1]) == (0, 1)
+    assert out.dtype == q.dtype and out.shape == q.shape and out.is_contiguous()
+    err, bar = _any_bar(q, k, v, out, scale)
+    assert torch.isfinite(out).all() and err <= bar, (err, bar)
+    _, want_lse = fa.attention_reference(q.double(), k.double(), v.double(), scale, with_lse=True)
+    assert (lse.double() - want_lse).abs().max().item() <= LSE_ATOL
+
+
+def test_forward_routes_by_dtype_and_head_dim(cuda):
+    """bf16 at D = 64 keeps the wgmma kernel (its bits unchanged by the
+    routing); fp32 at D = 64 and bf16 at D = 32 take the fp32-FMA kernel."""
+    q, k, v = _any_inputs(cuda, "bfloat16", (1, 77, 77, 2, 64))
+    before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
+    first = fa.flash_attention(q, k, v)
+    assert torch.equal(first, fa.flash_attention(q, k, v))
+    assert (fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1]) == (2, 0)
+    fa.flash_attention(q.float(), k.float(), v.float())
+    fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1]) == (2, 2)
+
+
+def test_any_kernel_reads_any_strides(cuda):
+    """A head dim that is not contiguous and an unaligned base are read in
+    place: the output equals the kernel's on contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(1, 40, 24, 3, device=cuda, generator=g).transpose(2, 3)  # (1, 40, 3, 24), D stride 3
+    flat = torch.randn(1 * 40 * 3 * 24 + 1, device=cuda, generator=g)
+    shifted = flat[1:].view(1, 40, 3, 24)
+    got = fa.flash_attention(x, shifted, shifted)
+    want = fa.flash_attention(x.contiguous(), shifted.contiguous(), shifted.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_fp32_backward_raises_naming_dtype_and_head_dim(cuda):
+    """A grad-enabled fp32 call runs the fp32-FMA forward with its lse, then
+    reaches the backward op, which raises naming the dtype and D."""
+    q, k, v = (t.detach().requires_grad_() for t in _any_inputs(cuda, "float32", (1, 33, 33, 2, 32)))
+    out = fa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match=r"float32 with D = 32"):
+        out.sum().backward()
+
+
+def test_fp32_tiny_models_on_the_card(cuda):
+    """The fp32 tiny config (D = 32 encoder, D = 24 info sharing) through the
+    fp32-FMA kernel against plain attention on the card, both with TF32 off:
+    2 + 2 launches a forward, flow within 1e-4."""
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = UniFlowMatchConfidence.from_config(ufm_tiny_config(), seed=0)
+        src, tgt = _pairs()
+        model.capture_graphs = False
+        before = fa.ANY_LAUNCHES
+        res = model.predict_correspondences_batched(src, tgt)
+        torch.cuda.synchronize()
+        layers = model.config.encoder_kwargs["depth"] + model.config.info_sharing_kwargs["depth"]
+        assert fa.ANY_LAUNCHES - before == layers
+        model.attention_impl = "torch"
+        plain = model.predict_correspondences_batched(src, tgt)
+        assert (res.flow.flow_output - plain.flow.flow_output).abs().max().item() <= 1e-4
+    finally:
+        torch.backends.cudnn.allow_tf32 = True

@@ -130,8 +130,9 @@ def test_port_loads_nothing_from_native():
         assert not re.search(r"""["'/]native["'/]""", text), path
 
 
-# not installed on the GPU machine: the port imports each only inside the
-# function that needs it (flax msgpack checkpoints; PNG files)
+# not installed on the GPU machine: the port needs none of them for flax
+# msgpack checkpoints or PNG files (its own codecs), and imports cv2 only for
+# other image formats
 CARD_LACKS = ("msgpack", "safetensors", "cv2", "PIL")
 
 
@@ -156,6 +157,33 @@ def test_port_imports_without_the_packages_the_card_lacks():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "ok"
+
+
+def test_cli_infer_without_the_packages_the_card_lacks(tmp_path):
+    """``python -m ufm_torch.cli infer`` on the bundled parallax pair with the
+    trained checkpoint (``params.msgpack``), in a process where JAX,
+    msgpack, safetensors, cv2 and PIL cannot be imported: the pairs are
+    written and read, the checkpoint decoded and the panels written by the
+    port's own codecs. It exits 0 and writes three 540x720 RGB panels."""
+    pairs, out_dir = tmp_path / "pairs", tmp_path / "out"
+    code = (
+        "import sys\n"
+        f"for name in {sorted(FORBIDDEN) + list(CARD_LACKS)!r}: sys.modules[name] = None\n"
+        "from ufm_torch.utils.example_pairs import ensure_bundled_pairs\n"
+        f"ensure_bundled_pairs({str(pairs)!r})\n"
+        "from ufm_torch.cli import main\n"
+        f"main(['infer', {str(pairs / 'parallax_0.png')!r}, {str(pairs / 'parallax_1.png')!r}, "
+        f"'--checkpoint', {str(ROOT / 'examples' / 'checkpoints' / 'tiny_real224')!r}, '--device', 'cpu', "
+        f"'-o', {str(out_dir)!r}])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    from ufm_torch.cli import OUTPUT_FILES
+    from ufm_torch.utils.image_io import read_png
+
+    for name in OUTPUT_FILES:
+        panel = read_png(str(out_dir / name))
+        assert panel.shape == (540, 720, 3) and panel.dtype.name == "uint8", name
 
 
 def test_from_config_without_device_needs_cuda(monkeypatch):

@@ -7,3 +7,16 @@ points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["__version__"]
+
+_LAZY_MODELS = ("UniFlowMatch", "UniFlowMatchConfidence", "UniFlowMatchClassificationRefinement")
+
+
+def __getattr__(name):
+    # the model classes load on first use, so ``import ufm_torch`` stays light
+    if name in _LAZY_MODELS:
+        from ufm_torch import models
+
+        return getattr(models, name)
+    raise AttributeError(f"module 'ufm_torch' has no attribute {name!r}")

@@ -14,9 +14,8 @@ A saved directory holds:
 ``load_pretrained`` takes the weights in the JAX package's order:
 
 1. ``params.msgpack``, the JAX package's native format (a flax msgpack
-   tree), read with the ``msgpack`` package (imported only here; without it
-   the load raises ``ImportError`` and tries no other file), flax's array
-   extension decoded in the port, through :func:`load_jax_params`;
+   tree), decoded by the port's own msgpack reader (no ``msgpack`` package
+   needed), flax's array extension included, through :func:`load_jax_params`;
 2. ``model.safetensors``, read by the port's own reader (no ``safetensors``
    package needed);
 3. ``pytorch_model.bin`` (``torch.load``).
@@ -30,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -53,6 +53,7 @@ __all__ = [
     "encode_safetensors",
     "decode_safetensors",
     "read_flax_msgpack",
+    "msgpack_decode",
 ]
 
 CONFIG_NAME = "config.json"
@@ -135,14 +136,117 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 # flax.serialization packs an array as msgpack ExtType 1 (a numpy scalar as 3) whose
 # payload is msgpack (shape, dtype name, C-order bytes); arrays above 2^30
 # bytes are split into {"__msgpack_chunked_array__", "shape", "chunks"} dicts.
+# The port decodes the subset of msgpack flax writes itself (no ``msgpack``
+# package): nil, bools, ints, floats, strings, binaries, arrays, maps and ext.
+
+_FLAX_NDARRAY, _FLAX_NPSCALAR = 1, 3
 
 
-def _flax_array(payload: bytes, msgpack) -> np.ndarray:
-    shape, dtype_name, buf = msgpack.unpackb(payload, raw=True)
-    name = dtype_name.decode()
+class _MsgpackDecoder:
+    """One msgpack document in ``buf`` -> Python objects (maps -> dicts,
+    arrays -> lists, str -> str, bin -> bytes); ext values go to ``ext``
+    (code, payload)."""
+
+    _FIXED = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q",
+              0xCA: ">f", 0xCB: ">d"}
+
+    def __init__(self, buf: bytes, ext):
+        self.buf = memoryview(buf)
+        self.pos = 0
+        self.ext = ext
+
+    def _take(self, n: int) -> memoryview:
+        end = self.pos + n
+        if end > len(self.buf):
+            raise ValueError(f"truncated msgpack data: {n} bytes wanted at offset {self.pos} of {len(self.buf)}")
+        out = self.buf[self.pos:end]
+        self.pos = end
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def decode(self) -> Any:
+        value = self._value()
+        if self.pos != len(self.buf):
+            raise ValueError(f"{len(self.buf) - self.pos} bytes of trailing data after the msgpack document")
+        return value
+
+    def _value(self) -> Any:
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self._array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return self._str(b & 0x1F)
+        if b in self._FIXED:
+            return self._unpack(self._FIXED[b])
+        if b == 0xC0:
+            return None
+        if b in (0xC2, 0xC3):
+            return b == 0xC3
+        if b in (0xC4, 0xC5, 0xC6):
+            return bytes(self._take(self._unpack(">" + "BHI"[b - 0xC4])))
+        if b in (0xD9, 0xDA, 0xDB):
+            return self._str(self._unpack(">" + "BHI"[b - 0xD9]))
+        if b in (0xDC, 0xDD):
+            return self._array(self._unpack(">" + "HI"[b - 0xDC]))
+        if b in (0xDE, 0xDF):
+            return self._map(self._unpack(">" + "HI"[b - 0xDE]))
+        if b in (0xC7, 0xC8, 0xC9):
+            n = self._unpack(">" + "BHI"[b - 0xC7])
+            return self._ext(n)
+        if 0xD4 <= b <= 0xD8:
+            return self._ext(1 << (b - 0xD4))
+        raise ValueError(f"byte 0x{b:02x} at offset {self.pos - 1} is not a msgpack type flax writes")
+
+    def _str(self, n: int) -> str:
+        return str(self._take(n), "utf-8")
+
+    def _array(self, n: int) -> list:
+        return [self._value() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self._value()
+            out[key] = self._value()
+        return out
+
+    def _ext(self, n: int) -> Any:
+        code = self._unpack(">b")
+        return self.ext(code, bytes(self._take(n)))
+
+
+def _no_ext(code: int, data: bytes):
+    raise ValueError(f"msgpack ext type {code} inside a flax array payload")
+
+
+def msgpack_decode(buf: bytes, ext=_no_ext) -> Any:
+    """Decode one msgpack document (the subset flax writes); ext values are
+    passed to ``ext(code, payload)``."""
+    return _MsgpackDecoder(buf, ext).decode()
+
+
+def _flax_array(payload: bytes) -> np.ndarray:
+    shape, dtype_name, buf = msgpack_decode(payload)
+    name = dtype_name.decode() if isinstance(dtype_name, bytes) else dtype_name
     if name == "bfloat16":  # numpy has no bfloat16: widen it exactly to fp32
         return torch.frombuffer(bytearray(buf), dtype=torch.bfloat16).float().numpy().reshape(shape)
     return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
+def _flax_ext(code: int, data: bytes):
+    if code == _FLAX_NDARRAY:
+        return _flax_array(data)
+    if code == _FLAX_NPSCALAR:
+        return _flax_array(data)[()]
+    raise ValueError(f"msgpack ext type {code} is not a flax array (1) or numpy scalar (3)")
 
 
 def _unchunk(node: Any) -> Any:
@@ -157,24 +261,10 @@ def _unchunk(node: Any) -> Any:
 
 def read_flax_msgpack(path: str) -> Dict[str, Any]:
     """A flax msgpack file (``flax.serialization.to_bytes``) -> a nested dict
-    of numpy arrays (bf16 arrays widened to fp32)."""
-    try:
-        import msgpack
-    except ImportError as e:
-        raise ImportError(
-            f"reading {path} needs the 'msgpack' package, which is not installed; "
-            "save the checkpoint with ufm_torch's save_pretrained (model.safetensors) to load it without msgpack"
-        ) from e
-
-    def ext_hook(code: int, data: bytes):
-        if code == 1:
-            return _flax_array(data, msgpack)
-        if code == 3:  # a numpy scalar
-            return _flax_array(data, msgpack)[()]
-        return msgpack.ExtType(code, data)
-
+    of numpy arrays (bf16 arrays widened to fp32), decoded by the port
+    (:func:`msgpack_decode`: no ``msgpack`` package needed)."""
     with open(path, "rb") as f:
-        tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+        tree = msgpack_decode(f.read(), _flax_ext)
     return _unchunk(tree)
 
 

@@ -132,16 +132,15 @@ def main(argv=None) -> None:
 
 
 def _read_rgb(path: str):
-    import cv2
+    """The image at ``path`` as RGB uint8 (PNG by the port's codec, other
+    formats by cv2), or None when it cannot be read; why goes to stderr."""
+    from ufm_torch.utils.image_io import read_rgb
 
-    bgr = cv2.imread(path)
-    return None if bgr is None else cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
-
-
-def _write_rgb(path: Path, rgb) -> None:
-    import cv2
-
-    cv2.imwrite(str(path), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+    try:
+        return read_rgb(path)
+    except (OSError, ValueError, ImportError) as e:
+        print(f"{path}: {e}", file=sys.stderr)
+        return None
 
 
 def _load_model(args):
@@ -175,6 +174,7 @@ def _check_weights_given(args) -> None:
 def run_inference(args) -> None:
     _check_weights_given(args)
     try:
+        from ufm_torch.utils.image_io import write_png
         from ufm_torch.utils.viz import correspondence_panels
     except ImportError as e:
         _fail(f"Error importing dependencies: {e}")
@@ -200,7 +200,7 @@ def run_inference(args) -> None:
     out_dir = Path(args.output) if args.output else Path.cwd()
     out_dir.mkdir(exist_ok=True)
     for name, panel in zip(OUTPUT_FILES, correspondence_panels(source_rgb, target_rgb, flow_hwc, covis)):
-        _write_rgb(out_dir / name, panel)
+        write_png(str(out_dir / name), panel)
 
     print(f"Wrote {len(OUTPUT_FILES)} files to {out_dir}:")
     for name in OUTPUT_FILES:
@@ -321,7 +321,7 @@ def test_installation() -> None:
 
     probe("PyTorch", lambda: __import__("torch").__version__)
     probe("NumPy", lambda: __import__("numpy").__version__)
-    probe("OpenCV (CLI image IO)", lambda: __import__("cv2").__version__, required=False)
+    probe("OpenCV (non-PNG image files)", lambda: __import__("cv2").__version__, required=False)
 
     def _import_models():
         from ufm_torch.models import UniFlowMatchConfidence  # noqa: F401

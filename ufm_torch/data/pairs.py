@@ -6,8 +6,9 @@ Directory datasets of (img0, img1, flow) triples (the layouts of
 resolution (images antialiased, flow values nearest-resampled and rescaled
 per axis) with the port's own resize matrices, normalized for the encoder,
 shuffled and stacked into fixed-shape numpy batches that
-:func:`ufm_torch.training.fit` moves to the network's device. Reading PNG
-files imports ``cv2``.
+:func:`ufm_torch.training.fit` moves to the network's device. PNG files
+are read by the port's codec (``ufm_torch.utils.image_io``), other image
+formats by ``cv2``.
 """
 
 from __future__ import annotations
@@ -37,11 +38,10 @@ class FlowPairDataset:
 
     def load(self, index: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Optional[np.ndarray]]:
         """Returns (img0 RGB u8, img1 RGB u8, flow (H, W, 2), valid|None)."""
-        import cv2
+        from ufm_torch.utils.image_io import read_rgb
 
         img0_path, img1_path, gt_path = self.items[index]
-        img0 = cv2.cvtColor(cv2.imread(img0_path), cv2.COLOR_BGR2RGB)
-        img1 = cv2.cvtColor(cv2.imread(img1_path), cv2.COLOR_BGR2RGB)
+        img0, img1 = read_rgb(img0_path), read_rgb(img1_path)
         if gt_path.endswith(".npy"):
             flow, valid = np.load(gt_path), None
         elif gt_path.endswith(".flo"):

@@ -11,7 +11,8 @@ of ``ufm_tpu/eval.py``).
 
 The model runs on its device; each prediction's flow and covisibility leave
 it in one copy (:func:`ufm_torch.models.tiled.flow_and_covisibility`).
-Reading PNG files imports ``cv2``.
+PNG files are read by the port's own codec (``ufm_torch.utils.image_io``);
+other image formats need ``cv2``.
 """
 
 from __future__ import annotations
@@ -175,9 +176,8 @@ def evaluate_pairs(
     photo pairs) are scored by forward-backward cycle consistency over the
     model's own covisibility mask, plus covisibility coverage — the same
     quantitative signal available to any user without labeled flow."""
-    import cv2
-
     from ufm_torch.models.tiled import flow_and_covisibility, predict_correspondences_tiled
+    from ufm_torch.utils.image_io import read_rgb
 
     def _predict(src, tgt):
         if tiled:
@@ -188,8 +188,7 @@ def evaluate_pairs(
 
     rows = []
     for img0_path, img1_path, gt_path in find_pairs(directory, require_gt=require_gt):
-        img0 = cv2.cvtColor(cv2.imread(img0_path), cv2.COLOR_BGR2RGB)
-        img1 = cv2.cvtColor(cv2.imread(img1_path), cv2.COLOR_BGR2RGB)
+        img0, img1 = read_rgb(img0_path), read_rgb(img1_path)
 
         flow, covis = _predict(img0, img1)
         m: Dict[str, float] = {"flow_finite": bool(np.isfinite(flow).all())}

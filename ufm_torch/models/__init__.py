@@ -14,6 +14,7 @@ from ufm_torch.models.config import (
     ufm_tiny_config,
 )
 from ufm_torch.models.network import UFMNet
+from ufm_torch.models.tiled import predict_correspondences_tiled
 from ufm_torch.models.ufm import UniFlowMatch, UniFlowMatchClassificationRefinement, UniFlowMatchConfidence
 
 __all__ = [
@@ -27,6 +28,7 @@ __all__ = [
     "UniFlowMatchClassificationRefinement",
     "UniFlowMatchConfidence",
     "UniFlowMatchModelsBase",
+    "predict_correspondences_tiled",
     "ufm_base_config",
     "ufm_refine_config",
     "ufm_tiny_config",

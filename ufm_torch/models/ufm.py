@@ -435,8 +435,9 @@ def _golden_image_main(argv: Optional[List[str]] = None) -> str:
     EPE. A pair without ground truth (the reference's photo pairs, where
     ``UFM_REFERENCE_PAIRS`` names them) is scored by forward-backward cycle
     consistency instead. With seeded random weights the panel only shows the
-    pipeline end to end. Runs on the GPU unless ``--device cpu``; writing the
-    panel needs ``cv2``.
+    pipeline end to end. Runs on the GPU unless ``--device cpu``; the panel is
+    a PNG written by the port's codec (``cv2`` only resizes a target of
+    another size than the source for display).
     """
     import argparse
     import json
@@ -452,8 +453,6 @@ def _golden_image_main(argv: Optional[List[str]] = None) -> str:
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = parser.parse_args(argv)
 
-    import cv2
-
     from ufm_torch.eval import cycle_consistency_metrics
     from ufm_torch.models.config import ufm_base_config, ufm_refine_config, ufm_tiny_config
     from ufm_torch.models.tiled import flow_and_covisibility
@@ -463,6 +462,7 @@ def _golden_image_main(argv: Optional[List[str]] = None) -> str:
         load_pair,
         reference_pair_dir,
     )
+    from ufm_torch.utils.image_io import write_png
     from ufm_torch.utils.viz import flow_to_color, warp_image_with_flow
 
     cls = UniFlowMatchClassificationRefinement if args.model == "refine" else UniFlowMatchConfidence
@@ -511,11 +511,16 @@ def _golden_image_main(argv: Optional[List[str]] = None) -> str:
     composite = (alpha * warped + (1.0 - alpha) * 255.0).astype(np.uint8)
     covis_rgb = np.repeat((covis * 255).astype(np.uint8)[..., None], 3, axis=-1)
     # the panel is laid out in the source frame; a target of another size is resized for display
-    tgt_disp = tgt if tgt.shape[:2] == src.shape[:2] else cv2.resize(tgt, (src.shape[1], src.shape[0]))
+    if tgt.shape[:2] == src.shape[:2]:
+        tgt_disp = tgt
+    else:
+        import cv2
+
+        tgt_disp = cv2.resize(tgt, (src.shape[1], src.shape[0]))
     top = np.concatenate([src, tgt_disp, flow_to_color(flow)], axis=1)
     bottom = np.concatenate([covis_rgb, composite, err_rgb], axis=1)
     panel = np.concatenate([top, bottom], axis=0)
-    cv2.imwrite(args.output, cv2.cvtColor(panel, cv2.COLOR_RGB2BGR))
+    write_png(args.output, panel)
     stats.update({"pair": args.pair, "panel_wh": [int(panel.shape[1]), int(panel.shape[0])]})
     with open(args.output + ".json", "w") as f:
         json.dump(stats, f, indent=1)

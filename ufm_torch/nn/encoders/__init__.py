@@ -9,7 +9,7 @@ hard on an unknown load-bearing key.
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 from ufm_torch.nn.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT, ImageNormalization
 from ufm_torch.nn.encoders.vit import ViTEncoder, ViTEncoderInput, ViTEncoderOutput
@@ -22,7 +22,11 @@ __all__ = [
     "ViTEncoderOutput",
     "feature_returner_encoder_factory",
     "module_fields",
+    "register_encoder",
 ]
+
+# encoders registered by name (register_encoder); the factory consults them first
+_FACTORIES: Dict[str, Callable[..., Any]] = {}
 
 _PRESETS: Dict[str, Dict[str, Any]] = {
     # DINOv2 family (patch 14). `size` presets follow the standard ViT dims.
@@ -63,6 +67,12 @@ def module_fields(cls) -> set:
     }
 
 
+def register_encoder(name: str, factory: Callable[..., Any]) -> None:
+    """Make ``feature_returner_encoder_factory(name, **kwargs)`` return
+    ``factory(**kwargs)``, ahead of the presets."""
+    _FACTORIES[name] = factory
+
+
 def feature_returner_encoder_factory(encoder_str: str, **kwargs) -> ViTEncoder:
     """Build a feature-returner encoder from a name + config kwargs.
 
@@ -70,8 +80,12 @@ def feature_returner_encoder_factory(encoder_str: str, **kwargs) -> ViTEncoder:
     dims are fully given in kwargs. Unknown *load-bearing* keys hard-fail:
     silently ignoring an architecture option would build a wrong network that
     loads the checkpoint but predicts garbage. Purely bookkeeping keys
-    (:data:`_BENIGN_CONFIG_KEYS`) are ignored.
+    (:data:`_BENIGN_CONFIG_KEYS`) are ignored. A name given to
+    :func:`register_encoder` is built by its factory.
     """
+    if encoder_str in _FACTORIES:
+        return _FACTORIES[encoder_str](**kwargs)
+
     kwargs = dict(kwargs)
     for alias, canonical in _CONFIG_ALIASES.items():
         if alias in kwargs:

@@ -37,6 +37,11 @@ class MLPFeature(nn.Module):
             setattr(self, f"fc{i}", nn.Linear(dims[i], dims[i + 1]))
         self.fc_out = nn.Linear(dims[-1], patch_size * patch_size * output_dim)
 
+    @property
+    def decoded_channels(self) -> int:
+        """Channels of the head's decoded output (``output_dim``)."""
+        return self.output_dim
+
     def forward(self, inp: PredictionHeadInput) -> PredictionHeadOutput:
         x = inp.last_feature.float()  # (B, Hp, Wp, C)
         b, hp, wp, _ = x.shape

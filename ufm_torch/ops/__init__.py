@@ -17,6 +17,7 @@ from ufm_torch.ops.resize import (
     resize_chw,
     resize_hwc,
     resize_matrix,
+    resize_nearest_chw,
     resize_nearest_hwc,
 )
 
@@ -27,5 +28,6 @@ __all__ = [
     "resize_chw",
     "resize_hwc",
     "resize_matrix",
+    "resize_nearest_chw",
     "resize_nearest_hwc",
 ]

@@ -2,10 +2,14 @@
 
 The kernels are reached through the dispatcher ops
 ``ufm_torch::flash_attention_fwd`` and ``ufm_torch::flash_attention_bwd``
-(:mod:`ufm_torch.ops.library`). :func:`launch_forward` launches the
-hand-written CUDA forward (``ufm_torch/csrc/flash_attention_fwd.cu``, the port
-of ``ufm_tpu/ops/flash_attention.py``'s Pallas forward), which also writes
-each row's log-sum-exp when asked; :func:`launch_backward` launches the
+(:mod:`ufm_torch.ops.library`). :func:`launch_forward` launches one of two
+hand-written CUDA forwards (the port of ``ufm_tpu/ops/flash_attention.py``'s
+Pallas forward), chosen by :func:`forward_kernel` from the dtype and head dim
+alone: bf16 at D = 64, the flagship's attention, takes the wgmma kernel
+(``ufm_torch/csrc/flash_attention_fwd.cu``); every other call in the TPU
+kernel's domain (fp32 or bf16, 1 <= D <= 256) takes the fp32-FMA kernel
+(``ufm_torch/csrc/flash_attention_fwd_any.cu``). Both also write each row's
+log-sum-exp when asked; :func:`launch_backward` launches the
 hand-written CUDA backward (``ufm_torch/csrc/flash_attention_bwd.cu``, the
 port of the Pallas ``_flash_attention_bwd_impl``). They are the ops' CUDA
 implementations, and raise on anything the kernels do not take; they never
@@ -16,9 +20,11 @@ implementations and what the kernel checks use. :func:`flash_attention`,
 ops on CUDA tensors and refuse any other.
 
 Inputs are (B, S, H, D) like the JAX package. q, k and v may be strided views
-(the fused qkv projection, reshaped (B, S, 3, H, D)): the kernels read them
-in place through TMA tensor maps, which need D contiguous, a 16-byte aligned
-base and the other strides multiples of 16 bytes (:func:`tma_layout_error`).
+(the fused qkv projection, reshaped (B, S, 3, H, D)): the wgmma kernels read
+them in place through TMA tensor maps, which need D contiguous, a 16-byte
+aligned base and the other strides multiples of 16 bytes
+(:func:`tma_layout_error`); the fp32-FMA kernel reads any strides. The
+backward kernel takes bf16 at D = 64 only.
 """
 
 from __future__ import annotations
@@ -42,21 +48,30 @@ __all__ = [
     "attention_reference",
     "attention_backward_reference",
     "LAUNCHES",
+    "ANY_LAUNCHES",
     "BWD_LAUNCHES",
     "HEAD_DIM",
+    "MAX_HEAD_DIM",
+    "forward_kernel",
     "tma_layout_error",
 ]
 
-HEAD_DIM = 64  # the kernels' only head_dim (the main path's)
+HEAD_DIM = 64  # the wgmma kernels' only head_dim (the flagship's)
+MAX_HEAD_DIM = 256  # the fp32-FMA forward's largest head_dim
+_ANY_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_Y = 65535  # the fp32-FMA forward's grid: (Sq blocks, B * H)
 
-# forward kernel launches since the count was last reset (``LAUNCHES = 0``)
+# wgmma forward kernel launches since the count was last reset (``LAUNCHES = 0``)
 LAUNCHES = 0
+# fp32-FMA forward kernel launches since the count was last reset
+ANY_LAUNCHES = 0
 # backward calls since the count was last reset (``BWD_LAUNCHES = 0``); each
 # call runs two CUDA kernels in order: delta, then one grid of dK/dV and dQ
 # blocks
 BWD_LAUNCHES = 0
 
 _fwd_fn = None
+_fwd_any_fn = None
 _bwd_fn = None
 
 
@@ -105,6 +120,35 @@ def _fwd_kernel():
     return _fwd_fn
 
 
+def _fwd_any_kernel():
+    global _fwd_any_fn
+    if _fwd_any_fn is None:
+        fn = _build.load_library("flash_attention_fwd_any").ufm_flash_attention_fwd_any
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fwd_any_fn = fn
+    return _fwd_any_fn
+
+
+def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel takes a CUDA call of this dtype and head dim:
+    ``"wgmma"`` (bf16 at D = 64, ``csrc/flash_attention_fwd.cu``) or
+    ``"fma"`` (fp32 or bf16 at any other 1 <= D <= 256,
+    ``csrc/flash_attention_fwd_any.cu``). Raises ValueError outside that
+    domain (fp16, D > 256)."""
+    if dtype == torch.bfloat16 and head_dim == HEAD_DIM:
+        return "wgmma"
+    if dtype in _ANY_DTYPES and 1 <= head_dim <= MAX_HEAD_DIM:
+        return "fma"
+    raise ValueError(
+        f"flash_attention on the card takes float32 or bfloat16 with 1 <= D <= {MAX_HEAD_DIM}, "
+        f"got {dtype} with D = {head_dim}"
+    )
+
+
 def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
@@ -124,10 +168,12 @@ def _check_tensor(name: str, t: torch.Tensor) -> None:
             f"flash_attention runs only on CUDA tensors ({name} is on {t.device}); "
             "the plain version is dot_product_attention(..., impl='torch')"
         )
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention takes bfloat16, got {name}.dtype={t.dtype}")
-    if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash_attention takes (B, S, H, {HEAD_DIM}) tensors, got {name}.shape={tuple(t.shape)}")
+    if t.dtype != torch.bfloat16 or t.dim() != 4 or t.shape[-1] != HEAD_DIM:
+        d = t.shape[-1] if t.dim() else None
+        raise ValueError(
+            f"the wgmma attention kernels take bfloat16 (B, S, H, {HEAD_DIM}) tensors, got {name} {t.dtype} "
+            f"{tuple(t.shape)} (D = {d})"
+        )
     why = _layout_error(t)
     if why is not None:
         raise ValueError(f"flash_attention cannot read {name} in place: {why}")
@@ -170,15 +216,35 @@ def _launch_error(what: str, err: int, q: torch.Tensor, k: torch.Tensor) -> Runt
     return RuntimeError(f"{what} failed: {_build.launch_error_cause(err)} at q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_tensor(name, t)
-    if k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one key")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_tensor(name, t)
+    _check_shapes(q, k, v)
+
+
+def _check_any(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The fp32-FMA forward's conditions beyond q's dtype and D (which
+    :func:`forward_kernel` checked): CUDA tensors of q's dtype, rank 4,
+    matching shapes, B * H within its grid."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention runs only on CUDA tensors ({name} is on {t.device})")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention takes (B, S, H, D) tensors, got {name}.shape={tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"q, k and v must share a dtype, got q {q.dtype}, {name} {t.dtype}")
+    _check_shapes(q, k, v)
+    if q.shape[0] * q.shape[2] > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention takes B * H <= {_MAX_GRID_Y}, got q {tuple(q.shape)}")
 
 
 def _empty_lse(q: torch.Tensor) -> torch.Tensor:
@@ -190,11 +256,14 @@ def launch_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward op's CUDA implementation, one kernel launch: (out
-    (B, Sq, H, 64) bf16, lse (B, H, Sq) fp32, or an empty tensor when not
-    ``with_lse``). ``lse`` is each row's natural-log log-sum-exp of the scaled
-    scores, written only when ``with_lse`` (the training forward); inference
-    passes a null pointer and launches the kernel instance without it."""
+    (B, Sq, H, D) in q's dtype, lse (B, H, Sq) fp32, or an empty tensor when
+    not ``with_lse``). ``lse`` is each row's natural-log log-sum-exp of the
+    scaled scores, written only when ``with_lse`` (the training forward);
+    inference passes a null pointer. :func:`forward_kernel` picks the kernel
+    from q's dtype and D before anything is launched."""
     global LAUNCHES
+    if q.dim() == 4 and forward_kernel(q.dtype, q.shape[-1]) == "fma":
+        return _launch_forward_any(q, k, v, scale, with_lse)
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -217,6 +286,34 @@ def launch_forward(
     return out, lse
 
 
+def _launch_forward_any(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`launch_forward` on the fp32-FMA kernel: q, k, v read through
+    their strides, a fresh contiguous output."""
+    global ANY_LAUNCHES
+    _check_any(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else _empty_lse(q)
+    if out.numel() == 0:
+        return out, lse
+    fn = _fwd_any_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
+            int(q.dtype == torch.bfloat16), b, h, sq, sk, d,
+            *q.stride(), *k.stride(), *v.stride(), *out.stride()[:3],
+            float(scale), stream,
+        )
+        ANY_LAUNCHES += 1
+    if err != 0:
+        raise _launch_error("flash_attention (fp32-FMA) kernel launch", err, q, k)
+    return out, lse
+
+
 def launch_backward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -231,8 +328,15 @@ def launch_backward(
     (B, S, H, 64) bf16 tensors, from the forward's inputs, output and ``lse``
     and the output gradient ``g``. ``g`` is read through its strides; one
     whose rows the kernel cannot read in place (a non-contiguous head dim,
-    unaligned rows) is copied to a contiguous tensor first."""
+    unaligned rows) is copied to a contiguous tensor first. The kernel takes
+    bf16 at D = 64 only: any other dtype or D raises, naming both (the fp32
+    and D != 64 backward is not ported yet)."""
     global BWD_LAUNCHES
+    if q.dtype != torch.bfloat16 or q.dim() != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(
+            f"the attention backward kernel takes bfloat16 at D = {HEAD_DIM}, got {q.dtype} with D = "
+            f"{q.shape[-1] if q.dim() else None} (the float32 and D != {HEAD_DIM} backward is not ported yet)"
+        )
     _check(q, k, v)
     if _layout_error(g) is not None:
         g = g.contiguous()
@@ -311,7 +415,7 @@ def needs_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 def flash_attention_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool = False
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One forward op call on the card: (out (B, Sq, H, 64) bf16, lse
+    """One forward op call on the card: (out (B, Sq, H, D) in q's dtype, lse
     (B, H, Sq) fp32 or None); see :func:`launch_forward`."""
     _require_cuda(q, k, v)
     out, lse = torch.ops.ufm_torch.flash_attention_fwd(q, k, v, float(scale), with_lse)
@@ -333,8 +437,9 @@ def flash_attention_backward(
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
-    """Softmax attention on the card: q (B, Sq, H, 64), k/v (B, Sk, H, 64)
-    bf16 -> (B, Sq, H, 64) bf16, a fresh contiguous tensor. With grad enabled
+    """Softmax attention on the card: q (B, Sq, H, D), k/v (B, Sk, H, D)
+    fp32 or bf16, 1 <= D <= 256 -> (B, Sq, H, D) in their dtype, a fresh
+    contiguous tensor, from the kernel :func:`forward_kernel` picks. With grad enabled
     and an input that requires grad, the forward also writes the row
     log-sum-exp and the output's gradient is the backward kernel (the op's
     autograd formula); otherwise it is one plain forward launch."""

@@ -2,6 +2,7 @@
 
 Each kernel wrapper adds one to its module's counter where it launches its
 kernel (``flash_attention.LAUNCHES``, ``flash_attention.BWD_LAUNCHES``,
+``flash_attention.ANY_LAUNCHES``,
 ``window_refinement.LAUNCHES``, ``gelu.LAUNCHES``,
 ``linear_gelu.LAUNCHES``). A CUDA graph runs its kernels without the
 wrappers, so a captured predict program takes back what the wrappers counted
@@ -23,6 +24,7 @@ _COUNTERS = (
     (window_refinement, "LAUNCHES"),
     (gelu, "LAUNCHES"),
     (linear_gelu, "LAUNCHES"),
+    (flash_attention, "ANY_LAUNCHES"),
 )
 
 

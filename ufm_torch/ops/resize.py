@@ -30,6 +30,7 @@ __all__ = [
     "resize_hwc",
     "resize_chw",
     "resize_nearest_hwc",
+    "resize_nearest_chw",
 ]
 
 
@@ -176,4 +177,11 @@ def resize_nearest_hwc(image: torch.Tensor, out_shape: Tuple[int, int]) -> torch
     hi = _nearest_index(image.shape[-3], int(out_shape[0]), image.device)
     wi = _nearest_index(image.shape[-2], int(out_shape[1]), image.device)
     return image.index_select(-3, hi).index_select(-2, wi)
+
+
+def resize_nearest_chw(image: torch.Tensor, out_shape: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-resize (..., C, H, W) with torch's legacy-nearest index rule."""
+    hi = _nearest_index(image.shape[-2], int(out_shape[0]), image.device)
+    wi = _nearest_index(image.shape[-1], int(out_shape[1]), image.device)
+    return image.index_select(-2, hi).index_select(-1, wi)
 

@@ -13,8 +13,9 @@ Endpoints
     size, mean wait) per shape lane.
 ``POST /v1/predict``
     Request body: an ``.npz`` with ``source`` / ``target`` uint8 HWC arrays,
-    or JSON ``{"source_png_b64": ..., "target_png_b64": ...}`` (needs
-    ``cv2``; without it the answer is 400). Response: an ``.npz`` with
+    or JSON ``{"source_png_b64": ..., "target_png_b64": ...}`` (PNG by the
+    port's codec; another image format needs ``cv2``, without which the
+    answer is 400). Response: an ``.npz`` with
     ``flow`` (2, H, W) float32 at the input resolution, ``covisibility``
     (H, W) and, where the model makes it, ``keypoint_confidence`` (H, W).
 
@@ -45,10 +46,8 @@ def _decode_request(body: bytes, content_type: str) -> Tuple[np.ndarray, np.ndar
     if content_type.startswith("application/json"):
         import base64
 
-        try:
-            import cv2
-        except ImportError:
-            raise ValueError("JSON requests with PNG images need cv2, which this server lacks: send an npz") from None
+        from ufm_torch.utils.image_io import decode_rgb
+
         try:
             payload = json.loads(body.decode("utf-8"))
         except (UnicodeDecodeError, json.JSONDecodeError) as e:
@@ -57,11 +56,10 @@ def _decode_request(body: bytes, content_type: str) -> Tuple[np.ndarray, np.ndar
         for key in ("source_png_b64", "target_png_b64"):
             if key not in payload:
                 raise ValueError(f"JSON request missing {key!r}")
-            raw = np.frombuffer(base64.b64decode(payload[key]), dtype=np.uint8)
-            bgr = cv2.imdecode(raw, cv2.IMREAD_COLOR)
-            if bgr is None:
-                raise ValueError(f"{key}: not a decodable image")
-            out.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+            try:
+                out.append(decode_rgb(base64.b64decode(payload[key]), name=key))
+            except ImportError as e:  # a non-PNG image where cv2 is missing
+                raise ValueError(str(e)) from None
         return out[0], out[1]
 
     try:

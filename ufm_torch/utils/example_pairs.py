@@ -4,8 +4,8 @@
 A textured scene warped by a known smooth displacement field, so the end to
 end pipeline can be scored by EPE against exact flow. ``synthetic_pair`` and
 ``warped_pair_from_image`` are numpy only; writing and reading PNG files
-(``generate_pairs``, ``ensure_bundled_pairs``, ``load_pair``) imports
-``cv2`` when called. ``ensure_bundled_pairs()`` generates the three named
+(``generate_pairs``, ``ensure_bundled_pairs``, ``load_pair``) goes through
+the port's codec (``ufm_torch.utils.image_io``). ``ensure_bundled_pairs()`` generates the three named
 pairs on first use, deterministically from fixed seeds.
 """
 
@@ -129,10 +129,10 @@ def reference_pair_dir() -> str | None:
 
 def load_pair(pair_dir: str, name: str):
     """Load ``{name}_0/1.png`` as RGB uint8 + the GT flow if present."""
-    import cv2
+    from ufm_torch.utils.image_io import read_png
 
-    img0 = cv2.cvtColor(cv2.imread(os.path.join(pair_dir, f"{name}_0.png")), cv2.COLOR_BGR2RGB)
-    img1 = cv2.cvtColor(cv2.imread(os.path.join(pair_dir, f"{name}_1.png")), cv2.COLOR_BGR2RGB)
+    img0 = read_png(os.path.join(pair_dir, f"{name}_0.png"))
+    img1 = read_png(os.path.join(pair_dir, f"{name}_1.png"))
     flow_path = os.path.join(pair_dir, f"{name}_flow.npy")
     flow = np.load(flow_path) if os.path.exists(flow_path) else None
     return img0, img1, flow
@@ -140,13 +140,13 @@ def load_pair(pair_dir: str, name: str):
 
 def generate_pairs(out_dir: str) -> None:
     """Write the three named synthetic pairs (+ analytic flow) to out_dir."""
-    import cv2
+    from ufm_torch.utils.image_io import write_png
 
     os.makedirs(out_dir, exist_ok=True)
     for i, name in enumerate(PAIR_NAMES):
         img0, img1, flow, _ = synthetic_pair(seed=i)
-        cv2.imwrite(os.path.join(out_dir, f"{name}_0.png"), cv2.cvtColor(img0, cv2.COLOR_RGB2BGR))
-        cv2.imwrite(os.path.join(out_dir, f"{name}_1.png"), cv2.cvtColor(img1, cv2.COLOR_RGB2BGR))
+        write_png(os.path.join(out_dir, f"{name}_0.png"), img0)
+        write_png(os.path.join(out_dir, f"{name}_1.png"), img1)
         np.save(os.path.join(out_dir, f"{name}_flow.npy"), flow)
 
 

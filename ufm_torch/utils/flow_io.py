@@ -1,7 +1,8 @@
 """Optical-flow file formats: Middlebury .flo and KITTI 16-bit PNG
 (counterpart of ``ufm_tpu/utils/flow_io.py``).
 
-Pure numpy; the KITTI functions import ``cv2`` when called (PNG codec).
+Pure numpy; the KITTI functions use the port's PNG codec
+(``ufm_torch.utils.image_io``).
 """
 
 from __future__ import annotations
@@ -39,19 +40,19 @@ def write_flo(path: str, flow: np.ndarray) -> None:
 
 def read_kitti_flow(path: str) -> tuple[np.ndarray, np.ndarray]:
     """Read KITTI flow PNG -> ((H, W, 2) float32 flow, (H, W) bool valid)."""
-    import cv2
+    from ufm_torch.utils.image_io import read_png
 
-    raw = cv2.imread(path, cv2.IMREAD_ANYDEPTH | cv2.IMREAD_COLOR)
-    if raw is None or raw.dtype != np.uint16:
+    raw = read_png(path, anydepth=True)
+    if raw.dtype != np.uint16:
         raise ValueError(f"{path}: not a 16-bit KITTI flow png")
-    raw = raw[:, :, ::-1].astype(np.float64)  # BGR -> RGB: [u, v, valid]
+    raw = raw.astype(np.float64)  # RGB: [u, v, valid]
     flow = (raw[:, :, :2] - 2**15) / 64.0
     valid = raw[:, :, 2] > 0
     return flow.astype(np.float32), valid
 
 
 def write_kitti_flow(path: str, flow: np.ndarray, valid: np.ndarray | None = None) -> None:
-    import cv2
+    from ufm_torch.utils.image_io import write_png
 
     flow = np.asarray(flow, dtype=np.float64)
     h, w = flow.shape[:2]
@@ -61,4 +62,4 @@ def write_kitti_flow(path: str, flow: np.ndarray, valid: np.ndarray | None = Non
     out[:, :, 0] = np.clip(flow[:, :, 0] * 64.0 + 2**15, 0, 2**16 - 1).astype(np.uint16)
     out[:, :, 1] = np.clip(flow[:, :, 1] * 64.0 + 2**15, 0, 2**16 - 1).astype(np.uint16)
     out[:, :, 2] = valid.astype(np.uint16)
-    cv2.imwrite(path, out[:, :, ::-1])  # RGB -> BGR
+    write_png(path, out)
