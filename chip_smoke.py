@@ -45,9 +45,12 @@ attention launches (72 where the backward runs the attention forward again,
 (``remat``); and UFM-Base with the ``moge_conv`` head, held to its
 plain-attention forward (``moge``).
 
-The rest of the attention forward's domain (fp32 at any head dim, bf16 at
-D != 64) runs the fp32-FMA kernel (``csrc/flash_attention_fwd_any.cu``),
-held to its plain version at eight cases (``kernel``, ``flash_attention_fwd_any``);
+The rest of the attention forward's domain (fp32 and fp16 at any head dim,
+bf16 at D != 64) runs the fp32-FMA kernel (``csrc/flash_attention_fwd_any.cu``),
+held to its plain version at ten cases (``kernel``, ``flash_attention_fwd_any``);
+the rest of the backward's domain runs the fp32-FMA backward
+(``csrc/flash_attention_bwd_any.cu``), held to fp64 and for bitwise
+repeatability at ten cases (``kernel``, ``flash_attention_bwd_any``);
 the repository's two tiny fp32 anchors run on it against their CPU goldens,
 built from ``tests/golden/torch_port_fp32_anchor.npz`` (``fp32_anchor``);
 UFM-Base at full width in fp32 answers a 480x640 request eagerly and
@@ -55,7 +58,15 @@ captured, 36 launches of it a forward, none of the wgmma kernel, its flow
 held to plain attention (``fp32_path``); and ``ufm infer`` runs in this
 process on the bundled parallax pair with the trained tiny checkpoint, its
 pair, checkpoint and panels read and written by the port's own codecs, its
-flow held to the port's CPU run (``entry``).
+flow held to the port's CPU run (``entry``). UFM-Base in fp32 trains at
+batch 2 on 420x560 (``fp32_train``: ``make_train_step``, then ``fit``; 36
+fp32-FMA forward launches and 36 fp32-FMA backward calls a step, none of the
+wgmma or bf16 MLP kernels; its gradients at batch 1 held to plain attention
+with TF32 off); ``fine_tune`` fits the trained tiny checkpoint on the card
+and on the CPU (losses held together, TF32 off) and takes one train step of
+the tiny config in bf16 (D = 32 / 24: the fp32-FMA kernels in bf16). Every
+bf16 D = 64 training path makes no fp32-FMA backward call
+(``bf16_training_paths``).
 
 Around them: the kernel path of two tiny models at head dim 64 held to the
 JAX package's bf16 goldens (``tests/golden/torch_port_bf16_d64_*.npz``, no JAX
@@ -207,27 +218,55 @@ KERNEL_NAMES = ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "g
                 "linear_gelu_bf16_fwd_kernel", "flash_attention_fwd_any_kernel")
 
 # the fp32-FMA attention forward (csrc/flash_attention_fwd_any.cu), the rest
-# of the TPU kernel's domain: (case, dtype, (B, S, H, D), calls a batch-1
-# forward of UFM-Base in fp32). The fp32 flagship's two shapes, the fp32
-# anchors' (head dims 32 and 24), fp32 at D = 128 and 256 (the kernel's wider
-# instances), and bf16 at D = 32 and 128 (the ViT-L width in 32 or 8 heads);
-# S = 1201 leaves a ragged last 64-key tile (49 keys)
+# of the TPU kernel's domain: (case, dtype, q (B, Sq, H, D), Sk, calls a
+# batch-1 forward of UFM-Base in fp32). The fp32 flagship's two shapes, the
+# fp32 anchors' (head dims 32 and 24), fp32 at D = 128 and 256 (the kernel's
+# wider instances), bf16 at D = 32 and 128 (the ViT-L width in 32 or 8
+# heads), fp16 at D = 64 and a ragged fp16 case (Sq != Sk, D not a multiple
+# of 8); S = 1201 leaves a ragged last 64-key tile (49 keys)
 ANY_ATTN_CASES = (
-    ("fp32_encoder", "float32", (2, 1201, 16, 64), 24),
-    ("fp32_info_sharing", "float32", (1, 2400, 12, 64), 12),
-    ("fp32_anchor_encoder", "float32", (4, 13, 2, 32), 0),
-    ("fp32_anchor_info_sharing", "float32", (2, 24, 2, 24), 0),
-    ("fp32_d128", "float32", (2, 1201, 8, 128), 0),
-    ("fp32_d256", "float32", (1, 1201, 4, 256), 0),
-    ("bf16_d32", "bfloat16", (2, 1201, 32, 32), 0),
-    ("bf16_d128", "bfloat16", (2, 1201, 8, 128), 0),
+    ("fp32_encoder", "float32", (2, 1201, 16, 64), 1201, 24),
+    ("fp32_info_sharing", "float32", (1, 2400, 12, 64), 2400, 12),
+    ("fp32_anchor_encoder", "float32", (4, 13, 2, 32), 13, 0),
+    ("fp32_anchor_info_sharing", "float32", (2, 24, 2, 24), 24, 0),
+    ("fp32_d128", "float32", (2, 1201, 8, 128), 1201, 0),
+    ("fp32_d256", "float32", (1, 1201, 4, 256), 1201, 0),
+    ("bf16_d32", "bfloat16", (2, 1201, 32, 32), 1201, 0),
+    ("bf16_d128", "bfloat16", (2, 1201, 8, 128), 1201, 0),
+    ("fp16_d64", "float16", (2, 1201, 16, 64), 1201, 0),
+    ("fp16_ragged", "float16", (1, 77, 3, 40), 130, 0),
 )
 ANY_PER_FORWARD = sum(n for *_, n in ANY_ATTN_CASES)  # 36
 # fp32: within max(2x the plain fp32 version's error against fp64, this).
-# bf16 (the kernel computes in fp32, then rounds once): besides the plain
-# bf16 bar, every element within one bf16 ulp of the fp64 reference rounded
-# to bf16, plus this for the fp32 sums' own error near zero
+# bf16 and fp16 (the kernel computes in fp32, then rounds once): besides the
+# plain version's bar, every element within one ulp of the type of the fp64
+# reference rounded to the type, plus this for the fp32 sums' own error near
+# zero
 ANY_FP32_ERR_FLOOR = 1e-5
+# the fp32-FMA attention backward (csrc/flash_attention_bwd_any.cu), the rest
+# of the TPU backward's domain: (case, dtype, q (B, Sq, H, D), Sk, calls a
+# batch-2 train step of UFM-Base in fp32). The fp32 step's two shapes (the
+# encoder sees both views: 2B), fp32 at D = 128 and 256, the shapes of a
+# tiny_real224 step at batch 2 (D = 32 / 24), bf16 at D = 32 and 128, fp16 at
+# D = 64, and a ragged case (Sq != Sk, D not a multiple of 8, a non-contiguous
+# g); the cases with Sq == Sk take q, k, v as views of one fused qkv tensor
+ANY_BWD_CASES = (
+    ("fp32_encoder", "float32", (4, 1201, 16, 64), 1201, 24),
+    ("fp32_info_sharing", "float32", (2, 2400, 12, 64), 2400, 12),
+    ("fp32_d128", "float32", (2, 1201, 8, 128), 1201, 0),
+    ("fp32_d256", "float32", (1, 1201, 4, 256), 1201, 0),
+    ("fp32_tiny_encoder", "float32", (4, 193, 2, 32), 193, 0),
+    ("fp32_tiny_info_sharing", "float32", (2, 384, 2, 24), 384, 0),
+    ("bf16_d32", "bfloat16", (2, 1201, 32, 32), 1201, 0),
+    ("bf16_d128", "bfloat16", (2, 1201, 8, 128), 1201, 0),
+    ("fp16_d64", "float16", (2, 1201, 16, 64), 1201, 0),
+    ("ragged", "float32", (1, 77, 3, 40), 130, 0),
+)
+ANY_BWD_PER_STEP = sum(n for *_, n in ANY_BWD_CASES)  # 36
+# each of dq, dk, dv against fp64: within max(2x the plain version's error in
+# the same dtype, this times the reference's largest element): fp32's own
+# floor, two bf16 ulps (BWD_ERR_FLOOR_REL, the wgmma backward's), two fp16 ulps
+ANY_BWD_FLOOR_REL = {"float32": 1e-5, "bfloat16": BWD_ERR_FLOOR_REL, "float16": 2.0**-10}
 # the repository's two tiny fp32 anchors, from tests/golden/torch_port_fp32_anchor.npz
 # (written by tests/test_torch_port_fp32.py), against their CPU goldens at the
 # port's CPU bar, cuDNN TF32 off; the inputs are seeded_inputs()'s numpy draws
@@ -265,6 +304,21 @@ FIT_LR = 3e-6
 # keep them in fp32 (forward flow relative L2 1.5e-2 for the same reason);
 # the gradients carry that rounding through the forward and the backward
 TRAIN_GRAD_REL_L2_BOUND = 1e-1
+# UFM-Base in fp32 (the fp32-FMA forward and backward), batch 1, TF32 off:
+# kernel vs plain-attention gradients, relative L2 per optimizer group (both
+# fp32: only the sums' order differs)
+FP32_TRAIN_GRAD_REL_L2_BOUND = 1e-3
+# fine-tuning the trained tiny checkpoint: fit for this many steps on a
+# seeded batch at the checkpoint's resolution, on the card and on the CPU
+# port from the same weights (TF32 off); each step's loss within this of the
+# CPU's, relative
+FINE_TUNE_BATCH, FINE_TUNE_STEPS, FINE_TUNE_LR = 2, 3, 1e-5
+FINE_TUNE_LOSS_REL = 1e-4
+# the launch counters' order (ufm_torch.ops.launches): wgmma attention forward
+# and backward, window, GELU, fused fc1 + GELU, fp32-FMA attention forward and
+# backward
+ANY_FWD_AT, ANY_BWD_AT, GELU_AT, FUSED_AT = 5, 6, 3, 4
+ATTENTION_AT = (0, 1, 5, 6)
 # sharded training (ufm_torch.parallel) at world 1 over NCCL, on a
 # (data, fsdp, model) = (1, 1, 1) mesh: the batch-2 step of make_sharded_train_step
 # against make_train_step from the same weights and batch (3 steps each, at
@@ -461,7 +515,7 @@ def ptxas_report(log: str) -> dict:
     out = {}
     for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes spill stores, "
                          r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S):
-        short = re.search(r"[a-z][a-z_]*_kernel(?:I(?:L[ib]\d+E|f|13__nv_bfloat16)+E)?", m.group(1))
+        short = re.search(r"[a-z][a-z_]*_kernel(?:I(?:L[ib]\d+E|f|13__nv_bfloat16|6__half)+E)?", m.group(1))
         out[short.group(0) if short else m.group(1)] = {
             "registers": int(m.group(5)), "stack_frame": int(m.group(2)), "spill_stores": int(m.group(3)),
             "spill_loads": int(m.group(4))}
@@ -547,33 +601,48 @@ def phase_kernel():
     return rows
 
 
-def any_attention_bound_ms(b, s, h, d, dtype):
-    """The bound of a forward on ``dtype`` inputs: its 4 B H S^2 D
+def any_attention_bound_ms(b, sq, sk, h, d, dtype):
+    """The bound of a forward on ``dtype`` inputs: its 4 B H Sq Sk D
     operations at the card's peak for that type (fp32 without tensor cores,
-    bf16 on them: the card's rate for the inputs, whatever unit the kernel
-    uses) against q, k, v read once and the output written once."""
-    flops = 4 * b * h * s * s * d
-    nbytes = 4 * b * s * h * d * dtype.itemsize
+    bf16 and fp16 on them: the card's rate for the inputs, whatever unit the
+    kernel uses) against q, k, v read once and the output written once."""
+    flops = 4 * b * h * sq * sk * d
+    nbytes = 2 * b * h * d * (sq + sk) * dtype.itemsize
     peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """The spacing of bf16 numbers (8 significant bits) at each of ``x``'s
-    bf16 values (0 at 0)."""
+# significant bits and the smallest normal exponent (frexp's) of the 16-bit types
+_HALF_TYPES = {torch.bfloat16: (8, -125), torch.float16: (11, -13)}
+
+
+def type_ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s numbers (bf16 or fp16) at each of ``x``'s
+    values, which are of that type (subnormals spaced as the smallest
+    normals; 0 at 0)."""
+    bits, min_e = _HALF_TYPES[dtype]
     _, e = torch.frexp(x)
-    return torch.where(x == 0, torch.zeros_like(x), torch.ldexp(torch.ones_like(x), e - 8))
+    return torch.where(x == 0, torch.zeros_like(x), torch.ldexp(torch.ones_like(x), e.clamp(min=min_e) - bits))
+
+
+def any_inputs(gen, dtype, b, sq, sk, h, d):
+    """q (B, Sq, H, D), k and v (B, Sk, H, D) in ``dtype``: views of one fused
+    (B, S, 3, H, D) qkv tensor where Sq == Sk (the models' layout), else
+    three tensors."""
+    if sq == sk:
+        return torch.randn(b, sq, 3, h, d, generator=gen, device="cuda").to(dtype).unbind(2)
+    return tuple(torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype) for s in (sq, sk, sk))
 
 
 def phase_any_kernel():
     """The fp32-FMA attention forward against its plain version (matmul TF32
     off) at each of ANY_ATTN_CASES, against an fp64 reference: fp32 within
-    max(2x the plain fp32 error, 1e-5); bf16 within max(2x the plain bf16
-    error, 4e-3) and every element within one bf16 ulp of the reference
-    rounded to bf16 (+1e-5); the row log-sum-exp against fp64; one launch of
-    it and none of the wgmma kernel per call; timed beside its plain version
-    and SDPA on the same tensors."""
+    max(2x the plain fp32 error, 1e-5); bf16 and fp16 within max(2x the plain
+    version's error, 4e-3) and every element within one ulp of the type of
+    the reference rounded to the type (+1e-5); the row log-sum-exp against
+    fp64; one launch of it and none of the wgmma kernel per call; timed
+    beside its plain version and SDPA on the same tensors."""
     import torch.nn.functional as F
 
     from ufm_torch.ops import flash_attention as fa
@@ -581,10 +650,9 @@ def phase_any_kernel():
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, dtype, (b, s, h, d), calls in ANY_ATTN_CASES:
+    for name, dtype, (b, sq, h, d), sk, calls in ANY_ATTN_CASES:
         dt = getattr(torch, dtype)
-        qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(dt)  # the models' fused qkv views
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k, v = any_inputs(gen, dt, b, sq, sk, h, d)
         scale = d**-0.5
         before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
         out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
@@ -598,12 +666,12 @@ def phase_any_kernel():
         lse_err = (lse.to(wide) - ref_lse).abs().max().item()
         tol = max(2 * plain_err, ANY_FP32_ERR_FLOOR if dt == torch.float32 else KERNEL_ERR_FLOOR)
         ulp_excess = None
-        if dt == torch.bfloat16:
-            ref_bf = ref.to(dt).to(wide)
-            ulp_excess = ((out.to(wide) - ref_bf).abs() - bf16_ulp(ref_bf)).max().item()
+        if dt != torch.float32:
+            ref_t = ref.to(dt).to(wide)
+            ulp_excess = ((out.to(wide) - ref_t).abs() - type_ulp(ref_t, dt)).max().item()
             check(ulp_excess <= ANY_FP32_ERR_FLOOR,
-                  f"{name}: an element is {ulp_excess:.3e} past one bf16 ulp of the fp64 reference")
-            del ref_bf
+                  f"{name}: an element is {ulp_excess:.3e} past one {dtype} ulp of the fp64 reference")
+            del ref_t
         del ref, ref_lse, plain
         check(launched == (0, 1), f"{name}: {launched} wgmma / fp32-FMA launches for one call, expected (0, 1)")
         check(out.dtype == dt and bool(torch.isfinite(out).all()), f"{name}: kernel output {out.dtype}, not finite")
@@ -614,16 +682,16 @@ def phase_any_kernel():
         ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
         plain_ms = time_ms(lambda: fa.attention_reference(q, k, v, scale), reps=3, batches=5)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
-        bound_ms, bound_by = any_attention_bound_ms(b, s, h, d, dt)
+        bound_ms, bound_by = any_attention_bound_ms(b, sq, sk, h, d, dt)
         rows[name] = dict(
-            dtype=dtype, shape=[b, s, h, d], calls_per_fp32_forward=calls, max_abs_err=err,
-            plain_max_abs_err=plain_err, tol=tol, bf16_ulp_excess_max=ulp_excess, lse_max_abs_err=lse_err,
+            dtype=dtype, shape=[b, sq, h, d], sk=sk, calls_per_fp32_forward=calls, max_abs_err=err,
+            plain_max_abs_err=plain_err, tol=tol, ulp_excess_max=ulp_excess, lse_max_abs_err=lse_err,
             ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
-            tflops=4 * b * h * s * s * d / ms / 1e9,
+            tflops=4 * b * h * sq * sk * d / ms / 1e9,
         )
         emit("kernel", kernel="flash_attention_fwd_any", case=name, **rows[name])
-        del qkv, q, k, v, out, lse
+        del q, k, v, out, lse
     return rows
 
 
@@ -638,8 +706,6 @@ def attention_bwd_bound_ms(b, s, h, d):
 
 
 def phase_bwd_kernel():
-    import torch.nn.functional as F
-
     from ufm_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -679,11 +745,7 @@ def phase_bwd_kernel():
         plain_ms = time_ms(lambda: fa.attention_backward_reference(q, k, v, g, scale), reps=3, batches=5)
         fwd_ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, scale))
         fwd_lse_ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, scale, with_lse=True))
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-        gt = g.transpose(1, 2)
-        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True))
-        del lib_out
+        library_ms = sdpa_backward_ms(q, k, v, g, scale)
         bound_ms, bound_by = attention_bwd_bound_ms(b, s, h, d)
         rows[name] = dict(
             shape=[b, s, h, d], calls_per_step=calls, **{f"{k}_{f}": v for k, e in errs.items() for f, v in e.items()},
@@ -700,6 +762,90 @@ def phase_bwd_kernel():
                 "bwd": host_us_per_launch(lambda: fa.flash_attention_backward(q, k, v, out, lse, g, scale)),
             }
         emit("kernel", kernel="flash_attention_bwd", case=name, **rows[name])
+    return rows
+
+
+def any_attention_bwd_bound_ms(b, sq, sk, h, d, dtype):
+    """The backward's own cost on ``dtype`` inputs: 10 B H Sq Sk D operations
+    (five products, the TPU kernel's CostEstimate) at the card's peak for
+    that type (fp32 without tensor cores, bf16 and fp16 on them) against q,
+    o, g, k, v read once and dq, dk, dv written once, plus lse read and delta
+    written once (fp32)."""
+    flops = 10 * b * h * sq * sk * d
+    nbytes = 4 * b * h * d * (sq + sk) * dtype.itemsize + 2 * b * h * sq * 4
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_backward_ms(q, k, v, g, scale):
+    """The time of the backward of scaled_dot_product_attention on the same
+    (B, H, S, D) views (torch.autograd.grad)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    gt = g.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+
+
+def phase_any_bwd_kernel():
+    """The fp32-FMA attention backward through ``flash_attention_backward``
+    (after the fp32-FMA forward with lse) at each of ANY_BWD_CASES, matmul
+    TF32 off: dq, dk and dv against an fp64 reference, each within max(2x
+    the plain version's error in the same dtype, ANY_BWD_FLOOR_REL of the
+    reference's largest element); two calls bitwise equal; one launch of it
+    and none of the wgmma backward per call; timed beside its plain version
+    and SDPA's backward on the same tensors."""
+    from ufm_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {}
+    for name, dtype, (b, sq, h, d), sk, calls in ANY_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = any_inputs(gen, dt, b, sq, sk, h, d)
+        if sq == sk:
+            g = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
+        else:  # a non-contiguous output gradient
+            g = torch.randn(b, sq, h, d + 8, generator=gen, device="cuda").to(dt)[..., 8:]
+        scale = d**-0.5
+        out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+        before = (fa.BWD_LAUNCHES, fa.ANY_BWD_LAUNCHES)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+        again = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+        torch.cuda.synchronize()
+        launched = (fa.BWD_LAUNCHES - before[0], fa.ANY_BWD_LAUNCHES - before[1])
+        check(launched == (0, 2), f"backward {name}: {launched} wgmma / fp32-FMA backward calls for two, expected (0, 2)")
+        repeatable = all(torch.equal(a, c) for a, c in zip(grads, again))
+        check(repeatable, f"backward {name}: two calls on the same inputs differ")
+        del again
+        wide = torch.float64
+        ref = fa.attention_backward_reference(q.to(wide), k.to(wide), v.to(wide), g.to(wide), scale)
+        plain = fa.attention_backward_reference(q, k, v, g, scale)
+        errs = {}
+        for gname, got, want, pl in zip(("dq", "dk", "dv"), grads, ref, plain):
+            err = (got.to(wide) - want).abs().max().item()
+            plain_err = (pl.to(wide) - want).abs().max().item()
+            tol = max(2 * plain_err, ANY_BWD_FLOOR_REL[dtype] * want.abs().max().item())
+            check(got.dtype == dt and _finite(got), f"backward {name}: {gname} {got.dtype}, not finite")
+            check(err <= tol, f"backward {name}: {gname} error {err:.3e} > {tol:.3e}")
+            errs[gname] = dict(max_abs_err=err, plain_max_abs_err=plain_err, tol=tol)
+        del ref, plain
+
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, g, scale))
+        plain_ms = time_ms(lambda: fa.attention_backward_reference(q, k, v, g, scale), reps=3, batches=5)
+        library_ms = sdpa_backward_ms(q, k, v, g, scale)
+        bound_ms, bound_by = any_attention_bwd_bound_ms(b, sq, sk, h, d, dt)
+        rows[name] = dict(
+            dtype=dtype, shape=[b, sq, h, d], sk=sk, calls_per_fp32_step=calls,
+            **{f"{k}_{f}": v for k, e in errs.items() for f, v in e.items()},
+            max_abs_err=max(e["max_abs_err"] for e in errs.values()), bitwise_repeatable=repeatable,
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, tflops=10 * b * h * sq * sk * d / ms / 1e9,
+        )
+        emit("kernel", kernel="flash_attention_bwd_any", case=name, **rows[name])
+        del q, k, v, g, out, lse, grads
     return rows
 
 
@@ -1546,6 +1692,7 @@ def phase_train():
     optimizer.step = _timed(optimizer.step, opt_events)
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the training path's counts start here
+    fa.ANY_LAUNCHES = fa.ANY_BWD_LAUNCHES = 0
     losses, times = [], []
     for i in range(TRAIN_STEPS):
         before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
@@ -1558,6 +1705,8 @@ def phase_train():
         check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD, 0),
               f"train step {i}: {launched} attention forward launches / backward calls / GELU / fused fc1 + GELU "
               "launches, expected 36 / 36 / 36 / 0")
+        check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0),
+              f"bf16 train step {i}: fp32-FMA attention launches ({fa.ANY_LAUNCHES}, {fa.ANY_BWD_LAUNCHES})")
         vals = {k: v.item() for k, v in metrics.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"train step {i}: non-finite metrics {vals}")
         losses.append(vals["total_loss"])
@@ -1577,6 +1726,7 @@ def phase_train():
     check(all(np.isfinite(v) for v in fit_losses), f"fit: non-finite losses {fit_losses}")
     launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
     steps = TRAIN_STEPS + FIT_STEPS
+    check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0), "the bf16 fit launched an fp32-FMA attention kernel")
     check(launches == {"flash_attention_fwd": steps * LAUNCHES_PER_FORWARD, "flash_attention_bwd": steps * LAUNCHES_PER_FORWARD},
           f"training path launches {launches} over {steps} steps, expected 36 + 36 per step")
     mlp_path("ufm_base_train", ge.LAUNCHES, lg.LAUNCHES, steps * GELU_PER_FORWARD, grad=True)
@@ -1584,7 +1734,7 @@ def phase_train():
     check(trajectory[-1] < trajectory[0], f"loss did not fall on the fixed batch: {trajectory}")
     emit("train_path", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), learning_rate=TRAIN_LR,
          warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS, fit_learning_rate=FIT_LR, steps=steps,
-         launches=launches,
+         launches=launches, fp32_fma_launches=[fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES],
          first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s,
          forward_loss_ms=statistics.median(fwd_ms[1:]), backward_ms=statistics.median(bwd_ms[1:]),
          optimizer_ms=statistics.median(opt_ms[1:]), max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -1593,40 +1743,9 @@ def phase_train():
 
 
 def phase_train_self_check(model, batch):
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
-    from ufm_torch.training import ufm_total_loss
-
-    net = model.net
     one = {k: v[:1] for k, v in batch.items()}
-
-    def grads():
-        net.zero_grad(set_to_none=True)
-        loss, _ = ufm_total_loss(net(one["img1"], one["img2"]), one)
-        loss.backward()
-        torch.cuda.synchronize()
-        return _group_grads(net)
-
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0
-    g_kernel = grads()
-    launched = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
-    check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD, 0),
-          f"kernel gradient: {launched} launches, expected 36 / 36 / 36 / 0")
-    model.attention_impl = "torch"
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    g_plain = grads()
-    plain_peak = torch.cuda.max_memory_allocated()
-    check((fa.LAUNCHES, fa.BWD_LAUNCHES) == (0, 0), "the plain-attention gradient launched a kernel")
-    model.attention_impl = None
-    net.zero_grad(set_to_none=True)
-    rel = {k: ((g_kernel[k] - g_plain[k]).norm() / g_plain[k].norm()).item() for k in g_plain}
-    emit("train_self_check", batch=1, grad_rel_l2=rel, bound=TRAIN_GRAD_REL_L2_BOUND,
-         plain_max_memory_allocated=plain_peak)
-    check(set(rel) == set(g_kernel), f"gradient groups differ: {sorted(g_kernel)} vs {sorted(rel)}")
-    for k, r in rel.items():
-        check(r <= TRAIN_GRAD_REL_L2_BOUND, f"kernel vs plain gradient, group {k}: relative L2 {r:.3e} > {TRAIN_GRAD_REL_L2_BOUND}")
+    _kernel_vs_plain_grads(model, one, "train_self_check", (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0,
+                                                            GELU_PER_FORWARD, 0, 0, 0), TRAIN_GRAD_REL_L2_BOUND)
 
 
 def _world1_group():
@@ -1703,7 +1822,7 @@ def _train_steps(step, batch, n, label,
 
     times, metrics = [], []
     for i in range(n):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES)
         t = time.perf_counter()
         m = step(batch)
         torch.cuda.synchronize()
@@ -1712,6 +1831,8 @@ def _train_steps(step, batch, n, label,
         check(launched == launches_each and lg.LAUNCHES == before[3],
               f"{label} step {i}: {launched} attention forward / backward / GELU launches, expected {launches_each}, "
               f"and {lg.LAUNCHES - before[3]} fused fc1 + GELU launches, expected 0")
+        check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == before[4:],
+              f"{label} step {i}: the bf16 step launched an fp32-FMA attention kernel")
         vals = {k: v.item() for k, v in m.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
         metrics.append(vals)
@@ -2929,6 +3050,212 @@ def phase_entry():
     return fa.ANY_LAUNCHES
 
 
+def _model_hw(config):
+    """(H, W) of a config's first inference resolution ((W, H) pairs, or one)."""
+    res = config.inference_resolution
+    w, h = res if isinstance(res[0], int) else res[0]
+    return int(h), int(w)
+
+
+def _kernel_vs_plain_grads(model, batch, label, launches_each, bound, **fields):
+    """Each optimizer group's gradient of one forward + loss + backward on
+    ``batch`` through the kernels (their launches held to ``launches_each``,
+    in the counters' order) and on plain attention (no attention launch):
+    the relative L2, emitted as phase ``label`` (with the plain pass's peak
+    memory and ``fields``), then each held within ``bound``."""
+    from ufm_torch.ops import launches
+    from ufm_torch.training import ufm_total_loss
+
+    net = model.net
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        loss, _ = ufm_total_loss(net(batch["img1"], batch["img2"]), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return _group_grads(net)
+
+    before = launches.snapshot()
+    g_kernel = grads()
+    kernel_launched = launches.since(before)
+    check(kernel_launched == launches_each,
+          f"{label} kernel gradient: launches {kernel_launched}, expected {launches_each}")
+    model.attention_impl = "torch"
+    before = launches.snapshot()
+    torch.cuda.reset_peak_memory_stats()
+    g_plain = grads()
+    plain_peak = torch.cuda.max_memory_allocated()
+    launched = launches.since(before)
+    check(all(launched[i] == 0 for i in ATTENTION_AT), f"{label}: the plain-attention gradient launched {launched}")
+    model.attention_impl = None
+    net.zero_grad(set_to_none=True)
+    check(set(g_plain) == set(g_kernel), f"{label}: gradient groups differ: {sorted(g_kernel)} vs {sorted(g_plain)}")
+    rel = {k: ((g_kernel[k] - g_plain[k]).norm() / g_plain[k].norm()).item() for k in g_plain}
+    emit(label, batch=int(batch["img1"].shape[0]), grad_rel_l2=rel, bound=bound,
+         plain_max_memory_allocated=plain_peak, launches=list(kernel_launched), **fields)
+    for k, r in rel.items():
+        check(r <= bound, f"{label} kernel vs plain gradient, group {k}: relative L2 {r:.3e} > {bound}")
+
+
+def phase_fp32_train():
+    """UFM-Base in fp32 (``ufm_base_config(compute_dtype="float32")``: no
+    fp32 masters, no bf16 MLP kernels) at TRAIN_BATCH, TRAIN_HW, through
+    make_train_step for TRAIN_STEPS, then fit for FIT_STEPS (the bf16 train
+    phase's schedule): each step 36 fp32-FMA forward launches and 36 fp32-FMA
+    backward calls and none of the wgmma attention, GELU or fused fc1 + GELU
+    kernels; finite metrics, a falling loss; the spans (forward + loss,
+    backward, optimizer), step ms, pairs/s and peak memory. Then at batch 1,
+    TF32 off, each group's gradient against plain attention within
+    FP32_TRAIN_GRAD_REL_L2_BOUND. Returns the path's fp32-FMA launches."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
+
+    t0 = time.perf_counter()
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(compute_dtype="float32"), seed=0)
+    net = model.net
+    batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
+    optimizer = make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS)
+    step = make_train_step(net, optimizer)
+    check(all(p.dtype == torch.float32 for p in net.parameters()), "the fp32 model holds non-fp32 parameters")
+    check(not optimizer.masters(), f"the fp32 model's optimizer keeps {len(optimizer.masters())} masters")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    each = (0, 0, 0, 0, 0, ANY_PER_FORWARD, ANY_BWD_PER_STEP)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()  # the fp32 training path's counts start here
+    losses, times = [], []
+
+    def run():
+        for i in range(TRAIN_STEPS):
+            before = counters.snapshot()
+            t = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launched = counters.since(before)
+            check(launched == each, f"fp32 train step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, "
+                  f"fused fc1 + GELU, fp32-FMA fwd / bwd), expected {each}")
+            vals = {k: v.item() for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in vals.values()), f"fp32 train step {i}: non-finite metrics {vals}")
+            losses.append(vals["total_loss"])
+            emit("fp32_train_step", step=i, seconds=times[-1], **vals)
+
+    spans = _span_ms(net, optimizer, run)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    fit_losses = []
+    before = counters.snapshot()
+    out = fit(net, (batch for _ in range(FIT_STEPS)), num_steps=FIT_STEPS, learning_rate=FIT_LR,
+              warmup_steps=0, log_every=1, log_fn=lambda line: None,
+              on_metrics=lambda _, vals: fit_losses.append(vals["total_loss"]))
+    torch.cuda.synchronize()
+    fit_launched = counters.since(before)
+    check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"fp32 fit ran {out['step']} steps")
+    check(all(np.isfinite(v) for v in fit_losses), f"fp32 fit: non-finite losses {fit_losses}")
+    check(fit_launched == tuple(FIT_STEPS * n for n in each), f"fp32 fit: launches {fit_launched} over {FIT_STEPS} steps")
+    trajectory = losses + fit_losses
+    check(trajectory[-1] < trajectory[0], f"fp32: the loss did not fall on the fixed batch: {trajectory}")
+    launches = {"train": counters.snapshot()[ANY_FWD_AT:]}
+    del out, step, optimizer
+    _free_card_memory()
+
+    one = {k: v[:1] for k, v in batch.items()}
+    counters.reset()
+    with _TF32(False):
+        _kernel_vs_plain_grads(model, one, "fp32_train_self_check", each, FP32_TRAIN_GRAD_REL_L2_BOUND, tf32=False)
+    launches["self_check"] = counters.snapshot()[ANY_FWD_AT:]
+    emit("fp32_train", model="ufm_base", compute_dtype=model.config.compute_dtype, batch=TRAIN_BATCH,
+         input_hw=list(TRAIN_HW), setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+         fit_learning_rate=FIT_LR, steps=TRAIN_STEPS + FIT_STEPS, launches_per_step=dict(zip(
+             ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
+              "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any"), each)),
+         first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s, spans_ms=spans,
+         max_memory_allocated=peak, loss_trajectory=trajectory)
+    del model, batch, one
+    _free_card_memory()
+    return launches
+
+
+def phase_fine_tune():
+    """Fine-tuning the trained tiny checkpoint (fp32, D = 32 / 24):
+    ``from_pretrained`` on the card and on the CPU, then ``fit`` for
+    FINE_TUNE_STEPS on one seeded batch at the checkpoint's resolution, TF32
+    off: each card step 4 fp32-FMA forward launches and 4 backward calls and
+    none of the wgmma kernels, each step's loss within FINE_TUNE_LOSS_REL of
+    the CPU run's. Then the tiny config in bf16 (D = 32 / 24: the fp32-FMA
+    kernels in bf16) takes one train step on the card: its gradients within
+    TRAIN_GRAD_REL_L2_BOUND of plain attention a group at a time, its GELU
+    kernel launched once an MLP. Returns the paths' fp32-FMA launches."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
+
+    runs = {}
+    batch = None
+    with _TF32(False):
+        for where in ("cpu", "cuda"):
+            model = UniFlowMatchConfidence.from_pretrained(TINY_REAL, device=where)
+            layers = model.config.encoder_kwargs["depth"] + model.config.info_sharing_kwargs["depth"]
+            if batch is None:
+                batch = synthetic_batch(FINE_TUNE_BATCH, *_model_hw(model.config), seed=0, device="cpu")
+            losses, counts = [], []
+            counters.reset()
+
+            def on_metrics(_, vals, losses=losses, counts=counts):
+                losses.append(vals["total_loss"])
+                counts.append(counters.snapshot())
+
+            t = time.perf_counter()
+            out = fit(model.net, (batch for _ in range(FINE_TUNE_STEPS)), num_steps=FINE_TUNE_STEPS,
+                      learning_rate=FINE_TUNE_LR, warmup_steps=0, log_every=1, log_fn=lambda line: None,
+                      on_metrics=on_metrics)
+            seconds = time.perf_counter() - t
+            check(out["step"] == FINE_TUNE_STEPS and len(losses) == FINE_TUNE_STEPS, f"fine-tune on {where}: {out['step']}")
+            per_step = [tuple(n - m for n, m in zip(c, p)) for c, p in zip(counts, [(0,) * len(counts[0])] + counts[:-1])]
+            runs[where] = dict(seconds=seconds, losses=losses, launches_per_step=per_step)
+            del model, out
+    want = (0, 0, 0, 0, 0, layers, layers)
+    check(all(c == want for c in runs["cuda"]["launches_per_step"]),
+          f"fine-tune on the card: launches per step {runs['cuda']['launches_per_step']}, expected {want}")
+    check(not any(any(c) for c in runs["cpu"]["launches_per_step"]), "fine-tune on the CPU launched a kernel")
+    rel = [abs(c - p) / abs(p) for c, p in zip(runs["cuda"]["losses"], runs["cpu"]["losses"])]
+    launches = {"fine_tune": sum(c[ANY_FWD_AT] for c in runs["cuda"]["launches_per_step"]),
+                "fine_tune_bwd": sum(c[ANY_BWD_AT] for c in runs["cuda"]["launches_per_step"])}
+    emit("fine_tune", checkpoint="examples/checkpoints/tiny_real224", batch=FINE_TUNE_BATCH,
+         input_hw=[int(x) for x in batch["img1"].shape[1:3]], steps=FINE_TUNE_STEPS, learning_rate=FINE_TUNE_LR,
+         tf32=False, loss_rel_diff=rel, bar=FINE_TUNE_LOSS_REL, **runs)
+    for i, r in enumerate(rel):
+        check(np.isfinite(r) and r <= FINE_TUNE_LOSS_REL, f"fine-tune step {i}: loss {r:.3e} from the CPU run's, relative")
+
+    # the tiny config in bf16: one train step through the fp32-FMA kernels in bf16
+    model = UniFlowMatchConfidence.from_config(ufm_tiny_config(compute_dtype="bfloat16"), seed=0)
+    layers = model.config.encoder_kwargs["depth"] + model.config.info_sharing_kwargs["depth"]
+    h, w = _model_hw(model.config)
+    bf16_batch = synthetic_batch(FINE_TUNE_BATCH, h, w, seed=1, device="cuda")
+    counters.reset()
+    each = (0, 0, 0, layers, 0, layers, layers)
+    _kernel_vs_plain_grads(model, bf16_batch, "tiny_bf16_self_check", each, TRAIN_GRAD_REL_L2_BOUND)
+    optimizer = make_optimizer(model.net, learning_rate=1e-4, warmup_steps=0, total_steps=10)
+    before = counters.snapshot()
+    metrics = {k: v.item() for k, v in make_train_step(model.net, optimizer)(bf16_batch).items()}
+    torch.cuda.synchronize()
+    launched = counters.since(before)
+    check(launched == each, f"tiny bf16 train step: launches {launched}, expected {each}")
+    check(all(np.isfinite(v) for v in metrics.values()), f"tiny bf16 train step: non-finite metrics {metrics}")
+    counts = counters.snapshot()
+    # the kernel and the plain gradients, then the step
+    mlp_path("ufm_tiny_bf16_train", counts[GELU_AT], counts[FUSED_AT], 3 * layers, grad=True)
+    launches["tiny_bf16_train"], launches["tiny_bf16_train_bwd"] = counts[ANY_FWD_AT], counts[ANY_BWD_AT]
+    emit("tiny_bf16_train", compute_dtype="bfloat16", head_dims=[
+        model.config.encoder_kwargs["embed_dim"] // model.config.encoder_kwargs["num_heads"],
+        model.config.info_sharing_kwargs["dim"] // model.config.info_sharing_kwargs["num_heads"]],
+        batch=FINE_TUNE_BATCH, input_hw=[h, w], metrics=metrics, launches_per_step=list(each))
+    del model, optimizer
+    _free_card_memory()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
@@ -2945,6 +3272,7 @@ def run_phases(smi: str) -> int:
     rows = phase_kernel()
     any_rows = phase_any_kernel()
     bwd_rows = phase_bwd_kernel()
+    any_bwd_rows = phase_any_bwd_kernel()
     window_rows, window_host_us = phase_window_kernel()
     gelu_rows, gelu_host_us, gelu_err = phase_gelu()
     lg_rows, lg_host_us, lg_err = phase_linear_gelu()
@@ -2996,6 +3324,13 @@ def run_phases(smi: str) -> int:
         dist.destroy_process_group()
     remat_launches = phase_remat()
     moge_launches = phase_moge()
+    from ufm_torch.ops import flash_attention as fa
+
+    # every bf16 D = 64 training path since phase_train reset the count
+    emit("bf16_training_paths", fp32_fma_backward_launches=fa.ANY_BWD_LAUNCHES)
+    check(fa.ANY_BWD_LAUNCHES == 0, f"the bf16 D = 64 training paths made {fa.ANY_BWD_LAUNCHES} fp32-FMA backward calls")
+    fp32_train_launches = phase_fp32_train()
+    fine_tune_launches = phase_fine_tune()
 
     # one batch-1 forward's attention: each number sums its 36 calls
     fwd = [rows[n] for n, _, calls in ATTN_SHAPES for _ in range(calls)]
@@ -3165,15 +3500,19 @@ def run_phases(smi: str) -> int:
         "host_us_per_launch": lg_host_us,
     }
     # one batch-1 forward of UFM-Base in fp32: each number sums its 36 calls
-    any_fwd = [any_rows[n] for n, _, _, calls in ANY_ATTN_CASES for _ in range(calls)]
+    any_fwd = [any_rows[n] for n, *_, calls in ANY_ATTN_CASES for _ in range(calls)]
     any_by_path = {"ufm_base_fp32": fp32_launches["eager"], "ufm_base_fp32_captured": fp32_launches["captured"],
-                   "fp32_anchor": anchor_launches["flash_attention_fwd_any"], "ufm_infer_tiny_real224": entry_launches}
+                   "fp32_anchor": anchor_launches["flash_attention_fwd_any"], "ufm_infer_tiny_real224": entry_launches,
+                   "ufm_base_fp32_train": fp32_train_launches["train"][0],
+                   "ufm_base_fp32_train_self_check": fp32_train_launches["self_check"][0],
+                   "tiny_real224_fine_tune": fine_tune_launches["fine_tune"],
+                   "ufm_tiny_bf16_train": fine_tune_launches["tiny_bf16_train"]}
     attention_any = {
         "name": "flash_attention_fwd_any",
         "route": "cuda",
         "source": "ufm_torch/csrc/flash_attention_fwd_any.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:558",
-        "replaces_note": "the rest of the TPU kernel's domain: fp32 at any head dim and bf16 at D != 64 "
+        "replaces_note": "the rest of the TPU kernel's domain: fp32 and fp16 at any head dim and bf16 at D != 64 "
                          "(bf16 at D = 64 keeps flash_attention_fwd)",
         "launches": sum(any_by_path.values()),
         "launches_by_path": any_by_path,
@@ -3185,15 +3524,47 @@ def run_phases(smi: str) -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in any_fwd) else "bytes",
         "library_ms": sum(r["library_ms"] for r in any_fwd),
         "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward of UFM-Base "
-                       "in fp32; the bound is fp32 FMA's 67 TFLOP/s (bf16 cases: the bf16 tensor-core peak)",
+                       "in fp32; the bound is fp32 FMA's 67 TFLOP/s (bf16 and fp16 cases: the tensor-core peak)",
         "library": "scaled_dot_product_attention on the same (B, H, S, D) views",
         "ms_by_case": {n: r["ms"] for n, r in any_rows.items()},
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in any_rows.items()},
         "library_ms_by_case": {n: r["library_ms"] for n, r in any_rows.items()},
         "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in any_rows.items()},
     }
+    # one batch-2 train step of UFM-Base in fp32: each number sums its 36 calls
+    any_bwd_step = [any_bwd_rows[n] for n, *_, calls in ANY_BWD_CASES for _ in range(calls)]
+    any_bwd_by_path = {"ufm_base_fp32_train": fp32_train_launches["train"][1],
+                       "ufm_base_fp32_train_self_check": fp32_train_launches["self_check"][1],
+                       "tiny_real224_fine_tune": fine_tune_launches["fine_tune_bwd"],
+                       "ufm_tiny_bf16_train": fine_tune_launches["tiny_bf16_train_bwd"]}
+    backward_any = {
+        "name": "flash_attention_bwd_any",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/flash_attention_bwd_any.cu",
+        "replaces": "ufm_tpu/ops/flash_attention.py:452",
+        "replaces_note": "the rest of the TPU backward's domain: fp32 and fp16 at any head dim and bf16 at D != 64 "
+                         "(bf16 at D = 64 keeps flash_attention_bwd)",
+        "launches": sum(any_bwd_by_path.values()),
+        "launches_by_path": any_bwd_by_path,
+        "op": "ufm_torch::flash_attention_bwd",
+        "max_abs_err": max(r["max_abs_err"] for r in any_bwd_rows.values()),
+        "ms": sum(r["ms"] for r in any_bwd_step),
+        "plain_ms": sum(r["plain_ms"] for r in any_bwd_step),
+        "bound_ms": sum(r["bound_ms"] for r in any_bwd_step),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in any_bwd_step) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in any_bwd_step),
+        "per_step": "times sum the 24 encoder and 12 info-sharing calls of one batch-2 train step of UFM-Base in "
+                    "fp32; a launch is one backward call (two CUDA kernels: delta, then one grid of dK/dV and dQ "
+                    "blocks); the bound is fp32 FMA's 67 TFLOP/s (bf16 and fp16 cases: the tensor-core peak)",
+        "library": "backward of scaled_dot_product_attention, torch.autograd.grad on the same (B, H, S, D) views",
+        "bitwise_repeatable": all(r["bitwise_repeatable"] for r in any_bwd_rows.values()),
+        "ms_by_case": {n: r["ms"] for n, r in any_bwd_rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in any_bwd_rows.items()},
+        "library_ms_by_case": {n: r["library_ms"] for n, r in any_bwd_rows.items()},
+        "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in any_bwd_rows.items()},
+    }
     print(smi)
-    print(json.dumps({"kernels": [attention, backward, window, gelu, linear_gelu, attention_any]}))
+    print(json.dumps({"kernels": [attention, backward, window, gelu, linear_gelu, attention_any, backward_any]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

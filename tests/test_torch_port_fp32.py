@@ -18,10 +18,10 @@
 - **Attention over the TPU kernel's domain**: the port's plain attention
   (the CPU implementation of ``ufm_torch::flash_attention_fwd`` and the
   reference the card's kernels are held to) against the JAX package's
-  ``flash_attention`` in interpret mode, fp32 and bf16, at head dims 24, 32,
-  64, 80 and 128 and ragged lengths.
+  ``flash_attention`` in interpret mode, fp32, bf16 and fp16, at head dims
+  24, 32, 64, 80 and 128 and ragged lengths.
 - **The routing** of a CUDA call between the two forward kernels (by dtype
-  and head dim alone) and the op's fake domain, on fake CUDA tensors.
+  and head dim alone) and the ops' fake domain, on fake CUDA tensors.
 
 Regenerate the golden (after an intended change of the anchors) with
 ``python tests/test_torch_port_fp32.py``.
@@ -53,10 +53,10 @@ ATOL = 1e-4  # the port's CPU bar against the anchors (tests/test_torch_port_mod
 ANCHOR_SEED, ANCHOR_SHAPE = 20260817, (2, 42, 56, 3)  # seeded_inputs()'s generator
 
 # plain attention against the JAX kernel in interpret mode: fp32 sums in
-# another order; in bf16 the plain version rounds its logits to bf16 (the
-# JAX package's _xla_attention math) where the kernel keeps them fp32, two
-# bf16 ulps at |x| in [1, 2)
-ATTN_ATOL = {"float32": 1e-5, "bfloat16": 2.0**-6}
+# another order; in bf16 and fp16 the plain version rounds its logits to the
+# input dtype (the JAX package's _xla_attention math) where the kernel keeps
+# them fp32, two ulps of the type at |x| in [1, 2)
+ATTN_ATOL = {"float32": 1e-5, "bfloat16": 2.0**-6, "float16": 2.0**-9}
 ATTN_HEAD_DIMS = (24, 32, 64, 80, 128)
 ATTN_LENGTHS = ((77, 77), (130, 130), (65, 200))
 
@@ -139,7 +139,7 @@ def test_port_from_the_golden_holds_the_cpu_anchor(name):
 
 @pytest.mark.parametrize("sq, sk", ATTN_LENGTHS)
 @pytest.mark.parametrize("d", ATTN_HEAD_DIMS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_plain_attention_matches_the_jax_kernel(dtype, d, sq, sk):
     rng = np.random.default_rng(d * 1000 + sq)
     q = rng.standard_normal((1, sq, 2, d)).astype(np.float32)
@@ -158,12 +158,13 @@ def test_plain_attention_matches_the_jax_kernel(dtype, d, sq, sk):
 @pytest.mark.parametrize("dtype, d, kernel", [
     (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "fma"), (torch.bfloat16, 32, "fma"),
     (torch.float32, 24, "fma"), (torch.float32, 1, "fma"), (torch.bfloat16, 256, "fma"), (torch.float32, 80, "fma"),
+    (torch.float16, 64, "fma"), (torch.float16, 24, "fma"),
 ])
 def test_forward_kernel_by_dtype_and_head_dim(dtype, d, kernel):
     assert fa.forward_kernel(dtype, d) == kernel
 
 
-@pytest.mark.parametrize("dtype, d", [(torch.float16, 64), (torch.float16, 32), (torch.float32, 257),
+@pytest.mark.parametrize("dtype, d", [(torch.float64, 64), (torch.float16, 257), (torch.float32, 257),
                                       (torch.bfloat16, 0), (torch.float64, 32)])
 def test_forward_kernel_refuses_outside_the_domain(dtype, d):
     with pytest.raises(ValueError, match=f"got {dtype} with D = {d}"):
@@ -171,7 +172,8 @@ def test_forward_kernel_refuses_outside_the_domain(dtype, d):
 
 
 @pytest.mark.parametrize("dtype, d", [(torch.float32, 24), (torch.float32, 32), (torch.float32, 64),
-                                      (torch.bfloat16, 32), (torch.bfloat16, 64), (torch.bfloat16, 256)])
+                                      (torch.bfloat16, 32), (torch.bfloat16, 64), (torch.bfloat16, 256),
+                                      (torch.float16, 64), (torch.float16, 40)])
 def test_fake_forward_on_the_card_takes_the_domain(dtype, d):
     with FakeTensorMode():
         q = torch.empty(2, 13, 3, d, device="cuda", dtype=dtype)
@@ -183,28 +185,35 @@ def test_fake_forward_on_the_card_takes_the_domain(dtype, d):
 
 def test_fake_ops_refuse_outside_the_domain():
     with FakeTensorMode():
-        half = torch.empty(1, 8, 2, 64, device="cuda", dtype=torch.float16)
-        with pytest.raises(ValueError, match="float16 with D = 64"):
-            library.flash_attention_fwd(half, half, half, 0.125, False)
+        wide_type = torch.empty(1, 8, 2, 64, device="cuda", dtype=torch.float64)
+        with pytest.raises(ValueError, match="float64 with D = 64"):
+            library.flash_attention_fwd(wide_type, wide_type, wide_type, 0.125, False)
         wide = torch.empty(1, 8, 2, 320, device="cuda")
         with pytest.raises(ValueError, match="D = 320"):
             library.flash_attention_fwd(wide, wide, wide, 0.125, False)
         x = torch.empty(1, 8, 2, 32, device="cuda")
         with pytest.raises(ValueError, match="share a dtype"):
             library.flash_attention_fwd(x, x.to(torch.bfloat16), x, 0.125, False)
-        out, lse = library.flash_attention_fwd(x, x, x, 0.125, True)
-        with pytest.raises(ValueError, match="float32 with D = 32"):  # the backward kernel: bf16 at D = 64
-            library.flash_attention_bwd(x, x, x, out, lse, x, 0.125)
+        lse = torch.empty(1, 2, 8, device="cuda")
+        with pytest.raises(ValueError, match="float64 with D = 64"):  # the backward's domain: the forward's
+            library.flash_attention_bwd(wide_type, wide_type, wide_type, wide_type, lse, wide_type, 0.125)
+        with pytest.raises(ValueError, match="D = 320"):
+            library.flash_attention_bwd(wide, wide, wide, wide, lse, wide, 0.125)
         cpu = torch.empty(1, 8, 2, 20, dtype=torch.float16)  # the CPU takes any dtype and D
         assert library.flash_attention_fwd(cpu, cpu, cpu, 0.125, False)[0].shape == cpu.shape
 
 
 def test_backward_refuses_fp32_naming_dtype_and_head_dim():
-    """The backward's CUDA implementation refuses before it touches the card."""
-    x = torch.zeros(1, 8, 2, 24)
+    """The backward's CUDA implementation refuses what lies outside the TPU
+    kernel's domain (fp32 is inside it now: float64, and fp32 at D = 257),
+    naming the dtype and D, before it touches the card."""
+    x = torch.zeros(1, 8, 2, 24, dtype=torch.float64)
     lse = torch.zeros(1, 2, 8)
-    with pytest.raises(ValueError, match="float32 with D = 24"):
+    with pytest.raises(ValueError, match="float64 with D = 24"):
         fa.launch_backward(x, x, x, x, lse, x, 0.2)
+    y = torch.zeros(1, 8, 2, 257)
+    with pytest.raises(ValueError, match="float32 with D = 257"):
+        fa.launch_backward(y, y, y, y, lse, y, 0.2)
 
 
 if __name__ == "__main__":

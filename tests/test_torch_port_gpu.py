@@ -52,11 +52,11 @@ def test_kernel_matches_fp32_reference(cuda, shape):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    """fp16 and D > 256 lie outside the TPU kernel's domain the port takes
-    (fp32 and bf16 at 1 <= D <= 256); both raise before any launch."""
+    """float64 and D > 256 lie outside the TPU kernel's domain the port takes
+    (fp32, bf16 and fp16 at 1 <= D <= 256); both raise before any launch."""
     before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
-    x = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
-    with pytest.raises(ValueError, match="bfloat16"):
+    x = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float64 with D = 64"):
         fa.flash_attention(x, x, x)
     y = torch.zeros(1, 8, 2, 320, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="256"):
@@ -568,8 +568,8 @@ def test_captured_launch_counts(cuda):
         got = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3])
         assert got == (4, 1, 0, 4)
     (program,) = model._programs.values()
-    # attention forward, backward, window, GELU, fused fc1 + GELU, fp32-FMA attention forward
-    assert program.launches == (4, 0, 1, 0, 4, 0)
+    # attention forward, backward, window, GELU, fused fc1 + GELU, fp32-FMA attention forward and backward
+    assert program.launches == (4, 0, 1, 0, 4, 0, 0)
 
 
 def test_captured_output_survives_the_next_call(cuda):
@@ -988,6 +988,8 @@ ANY_CASES = [
     ("bfloat16", (1, 300, 300, 4, 128)),
     ("bfloat16", (1, 77, 130, 3, 24)),
     ("bfloat16", (1, 129, 63, 2, 256)),
+    ("float16", (2, 1201, 1201, 16, 64)),
+    ("float16", (1, 77, 130, 3, 40)),
 ]
 ANY_FP32_FLOOR = 1e-5
 ANY_BF16_FLOOR = 4e-3
@@ -1064,12 +1066,18 @@ def test_any_kernel_reads_any_strides(cuda):
 
 
 def test_fp32_backward_raises_naming_dtype_and_head_dim(cuda):
-    """A grad-enabled fp32 call runs the fp32-FMA forward with its lse, then
-    reaches the backward op, which raises naming the dtype and D."""
-    q, k, v = (t.detach().requires_grad_() for t in _any_inputs(cuda, "float32", (1, 33, 33, 2, 32)))
-    out = fa.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match=r"float32 with D = 32"):
-        out.sum().backward()
+    """The backward takes fp32 now; what lies outside the TPU kernel's
+    domain (float64, D = 257) raises naming the dtype and D, before any
+    launch."""
+    before = (fa.BWD_LAUNCHES, fa.ANY_BWD_LAUNCHES)
+    x = torch.zeros(1, 33, 2, 32, device=cuda, dtype=torch.float64)
+    lse = torch.zeros(1, 2, 33, device=cuda)
+    with pytest.raises(ValueError, match=r"float64 with D = 32"):
+        fa.flash_attention_backward(x, x, x, x, lse, x, 0.2)
+    y = torch.zeros(1, 33, 2, 257, device=cuda)
+    with pytest.raises(ValueError, match=r"float32 with D = 257"):
+        fa.flash_attention_backward(y, y, y, y, lse, y, 0.2)
+    assert (fa.BWD_LAUNCHES, fa.ANY_BWD_LAUNCHES) == before
 
 
 def test_fp32_tiny_models_on_the_card(cuda):
@@ -1089,5 +1097,104 @@ def test_fp32_tiny_models_on_the_card(cuda):
         model.attention_impl = "torch"
         plain = model.predict_correspondences_batched(src, tgt)
         assert (res.flow.flow_output - plain.flow.flow_output).abs().max().item() <= 1e-4
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+# ---- the fp32-FMA backward (csrc/flash_attention_bwd_any.cu) ------------------
+
+# (dtype, (B, Sq, Sk, H, D)): two small shapes per dtype, ragged against the
+# 64-row tiles, one with Sq != Sk and a head dim off the 32-wide instances
+ANY_BWD_CASES = [
+    ("float32", (2, 77, 77, 2, 64)),
+    ("float32", (1, 77, 130, 3, 40)),
+    ("bfloat16", (1, 130, 130, 2, 32)),
+    ("bfloat16", (1, 65, 129, 2, 128)),
+    ("float16", (2, 77, 77, 2, 64)),
+    ("float16", (1, 100, 33, 1, 200)),
+]
+# each gradient within max(2x the plain version's error, this times the
+# reference's largest element), both against fp64: fp32's own floor, two bf16
+# ulps (the wgmma backward's), and two fp16 ulps
+ANY_BWD_FLOOR_REL = {"float32": 1e-5, "bfloat16": 2.0**-7, "float16": 2.0**-10}
+
+
+@pytest.mark.parametrize("dtype, shape", ANY_BWD_CASES, ids=[f"{t}-{'x'.join(map(str, s))}" for t, s in ANY_BWD_CASES])
+def test_any_backward_kernel_matches_fp64(cuda, dtype, shape):
+    """One fp32-FMA backward call (after the fp32-FMA forward with lse)
+    against the plain version's error of an fp64 reference, with a
+    non-contiguous output gradient; one launch of it and none of the wgmma
+    backward; a second call gives the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _any_inputs(cuda, dtype, shape, seed=5)
+    b, sq, _, h, d = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    g = torch.randn(b, sq, h, d + 3, generator=gen, device=cuda).to(dt)[..., 3:]
+    scale = d**-0.5
+    out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+    before = (fa.BWD_LAUNCHES, fa.ANY_BWD_LAUNCHES)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+    again = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+    torch.cuda.synchronize()
+    assert (fa.BWD_LAUNCHES - before[0], fa.ANY_BWD_LAUNCHES - before[1]) == (0, 2)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    wide = torch.float64
+    ref = fa.attention_backward_reference(q.to(wide), k.to(wide), v.to(wide), g.to(wide), scale)
+    plain = fa.attention_backward_reference(q, k, v, g, scale)
+    for name, got, want, pl in zip(("dq", "dk", "dv"), grads, ref, plain):
+        assert got.dtype == dt and got.shape == want.shape and got.is_contiguous(), name
+        err = (got.to(wide) - want).abs().max().item()
+        bar = max(2 * (pl.to(wide) - want).abs().max().item(), ANY_BWD_FLOOR_REL[dtype] * want.abs().max().item())
+        assert torch.isfinite(got).all() and err <= bar, (name, err, bar)
+
+
+def test_any_backward_through_autograd(cuda):
+    """With grad enabled an fp32 call records the fp32-FMA pair: one forward
+    launch with lse and one backward call, its gradients those of a direct
+    call."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in _any_inputs(cuda, "float32", (1, 90, 90, 2, 24)))
+    before = (fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES)
+    out = fa.flash_attention(q, k, v)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert (fa.ANY_LAUNCHES - before[0], fa.ANY_BWD_LAUNCHES - before[1]) == (1, 1)
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == before[2:]
+    o, lse = fa.flash_attention_forward(q.detach(), k.detach(), v.detach(), 24**-0.5, with_lse=True)
+    want = fa.flash_attention_backward(q.detach(), k.detach(), v.detach(), o, lse, g, 24**-0.5)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+def test_fp32_tiny_train_step_matches_the_cpu(cuda):
+    """The fp32 tiny config (D = 32 / 24) takes one train step's gradients on
+    the card through the fp32-FMA forward and backward (2 + 2 launches each,
+    none of the wgmma kernels) and on the CPU port from the same weights and
+    batch, TF32 off: each optimizer group's gradient within 1e-4 relative L2."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = ufm_tiny_config()
+        cpu = UniFlowMatchConfidence.from_config(cfg, seed=0, device="cpu")
+        card = UniFlowMatchConfidence.from_config(cfg, seed=0)
+        card.net.load_state_dict(cpu.net.state_dict())
+        batch = synthetic_batch(2, 42, 56, seed=0, device="cpu")
+        grads = {}
+        for name, model in (("cpu", cpu), ("cuda", card)):
+            device = next(model.net.parameters()).device
+            b = {k: t.to(device) for k, t in batch.items()}
+            before = (fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES)
+            loss, _ = ufm_total_loss(model.net(b["img1"], b["img2"]), b)
+            loss.backward()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                layers = cfg.encoder_kwargs["depth"] + cfg.info_sharing_kwargs["depth"]
+                assert (fa.ANY_LAUNCHES - before[0], fa.ANY_BWD_LAUNCHES - before[1]) == (layers, layers)
+                assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == before[2:]
+            grads[name] = {k: t.cpu() for k, t in _group_grads(model.net).items()}
+        assert set(grads["cpu"]) == set(grads["cuda"])
+        for group, want in grads["cpu"].items():
+            rel = ((grads["cuda"][group] - want).norm() / want.norm()).item()
+            assert rel <= 1e-4, (group, rel)
     finally:
         torch.backends.cudnn.allow_tf32 = True

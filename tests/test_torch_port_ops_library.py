@@ -150,8 +150,8 @@ def test_fake_implementation_checks_shapes_and_the_kernels_domain_on_the_card():
         x = torch.empty(1, 8, 2, 64, device="cuda", dtype=torch.bfloat16)
         out, lse = library.flash_attention_fwd(x, x, x, 0.125, True)
         assert (out.shape, out.dtype, lse.shape, lse.dtype) == (x.shape, torch.bfloat16, (1, 2, 8), torch.float32)
-        with pytest.raises(ValueError, match="bfloat16"):  # fp16: outside the forward kernels' domain
-            library.flash_attention_fwd(x.half(), x.half(), x.half(), 0.125, False)
+        with pytest.raises(ValueError, match="float64"):  # outside the forward kernels' domain
+            library.flash_attention_fwd(x.double(), x.double(), x.double(), 0.125, False)
         y = torch.empty(1, 8, 1, 64, device="cuda", dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="shape mismatch"):
             library.flash_attention_fwd(x, y, y, 0.125, False)

@@ -1,21 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a) over the TPU kernel's whole
-// domain: q, k, v in fp32 or bf16, any head dim from 1 to 256, any Sq and
-// Sk >= 1, read in place through four element strides each.
+// domain: q, k, v in fp32, bf16 or fp16, any head dim from 1 to 256, any Sq
+// and Sk >= 1, read in place through four element strides each.
 //
 // Replaces: ufm_tpu/ops/flash_attention.py::_flash_attention_impl (:558) and
 // its TPU kernel bodies, for every dtype and head dim the port's wgmma
 // kernel (flash_attention_fwd.cu: bf16 with D = 64 only) does not take. The
 // TPU kernel passes (B*H, S, D) blocks of the input's dtype to one
 // pallas_call whatever D is; here the fp32 models (compute_dtype="float32",
-// the repository's tiny anchors at D = 32 / 24, its trained checkpoint) and
-// bf16 models at D != 64 take this kernel. Same function: out = softmax(q
+// the repository's tiny anchors at D = 32 / 24, its trained checkpoint),
+// bf16 models at D != 64 and fp16 take this kernel. Same function: out = softmax(q
 // k^T * scale) v over (B, S, H, D), fp32 scores, fp32 online softmax
 // statistics, the output in the input dtype, and each row's natural-log
 // log-sum-exp in fp32 (B, H, Sq) when asked (the layout flash_attention_bwd
 // reads).
 //
-// Arithmetic: every product is fp32 FMA on the CUDA cores (bf16 inputs are
-// widened when a tile is staged), so an fp32 call keeps fp32's accuracy; a
+// Arithmetic: every product is fp32 FMA on the CUDA cores (bf16 and fp16
+// inputs are widened when a tile is staged), so an fp32 call keeps fp32's accuracy; a
 // single-pass TF32 product on the tensor cores would keep ~3 decimal digits.
 // The softmax is exp / log in fp32 (expf, logf), P stays fp32 for P V.
 //
@@ -48,6 +48,7 @@
 // cores, cp.async double buffering) is later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,8 +77,10 @@ struct Tile {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 // rows [row0, row0 + rows) of one (batch, head) slice -> fp32 shared memory
 // at `stride` floats a row; rows past `seq` and columns past `d` are zero
@@ -273,22 +276,23 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o, void* lse
 
 }  // namespace
 
-// Plain C entry point for ctypes. `is_bf16` picks the element type of q, k,
-// v and o (bf16, else fp32). Strides are in elements, any value (q, k, v are
+// Plain C entry point for ctypes. `dtype` picks the element type of q, k, v
+// and o (0 fp32, 1 bf16, 2 fp16). Strides are in elements, any value (q, k, v are
 // read element by element); o is written through its B, S and H strides with
 // D contiguous. `lse` is null or a contiguous fp32 (B, H, Sq) buffer. The
 // wrapper checks 1 <= d <= 256, sq, sk >= 1 and batch * num_heads <= 65535.
 // Launches on `stream`; returns 0 or a cudaError_t.
 extern "C" int ufm_flash_attention_fwd_any(const void* q, const void* k, const void* v, void* o, void* lse,
-                                           int is_bf16, int batch, int num_heads, int sq, int sk, int d,
+                                           int dtype, int batch, int num_heads, int sq, int sk, int d,
                                            long long q_sb, long long q_ss, long long q_sh, long long q_sd,
                                            long long k_sb, long long k_ss, long long k_sh, long long k_sd,
                                            long long v_sb, long long v_ss, long long v_sh, long long v_sd,
                                            long long o_sb, long long o_ss, long long o_sh, float scale,
                                            void* stream) {
-  if (d < 1 || d > 256 || sq < 1 || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1 || d > 256 || sq < 1 || sk < 1 || dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long st[15] = {q_sb, q_ss, q_sh, q_sd, k_sb, k_ss, k_sh, k_sd, v_sb, v_ss, v_sh, v_sd, o_sb, o_ss, o_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_dtype<__nv_bfloat16>(q, k, v, o, lse, batch, num_heads, sq, sk, d, st, scale, s);
+  if (dtype == 1) return launch_dtype<__nv_bfloat16>(q, k, v, o, lse, batch, num_heads, sq, sk, d, st, scale, s);
+  if (dtype == 2) return launch_dtype<__half>(q, k, v, o, lse, batch, num_heads, sq, sk, d, st, scale, s);
   return launch_dtype<float>(q, k, v, o, lse, batch, num_heads, sq, sk, d, st, scale, s);
 }

@@ -7,15 +7,19 @@ hand-written CUDA forwards (the port of ``ufm_tpu/ops/flash_attention.py``'s
 Pallas forward), chosen by :func:`forward_kernel` from the dtype and head dim
 alone: bf16 at D = 64, the flagship's attention, takes the wgmma kernel
 (``ufm_torch/csrc/flash_attention_fwd.cu``); every other call in the TPU
-kernel's domain (fp32 or bf16, 1 <= D <= 256) takes the fp32-FMA kernel
+kernel's domain (fp32, bf16 or fp16, 1 <= D <= 256) takes the fp32-FMA kernel
 (``ufm_torch/csrc/flash_attention_fwd_any.cu``). Both also write each row's
-log-sum-exp when asked; :func:`launch_backward` launches the
-hand-written CUDA backward (``ufm_torch/csrc/flash_attention_bwd.cu``, the
-port of the Pallas ``_flash_attention_bwd_impl``). They are the ops' CUDA
-implementations, and raise on anything the kernels do not take; they never
-fall back to :func:`attention_reference` / :func:`attention_backward_reference`,
-the plain versions of the same functions, which are the ops' CPU
-implementations and what the kernel checks use. :func:`flash_attention`,
+log-sum-exp when asked. :func:`launch_backward` launches one of two
+hand-written CUDA backwards (the port of the Pallas
+``_flash_attention_bwd_impl``), chosen by :func:`backward_kernel` the same
+way: bf16 at D = 64 takes the wgmma kernel
+(``ufm_torch/csrc/flash_attention_bwd.cu``), the rest of the domain the
+fp32-FMA kernel (``ufm_torch/csrc/flash_attention_bwd_any.cu``). They are
+the ops' CUDA implementations, and raise on anything the kernels do not
+take; they never fall back to :func:`attention_reference` /
+:func:`attention_backward_reference`, the plain versions of the same
+functions, which are the ops' CPU implementations and what the kernel
+checks use. :func:`flash_attention`,
 :func:`flash_attention_forward` and :func:`flash_attention_backward` call the
 ops on CUDA tensors and refuse any other.
 
@@ -23,8 +27,7 @@ Inputs are (B, S, H, D) like the JAX package. q, k and v may be strided views
 (the fused qkv projection, reshaped (B, S, 3, H, D)): the wgmma kernels read
 them in place through TMA tensor maps, which need D contiguous, a 16-byte
 aligned base and the other strides multiples of 16 bytes
-(:func:`tma_layout_error`); the fp32-FMA kernel reads any strides. The
-backward kernel takes bf16 at D = 64 only.
+(:func:`tma_layout_error`); the fp32-FMA kernels read any strides.
 """
 
 from __future__ import annotations
@@ -50,15 +53,18 @@ __all__ = [
     "LAUNCHES",
     "ANY_LAUNCHES",
     "BWD_LAUNCHES",
+    "ANY_BWD_LAUNCHES",
     "HEAD_DIM",
     "MAX_HEAD_DIM",
     "forward_kernel",
+    "backward_kernel",
     "tma_layout_error",
 ]
 
 HEAD_DIM = 64  # the wgmma kernels' only head_dim (the flagship's)
-MAX_HEAD_DIM = 256  # the fp32-FMA forward's largest head_dim
-_ANY_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 256  # the fp32-FMA kernels' largest head_dim
+# the fp32-FMA kernels' element types, by their C entry points' dtype code
+_ANY_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535  # the fp32-FMA forward's grid: (Sq blocks, B * H)
 
 # wgmma forward kernel launches since the count was last reset (``LAUNCHES = 0``)
@@ -69,10 +75,14 @@ ANY_LAUNCHES = 0
 # call runs two CUDA kernels in order: delta, then one grid of dK/dV and dQ
 # blocks
 BWD_LAUNCHES = 0
+# fp32-FMA backward calls since the count was last reset; each call runs two
+# CUDA kernels in order: delta, then one grid of dK/dV and dQ blocks
+ANY_BWD_LAUNCHES = 0
 
 _fwd_fn = None
 _fwd_any_fn = None
 _bwd_fn = None
+_bwd_any_fn = None
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool = False):
@@ -133,20 +143,47 @@ def _fwd_any_kernel():
     return _fwd_any_fn
 
 
-def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
-    """Which forward kernel takes a CUDA call of this dtype and head dim:
-    ``"wgmma"`` (bf16 at D = 64, ``csrc/flash_attention_fwd.cu``) or
-    ``"fma"`` (fp32 or bf16 at any other 1 <= D <= 256,
-    ``csrc/flash_attention_fwd_any.cu``). Raises ValueError outside that
-    domain (fp16, D > 256)."""
+def _route(what: str, dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim == HEAD_DIM:
         return "wgmma"
     if dtype in _ANY_DTYPES and 1 <= head_dim <= MAX_HEAD_DIM:
         return "fma"
     raise ValueError(
-        f"flash_attention on the card takes float32 or bfloat16 with 1 <= D <= {MAX_HEAD_DIM}, "
+        f"{what} on the card takes float32, bfloat16 or float16 with 1 <= D <= {MAX_HEAD_DIM}, "
         f"got {dtype} with D = {head_dim}"
     )
+
+
+def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel takes a CUDA call of this dtype and head dim:
+    ``"wgmma"`` (bf16 at D = 64, ``csrc/flash_attention_fwd.cu``) or
+    ``"fma"`` (fp32, bf16 or fp16 at any other 1 <= D <= 256,
+    ``csrc/flash_attention_fwd_any.cu``). Raises ValueError, naming the
+    dtype and D, outside that domain (float64, D > 256)."""
+    return _route("flash_attention", dtype, head_dim)
+
+
+def backward_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """Which backward kernel takes a CUDA call of this dtype and head dim:
+    ``"wgmma"`` (bf16 at D = 64, ``csrc/flash_attention_bwd.cu``) or
+    ``"fma"`` (fp32, bf16 or fp16 at any other 1 <= D <= 256,
+    ``csrc/flash_attention_bwd_any.cu``); the forward's routing, so a
+    backward reads the lse of the forward it follows. Raises ValueError,
+    naming the dtype and D, outside that domain."""
+    return _route("the attention backward", dtype, head_dim)
+
+
+def _bwd_any_kernel():
+    global _bwd_any_fn
+    if _bwd_any_fn is None:
+        fn = _build.load_library("flash_attention_bwd_any").ufm_flash_attention_bwd_any
+        fn.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 29
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _bwd_any_fn = fn
+    return _bwd_any_fn
 
 
 def _bwd_kernel():
@@ -304,7 +341,7 @@ def _launch_forward_any(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
-            int(q.dtype == torch.bfloat16), b, h, sq, sk, d,
+            _ANY_DTYPES[q.dtype], b, h, sq, sk, d,
             *q.stride(), *k.stride(), *v.stride(), *out.stride()[:3],
             float(scale), stream,
         )
@@ -325,18 +362,17 @@ def launch_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward op's CUDA implementation, one backward call (two CUDA
     kernels: delta, then dK/dV and dQ): (dq, dk, dv), fresh contiguous
-    (B, S, H, 64) bf16 tensors, from the forward's inputs, output and ``lse``
-    and the output gradient ``g``. ``g`` is read through its strides; one
-    whose rows the kernel cannot read in place (a non-contiguous head dim,
-    unaligned rows) is copied to a contiguous tensor first. The kernel takes
-    bf16 at D = 64 only: any other dtype or D raises, naming both (the fp32
-    and D != 64 backward is not ported yet)."""
+    tensors in the inputs' dtype, from the forward's inputs, output and
+    ``lse`` and the output gradient ``g``. :func:`backward_kernel` picks the
+    kernel from q's dtype and D before anything is launched: bf16 at D = 64
+    takes the wgmma kernel, which reads ``g`` through its strides (one whose
+    rows it cannot read in place, a non-contiguous head dim or unaligned
+    rows, is copied to a contiguous tensor first); the rest of the domain
+    takes the fp32-FMA kernel (:func:`_launch_backward_any`). Outside the
+    domain it raises, naming the dtype and D."""
     global BWD_LAUNCHES
-    if q.dtype != torch.bfloat16 or q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(
-            f"the attention backward kernel takes bfloat16 at D = {HEAD_DIM}, got {q.dtype} with D = "
-            f"{q.shape[-1] if q.dim() else None} (the float32 and D != {HEAD_DIM} backward is not ported yet)"
-        )
+    if q.dim() == 4 and backward_kernel(q.dtype, q.shape[-1]) == "fma":
+        return _launch_backward_any(q, k, v, out, lse, g, scale)
     _check(q, k, v)
     if _layout_error(g) is not None:
         g = g.contiguous()
@@ -368,6 +404,51 @@ def launch_backward(
         BWD_LAUNCHES += 1
     if err != 0:
         raise _launch_error("flash_attention backward launch", err, q, k)
+    return dq, dk, dv
+
+
+def _launch_backward_any(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`launch_backward` on the fp32-FMA kernel: q, k, v, ``out`` and
+    ``g`` read through their strides, fresh contiguous gradients."""
+    global ANY_BWD_LAUNCHES
+    _check_any(q, k, v)
+    for name, t in (("out", out), ("g", g)):
+        if not t.is_cuda or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(
+                f"{name} must be a CUDA tensor of q's dtype and shape, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if lse.dtype != torch.float32 or lse.shape != (b, h, sq) or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, sq)} tensor, got {lse.dtype} {tuple(lse.shape)}")
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0:  # no query: dk and dv are zero
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # scratch
+    fn = _bwd_any_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ANY_DTYPES[q.dtype], b, h, sq, sk, d,
+            *q.stride(), *k.stride(), *v.stride(), *out.stride(), *g.stride(),
+            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            float(scale), stream,
+        )
+        ANY_BWD_LAUNCHES += 1
+    if err != 0:
+        raise _launch_error("flash_attention backward (fp32-FMA) launch", err, q, k)
     return dq, dk, dv
 
 
@@ -438,11 +519,12 @@ def flash_attention_backward(
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention on the card: q (B, Sq, H, D), k/v (B, Sk, H, D)
-    fp32 or bf16, 1 <= D <= 256 -> (B, Sq, H, D) in their dtype, a fresh
+    fp32, bf16 or fp16, 1 <= D <= 256 -> (B, Sq, H, D) in their dtype, a fresh
     contiguous tensor, from the kernel :func:`forward_kernel` picks. With grad enabled
     and an input that requires grad, the forward also writes the row
-    log-sum-exp and the output's gradient is the backward kernel (the op's
-    autograd formula); otherwise it is one plain forward launch."""
+    log-sum-exp and the output's gradient is the backward kernel
+    :func:`backward_kernel` picks (the op's autograd formula); otherwise it
+    is one plain forward launch."""
     _require_cuda(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -2,7 +2,7 @@
 
 Each kernel wrapper adds one to its module's counter where it launches its
 kernel (``flash_attention.LAUNCHES``, ``flash_attention.BWD_LAUNCHES``,
-``flash_attention.ANY_LAUNCHES``,
+``flash_attention.ANY_LAUNCHES``, ``flash_attention.ANY_BWD_LAUNCHES``,
 ``window_refinement.LAUNCHES``, ``gelu.LAUNCHES``,
 ``linear_gelu.LAUNCHES``). A CUDA graph runs its kernels without the
 wrappers, so a captured predict program takes back what the wrappers counted
@@ -16,7 +16,7 @@ from typing import Tuple
 
 from ufm_torch.ops import flash_attention, gelu, linear_gelu, window_refinement
 
-__all__ = ["snapshot", "since", "add"]
+__all__ = ["snapshot", "since", "add", "reset"]
 
 _COUNTERS = (
     (flash_attention, "LAUNCHES"),
@@ -25,6 +25,7 @@ _COUNTERS = (
     (gelu, "LAUNCHES"),
     (linear_gelu, "LAUNCHES"),
     (flash_attention, "ANY_LAUNCHES"),
+    (flash_attention, "ANY_BWD_LAUNCHES"),
 )
 
 
@@ -42,3 +43,9 @@ def add(delta: Tuple[int, ...]) -> None:
     """Add ``delta`` (one entry per counter, as :func:`since` gives it)."""
     for (m, name), d in zip(_COUNTERS, delta):
         setattr(m, name, getattr(m, name) + d)
+
+
+def reset() -> None:
+    """Set every counter to 0 (where a run's counts start)."""
+    for m, name in _COUNTERS:
+        setattr(m, name, 0)

@@ -16,15 +16,15 @@ Five ops in the ``ufm_torch`` namespace:
   (``ufm_torch/ops/linear_gelu.py``).
 
 The tensors' device picks the implementation inside the op: CUDA runs the
-hand-written kernel (``flash_attention.launch_forward``, which picks the
-wgmma or the fp32-FMA forward by dtype and head dim, / ``launch_backward``,
-``window_refinement.launch``, ``gelu.launch``, ``linear_gelu.launch``:
-every pointer, stride and alignment check and the launch counters live
-there, and they raise on what the kernels do not take), CPU runs the plain
-version. A fake implementation
-gives each output's shape and dtype from the inputs' (with the shape checks,
-and on a CUDA tensor the kernels' dtype and head-dim domain: the forward's
-fp32 or bf16 at 1 <= D <= 256, the backward's bf16 at D = 64), so
+hand-written kernel (``flash_attention.launch_forward`` /
+``launch_backward``, which pick the wgmma or the fp32-FMA kernel by dtype
+and head dim, ``window_refinement.launch``, ``gelu.launch``,
+``linear_gelu.launch``: every pointer, stride and alignment check and the
+launch counters live there, and they raise on what the kernels do not
+take), CPU runs the plain version. A fake implementation gives each output's
+shape and dtype from the inputs' (with the shape checks, and on a CUDA
+tensor the kernels' dtype and head-dim domain: fp32, bf16 or fp16 at 1 <= D
+<= 256, as ``forward_kernel`` / ``backward_kernel`` route it), so
 ``torch.export`` and ``torch.compile`` trace the model with the ops as graph
 nodes and an exported program launches the kernels wherever it is moved to.
 
@@ -103,13 +103,8 @@ def _check_attention(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
         for name, t in (("k", k), ("v", v)):
             if t.dtype != q.dtype:
                 raise ValueError(f"{op}: q, k and v must share a dtype, got q {q.dtype}, {name} {t.dtype}")
-        if op == "flash_attention_fwd":
-            _fa.forward_kernel(q.dtype, q.shape[-1])
-        elif q.dtype != torch.bfloat16 or q.shape[-1] != _fa.HEAD_DIM:
-            raise ValueError(
-                f"{op} on the card takes bfloat16 (B, S, H, {_fa.HEAD_DIM}) tensors, "
-                f"got {q.dtype} with D = {q.shape[-1]}"
-            )
+        route = _fa.forward_kernel if op == "flash_attention_fwd" else _fa.backward_kernel
+        route(q.dtype, q.shape[-1])
 
 
 @torch.library.register_fake(f"{NAMESPACE}::flash_attention_fwd", lib=_LIB)
