@@ -46,9 +46,9 @@ attention launches (72 where the backward runs the attention forward again,
 plain-attention forward (``moge``).
 
 The rest of the attention forward's domain (fp32 and fp16 at any head dim,
-bf16 at D != 64) runs the fp32-FMA kernel (``csrc/flash_attention_fwd_any.cu``),
+bf16 at D != 64) runs the mma kernel (``csrc/flash_attention_fwd_any.cu``),
 held to its plain version at ten cases (``kernel``, ``flash_attention_fwd_any``);
-the rest of the backward's domain runs the fp32-FMA backward
+the rest of the backward's domain runs the mma backward
 (``csrc/flash_attention_bwd_any.cu``), held to fp64 and for bitwise
 repeatability at ten cases (``kernel``, ``flash_attention_bwd_any``);
 the repository's two tiny fp32 anchors run on it against their CPU goldens,
@@ -60,12 +60,12 @@ process on the bundled parallax pair with the trained tiny checkpoint, its
 pair, checkpoint and panels read and written by the port's own codecs, its
 flow held to the port's CPU run (``entry``). UFM-Base in fp32 trains at
 batch 2 on 420x560 (``fp32_train``: ``make_train_step``, then ``fit``; 36
-fp32-FMA forward launches and 36 fp32-FMA backward calls a step, none of the
+mma forward launches and 36 mma backward calls a step, none of the
 wgmma or bf16 MLP kernels; its gradients at batch 1 held to plain attention
 with TF32 off); ``fine_tune`` fits the trained tiny checkpoint on the card
 and on the CPU (losses held together, TF32 off) and takes one train step of
-the tiny config in bf16 (D = 32 / 24: the fp32-FMA kernels in bf16). Every
-bf16 D = 64 training path makes no fp32-FMA backward call
+the tiny config in bf16 (D = 32 / 24: the mma kernels in bf16). Every
+bf16 D = 64 training path makes no mma backward call
 (``bf16_training_paths``).
 
 Around them: the kernel path of two tiny models at head dim 64 held to the
@@ -142,6 +142,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # without tensor cores
+PEAK_TF32_FLOPS = 495e12
+# fp32-accurate products on the tensor cores: three TF32 products (3xTF32)
+# for each fp32 one, i.e. 165 TFLOP/s of fp32 work
+PEAK_FP32_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 
 # main-path attention shapes at batch 1 and their calls per forward
@@ -213,11 +217,13 @@ LINEAR_GELU_BIAS_STD = 0.1
 # (fp32 sums in another order than the reference's)
 LINEAR_GELU_ULP_SHARE = 1e-3
 ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
+# the attention pair over the rest of the domain (TF32 mma.sync)
+ANY_LIBRARIES = ("flash_attention_fwd_any", "flash_attention_bwd_any")
 # the kernels the profiler counts, by the name of their __global__ function
 KERNEL_NAMES = ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "gelu_bf16_fwd_kernel",
                 "linear_gelu_bf16_fwd_kernel", "flash_attention_fwd_any_kernel")
 
-# the fp32-FMA attention forward (csrc/flash_attention_fwd_any.cu), the rest
+# the mma attention forward (csrc/flash_attention_fwd_any.cu), the rest
 # of the TPU kernel's domain: (case, dtype, q (B, Sq, H, D), Sk, calls a
 # batch-1 forward of UFM-Base in fp32). The fp32 flagship's two shapes, the
 # fp32 anchors' (head dims 32 and 24), fp32 at D = 128 and 256 (the kernel's
@@ -243,7 +249,7 @@ ANY_PER_FORWARD = sum(n for *_, n in ANY_ATTN_CASES)  # 36
 # reference rounded to the type, plus this for the fp32 sums' own error near
 # zero
 ANY_FP32_ERR_FLOOR = 1e-5
-# the fp32-FMA attention backward (csrc/flash_attention_bwd_any.cu), the rest
+# the mma attention backward (csrc/flash_attention_bwd_any.cu), the rest
 # of the TPU backward's domain: (case, dtype, q (B, Sq, H, D), Sk, calls a
 # batch-2 train step of UFM-Base in fp32). The fp32 step's two shapes (the
 # encoder sees both views: 2B), fp32 at D = 128 and 256, the shapes of a
@@ -304,7 +310,7 @@ FIT_LR = 3e-6
 # keep them in fp32 (forward flow relative L2 1.5e-2 for the same reason);
 # the gradients carry that rounding through the forward and the backward
 TRAIN_GRAD_REL_L2_BOUND = 1e-1
-# UFM-Base in fp32 (the fp32-FMA forward and backward), batch 1, TF32 off:
+# UFM-Base in fp32 (the mma forward and backward), batch 1, TF32 off:
 # kernel vs plain-attention gradients, relative L2 per optimizer group (both
 # fp32: only the sums' order differs)
 FP32_TRAIN_GRAD_REL_L2_BOUND = 1e-3
@@ -315,7 +321,7 @@ FP32_TRAIN_GRAD_REL_L2_BOUND = 1e-3
 FINE_TUNE_BATCH, FINE_TUNE_STEPS, FINE_TUNE_LR = 2, 3, 1e-5
 FINE_TUNE_LOSS_REL = 1e-4
 # the launch counters' order (ufm_torch.ops.launches): wgmma attention forward
-# and backward, window, GELU, fused fc1 + GELU, fp32-FMA attention forward and
+# and backward, window, GELU, fused fc1 + GELU, mma attention forward and
 # backward
 ANY_FWD_AT, ANY_BWD_AT, GELU_AT, FUSED_AT = 5, 6, 3, 4
 ATTENTION_AT = (0, 1, 5, 6)
@@ -501,11 +507,12 @@ def phase_device() -> str:
 
 
 def sass_counts(path) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in a library's SASS."""
+    """HGMMA (wgmma), HMMA (mma.sync) and UTMALDG (TMA load) instructions in
+    a library's SASS."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "--dump-sass", str(path)], capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA", "UTMALDG")}
 
 
 def ptxas_report(log: str) -> dict:
@@ -548,6 +555,15 @@ def phase_build():
     for name in ("window_refinement_fwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
         local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
         check(bool(ptxas[name]) and not local, f"{name} uses local memory: {local}")
+    # the mma attention pair: tensor-core products, and no local memory in the
+    # head dims the repository's models run (DP = 32 / 64; the others reported)
+    for name in ANY_LIBRARIES:
+        check(sass[name]["HMMA"] + sass[name]["HGMMA"] > 0, f"{name}: no tensor-core instruction (HMMA, HGMMA)")
+        local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
+        check(bool(ptxas[name]) and not any(re.search(r"Li(32|64)E", k) for k in local),
+              f"{name} uses local memory at DP = 32 / 64: {local}")
+        emit("build_mma", library=name, local_memory=local,
+             registers={k: v["registers"] for k, v in ptxas[name].items()})
     t0 = time.perf_counter()
     host = _build._host_library_path("ufm_runtime")
     if host.exists():
@@ -601,15 +617,24 @@ def phase_kernel():
     return rows
 
 
-def any_attention_bound_ms(b, sq, sk, h, d, dtype):
+def _any_peak(dtype, fma: bool) -> float:
+    """The rate an operation on ``dtype`` inputs is bound by: fp32-accurate
+    products on the tensor cores (3xTF32, 165 TFLOP/s of fp32 work) for fp32,
+    the card's 989 TFLOP/s for bf16 and fp16; with ``fma``, fp32 FMA's 67
+    TFLOP/s outside the tensor cores for every dtype (the rate PRs 12-13's
+    fp32 shares were stated against)."""
+    if fma:
+        return PEAK_FP32_FLOPS
+    return PEAK_FP32_3XTF32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
+def any_attention_bound_ms(b, sq, sk, h, d, dtype, fma: bool = False):
     """The bound of a forward on ``dtype`` inputs: its 4 B H Sq Sk D
-    operations at the card's peak for that type (fp32 without tensor cores,
-    bf16 and fp16 on them: the card's rate for the inputs, whatever unit the
-    kernel uses) against q, k, v read once and the output written once."""
+    operations at :func:`_any_peak`'s rate against q, k, v read once and the
+    output written once."""
     flops = 4 * b * h * sq * sk * d
     nbytes = 2 * b * h * d * (sq + sk) * dtype.itemsize
-    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / _any_peak(dtype, fma) * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -635,14 +660,26 @@ def any_inputs(gen, dtype, b, sq, sk, h, d):
     return tuple(torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype) for s in (sq, sk, sk))
 
 
+def d_strided(t: torch.Tensor) -> torch.Tensor:
+    """The values of ``t`` as a view with D stride 2: no 16-byte cp.async
+    takes its rows, so the mma kernels stage it element by element (fp32 by
+    4-byte cp.async, bf16 / fp16 by plain loads)."""
+    wide = torch.zeros(*t.shape[:-1], 2 * t.shape[-1], dtype=t.dtype, device=t.device)
+    wide[..., ::2] = t
+    return wide[..., ::2]
+
+
 def phase_any_kernel():
-    """The fp32-FMA attention forward against its plain version (matmul TF32
+    """The mma attention forward against its plain version (matmul TF32
     off) at each of ANY_ATTN_CASES, against an fp64 reference: fp32 within
     max(2x the plain fp32 error, 1e-5); bf16 and fp16 within max(2x the plain
     version's error, 4e-3) and every element within one ulp of the type of
     the reference rounded to the type (+1e-5); the row log-sum-exp against
-    fp64; one launch of it and none of the wgmma kernel per call; timed
-    beside its plain version and SDPA on the same tensors."""
+    fp64; one launch of it and none of the wgmma kernel per call; at the
+    small cases, D-strided inputs (staged element by element, not by 16-byte
+    cp.async) give the same bits; timed beside its plain version and SDPA on
+    the same tensors, its share of both bounds (3xTF32 / tensor cores, and
+    fp32 FMA) beside."""
     import torch.nn.functional as F
 
     from ufm_torch.ops import flash_attention as fa
@@ -673,21 +710,28 @@ def phase_any_kernel():
                   f"{name}: an element is {ulp_excess:.3e} past one {dtype} ulp of the fp64 reference")
             del ref_t
         del ref, ref_lse, plain
-        check(launched == (0, 1), f"{name}: {launched} wgmma / fp32-FMA launches for one call, expected (0, 1)")
+        check(launched == (0, 1), f"{name}: {launched} wgmma / mma launches for one call, expected (0, 1)")
         check(out.dtype == dt and bool(torch.isfinite(out).all()), f"{name}: kernel output {out.dtype}, not finite")
-        check(err <= tol, f"{name}: fp32-FMA kernel error {err:.3e} > {tol:.3e}")
+        check(err <= tol, f"{name}: mma kernel error {err:.3e} > {tol:.3e}")
         check(lse_err <= LSE_ATOL, f"{name}: row log-sum-exp error {lse_err:.3e} > {LSE_ATOL}")
+        staging_equal = None
+        if not calls and b * h * sq * sk <= 1 << 16:  # the small cases: the element-wise staging paths too
+            out_s, lse_s = fa.flash_attention_forward(*(d_strided(x) for x in (q, k, v)), scale, with_lse=True)
+            staging_equal = torch.equal(out, out_s) and torch.equal(lse, lse_s)
+            check(staging_equal, f"{name}: D-strided inputs (element-wise staging) change the output")
 
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale))
         plain_ms = time_ms(lambda: fa.attention_reference(q, k, v, scale), reps=3, batches=5)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
         bound_ms, bound_by = any_attention_bound_ms(b, sq, sk, h, d, dt)
+        fma_bound_ms, _ = any_attention_bound_ms(b, sq, sk, h, d, dt, fma=True)
         rows[name] = dict(
             dtype=dtype, shape=[b, sq, h, d], sk=sk, calls_per_fp32_forward=calls, max_abs_err=err,
             plain_max_abs_err=plain_err, tol=tol, ulp_excess_max=ulp_excess, lse_max_abs_err=lse_err,
-            ms=ms, plain_ms=plain_ms,
+            staging_paths_bitwise_equal=staging_equal, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+            fma_bound_ms=fma_bound_ms, share_of_fma_bound=fma_bound_ms / ms,
             tflops=4 * b * h * sq * sk * d / ms / 1e9,
         )
         emit("kernel", kernel="flash_attention_fwd_any", case=name, **rows[name])
@@ -765,16 +809,14 @@ def phase_bwd_kernel():
     return rows
 
 
-def any_attention_bwd_bound_ms(b, sq, sk, h, d, dtype):
+def any_attention_bwd_bound_ms(b, sq, sk, h, d, dtype, fma: bool = False):
     """The backward's own cost on ``dtype`` inputs: 10 B H Sq Sk D operations
-    (five products, the TPU kernel's CostEstimate) at the card's peak for
-    that type (fp32 without tensor cores, bf16 and fp16 on them) against q,
-    o, g, k, v read once and dq, dk, dv written once, plus lse read and delta
-    written once (fp32)."""
+    (five products, the TPU kernel's CostEstimate) at :func:`_any_peak`'s
+    rate against q, o, g, k, v read once and dq, dk, dv written once, plus
+    lse read and delta written once (fp32)."""
     flops = 10 * b * h * sq * sk * d
     nbytes = 4 * b * h * d * (sq + sk) * dtype.itemsize + 2 * b * h * sq * 4
-    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / _any_peak(dtype, fma) * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -790,13 +832,15 @@ def sdpa_backward_ms(q, k, v, g, scale):
 
 
 def phase_any_bwd_kernel():
-    """The fp32-FMA attention backward through ``flash_attention_backward``
-    (after the fp32-FMA forward with lse) at each of ANY_BWD_CASES, matmul
+    """The mma attention backward through ``flash_attention_backward``
+    (after the mma forward with lse) at each of ANY_BWD_CASES, matmul
     TF32 off: dq, dk and dv against an fp64 reference, each within max(2x
     the plain version's error in the same dtype, ANY_BWD_FLOOR_REL of the
     reference's largest element); two calls bitwise equal; one launch of it
-    and none of the wgmma backward per call; timed beside its plain version
-    and SDPA's backward on the same tensors."""
+    and none of the wgmma backward per call; at the small cases, D-strided
+    q, k, v, g (staged element by element) give the same bits; timed beside
+    its plain version and SDPA's backward on the same tensors, its share of
+    both bounds beside."""
     from ufm_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -816,9 +860,15 @@ def phase_any_bwd_kernel():
         again = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
         torch.cuda.synchronize()
         launched = (fa.BWD_LAUNCHES - before[0], fa.ANY_BWD_LAUNCHES - before[1])
-        check(launched == (0, 2), f"backward {name}: {launched} wgmma / fp32-FMA backward calls for two, expected (0, 2)")
+        check(launched == (0, 2), f"backward {name}: {launched} wgmma / mma backward calls for two, expected (0, 2)")
         repeatable = all(torch.equal(a, c) for a, c in zip(grads, again))
         check(repeatable, f"backward {name}: two calls on the same inputs differ")
+        staging_equal = None
+        if not calls and b * h * sq * sk <= 1 << 20:  # the small cases: the element-wise staging paths too
+            strided = fa.flash_attention_backward(*(d_strided(x) for x in (q, k, v)), out, lse, d_strided(g), scale)
+            staging_equal = all(torch.equal(a, c) for a, c in zip(grads, strided))
+            check(staging_equal, f"backward {name}: D-strided inputs (element-wise staging) change the gradients")
+            del strided
         del again
         wide = torch.float64
         ref = fa.attention_backward_reference(q.to(wide), k.to(wide), v.to(wide), g.to(wide), scale)
@@ -837,12 +887,15 @@ def phase_any_bwd_kernel():
         plain_ms = time_ms(lambda: fa.attention_backward_reference(q, k, v, g, scale), reps=3, batches=5)
         library_ms = sdpa_backward_ms(q, k, v, g, scale)
         bound_ms, bound_by = any_attention_bwd_bound_ms(b, sq, sk, h, d, dt)
+        fma_bound_ms, _ = any_attention_bwd_bound_ms(b, sq, sk, h, d, dt, fma=True)
         rows[name] = dict(
             dtype=dtype, shape=[b, sq, h, d], sk=sk, calls_per_fp32_step=calls,
             **{f"{k}_{f}": v for k, e in errs.items() for f, v in e.items()},
             max_abs_err=max(e["max_abs_err"] for e in errs.values()), bitwise_repeatable=repeatable,
+            staging_paths_bitwise_equal=staging_equal,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-            share_of_bound=bound_ms / ms, tflops=10 * b * h * sq * sk * d / ms / 1e9,
+            share_of_bound=bound_ms / ms, fma_bound_ms=fma_bound_ms, share_of_fma_bound=fma_bound_ms / ms,
+            tflops=10 * b * h * sq * sk * d / ms / 1e9,
         )
         emit("kernel", kernel="flash_attention_bwd_any", case=name, **rows[name])
         del q, k, v, g, out, lse, grads
@@ -1161,9 +1214,9 @@ def phase_main_path():
              pairs_per_s=b / latencies[name], flow_abs_mean=flow.abs().mean().item(),
              covis_mean=covis.mean().item())
     launches = fa.LAUNCHES
-    check(fa.ANY_LAUNCHES == 0, f"the bf16 d = 64 path launched the fp32-FMA attention kernel {fa.ANY_LAUNCHES} times")
+    check(fa.ANY_LAUNCHES == 0, f"the bf16 d = 64 path launched the mma attention kernel {fa.ANY_LAUNCHES} times")
     mlp_path("ufm_base", ge.LAUNCHES, lg.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
-    emit("main_path", launches=launches, fp32_fma_launches=fa.ANY_LAUNCHES, forwards=4 * len(requests),
+    emit("main_path", launches=launches, mma_launches=fa.ANY_LAUNCHES, forwards=4 * len(requests),
          launches_per_forward=LAUNCHES_PER_FORWARD,
          gelu_launches=ge.LAUNCHES, linear_gelu_launches=lg.LAUNCHES,
          pairs_per_s_b1=1.0 / latencies["480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -1706,7 +1759,7 @@ def phase_train():
               f"train step {i}: {launched} attention forward launches / backward calls / GELU / fused fc1 + GELU "
               "launches, expected 36 / 36 / 36 / 0")
         check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0),
-              f"bf16 train step {i}: fp32-FMA attention launches ({fa.ANY_LAUNCHES}, {fa.ANY_BWD_LAUNCHES})")
+              f"bf16 train step {i}: mma attention launches ({fa.ANY_LAUNCHES}, {fa.ANY_BWD_LAUNCHES})")
         vals = {k: v.item() for k, v in metrics.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"train step {i}: non-finite metrics {vals}")
         losses.append(vals["total_loss"])
@@ -1726,7 +1779,7 @@ def phase_train():
     check(all(np.isfinite(v) for v in fit_losses), f"fit: non-finite losses {fit_losses}")
     launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
     steps = TRAIN_STEPS + FIT_STEPS
-    check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0), "the bf16 fit launched an fp32-FMA attention kernel")
+    check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0), "the bf16 fit launched an mma attention kernel")
     check(launches == {"flash_attention_fwd": steps * LAUNCHES_PER_FORWARD, "flash_attention_bwd": steps * LAUNCHES_PER_FORWARD},
           f"training path launches {launches} over {steps} steps, expected 36 + 36 per step")
     mlp_path("ufm_base_train", ge.LAUNCHES, lg.LAUNCHES, steps * GELU_PER_FORWARD, grad=True)
@@ -1734,7 +1787,7 @@ def phase_train():
     check(trajectory[-1] < trajectory[0], f"loss did not fall on the fixed batch: {trajectory}")
     emit("train_path", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), learning_rate=TRAIN_LR,
          warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS, fit_learning_rate=FIT_LR, steps=steps,
-         launches=launches, fp32_fma_launches=[fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES],
+         launches=launches, mma_launches=[fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES],
          first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s,
          forward_loss_ms=statistics.median(fwd_ms[1:]), backward_ms=statistics.median(bwd_ms[1:]),
          optimizer_ms=statistics.median(opt_ms[1:]), max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -1832,7 +1885,7 @@ def _train_steps(step, batch, n, label,
               f"{label} step {i}: {launched} attention forward / backward / GELU launches, expected {launches_each}, "
               f"and {lg.LAUNCHES - before[3]} fused fc1 + GELU launches, expected 0")
         check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == before[4:],
-              f"{label} step {i}: the bf16 step launched an fp32-FMA attention kernel")
+              f"{label} step {i}: the bf16 step launched an mma attention kernel")
         vals = {k: v.item() for k, v in m.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
         metrics.append(vals)
@@ -2849,7 +2902,7 @@ def _max_diffs(got: dict, want: dict) -> dict:
 
 def phase_fp32_anchor():
     """The repository's two tiny fp32 anchors (UFM-Base, and UFM-Refine on
-    the window kernel; head dims 32 and 24: the fp32-FMA attention forward)
+    the window kernel; head dims 32 and 24: the mma attention forward)
     built from tests/golden/torch_port_fp32_anchor.npz (no JAX here), their
     inputs drawn from seeded_inputs()'s numpy generator: every output within
     FP32_ANCHOR_ATOL of the CPU goldens with TF32 off (held); the gap to the
@@ -2894,7 +2947,7 @@ def phase_fp32_anchor():
                        "window_refinement_fwd": launched[False][2]})
         for tf32 in (False, True):
             check(launched[tf32] == (0, layers, int(refine)),
-                  f"fp32 anchor {name}: {launched[tf32]} wgmma / fp32-FMA / window launches, "
+                  f"fp32 anchor {name}: {launched[tf32]} wgmma / mma / window launches, "
                   f"expected (0, {layers}, {int(refine)})")
         for k, d in diffs.items():
             check(d <= FP32_ANCHOR_ATOL, f"fp32 anchor {name}: {k} differs from the CPU golden by {d:.3e}")
@@ -2905,13 +2958,13 @@ def phase_fp32_path():
     """UFM-Base at full width with compute_dtype="float32", 480x640 batch 1,
     through predict_correspondences_batched, eagerly and captured: host clock,
     device busy and idle share of a profiled window, peak memory; 36
-    fp32-FMA attention launches a forward and none of the wgmma kernel (nor
+    mma attention launches a forward and none of the wgmma kernel (nor
     of the bf16 MLP kernels); flow against the same model on plain attention
     within FP32_FLOW_BAR_PX with TF32 off (with cuDNN's TF32 on, the
     default, the heads round their inputs to TF32, which turns the two
     attentions' last-bit differences into ~1e-3 relative ones: held within
     FP32_FLOW_BAR_TF32_ON_PX).
-    Returns the path's fp32-FMA launches by mode."""
+    Returns the path's mma launches by mode."""
     from ufm_torch.models import UniFlowMatchConfidence, base, ufm_base_config
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
@@ -2940,7 +2993,7 @@ def phase_fp32_path():
                 calls.append((fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1]))
             launched[mode] = fa.ANY_LAUNCHES
             check(all(c == (0, ANY_PER_FORWARD) for c in calls),
-                  f"fp32 {mode}: wgmma / fp32-FMA launches per call {calls}, expected (0, {ANY_PER_FORWARD})")
+                  f"fp32 {mode}: wgmma / mma launches per call {calls}, expected (0, {ANY_PER_FORWARD})")
             check((ge.LAUNCHES, lg.LAUNCHES) == (0, 0), f"fp32 {mode}: bf16 MLP kernels launched")
             profiled, counts = _profile_requests(request)
         want = {"flash_attention_fwd_any_kernel": ANY_PER_FORWARD * PROFILE_REQUESTS}
@@ -2961,7 +3014,7 @@ def phase_fp32_path():
                 flows[tf32, impl] = request().flow.flow_output.float()
                 torch.cuda.synchronize()
                 check((fa.ANY_LAUNCHES - before) == (0 if impl else ANY_PER_FORWARD),
-                      f"fp32 TF32 {tf32} attention {impl}: {fa.ANY_LAUNCHES - before} fp32-FMA launches")
+                      f"fp32 TF32 {tf32} attention {impl}: {fa.ANY_LAUNCHES - before} mma launches")
     model.attention_impl = None
     diff_px = (flows[False, None] - flows[False, "torch"]).abs().max().item()
     diff_on_px = (flows[True, None] - flows[True, "torch"]).abs().max().item()
@@ -2990,7 +3043,7 @@ def phase_entry():
     predict call) against the port's CPU run of the same checkpoint on the
     same pair, with TF32 off (held within ENTRY_FLOW_BAR_PX) and on, the
     default (held within ENTRY_FLOW_BAR_TF32_ON_PX). Returns the path's
-    fp32-FMA launches."""
+    mma launches."""
     import importlib.util
     import io
 
@@ -3044,7 +3097,7 @@ def phase_entry():
          bar_px=ENTRY_FLOW_BAR_PX, bar_tf32_on_px=ENTRY_FLOW_BAR_TF32_ON_PX, cpu_flow_abs_max_px=cpu_flow.abs().max().item(),
          **{f"tf32_{'on' if k else 'off'}": {n: v for n, v in r.items() if n != "flow"} for k, r in runs.items()})
     for tf32, r in runs.items():
-        check(r["launches"] == layers, f"ufm infer: {r['launches']} fp32-FMA attention launches, expected {layers}")
+        check(r["launches"] == layers, f"ufm infer: {r['launches']} mma attention launches, expected {layers}")
     check(diffs[False] <= ENTRY_FLOW_BAR_PX, f"ufm infer: flow {diffs[False]:.3e} px from the CPU run")
     check(diffs[True] <= ENTRY_FLOW_BAR_TF32_ON_PX, f"ufm infer, TF32 on: flow {diffs[True]:.3e} px from the CPU run")
     return fa.ANY_LAUNCHES
@@ -3101,12 +3154,12 @@ def phase_fp32_train():
     """UFM-Base in fp32 (``ufm_base_config(compute_dtype="float32")``: no
     fp32 masters, no bf16 MLP kernels) at TRAIN_BATCH, TRAIN_HW, through
     make_train_step for TRAIN_STEPS, then fit for FIT_STEPS (the bf16 train
-    phase's schedule): each step 36 fp32-FMA forward launches and 36 fp32-FMA
+    phase's schedule): each step 36 mma forward launches and 36 mma
     backward calls and none of the wgmma attention, GELU or fused fc1 + GELU
     kernels; finite metrics, a falling loss; the spans (forward + loss,
     backward, optimizer), step ms, pairs/s and peak memory. Then at batch 1,
     TF32 off, each group's gradient against plain attention within
-    FP32_TRAIN_GRAD_REL_L2_BOUND. Returns the path's fp32-FMA launches."""
+    FP32_TRAIN_GRAD_REL_L2_BOUND. Returns the path's mma launches."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.ops import launches as counters
     from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
@@ -3135,7 +3188,7 @@ def phase_fp32_train():
             times.append(time.perf_counter() - t)
             launched = counters.since(before)
             check(launched == each, f"fp32 train step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, "
-                  f"fused fc1 + GELU, fp32-FMA fwd / bwd), expected {each}")
+                  f"fused fc1 + GELU, mma fwd / bwd), expected {each}")
             vals = {k: v.item() for k, v in metrics.items()}
             check(all(np.isfinite(v) for v in vals.values()), f"fp32 train step {i}: non-finite metrics {vals}")
             losses.append(vals["total_loss"])
@@ -3181,12 +3234,12 @@ def phase_fine_tune():
     """Fine-tuning the trained tiny checkpoint (fp32, D = 32 / 24):
     ``from_pretrained`` on the card and on the CPU, then ``fit`` for
     FINE_TUNE_STEPS on one seeded batch at the checkpoint's resolution, TF32
-    off: each card step 4 fp32-FMA forward launches and 4 backward calls and
+    off: each card step 4 mma forward launches and 4 backward calls and
     none of the wgmma kernels, each step's loss within FINE_TUNE_LOSS_REL of
-    the CPU run's. Then the tiny config in bf16 (D = 32 / 24: the fp32-FMA
+    the CPU run's. Then the tiny config in bf16 (D = 32 / 24: the mma
     kernels in bf16) takes one train step on the card: its gradients within
     TRAIN_GRAD_REL_L2_BOUND of plain attention a group at a time, its GELU
-    kernel launched once an MLP. Returns the paths' fp32-FMA launches."""
+    kernel launched once an MLP. Returns the paths' mma launches."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config
     from ufm_torch.ops import launches as counters
     from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
@@ -3228,7 +3281,7 @@ def phase_fine_tune():
     for i, r in enumerate(rel):
         check(np.isfinite(r) and r <= FINE_TUNE_LOSS_REL, f"fine-tune step {i}: loss {r:.3e} from the CPU run's, relative")
 
-    # the tiny config in bf16: one train step through the fp32-FMA kernels in bf16
+    # the tiny config in bf16: one train step through the mma kernels in bf16
     model = UniFlowMatchConfidence.from_config(ufm_tiny_config(compute_dtype="bfloat16"), seed=0)
     layers = model.config.encoder_kwargs["depth"] + model.config.info_sharing_kwargs["depth"]
     h, w = _model_hw(model.config)
@@ -3327,8 +3380,8 @@ def run_phases(smi: str) -> int:
     from ufm_torch.ops import flash_attention as fa
 
     # every bf16 D = 64 training path since phase_train reset the count
-    emit("bf16_training_paths", fp32_fma_backward_launches=fa.ANY_BWD_LAUNCHES)
-    check(fa.ANY_BWD_LAUNCHES == 0, f"the bf16 D = 64 training paths made {fa.ANY_BWD_LAUNCHES} fp32-FMA backward calls")
+    emit("bf16_training_paths", mma_backward_launches=fa.ANY_BWD_LAUNCHES)
+    check(fa.ANY_BWD_LAUNCHES == 0, f"the bf16 D = 64 training paths made {fa.ANY_BWD_LAUNCHES} mma backward calls")
     fp32_train_launches = phase_fp32_train()
     fine_tune_launches = phase_fine_tune()
 
@@ -3523,11 +3576,14 @@ def run_phases(smi: str) -> int:
         "bound_ms": sum(r["bound_ms"] for r in any_fwd),
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in any_fwd) else "bytes",
         "library_ms": sum(r["library_ms"] for r in any_fwd),
+        "fma_bound_ms": sum(r["fma_bound_ms"] for r in any_fwd),
         "per_forward": "times sum the 24 encoder and 12 info-sharing calls of one batch-1 forward of UFM-Base "
-                       "in fp32; the bound is fp32 FMA's 67 TFLOP/s (bf16 and fp16 cases: the tensor-core peak)",
+                       "in fp32; the bound is fp32 work at 3xTF32 on the tensor cores, 165 TFLOP/s (bf16 and fp16 "
+                       "cases: the 989 TFLOP/s tensor-core peak); fma_bound_ms at fp32 FMA's 67 TFLOP/s",
         "library": "scaled_dot_product_attention on the same (B, H, S, D) views",
         "ms_by_case": {n: r["ms"] for n, r in any_rows.items()},
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in any_rows.items()},
+        "share_of_fma_bound_by_case": {n: r["share_of_fma_bound"] for n, r in any_rows.items()},
         "library_ms_by_case": {n: r["library_ms"] for n, r in any_rows.items()},
         "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in any_rows.items()},
     }
@@ -3555,11 +3611,14 @@ def run_phases(smi: str) -> int:
         "library_ms": sum(r["library_ms"] for r in any_bwd_step),
         "per_step": "times sum the 24 encoder and 12 info-sharing calls of one batch-2 train step of UFM-Base in "
                     "fp32; a launch is one backward call (two CUDA kernels: delta, then one grid of dK/dV and dQ "
-                    "blocks); the bound is fp32 FMA's 67 TFLOP/s (bf16 and fp16 cases: the tensor-core peak)",
+                    "blocks); the bound is fp32 work at 3xTF32 on the tensor cores, 165 TFLOP/s (bf16 and fp16 "
+                    "cases: the 989 TFLOP/s tensor-core peak); fma_bound_ms at fp32 FMA's 67 TFLOP/s",
+        "fma_bound_ms": sum(r["fma_bound_ms"] for r in any_bwd_step),
         "library": "backward of scaled_dot_product_attention, torch.autograd.grad on the same (B, H, S, D) views",
         "bitwise_repeatable": all(r["bitwise_repeatable"] for r in any_bwd_rows.values()),
         "ms_by_case": {n: r["ms"] for n, r in any_bwd_rows.items()},
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in any_bwd_rows.items()},
+        "share_of_fma_bound_by_case": {n: r["share_of_fma_bound"] for n, r in any_bwd_rows.items()},
         "library_ms_by_case": {n: r["library_ms"] for n, r in any_bwd_rows.items()},
         "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in any_bwd_rows.items()},
     }

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the attention kernels of several checkouts of the port in one process.
 
-    python3 profile_attention_trees.py PARENT . . PARENT [--train-steps 8] [--requests 5]
+    python3 profile_attention_trees.py PARENT . . PARENT [--train-steps 8] [--requests 5] [--any]
+        [--fp32-requests 5] [--fp32-train-steps 4]
 
 Each argument is the root of a checkout that holds ``ufm_torch`` (an
 unpacked ``git archive`` of another commit, or this one). The trees are
@@ -38,7 +39,16 @@ tree's sources and prints one JSON line per kernel and shape:
   request, the device busy time (the union of the kernels' intervals) and
   the idle share, the kernels a request (as ``chip_smoke.py``'s
   ``captured`` phase reads them) and the device ms a request of the
-  kernels that take the most, by name.
+  kernels that take the most, by name;
+- with ``--any``, the attention kernels over the rest of the domain (fp32,
+  fp16, bf16 at D != 64) at each case of ``chip_smoke.py``'s
+  ``ANY_ATTN_CASES`` (forward) and ``ANY_BWD_CASES`` (backward after the
+  forward with lse), on the same inputs as there, beside SDPA's forward or
+  backward, matmul TF32 off;
+- with ``--fp32-requests N`` and ``--fp32-train-steps N``, the same request
+  and train step of UFM-Base in fp32 (``compute_dtype="float32"``: every
+  attention call on those kernels), each with the device ms of its kernels
+  by name.
 
 The last line sums each tree's runs. Needs a CUDA device.
 """
@@ -110,9 +120,8 @@ def load_tree(root: str):
         sys.path.remove(root)
     if not os.path.abspath(fa.__file__).startswith(root + os.sep):
         raise RuntimeError(f"ufm_torch came from {fa.__file__}, not from {root}")
-    importlib.import_module("ufm_torch.ops._build").build(
-        ["flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd"]
-    )
+    build = importlib.import_module("ufm_torch.ops._build")
+    build.build(build.KERNEL_SOURCES)  # every kernel of the tree, one nvcc each, all at once
     return fa
 
 
@@ -124,7 +133,8 @@ def views(shape, seed):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], g
 
 
-def run_tree(root: str, turn: int, train_steps: int = 0, requests: int = 0) -> dict:
+def run_tree(root: str, turn: int, train_steps: int = 0, requests: int = 0, any_cases: bool = False,
+             fp32_requests: int = 0, fp32_train_steps: int = 0) -> dict:
     fa = load_tree(root)
     scale = 64**-0.5
     out = {}
@@ -170,12 +180,50 @@ def run_tree(root: str, turn: int, train_steps: int = 0, requests: int = 0) -> d
     emit("launch", "small", **shapes, host_us_per_launch=launch_costs())
     with torch.inference_mode():  # the predict API's mode: no autograd dispatch
         emit("launch", "small_inference_mode", **shapes, host_us_per_launch=launch_costs())
+    if any_cases:
+        time_any_cases(fa, emit)
     if train_steps:
         emit("train_step", "ufm_base_b2", **train_step(train_steps))
     if requests:
         for mode, fields in predict_requests(requests).items():
             emit("request", f"ufm_base_480x640_b1_{mode}", **fields)
+    if fp32_train_steps:
+        emit("train_step", "ufm_base_fp32_b2", **train_step(fp32_train_steps, "float32"))
+    if fp32_requests:
+        for mode, fields in predict_requests(fp32_requests, "float32").items():
+            emit("request", f"ufm_base_fp32_480x640_b1_{mode}", **fields)
     return out
+
+
+def time_any_cases(fa, emit) -> None:
+    """The tree's forward and backward at chip_smoke.py's ANY_ATTN_CASES /
+    ANY_BWD_CASES (inputs from its any_inputs and seeds), beside SDPA."""
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, dtype, (b, sq, h, d), sk, _ in cs.ANY_ATTN_CASES:
+        q, k, v = cs.any_inputs(gen, getattr(torch, dtype), b, sq, sk, h, d)
+        scale = d**-0.5
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        emit("fwd_any", name, dtype=dtype, shape=[b, sq, h, d], sk=sk,
+             ms=time_ms(lambda: fa.flash_attention_forward(q, k, v, scale)),
+             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, dtype, (b, sq, h, d), sk, _ in cs.ANY_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = cs.any_inputs(gen, dt, b, sq, sk, h, d)
+        if sq == sk:
+            g = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
+        else:  # a non-contiguous output gradient, as chip_smoke's
+            g = torch.randn(b, sq, h, d + 8, generator=gen, device="cuda").to(dt)[..., 8:]
+        scale = d**-0.5
+        o, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+        emit("bwd_any", name, dtype=dtype, shape=[b, sq, h, d], sk=sk,
+             ms=time_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, g, scale)),
+             library_ms=cs.sdpa_backward_ms(q, k, v, g, scale))
+        del q, k, v, g, o, lse
+    torch.cuda.empty_cache()
 
 
 def profile_requests(fn, reps: int) -> dict:
@@ -209,12 +257,12 @@ def profile_requests(fn, reps: int) -> dict:
             "kernels_per_request": len(spans) / reps, "ms_by_kernel": {name[:120]: ms for name, ms in top}}
 
 
-def predict_requests(reps: int) -> dict:
+def predict_requests(reps: int, compute_dtype: str = "bfloat16") -> dict:
     """A batch-1 480x640 UFM-Base request of the tree loaded last, captured
     and eager (after warm-up calls), profiled over ``reps`` requests each."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
 
-    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(compute_dtype=compute_dtype), seed=0)
     src, tgt = np.random.default_rng(0).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
 
     def request():
@@ -232,13 +280,16 @@ def predict_requests(reps: int) -> dict:
     return out
 
 
-def train_step(steps: int) -> dict:
-    """The batch-2 UFM-Base train step of the tree loaded last."""
+def train_step(steps: int, compute_dtype: str = "bfloat16") -> dict:
+    """The batch-2 UFM-Base train step of the tree loaded last: the median
+    step ms, one step's kernel ms (and, by name, the kernels that take the
+    most), the peak memory; in bf16 also both times with ``F.gelu`` as every
+    MLP's activation."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
     from ufm_torch.nn.layers import Mlp
     from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch
 
-    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(compute_dtype=compute_dtype), seed=0)
     batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
     optimizer = make_optimizer(model.net, learning_rate=1e-4, warmup_steps=100, total_steps=10000)
     step = make_train_step(model.net, optimizer)
@@ -255,19 +306,25 @@ def train_step(steps: int) -> dict:
             times.append((time.perf_counter() - t) * 1e3)
         return statistics.median(times)
 
-    def kernel_ms():
+    def kernel_ms(by_name=None):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             step(batch)
             torch.cuda.synchronize()
-        return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3
+        times = {e.key: getattr(e, "self_device_time_total", 0) / 1e3 for e in prof.key_averages()}
+        if by_name is not None:
+            by_name.update({k[:120]: ms for k, ms in sorted(times.items(), key=lambda kv: -kv[1])[:8]})
+        return sum(times.values())
 
     torch.cuda.reset_peak_memory_stats()
-    out = {"step_ms": median_ms(), "kernel_ms": kernel_ms(), "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    for m in model.net.modules():
-        if isinstance(m, Mlp):
-            m.act = lambda x: F.gelu(x, approximate="none")
-    out["step_ms_f_gelu"] = median_ms()
-    out["kernel_ms_f_gelu"] = kernel_ms()
+    by_name = {}
+    out = {"step_ms": median_ms(), "kernel_ms": kernel_ms(by_name),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "ms_by_kernel": by_name}
+    if compute_dtype == "bfloat16":
+        for m in model.net.modules():
+            if isinstance(m, Mlp):
+                m.act = lambda x: F.gelu(x, approximate="none")
+        out["step_ms_f_gelu"] = median_ms()
+        out["kernel_ms_f_gelu"] = kernel_ms()
     del model, optimizer, step, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -280,6 +337,12 @@ def main(argv) -> int:
     parser.add_argument("--train-steps", type=int, default=0, help="also time N batch-2 train steps per tree")
     parser.add_argument("--requests", type=int, default=0,
                         help="also profile N batch-1 UFM-Base requests per tree, captured and eager")
+    parser.add_argument("--any", action="store_true",
+                        help="also time the fp32 / fp16 / any-D attention kernels at chip_smoke's cases")
+    parser.add_argument("--fp32-requests", type=int, default=0,
+                        help="also profile N batch-1 fp32 UFM-Base requests per tree, captured and eager")
+    parser.add_argument("--fp32-train-steps", type=int, default=0,
+                        help="also time N batch-2 fp32 UFM-Base train steps per tree")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_attention_trees: needs a CUDA device", file=sys.stderr)
@@ -290,7 +353,8 @@ def main(argv) -> int:
     print(json.dumps({"device": smi, "torch": torch.__version__, "trees": argv}), flush=True)
     runs = {}
     for turn, root in enumerate(argv):
-        runs.setdefault(root, []).append(run_tree(root, turn, args.train_steps, args.requests))
+        runs.setdefault(root, []).append(run_tree(root, turn, args.train_steps, args.requests, args.any,
+                                                  args.fp32_requests, args.fp32_train_steps))
     summary = {}
     for root, outs in runs.items():
         summary[root] = {}

@@ -1,7 +1,7 @@
 """The attention backward over the TPU kernel's whole domain, on the CPU.
 
 - **The plain backward** (``attention_backward_reference``, the backward
-  op's CPU implementation and the reference the card's fp32-FMA backward
+  op's CPU implementation and the reference the card's mma backward
   kernel ``csrc/flash_attention_bwd_any.cu`` is held to) against
   ``jax.vjp`` through the JAX package's ``flash_attention`` in interpret mode,
   whose backward is the Pallas ``_flash_attention_bwd_impl``
@@ -97,9 +97,9 @@ def test_op_gradient_on_the_cpu_matches_the_pallas_backward(pallas_backward_only
 
 
 @pytest.mark.parametrize("dtype, d, kernel", [
-    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "fma"), (torch.float16, 64, "fma"),
-    (torch.bfloat16, 32, "fma"), (torch.float32, 24, "fma"), (torch.float32, 1, "fma"),
-    (torch.float16, 256, "fma"), (torch.bfloat16, 256, "fma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "mma"), (torch.float16, 64, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 24, "mma"), (torch.float32, 1, "mma"),
+    (torch.float16, 256, "mma"), (torch.bfloat16, 256, "mma"),
 ])
 def test_backward_kernel_by_dtype_and_head_dim(dtype, d, kernel):
     assert fa.backward_kernel(dtype, d) == kernel
@@ -127,7 +127,7 @@ def test_fake_backward_on_the_card_takes_the_domain(dtype, d):
 
 
 def test_fma_backward_refuses_cpu_tensors_and_counts_nothing():
-    """The fp32-FMA backward's CUDA implementation refuses CPU tensors (the
+    """The mma backward's CUDA implementation refuses CPU tensors (the
     CPU takes the op's plain version), and a refused call counts no launch."""
     x = torch.zeros(1, 8, 2, 24)
     lse = torch.zeros(1, 2, 8)
@@ -140,7 +140,7 @@ def test_fma_backward_refuses_cpu_tensors_and_counts_nothing():
 
 
 def test_launch_counters_hold_the_fma_backward_last_and_reset_together():
-    """The fp32-FMA backward's counter is the last of ``launches``' seven,
+    """The mma backward's counter is the last of ``launches``' seven,
     and ``reset`` zeroes them all."""
     fa.ANY_BWD_LAUNCHES += 3
     assert launches.snapshot()[-1] == fa.ANY_BWD_LAUNCHES >= 3

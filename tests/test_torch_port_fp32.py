@@ -156,9 +156,9 @@ def test_plain_attention_matches_the_jax_kernel(dtype, d, sq, sk):
 
 
 @pytest.mark.parametrize("dtype, d, kernel", [
-    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "fma"), (torch.bfloat16, 32, "fma"),
-    (torch.float32, 24, "fma"), (torch.float32, 1, "fma"), (torch.bfloat16, 256, "fma"), (torch.float32, 80, "fma"),
-    (torch.float16, 64, "fma"), (torch.float16, 24, "fma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.float32, 24, "mma"), (torch.float32, 1, "mma"), (torch.bfloat16, 256, "mma"), (torch.float32, 80, "mma"),
+    (torch.float16, 64, "mma"), (torch.float16, 24, "mma"),
 ])
 def test_forward_kernel_by_dtype_and_head_dim(dtype, d, kernel):
     assert fa.forward_kernel(dtype, d) == kernel

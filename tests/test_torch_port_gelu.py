@@ -230,7 +230,7 @@ def test_cpu_forward_launches_nothing():
     model = _bf16_tiny_model()
     x, y = _normalized_pair(model, seed=4)
     before = launches.snapshot()
-    # attention forward (wgmma), backward, window, GELU, fused fc1 + GELU, attention forward and backward (fp32 FMA)
+    # attention forward (wgmma), backward, window, GELU, fused fc1 + GELU, attention forward and backward (mma)
     assert len(before) == 7
     seen = []
     handles = [m.register_forward_hook(lambda mod, inp, out: seen.append(inp[0])) for n, m in model.net.named_modules()

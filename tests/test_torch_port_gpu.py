@@ -1198,3 +1198,81 @@ def test_fp32_tiny_train_step_matches_the_cpu(cuda):
             assert rel <= 1e-4, (group, rel)
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+# ---- the tensor-core (mma) pair over the rest of the domain: staging paths ----
+
+# (dtype, (B, Sq, Sk, H, D)): ragged Sq and Sk (not multiples of 16 or 64),
+# Sq != Sk, the head dims 1, 24, 40 and 256
+MMA_CASES = [
+    ("float32", (1, 77, 130, 3, 1)),
+    ("float32", (2, 13, 50, 2, 24)),
+    ("float32", (1, 100, 33, 1, 256)),
+    ("float16", (1, 77, 130, 3, 40)),
+    ("bfloat16", (1, 33, 100, 2, 256)),
+    ("bfloat16", (2, 50, 71, 2, 24)),
+]
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """The values of ``t`` as a view with D stride 2: no 16-byte copy can take
+    its rows, so fp32 is staged by 4-byte cp.async and bf16 / fp16 by plain
+    loads."""
+    wide = torch.zeros(*t.shape[:-1], 2 * t.shape[-1], dtype=t.dtype, device=t.device)
+    view = wide[..., ::2]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype, shape", MMA_CASES, ids=[f"{t}-{'x'.join(map(str, s))}" for t, s in MMA_CASES])
+def test_mma_pair_against_fp64_on_both_staging_paths(cuda, dtype, shape):
+    """The forward and the backward at ragged lengths, Sq != Sk and D = 1 /
+    24 / 40 / 256 against fp64 (the forward at chip_smoke's bars, each
+    gradient within max(2x the plain version's error, ANY_BWD_FLOOR_REL of
+    the largest element)); q and g also as D-strided views, which the
+    kernels stage element by element instead of by 16-byte cp.async: the
+    same bits either way, and the backward bitwise repeatable."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _any_inputs(cuda, dtype, shape, seed=7)
+    b, sq, _, h, d = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    g = torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dt)
+    scale = d**-0.5
+    out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+    out_s, lse_s = fa.flash_attention_forward(_strided(q), k, v, scale, with_lse=True)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+    grads_s = fa.flash_attention_backward(_strided(q), k, v, out, lse, _strided(g), scale)
+    again = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_s) and torch.equal(lse, lse_s)
+    assert all(torch.equal(a, c) for a, c in zip(grads, grads_s))
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    err, bar = _any_bar(q, k, v, out, scale)
+    assert torch.isfinite(out).all() and err <= bar, (err, bar)
+    wide = torch.float64
+    ref = fa.attention_backward_reference(q.to(wide), k.to(wide), v.to(wide), g.to(wide), scale)
+    plain = fa.attention_backward_reference(q, k, v, g, scale)
+    for name, got, want, pl in zip(("dq", "dk", "dv"), grads, ref, plain):
+        err = (got.to(wide) - want).abs().max().item()
+        bar = max(2 * (pl.to(wide) - want).abs().max().item(), ANY_BWD_FLOOR_REL[dtype] * want.abs().max().item())
+        assert torch.isfinite(got).all() and err <= bar, (name, err, bar)
+
+
+@pytest.mark.parametrize("dtype, shape", [("float32", (2, 1201, 1201, 4, 64)), ("float32", (1, 77, 130, 3, 40)),
+                                          ("float32", (1, 300, 65, 2, 256))])
+def test_mma_backward_recomputes_the_forwards_row_statistics(cuda, dtype, shape):
+    """The backward's P, recomputed from the scores and the forward's lse,
+    sums to 1 over each row's keys: dv = P^T g, so the sum of dv over the
+    keys equals the sum of g over the queries (fp32, within 1e-5 of its
+    largest element). A backward whose scores left the forward's order, or
+    an lse that was not the scores' own, would miss it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _any_inputs(cuda, dtype, shape, seed=9)
+    b, sq, _, h, d = shape
+    g = torch.randn(b, sq, h, d, generator=torch.Generator(device=cuda).manual_seed(10), device=cuda)
+    scale = d**-0.5
+    out, lse = fa.flash_attention_forward(q, k, v, scale, with_lse=True)
+    _, _, dv = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
+    want = g.double().sum(1)
+    assert (dv.double().sum(1) - want).abs().max().item() <= 1e-5 * want.abs().max().item()

@@ -19,54 +19,66 @@
 // ds_c, as the wgmma backward does); for fp32 they stay fp32. dq, dk and dv
 // are accumulated in fp32 and written once in the input dtype.
 //
-// Arithmetic: every product is fp32 FMA on the CUDA cores (bf16 and fp16
-// inputs are widened when a tile is staged), so an fp32 call keeps fp32's
-// accuracy (no TF32). The scores are summed over D in the order the fp32-FMA
-// forward (flash_attention_fwd_any.cu) sums them, so P is that forward's
-// softmax to the last bit of exp.
+// Arithmetic: every product on the tensor cores, mma.sync.m16n8k8 with TF32
+// operands under the term rule of attention_mma.cuh: fp32 operands (the
+// inputs, and P and dS in fp32) take two terms and each fp32 product three
+// mma a k-step (3xTF32, fp32's accuracy); bf16 / fp16 inputs and the
+// rounded P and dS are exact in one term, so their products take one mma.
+// The scores are recomputed in the forward's (flash_attention_fwd_any.cu)
+// fragment and term order: S^T = K Q^T adds Q's small term, then K's, then
+// hi x hi at each k-step of D in order, as S = Q K^T does there, and one
+// mma gives an element the same bits in either operand order, so P is that
+// forward's softmax to the last bit of exp.
 //
-// Design, simple first: the flash-attention-2 schedule of
-// flash_attention_bwd.cu, in two launches and without atomics, so the result
-// is deterministic and bitwise repeatable.
+// Design: the flash-attention-2 schedule of flash_attention_bwd.cu, in two
+// launches and without atomics, so the result is deterministic and bitwise
+// repeatable.
 //   1. delta kernel: delta = rowsum(g * o) in fp32, one warp a row (equal to
 //      rowsum(dP * P) up to the rounding of o);
-//   2. one grid of two kinds of CTA, 128 threads each, the dK/dV CTAs first,
+//   2. one grid of two kinds of CTA, 4 warps each, the dK/dV CTAs first,
 //      then the dQ CTAs (the two kinds are independent, so the dQ CTAs fill
 //      the last wave of the dK/dV CTAs).
 //      dK/dV: one CTA per (tile of kBlockR keys, batch * head) keeps its K
-//      and V rows in shared memory and walks the queries in tiles of 64 rows
-//      (Q, g, lse, delta staged each tile): S^T = K Q^T, then P^T;
-//      dP^T = V g^T, then dS^T; dV += P^T g and dK += dS^T Q in registers.
+//      and V rows in shared memory and walks the queries in tiles of
+//      kBlockS rows (Q, g, lse, delta staged each tile): S^T = K Q^T, then
+//      P^T; dP^T = V g^T, then dS^T; dV += P^T g and dK += dS^T Q.
 //      dQ: one CTA per (tile of kBlockR queries, batch * head) keeps Q and g
-//      and walks the keys in tiles of 64 rows (K, V staged each tile): S =
-//      Q K^T, then P (keys past Sk give P = 0); dP = g V^T, then dS; dQ += dS
-//      K in registers.
+//      and walks the keys (K, V staged each tile): S = Q K^T, then P (keys
+//      past Sk give P = 0); dP = g V^T, then dS; dQ += dS K.
 //   Both kinds share one body: a resident pair (A1, A2), a streamed pair
-//   (B1, B2), X = A1 B1^T and Y = A2 B2^T, then products with B1 and B2.
-//   Tiles are staged as fp32 with D zero-padded to DP (32, 64, 128 or 256, a
-//   template argument), rows past S zero-filled; plain strided loads, no
-//   TMA, so any layout is read in place. A thread owns R resident rows and 8
-//   streamed rows of the score tiles (the forward's layout, rows padded to
-//   DP + 4 floats so the 8 lanes of a row group read distinct banks), and R
-//   resident rows x DP / 8 columns of each gradient accumulator. The
-//   resident tile shrinks as DP grows (kBlockR = 64 / 64 / 32 / 16 rows, R =
-//   4 / 4 / 2 / 1) so the two accumulators stay at 64 floats a thread at
-//   DP 64 / 128 / 256 (32 at DP = 32). P (rounded) and dS (rounded) pass
-//   through shared memory between the score and the gradient products.
-//   Rows past Sq take lse = +inf (P = 0) and delta = 0 in the dK/dV CTAs;
-//   rows past S are never written.
+//   (B1, B2), X = A1 B1^T and Y = A2 B2^T in mma accumulators (D summed in
+//   groups of 64 columns, as the forward sums S), then the gradient
+//   products with B1 and B2, whose A operands are X and Y's own accumulator
+//   fragments (a_from_acc: B1 / B2 read in key order), so P and dS stay in
+//   registers. A warp owns 16 resident rows; at DP = 128 / 256 two warps
+//   share 16 rows and each keeps half of the gradient columns (each
+//   computes the rows' X and Y whole): kBlockR = 64 / 64 / 32 / 32 rows at
+//   DP = 32 / 64 / 128 / 256.
+//   The resident tiles are staged once in the inputs' type (rows padded by
+//   16 bytes) and their A fragments split as each warp reads them. Each
+//   streamed tile (kBlockS = 32 / 32 / 16 / 16 rows; 64 for fp32 at DP = 32,
+//   where the tiny models' short rows make the tile count the CTA's latency)
+//   is copied raw (cp.async, 16 bytes where D is contiguous and the rows
+//   aligned, else 4 bytes for fp32; plain loads for other bf16 / fp16
+//   layouts), then prepared once into a ready tile (attention_mma.cuh) that
+//   all four warps read with no split;
+//   the next tile's copy overlaps this tile's products. Rows past S and
+//   columns past D are zero. Rows past Sq give P = 0 in the dK/dV CTAs; rows
+//   past S are never written.
+//   fp32 gradients are summed in partial sums (attention_mma.cuh, Sums).
 //
 // Bound on an H100 SXM: 10 B H Sq Sk D operations (the TPU kernel's
-// CostEstimate, five products) at 67 TFLOP/s of fp32 outside the tensor
-// cores (989 for bf16 / fp16, the card's rate for those types), against q,
-// k, v, o, g read once and dq, dk, dv written once at 3.35 TB/s. In fp32:
-//   encoder      (4, 1201, 16, 64): 59.1 GFLOP -> 0.882 ms; 0.16 GB -> 0.05 ms
-//   info sharing (2, 2400, 12, 64): 88.5 GFLOP -> 1.320 ms; 0.12 GB -> 0.04 ms
-// so it is bound by operations. The two kinds of CTA each recompute S and
-// dP: 7 products where the bound counts 5; a thread issues one 16-byte
-// shared-memory load per 11-16 FMAs at R = 4, per ~4 at R = 1. Making it
-// fast (3xTF32 or wgmma on the tensor cores, cp.async double buffering) is
-// later work.
+// CostEstimate, five products) against q, k, v, o, g read once and dq, dk,
+// dv written once at 3.35 TB/s: fp32 at 3xTF32 on the tensor cores (165
+// TFLOP/s of fp32 work), bf16 / fp16 at 989 TFLOP/s. In fp32:
+//   encoder      (4, 1201, 16, 64): 59.1 GFLOP -> 0.358 ms; 0.16 GB -> 0.05 ms
+//   info sharing (2, 2400, 12, 64): 88.5 GFLOP -> 0.536 ms; 0.12 GB -> 0.04 ms
+// so it is bound by operations. What holds it back (PERF.md, row 2b): the
+// two kinds of CTA each recompute S and dP, 7 products where the bound
+// counts 5 (more at DP = 128 / 256, where two warps each compute their rows'
+// X and Y); mma.sync reaches the TF32 rate only in part; the resident A
+// fragments are split again for every streamed tile (cvt.rna.tf32.f32 is
+// four SASS instructions); 8 warps an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -75,26 +87,31 @@
 
 #include <cmath>
 
+#include "attention_mma.cuh"
 #include "sm90_async.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kColGroups = 8;                      // threads sharing a resident row
-constexpr int kRowGroups = kThreads / kColGroups;  // 16
-constexpr int kBlockS = 64;                        // streamed rows per tile
-constexpr int kCols = kBlockS / kColGroups;        // streamed rows per thread in the score tiles: 8
-constexpr int kSStride = kBlockS + 4;              // floats per row of the P / dS tiles in shared memory
+using namespace ufm_mma;
 
-template <int DP>
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+
+template <typename T, int DP>
 struct Tile {
-  static constexpr int kRows = DP <= 64 ? 4 : DP == 128 ? 2 : 1;  // resident rows per thread
-  static constexpr int kBlockR = kRowGroups * kRows;              // resident rows per CTA
-  static constexpr int kStride = DP + 4;                          // floats per staged row
-  static constexpr int kVec = DP / 32;  // 16-byte accumulator column groups per thread (cg * 4 + 32 c)
-  static constexpr int kSmemFloats =
-      2 * kBlockR * kStride + 2 * kBlockS * kStride + 2 * kBlockR * kSStride + 2 * kBlockS;
-  static constexpr int kSmemBytes = kSmemFloats * 4;
+  using R = Ready<T>;
+  static constexpr int kWarpsN = DP <= 64 ? 1 : 2;         // warps sharing 16 resident rows
+  static constexpr int kBlockR = 16 * (kWarps / kWarpsN);  // resident rows a CTA
+  static constexpr int kBlockS = DP <= 32 && kTwoTerms<T> ? 64 : DP <= 64 ? 32 : 16;  // streamed rows a tile
+  static constexpr int kCols = DP / kWarpsN;               // gradient columns a warp
+  static constexpr int kResStride = DP + kPad<T>;          // raw resident rows (fragments split as read)
+  static constexpr int kStrStride = ready_stride_kmajor<DP>;  // ready streamed rows
+  static constexpr int kRes = kBlockR * kResStride;
+  static constexpr int kRaw = kBlockS * DP;
+  static constexpr int kReady = kBlockS * kStrStride;
+  // A1, A2 (T); ready B1, B2 (R); raw B1, B2 (T); raw and ready lse, delta
+  static constexpr int kSmemBytes = (2 * kRes + 2 * kRaw) * static_cast<int>(sizeof(T)) +
+                                    2 * kReady * static_cast<int>(sizeof(R)) + 4 * kBlockS * 4;
 };
 
 // element strides: (B, S, H, D) for the inputs, (B, S, H) for the outputs
@@ -103,18 +120,6 @@ struct Layout {
   long long q[4], k[4], v[4], g[4];
   long long dq[3], dk[3], dv[3];
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
-
-// x rounded to T's precision (the TPU kernel's p_c / ds_c), back in fp32
-__device__ __forceinline__ float round_as(float x, float) { return x; }
-__device__ __forceinline__ float round_as(float x, __nv_bfloat16) { return __bfloat162float(__float2bfloat16_rn(x)); }
-__device__ __forceinline__ float round_as(float x, __half) { return __half2float(__float2half_rn(x)); }
 
 // delta[(b * H + h) * Sq + i] = sum_d g[b, i, h, d] * o[b, i, h, d] in fp32:
 // one warp a row, lanes over d, reduced with shuffles in a fixed order
@@ -140,85 +145,69 @@ __global__ void __launch_bounds__(256) attention_delta_any_kernel(
   if (row < rows && lane == 0) delta[row] = acc;
 }
 
-// rows [row0, row0 + rows) of one (batch, head) slice -> fp32 shared memory
-// at `stride` floats a row; rows past `seq` and columns past `d` are zero
-template <int DP, typename T>
-__device__ __forceinline__ void stage(float* dst, int stride, const T* src, long long s_s, long long s_d, int row0,
-                                      int seq, int rows, int d) {
-  for (int idx = threadIdx.x; idx < rows * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx % DP;
-    const int row = row0 + r;
-    float x = 0.f;
-    if (row < seq && c < d) x = to_float(src[row * s_s + c * s_d]);
-    dst[r * stride + c] = x;
+// One chunk c of 8 streamed rows of the gradient products into acc1 (dQ +=
+// dS K, or dV += P^T g) and acc2 (dK += dS^T Q), the B operands read in key
+// order from the ready tiles b1 (K or Q) and b2 (V or g). kFresh: each
+// product is summed from zero and added to acc in fp32.
+template <typename T, int kG, bool kDq, bool kFresh>
+__device__ __forceinline__ void grad_chunk(float (&acc1)[kG][4], float (&acc2)[kG][4], const float (&x)[4],
+                                           const float (&y)[4], const Ready<T>* b1, const Ready<T>* b2, int c,
+                                           int stride, int col0, int gq, int tq) {
+  constexpr bool k2 = kTwoTerms<T>;
+  FragA fp, fd;
+  a_from_acc<k2>(fd, y);
+  if constexpr (!kDq) a_from_acc<k2>(fp, x);
+  const int off = (8 * c + 2 * tq) * stride + col0 + gq;
+#pragma unroll
+  for (int n = 0; n < kG; ++n) {
+    FragB fb;
+    if constexpr (kDq) {
+      load_b_ready(fb, b1 + off + 8 * n, stride);
+      mma_add<kFresh, k2, k2>(acc1[n], fd, fb);
+    } else {
+      load_b_ready(fb, b2 + off + 8 * n, stride);
+      mma_add<kFresh, k2, k2>(acc1[n], fp, fb);
+      load_b_ready(fb, b1 + off + 8 * n, stride);
+      mma_add<kFresh, k2, k2>(acc2[n], fd, fb);
+    }
   }
-}
-
-// out[r][j] = sum_dd a[rg * R + r][dd] * b[cg + 8 j][dd] over the staged
-// rows (fp32 FMA, dd in order: the forward's score order)
-template <int DP, int R>
-__device__ __forceinline__ void score_tile(float (&out)[R][kCols], const float* a, const float* b, int rg, int cg) {
-  constexpr int stride = DP + 4;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-  for (int dd = 0; dd < DP; dd += 4) {
-    float4 av[R], bv[kCols];
-#pragma unroll
-    for (int i = 0; i < R; ++i) av[i] = *reinterpret_cast<const float4*>(a + (rg * R + i) * stride + dd);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (cg + kColGroups * j) * stride + dd);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        float x = out[i][j];
-        x = fmaf(av[i].x, bv[j].x, x);
-        x = fmaf(av[i].y, bv[j].y, x);
-        x = fmaf(av[i].z, bv[j].z, x);
-        x = fmaf(av[i].w, bv[j].w, x);
-        out[i][j] = x;
-      }
-  }
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float s, const float4& x) {
-  acc.x = fmaf(s, x.x, acc.x);
-  acc.y = fmaf(s, x.y, acc.y);
-  acc.z = fmaf(s, x.z, acc.z);
-  acc.w = fmaf(s, x.w, acc.w);
 }
 
 // One CTA's gradients. kDq false: a dK/dV CTA (resident K, V; streamed Q, g),
 // writing dV (out1) and dK (out2); true: a dQ CTA (resident Q, g; streamed K,
-// V), writing dQ (out1).
+// V), writing dQ (out1). `staging` holds the Staging of q, k, v, g in 2-bit
+// fields.
 template <typename T, int DP, bool kDq>
-__device__ __forceinline__ void grads_block(float* smem, int tile, int bh, const T* __restrict__ q,
+__device__ __forceinline__ void grads_block(T* smem, int tile, int bh, const T* __restrict__ q,
                                             const T* __restrict__ k, const T* __restrict__ v,
                                             const T* __restrict__ g, const float* __restrict__ lse,
                                             const float* __restrict__ delta, T* out1, T* out2, int num_heads,
-                                            int sq, int sk, int d, const Layout& L, float scale) {
-  using C = Tile<DP>;
-  constexpr int R = C::kRows;
-  float* a1 = smem;                            // resident: K (dK/dV) or Q (dQ)
-  float* a2 = a1 + C::kBlockR * C::kStride;    // resident: V or g
-  float* b1 = a2 + C::kBlockR * C::kStride;    // streamed: Q or K
-  float* b2 = b1 + kBlockS * C::kStride;       // streamed: g or V
-  float* ps = b2 + kBlockS * C::kStride;       // P (rounded), resident x streamed
-  float* dss = ps + C::kBlockR * kSStride;     // dS (rounded), resident x streamed
-  float* lse_s = dss + C::kBlockR * kSStride;  // the streamed rows' lse and delta (dK/dV)
-  float* delta_s = lse_s + kBlockS;
+                                            int sq, int sk, int d, const Layout& L, int staging, float scale) {
+  using C = Tile<T, DP>;
+  using R = typename C::R;
+  constexpr bool k2 = kTwoTerms<T>;
+  constexpr int kN = C::kBlockS / 8;  // 8-row chunks of a streamed tile
+  constexpr int kD = DP / 8;          // k-steps of the score products
+  constexpr int kGroup = kD < 8 ? kD : 8;
+  constexpr int kG = C::kCols / 8;    // 8-column tiles of a warp's gradients
+  constexpr int kRS = C::kResStride;
+  constexpr int kSS = C::kStrStride;
+  T* a1 = smem;                     // resident: K (dK/dV) or Q (dQ)
+  T* a2 = a1 + C::kRes;             // resident: V or g
+  T* raw1 = a2 + C::kRes;           // raw streamed: Q or K
+  T* raw2 = raw1 + C::kRaw;         // raw streamed: g or V
+  R* b1 = reinterpret_cast<R*>(raw2 + C::kRaw);  // ready streamed: Q or K
+  R* b2 = b1 + C::kReady;                        // ready streamed: g or V
+  float* raw_stats = reinterpret_cast<float*>(b2 + C::kReady);  // the streamed rows' lse, delta (dK/dV)
+  float* st_lse = raw_stats + 2 * C::kBlockS;
+  float* st_delta = st_lse + C::kBlockS;
 
-  const int tid = threadIdx.x;
-  const int cg = tid % kColGroups;
-  const int rg = tid / kColGroups;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4;  // the fragments' g and t
+  const int tq = lane % 4;
+  const int mg = warp / C::kWarpsN;  // the warp's 16 resident rows
+  const int ng = warp % C::kWarpsN;  // and its gradient column slice
   const int b = bh / num_heads;
   const int h = bh % num_heads;
   const int r0 = tile * C::kBlockR;
@@ -227,108 +216,168 @@ __device__ __forceinline__ void grads_block(float* smem, int tile, int bh, const
   const T* kb = k + b * L.k[0] + h * L.k[2];
   const T* vb = v + b * L.v[0] + h * L.v[2];
   const T* gb = g + b * L.g[0] + h * L.g[2];
+  const int q_how = staging & 3;
+  const int k_how = (staging >> 2) & 3;
+  const int v_how = (staging >> 4) & 3;
+  const int g_how = (staging >> 6) & 3;
 
-  float row_lse[R], row_delta[R];  // the resident rows' (dQ)
+  const auto stage_streamed = [&](int it) {
+    const int s0 = it * C::kBlockS;
+    if constexpr (kDq) {
+      stage<DP, kThreads>(raw1, DP, kb, L.k[1], L.k[3], s0, sk, C::kBlockS, d, k_how);
+      stage<DP, kThreads>(raw2, DP, vb, L.v[1], L.v[3], s0, sk, C::kBlockS, d, v_how);
+    } else {
+      stage<DP, kThreads>(raw1, DP, qb, L.q[1], L.q[3], s0, sq, C::kBlockS, d, q_how);
+      stage<DP, kThreads>(raw2, DP, gb, L.g[1], L.g[3], s0, sq, C::kBlockS, d, g_how);
+      for (int j = threadIdx.x; j < 2 * C::kBlockS; j += kThreads) {
+        const int row = s0 + j % C::kBlockS;
+        const float* src = (j < C::kBlockS ? lse : delta) + stat0 + row;
+        cp_async4(raw_stats + j, row < sq ? src : lse, row < sq ? 4 : 0);  // rows past Sq: masked below
+      }
+    }
+  };
+
+  float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};  // the warp's resident rows g, g + 8 (dQ)
   if constexpr (kDq) {
-    stage<DP>(a1, C::kStride, qb, L.q[1], L.q[3], r0, sq, C::kBlockR, d);
-    stage<DP>(a2, C::kStride, gb, L.g[1], L.g[3], r0, sq, C::kBlockR, d);
+    stage<DP, kThreads>(a1, kRS, qb, L.q[1], L.q[3], r0, sq, C::kBlockR, d, q_how);
+    stage<DP, kThreads>(a2, kRS, gb, L.g[1], L.g[3], r0, sq, C::kBlockR, d, g_how);
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = r0 + rg * R + i;
-      row_lse[i] = row < sq ? lse[stat0 + row] : 0.f;  // rows past Sq are never written
-      row_delta[i] = row < sq ? delta[stat0 + row] : 0.f;
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 16 * mg + gq + 8 * i;
+      if (row < sq) {  // rows past Sq are never written
+        row_lse[i] = lse[stat0 + row];
+        row_delta[i] = delta[stat0 + row];
+      }
     }
   } else {
-    stage<DP>(a1, C::kStride, kb, L.k[1], L.k[3], r0, sk, C::kBlockR, d);
-    stage<DP>(a2, C::kStride, vb, L.v[1], L.v[3], r0, sk, C::kBlockR, d);
+    stage<DP, kThreads>(a1, kRS, kb, L.k[1], L.k[3], r0, sk, C::kBlockR, d, k_how);
+    stage<DP, kThreads>(a2, kRS, vb, L.v[1], L.v[3], r0, sk, C::kBlockR, d, v_how);
   }
+  stage_streamed(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
-  float4 acc1[R][C::kVec], acc2[R][C::kVec];  // dQ or dV; dK
+  float acc1[kG][4], acc2[kG][4];  // dQ or dV; dK
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int n = 0; n < kG; ++n)
 #pragma unroll
-    for (int c = 0; c < C::kVec; ++c) {
-      acc1[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-      acc2[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = 0; e < 4; ++e) {
+      acc1[n][e] = 0.f;
+      acc2[n][e] = 0.f;
     }
 
+  const T* a1w = a1 + 16 * mg * kRS;
+  const T* a2w = a2 + 16 * mg * kRS;
+  const int col0 = ng * C::kCols;
   const int streamed = kDq ? sk : sq;
-  const int num_tiles = (streamed + kBlockS - 1) / kBlockS;
-  for (int t = 0; t < num_tiles; ++t) {
-    const int s0 = t * kBlockS;
-    __syncthreads();  // the previous tile's B1, B2, P and dS are consumed
-    if constexpr (kDq) {
-      stage<DP>(b1, C::kStride, kb, L.k[1], L.k[3], s0, sk, kBlockS, d);
-      stage<DP>(b2, C::kStride, vb, L.v[1], L.v[3], s0, sk, kBlockS, d);
-    } else {
-      stage<DP>(b1, C::kStride, qb, L.q[1], L.q[3], s0, sq, kBlockS, d);
-      stage<DP>(b2, C::kStride, gb, L.g[1], L.g[3], s0, sq, kBlockS, d);
-      for (int j = tid; j < kBlockS; j += kThreads) {
-        const int row = s0 + j;
-        lse_s[j] = row < sq ? lse[stat0 + row] : INFINITY;  // P = 0 past Sq
-        delta_s[j] = row < sq ? delta[stat0 + row] : 0.f;
-      }
+  const int num_tiles = (streamed + C::kBlockS - 1) / C::kBlockS;
+  for (int it = 0; it < num_tiles; ++it) {
+    prepare<DP, kThreads>(b1, kSS, raw1, C::kBlockS);
+    prepare<DP, kThreads>(b2, kSS, raw2, C::kBlockS);
+    if constexpr (!kDq) {
+      for (int j = threadIdx.x; j < 2 * C::kBlockS; j += kThreads) st_lse[j] = raw_stats[j];
     }
-    __syncthreads();
+    __syncthreads();  // the ready tiles are written and the raw ones read
+    if (it + 1 < num_tiles) {
+      stage_streamed(it + 1);  // lands while this tile's products run
+      cp_async_commit();
+    }
+    const int s0 = it * C::kBlockS;
 
-    // P from the scores X = A1 B1^T (S^T or S)
-    float p[R][kCols];
-    score_tile<DP, R>(p, a1, b1, rg, cg);
+    // X = A1 B1^T (S^T or S) and Y = A2 B2^T (dP^T or dP); the dK/dV CTA's
+    // transposed products add B's small term first (the forward's order)
+    float x[kN][4], y[kN][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+    for (int kk0 = 0; kk0 < kD; kk0 += kGroup) {  // D in groups of 64 columns, as the forward sums S
+      float px[kN][4], py[kN][4];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = cg + kColGroups * j;
-        if constexpr (kDq) {
-          p[i][j] = s0 + c < sk ? expf(p[i][j] * scale - row_lse[i]) : 0.f;  // keys past Sk
-        } else {
-          p[i][j] = expf(p[i][j] * scale - lse_s[c]);
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          px[j][e] = 0.f;
+          py[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = kk0; kk < kk0 + kGroup; ++kk) {
+        FragA fa1, fa2;
+        load_a<T>(fa1, a1w + 8 * kk, kRS, gq, tq);
+        load_a<T>(fa2, a2w + 8 * kk, kRS, gq, tq);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          FragB fb;
+          load_b_ready(fb, b1 + (8 * j + gq) * kSS + 8 * kk + tq, 4);
+          mma_terms<k2, k2, !kDq>(px[j], fa1, fb);
+          load_b_ready(fb, b2 + (8 * j + gq) * kSS + 8 * kk + tq, 4);
+          mma_terms<k2, k2, !kDq>(py[j], fa2, fb);
         }
       }
-    // dS = P (Y - delta) with Y = A2 B2^T (dP^T or dP)
-    float y[R][kCols];
-    score_tile<DP, R>(y, a2, b2, rg, cg);
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+      for (int j = 0; j < kN; ++j)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = cg + kColGroups * j;
-        const float dl = kDq ? row_delta[i] : delta_s[c];
-        const int at = (rg * R + i) * kSStride + c;
-        dss[at] = round_as(p[i][j] * (y[i][j] - dl), T());
-        if constexpr (!kDq) ps[at] = round_as(p[i][j], T());
-      }
-    __syncthreads();
+        for (int e = 0; e < 4; ++e) {
+          x[j][e] = kk0 == 0 ? px[j][e] : x[j][e] + px[j][e];
+          y[j][e] = kk0 == 0 ? py[j][e] : y[j][e] + py[j][e];
+        }
+    }
 
-    // dQ += dS K, or dV += P^T g and dK += dS^T Q
-#pragma unroll 2
-    for (int kk = 0; kk < kBlockS; kk += 4) {
-      float4 dsv[R], pv[R];
+    // P into x, dS into y: element e of chunk j is resident row g + 8 (e / 2),
+    // streamed row s0 + 8 j + 2 t + e % 2
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        dsv[i] = *reinterpret_cast<const float4*>(dss + (rg * R + i) * kSStride + kk);
-        if constexpr (!kDq) pv[i] = *reinterpret_cast<const float4*>(ps + (rg * R + i) * kSStride + kk);
-      }
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int c = 0; c < C::kVec; ++c) {
-          const int col = cg * 4 + 32 * c;
-          const float4 x1 = *reinterpret_cast<const float4*>(b1 + (kk + e) * C::kStride + col);
-          if constexpr (kDq) {
-#pragma unroll
-            for (int i = 0; i < R; ++i) fma4(acc1[i][c], lane_of(dsv[i], e), x1);
-          } else {
-            const float4 x2 = *reinterpret_cast<const float4*>(b2 + (kk + e) * C::kStride + col);
-#pragma unroll
-            for (int i = 0; i < R; ++i) {
-              fma4(acc1[i][c], lane_of(pv[i], e), x2);
-              fma4(acc2[i][c], lane_of(dsv[i], e), x1);
-            }
-          }
+        const int c = 8 * j + 2 * tq + e % 2;
+        float p, dl;
+        if constexpr (kDq) {
+          p = s0 + c < sk ? expf(x[j][e] * scale - row_lse[e / 2]) : 0.f;  // keys past Sk
+          dl = row_delta[e / 2];
+        } else {
+          p = s0 + c < sq ? expf(x[j][e] * scale - st_lse[c]) : 0.f;  // queries past Sq
+          dl = st_delta[c];
+        }
+        x[j][e] = p;
+        y[j][e] = p * (y[j][e] - dl);
+        if constexpr (!k2) {  // bf16 / fp16: the gradient products' operands in the input dtype
+          x[j][e] = round_as(x[j][e], T());
+          y[j][e] = round_as(y[j][e], T());
         }
       }
+
+    // dQ += dS K, or dV += P^T g and dK += dS^T Q, the streamed rows in key
+    // order. fp32 sums them in partial sums (attention_mma.cuh, Sums): two
+    // chunks of 8 rows at a time for a slice of 64 columns, each product
+    // alone for a wider one (DP = 256), whose partial sums would not fit in
+    // registers; bf16 / fp16 chain them. Chunk by chunk, the 8-column tiles'
+    // mma are independent of each other.
+    if constexpr (k2 && kG <= 8) {
+#pragma unroll
+      for (int c0 = 0; c0 < kN; c0 += 2) {
+        float part1[kG][4], part2[kG][4];
+#pragma unroll
+        for (int n = 0; n < kG; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            part1[n][e] = 0.f;
+            part2[n][e] = 0.f;
+          }
+#pragma unroll
+        for (int c = c0; c < c0 + 2; ++c)
+          grad_chunk<T, kG, kDq, false>(part1, part2, x[c], y[c], b1, b2, c, kSS, col0, gq, tq);
+#pragma unroll
+        for (int n = 0; n < kG; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc1[n][e] += part1[n][e];
+            if constexpr (!kDq) acc2[n][e] += part2[n][e];
+          }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kN; ++c) grad_chunk<T, kG, kDq, k2>(acc1, acc2, x[c], y[c], b1, b2, c, kSS, col0, gq, tq);
     }
+    cp_async_wait<0>();
+    __syncthreads();  // the ready tiles are read; the next raw tiles have landed
   }
 
   // write the resident rows: dQ * scale; or dV, and dK * scale
@@ -337,22 +386,22 @@ __device__ __forceinline__ void grads_block(float* smem, int tile, int bh, const
   const long long o1_sh = kDq ? L.dq[2] : L.dv[2];
   const int res_len = kDq ? sq : sk;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = r0 + rg * R + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 16 * mg + gq + 8 * i;
     if (row >= res_len) continue;
     T* o1 = out1 + b * o1_sb + row * o1_ss + h * o1_sh;
     T* o2 = out2 + b * L.dk[0] + row * L.dk[1] + h * L.dk[2];
 #pragma unroll
-    for (int c = 0; c < C::kVec; ++c) {
-      const int col = cg * 4 + 32 * c;
+    for (int n = 0; n < kG; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (col + e >= d) continue;
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * n + 2 * tq + e;
+        if (col >= d) continue;
         if constexpr (kDq) {
-          store(o1 + col + e, lane_of(acc1[i][c], e) * scale);
+          store(o1 + col, acc1[n][2 * i + e] * scale);
         } else {
-          store(o1 + col + e, lane_of(acc1[i][c], e));
-          store(o2 + col + e, lane_of(acc2[i][c], e) * scale);
+          store(o1 + col, acc1[n][2 * i + e]);
+          store(o2 + col, acc2[n][2 * i + e] * scale);
         }
       }
     }
@@ -361,43 +410,69 @@ __device__ __forceinline__ void grads_block(float* smem, int tile, int bh, const
 
 // The dK/dV CTAs of every (key tile, batch * head), then the dQ CTAs of every
 // (query tile, batch * head), in one grid
+#define UFM_BWD_ANY_PARAMS                                                                                   \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v, const T *__restrict__ g,         \
+      const float *__restrict__ lse, const float *__restrict__ delta, T *__restrict__ dq, T *__restrict__ dk, \
+      T *__restrict__ dv, int num_heads, int sq, int sk, int d, int kv_tiles, int q_tiles, int kv_blocks,     \
+      Layout L, int staging, float scale
+#define UFM_BWD_ANY_ARGS \
+  q, k, v, g, lse, delta, dq, dk, dv, num_heads, sq, sk, d, kv_tiles, q_tiles, kv_blocks, L, staging, scale
+
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_any_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, int num_heads, int sq, int sk, int d, int kv_tiles, int q_tiles, int kv_blocks, Layout L,
-    float scale) {
+__device__ __forceinline__ void grads_grid(UFM_BWD_ANY_PARAMS) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int x = static_cast<int>(blockIdx.x);
   if (x < kv_blocks) {
     grads_block<T, DP, false>(smem, x % kv_tiles, x / kv_tiles, q, k, v, g, lse, delta, dv, dk, num_heads, sq, sk,
-                              d, L, scale);
+                              d, L, staging, scale);
   } else {
     const int i = x - kv_blocks;
     grads_block<T, DP, true>(smem, i % q_tiles, i / q_tiles, q, k, v, g, lse, delta, dq, dq, num_heads, sq, sk, d,
-                             L, scale);
+                             L, staging, scale);
   }
 }
+
+// Two entries of one body. fp32, and bf16 / fp16 at DP = 128 / 256: ptxas's
+// own register target (255 at DP = 64 with no spill; any minimum of blocks
+// makes it spill there). bf16 / fp16 at DP = 32 / 64: a minimum of 3 CTAs an
+// SM, which gives them the ~160 registers they need (at ptxas's own target,
+// 128, the DP = 32 instances spill).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_attention_bwd_any_kernel(UFM_BWD_ANY_PARAMS) {
+  grads_grid<T, DP>(UFM_BWD_ANY_ARGS);
+}
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 3) flash_attention_bwd_any_half_kernel(UFM_BWD_ANY_PARAMS) {
+  grads_grid<T, DP>(UFM_BWD_ANY_ARGS);
+}
+#undef UFM_BWD_ANY_PARAMS
+#undef UFM_BWD_ANY_ARGS
 
 template <typename T, int DP>
 int launch_grads(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* delta,
                  void* dq, void* dk, void* dv, int batch, int num_heads, int sq, int sk, int d, const Layout& L,
-                 float scale, cudaStream_t stream) {
-  using C = Tile<DP>;
-  static int smem_set = 0;  // devices on which this instance may use kSmemBytes
-  const void* fn = reinterpret_cast<const void*>(flash_attention_bwd_any_kernel<T, DP>);
-  const cudaError_t e = ufm::allow_smem(fn, C::kSmemBytes, smem_set);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int kv_tiles = (sk + C::kBlockR - 1) / C::kBlockR;
-  const int q_tiles = (sq + C::kBlockR - 1) / C::kBlockR;
-  const int kv_blocks = kv_tiles * batch * num_heads;
-  const dim3 grid(kv_blocks + q_tiles * batch * num_heads);
-  flash_attention_bwd_any_kernel<T, DP><<<grid, kThreads, C::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), num_heads, sq, sk, d, kv_tiles, q_tiles, kv_blocks, L, scale);
-  return static_cast<int>(cudaGetLastError());
+                 int staging, float scale, cudaStream_t stream) {
+  using C = Tile<T, DP>;
+  const auto run = [&](auto kernel) {
+    static int smem_set = 0;  // devices on which this instance may use kSmemBytes
+    const cudaError_t e = ufm::allow_smem(reinterpret_cast<const void*>(kernel), C::kSmemBytes, smem_set);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int kv_tiles = (sk + C::kBlockR - 1) / C::kBlockR;
+    const int q_tiles = (sq + C::kBlockR - 1) / C::kBlockR;
+    const int kv_blocks = kv_tiles * batch * num_heads;
+    const dim3 grid(kv_blocks + q_tiles * batch * num_heads);
+    kernel<<<grid, kThreads, C::kSmemBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), num_heads, sq, sk, d, kv_tiles, q_tiles, kv_blocks, L, staging, scale);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (!kTwoTerms<T> && DP <= 64) {  // only the entry taken is compiled
+    return run(flash_attention_bwd_any_half_kernel<T, DP>);
+  } else {
+    return run(flash_attention_bwd_any_kernel<T, DP>);
+  }
 }
 
 template <typename T>
@@ -410,16 +485,22 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* o, con
       o_st[0], o_st[1], o_st[2], o_st[3], L.g[0], L.g[1], L.g[2], L.g[3]);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int size = static_cast<int>(sizeof(T));
+  const int staging = staging_of(q, size, batch, sq, num_heads, L.q[0], L.q[1], L.q[2], L.q[3]) |
+                      staging_of(k, size, batch, sk, num_heads, L.k[0], L.k[1], L.k[2], L.k[3]) << 2 |
+                      staging_of(v, size, batch, sk, num_heads, L.v[0], L.v[1], L.v[2], L.v[3]) << 4 |
+                      staging_of(g, size, batch, sq, num_heads, L.g[0], L.g[1], L.g[2], L.g[3]) << 6;
   const auto grads = d <= 32 ? &launch_grads<T, 32> : d <= 64 ? &launch_grads<T, 64>
                     : d <= 128 ? &launch_grads<T, 128> : &launch_grads<T, 256>;
-  return grads(q, k, v, g, lse, delta, dq, dk, dv, batch, num_heads, sq, sk, d, L, scale, stream);
+  return grads(q, k, v, g, lse, delta, dq, dk, dv, batch, num_heads, sq, sk, d, L, staging, scale, stream);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes: the two kernels above, in order, on
 // `stream`. `dtype` picks the element type of q, k, v, o, g, dq, dk, dv (0
-// fp32, 1 bf16, 2 fp16). Input strides are in elements, any value (read
+// fp32, 1 bf16, 2 fp16). Input strides are in elements, any value (each of
+// q, k, v, g is staged by 16-byte copies where its layout allows, else
 // element by element); dq, dk, dv are written through their B, S and H
 // strides with D contiguous. lse (the forward's, natural log) and the scratch
 // `delta` are contiguous fp32 (B, H, Sq). The wrapper checks 1 <= d <= 256,

@@ -7,14 +7,15 @@ hand-written CUDA forwards (the port of ``ufm_tpu/ops/flash_attention.py``'s
 Pallas forward), chosen by :func:`forward_kernel` from the dtype and head dim
 alone: bf16 at D = 64, the flagship's attention, takes the wgmma kernel
 (``ufm_torch/csrc/flash_attention_fwd.cu``); every other call in the TPU
-kernel's domain (fp32, bf16 or fp16, 1 <= D <= 256) takes the fp32-FMA kernel
-(``ufm_torch/csrc/flash_attention_fwd_any.cu``). Both also write each row's
+kernel's domain (fp32, bf16 or fp16, 1 <= D <= 256) takes the mma kernel
+(``ufm_torch/csrc/flash_attention_fwd_any.cu``: TF32 ``mma.sync`` on the
+tensor cores, 3xTF32 for fp32 operands). Both also write each row's
 log-sum-exp when asked. :func:`launch_backward` launches one of two
 hand-written CUDA backwards (the port of the Pallas
 ``_flash_attention_bwd_impl``), chosen by :func:`backward_kernel` the same
 way: bf16 at D = 64 takes the wgmma kernel
 (``ufm_torch/csrc/flash_attention_bwd.cu``), the rest of the domain the
-fp32-FMA kernel (``ufm_torch/csrc/flash_attention_bwd_any.cu``). They are
+mma kernel (``ufm_torch/csrc/flash_attention_bwd_any.cu``). They are
 the ops' CUDA implementations, and raise on anything the kernels do not
 take; they never fall back to :func:`attention_reference` /
 :func:`attention_backward_reference`, the plain versions of the same
@@ -27,7 +28,7 @@ Inputs are (B, S, H, D) like the JAX package. q, k and v may be strided views
 (the fused qkv projection, reshaped (B, S, 3, H, D)): the wgmma kernels read
 them in place through TMA tensor maps, which need D contiguous, a 16-byte
 aligned base and the other strides multiples of 16 bytes
-(:func:`tma_layout_error`); the fp32-FMA kernels read any strides.
+(:func:`tma_layout_error`); the mma kernels read any strides.
 """
 
 from __future__ import annotations
@@ -62,20 +63,20 @@ __all__ = [
 ]
 
 HEAD_DIM = 64  # the wgmma kernels' only head_dim (the flagship's)
-MAX_HEAD_DIM = 256  # the fp32-FMA kernels' largest head_dim
-# the fp32-FMA kernels' element types, by their C entry points' dtype code
+MAX_HEAD_DIM = 256  # the mma kernels' largest head_dim
+# the mma kernels' element types, by their C entry points' dtype code
 _ANY_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_GRID_Y = 65535  # the fp32-FMA forward's grid: (Sq blocks, B * H)
+_MAX_GRID_Y = 65535  # the mma forward's grid: (Sq blocks, B * H)
 
 # wgmma forward kernel launches since the count was last reset (``LAUNCHES = 0``)
 LAUNCHES = 0
-# fp32-FMA forward kernel launches since the count was last reset
+# mma forward kernel launches since the count was last reset
 ANY_LAUNCHES = 0
 # backward calls since the count was last reset (``BWD_LAUNCHES = 0``); each
 # call runs two CUDA kernels in order: delta, then one grid of dK/dV and dQ
 # blocks
 BWD_LAUNCHES = 0
-# fp32-FMA backward calls since the count was last reset; each call runs two
+# mma backward calls since the count was last reset; each call runs two
 # CUDA kernels in order: delta, then one grid of dK/dV and dQ blocks
 ANY_BWD_LAUNCHES = 0
 
@@ -147,7 +148,7 @@ def _route(what: str, dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim == HEAD_DIM:
         return "wgmma"
     if dtype in _ANY_DTYPES and 1 <= head_dim <= MAX_HEAD_DIM:
-        return "fma"
+        return "mma"
     raise ValueError(
         f"{what} on the card takes float32, bfloat16 or float16 with 1 <= D <= {MAX_HEAD_DIM}, "
         f"got {dtype} with D = {head_dim}"
@@ -157,8 +158,8 @@ def _route(what: str, dtype: torch.dtype, head_dim: int) -> str:
 def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
     """Which forward kernel takes a CUDA call of this dtype and head dim:
     ``"wgmma"`` (bf16 at D = 64, ``csrc/flash_attention_fwd.cu``) or
-    ``"fma"`` (fp32, bf16 or fp16 at any other 1 <= D <= 256,
-    ``csrc/flash_attention_fwd_any.cu``). Raises ValueError, naming the
+    ``"mma"`` (fp32, bf16 or fp16 at any other 1 <= D <= 256,
+    ``csrc/flash_attention_fwd_any.cu``: TF32 mma.sync, 3xTF32 for fp32). Raises ValueError, naming the
     dtype and D, outside that domain (float64, D > 256)."""
     return _route("flash_attention", dtype, head_dim)
 
@@ -166,7 +167,7 @@ def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
 def backward_kernel(dtype: torch.dtype, head_dim: int) -> str:
     """Which backward kernel takes a CUDA call of this dtype and head dim:
     ``"wgmma"`` (bf16 at D = 64, ``csrc/flash_attention_bwd.cu``) or
-    ``"fma"`` (fp32, bf16 or fp16 at any other 1 <= D <= 256,
+    ``"mma"`` (fp32, bf16 or fp16 at any other 1 <= D <= 256,
     ``csrc/flash_attention_bwd_any.cu``); the forward's routing, so a
     backward reads the lse of the forward it follows. Raises ValueError,
     naming the dtype and D, outside that domain."""
@@ -269,7 +270,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _check_any(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """The fp32-FMA forward's conditions beyond q's dtype and D (which
+    """The mma forward's conditions beyond q's dtype and D (which
     :func:`forward_kernel` checked): CUDA tensors of q's dtype, rank 4,
     matching shapes, B * H within its grid."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -299,7 +300,7 @@ def launch_forward(
     inference passes a null pointer. :func:`forward_kernel` picks the kernel
     from q's dtype and D before anything is launched."""
     global LAUNCHES
-    if q.dim() == 4 and forward_kernel(q.dtype, q.shape[-1]) == "fma":
+    if q.dim() == 4 and forward_kernel(q.dtype, q.shape[-1]) == "mma":
         return _launch_forward_any(q, k, v, scale, with_lse)
     _check(q, k, v)
     b, sq, h, d = q.shape
@@ -326,7 +327,7 @@ def launch_forward(
 def _launch_forward_any(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`launch_forward` on the fp32-FMA kernel: q, k, v read through
+    """:func:`launch_forward` on the mma kernel: q, k, v read through
     their strides, a fresh contiguous output."""
     global ANY_LAUNCHES
     _check_any(q, k, v)
@@ -347,7 +348,7 @@ def _launch_forward_any(
         )
         ANY_LAUNCHES += 1
     if err != 0:
-        raise _launch_error("flash_attention (fp32-FMA) kernel launch", err, q, k)
+        raise _launch_error("flash_attention (mma) kernel launch", err, q, k)
     return out, lse
 
 
@@ -368,10 +369,10 @@ def launch_backward(
     takes the wgmma kernel, which reads ``g`` through its strides (one whose
     rows it cannot read in place, a non-contiguous head dim or unaligned
     rows, is copied to a contiguous tensor first); the rest of the domain
-    takes the fp32-FMA kernel (:func:`_launch_backward_any`). Outside the
+    takes the mma kernel (:func:`_launch_backward_any`). Outside the
     domain it raises, naming the dtype and D."""
     global BWD_LAUNCHES
-    if q.dim() == 4 and backward_kernel(q.dtype, q.shape[-1]) == "fma":
+    if q.dim() == 4 and backward_kernel(q.dtype, q.shape[-1]) == "mma":
         return _launch_backward_any(q, k, v, out, lse, g, scale)
     _check(q, k, v)
     if _layout_error(g) is not None:
@@ -416,7 +417,7 @@ def _launch_backward_any(
     g: torch.Tensor,
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`launch_backward` on the fp32-FMA kernel: q, k, v, ``out`` and
+    """:func:`launch_backward` on the mma kernel: q, k, v, ``out`` and
     ``g`` read through their strides, fresh contiguous gradients."""
     global ANY_BWD_LAUNCHES
     _check_any(q, k, v)
@@ -448,7 +449,7 @@ def _launch_backward_any(
         )
         ANY_BWD_LAUNCHES += 1
     if err != 0:
-        raise _launch_error("flash_attention backward (fp32-FMA) launch", err, q, k)
+        raise _launch_error("flash_attention backward (mma) launch", err, q, k)
     return dq, dk, dv
 
 

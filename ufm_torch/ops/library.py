@@ -17,7 +17,7 @@ Five ops in the ``ufm_torch`` namespace:
 
 The tensors' device picks the implementation inside the op: CUDA runs the
 hand-written kernel (``flash_attention.launch_forward`` /
-``launch_backward``, which pick the wgmma or the fp32-FMA kernel by dtype
+``launch_backward``, which pick the wgmma or the mma kernel by dtype
 and head dim, ``window_refinement.launch``, ``gelu.launch``,
 ``linear_gelu.launch``: every pointer, stride and alignment check and the
 launch counters live there, and they raise on what the kernels do not
