@@ -10,7 +10,10 @@ have serialized them; the window library must hold TMA loads (UTMALDG) and
 use no local memory), holds each kernel against its plain PyTorch version
 at the main paths' shapes (the attention backward also for bitwise
 repeatability; the window kernel on five flows, iid, smooth and split, with
-its count of TMA-staged tiles held equal to ``staged_tiles``), holds the
+its count of TMA-staged tiles held equal to ``staged_tiles``, and at the
+rest of its domain, C = 5, 12, 32, 64 and P = 7, 9; the window backward
+against its plain version in fp64, dq, dflow and dbias bitwise repeatable,
+at UFM-Refine's training shape and the same widths), holds the
 bf16 GELU kernel bit for bit to the JAX package's output on every finite
 bf16 input (``tests/golden/gelu_bf16_table.npz``) and to its plain version,
 holds the fused fc1 + GELU kernel (``linear_gelu``: the MLP's first product
@@ -30,7 +33,12 @@ then drives three paths with seeded random weights at full width:
   launches and 1 window-refinement launch per forward;
 - UFM-Base training at batch 2 on 420x560 (``make_train_step`` and ``fit``,
   fp32 master weights): 36 flash-attention forward launches and 36 backward
-  calls per step.
+  calls per step; UFM-Refine the same way (``refine_train``): also one
+  window forward and one window backward launch a step, no call of the
+  window refinement's plain versions, its gradients at batch 1 held to the
+  plain window refinement's and to the plain step's with fp32 attention,
+  and reported against the plain step's with bf16 attention
+  (``refine_train_self_check``).
 
 The port's parallel and training options, at the same width: the sharded
 step (``make_sharded_train_step``: FSDP2 over one NCCL rank, a (1, 1, 1)
@@ -74,7 +82,9 @@ needed: ``bf16_golden``); the flagship UFM-Base saved with
 ``save_pretrained`` and read back with ``from_pretrained``, its answer bitwise
 the same (``checkpoint``); tiled inference of a 1080x1920 pair (a coarse
 forward, then 20 tiles in forwards of 16 and 4: 108 attention launches;
-``tiled``, with its own plain-attention check); EPE and cycle metrics of
+``tiled``, with its own plain-attention check), and the same with UFM-Refine
+(``tiled_refine``: 36 attention and 1 window launch a forward, each forward
+held to the plain window refinement's); EPE and cycle metrics of
 three 540x720 pairs with analytic flow (``eval``); and the flow moved by
 cuDNN's TF32 in the fp32 heads (``tf32``).
 
@@ -322,8 +332,9 @@ FINE_TUNE_BATCH, FINE_TUNE_STEPS, FINE_TUNE_LR = 2, 3, 1e-5
 FINE_TUNE_LOSS_REL = 1e-4
 # the launch counters' order (ufm_torch.ops.launches): wgmma attention forward
 # and backward, window, GELU, fused fc1 + GELU, mma attention forward and
-# backward
+# backward, window backward
 ANY_FWD_AT, ANY_BWD_AT, GELU_AT, FUSED_AT = 5, 6, 3, 4
+WINDOW_AT, WINDOW_BWD_AT = 2, 7
 ATTENTION_AT = (0, 1, 5, 6)
 # sharded training (ufm_torch.parallel) at world 1 over NCCL, on a
 # (data, fsdp, model) = (1, 1, 1) mesh: the batch-2 step of make_sharded_train_step
@@ -365,14 +376,40 @@ FLOW_REL_L2_BOUND = 2e-2
 # forward) with iid flow of sigma 6 px; "edges" puts windows across every
 # border plus one far outside each image on both sides; "flagship_smooth" and
 # "flagship_split" give the flagship shape a smooth flow (MOTION, iid noise
-# of sigma 0.5 px) and two such motions split by a diagonal
+# of sigma 0.5 px) and two such motions split by a diagonal. The rest of the
+# domain (window_refinement_fwd_any_kernel): C = 5 (rows not 16-byte
+# aligned, one load a channel) at P = 7 with "edges"' windows, C = 32 at P = 7
+# and C = 64 at P = 9 (no staging: two boxes outgrow shared memory), C = 12
+# at P = 9 on the smooth flow (staged boxes of 12 channels, about 3 tiles in
+# 4 at this span). A case named "edges..." puts windows outside the image.
 WINDOW_CASES = (
     ("flagship", (1, 420, 560, 16), 5, "iid", 6.0, 1),
     ("edges", (2, 24, 44, 8), 5, "iid", 40.0, 0),
     ("small_window", (2, 24, 44, 4), 3, "iid", 15.0, 0),
     ("flagship_smooth", (1, 420, 560, 16), 5, "smooth", 0.5, 0),
     ("flagship_split", (1, 420, 560, 16), 5, "split", 0.5, 0),
+    ("edges_c5_p7", (2, 24, 44, 5), 7, "iid", 40.0, 0),
+    ("c32_p7", (1, 64, 96, 32), 7, "iid", 6.0, 0),
+    ("c64_p9", (1, 64, 96, 64), 9, "iid", 6.0, 0),
+    ("smooth_c12_p9", (1, 420, 560, 12), 9, "smooth", 0.5, 0),
 )
+# the window backward (csrc/window_refinement_bwd.cu) against the plain
+# backward in fp64: UFM-Refine's training shape (batch 2, one call a train
+# step) on an iid and a smooth flow, "edges"' windows across and wholly
+# outside the image, and the rest of the domain as above. Same columns.
+WINDOW_BWD_CASES = (
+    ("train", (2, 420, 560, 16), 5, "iid", 6.0, 1),
+    ("train_smooth", (2, 420, 560, 16), 5, "smooth", 0.5, 0),
+    ("edges", (2, 24, 44, 8), 5, "iid", 40.0, 0),
+    ("edges_c5_p7", (2, 24, 44, 5), 7, "iid", 40.0, 0),
+    ("c32_p7", (1, 64, 96, 32), 7, "iid", 6.0, 0),
+    ("c64_p9", (1, 64, 96, 64), 9, "iid", 6.0, 0),
+)
+# each gradient of the backward kernel within max(2x the plain fp32
+# backward's own error, this share of the fp64 gradient's largest element)
+# of the plain backward in fp64 (df sums up to (P+3)^2 contributions a
+# pixel with fp32 atomics in a varying order)
+WINDOW_BWD_FLOOR_REL = 1e-5
 # the smooth motion, as of a wide-baseline pair after matching: an affine map
 # about the image centre (scale, rotation in degrees, translation in px); the
 # split flow moves the pixels below the diagonal y / H = x / W split_px
@@ -552,7 +589,7 @@ def phase_build():
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
     for name in ("window_refinement_fwd", "linear_gelu_bf16_fwd"):
         check(sass[name]["UTMALDG"] > 0, f"{name}: no UTMALDG (TMA load) in its SASS")
-    for name in ("window_refinement_fwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
+    for name in ("window_refinement_fwd", "window_refinement_bwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
         local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
         check(bool(ptxas[name]) and not local, f"{name} uses local memory: {local}")
     # the mma attention pair: tensor-core products, and no local memory in the
@@ -1443,6 +1480,110 @@ def phase_tiled(model):
     return launches
 
 
+def phase_tiled_refine(model):
+    """Tiled inference of a 1080x1920 pair with the full-width UFM-Refine
+    (eager): a coarse forward, then the 20 tiles in forwards of 16 and 4,
+    each forward 36 attention launches and 1 window launch; each forward
+    held, on the same inputs, to the same forward with the plain window
+    refinement: its refinement residual and log_softmax within the window
+    kernel's bars (WINDOW_RESIDUAL_ATOL, WINDOW_LOG_SOFTMAX_ATOL: the
+    residual is a small part of the flow, which the flow's relative L2,
+    also held within FLOW_REL_L2_BOUND, would hardly see), the regression
+    flow the windows sit at reported equal or not; the host's stitching
+    seconds and peak memory."""
+    from ufm_torch.models import tiled
+    from ufm_torch.ops import flash_attention as fa
+    from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
+    from ufm_torch.ops import window_refinement as wr
+    from ufm_torch.utils.example_pairs import synthetic_pair
+
+    src, tgt, _, _ = synthetic_pair(h=TILED_HW[0], w=TILED_HW[1], seed=0)
+    calls = []  # (batch, host s, device ms, source, target, flow, launches, refinement) of each model call
+    refined = []  # the refinement stage's outputs of the call in flight
+    predict, refine_tail = model.predict_correspondences_batched, model.net.refine_tail
+    model.capture_graphs = False
+
+    def recording_tail(*args, **kwargs):
+        out = refine_tail(*args, **kwargs)
+        refined.append(out)
+        return out
+
+    def timed_predict(source_image, target_image, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = (fa.LAUNCHES, wr.LAUNCHES)
+        refined.clear()
+        t = time.perf_counter()
+        start.record()
+        res = predict(source_image=source_image, target_image=target_image, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        check(len(refined) == 1, f"tiled refine: {len(refined)} refinement stages in one forward")
+        calls.append((res.flow.flow_output.shape[0], time.perf_counter() - t, start.elapsed_time(end),
+                      source_image, target_image, res.flow.flow_output,
+                      (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1]), refined.pop()))
+        return res
+
+    model.predict_correspondences_batched = timed_predict
+    model.net.refine_tail = recording_tail
+    try:
+        tiled.predict_correspondences_tiled(model, src, tgt)  # warm-up
+        calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the tiled UFM-Refine path's counts start here
+        t = time.perf_counter()
+        flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
+        total_s = time.perf_counter() - t
+        launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
+        gelu_launches, fused_launches = ge.LAUNCHES, lg.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(tiled.last_tile_stats)
+        kernel_calls = list(calls)
+
+        model.refinement_impl = "torch"
+        wr.LAUNCHES = 0
+        forward_rel, residual_err, log_softmax_err, same_regression = [], [], [], []
+        for _, _, _, s_img, t_img, f_kernel, _, r_kernel in kernel_calls:
+            refined.clear()
+            f_plain = predict(source_image=s_img, target_image=t_img).flow.flow_output.float()
+            (r_plain,) = refined
+            forward_rel.append(((f_kernel.float() - f_plain).norm() / f_plain.norm()).item())
+            for errs, key in ((residual_err, "refinement_residual"), (log_softmax_err, "refinement_log_softmax")):
+                errs.append((r_kernel[key] - r_plain[key]).abs().max().item())
+            same_regression.append(torch.equal(r_kernel["regression_flow"], r_plain["regression_flow"]))
+        plain_window_launches = wr.LAUNCHES
+    finally:
+        model.refinement_impl = None
+        del model.predict_correspondences_batched, model.net.refine_tail  # back to the unwrapped methods
+    batches = [c[0] for c in kernel_calls]
+    model_s = sum(c[1] for c in kernel_calls)
+    emit("tiled_refine", input_hw=list(TILED_HW), tile_stats=stats, batches=batches, launches=launches,
+         launches_by_forward=[list(c[6]) for c in kernel_calls], total_s=total_s,
+         coarse_device_ms=kernel_calls[0][2], tiles_device_ms=sum(c[2] for c in kernel_calls[1:]),
+         tiles_host_s=sum(c[1] for c in kernel_calls[1:]), stitch_host_s=total_s - model_s,
+         max_memory_allocated=peak, forward_flow_rel_l2_vs_plain_window=forward_rel,
+         flow_rel_l2_bound=FLOW_REL_L2_BOUND, forward_residual_max_abs_err=residual_err,
+         residual_atol=WINDOW_RESIDUAL_ATOL, forward_log_softmax_max_abs_err=log_softmax_err,
+         log_softmax_atol=WINDOW_LOG_SOFTMAX_ATOL, forward_same_regression_flow=same_regression,
+         covis_mean=float(covis.mean()))
+    check(stats.get("tiles") == TILED_TILES, f"tiled refine: {stats} (expected {TILED_TILES} tiles)")
+    check(batches == TILED_BATCHES, f"tiled refine: forwards at batches {batches}, expected {TILED_BATCHES}")
+    check(all(c[6] == (LAUNCHES_PER_FORWARD, 1) for c in kernel_calls),
+          f"tiled refine: attention / window launches by forward {[c[6] for c in kernel_calls]}")
+    mlp_path("ufm_refine_tiled", gelu_launches, fused_launches, GELU_PER_FORWARD * len(TILED_BATCHES))
+    check(plain_window_launches == 0, "the plain-window tiled forwards launched the window kernel")
+    check(flow.shape == (*TILED_HW, 2) and covis.shape == TILED_HW, f"tiled refine: shapes {flow.shape} {covis.shape}")
+    check(bool(np.isfinite(flow).all() and np.isfinite(covis).all()), "tiled refine: non-finite outputs")
+    check(max(forward_rel) <= FLOW_REL_L2_BOUND,
+          f"tiled refine forwards, window kernel vs plain: flow relative L2 {max(forward_rel):.3e} > {FLOW_REL_L2_BOUND}")
+    check(max(residual_err) <= WINDOW_RESIDUAL_ATOL,
+          f"tiled refine forwards, window kernel vs plain: residual error {max(residual_err):.3e} > {WINDOW_RESIDUAL_ATOL}")
+    check(max(log_softmax_err) <= WINDOW_LOG_SOFTMAX_ATOL,
+          f"tiled refine forwards, window kernel vs plain: log_softmax error {max(log_softmax_err):.3e} > "
+          f"{WINDOW_LOG_SOFTMAX_ATOL}")
+    return launches
+
+
 def phase_eval(model):
     """Flow metrics against the analytic flow, and forward-backward cycle
     metrics, of three synthetic pairs held in memory (no image files).
@@ -1559,7 +1700,7 @@ def phase_window_kernel():
 
     rows = {}
     for name, shape, p, kind, scale, calls in WINDOW_CASES:
-        q, f, flow, bias = window_inputs(shape, p, kind, scale, far=name == "edges")
+        q, f, flow, bias = window_inputs(shape, p, kind, scale, far=name.startswith("edges"))
         counter = torch.zeros(1, dtype=torch.int32, device="cuda")
         res, ls = wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p, staged_count=counter)
         ref_res, ref_ls = wr.window_refinement_reference(q, f, flow, bias, WINDOW_TEMPERATURE, p)
@@ -1567,7 +1708,7 @@ def phase_window_kernel():
         res_err = (res - ref_res).abs().max().item()
         ls_err = (ls - ref_ls).abs().max().item()
         taps, share = window_taps(flow, p)
-        staged, tiles = wr.staged_tiles(flow, p), wr.tile_count(*shape[:3])
+        staged, tiles = wr.staged_tiles(flow, p, shape[-1]), wr.tile_count(*shape[:3])
         check(_finite(res) and _finite(ls), f"window {name}: kernel output not finite")
         check(res_err <= WINDOW_RESIDUAL_ATOL, f"window {name}: residual error {res_err:.3e} > {WINDOW_RESIDUAL_ATOL}")
         check(ls_err <= WINDOW_LOG_SOFTMAX_ATOL, f"window {name}: log_softmax error {ls_err:.3e} > {WINDOW_LOG_SOFTMAX_ATOL}")
@@ -1578,6 +1719,8 @@ def phase_window_kernel():
             check(staged >= SMOOTH_STAGED_SHARE_MIN * tiles, f"window {name}: {staged} of {tiles} tiles staged")
         if name == "flagship_split":
             check(0 < staged < tiles, f"window {name}: {staged} of {tiles} tiles staged, expected both paths")
+        if name == "smooth_c12_p9":
+            check(0.5 * tiles < staged < tiles, f"window {name}: {staged} of {tiles} tiles staged, expected both paths")
 
         ms = time_ms(lambda: wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p))
         plain_ms = time_ms(lambda: wr.window_refinement_reference(q, f, flow, bias, WINDOW_TEMPERATURE, p), reps=3, batches=5)
@@ -1594,6 +1737,84 @@ def phase_window_kernel():
     host_us = host_us_per_launch(lambda: wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, 5))
     emit("kernel", kernel="window_refinement_fwd", case="host", shape=list(WINDOW_HOST_SHAPE), host_us_per_launch=host_us)
     return rows, host_us
+
+
+def window_bwd_bound_ms(shape, p, in_image_taps):
+    """Bytes: q, f, flow, log_softmax and the two cotangents read once; dq,
+    df, dflow and dbias written once. Operations: per in-image tap the dot,
+    the dq and df updates (6C) and the dflow sums (4), and the x pass of the
+    three tap gradients (24); per pixel the y pass of two score gradients
+    (K rows x P x 4 FMA each) and ~10 per score for g_s."""
+    b, h, w, c = shape
+    n, k, pp = b * h * w, p + 3, p * p
+    nbytes = 4 * (n * (2 * c + 2 + 2 + 2 * pp + 2 * c + 2) + pp)
+    flops = (6 * c + 28) * in_image_taps + n * (16 * k * p + 10 * pp)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_window_bwd_kernel():
+    """The window backward kernel against the plain backward in fp64 on the
+    same inputs (q, f, flow, bias, the forward kernel's log_softmax and
+    seeded cotangents) at WINDOW_BWD_CASES: each of dq, df, dflow and dbias
+    within max(2x the plain fp32 backward's own error, WINDOW_BWD_FLOOR_REL
+    of its largest element); dq, dflow and dbias the same bits over two
+    calls (df's difference reported). Timed: the kernel, the plain backward,
+    and the parent's route (autograd over the plain forward)."""
+    from ufm_torch.ops import library
+    from ufm_torch.ops import window_refinement as wr
+
+    rows = {}
+    names = ("dq", "df", "dflow", "dbias")
+    for name, shape, p, kind, scale, calls in WINDOW_BWD_CASES:
+        q, f, flow, bias = window_inputs(shape, p, kind, scale, far=name.startswith("edges"), seed=1)
+        _, ls = wr.window_refinement(q, f, flow, bias, WINDOW_TEMPERATURE, p)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        g_res = torch.randn((*shape[:3], 2), generator=gen, device="cuda")
+        g_ls = torch.randn((*shape[:3], p, p), generator=gen, device="cuda")
+        args = (q, f, flow, bias, ls, g_res, g_ls)
+        before = wr.BWD_LAUNCHES
+        got = library.window_refinement_bwd(*args, WINDOW_TEMPERATURE, p)
+        again = library.window_refinement_bwd(*args, WINDOW_TEMPERATURE, p)
+        torch.cuda.synchronize()
+        check(wr.BWD_LAUNCHES == before + 2, f"window bwd {name}: {wr.BWD_LAUNCHES - before} launches for 2 calls")
+        plain = wr.window_refinement_backward_reference(*args, WINDOW_TEMPERATURE, p)
+        ref = wr.window_refinement_backward_reference(*(t.double() for t in args), WINDOW_TEMPERATURE, p)
+        errs, plain_errs, bars = {}, {}, {}
+        for g_name, k, pl, r in zip(names, got, plain, ref):
+            check(_finite(k), f"window bwd {name}: {g_name} not finite")
+            errs[g_name] = (k.double() - r).abs().max().item()
+            plain_errs[g_name] = (pl.double() - r).abs().max().item()
+            bars[g_name] = max(2 * plain_errs[g_name], WINDOW_BWD_FLOOR_REL * r.abs().max().item())
+        repeat = {g: torch.equal(a, b) for g, a, b in zip(names, got, again)}
+        df_spread = (got[1] - again[1]).abs().max().item()
+        taps, share = window_taps(flow, p)
+
+        ms = time_ms(lambda: library.window_refinement_bwd(*args, WINDOW_TEMPERATURE, p))
+        plain_ms = time_ms(lambda: wr.window_refinement_backward_reference(*args, WINDOW_TEMPERATURE, p),
+                           reps=2, batches=3)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, f, flow, bias)]
+
+        def parent_route():  # the parent's backward: autograd over the plain forward
+            outs = wr.window_refinement_reference(*leaves, WINDOW_TEMPERATURE, p)
+            return torch.autograd.grad(outs, leaves, (g_res, g_ls))
+
+        parent_ms = time_ms(parent_route, reps=2, batches=3)
+        bound_ms, bound_by = window_bwd_bound_ms(shape, p, taps)
+        rows[name] = dict(
+            shape=list(shape), p=p, flow=kind, flow_scale=scale, calls_per_step=calls, max_abs_err=errs,
+            plain_max_abs_err=plain_errs, tol=bars, bitwise_repeatable=repeat, df_run_to_run_max_abs_diff=df_spread,
+            in_image_share=share, in_image_taps=taps, ms=ms, plain_ms=plain_ms, parent_route_ms=parent_ms,
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        )
+        emit("kernel", kernel="window_refinement_bwd", case=name, **rows[name])
+        for g_name in names:
+            check(errs[g_name] <= bars[g_name],
+                  f"window bwd {name}: {g_name} error {errs[g_name]:.3e} > {bars[g_name]:.3e}")
+        check(repeat["dq"] and repeat["dflow"] and repeat["dbias"],
+              f"window bwd {name}: dq / dflow / dbias not bitwise repeatable: {repeat}")
+        del args, got, again, plain, ref, leaves
+    return rows
 
 
 def _timed(fn, events):
@@ -1798,7 +2019,261 @@ def phase_train():
 def phase_train_self_check(model, batch):
     one = {k: v[:1] for k, v in batch.items()}
     _kernel_vs_plain_grads(model, one, "train_self_check", (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0,
-                                                            GELU_PER_FORWARD, 0, 0, 0), TRAIN_GRAD_REL_L2_BOUND)
+                                                            GELU_PER_FORWARD, 0, 0, 0, 0), TRAIN_GRAD_REL_L2_BOUND)
+
+
+# UFM-Refine training (refine_train): TRAIN_BATCH at TRAIN_HW, TRAIN_STEPS of
+# make_train_step, then FIT_STEPS of fit, as train: each step 36 attention
+# forward launches and backward calls, 36 GELU launches, and one launch each
+# of the window forward and backward
+REFINE_TRAIN_EACH = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1, GELU_PER_FORWARD, 0, 0, 0, 1)
+# the kernels of the window backward, by the name of their __global__ function
+WINDOW_BWD_KERNEL_NAMES = ("window_refinement_bwd_kernel", "window_refinement_bias_kernel")
+# the seeds of refine_train_self_check's batch-1 synthetic batches
+REFINE_SELF_CHECK_SEEDS = (0, 1, 2)
+
+
+@contextlib.contextmanager
+def _plain_window_calls():
+    """Count calls of the window refinement's plain versions (forward and
+    backward) while the block runs: a list whose one entry is the count.
+    The model reaches the forward through ops.refinement's own name for it."""
+    from ufm_torch.ops import refinement as rf
+    from ufm_torch.ops import window_refinement as wr
+
+    calls = [0]
+    patched = [(wr, "window_refinement_reference"), (rf, "window_refinement_reference"),
+               (wr, "window_refinement_backward_reference")]
+    saved = [getattr(m, name) for m, name in patched]
+
+    def counting(fn):
+        def wrapper(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for (m, name), fn in zip(patched, saved):
+        setattr(m, name, counting(fn))
+    try:
+        yield calls
+    finally:
+        for (m, name), fn in zip(patched, saved):
+            setattr(m, name, fn)
+
+
+def _device_ms(fn, names):
+    """Run ``fn`` once inside a ``torch.profiler`` window (CUDA activity):
+    its host ms, the device busy ms (the union of the kernels' intervals),
+    and the device ms of the kernels whose names contain one of ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    spans, named_us, named = [], 0.0, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or evt.name.startswith(("Memcpy", "Memset")):
+            continue
+        spans.append((evt.time_range.start, evt.time_range.end))
+        if any(n in evt.name for n in names):
+            named_us += evt.time_range.end - evt.time_range.start
+            named += 1
+    check(bool(spans), "the profiler recorded no kernel")
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / wall_ms,
+            "named_ms": named_us / 1e3, "named_kernels": named}
+
+
+def phase_refine_train():
+    """UFM-Refine (``ufm_refine_config()``: the UNet and the patch MLP, bf16
+    backbone, 5 x 5 window at C = 16) trains at TRAIN_BATCH on TRAIN_HW:
+    TRAIN_STEPS of make_train_step, then FIT_STEPS of fit, each step's
+    launches held to REFINE_TRAIN_EACH, no call of the window refinement's
+    plain versions, finite metrics, a falling loss; the spans, step ms,
+    pairs/s, peak memory, and one more step under the profiler for the
+    window backward's kernel ms within it."""
+    from ufm_torch.models import UniFlowMatchClassificationRefinement, ufm_refine_config
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
+
+    t0 = time.perf_counter()
+    model = UniFlowMatchClassificationRefinement.from_config(ufm_refine_config(), seed=0)
+    net = model.net
+    batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
+    optimizer = make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS)
+    step = make_train_step(net, optimizer)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    p, c = model.config.refinement_range, model.config.classification_head_kwargs["output_dim"]
+    losses, refine_losses, times = [], [], []
+
+    def run():
+        for i in range(TRAIN_STEPS):
+            before = counters.snapshot()
+            t = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launched = counters.since(before)
+            check(launched == REFINE_TRAIN_EACH, f"refine train step {i}: launches {launched} (wgmma fwd / bwd, "
+                  f"window, GELU, fused fc1 + GELU, mma fwd / bwd, window bwd), expected {REFINE_TRAIN_EACH}")
+            vals = {k: v.item() for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in vals.values()) and "refinement_loss" in vals,
+                  f"refine train step {i}: metrics {vals}")
+            losses.append(vals["total_loss"])
+            refine_losses.append(vals["refinement_loss"])
+            emit("refine_train_step", step=i, seconds=times[-1], **vals)
+
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()  # the UFM-Refine training path's counts start here
+    with _plain_window_calls() as plain_calls:
+        spans = _span_ms(net, optimizer, run)
+        peak = torch.cuda.max_memory_allocated()
+        fit_losses = []
+        before = counters.snapshot()
+        out = fit(net, (batch for _ in range(FIT_STEPS)), num_steps=FIT_STEPS, learning_rate=FIT_LR,
+                  warmup_steps=0, log_every=1, log_fn=lambda line: None,
+                  on_metrics=lambda _, vals: fit_losses.append(vals["total_loss"]))
+        torch.cuda.synchronize()
+        fit_launched = counters.since(before)
+        launched = counters.snapshot()
+        profiled = _device_ms(lambda: step(batch), WINDOW_BWD_KERNEL_NAMES)
+    check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"refine fit ran {out['step']} steps")
+    check(all(np.isfinite(v) for v in fit_losses), f"refine fit: non-finite losses {fit_losses}")
+    check(fit_launched == tuple(FIT_STEPS * n for n in REFINE_TRAIN_EACH),
+          f"refine fit: launches {fit_launched} over {FIT_STEPS} steps")
+    check(plain_calls[0] == 0, f"UFM-Refine training called the window refinement's plain versions {plain_calls[0]} times")
+    check(profiled["named_kernels"] == len(WINDOW_BWD_KERNEL_NAMES),
+          f"the profiled step ran {profiled['named_kernels']} window backward kernels, expected "
+          f"{len(WINDOW_BWD_KERNEL_NAMES)}")
+    trajectory = losses + fit_losses
+    check(trajectory[-1] < trajectory[0], f"refine: the loss did not fall on the fixed batch: {trajectory}")
+    steps = TRAIN_STEPS + FIT_STEPS
+    mlp_path("ufm_refine_train", launched[GELU_AT], launched[FUSED_AT], steps * GELU_PER_FORWARD, grad=True)
+    launches = {"flash_attention_fwd": launched[0], "flash_attention_bwd": launched[1],
+                "window_refinement_fwd": launched[WINDOW_AT], "window_refinement_bwd": launched[WINDOW_BWD_AT]}
+    step_s = statistics.median(times[1:])
+    emit("refine_train", model="ufm_refine", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), window_c=c, window_p=p,
+         setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, fit_learning_rate=FIT_LR, steps=steps,
+         launches=launches, launches_per_step=list(REFINE_TRAIN_EACH), plain_window_calls=plain_calls[0],
+         first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s, spans_ms=spans,
+         max_memory_allocated=peak, loss_trajectory=trajectory, refinement_loss_trajectory=refine_losses,
+         profiled_step_ms=profiled["wall_ms"], profiled_step_device_busy_ms=profiled["device_busy_ms"],
+         profiled_step_idle_share=profiled["idle_share"], window_bwd_kernel_ms_in_step=profiled["named_ms"])
+    del out, step, optimizer
+    _free_card_memory()
+    return model, batch, launches
+
+
+@contextlib.contextmanager
+def _fp32_plain_attention():
+    """While the block runs, the plain attention (impl ``"torch"``) computes
+    in fp32: q, k and v upcast, the output cast back to their dtype."""
+    from ufm_torch.ops import attention as at
+
+    plain = at.attention_reference
+    at.attention_reference = lambda q, k, v, scale: plain(q.float(), k.float(), v.float(), scale).to(q.dtype)
+    try:
+        yield
+    finally:
+        at.attention_reference = plain
+
+
+def _refine_classes(regression_flow, gt_flow, p):
+    """Each pixel's target class in ``refinement_classification_loss`` for
+    this regression flow: the rounded offset to the ground truth, -1 where
+    the offset lies outside the P x P window (no supervision)."""
+    r = (p - 1) // 2
+    off = gt_flow - regression_flow
+    jx, iy = ((torch.round(off[..., i]) + r).clamp(0, p - 1) for i in (0, 1))
+    inside = (off[..., 0].abs() <= r + 0.5) & (off[..., 1].abs() <= r + 0.5)
+    return torch.where(inside, iy * p + jx, -1)
+
+
+def phase_refine_train_self_check(model):
+    """Each optimizer group's gradient of one step at batch 1, on the
+    synthetic batch of each of REFINE_SELF_CHECK_SEEDS with its own ground
+    truth, four ways: through every kernel (REFINE_TRAIN_EACH launches);
+    with the plain window refinement (the attention kernels kept: the
+    window kernels' own part); with plain attention and the plain window
+    refinement (the plain step: bf16 logits, as the JAX package's plain
+    attention); and the plain step with its attention in fp32 (q, k, v
+    upcast), the witness. Held, each group: the kernel step within
+    TRAIN_GRAD_REL_L2_BOUND of the plain-window step; and within
+    max(TRAIN_GRAD_REL_L2_BOUND, 2x the plain step's own distance from the
+    witness) of the plain step: where two plain steps that differ only in
+    the attention's rounding lie 0.1 apart (measured on an H100: the
+    classification head), 0.1 cannot tell a fault from that rounding.
+    Reported: the kernel step against the witness, and the share of pixels
+    whose target class of the refinement loss (the rounded offset from the
+    regression flow to the ground truth, a step function) differs between
+    two steps."""
+    from ufm_torch.ops import launches
+    from ufm_torch.training import synthetic_batch, ufm_total_loss
+
+    p = model.config.refinement_range
+    net = model.net
+
+    def grads(attention, window, label):
+        """The groups' gradients of one step on ``one``, and its target classes."""
+        model.attention_impl, model.refinement_impl = attention, window
+        try:
+            before = launches.snapshot()
+            net.zero_grad(set_to_none=True)
+            out = net(one["img1"], one["img2"])
+            ufm_total_loss(out, one)[0].backward()
+            torch.cuda.synchronize()
+            launched = launches.since(before)
+        finally:
+            model.attention_impl = model.refinement_impl = None
+        g = _group_grads(net)
+        net.zero_grad(set_to_none=True)
+        plain_at = (ATTENTION_AT if attention else ()) + ((WINDOW_AT, WINDOW_BWD_AT) if window else ())
+        if attention is None and window is None:
+            check(launched == REFINE_TRAIN_EACH, f"refine self-check, {label}: launches {launched}")
+        check(all(launched[i] == 0 for i in plain_at), f"refine self-check, {label}: launches {launched}")
+        return g, _refine_classes(out["regression_flow"].detach(), one["gt_flow"], p)
+
+    by_seed = {}
+    for seed in REFINE_SELF_CHECK_SEEDS:
+        one = synthetic_batch(1, *TRAIN_HW, seed=seed, device="cuda")
+        g_kernel, c_kernel = grads(None, None, "kernels")
+        g_window, _ = grads(None, "torch", "plain window refinement")
+        g_plain, c_plain = grads("torch", "torch", "plain attention and window refinement")
+        with _fp32_plain_attention():
+            g_ref, c_ref = grads("torch", "torch", "plain step, fp32 attention")
+        check(set(g_kernel) == set(g_window) == set(g_plain) == set(g_ref), "refine self-check: gradient groups differ")
+        spread = _rel_l2(g_plain, g_ref)
+        by_seed[seed] = {
+            "vs_plain_window": _rel_l2(g_kernel, g_window),
+            "vs_plain": _rel_l2(g_kernel, g_plain),
+            "plain_vs_witness": spread,
+            "bar": {k: max(TRAIN_GRAD_REL_L2_BOUND, 2 * r) for k, r in spread.items()},
+            "vs_witness": _rel_l2(g_kernel, g_ref),
+            "class_flip_share": {"kernel_vs_plain": (c_kernel != c_plain).float().mean().item(),
+                                 "plain_vs_witness": (c_plain != c_ref).float().mean().item()},
+            "supervised_share": (c_plain >= 0).float().mean().item(),
+        }
+        del g_kernel, g_window, g_plain, g_ref
+    emit("refine_train_self_check", batch=1, seeds=list(REFINE_SELF_CHECK_SEEDS), by_seed=by_seed,
+         bound=TRAIN_GRAD_REL_L2_BOUND, launches=list(REFINE_TRAIN_EACH),
+         within_bound_of_plain={seed: all(r <= TRAIN_GRAD_REL_L2_BOUND for r in rel["vs_plain"].values())
+                                for seed, rel in by_seed.items()})
+    for seed, rel in by_seed.items():
+        for k, r in rel["vs_plain_window"].items():
+            check(r <= TRAIN_GRAD_REL_L2_BOUND,
+                  f"refine self-check, seed {seed}, kernels vs plain window refinement, group {k}: relative L2 {r:.3e}")
+        for k, r in rel["vs_plain"].items():
+            check(r <= rel["bar"][k], f"refine self-check, seed {seed}, kernels vs plain step, group {k}: relative L2 "
+                  f"{r:.3e} > {rel['bar'][k]:.3e} (the plain step {rel['plain_vs_witness'][k]:.3e} from the witness)")
 
 
 def _world1_group():
@@ -3110,6 +3585,25 @@ def _model_hw(config):
     return int(h), int(w)
 
 
+def _step_grads(model, batch):
+    """Each optimizer group's gradient of one forward + loss + backward of
+    ``model.net`` on ``batch``, as one vector a group."""
+    from ufm_torch.training import ufm_total_loss
+
+    net = model.net
+    net.zero_grad(set_to_none=True)
+    loss, _ = ufm_total_loss(net(batch["img1"], batch["img2"]), batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = _group_grads(net)
+    net.zero_grad(set_to_none=True)
+    return grads
+
+
+def _rel_l2(got, want):
+    return {k: ((got[k] - want[k]).norm() / want[k].norm()).item() for k in want}
+
+
 def _kernel_vs_plain_grads(model, batch, label, launches_each, bound, **fields):
     """Each optimizer group's gradient of one forward + loss + backward on
     ``batch`` through the kernels (their launches held to ``launches_each``,
@@ -3117,33 +3611,22 @@ def _kernel_vs_plain_grads(model, batch, label, launches_each, bound, **fields):
     the relative L2, emitted as phase ``label`` (with the plain pass's peak
     memory and ``fields``), then each held within ``bound``."""
     from ufm_torch.ops import launches
-    from ufm_torch.training import ufm_total_loss
-
-    net = model.net
-
-    def grads():
-        net.zero_grad(set_to_none=True)
-        loss, _ = ufm_total_loss(net(batch["img1"], batch["img2"]), batch)
-        loss.backward()
-        torch.cuda.synchronize()
-        return _group_grads(net)
 
     before = launches.snapshot()
-    g_kernel = grads()
+    g_kernel = _step_grads(model, batch)
     kernel_launched = launches.since(before)
     check(kernel_launched == launches_each,
           f"{label} kernel gradient: launches {kernel_launched}, expected {launches_each}")
     model.attention_impl = "torch"
     before = launches.snapshot()
     torch.cuda.reset_peak_memory_stats()
-    g_plain = grads()
+    g_plain = _step_grads(model, batch)
     plain_peak = torch.cuda.max_memory_allocated()
     launched = launches.since(before)
     check(all(launched[i] == 0 for i in ATTENTION_AT), f"{label}: the plain-attention gradient launched {launched}")
     model.attention_impl = None
-    net.zero_grad(set_to_none=True)
     check(set(g_plain) == set(g_kernel), f"{label}: gradient groups differ: {sorted(g_kernel)} vs {sorted(g_plain)}")
-    rel = {k: ((g_kernel[k] - g_plain[k]).norm() / g_plain[k].norm()).item() for k in g_plain}
+    rel = _rel_l2(g_kernel, g_plain)
     emit(label, batch=int(batch["img1"].shape[0]), grad_rel_l2=rel, bound=bound,
          plain_max_memory_allocated=plain_peak, launches=list(kernel_launched), **fields)
     for k, r in rel.items():
@@ -3174,7 +3657,7 @@ def phase_fp32_train():
     check(not optimizer.masters(), f"the fp32 model's optimizer keeps {len(optimizer.masters())} masters")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    each = (0, 0, 0, 0, 0, ANY_PER_FORWARD, ANY_BWD_PER_STEP)
+    each = (0, 0, 0, 0, 0, ANY_PER_FORWARD, ANY_BWD_PER_STEP, 0)
     torch.cuda.reset_peak_memory_stats()
     counters.reset()  # the fp32 training path's counts start here
     losses, times = [], []
@@ -3188,7 +3671,7 @@ def phase_fp32_train():
             times.append(time.perf_counter() - t)
             launched = counters.since(before)
             check(launched == each, f"fp32 train step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, "
-                  f"fused fc1 + GELU, mma fwd / bwd), expected {each}")
+                  f"fused fc1 + GELU, mma fwd / bwd, window bwd), expected {each}")
             vals = {k: v.item() for k, v in metrics.items()}
             check(all(np.isfinite(v) for v in vals.values()), f"fp32 train step {i}: non-finite metrics {vals}")
             losses.append(vals["total_loss"])
@@ -3209,7 +3692,7 @@ def phase_fp32_train():
     check(fit_launched == tuple(FIT_STEPS * n for n in each), f"fp32 fit: launches {fit_launched} over {FIT_STEPS} steps")
     trajectory = losses + fit_losses
     check(trajectory[-1] < trajectory[0], f"fp32: the loss did not fall on the fixed batch: {trajectory}")
-    launches = {"train": counters.snapshot()[ANY_FWD_AT:]}
+    launches = {"train": counters.snapshot()[ANY_FWD_AT:WINDOW_BWD_AT]}
     del out, step, optimizer
     _free_card_memory()
 
@@ -3217,12 +3700,13 @@ def phase_fp32_train():
     counters.reset()
     with _TF32(False):
         _kernel_vs_plain_grads(model, one, "fp32_train_self_check", each, FP32_TRAIN_GRAD_REL_L2_BOUND, tf32=False)
-    launches["self_check"] = counters.snapshot()[ANY_FWD_AT:]
+    launches["self_check"] = counters.snapshot()[ANY_FWD_AT:WINDOW_BWD_AT]
     emit("fp32_train", model="ufm_base", compute_dtype=model.config.compute_dtype, batch=TRAIN_BATCH,
          input_hw=list(TRAIN_HW), setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
          fit_learning_rate=FIT_LR, steps=TRAIN_STEPS + FIT_STEPS, launches_per_step=dict(zip(
              ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
-              "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any"), each)),
+              "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any", "window_refinement_bwd"),
+             each)),
          first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s, spans_ms=spans,
          max_memory_allocated=peak, loss_trajectory=trajectory)
     del model, batch, one
@@ -3268,7 +3752,7 @@ def phase_fine_tune():
             per_step = [tuple(n - m for n, m in zip(c, p)) for c, p in zip(counts, [(0,) * len(counts[0])] + counts[:-1])]
             runs[where] = dict(seconds=seconds, losses=losses, launches_per_step=per_step)
             del model, out
-    want = (0, 0, 0, 0, 0, layers, layers)
+    want = (0, 0, 0, 0, 0, layers, layers, 0)
     check(all(c == want for c in runs["cuda"]["launches_per_step"]),
           f"fine-tune on the card: launches per step {runs['cuda']['launches_per_step']}, expected {want}")
     check(not any(any(c) for c in runs["cpu"]["launches_per_step"]), "fine-tune on the CPU launched a kernel")
@@ -3287,7 +3771,7 @@ def phase_fine_tune():
     h, w = _model_hw(model.config)
     bf16_batch = synthetic_batch(FINE_TUNE_BATCH, h, w, seed=1, device="cuda")
     counters.reset()
-    each = (0, 0, 0, layers, 0, layers, layers)
+    each = (0, 0, 0, layers, 0, layers, layers, 0)
     _kernel_vs_plain_grads(model, bf16_batch, "tiny_bf16_self_check", each, TRAIN_GRAD_REL_L2_BOUND)
     optimizer = make_optimizer(model.net, learning_rate=1e-4, warmup_steps=0, total_steps=10)
     before = counters.snapshot()
@@ -3327,6 +3811,7 @@ def run_phases(smi: str) -> int:
     bwd_rows = phase_bwd_kernel()
     any_bwd_rows = phase_any_bwd_kernel()
     window_rows, window_host_us = phase_window_kernel()
+    window_bwd_rows = phase_window_bwd_kernel()
     gelu_rows, gelu_host_us, gelu_err = phase_gelu()
     lg_rows, lg_host_us, lg_err = phase_linear_gelu()
     golden_launches = phase_bf16_golden()
@@ -3359,6 +3844,7 @@ def run_phases(smi: str) -> int:
     refine_captured = phase_captured(refine_model, "ufm_refine", refine_pair, (1,), refine=True)
     phase_refine_self_check(refine_model, refine_pair, refine_res)
     refine_artifact = phase_artifact_refine(refine_model)
+    tiled_refine_launches = phase_tiled_refine(refine_model)
     del refine_model, refine_res
     torch.cuda.empty_cache()
     fp32_launches = phase_fp32_path()
@@ -3366,6 +3852,10 @@ def run_phases(smi: str) -> int:
     train_model, train_batch, train_launches = phase_train()
     phase_train_self_check(train_model, train_batch)
     del train_model, train_batch
+    _free_card_memory()
+    refine_train_model, refine_train_batch, refine_train_launches = phase_refine_train()
+    phase_refine_train_self_check(refine_train_model)
+    del refine_train_model, refine_train_batch
     _free_card_memory()
     import torch.distributed as dist
 
@@ -3379,7 +3869,7 @@ def run_phases(smi: str) -> int:
     moge_launches = phase_moge()
     from ufm_torch.ops import flash_attention as fa
 
-    # every bf16 D = 64 training path since phase_train reset the count
+    # every bf16 D = 64 training path since phase_refine_train reset the counts
     emit("bf16_training_paths", mma_backward_launches=fa.ANY_BWD_LAUNCHES)
     check(fa.ANY_BWD_LAUNCHES == 0, f"the bf16 D = 64 training paths made {fa.ANY_BWD_LAUNCHES} mma backward calls")
     fp32_train_launches = phase_fp32_train()
@@ -3401,7 +3891,8 @@ def run_phases(smi: str) -> int:
         + refine_artifact["flash_attention_fwd"] + loader_launches
         + sharded_launches["flash_attention_fwd"] + sharded_fit_launches["flash_attention_fwd"]
         + dp_launches["ufm_base"]["flash_attention_fwd"] + dp_launches["ufm_refine"]["flash_attention_fwd"]
-        + remat_launches["flash_attention_fwd"] + moge_launches,
+        + remat_launches["flash_attention_fwd"] + moge_launches + refine_train_launches["flash_attention_fwd"]
+        + tiled_refine_launches["flash_attention_fwd"],
         "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
                              "ufm_refine": refine_launches["flash_attention_fwd"],
                              "ufm_base_train": train_launches["flash_attention_fwd"],
@@ -3420,7 +3911,9 @@ def run_phases(smi: str) -> int:
                              "ufm_base_data_parallel": dp_launches["ufm_base"]["flash_attention_fwd"],
                              "ufm_refine_data_parallel": dp_launches["ufm_refine"]["flash_attention_fwd"],
                              "ufm_base_remat": remat_launches["flash_attention_fwd"],
-                             "ufm_base_moge": moge_launches},
+                             "ufm_base_moge": moge_launches,
+                             "ufm_refine_train": refine_train_launches["flash_attention_fwd"],
+                             "ufm_refine_tiled": tiled_refine_launches["flash_attention_fwd"]},
         "op": "ufm_torch::flash_attention_fwd",
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
@@ -3445,11 +3938,13 @@ def run_phases(smi: str) -> int:
         "source": "ufm_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:452",
         "launches": train_launches["flash_attention_bwd"] + sharded_launches["flash_attention_bwd"]
-        + sharded_fit_launches["flash_attention_bwd"] + remat_launches["flash_attention_bwd"],
+        + sharded_fit_launches["flash_attention_bwd"] + remat_launches["flash_attention_bwd"]
+        + refine_train_launches["flash_attention_bwd"],
         "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"],
                              "ufm_base_sharded_train": sharded_launches["flash_attention_bwd"],
                              "ufm_base_sharded_fit": sharded_fit_launches["flash_attention_bwd"],
-                             "ufm_base_remat": remat_launches["flash_attention_bwd"]},
+                             "ufm_base_remat": remat_launches["flash_attention_bwd"],
+                             "ufm_refine_train": refine_train_launches["flash_attention_bwd"]},
         "op": "ufm_torch::flash_attention_bwd",
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
         "ms": sum(r["ms"] for r in bwd),
@@ -3472,12 +3967,15 @@ def run_phases(smi: str) -> int:
         "replaces_also": "ufm_tpu/ops/window_dots.py:238",
         "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"]
         + refine_captured["window_refinement_fwd"] + refine_artifact["window_refinement_fwd"]
-        + dp_launches["ufm_refine"]["window_refinement_fwd"],
+        + dp_launches["ufm_refine"]["window_refinement_fwd"] + refine_train_launches["window_refinement_fwd"]
+        + tiled_refine_launches["window_refinement_fwd"],
         "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"],
                              "ufm_refine_data_parallel": dp_launches["ufm_refine"]["window_refinement_fwd"],
                              "bf16_golden": golden_launches["window_refinement_fwd"],
                              "ufm_refine_captured": refine_captured["window_refinement_fwd"],
-                             "ufm_refine_artifact": refine_artifact["window_refinement_fwd"]},
+                             "ufm_refine_artifact": refine_artifact["window_refinement_fwd"],
+                             "ufm_refine_train": refine_train_launches["window_refinement_fwd"],
+                             "ufm_refine_tiled": tiled_refine_launches["window_refinement_fwd"]},
         "op": "ufm_torch::window_refinement",
         "max_abs_err": max(max(r["residual_max_abs_err"], r["log_softmax_max_abs_err"]) for r in window_rows.values()),
         "ms": flagship["ms"],
@@ -3491,6 +3989,38 @@ def run_phases(smi: str) -> int:
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in window_rows.items()},
         "staged_tile_share_by_case": {n: r["staged_tile_share"] for n, r in window_rows.items()},
         "host_us_per_launch": window_host_us,
+    }
+    train_case = window_bwd_rows["train"]
+    window_bwd = {
+        "name": "window_refinement_bwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/window_refinement_bwd.cu",
+        "replaces": "ufm_tpu/ops/refinement.py:242",
+        "replaces_note": "_fused_refinement_pallas_bwd, the XLA VJP of _fused_refinement_xla (:257) that the JAX "
+                         "package runs as its Pallas window kernel's backward (no pallas_call)",
+        "launches": refine_train_launches["window_refinement_bwd"],
+        "launches_by_path": {"ufm_refine_train": refine_train_launches["window_refinement_bwd"]},
+        "op": "ufm_torch::window_refinement_bwd",
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in window_bwd_rows.values()),
+        "ms": train_case["ms"],
+        "plain_ms": train_case["plain_ms"],
+        "bound_ms": train_case["bound_ms"],
+        "bound_by": train_case["bound_by"],
+        "library_ms": None,
+        "parent_route_ms": train_case["parent_route_ms"],
+        "per_step": "the one call of a batch-2 UFM-Refine train step, (2, 420, 560, 16), P = 5; a launch is one "
+                    "call (two CUDA kernels: the gradients with per-tile dbias partials, then their sum)",
+        "library_none": "no single PyTorch call computes this function",
+        "parent_route": "autograd over the plain forward (the parent's backward of ufm_torch::window_refinement)",
+        "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in window_bwd_rows.items()},
+        "tol_by_case": {n: r["tol"] for n, r in window_bwd_rows.items()},
+        "bitwise_repeatable_dq_dflow_dbias": all(r["bitwise_repeatable"]["dq"] and r["bitwise_repeatable"]["dflow"]
+                                                 and r["bitwise_repeatable"]["dbias"] for r in window_bwd_rows.values()),
+        "df_run_to_run_max_abs_diff_by_case": {n: r["df_run_to_run_max_abs_diff"] for n, r in window_bwd_rows.items()},
+        "ms_by_case": {n: r["ms"] for n, r in window_bwd_rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in window_bwd_rows.items()},
+        "plain_ms_by_case": {n: r["plain_ms"] for n, r in window_bwd_rows.items()},
+        "parent_route_ms_by_case": {n: r["parent_route_ms"] for n, r in window_bwd_rows.items()},
     }
     # one batch-1 forward's GELU: each number sums its 36 calls
     gelu_fwd = [gelu_rows[n] for n, _, calls in GELU_SHAPES for _ in range(calls)]
@@ -3623,7 +4153,8 @@ def run_phases(smi: str) -> int:
         "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in any_bwd_rows.items()},
     }
     print(smi)
-    print(json.dumps({"kernels": [attention, backward, window, gelu, linear_gelu, attention_any, backward_any]}))
+    print(json.dumps({"kernels": [attention, backward, window, window_bwd, gelu, linear_gelu, attention_any,
+                                  backward_any]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -2,13 +2,21 @@
 """Time the window-refinement kernel of several checkouts of the port in one process.
 
     python3 profile_window_trees.py PARENT . . PARENT
+    python3 profile_window_trees.py --any-kernel-tree ANY . ANY ANY .
 
 Each argument is the root of a checkout that holds ``ufm_torch`` (an
-unpacked ``git archive`` of another commit, or this one). The trees are
+unpacked ``git archive`` of another commit, or this one).
+``--any-kernel-tree DIR`` first makes DIR such a tree: a copy of this
+checkout's ``ufm_torch`` whose forward sends every shape to
+``window_refinement_fwd_any_kernel``, the C in {4, 8, 16}, P <= 5
+instances' branch turned off, so that the two designs are timed on the
+same shapes. The trees are
 taken in the order given, so "parent, change, change, parent" puts both
 versions on one card in turns. For each tree it builds that tree's window
 kernel and prints one JSON line per case of ``chip_smoke.py``'s
-``WINDOW_CASES``:
+``WINDOW_CASES`` that the tree's kernel takes (its ``supports_kernel``: a
+tree from before the widened domain skips C = 5 / 12 / 32 / 64 and P = 7 /
+9):
 
 - ``ms``: CUDA-event time per call, each batch of calls queued behind a
   device sleep, as ``chip_smoke.py`` times it; ``bound_ms`` and
@@ -28,6 +36,7 @@ import argparse
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -40,6 +49,9 @@ def load_tree(root: str):
     """``ufm_torch.ops.window_refinement`` of the checkout at ``root``, its
     kernel built."""
     root = os.path.abspath(root)
+    library = sys.modules.get("ufm_torch.ops.library")
+    if library is not None:  # a tree with dispatcher ops: free their names for the next tree's
+        library._LIB._destroy()
     for name in [m for m in sys.modules if m == "ufm_torch" or m.startswith("ufm_torch.")]:
         del sys.modules[name]
     sys.path.insert(0, root)
@@ -53,31 +65,59 @@ def load_tree(root: str):
     return wr
 
 
+# the forward's branch to its C in {4, 8, 16}, P <= 5 instances
+# (csrc/window_refinement_fwd.cu)
+FIXED_INSTANCES = "  if ((c == 4 || c == 8 || c == 16) && p <= 5) {"
+
+
+def make_any_kernel_tree(root: str) -> None:
+    """Make ``root`` a copy of this checkout's ``ufm_torch`` whose window
+    forward never takes its fixed (C, P) instances."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(here, "ufm_torch"), os.path.join(root, "ufm_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(root, "ufm_torch", "csrc", "window_refinement_fwd.cu")
+    with open(path) as fh:
+        src = fh.read()
+    if src.count(FIXED_INSTANCES) != 1:
+        raise RuntimeError(f"{path}: the fixed instances' branch is not the one line {FIXED_INSTANCES.strip()!r}")
+    with open(path, "w") as fh:
+        fh.write(src.replace(FIXED_INSTANCES, "  if (false) {"))
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("trees", nargs="+", help="checkout roots, timed in this order")
+    parser.add_argument("--any-kernel-tree", metavar="DIR",
+                        help="first make DIR a copy of this checkout whose forward runs only the any-kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_window_trees: needs a CUDA device", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"device": smi, "torch": torch.__version__, "trees": args.trees}), flush=True)
+    print(json.dumps({"device": smi, "torch": torch.__version__, "trees": args.trees,
+                      "any_kernel_tree": args.any_kernel_tree}), flush=True)
+    if args.any_kernel_tree:
+        make_any_kernel_tree(args.any_kernel_tree)
 
     here = load_tree(os.path.dirname(os.path.abspath(__file__)))
     cases = []
     for name, shape, p, kind, scale, _ in cs.WINDOW_CASES:
-        q, f, flow, bias = cs.window_inputs(shape, p, kind, scale, far=name == "edges")
+        q, f, flow, bias = cs.window_inputs(shape, p, kind, scale, far=name.startswith("edges"))
         ref = here.window_refinement_reference(q, f, flow, bias, cs.WINDOW_TEMPERATURE, p)
         taps, _ = cs.window_taps(flow, p)
         bound_ms, bound_by = cs.window_bound_ms(shape, p, taps)
-        share = here.staged_tiles(flow, p) / here.tile_count(*shape[:3])
+        share = here.staged_tiles(flow, p, shape[-1]) / here.tile_count(*shape[:3])
         cases.append((name, shape, p, (q, f, flow, bias), ref, bound_ms, bound_by, share))
 
     summary = {}
     for turn, root in enumerate(args.trees):
         wr = load_tree(root)
         for name, shape, p, inputs, (ref_res, ref_ls), bound_ms, bound_by, share in cases:
+            if not wr.supports_kernel(shape[-1], p):
+                continue
             res, ls = wr.window_refinement(*inputs, cs.WINDOW_TEMPERATURE, p)
             torch.cuda.synchronize()
             ms = cs.time_ms(lambda: wr.window_refinement(*inputs, cs.WINDOW_TEMPERATURE, p))

@@ -140,10 +140,10 @@ def test_fma_backward_refuses_cpu_tensors_and_counts_nothing():
 
 
 def test_launch_counters_hold_the_fma_backward_last_and_reset_together():
-    """The mma backward's counter is the last of ``launches``' seven,
-    and ``reset`` zeroes them all."""
+    """The mma backward's counter is the seventh of ``launches``' eight
+    (the window backward's came after it), and ``reset`` zeroes them all."""
     fa.ANY_BWD_LAUNCHES += 3
-    assert launches.snapshot()[-1] == fa.ANY_BWD_LAUNCHES >= 3
-    assert len(launches.snapshot()) == 7
+    assert launches.snapshot()[6] == fa.ANY_BWD_LAUNCHES >= 3
+    assert len(launches.snapshot()) == 8
     launches.reset()
-    assert launches.snapshot() == (0,) * 7 and fa.ANY_BWD_LAUNCHES == 0
+    assert launches.snapshot() == (0,) * 8 and fa.ANY_BWD_LAUNCHES == 0

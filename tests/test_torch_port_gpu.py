@@ -336,21 +336,33 @@ def test_window_kernel_paths(cuda, case):
 
 
 def test_window_kernel_refuses_what_it_does_not_take(cuda):
+    """CPU tensors, other dtypes, and widths and windows past the kernels'
+    domain (C <= 64, odd P <= 9: C = 65 and P = 11 here) raise before any
+    launch, naming the limit."""
     q, f, flow, bias = _window_inputs(cuda, (1, 6, 7, 8), 5, 3.0)
+    before = (wr.LAUNCHES, wr.BWD_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         wr.window_refinement(q.cpu(), f.cpu(), flow.cpu(), bias.cpu(), 4.0, 5)
     with pytest.raises(ValueError, match="float32"):
         wr.window_refinement(q.half(), f.half(), flow, bias, 4.0, 5)
-    q5, f5, flow5, bias5 = _window_inputs(cuda, (1, 6, 7, 5), 5, 3.0)
-    with pytest.raises(ValueError, match="impl='torch'"):
-        wr.window_refinement(q5, f5, flow5, bias5, 4.0, 5)
+    q65, f65, flow65, bias65 = _window_inputs(cuda, (1, 6, 7, 65), 5, 3.0)
+    with pytest.raises(ValueError, match="C <= 64"):
+        wr.window_refinement(q65, f65, flow65, bias65, 4.0, 5)
+    q11, f11, flow11, bias11 = _window_inputs(cuda, (1, 6, 7, 8), 11, 3.0)
+    with pytest.raises(ValueError, match="P <= 9"):
+        wr.window_refinement(q11, f11, flow11, bias11, 4.0, 11)
+    ls = torch.zeros(1, 6, 7, 11, 11, device=cuda)
+    with pytest.raises(ValueError, match="P <= 9"):
+        wr.launch_backward(q11, f11, flow11, bias11, ls, flow11, ls, 4.0, 11)
     with pytest.raises(ValueError, match="staged_count"):
         wr.window_refinement(q, f, flow, bias, 4.0, 5, staged_count=torch.zeros(1, device=cuda))
+    assert (wr.LAUNCHES, wr.BWD_LAUNCHES) == before
 
 
 def test_window_kernel_gradients_match_plain(cuda):
-    """The autograd.Function's backward (autograd over the plain version)
-    against autograd through the plain version itself."""
+    """Gradients through the op on the card (the forward kernel, then the
+    backward kernel, one launch each) against autograd through the plain
+    version."""
     inputs = _window_inputs(cuda, (1, 8, 8, 16), 5, 6.0)
 
     def grads(fn):
@@ -359,8 +371,84 @@ def test_window_kernel_gradients_match_plain(cuda):
         (res.pow(2).sum() + ls.mean()).backward()
         return [t.grad for t in ins]
 
-    for got, want in zip(grads(wr.window_refinement), grads(wr.window_refinement_reference)):
+    before = (wr.LAUNCHES, wr.BWD_LAUNCHES)
+    got = grads(wr.window_refinement)
+    torch.cuda.synchronize()
+    assert (wr.LAUNCHES - before[0], wr.BWD_LAUNCHES - before[1]) == (1, 1)
+    for got, want in zip(got, grads(wr.window_refinement_reference)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# the rest of the window kernels' domain: (B, H, W, C), P, flow kind, its
+# scale (chip_smoke.py's cases; "edges..." puts windows outside the image)
+WINDOW_ANY_CASES = {
+    "edges_c5_p7": ((2, 24, 44, 5), 7, "iid", 40.0),
+    "c32_p7": ((1, 64, 96, 32), 7, "iid", 6.0),
+    "c64_p9": ((1, 64, 96, 64), 9, "iid", 6.0),
+    "smooth_c12_p9": ((1, 420, 560, 12), 9, "smooth", 0.5),
+    "c3_p1": ((1, 16, 40, 3), 1, "iid", 3.0),
+}
+
+
+def _any_case_inputs(device, case, seed=0):
+    shape, p, kind, scale = WINDOW_ANY_CASES[case]
+    q, f, flow, bias = _window_inputs(device, shape, p, scale, far=case.startswith("edges"), seed=seed)
+    if kind != "iid":
+        flow += _motion_flow(device, *shape[1:3], split=kind == "split")
+    return shape, p, (q, f, flow, bias)
+
+
+@pytest.mark.parametrize("case", list(WINDOW_ANY_CASES))
+def test_window_kernel_over_the_widened_domain(cuda, case):
+    """The forward kernel at widths and windows past the Pallas kernel's
+    (C not a multiple of 4, C = 32 / 64, P = 7 / 9) against its plain
+    version (residual 2e-5, log_softmax 2e-4), its staged count equal to
+    staged_tiles (none at C = 3, 5, 32, 64)."""
+    shape, p, (q, f, flow, bias) = _any_case_inputs(cuda, case)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    res, ls = wr.window_refinement(q, f, flow, bias, 4.0, p, staged_count=counter)
+    torch.cuda.synchronize()
+    ref_res, ref_ls = wr.window_refinement_reference(q, f, flow, bias, 4.0, p)
+    assert (res - ref_res).abs().max().item() <= 2e-5
+    assert (ls - ref_ls).abs().max().item() <= 2e-4
+    assert counter.item() == wr.staged_tiles(flow, p, shape[-1])
+    if case == "smooth_c12_p9":
+        assert 0 < counter.item() < wr.tile_count(*shape[:3])
+
+
+# chip_smoke.py's bar for the window backward: max(2x the plain fp32
+# backward's error, 1e-5 of the fp64 gradient's largest element)
+WINDOW_BWD_FLOOR_REL = 1e-5
+
+
+@pytest.mark.parametrize("case", ["edges_c5_p7", "c32_p7", "c64_p9", "c3_p1", "train"])
+def test_window_backward_kernel_against_fp64(cuda, case):
+    """The backward kernel against the plain backward in fp64 on the same
+    inputs (and the forward kernel's log_softmax): each gradient within
+    max(2x the plain fp32 backward's error, 1e-5 of its largest element);
+    dq, dflow and dbias the same bits on a second call."""
+    if case == "train":  # UFM-Refine's training shape
+        shape, p = (2, 420, 560, 16), 5
+        q, f, flow, bias = _window_inputs(cuda, shape, p, 6.0, seed=1)
+    else:
+        shape, p, (q, f, flow, bias) = _any_case_inputs(cuda, case, seed=1)
+    _, ls = wr.window_refinement(q, f, flow, bias, 4.0, p)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    g_res = torch.randn((*shape[:3], 2), generator=g, device=cuda)
+    g_ls = torch.randn((*shape[:3], p, p), generator=g, device=cuda)
+    args = (q, f, flow, bias, ls, g_res, g_ls, 4.0, p)
+    before = wr.BWD_LAUNCHES
+    got = wr.launch_backward(*args)
+    again = wr.launch_backward(*args)
+    torch.cuda.synchronize()
+    assert wr.BWD_LAUNCHES == before + 2
+    plain = wr.window_refinement_backward_reference(*args)
+    ref = wr.window_refinement_backward_reference(*(t.double() for t in args[:7]), 4.0, p)
+    for name, k, pl, r in zip(("dq", "df", "dflow", "dbias"), got, plain, ref):
+        bar = max(2 * (pl.double() - r).abs().max().item(), WINDOW_BWD_FLOOR_REL * r.abs().max().item())
+        assert (k.double() - r).abs().max().item() <= bar, name
+    for name, a, b in zip(("dq", "dflow", "dbias"), (got[0], got[2], got[3]), (again[0], again[2], again[3])):
+        assert torch.equal(a, b), name
 
 
 def test_small_refine_model_kernel_path(cuda):
@@ -404,7 +492,7 @@ def test_small_model_train_step_kernel_vs_plain(cuda, refine):
     """One train step of a small bf16 UFM-Base / UFM-Refine on the card: 4
     forward launches and 4 backward calls, finite metrics, and gradients
     close to the plain-attention path's (no kernel launched there). The
-    UFM-Refine window backward is autograd over its plain version in both.
+    UFM-Refine window backward is the backward kernel in both.
     For UFM-Refine the ground truth is the kernel path's regression flow plus
     whole-pixel offsets: the refinement loss's class (the rounded offset) is
     then the same on both paths, where a random flow would put pixels near a
@@ -443,6 +531,28 @@ def test_small_model_train_step_kernel_vs_plain(cuda, refine):
     metrics = step(batch)
     assert (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd) == (8, 8)
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+def test_small_refine_train_step_runs_no_plain_window(cuda, monkeypatch):
+    """A small bf16 UFM-Refine train step on the card: one window forward
+    and one window backward launch, and no call of the window refinement's
+    plain versions (forward or backward)."""
+    model = UniFlowMatchClassificationRefinement.from_config(_small_refine_config(), seed=0)
+    batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
+    step = make_train_step(model.net, make_optimizer(model.net, learning_rate=1e-4, warmup_steps=0, total_steps=10))
+    plain_calls = []
+    for module, name in ((wr, "window_refinement_reference"), (wr, "window_refinement_backward_reference")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _fn=fn, **k: plain_calls.append(1) or _fn(*a, **k))
+    from ufm_torch.ops import refinement
+
+    monkeypatch.setattr(refinement, "window_refinement_reference", wr.window_refinement_reference)
+    before = (wr.LAUNCHES, wr.BWD_LAUNCHES)
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    assert (wr.LAUNCHES - before[0], wr.BWD_LAUNCHES - before[1]) == (1, 1)
+    assert plain_calls == []
+    assert all(torch.isfinite(v) for v in metrics.values()) and "refinement_loss" in metrics
 
 
 # ---- checkpoints, tiled inference and the bf16 goldens on the card ----------------
@@ -568,8 +678,9 @@ def test_captured_launch_counts(cuda):
         got = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3])
         assert got == (4, 1, 0, 4)
     (program,) = model._programs.values()
-    # attention forward, backward, window, GELU, fused fc1 + GELU, fp32-FMA attention forward and backward
-    assert program.launches == (4, 0, 1, 0, 4, 0, 0)
+    # attention forward, backward, window, GELU, fused fc1 + GELU, mma attention forward and backward,
+    # window backward
+    assert program.launches == (4, 0, 1, 0, 4, 0, 0, 0)
 
 
 def test_captured_output_survives_the_next_call(cuda):

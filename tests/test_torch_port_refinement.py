@@ -121,4 +121,7 @@ def test_dispatch():
     with pytest.raises(ValueError, match="unknown refinement impl"):
         fused_refinement_attention(q, f, flow, bias, TEMPERATURE, 5, impl="pallas")
     assert wr.supports_kernel(16, 5) and wr.supports_kernel(4, 3)
-    assert not wr.supports_kernel(5, 5) and not wr.supports_kernel(16, 7)
+    # the kernels' domain: 1 <= C <= 64, odd 1 <= P <= 9 (the shapes JAX's XLA path answers)
+    assert wr.supports_kernel(5, 5) and wr.supports_kernel(16, 7) and wr.supports_kernel(1, 1) and wr.supports_kernel(64, 9)
+    assert not wr.supports_kernel(65, 5) and not wr.supports_kernel(16, 11) and not wr.supports_kernel(16, 4)
+    assert not wr.supports_kernel(0, 5)

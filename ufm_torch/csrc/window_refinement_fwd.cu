@@ -63,6 +63,23 @@
 //     (ops/_build.py: at -O3 it spills).
 // fp32 FMA throughout; tensor cores have nothing to do (each pixel gathers its
 // own taps, no operand is shared across a tile).
+//
+// The rest of the domain (1 <= C <= 64, odd P <= 9: the shapes the JAX
+// package answers through its XLA path) runs window_refinement_fwd_any_kernel,
+// the same tiles and tail with three changes. (1) L = 4, 8 or 16 lanes a
+// pixel (C <= 16, 32, 64; 16 at P = 9, where fewer spill), one float4 of channels
+// each: lane c4 holds channels 4 c4 .. 4 c4 + 3, those past C zero in
+// registers. Where C is not a multiple of 4 the rows of q and f are not
+// 16-byte aligned and every channel is loaded alone. (Several float4s a lane
+// at 4 lanes made ptxas spill: it hoists the tap loads of a row.) (2) The
+// lanes reduce-scatter each tap row's x-combined partial scores as it
+// arrives (reduce_scatter_lanes), so a lane keeps only its columns j = L t +
+// c4 of every score row (P x ceil(P / L) registers, not P x P: at P = 9 the
+// full table would not fit the 128 registers a thread). (3) A tile is staged
+// only at C <= 16 with C a multiple of 4 (the box then holds C channels a
+// pixel); at C = 32 / 64 two boxes outgrow shared memory, and rows of
+// C % 4 != 0 floats cannot be mapped by TMA: those launches read every tap
+// from global memory.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -70,8 +87,10 @@
 
 #include <climits>
 #include <cmath>
+#include <cstring>
 
 #include "sm90_async.cuh"
+#include "window_refinement.cuh"
 
 namespace {
 
@@ -79,15 +98,10 @@ using namespace ufm;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileW = 32;  // a warp's pixels (8, 16 or 32) never cross a tile row
-constexpr int kTileH = 8;
-constexpr int kTilePx = kTileW * kTileH;
 static_assert(kThreads >= kTilePx, "one thread plans each pixel of a tile");
 constexpr int kBoxW = 64;  // the staged box of f, in pixels along x
 constexpr int kBoxH = 22;  // and along y (two boxes stay under the 196 KB carveout step: L1 keeps ~60 KB)
 constexpr int kStages = 2;
-constexpr float kCubicA = -0.75f;  // torch's cubic convolution constant
-constexpr unsigned kFull = 0xffffffffu;
 
 template <int C, int P>
 struct Cfg {
@@ -111,16 +125,6 @@ struct Cfg {
   static_assert(kBoxBytes % 128 == 0 && kRedOff % 16 == 0, "TMA destinations and int4 slots need alignment");
 };
 
-// Cubic-convolution weights of the taps at [-1, 0, 1, 2] from the floor tap.
-__device__ __forceinline__ void cubic_weights(float t, float (&wgt)[4]) {
-  const float a = kCubicA;
-  const float x0 = t + 1.0f, x3 = 2.0f - t, x2 = 1.0f - t;
-  wgt[0] = (((x0 - 5.0f) * x0 + 8.0f) * x0 - 4.0f) * a;
-  wgt[1] = ((a + 2.0f) * t - (a + 3.0f)) * t * t + 1.0f;
-  wgt[2] = ((a + 2.0f) * x2 - (a + 3.0f)) * x2 * x2 + 1.0f;
-  wgt[3] = (((x3 - 5.0f) * x3 + 8.0f) * x3 - 4.0f) * a;
-}
-
 struct Tile {
   int img, x0, y0;
 };
@@ -135,11 +139,10 @@ __device__ __forceinline__ Tile tile_at(int t, int tiles_x, int tiles_per_image)
 // + m), into `pos` ((0, 0) for a pixel outside the image), and this warp's
 // least and greatest tap origin into red[warp] = (x min, y min, x max,
 // y max).
-template <int C, int P>
+template <int R>
 __device__ __forceinline__ void plan_pixels(const Tile& tl, const float2* __restrict__ flow, float2* pos, int4* red,
                                             int h, int w, float2 hi) {
-  using G = Cfg<C, P>;
-  const float m = static_cast<float>(G::R + 4);
+  const float m = static_cast<float>(R + 4);
   const int i = threadIdx.x;
   const int x = tl.x0 + i % kTileW, y = tl.y0 + i / kTileW;
   int xmin = INT_MAX, ymin = INT_MAX, xmax = INT_MIN, ymax = INT_MIN;
@@ -149,8 +152,8 @@ __device__ __forceinline__ void plan_pixels(const Tile& tl, const float2* __rest
       const float2 fl = __ldg(flow + (static_cast<long long>(tl.img) * h + y) * w + x);
       p.x = fminf(fmaxf(fl.x + static_cast<float>(x), -m), hi.x);
       p.y = fminf(fmaxf(fl.y + static_cast<float>(y), -m), hi.y);
-      xmin = xmax = static_cast<int>(floorf(p.x)) - G::R - 1;
-      ymin = ymax = static_cast<int>(floorf(p.y)) - G::R - 1;
+      xmin = xmax = static_cast<int>(floorf(p.x)) - R - 1;
+      ymin = ymax = static_cast<int>(floorf(p.y)) - R - 1;
     }
     pos[i] = p;
   }
@@ -163,25 +166,26 @@ __device__ __forceinline__ void plan_pixels(const Tile& tl, const float2* __rest
 
 // One thread, after plan_pixels and a barrier: the tile's plan into plan[s]
 // = (staged?, box origin x, box origin y, staged loads of stage s so far,
-// mod 2) and, if its taps fit the box, the TMA load of the box into stage s;
-// the box has landed when bars[s] completes the phase of parity w ^ 1. (The
-// parity lives here and not in a register: ptxas fills every register with
-// tap loads and spills what stays live across them.)
-template <int C, int P>
+// mod 2) and, if the kernel stages (`stage`) and the taps fit the box, the
+// TMA load of the box (`box_bytes` of it land, at stride `stage_bytes`) into
+// stage s; the box has landed when bars[s] completes the phase of parity
+// w ^ 1. (The parity lives here and not in a register: ptxas fills every
+// register with tap loads and spills what stays live across them.)
+template <int K>
 __device__ __forceinline__ void finish_plan(int img, int s, const int4* red, int4* plan, uint8_t* boxes,
-                                            uint64_t* bars, const CUtensorMap* tm_f, int* staged_count) {
-  using G = Cfg<C, P>;
+                                            uint64_t* bars, const CUtensorMap* tm_f, int* staged_count, bool stage,
+                                            int box_bytes, int stage_bytes) {
   int4 a = red[0];
   for (int i = 1; i < kWarps; ++i) {
     const int4 b = red[i];
     a = make_int4(min(a.x, b.x), min(a.y, b.y), max(a.z, b.z), max(a.w, b.w));
   }
-  const bool fits = a.z - a.x + G::K <= kBoxW && a.w - a.y + G::K <= kBoxH;
+  const bool fits = stage && a.z - a.x + K <= kBoxW && a.w - a.y + K <= kBoxH;
   plan[s] = make_int4(fits, a.x, a.y, plan[s].w ^ fits);
   if (fits) {
     fence_proxy_async_smem();  // the last tile's reads of this stage come first
-    mbar_arrive_expect_tx(&bars[s], G::kBoxBytes);
-    tma_load_4d(boxes + s * G::kBoxBytes, tm_f, &bars[s], 0, a.x, a.y, img);
+    mbar_arrive_expect_tx(&bars[s], box_bytes);
+    tma_load_4d(boxes + s * stage_bytes, tm_f, &bars[s], 0, a.x, a.y, img);
     if (staged_count != nullptr) atomicAdd(staged_count, 1);
   }
 }
@@ -233,7 +237,7 @@ __device__ __forceinline__ void reduce_scatter(const float (&sc)[PP], float (&ow
       own[i] = (hi ? b : a) + __shfl_xor_sync(kFull, hi ? a : b, 1);
     }
   } else {
-    static_assert(L == 4, "C / 4 lanes: C in {4, 8, 16}");
+    static_assert(L == 4, "1, 2 or 4 lanes a pixel");
     const bool b1 = c4 & 2, b0 = c4 & 1;
     float half[2 * kOwn];  // half[m]: k = 4 * (m / 2) + m % 2 + 2 * b1, summed over lanes c4 and c4 ^ 2
 #pragma unroll
@@ -248,20 +252,6 @@ __device__ __forceinline__ void reduce_scatter(const float (&sc)[PP], float (&ow
       own[i] = (b0 ? b : a) + __shfl_xor_sync(kFull, b0 ? a : b, 1);
     }
   }
-}
-
-template <int L>
-__device__ __forceinline__ float lanes_max(float v) {
-#pragma unroll
-  for (int o = 1; o < L; o <<= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-template <int L>
-__device__ __forceinline__ float lanes_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < L; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
 }
 
 // Every thread: the tile's pixels, kPasses rounds of kThreads / L pixels;
@@ -387,10 +377,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     prefetch_tensor_map(&tm_f);
   }
   // The grid is at most num_tiles CTAs: every CTA has a first tile.
-  plan_pixels<C, P>(tile_at(blockIdx.x, tiles_x, tiles_per_image), flow2, pos, red, h, w, clamp_hi);
+  plan_pixels<G::R>(tile_at(blockIdx.x, tiles_x, tiles_per_image), flow2, pos, red, h, w, clamp_hi);
   __syncthreads();
   if (threadIdx.x == 0) {
-    finish_plan<C, P>(blockIdx.x / tiles_per_image, 0, red, plan, smem, bars, &tm_f, staged_count);
+    finish_plan<G::K>(blockIdx.x / tiles_per_image, 0, red, plan, smem, bars, &tm_f, staged_count, true,
+                      G::kBoxBytes, G::kBoxBytes);
   }
   __syncthreads();
 
@@ -398,12 +389,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = k & 1;
     const int t_next = t + gridDim.x;
     if (t_next < num_tiles) {
-      plan_pixels<C, P>(tile_at(t_next, tiles_x, tiles_per_image), flow2, pos + (s ^ 1) * kTilePx, red, h, w,
+      plan_pixels<G::R>(tile_at(t_next, tiles_x, tiles_per_image), flow2, pos + (s ^ 1) * kTilePx, red, h, w,
                         clamp_hi);
     }
     __syncthreads();  // red of the next tile; plan[s] was published by the last barrier
     if (t_next < num_tiles && threadIdx.x == 0) {
-      finish_plan<C, P>(t_next / tiles_per_image, s ^ 1, red, plan, smem, bars, &tm_f, staged_count);
+      finish_plan<G::K>(t_next / tiles_per_image, s ^ 1, red, plan, smem, bars, &tm_f, staged_count, true,
+                        G::kBoxBytes, G::kBoxBytes);
     }
     const Tile tl = tile_at(t, tiles_x, tiles_per_image);
     const int4 pl = plan[s];
@@ -416,6 +408,259 @@ __global__ void __launch_bounds__(kThreads, 1)
                                inv_temperature);
     }
     __syncthreads();  // stage s, pos[s] and plan[s] are free; plan[s ^ 1] is published
+  }
+}
+
+// ---- the rest of the domain: any C <= 64, odd P <= 9 ------------------------
+
+template <int L, int P>
+struct AnyCfg {
+  static_assert(L == 4 || L == 8 || L == 16, "4, 8 or 16 lanes a pixel");
+  static constexpr int K = P + 3;
+  static constexpr int R = (P - 1) / 2;
+  static constexpr int PP = P * P;
+  static constexpr int J = (P + L - 1) / L;  // columns of each score row a lane finishes
+  static constexpr int kPxPerWarp = 32 / L;
+  static constexpr int kPasses = (kTilePx * L + kThreads - 1) / kThreads;
+  // a staged box holds up to 16 channels a pixel (C <= 16: L = 4, or 16 at
+  // P = 9); every instance has room for two (one CTA an SM fills the
+  // register file anyway)
+  static constexpr int kBoxBytes = kBoxW * kBoxH * 16 * 4;
+  static constexpr int kStageFloats = kPxPerWarp * PP;
+  static constexpr int kPosOff = kStages * kBoxBytes;
+  static constexpr int kLsOff = kPosOff + kStages * kTilePx * 8;
+  static constexpr int kRedOff = kLsOff + kWarps * kStageFloats * 4;
+  static constexpr int kPlanOff = kRedOff + kWarps * 16;
+  static constexpr int kBarOff = kPlanOff + kStages * 16;
+  static constexpr int kSmemBytes = kBarOff + kStages * 8;
+  static_assert(kSmemBytes <= 232448, "shared memory over the 227 KB a block may use");
+  static_assert(kBoxBytes % 128 == 0 && kRedOff % 16 == 0, "TMA destinations and int4 slots need alignment");
+};
+
+// One step of reduce_scatter_lanes and the steps after it: of the live
+// entries buf[t L + r], r < 2 Half, the lane keeps those whose r has its own
+// bit Half (moved to r - Half) plus the partner lane's, lane ^ Half. Half is
+// a template argument so that every index is a constant (buf stays in
+// registers).
+template <int J, int L, int Half>
+__device__ __forceinline__ void halve(float (&buf)[J * L], int c4) {
+  if constexpr (Half >= 1) {
+    const bool hi = c4 & Half;
+#pragma unroll
+    for (int t = 0; t < J; ++t) {
+#pragma unroll
+      for (int r = 0; r < Half; ++r) {
+        const float a = buf[t * L + r], b = buf[t * L + r + Half];
+        buf[t * L + r] = (hi ? b : a) + __shfl_xor_sync(kFull, hi ? a : b, Half);
+      }
+    }
+    halve<J, L, Half / 2>(buf, c4);
+  }
+}
+
+// reduce_scatter for any power-of-two L (recursive halving): own[t] = the
+// sum over the pixel's L lanes of sc[L t + c4] (zero past N). One exchange
+// step per lane bit, N values in all.
+template <int L, int N>
+__device__ __forceinline__ void reduce_scatter_lanes(const float (&sc)[N], float (&own)[(N + L - 1) / L], int c4) {
+  constexpr int J = (N + L - 1) / L;
+  float buf[J * L];
+#pragma unroll
+  for (int i = 0; i < J * L; ++i) buf[i] = i < N ? sc[i] : 0.0f;
+  halve<J, L, L / 2>(buf, c4);
+#pragma unroll
+  for (int t = 0; t < J; ++t) own[t] = buf[t * L];
+}
+
+// Every thread: the tile's pixels, L lanes a pixel; taps from the staged box
+// (kStaged: origin (pl.y, pl.z), C channels a pixel) or from global memory.
+template <int L, int P, bool kStaged>
+__device__ __forceinline__ void refine_tile_any(const Tile& tl, const float2* pos, const float* box, int4 pl,
+                                                float* ls_warp, const float* __restrict__ q,
+                                                const float* __restrict__ f, const float* __restrict__ bias,
+                                                float2* __restrict__ residual, float* __restrict__ log_softmax, int h,
+                                                int w, int c, bool vec, float inv_temperature) {
+  using G = AnyCfg<L, P>;
+  constexpr int R = G::R, PP = G::PP, K = G::K, J = G::J;
+  const int lane = threadIdx.x & 31;
+  const int c4 = lane % L;
+#pragma unroll 1
+  for (int pass = 0; pass < G::kPasses; ++pass) {
+    const int u0 = pass * kThreads + (threadIdx.x & ~31);  // this warp's first (pixel, lane) unit
+    if (u0 >= kTilePx * L) break;
+    const int pix = (u0 + lane) / L;
+    const int x = tl.x0 + pix % kTileW, y = tl.y0 + pix / kTileW;
+    const bool valid = x < w && y < h;
+    const long long n = (static_cast<long long>(tl.img) * h + y) * w + x;
+    const int ch = 4 * c4;  // this lane's channels
+    const float4 qv = valid ? load_channels(q + n * c, ch, c, vec) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float2 p = pos[pix];
+    const float fx = floorf(p.x), fy = floorf(p.y);
+    float wx[4], wy[4];
+    cubic_weights(p.x - fx, wx);
+    cubic_weights(p.y - fy, wy);
+    const int xb = static_cast<int>(fx) - R - 1;  // leftmost tap
+    const int yb = static_cast<int>(fy) - R - 1;  // topmost tap
+
+    // sc[i * J + t]: score (i, j = L t + c4), summed over the lanes
+    float sc[P * J];
+#pragma unroll
+    for (int k = 0; k < P * J; ++k) sc[k] = 0.0f;
+    const float* fimg = f + static_cast<long long>(tl.img) * h * w * c;
+    const float* tap0 = box + (valid ? ((yb - pl.z) * kBoxW + xb - pl.y) * c : 0);
+    // one tap row at a time: unrolled over the rows, ptxas hoists the tap
+    // loads of many rows and spills (L = 16, P = 3 did)
+#pragma unroll 1
+    for (int v = 0; v < K; ++v) {
+      float d[K];  // this lane's partial dots of tap row v
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        float4 t;
+        if constexpr (kStaged) {
+          t = ch < c ? *reinterpret_cast<const float4*>(tap0 + (v * kBoxW + u) * c + ch)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+          const int iy = yb + v, ix = xb + u;
+          t = (iy >= 0 && iy < h && ix >= 0 && ix < w)
+                  ? load_channels(fimg + (static_cast<long long>(iy) * w + ix) * c, ch, c, vec)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+        d[u] = dot4(qv, t, 0.0f);
+      }
+      float sx[P];  // x pass of the row, partial over the lanes
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        float s = 0.0f;
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm) s = fmaf(wx[mm], d[j + mm], s);
+        sx[j] = s;
+      }
+      float own[J];  // own[t]: the row's column L t + c4, summed over the lanes
+      reduce_scatter_lanes<L, P>(sx, own, c4);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const int l = v - i;  // the row's y weight in score row i
+        if (l >= 0 && l < 4) {
+          const float wl = l == 0 ? wy[0] : l == 1 ? wy[1] : l == 2 ? wy[2] : wy[3];
+#pragma unroll
+          for (int t = 0; t < J; ++t) sc[i * J + t] = fmaf(wl, own[t], sc[i * J + t]);
+        }
+      }
+    }
+
+    // temperature, bias and the softmax tail on this lane's scores
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+#pragma unroll
+      for (int t = 0; t < J; ++t) {
+        const int j = L * t + c4;
+        if (j < P) {
+          sc[i * J + t] = fmaf(sc[i * J + t], inv_temperature, __ldg(bias + i * P + j));
+          mx = fmaxf(mx, sc[i * J + t]);
+        }
+      }
+    }
+    mx = lanes_max<L>(mx);
+    float sum = 0.0f, rx = 0.0f, ry = 0.0f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+#pragma unroll
+      for (int t = 0; t < J; ++t) {
+        const int j = L * t + c4;
+        if (j < P) {
+          const float e = expf(sc[i * J + t] - mx);
+          sum += e;
+          rx = fmaf(e, static_cast<float>(j - R), rx);
+          ry = fmaf(e, static_cast<float>(i - R), ry);
+        }
+      }
+    }
+    sum = lanes_sum<L>(sum);
+    rx = lanes_sum<L>(rx);
+    ry = lanes_sum<L>(ry);
+    const float lse = logf(sum);
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+#pragma unroll
+      for (int t = 0; t < J; ++t) {
+        const int j = L * t + c4;
+        if (j < P) ls_warp[(lane / L) * PP + i * P + j] = sc[i * J + t] - mx - lse;
+      }
+    }
+    if (valid && c4 == 0) residual[n] = make_float2(__fdividef(rx, sum), __fdividef(ry, sum));
+    __syncwarp();
+    const int pix0 = u0 / L;
+    const int x_first = tl.x0 + pix0 % kTileW, y_row = tl.y0 + pix0 / kTileW;
+    const int count = y_row < h ? min(max(w - x_first, 0), G::kPxPerWarp) : 0;
+    float* out = log_softmax + ((static_cast<long long>(tl.img) * h + y_row) * w + x_first) * PP;
+    for (int e = lane; e < count * PP; e += 32) out[e] = ls_warp[e];
+    __syncwarp();
+  }
+}
+
+// The fast kernel's persistent loop with the changes above; `stage` is
+// whether this launch stages (C <= 16 and C % 4 == 0), `c` the width.
+template <int L, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+    window_refinement_fwd_any_kernel(const __grid_constant__ CUtensorMap tm_f, const float* __restrict__ q,
+                                     const float* __restrict__ f, const float* __restrict__ flow,
+                                     const float* __restrict__ bias, float* __restrict__ residual,
+                                     float* __restrict__ log_softmax, int* __restrict__ staged_count, int h, int w,
+                                     int c, int stage, float2 clamp_hi, int tiles_x, int tiles_per_image,
+                                     int num_tiles, float inv_temperature) {
+  using G = AnyCfg<L, P>;
+  extern __shared__ __align__(128) uint8_t smem[];  // stage s's box at s * kBoxBytes
+  float2* pos = reinterpret_cast<float2*>(smem + G::kPosOff);
+  float* ls_warp = reinterpret_cast<float*>(smem + G::kLsOff) + (threadIdx.x / 32) * G::kStageFloats;
+  int4* red = reinterpret_cast<int4*>(smem + G::kRedOff);
+  int4* plan = reinterpret_cast<int4*>(smem + G::kPlanOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::kBarOff);
+  const float2* flow2 = reinterpret_cast<const float2*>(flow);
+  float2* res2 = reinterpret_cast<float2*>(residual);
+  const bool vec = c % 4 == 0;
+  const bool staging = stage != 0;
+  const int box_bytes = kBoxW * kBoxH * c * 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bars[s], 1);
+      plan[s].w = 0;
+    }
+    fence_mbar_init();
+    if (staging) prefetch_tensor_map(&tm_f);
+  }
+  plan_pixels<G::R>(tile_at(blockIdx.x, tiles_x, tiles_per_image), flow2, pos, red, h, w, clamp_hi);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    finish_plan<G::K>(blockIdx.x / tiles_per_image, 0, red, plan, smem, bars, &tm_f, staged_count, staging,
+                      box_bytes, G::kBoxBytes);
+  }
+  __syncthreads();
+
+  for (int t = blockIdx.x, k = 0; t < num_tiles; t += gridDim.x, ++k) {
+    const int s = k & 1;
+    const int t_next = t + gridDim.x;
+    if (t_next < num_tiles) {
+      plan_pixels<G::R>(tile_at(t_next, tiles_x, tiles_per_image), flow2, pos + (s ^ 1) * kTilePx, red, h, w,
+                        clamp_hi);
+    }
+    __syncthreads();
+    if (t_next < num_tiles && threadIdx.x == 0) {
+      finish_plan<G::K>(t_next / tiles_per_image, s ^ 1, red, plan, smem, bars, &tm_f, staged_count, staging,
+                        box_bytes, G::kBoxBytes);
+    }
+    const Tile tl = tile_at(t, tiles_x, tiles_per_image);
+    const int4 pl = plan[s];
+    if (pl.x) {
+      mbar_wait(&bars[s], pl.w ^ 1);
+      refine_tile_any<L, P, true>(tl, pos + s * kTilePx, reinterpret_cast<const float*>(smem + s * G::kBoxBytes),
+                                   pl, ls_warp, q, f, bias, res2, log_softmax, h, w, c, vec, inv_temperature);
+    } else {
+      refine_tile_any<L, P, false>(tl, pos + s * kTilePx, reinterpret_cast<const float*>(smem), pl, ls_warp, q, f,
+                                    bias, res2, log_softmax, h, w, c, vec, inv_temperature);
+    }
+    __syncthreads();
   }
 }
 
@@ -437,28 +682,59 @@ int encode_f_map(CUtensorMap* map, const void* f, int batch, int h, int w, int c
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
 }
 
+// The grid of persistent CTAs of `kernel` (`smem` bytes a CTA) over
+// `num_tiles` tiles: at most one CTA a tile. Returns 0 or a cudaError_t.
+int persistent_grid(const void* kernel, int smem, int& smem_set, int num_tiles, int& grid) {
+  cudaError_t e = allow_smem(kernel, smem, smem_set);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  grid = num_tiles < sms * per_sm ? num_tiles : sms * per_sm;
+  return static_cast<int>(e);
+}
+
 template <int C, int P>
 int launch(const CUtensorMap& tm_f, const void* q, const void* f, const void* flow, const void* bias, void* residual,
            void* log_softmax, int* staged_count, int batch, int h, int w, float temperature, cudaStream_t stream) {
   using G = Cfg<C, P>;
   static int smem_set = 0;  // devices on which this instance may use kSmemBytes
   const void* kernel = reinterpret_cast<const void*>(window_refinement_fwd_kernel<C, P>);
-  cudaError_t e = allow_smem(kernel, G::kSmemBytes, smem_set);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, G::kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_x = (w + kTileW - 1) / kTileW;
   const int tiles_per_image = tiles_x * ((h + kTileH - 1) / kTileH);
   const int num_tiles = batch * tiles_per_image;
-  const int grid = num_tiles < sms * per_sm ? num_tiles : sms * per_sm;  // persistent CTAs
-  const float m = static_cast<float>(Cfg<C, P>::R + 4);
+  int grid = 0;
+  const int e = persistent_grid(kernel, G::kSmemBytes, smem_set, num_tiles, grid);
+  if (e != 0) return e;
+  const float m = static_cast<float>(G::R + 4);
   window_refinement_fwd_kernel<C, P><<<grid, kThreads, G::kSmemBytes, stream>>>(
       tm_f, static_cast<const float*>(q), static_cast<const float*>(f), static_cast<const float*>(flow),
       static_cast<const float*>(bias), static_cast<float*>(residual), static_cast<float*>(log_softmax), staged_count,
       h, w, make_float2(static_cast<float>(w) + m, static_cast<float>(h) + m), tiles_x, tiles_per_image, num_tiles,
       1.0f / temperature);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, int P>
+int launch_any(const CUtensorMap& tm_f, const void* q, const void* f, const void* flow, const void* bias,
+               void* residual, void* log_softmax, int* staged_count, int batch, int h, int w, int c,
+               float temperature, cudaStream_t stream) {
+  using G = AnyCfg<L, P>;
+  static int smem_set = 0;  // devices on which this instance may use kSmemBytes
+  const void* kernel = reinterpret_cast<const void*>(window_refinement_fwd_any_kernel<L, P>);
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const int tiles_per_image = tiles_x * ((h + kTileH - 1) / kTileH);
+  const int num_tiles = batch * tiles_per_image;
+  int grid = 0;
+  const int e = persistent_grid(kernel, G::kSmemBytes, smem_set, num_tiles, grid);
+  if (e != 0) return e;
+  const float m = static_cast<float>(G::R + 4);
+  const int stage = c <= 16 && c % 4 == 0;
+  window_refinement_fwd_any_kernel<L, P><<<grid, kThreads, G::kSmemBytes, stream>>>(
+      tm_f, static_cast<const float*>(q), static_cast<const float*>(f), static_cast<const float*>(flow),
+      static_cast<const float*>(bias), static_cast<float*>(residual), static_cast<float*>(log_softmax), staged_count,
+      h, w, c, stage, make_float2(static_cast<float>(w) + m, static_cast<float>(h) + m), tiles_x, tiles_per_image,
+      num_tiles, 1.0f / temperature);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -474,28 +750,61 @@ int launch_p(int p, const CUtensorMap& tm_f, const void* q, const void* f, const
   }
 }
 
+template <int L>
+int launch_any_p(int p, const CUtensorMap& tm_f, const void* q, const void* f, const void* flow, const void* bias,
+                 void* residual, void* log_softmax, int* staged_count, int batch, int h, int w, int c,
+                 float temperature, cudaStream_t stream) {
+  switch (p) {
+    case 1: return launch_any<L, 1>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
+    case 3: return launch_any<L, 3>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
+    case 5: return launch_any<L, 5>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
+    case 7: return launch_any<L, 7>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
+    case 9:  // fewer lanes a pixel spill at P = 9: every C takes 16
+      if constexpr (L == 16) {
+        return launch_any<L, 9>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q, f: (B, H, W, C) fp32 contiguous, 16-byte aligned; flow: (B, H, W, 2);
 // bias: (P * P,); residual: (B, H, W, 2); log_softmax: (B, H, W, P, P).
-// C in {4, 8, 16}, P in {1, 3, 5}. `staged_count` is null or one device int
-// to which the kernel adds the number of tiles whose taps it staged through
-// TMA (the rest took the direct path). Launches on `stream`; returns 0, a
-// cudaError_t (cudaErrorInvalidValue for an unsupported C or P), or a kErr*
-// code of sm90_async.cuh when the tensor map of f cannot be made.
+// 1 <= C <= 64, P odd in 1 .. 9: C in {4, 8, 16} with P <= 5 runs
+// window_refinement_fwd_kernel, the rest window_refinement_fwd_any_kernel.
+// `staged_count` is null or one device int to which the kernel adds the
+// number of tiles whose taps it staged through TMA (the rest took the direct
+// path; none are staged at C > 16 or C % 4 != 0, where f gets no tensor
+// map). Launches on `stream`; returns 0, a cudaError_t
+// (cudaErrorInvalidValue for an unsupported C or P), or a kErr* code of
+// sm90_async.cuh when the tensor map of f cannot be made.
 extern "C" int ufm_window_refinement_fwd_f32(const void* q, const void* f, const void* flow, const void* bias,
                                              void* residual, void* log_softmax, void* staged_count, int batch, int h,
                                              int w, int c, int p, float temperature, void* stream) {
   if (static_cast<long long>(batch) * h * w == 0) return 0;
-  if (c != 4 && c != 8 && c != 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_domain(c, p)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_f;
-  const int err = encode_f_map(&tm_f, f, batch, h, w, c);
-  if (err != 0) return err;
+  memset(&tm_f, 0, sizeof(tm_f));
+  if (c <= 16 && c % 4 == 0) {  // the widths whose tiles may be staged
+    const int err = encode_f_map(&tm_f, f, batch, h, w, c);
+    if (err != 0) return err;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* count = static_cast<int*>(staged_count);
-  switch (c) {
-    case 4: return launch_p<4>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
-    case 8: return launch_p<8>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
-    default: return launch_p<16>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
+  if ((c == 4 || c == 8 || c == 16) && p <= 5) {
+    switch (c) {
+      case 4: return launch_p<4>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
+      case 8: return launch_p<8>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
+      default: return launch_p<16>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
+    }
   }
+  if (c <= 16 && p < 9) {
+    return launch_any_p<4>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, c, temperature, s);
+  }
+  if (c <= 32 && p < 9) {
+    return launch_any_p<8>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, c, temperature, s);
+  }
+  return launch_any_p<16>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, c, temperature, s);
 }

@@ -40,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ufm_torch"
 # every kernel source of the package, by library name
 KERNEL_SOURCES = (
     "flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd",
-    "flash_attention_fwd_any", "flash_attention_bwd_any",
+    "flash_attention_fwd_any", "flash_attention_bwd_any", "window_refinement_bwd",
 )
 
 NVCC_FLAGS = (

@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["grid_sample", "cubic_weights"]
+__all__ = ["grid_sample", "cubic_weights", "cubic_weights_derivative"]
 
 _CUBIC_A = -0.75  # torch's cubic convolution constant
 
@@ -38,6 +38,20 @@ def cubic_weights(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Te
         return (((x - 5.0) * x + 8.0) * x - 4.0) * a
 
     return k2(t + 1.0), k1(t), k1(1.0 - t), k2(2.0 - t)
+
+
+def cubic_weights_derivative(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The derivatives of :func:`cubic_weights` in ``t`` (the window
+    refinement's flow gradient)."""
+    a = _CUBIC_A
+
+    def d1(x):  # k1'
+        return (3.0 * (a + 2.0) * x - 2.0 * (a + 3.0)) * x
+
+    def d2(x):  # k2'
+        return ((3.0 * x - 10.0) * x + 8.0) * a
+
+    return d2(t + 1.0), d1(t), -d1(1.0 - t), -d2(2.0 - t)
 
 
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:

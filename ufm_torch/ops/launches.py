@@ -4,10 +4,11 @@ Each kernel wrapper adds one to its module's counter where it launches its
 kernel (``flash_attention.LAUNCHES``, ``flash_attention.BWD_LAUNCHES``,
 ``flash_attention.ANY_LAUNCHES``, ``flash_attention.ANY_BWD_LAUNCHES``,
 ``window_refinement.LAUNCHES``, ``gelu.LAUNCHES``,
-``linear_gelu.LAUNCHES``). A CUDA graph runs its kernels without the
-wrappers, so a captured predict program takes back what the wrappers counted
-during its capture (no kernel runs then) and adds that many on every replay:
-the counters go on counting device launches.
+``linear_gelu.LAUNCHES``, ``window_refinement.BWD_LAUNCHES``). A CUDA
+graph runs its kernels without the wrappers, so a captured predict program
+takes back what the wrappers counted during its capture (no kernel runs
+then) and adds that many on every replay: the counters go on counting
+device launches.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ _COUNTERS = (
     (linear_gelu, "LAUNCHES"),
     (flash_attention, "ANY_LAUNCHES"),
     (flash_attention, "ANY_BWD_LAUNCHES"),
+    (window_refinement, "BWD_LAUNCHES"),
 )
 
 

@@ -1,6 +1,6 @@
 """The port's Hopper kernels as dispatcher ops (``torch.library``).
 
-Five ops in the ``ufm_torch`` namespace:
+Six ops in the ``ufm_torch`` namespace:
 
 - ``flash_attention_fwd(q, k, v, scale, with_lse) -> (out, lse)``: softmax
   attention over (B, S, H, D); ``lse`` (B, H, Sq) fp32 is each row's
@@ -9,6 +9,9 @@ Five ops in the ``ufm_torch`` namespace:
 - ``window_refinement(q, f, flow, bias, temperature, p, staged_count?) ->
   (residual, log_softmax)``; ``staged_count`` (optional, mutated) receives
   the number of tiles whose taps the kernel staged;
+- ``window_refinement_bwd(q, f, flow, bias, log_softmax, g_residual,
+  g_log_softmax, temperature, p) -> (dq, df, dflow, dbias)``: the window
+  op's backward;
 - ``gelu_bf16(x) -> y``: the JAX package's exact GELU of a bf16 tensor, bit
   for bit (``ufm_torch/ops/gelu.py``);
 - ``linear_gelu_bf16(x, w, b) -> y``: ``gelu_bf16(F.linear(x, w, b))`` on
@@ -18,26 +21,29 @@ Five ops in the ``ufm_torch`` namespace:
 The tensors' device picks the implementation inside the op: CUDA runs the
 hand-written kernel (``flash_attention.launch_forward`` /
 ``launch_backward``, which pick the wgmma or the mma kernel by dtype
-and head dim, ``window_refinement.launch``, ``gelu.launch``,
+and head dim, ``window_refinement.launch`` / ``launch_backward``,
+``gelu.launch``,
 ``linear_gelu.launch``: every pointer, stride and alignment check and the
 launch counters live there, and they raise on what the kernels do not
 take), CPU runs the plain version. A fake implementation gives each output's
 shape and dtype from the inputs' (with the shape checks, and on a CUDA
 tensor the kernels' dtype and head-dim domain: fp32, bf16 or fp16 at 1 <= D
-<= 256, as ``forward_kernel`` / ``backward_kernel`` route it), so
+<= 256, as ``forward_kernel`` / ``backward_kernel`` route it; the window
+kernels' 1 <= C <= 64 and odd P <= 9), so
 ``torch.export`` and ``torch.compile`` trace the model with the ops as graph
 nodes and an exported program launches the kernels wherever it is moved to.
 
 Gradients: the forward attention op's backward is the backward op (its
 forward then writes ``lse``, which the backward kernel reads); the window
-op's backward is autograd over its plain version, as in the JAX package
-(the TPU kernel had no backward); the GELU op's backward is one
+op's is the window backward op on the saved inputs and log_softmax (the JAX
+package's is the XLA VJP of its plain version; the TPU kernel had no
+backward); the GELU op's backward is one
 ``aten.gelu_backward`` on the saved input. Each is an ``Autograd`` kernel
 around an ``autograd.Function``, which is what
 ``torch.library.register_autograd`` registers, written out:
 ``register_autograd`` refuses an op with a mutated argument (the window op's
 ``staged_count``), and its generic kernel does more host work a call. The
-backward op has no gradient of its own, and the fused ``linear_gelu_bf16``
+backward ops have no gradient of their own, and the fused ``linear_gelu_bf16``
 none: its ``Autograd`` kernel refuses inputs that require grad under grad
 mode (the MLP takes the two ops there).
 
@@ -55,8 +61,8 @@ from ufm_torch.ops import linear_gelu as _lg
 from ufm_torch.ops import window_refinement as _wr
 
 __all__ = [
-    "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "gelu_bf16", "linear_gelu_bf16",
-    "OPS", "attention",
+    "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "window_refinement_bwd",
+    "gelu_bf16", "linear_gelu_bf16", "OPS", "attention",
 ]
 
 NAMESPACE = "ufm_torch"
@@ -71,15 +77,20 @@ _LIB.define(
     "window_refinement(Tensor q, Tensor f, Tensor flow, Tensor bias, float temperature, int p,"
     " Tensor(a!)? staged_count=None) -> (Tensor, Tensor)"
 )
+_LIB.define(
+    "window_refinement_bwd(Tensor q, Tensor f, Tensor flow, Tensor bias, Tensor log_softmax, Tensor g_residual,"
+    " Tensor g_log_softmax, float temperature, int p) -> (Tensor, Tensor, Tensor, Tensor)"
+)
 _LIB.define("gelu_bf16(Tensor x) -> Tensor")
 _LIB.define("linear_gelu_bf16(Tensor x, Tensor w, Tensor b) -> Tensor")
 
 flash_attention_fwd = torch.ops.ufm_torch.flash_attention_fwd.default
 flash_attention_bwd = torch.ops.ufm_torch.flash_attention_bwd.default
 window_refinement = torch.ops.ufm_torch.window_refinement.default
+window_refinement_bwd = torch.ops.ufm_torch.window_refinement_bwd.default
 gelu_bf16 = torch.ops.ufm_torch.gelu_bf16.default
 linear_gelu_bf16 = torch.ops.ufm_torch.linear_gelu_bf16.default
-OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, gelu_bf16, linear_gelu_bf16)
+OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, window_refinement_bwd, gelu_bf16, linear_gelu_bf16)
 
 _LIB.impl("flash_attention_fwd", _fa.launch_forward, "CUDA")
 _LIB.impl("flash_attention_fwd", _fa.plain_forward, "CPU")
@@ -87,6 +98,8 @@ _LIB.impl("flash_attention_bwd", _fa.launch_backward, "CUDA")
 _LIB.impl("flash_attention_bwd", _fa.plain_backward, "CPU")
 _LIB.impl("window_refinement", _wr.launch, "CUDA")
 _LIB.impl("window_refinement", _wr.plain, "CPU")
+_LIB.impl("window_refinement_bwd", _wr.launch_backward, "CUDA")
+_LIB.impl("window_refinement_bwd", _wr.plain_backward, "CPU")
 _LIB.impl("gelu_bf16", _gelu.launch, "CUDA")
 _LIB.impl("gelu_bf16", _gelu.fast_exact_gelu_reference, "CPU")
 _LIB.impl("linear_gelu_bf16", _lg.launch, "CUDA")
@@ -123,15 +136,32 @@ def _bwd_fake(q, k, v, out, lse, g, scale):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
-@torch.library.register_fake(f"{NAMESPACE}::window_refinement", lib=_LIB)
-def _window_fake(q, f, flow, bias, temperature, p, staged_count=None):
+def _check_window(op, q, f, flow, bias, p):
     if q.dim() != 4 or q.shape != f.shape or flow.shape != (*q.shape[:3], 2) or bias.shape != (p * p,):
         raise ValueError(
-            f"window_refinement takes q, f (B, H, W, C), flow (B, H, W, 2) and bias (P*P,), got q {tuple(q.shape)}, "
+            f"{op} takes q, f (B, H, W, C), flow (B, H, W, 2) and bias (P*P,), got q {tuple(q.shape)}, "
             f"f {tuple(f.shape)}, flow {tuple(flow.shape)}, bias {tuple(bias.shape)}, P={p}"
         )
+    if q.device.type == "cuda":  # the kernels' domain
+        _wr.check_domain(q.shape[-1], p)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::window_refinement", lib=_LIB)
+def _window_fake(q, f, flow, bias, temperature, p, staged_count=None):
+    _check_window("window_refinement", q, f, flow, bias, p)
     b, h, w, _ = q.shape
     return q.new_empty((b, h, w, 2), dtype=torch.float32), q.new_empty((b, h, w, p, p), dtype=torch.float32)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::window_refinement_bwd", lib=_LIB)
+def _window_bwd_fake(q, f, flow, bias, log_softmax, g_residual, g_log_softmax, temperature, p):
+    _check_window("window_refinement_bwd", q, f, flow, bias, p)
+    b, h, w, _ = q.shape
+    for name, t, want in (("log_softmax", log_softmax, (b, h, w, p, p)), ("g_residual", g_residual, (b, h, w, 2)),
+                          ("g_log_softmax", g_log_softmax, (b, h, w, p, p))):
+        if t.shape != want:
+            raise ValueError(f"window_refinement_bwd: {name} must be {want}, got {tuple(t.shape)}")
+    return q.new_empty(q.shape), f.new_empty(f.shape), flow.new_empty(flow.shape), bias.new_empty(bias.shape)
 
 
 @torch.library.register_fake(f"{NAMESPACE}::gelu_bf16", lib=_LIB)
@@ -178,26 +208,23 @@ def _fwd_autograd(q, k, v, scale, with_lse):
 
 
 class _WindowRefinement(torch.autograd.Function):
-    """The window op below autograd; the backward is autograd over the plain
-    version on the saved inputs."""
+    """The window op below autograd; the backward is the window backward op
+    on the saved inputs and log_softmax."""
 
     @staticmethod
     def forward(ctx, q, f, flow, bias, temperature, p, staged_count):
         with torch._C._AutoDispatchBelowAutograd():
-            out = window_refinement(q, f, flow, bias, temperature, p, staged_count)
-        ctx.save_for_backward(q, f, flow, bias)
+            residual, log_softmax = window_refinement(q, f, flow, bias, temperature, p, staged_count)
+        ctx.save_for_backward(q, f, flow, bias, log_softmax)
         ctx.temperature, ctx.p = temperature, p
-        return out
+        return residual, log_softmax
 
     @staticmethod
     def backward(ctx, g_residual, g_log_softmax):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad[:4])]
-            outs = _wr.window_refinement_reference(*ins, ctx.temperature, ctx.p)
-            wanted = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(outs, wanted, (g_residual, g_log_softmax)))
-        return (*[next(grads) if t.requires_grad else None for t in ins], None, None, None)
+        q, f, flow, bias, log_softmax = ctx.saved_tensors
+        grads = window_refinement_bwd(q, f, flow, bias, log_softmax, g_residual.contiguous(),
+                                      g_log_softmax.contiguous(), ctx.temperature, ctx.p)
+        return (*[g if need else None for g, need in zip(grads, ctx.needs_input_grad[:4])], None, None, None)
 
 
 def _window_autograd(q, f, flow, bias, temperature, p, staged_count=None):
