@@ -231,7 +231,7 @@ ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
 ANY_LIBRARIES = ("flash_attention_fwd_any", "flash_attention_bwd_any")
 # the kernels the profiler counts, by the name of their __global__ function
 KERNEL_NAMES = ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "gelu_bf16_fwd_kernel",
-                "linear_gelu_bf16_fwd_kernel", "flash_attention_fwd_any_kernel")
+                "linear_gelu_bf16_fwd_kernel", "flash_attention_fwd_any_kernel", "window_refinement_fwd_any_kernel")
 
 # the mma attention forward (csrc/flash_attention_fwd_any.cu), the rest
 # of the TPU kernel's domain: (case, dtype, q (B, Sq, H, D), Sk, calls a
@@ -396,7 +396,8 @@ WINDOW_CASES = (
 # the window backward (csrc/window_refinement_bwd.cu) against the plain
 # backward in fp64: UFM-Refine's training shape (batch 2, one call a train
 # step) on an iid and a smooth flow, "edges"' windows across and wholly
-# outside the image, and the rest of the domain as above. Same columns.
+# outside the image, the rest of the domain as above, and the widened
+# UFM-Refine's training shape (C = 12, P = 9) on the smooth flow. Same columns.
 WINDOW_BWD_CASES = (
     ("train", (2, 420, 560, 16), 5, "iid", 6.0, 1),
     ("train_smooth", (2, 420, 560, 16), 5, "smooth", 0.5, 0),
@@ -404,6 +405,7 @@ WINDOW_BWD_CASES = (
     ("edges_c5_p7", (2, 24, 44, 5), 7, "iid", 40.0, 0),
     ("c32_p7", (1, 64, 96, 32), 7, "iid", 6.0, 0),
     ("c64_p9", (1, 64, 96, 64), 9, "iid", 6.0, 0),
+    ("smooth_c12_p9", (2, 420, 560, 12), 9, "smooth", 0.5, 0),
 )
 # each gradient of the backward kernel within max(2x the plain fp32
 # backward's own error, this share of the fp64 gradient's largest element)
@@ -587,7 +589,7 @@ def phase_build():
     for name in ATTENTION_LIBRARIES + ("linear_gelu_bf16_fwd",):
         check(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA (wgmma) instruction in its SASS")
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
-    for name in ("window_refinement_fwd", "linear_gelu_bf16_fwd"):
+    for name in ("window_refinement_fwd", "window_refinement_bwd", "linear_gelu_bf16_fwd"):
         check(sass[name]["UTMALDG"] > 0, f"{name}: no UTMALDG (TMA load) in its SASS")
     for name in ("window_refinement_fwd", "window_refinement_bwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
         local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
@@ -1731,6 +1733,18 @@ def phase_window_kernel():
             staged_tiles=staged, staged_tile_share=staged / tiles, ms=ms, plain_ms=plain_ms,
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         )
+        if shape[-1] in (4, 8, 16) and p <= 5 and name.startswith("flagship"):
+            # the any-C / any-P kernel on the fixed instance's shape: the same bars
+            any_counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+            a_res, a_ls = wr.launch(q, f, flow, bias, WINDOW_TEMPERATURE, p, any_counter, any_kernel=True)
+            torch.cuda.synchronize()
+            a_errs = ((a_res - ref_res).abs().max().item(), (a_ls - ref_ls).abs().max().item())
+            check(a_errs[0] <= WINDOW_RESIDUAL_ATOL and a_errs[1] <= WINDOW_LOG_SOFTMAX_ATOL,
+                  f"window {name}, any-C / any-P kernel: residual / log_softmax errors {a_errs}")
+            check(any_counter.item() == staged, f"window {name}, any-C / any-P kernel: staged {any_counter.item()} "
+                  f"tiles, staged_tiles {staged}")
+            any_ms = time_ms(lambda: wr.launch(q, f, flow, bias, WINDOW_TEMPERATURE, p, any_kernel=True))
+            rows[name].update(any_kernel_ms=any_ms, any_kernel_vs_fixed=any_ms / ms, any_kernel_max_abs_err=a_errs)
         emit("kernel", kernel="window_refinement_fwd", case=name, **rows[name])
     # the host's cost per launch, at one tile (the kernel is shorter than its launch)
     q, f, flow, bias = window_inputs(WINDOW_HOST_SHAPE, 5, "iid", 6.0, far=False)
@@ -1759,8 +1773,11 @@ def phase_window_bwd_kernel():
     seeded cotangents) at WINDOW_BWD_CASES: each of dq, df, dflow and dbias
     within max(2x the plain fp32 backward's own error, WINDOW_BWD_FLOOR_REL
     of its largest element); dq, dflow and dbias the same bits over two
-    calls (df's difference reported). Timed: the kernel, the plain backward,
-    and the parent's route (autograd over the plain forward)."""
+    calls (df's difference reported); the tiles the kernel staged (its
+    counter) equal to staged_tiles, all but a few of a smooth flow's at C =
+    16 and none of an iid flow's. Timed: the kernel, the plain backward, and
+    the earlier route of the op's gradient (autograd over the plain
+    forward)."""
     from ufm_torch.ops import library
     from ufm_torch.ops import window_refinement as wr
 
@@ -1776,8 +1793,16 @@ def phase_window_bwd_kernel():
         before = wr.BWD_LAUNCHES
         got = library.window_refinement_bwd(*args, WINDOW_TEMPERATURE, p)
         again = library.window_refinement_bwd(*args, WINDOW_TEMPERATURE, p)
+        counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+        counted = wr.launch_backward(*args, WINDOW_TEMPERATURE, p, staged_count=counter)
         torch.cuda.synchronize()
-        check(wr.BWD_LAUNCHES == before + 2, f"window bwd {name}: {wr.BWD_LAUNCHES - before} launches for 2 calls")
+        check(wr.BWD_LAUNCHES == before + 3, f"window bwd {name}: {wr.BWD_LAUNCHES - before} launches for 3 calls")
+        staged, tiles = wr.staged_tiles(flow, p, shape[-1]), wr.tile_count(*shape[:3])
+        check(counter.item() == staged, f"window bwd {name}: the kernel staged {counter.item()} tiles, staged_tiles {staged}")
+        if name == "train_smooth":
+            check(staged >= SMOOTH_STAGED_SHARE_MIN * tiles, f"window bwd {name}: {staged} of {tiles} tiles staged")
+        if name == "train":
+            check(staged == 0, f"window bwd {name}: {staged} of {tiles} tiles of an iid flow staged")
         plain = wr.window_refinement_backward_reference(*args, WINDOW_TEMPERATURE, p)
         ref = wr.window_refinement_backward_reference(*(t.double() for t in args), WINDOW_TEMPERATURE, p)
         errs, plain_errs, bars = {}, {}, {}
@@ -1786,8 +1811,8 @@ def phase_window_bwd_kernel():
             errs[g_name] = (k.double() - r).abs().max().item()
             plain_errs[g_name] = (pl.double() - r).abs().max().item()
             bars[g_name] = max(2 * plain_errs[g_name], WINDOW_BWD_FLOOR_REL * r.abs().max().item())
-        repeat = {g: torch.equal(a, b) for g, a, b in zip(names, got, again)}
-        df_spread = (got[1] - again[1]).abs().max().item()
+        repeat = {g: torch.equal(a, b) and torch.equal(a, k) for g, a, b, k in zip(names, got, again, counted)}
+        df_spread = max((got[1] - again[1]).abs().max().item(), (got[1] - counted[1]).abs().max().item())
         taps, share = window_taps(flow, p)
 
         ms = time_ms(lambda: library.window_refinement_bwd(*args, WINDOW_TEMPERATURE, p))
@@ -1804,7 +1829,8 @@ def phase_window_bwd_kernel():
         rows[name] = dict(
             shape=list(shape), p=p, flow=kind, flow_scale=scale, calls_per_step=calls, max_abs_err=errs,
             plain_max_abs_err=plain_errs, tol=bars, bitwise_repeatable=repeat, df_run_to_run_max_abs_diff=df_spread,
-            in_image_share=share, in_image_taps=taps, ms=ms, plain_ms=plain_ms, parent_route_ms=parent_ms,
+            in_image_share=share, in_image_taps=taps, tiles=tiles, staged_tiles=staged,
+            staged_tile_share=staged / tiles, ms=ms, plain_ms=plain_ms, parent_route_ms=parent_ms,
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         )
         emit("kernel", kernel="window_refinement_bwd", case=name, **rows[name])
@@ -1813,7 +1839,7 @@ def phase_window_bwd_kernel():
                   f"window bwd {name}: {g_name} error {errs[g_name]:.3e} > {bars[g_name]:.3e}")
         check(repeat["dq"] and repeat["dflow"] and repeat["dbias"],
               f"window bwd {name}: dq / dflow / dbias not bitwise repeatable: {repeat}")
-        del args, got, again, plain, ref, leaves
+        del args, got, again, counted, plain, ref, leaves
     return rows
 
 
@@ -2027,10 +2053,16 @@ def phase_train_self_check(model, batch):
 # forward launches and backward calls, 36 GELU launches, and one launch each
 # of the window forward and backward
 REFINE_TRAIN_EACH = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1, GELU_PER_FORWARD, 0, 0, 0, 1)
-# the kernels of the window backward, by the name of their __global__ function
-WINDOW_BWD_KERNEL_NAMES = ("window_refinement_bwd_kernel", "window_refinement_bias_kernel")
+# the kernels of the window backward at a width that stages (C <= 16, C % 4
+# == 0), by the name of their __global__ function: the direct kernel, the
+# staged kernel, the dbias sum
+WINDOW_BWD_KERNEL_NAMES = ("window_refinement_bwd_kernel", "window_refinement_bwd_staged_kernel",
+                           "window_refinement_bias_kernel")
 # the seeds of refine_train_self_check's batch-1 synthetic batches
 REFINE_SELF_CHECK_SEEDS = (0, 1, 2)
+# the widened UFM-Refine (wide_refine_config): window P and feature width C
+# (the shape of chip_smoke's smooth_c12_p9 window cases)
+WIDE_WINDOW = (9, 12)
 
 
 @contextlib.contextmanager
@@ -2092,20 +2124,23 @@ def _device_ms(fn, names):
             "named_ms": named_us / 1e3, "named_kernels": named}
 
 
-def phase_refine_train():
+def phase_refine_train(config=None, label="refine_train", path="ufm_refine_train"):
     """UFM-Refine (``ufm_refine_config()``: the UNet and the patch MLP, bf16
-    backbone, 5 x 5 window at C = 16) trains at TRAIN_BATCH on TRAIN_HW:
-    TRAIN_STEPS of make_train_step, then FIT_STEPS of fit, each step's
-    launches held to REFINE_TRAIN_EACH, no call of the window refinement's
-    plain versions, finite metrics, a falling loss; the spans, step ms,
-    pairs/s, peak memory, and one more step under the profiler for the
-    window backward's kernel ms within it."""
+    backbone, 5 x 5 window at C = 16; or ``config``) trains at TRAIN_BATCH on
+    TRAIN_HW: TRAIN_STEPS of make_train_step, then FIT_STEPS of fit, each
+    step's launches held to REFINE_TRAIN_EACH, no call of the window
+    refinement's plain versions, finite metrics, a falling loss; the spans,
+    step ms, pairs/s, peak memory, one more step under the profiler for the
+    window backward's kernel ms within it, and the staged-tile share of the
+    model's own regression flow in that step. ``path`` names the path in the
+    kernels' launch counts."""
     from ufm_torch.models import UniFlowMatchClassificationRefinement, ufm_refine_config
     from ufm_torch.ops import launches as counters
+    from ufm_torch.ops import window_refinement as wr
     from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
 
     t0 = time.perf_counter()
-    model = UniFlowMatchClassificationRefinement.from_config(ufm_refine_config(), seed=0)
+    model = UniFlowMatchClassificationRefinement.from_config(config or ufm_refine_config(), seed=0)
     net = model.net
     batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
     optimizer = make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS)
@@ -2130,7 +2165,7 @@ def phase_refine_train():
                   f"refine train step {i}: metrics {vals}")
             losses.append(vals["total_loss"])
             refine_losses.append(vals["refinement_loss"])
-            emit("refine_train_step", step=i, seconds=times[-1], **vals)
+            emit(f"{label}_step", step=i, seconds=times[-1], **vals)
 
     torch.cuda.reset_peak_memory_stats()
     counters.reset()  # the UFM-Refine training path's counts start here
@@ -2145,7 +2180,12 @@ def phase_refine_train():
         torch.cuda.synchronize()
         fit_launched = counters.since(before)
         launched = counters.snapshot()
+        tail_events = []
+        net.refine_tail = _timed(net.refine_tail, tail_events)  # its third argument is the regression flow
         profiled = _device_ms(lambda: step(batch), WINDOW_BWD_KERNEL_NAMES)
+        del net.refine_tail  # back to the method
+    regression_flow = tail_events[-1][2][2].detach()
+    staged_share = wr.staged_tiles(regression_flow, p, c) / wr.tile_count(*regression_flow.shape[:3])
     check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"refine fit ran {out['step']} steps")
     check(all(np.isfinite(v) for v in fit_losses), f"refine fit: non-finite losses {fit_losses}")
     check(fit_launched == tuple(FIT_STEPS * n for n in REFINE_TRAIN_EACH),
@@ -2155,19 +2195,20 @@ def phase_refine_train():
           f"the profiled step ran {profiled['named_kernels']} window backward kernels, expected "
           f"{len(WINDOW_BWD_KERNEL_NAMES)}")
     trajectory = losses + fit_losses
-    check(trajectory[-1] < trajectory[0], f"refine: the loss did not fall on the fixed batch: {trajectory}")
+    check(trajectory[-1] < trajectory[0], f"{label}: the loss did not fall on the fixed batch: {trajectory}")
     steps = TRAIN_STEPS + FIT_STEPS
-    mlp_path("ufm_refine_train", launched[GELU_AT], launched[FUSED_AT], steps * GELU_PER_FORWARD, grad=True)
+    mlp_path(path, launched[GELU_AT], launched[FUSED_AT], steps * GELU_PER_FORWARD, grad=True)
     launches = {"flash_attention_fwd": launched[0], "flash_attention_bwd": launched[1],
                 "window_refinement_fwd": launched[WINDOW_AT], "window_refinement_bwd": launched[WINDOW_BWD_AT]}
     step_s = statistics.median(times[1:])
-    emit("refine_train", model="ufm_refine", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), window_c=c, window_p=p,
+    emit(label, model="ufm_refine", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), window_c=c, window_p=p,
          setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, fit_learning_rate=FIT_LR, steps=steps,
          launches=launches, launches_per_step=list(REFINE_TRAIN_EACH), plain_window_calls=plain_calls[0],
          first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s, spans_ms=spans,
          max_memory_allocated=peak, loss_trajectory=trajectory, refinement_loss_trajectory=refine_losses,
          profiled_step_ms=profiled["wall_ms"], profiled_step_device_busy_ms=profiled["device_busy_ms"],
-         profiled_step_idle_share=profiled["idle_share"], window_bwd_kernel_ms_in_step=profiled["named_ms"])
+         profiled_step_idle_share=profiled["idle_share"], window_bwd_kernel_ms_in_step=profiled["named_ms"],
+         window_staged_tile_share_in_step=staged_share)
     del out, step, optimizer
     _free_card_memory()
     return model, batch, launches
@@ -2198,82 +2239,147 @@ def _refine_classes(regression_flow, gt_flow, p):
     return torch.where(inside, iy * p + jx, -1)
 
 
-def phase_refine_train_self_check(model):
+def phase_refine_train_self_check(model, label="refine_train_self_check", against_plain_step=True):
     """Each optimizer group's gradient of one step at batch 1, on the
     synthetic batch of each of REFINE_SELF_CHECK_SEEDS with its own ground
-    truth, four ways: through every kernel (REFINE_TRAIN_EACH launches);
-    with the plain window refinement (the attention kernels kept: the
-    window kernels' own part); with plain attention and the plain window
-    refinement (the plain step: bf16 logits, as the JAX package's plain
-    attention); and the plain step with its attention in fp32 (q, k, v
-    upcast), the witness. Held, each group: the kernel step within
-    TRAIN_GRAD_REL_L2_BOUND of the plain-window step; and within
-    max(TRAIN_GRAD_REL_L2_BOUND, 2x the plain step's own distance from the
-    witness) of the plain step: where two plain steps that differ only in
-    the attention's rounding lie 0.1 apart (measured on an H100: the
-    classification head), 0.1 cannot tell a fault from that rounding.
-    Reported: the kernel step against the witness, and the share of pixels
-    whose target class of the refinement loss (the rounded offset from the
-    regression flow to the ground truth, a step function) differs between
-    two steps."""
+    truth, four ways: through every kernel (REFINE_TRAIN_EACH launches, the
+    backward ones twice: see below); with the plain window refinement (the
+    attention kernels kept: the window kernels' own part); with plain
+    attention and the plain window refinement (the plain step: bf16 logits,
+    as the JAX package's plain attention); and the plain step with its
+    attention in fp32 (q, k, v upcast), the witness. Without
+    ``against_plain_step`` only the first two.
+
+    The refinement loss's target class is the rounded offset from a step's
+    own regression flow to the ground truth, a step function: between two
+    roundings of the step 0.2% of pixels change class, which alone moves the
+    classification head's gradient ~0.1 (measured on an H100, PERF.md). So
+    each step's gradient is taken of the same loss with the classes fixed:
+    ``ufm_total_loss(out, one, weights={"refinement": 0.0})[0] +
+    refinement_classification_loss(out["refinement_log_softmax"],
+    fixed_flow, one["gt_flow"], one.get("valid"))``, where fixed_flow is the
+    witness's regression flow (without ``against_plain_step``, the kernel
+    step's), detached as the loss detaches its own. Held, each group, with
+    the classes fixed: the kernel step within TRAIN_GRAD_REL_L2_BOUND of the
+    plain-window step and of the plain step. Reported: the same readings of
+    the loss as it is (each step's own classes), the plain step's distance
+    from the witness, and the share of pixels whose class differs between
+    two steps' own regression flows."""
     from ufm_torch.ops import launches
-    from ufm_torch.training import synthetic_batch, ufm_total_loss
+    from ufm_torch.training import refinement_classification_loss, synthetic_batch, ufm_total_loss
 
     p = model.config.refinement_range
     net = model.net
+    # one forward, two backward passes (the loss with fixed classes, then as it is)
+    each = tuple(n * (2 if i in (1, ANY_BWD_AT, WINDOW_BWD_AT) else 1) for i, n in enumerate(REFINE_TRAIN_EACH))
 
-    def grads(attention, window, label):
-        """The groups' gradients of one step on ``one``, and its target classes."""
+    def grads(attention, window, step_label, fixed_flow):
+        """The groups' gradients of one step on ``one`` with the classes of
+        ``fixed_flow`` (None: the step's own), and of the loss as it is; and
+        the step's own target classes and regression flow."""
         model.attention_impl, model.refinement_impl = attention, window
         try:
             before = launches.snapshot()
             net.zero_grad(set_to_none=True)
             out = net(one["img1"], one["img2"])
+            own_flow = out["regression_flow"].detach()
+            fixed = ufm_total_loss(out, one, weights={"refinement": 0.0})[0] + refinement_classification_loss(
+                out["refinement_log_softmax"], own_flow if fixed_flow is None else fixed_flow, one["gt_flow"],
+                one.get("valid"))
+            fixed.backward(retain_graph=True)
+            g_fixed = _group_grads(net)
+            net.zero_grad(set_to_none=True)
             ufm_total_loss(out, one)[0].backward()
             torch.cuda.synchronize()
             launched = launches.since(before)
         finally:
             model.attention_impl = model.refinement_impl = None
-        g = _group_grads(net)
+        g_own = _group_grads(net)
         net.zero_grad(set_to_none=True)
         plain_at = (ATTENTION_AT if attention else ()) + ((WINDOW_AT, WINDOW_BWD_AT) if window else ())
         if attention is None and window is None:
-            check(launched == REFINE_TRAIN_EACH, f"refine self-check, {label}: launches {launched}")
-        check(all(launched[i] == 0 for i in plain_at), f"refine self-check, {label}: launches {launched}")
-        return g, _refine_classes(out["regression_flow"].detach(), one["gt_flow"], p)
+            check(launched == each, f"{label}, {step_label}: launches {launched}, expected {each}")
+        check(all(launched[i] == 0 for i in plain_at), f"{label}, {step_label}: launches {launched}")
+        return g_fixed, g_own, _refine_classes(own_flow, one["gt_flow"], p), own_flow
 
     by_seed = {}
     for seed in REFINE_SELF_CHECK_SEEDS:
         one = synthetic_batch(1, *TRAIN_HW, seed=seed, device="cuda")
-        g_kernel, c_kernel = grads(None, None, "kernels")
-        g_window, _ = grads(None, "torch", "plain window refinement")
-        g_plain, c_plain = grads("torch", "torch", "plain attention and window refinement")
-        with _fp32_plain_attention():
-            g_ref, c_ref = grads("torch", "torch", "plain step, fp32 attention")
-        check(set(g_kernel) == set(g_window) == set(g_plain) == set(g_ref), "refine self-check: gradient groups differ")
-        spread = _rel_l2(g_plain, g_ref)
-        by_seed[seed] = {
-            "vs_plain_window": _rel_l2(g_kernel, g_window),
-            "vs_plain": _rel_l2(g_kernel, g_plain),
-            "plain_vs_witness": spread,
-            "bar": {k: max(TRAIN_GRAD_REL_L2_BOUND, 2 * r) for k, r in spread.items()},
-            "vs_witness": _rel_l2(g_kernel, g_ref),
-            "class_flip_share": {"kernel_vs_plain": (c_kernel != c_plain).float().mean().item(),
-                                 "plain_vs_witness": (c_plain != c_ref).float().mean().item()},
-            "supervised_share": (c_plain >= 0).float().mean().item(),
-        }
-        del g_kernel, g_window, g_plain, g_ref
-    emit("refine_train_self_check", batch=1, seeds=list(REFINE_SELF_CHECK_SEEDS), by_seed=by_seed,
-         bound=TRAIN_GRAD_REL_L2_BOUND, launches=list(REFINE_TRAIN_EACH),
-         within_bound_of_plain={seed: all(r <= TRAIN_GRAD_REL_L2_BOUND for r in rel["vs_plain"].values())
-                                for seed, rel in by_seed.items()})
-    for seed, rel in by_seed.items():
-        for k, r in rel["vs_plain_window"].items():
-            check(r <= TRAIN_GRAD_REL_L2_BOUND,
-                  f"refine self-check, seed {seed}, kernels vs plain window refinement, group {k}: relative L2 {r:.3e}")
-        for k, r in rel["vs_plain"].items():
-            check(r <= rel["bar"][k], f"refine self-check, seed {seed}, kernels vs plain step, group {k}: relative L2 "
-                  f"{r:.3e} > {rel['bar'][k]:.3e} (the plain step {rel['plain_vs_witness'][k]:.3e} from the witness)")
+        if against_plain_step:
+            with _fp32_plain_attention():
+                r_fixed, r_own, c_ref, fixed_flow = grads("torch", "torch", "plain step, fp32 attention", None)
+            k_fixed, k_own, c_kernel, _ = grads(None, None, "kernels", fixed_flow)
+        else:
+            k_fixed, k_own, c_kernel, fixed_flow = grads(None, None, "kernels", None)
+        w_fixed, w_own, _, _ = grads(None, "torch", "plain window refinement", fixed_flow)
+        row = {"vs_plain_window": _rel_l2(k_fixed, w_fixed), "vs_plain_window_own_classes": _rel_l2(k_own, w_own),
+               "supervised_share": (c_kernel >= 0).float().mean().item()}
+        if against_plain_step:
+            p_fixed, p_own, c_plain, _ = grads("torch", "torch", "plain attention and window refinement", fixed_flow)
+            check(set(k_fixed) == set(w_fixed) == set(p_fixed) == set(r_fixed), f"{label}: gradient groups differ")
+            row.update(
+                vs_plain=_rel_l2(k_fixed, p_fixed), vs_plain_own_classes=_rel_l2(k_own, p_own),
+                vs_witness=_rel_l2(k_fixed, r_fixed), vs_witness_own_classes=_rel_l2(k_own, r_own),
+                plain_vs_witness=_rel_l2(p_fixed, r_fixed), plain_vs_witness_own_classes=_rel_l2(p_own, r_own),
+                class_flip_share={"kernel_vs_plain": (c_kernel != c_plain).float().mean().item(),
+                                  "plain_vs_witness": (c_plain != c_ref).float().mean().item()})
+            del p_fixed, p_own, r_fixed, r_own
+        by_seed[seed] = row
+        del k_fixed, k_own, w_fixed, w_own
+    held = ("vs_plain_window", "vs_plain") if against_plain_step else ("vs_plain_window",)
+    emit(label, batch=1, seeds=list(REFINE_SELF_CHECK_SEEDS), window_p=p, by_seed=by_seed,
+         bound=TRAIN_GRAD_REL_L2_BOUND, launches=list(each), held_with_fixed_classes=list(held),
+         classes_fixed_by="the witness's regression flow" if against_plain_step else "the kernel step's regression flow")
+    for seed, row in by_seed.items():
+        for name in held:
+            for k, r in row[name].items():
+                check(r <= TRAIN_GRAD_REL_L2_BOUND, f"{label}, seed {seed}, kernels {name.replace('_', ' ')} (fixed "
+                      f"classes), group {k}: relative L2 {r:.3e} > {TRAIN_GRAD_REL_L2_BOUND}")
+
+
+def wide_refine_config():
+    """UFM-Refine at full width with the widened window: P = 9 and a patch-MLP
+    output (the window's feature width) of C = 12 (WIDE_WINDOW), nothing
+    else changed."""
+    from ufm_torch.models import ufm_refine_config
+
+    p, c = WIDE_WINDOW
+    head = dict(ufm_refine_config().classification_head_kwargs, output_dim=c)
+    return ufm_refine_config(refinement_range=p, classification_head_kwargs=head)
+
+
+def phase_wide_refine():
+    """The widened UFM-Refine (wide_refine_config: the any-C / any-P window
+    forward, window_refinement_fwd_any_kernel, and the window backward at
+    C = 12, P = 9) end to end at TRAIN_HW: a batch-1 request through
+    predict_correspondences_batched, eager and captured (phase_captured: 36
+    attention, 36 fc1 + GELU and 1 window launches a request, the replay's
+    kernels seen by the profiler); the batch-2 train steps of
+    phase_refine_train; the gradient check of phase_refine_train_self_check
+    against the plain window refinement with fixed classes. No call of the
+    window refinement's plain versions in the first two. Returns the
+    window kernels' launches by path."""
+    from ufm_torch.models import UniFlowMatchClassificationRefinement
+
+    cfg = wide_refine_config()
+    t0 = time.perf_counter()
+    model = UniFlowMatchClassificationRefinement.from_config(cfg, seed=0)
+    p, c = model.config.refinement_range, model.net.classification_head.output_dim
+    check((p, c) == WIDE_WINDOW, f"wide refine: window P = {p}, C = {c}, expected {WIDE_WINDOW}")
+    emit("wide_refine_model", seconds=time.perf_counter() - t0, params=sum(x.numel() for x in model.parameters()),
+         window_p=p, window_c=c)
+    pair = tuple(np.random.default_rng(5).integers(0, 256, (2, *TRAIN_HW, 3), dtype=np.uint8))
+    with _plain_window_calls() as plain_calls:
+        captured = phase_captured(model, "ufm_refine_wide", pair, (1,), refine=True,
+                                  window_kernel="window_refinement_fwd_any_kernel")
+    check(plain_calls[0] == 0, f"the widened UFM-Refine request called the plain window versions {plain_calls[0]} times")
+    del model
+    _free_card_memory()
+    train_model, _, train_launches = phase_refine_train(cfg, label="wide_refine_train", path="ufm_refine_wide_train")
+    phase_refine_train_self_check(train_model, label="wide_refine_train_self_check", against_plain_step=False)
+    del train_model
+    _free_card_memory()
+    return {"captured": captured, "train": train_launches}
 
 
 def _world1_group():
@@ -2665,12 +2771,12 @@ def _profile_requests(fn, reps: int = PROFILE_REQUESTS):
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}, counts
 
 
-def phase_captured(model, label, pair, batches, refine):
+def phase_captured(model, label, pair, batches, refine, window_kernel="window_refinement_fwd_kernel"):
     """One model, eager (``capture_graphs = False``) and then captured, at
     each batch: one first call and three timed calls a mode; the captured
     mode's launches counted per call; one batch-1 request of each mode
-    profiled; the modes' outputs compared. Returns the captured mode's
-    launches {kernel: n}."""
+    profiled (a UFM-Refine replay runs one ``window_kernel``); the modes'
+    outputs compared. Returns the captured mode's launches {kernel: n}."""
     from ufm_torch.models import base
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import window_refinement as wr
@@ -2679,10 +2785,10 @@ def phase_captured(model, label, pair, batches, refine):
     # call unsafe during a capture (the window launch queries its device and
     # its occupancy) fails the capture
     with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
-        return _captured(model, label, pair, batches, refine)
+        return _captured(model, label, pair, batches, refine, window_kernel)
 
 
-def _captured(model, label, pair, batches, refine):
+def _captured(model, label, pair, batches, refine, window_kernel):
     from ufm_torch.models import base
     from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import gelu as ge
@@ -2752,7 +2858,7 @@ def _captured(model, label, pair, batches, refine):
             row.update(profiled_requests=PROFILE_REQUESTS, replay_profiled=replay, eager_profiled=eager_prof,
                        profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()})
             want = {"flash_attention_fwd_kernel": per_call[0], "linear_gelu_bf16_fwd_kernel": per_call[3],
-                    **({"window_refinement_fwd_kernel": 1} if refine else {})}
+                    **({window_kernel: 1} if refine else {})}
             want = {k: v * PROFILE_REQUESTS for k, v in want.items()}
             check(replay_counts == want,
                   f"{label}: the profiler saw {replay_counts} in {PROFILE_REQUESTS} replays, expected {want}")
@@ -3857,6 +3963,7 @@ def run_phases(smi: str) -> int:
     phase_refine_train_self_check(refine_train_model)
     del refine_train_model, refine_train_batch
     _free_card_memory()
+    wide_launches = phase_wide_refine()
     import torch.distributed as dist
 
     _world1_group()
@@ -3892,7 +3999,8 @@ def run_phases(smi: str) -> int:
         + sharded_launches["flash_attention_fwd"] + sharded_fit_launches["flash_attention_fwd"]
         + dp_launches["ufm_base"]["flash_attention_fwd"] + dp_launches["ufm_refine"]["flash_attention_fwd"]
         + remat_launches["flash_attention_fwd"] + moge_launches + refine_train_launches["flash_attention_fwd"]
-        + tiled_refine_launches["flash_attention_fwd"],
+        + tiled_refine_launches["flash_attention_fwd"] + wide_launches["captured"]["flash_attention_fwd"]
+        + wide_launches["train"]["flash_attention_fwd"],
         "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
                              "ufm_refine": refine_launches["flash_attention_fwd"],
                              "ufm_base_train": train_launches["flash_attention_fwd"],
@@ -3913,7 +4021,9 @@ def run_phases(smi: str) -> int:
                              "ufm_base_remat": remat_launches["flash_attention_fwd"],
                              "ufm_base_moge": moge_launches,
                              "ufm_refine_train": refine_train_launches["flash_attention_fwd"],
-                             "ufm_refine_tiled": tiled_refine_launches["flash_attention_fwd"]},
+                             "ufm_refine_tiled": tiled_refine_launches["flash_attention_fwd"],
+                             "ufm_refine_wide_captured": wide_launches["captured"]["flash_attention_fwd"],
+                             "ufm_refine_wide_train": wide_launches["train"]["flash_attention_fwd"]},
         "op": "ufm_torch::flash_attention_fwd",
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
@@ -3939,12 +4049,13 @@ def run_phases(smi: str) -> int:
         "replaces": "ufm_tpu/ops/flash_attention.py:452",
         "launches": train_launches["flash_attention_bwd"] + sharded_launches["flash_attention_bwd"]
         + sharded_fit_launches["flash_attention_bwd"] + remat_launches["flash_attention_bwd"]
-        + refine_train_launches["flash_attention_bwd"],
+        + refine_train_launches["flash_attention_bwd"] + wide_launches["train"]["flash_attention_bwd"],
         "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"],
                              "ufm_base_sharded_train": sharded_launches["flash_attention_bwd"],
                              "ufm_base_sharded_fit": sharded_fit_launches["flash_attention_bwd"],
                              "ufm_base_remat": remat_launches["flash_attention_bwd"],
-                             "ufm_refine_train": refine_train_launches["flash_attention_bwd"]},
+                             "ufm_refine_train": refine_train_launches["flash_attention_bwd"],
+                             "ufm_refine_wide_train": wide_launches["train"]["flash_attention_bwd"]},
         "op": "ufm_torch::flash_attention_bwd",
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
         "ms": sum(r["ms"] for r in bwd),
@@ -3968,14 +4079,17 @@ def run_phases(smi: str) -> int:
         "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"]
         + refine_captured["window_refinement_fwd"] + refine_artifact["window_refinement_fwd"]
         + dp_launches["ufm_refine"]["window_refinement_fwd"] + refine_train_launches["window_refinement_fwd"]
-        + tiled_refine_launches["window_refinement_fwd"],
+        + tiled_refine_launches["window_refinement_fwd"] + wide_launches["captured"]["window_refinement_fwd"]
+        + wide_launches["train"]["window_refinement_fwd"],
         "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"],
                              "ufm_refine_data_parallel": dp_launches["ufm_refine"]["window_refinement_fwd"],
                              "bf16_golden": golden_launches["window_refinement_fwd"],
                              "ufm_refine_captured": refine_captured["window_refinement_fwd"],
                              "ufm_refine_artifact": refine_artifact["window_refinement_fwd"],
                              "ufm_refine_train": refine_train_launches["window_refinement_fwd"],
-                             "ufm_refine_tiled": tiled_refine_launches["window_refinement_fwd"]},
+                             "ufm_refine_tiled": tiled_refine_launches["window_refinement_fwd"],
+                             "ufm_refine_wide_captured": wide_launches["captured"]["window_refinement_fwd"],
+                             "ufm_refine_wide_train": wide_launches["train"]["window_refinement_fwd"]},
         "op": "ufm_torch::window_refinement",
         "max_abs_err": max(max(r["residual_max_abs_err"], r["log_softmax_max_abs_err"]) for r in window_rows.values()),
         "ms": flagship["ms"],
@@ -3988,6 +4102,7 @@ def run_phases(smi: str) -> int:
         "ms_by_case": {n: r["ms"] for n, r in window_rows.items()},
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in window_rows.items()},
         "staged_tile_share_by_case": {n: r["staged_tile_share"] for n, r in window_rows.items()},
+        "any_kernel_ms_on_fixed_shapes": {n: r["any_kernel_ms"] for n, r in window_rows.items() if "any_kernel_ms" in r},
         "host_us_per_launch": window_host_us,
     }
     train_case = window_bwd_rows["train"]
@@ -3998,8 +4113,9 @@ def run_phases(smi: str) -> int:
         "replaces": "ufm_tpu/ops/refinement.py:242",
         "replaces_note": "_fused_refinement_pallas_bwd, the XLA VJP of _fused_refinement_xla (:257) that the JAX "
                          "package runs as its Pallas window kernel's backward (no pallas_call)",
-        "launches": refine_train_launches["window_refinement_bwd"],
-        "launches_by_path": {"ufm_refine_train": refine_train_launches["window_refinement_bwd"]},
+        "launches": refine_train_launches["window_refinement_bwd"] + wide_launches["train"]["window_refinement_bwd"],
+        "launches_by_path": {"ufm_refine_train": refine_train_launches["window_refinement_bwd"],
+                             "ufm_refine_wide_train": wide_launches["train"]["window_refinement_bwd"]},
         "op": "ufm_torch::window_refinement_bwd",
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in window_bwd_rows.values()),
         "ms": train_case["ms"],
@@ -4009,7 +4125,8 @@ def run_phases(smi: str) -> int:
         "library_ms": None,
         "parent_route_ms": train_case["parent_route_ms"],
         "per_step": "the one call of a batch-2 UFM-Refine train step, (2, 420, 560, 16), P = 5; a launch is one "
-                    "call (two CUDA kernels: the gradients with per-tile dbias partials, then their sum)",
+                    "call (three CUDA kernels: the direct and the staged kernel, each with per-tile dbias partials "
+                    "of its tiles, then their sum)",
         "library_none": "no single PyTorch call computes this function",
         "parent_route": "autograd over the plain forward (the parent's backward of ufm_torch::window_refinement)",
         "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in window_bwd_rows.items()},
@@ -4019,6 +4136,7 @@ def run_phases(smi: str) -> int:
         "df_run_to_run_max_abs_diff_by_case": {n: r["df_run_to_run_max_abs_diff"] for n, r in window_bwd_rows.items()},
         "ms_by_case": {n: r["ms"] for n, r in window_bwd_rows.items()},
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in window_bwd_rows.items()},
+        "staged_tile_share_by_case": {n: r["staged_tile_share"] for n, r in window_bwd_rows.items()},
         "plain_ms_by_case": {n: r["plain_ms"] for n, r in window_bwd_rows.items()},
         "parent_route_ms_by_case": {n: r["parent_route_ms"] for n, r in window_bwd_rows.items()},
     }

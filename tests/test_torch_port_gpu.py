@@ -451,6 +451,58 @@ def test_window_backward_kernel_against_fp64(cuda, case):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("kind", ["smooth", "iid"])
+@pytest.mark.parametrize("c,p", [(12, 5), (16, 5), (12, 9), (16, 9)])
+def test_window_backward_boxes_against_fp64(cuda, c, p, kind):
+    """The backward kernel's staged path (f and df in shared-memory boxes,
+    one TMA reduce-add a tile) and its direct path at the widths that stage,
+    against the plain backward in fp64: each gradient within chip_smoke.py's
+    bar; dq, dflow and dbias the same bits on every call; the tiles it
+    staged (its counter) those of staged_tiles: some of a smooth flow's,
+    none of an iid flow's."""
+    shape = (2, 96, 128, c)
+    q, f, flow, bias = _window_inputs(cuda, shape, p, 0.5 if kind == "smooth" else 6.0, seed=3)
+    if kind == "smooth":
+        flow += _motion_flow(cuda, *shape[1:3], split=False)
+    _, ls = wr.window_refinement(q, f, flow, bias, 4.0, p)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    g_res = torch.randn((*shape[:3], 2), generator=g, device=cuda)
+    g_ls = torch.randn((*shape[:3], p, p), generator=g, device=cuda)
+    args = (q, f, flow, bias, ls, g_res, g_ls, 4.0, p)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = wr.launch_backward(*args, staged_count=counter)
+    again = wr.launch_backward(*args)
+    torch.cuda.synchronize()
+    staged, tiles = wr.staged_tiles(flow, p, c), wr.tile_count(*shape[:3])
+    assert counter.item() == staged
+    assert staged > 0 if kind == "smooth" else staged == 0
+    plain = wr.window_refinement_backward_reference(*args)
+    ref = wr.window_refinement_backward_reference(*(t.double() for t in args[:7]), 4.0, p)
+    for name, k, pl, r in zip(("dq", "df", "dflow", "dbias"), got, plain, ref):
+        bar = max(2 * (pl.double() - r).abs().max().item(), WINDOW_BWD_FLOOR_REL * r.abs().max().item())
+        assert (k.double() - r).abs().max().item() <= bar, name
+    for name, a, b in zip(("dq", "dflow", "dbias"), (got[0], got[2], got[3]), (again[0], again[2], again[3])):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("kind", ["iid", "smooth", "split"])
+def test_any_forward_on_the_fixed_instances_shape(cuda, kind):
+    """window_refinement_fwd_any_kernel (``any_kernel=True``) at the fixed
+    C = 16, P = 5 instance's shape, against the plain version (residual
+    2e-5, log_softmax 2e-4), staging the tiles of staged_tiles."""
+    shape, p = (1, 420, 560, 16), 5
+    q, f, flow, bias = _window_inputs(cuda, shape, p, 6.0 if kind == "iid" else 0.5)
+    if kind != "iid":
+        flow += _motion_flow(cuda, *shape[1:3], split=kind == "split")
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    res, ls = wr.launch(q, f, flow, bias, 4.0, p, counter, any_kernel=True)
+    torch.cuda.synchronize()
+    ref_res, ref_ls = wr.window_refinement_reference(q, f, flow, bias, 4.0, p)
+    assert (res - ref_res).abs().max().item() <= 2e-5
+    assert (ls - ref_ls).abs().max().item() <= 2e-4
+    assert counter.item() == wr.staged_tiles(flow, p, 16)
+
+
 def test_small_refine_model_kernel_path(cuda):
     """A small bf16 UFM-Refine with the UNet on the card: one window launch
     per forward, and the refined flow within 1e-3 px of the same weights

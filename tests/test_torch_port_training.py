@@ -64,6 +64,21 @@ def base():
     return jnet, params, flatten_params(params)
 
 
+def test_covisibility_bce_gradient_at_a_zero_logit_matches_jax():
+    """A logit of exactly 0 (a pixel whose head features are all zero, which
+    random weights with zero biases give) takes JAX's subgradient, as every
+    other logit takes its gradient."""
+    from ufm_tpu.training import losses as jlosses
+    from ufm_torch.training import losses
+
+    logits = np.array([[[0.0, 0.0, -1.5, 2.0]]], np.float32)
+    gt = np.array([[[1.0, 0.0, 1.0, 0.0]]], np.float32)
+    want = jax.grad(lambda x: jlosses.covisibility_bce_loss(x, jnp.asarray(gt)))(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    losses.covisibility_bce_loss(x, torch.from_numpy(gt)).backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
 def test_schedule_matches_optax():
     """The port's schedule is in float64, optax's in float32: near the end of
     the cosine the float32 rounding of cos reaches ~1e-6 relative."""

@@ -234,3 +234,126 @@ def test_staged_tiles_only_at_the_widths_the_kernel_stages():
     tiles = wr.tile_count(1, 16, 64)
     assert [wr.staged_tiles(flow, 5, c) for c in (4, 8, 12, 16)] == [tiles] * 4
     assert [wr.staged_tiles(flow, 5, c) for c in (3, 5, 20, 32, 64)] == [0] * 5
+
+
+def _motion_flow(b, h, w, kind, rng):
+    """(B, H, W, 2) xy flows: iid noise of 4 px; a smooth affine motion
+    (scale 1.05, 3 degrees, a shift) plus noise of 0.5 px; the same with the
+    pixels below the diagonal moved 12 px further along y (an occlusion
+    edge); or "edges"' windows across and wholly outside the border."""
+    if kind == "edges":
+        return _inputs(b, h, w, 1, 5, seed=3)[2]
+    noise = rng.standard_normal((b, h, w, 2)).astype(np.float32)
+    if kind == "iid":
+        return 4.0 * noise
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32), indexing="ij")
+    a, s = np.radians(3.0), 1.05
+    dx, dy = xs - (w - 1) / 2, ys - (h - 1) / 2
+    fx = s * (np.cos(a) * dx - np.sin(a) * dy) - dx + 6.0
+    fy = s * (np.sin(a) * dx + np.cos(a) * dy) - dy - 3.0
+    if kind == "split":
+        fy = fy + 12.0 * (ys / h > xs / w)
+    return np.stack([fx, fy], axis=-1)[None] + 0.5 * noise
+
+
+# the windows at which the backward kernel gathers df (csrc/window_refinement_bwd.cu)
+GATHER_P = (1, 3, 5)
+
+
+def _df_by_boxes(q, f, flow, bias, log_softmax, g_res, g_ls, temperature, p):
+    """A plain model of the backward kernel's df accumulation, in fp64: each
+    tile of ``TILE`` pixels whose taps fit one ``BOX`` (the forward's fit
+    rule, at the widths the kernels stage) is staged. In a staged tile at P
+    in GATHER_P, the least pixel (by index in the tile) at each tap origin
+    owns it: the owners' df terms are summed over a box at
+    the tile's least tap origin, taps outside the image included (the kernel
+    sums each box pixel over the owned origins whose windows cover it), and
+    then the box's pixels inside the image are added into df; every other
+    pixel adds its in-image taps into df directly. Returns (df, staged tiles,
+    pixels whose terms a box took)."""
+    b, h, w, c = f.shape
+    r, k = (p - 1) // 2, p + 3
+    q, f = q.double(), f.double()
+    pos_x, pos_y = wr._sample_positions(flow, p)
+    x0, y0 = torch.floor(pos_x), torch.floor(pos_y)
+    wx = torch.stack(wr.cubic_weights((pos_x - x0).double()), dim=-1)
+    wy = torch.stack(wr.cubic_weights((pos_y - y0).double()), dim=-1)
+    a = torch.exp(log_softmax.double()).reshape(b, h, w, p * p)
+    offs = wr.neighborhood_offsets_xy(p).double().reshape(p * p, 2)
+    g = g_ls.double().reshape(b, h, w, p * p)
+    g_s = a * ((offs - (a @ offs)[..., None, :]) * g_res.double()[..., None, :]).sum(-1) + g - a * g.sum(-1, keepdim=True)
+    ddots = wr._spread((g_s / temperature).reshape(b, h, w, p, p), wy, wx, k)  # (B, H, W, K, K)
+    xb, yb = x0.long() - r - 1, y0.long() - r - 1
+
+    # each pixel's tile and index in it, and each tile's least and greatest tap origin
+    tw, th = wr.TILE
+    ty, tx = -(-h // th), -(-w // tw)
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    tile = (torch.arange(b)[:, None, None] * ty + ys // th) * tx + xs // tw
+    index = ((ys % th) * tw + xs % tw).expand(b, h, w)
+    n_tiles = b * ty * tx
+    lo = [torch.full((n_tiles,), 2**40).scatter_reduce(0, tile.flatten(), o.flatten(), "amin") for o in (xb, yb)]
+    hi = [torch.full((n_tiles,), -2**40).scatter_reduce(0, tile.flatten(), o.flatten(), "amax") for o in (xb, yb)]
+    fits = (hi[0] - lo[0] + k <= wr.BOX[0]) & (hi[1] - lo[1] + k <= wr.BOX[1]) & (c <= 16 and c % 4 == 0)
+    # each pixel's rank among the pixels of its tile at its tap origin
+    key = (tile * 2**20 + (yb - lo[1][tile]) * 2**10 + xb - lo[0][tile]).flatten()
+    order = torch.argsort(key * 2**10 + index.flatten())
+    sorted_key = key[order]
+    starts = torch.ones_like(sorted_key, dtype=torch.bool)
+    starts[1:] = sorted_key[1:] != sorted_key[:-1]
+    first = torch.cummax(torch.where(starts, torch.arange(len(key)), 0), 0).values
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(len(key)) - first
+    staged = fits[tile] & (rank.reshape(b, h, w) == 0) & (p in GATHER_P)  # (B, H, W): terms to a box
+
+    df = torch.zeros(b * h * w, c, dtype=torch.float64)
+    boxes = torch.zeros(n_tiles * wr.BOX[1] * wr.BOX[0], c, dtype=torch.float64)
+    img = torch.arange(b)[:, None, None].expand(b, h, w)
+    for v in range(k):
+        for u in range(k):
+            iy, ix = yb + v, xb + u
+            term = ddots[..., v, u, None] * q
+            inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+            direct = inside & ~staged
+            lin = ((img * h + iy.clamp(0, h - 1)) * w + ix.clamp(0, w - 1))[direct]
+            df.index_add_(0, lin, term[direct])
+            slot = (tile * wr.BOX[1] + iy - lo[1][tile]) * wr.BOX[0] + ix - lo[0][tile]
+            boxes.index_add_(0, slot[staged], term[staged])
+    # each staged tile's box into df, its pixels outside the image dropped
+    t, by, bx = torch.meshgrid(torch.arange(n_tiles), torch.arange(wr.BOX[1]), torch.arange(wr.BOX[0]), indexing="ij")
+    gy, gx = lo[1][t] + by, lo[0][t] + bx
+    keep = fits[t] & (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+    lin = ((t // (ty * tx) * h + gy.clamp(0, h - 1)) * w + gx.clamp(0, w - 1))[keep]
+    df.index_add_(0, lin, boxes.reshape(n_tiles, wr.BOX[1], wr.BOX[0], c)[keep])
+    return df.reshape(b, h, w, c), int(fits.sum()), int(staged.sum())
+
+
+@pytest.mark.parametrize("kind,c,p", [("iid", 8, 5), ("smooth", 12, 9), ("smooth", 5, 5), ("split", 16, 5),
+                                      ("edges", 4, 7)])
+def test_df_by_boxes_matches_the_plain_backward(kind, c, p):
+    """The backward kernel's rule for df, modelled in plain PyTorch
+    (``_df_by_boxes``), against the plain backward's df on the same inputs
+    (fp64, within 1e-6); its staged tiles are ``staged_tiles``' (some of a
+    smooth flow's tiles at a staged width and not all of a split flow's;
+    none at C = 5), and at P <= 5 a box takes most of a smooth flow's
+    pixels' df terms."""
+    rng = np.random.default_rng(c * 10 + p)
+    b, h, w = 2, 20, 70
+    q, f = (torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)) for _ in range(2))
+    flow = torch.from_numpy(_motion_flow(b, h, w, kind, rng).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(p * p).astype(np.float32))
+    g_res = torch.from_numpy(rng.standard_normal((b, h, w, 2)).astype(np.float32))
+    g_ls = torch.from_numpy(rng.standard_normal((b, h, w, p, p)).astype(np.float32))
+    _, ls = wr.window_refinement_reference(q, f, flow, bias, TEMPERATURE, p)
+    args = (q, f, flow, bias, ls, g_res, g_ls)
+    want = wr.window_refinement_backward_reference(*(t.double() for t in args), TEMPERATURE, p)[1]
+    got, staged, gathered = _df_by_boxes(*args, TEMPERATURE, p)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+    assert staged == wr.staged_tiles(flow, p, c)
+    if kind == "smooth" and c % 4 == 0 and p in GATHER_P:
+        assert gathered > 0.6 * b * h * w
+    tiles = wr.tile_count(b, h, w)
+    if kind == "smooth":
+        assert (staged > 0) == (c % 4 == 0)
+    if kind == "split":
+        assert 0 < staged < tiles

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile loads, wgmma shared-memory descriptors and products, setmaxnreg,
 // named barriers, and the host-side encoding of the TMA tensor maps (the
-// window kernel uses the mbarriers, the TMA loads and the encoder; the fused
-// fc1 + GELU kernel the rank-2 maps and the m64n256 product).
+// window kernels use the mbarriers and the TMA loads; the fused fc1 + GELU
+// kernel the rank-2 maps and the m64n256 product).
 //
 // Shared-memory tiles. Every operand tile is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B in boxes of 64 rows x 64 bf16: one 128-byte

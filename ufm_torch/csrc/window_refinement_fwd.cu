@@ -65,21 +65,32 @@
 // own taps, no operand is shared across a tile).
 //
 // The rest of the domain (1 <= C <= 64, odd P <= 9: the shapes the JAX
-// package answers through its XLA path) runs window_refinement_fwd_any_kernel,
-// the same tiles and tail with three changes. (1) L = 4, 8 or 16 lanes a
-// pixel (C <= 16, 32, 64; 16 at P = 9, where fewer spill), one float4 of channels
-// each: lane c4 holds channels 4 c4 .. 4 c4 + 3, those past C zero in
-// registers. Where C is not a multiple of 4 the rows of q and f are not
-// 16-byte aligned and every channel is loaded alone. (Several float4s a lane
-// at 4 lanes made ptxas spill: it hoists the tap loads of a row.) (2) The
-// lanes reduce-scatter each tap row's x-combined partial scores as it
-// arrives (reduce_scatter_lanes), so a lane keeps only its columns j = L t +
-// c4 of every score row (P x ceil(P / L) registers, not P x P: at P = 9 the
-// full table would not fit the 128 registers a thread). (3) A tile is staged
-// only at C <= 16 with C a multiple of 4 (the box then holds C channels a
-// pixel); at C = 32 / 64 two boxes outgrow shared memory, and rows of
-// C % 4 != 0 floats cannot be mapped by TMA: those launches read every tap
-// from global memory.
+// package answers through its XLA path) runs two more kernels, the same
+// tiles and tail:
+//   * window_refinement_fwd_any_kernel<NQ, P>, C <= 16: the lanes of a pixel
+//     split the taps, not the channels. Each of its L lanes (2, 4 at P = 9,
+//     twice that at NQ = 4 from P = 7, where shared memory is short) holds
+//     the pixel's whole q in NQ = ceil(C / 4) float4s (channels past C zero;
+//     one load a channel where C % 4 != 0) and takes whole tap rows v = lane,
+//     lane + L, ...: their full dot products, and the x pass of each row,
+//     which goes to the warp's stage in shared memory (K x P floats a pixel).
+//     After one __syncwarp each lane runs the y pass of its share of the P^2
+//     scores from the stage, then the tail: the pixel's partial scores meet
+//     once, through shared memory, instead of after every tap row through
+//     shuffles, and no lane idles for want of channels (a channel split ran 16
+//     lanes a pixel at P = 9, 12 of them idle at C = 12). Lanes reading the same tap
+//     column of neighbouring rows read different float4s of it (the box's
+//     rows are a multiple of 128 bytes apart: the same banks). The tap loop
+//     keeps a sliding window of three dots; at NQ = 3, and NQ = 2 with P = 9,
+//     it unrolls two taps at a time (a whole row's hoisted loads spilled).
+//     Staged as above where C % 4 == 0 (a box of C channels a pixel).
+//   * window_refinement_fwd_wide_kernel<L, P>, C > 16: L = 8 or 16 lanes a
+//     pixel (16 at P = 9, where 8 spill), one float4 of channels each, the
+//     lanes reduce-scatter each tap row's x-passed partial scores as it
+//     arrives (reduce_scatter_lanes), so a lane keeps only its columns j = L t
+//     + c4 of every score row; every tap from global memory (two boxes of C >
+//     16 channels outgrow shared memory), so its CTAs take little shared
+//     memory and leave L1 its room.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -99,8 +110,6 @@ using namespace ufm;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 static_assert(kThreads >= kTilePx, "one thread plans each pixel of a tile");
-constexpr int kBoxW = 64;  // the staged box of f, in pixels along x
-constexpr int kBoxH = 22;  // and along y (two boxes stay under the 196 KB carveout step: L1 keeps ~60 KB)
 constexpr int kStages = 2;
 
 template <int C, int P>
@@ -124,15 +133,6 @@ struct Cfg {
   static_assert(kSmemBytes <= 232448, "shared memory over the 227 KB a block may use");
   static_assert(kBoxBytes % 128 == 0 && kRedOff % 16 == 0, "TMA destinations and int4 slots need alignment");
 };
-
-struct Tile {
-  int img, x0, y0;
-};
-
-__device__ __forceinline__ Tile tile_at(int t, int tiles_x, int tiles_per_image) {
-  const int r = t % tiles_per_image;
-  return {t / tiles_per_image, (r % tiles_x) * kTileW, (r / tiles_x) * kTileH};
-}
 
 // Every thread (thread i < kTilePx: pixel i): the sample positions of the
 // tile's pixels, clamped to [-m, hi.x] x [-m, hi.y] (m = R + 4, hi = (W, H)
@@ -411,30 +411,255 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- the rest of the domain: any C <= 64, odd P <= 9 ------------------------
+
+// ---- C <= 16 off the fixed instances: the lanes of a pixel split the taps
+
+// NQ float4s of q a lane (C <= 4 NQ); L lanes a pixel, each taking the tap
+// rows v = c4, c4 + L, ...: 2 (4 at P = 9), and twice that at NQ = 4 from P
+// = 7, where the warps' stages and two 16-channel boxes would outgrow shared
+// memory.
+template <int NQ, int P>
+struct AnyCfg {
+  static constexpr int K = P + 3;
+  static constexpr int R = (P - 1) / 2;
+  static constexpr int PP = P * P;
+  static constexpr int L = (P == 9 ? 4 : P == 7 && NQ == 4 ? 4 : 2) * (P == 9 && NQ == 4 ? 2 : 1);
+  static constexpr int kRows = (K + L - 1) / L;  // tap rows a lane takes
+  // taps of a row unrolled together: all of them where ptxas keeps their
+  // loads in registers, else 2 (at NQ = 3, or NQ = 2 with P = 9, the whole
+  // row's hoisted loads spilled)
+  static constexpr int kUnrollTaps = NQ * K >= 24 && NQ < 4 ? 2 : K;
+  static constexpr int J = (PP + L - 1) / L;     // scores a lane finishes: k = L t + c4
+  static constexpr int kPxPerWarp = 32 / L;
+  static constexpr int kPasses = kTilePx * L / kThreads;
+  // a warp's stage: its pixels' x-passed tap rows (K x P floats a pixel),
+  // then their log_softmax rows (P x P a pixel)
+  static constexpr int kStageFloats = kPxPerWarp * K * P;
+  // shared memory after the two boxes (2 x box_bytes, a multiple of 128):
+  static constexpr int kPosOff = 0;                                    // float2 [kStages][kTilePx]
+  static constexpr int kStageOff = kPosOff + kStages * kTilePx * 8;    // float [kWarps][kStageFloats]
+  static constexpr int kRedOff = kStageOff + kWarps * kStageFloats * 4;  // int4 [kWarps]
+  static constexpr int kPlanOff = kRedOff + kWarps * 16;               // int4 [kStages]: see finish_plan
+  static constexpr int kBarOff = kPlanOff + kStages * 16;              // uint64 [kStages]
+  static constexpr int kFixedBytes = kBarOff + kStages * 8;
+  static constexpr int kMaxSmemBytes = 2 * kBoxW * kBoxH * 4 * NQ * 4 + kFixedBytes;
+  static_assert(kMaxSmemBytes <= 232448, "shared memory over the 227 KB a block may use");
+  static_assert(kRedOff % 16 == 0 && kPasses * kThreads == kTilePx * L, "int4 slots, whole passes");
+};
+
+// Every thread: the tile's pixels, L lanes a pixel. Each lane holds the
+// pixel's whole q (slot s: channels 4 ((s + rot) % NQ) .. + 3, zero past C)
+// and takes whole tap rows: their dots, from the staged box (kStaged:
+// origin (pl.y, pl.z), C channels a pixel) or from global memory, then the x
+// pass of each row into the warp's stage. After one __syncwarp the lanes
+// split the P x P scores (k = L t + c4): the y pass from the stage, then the
+// temperature, bias and softmax tail.
+template <int NQ, int P, bool kStaged>
+__device__ __forceinline__ void refine_tile_any(const Tile& tl, const float2* pos, const float* box, int4 pl,
+                                                float* stage, const float* __restrict__ q,
+                                                const float* __restrict__ f, const float* __restrict__ bias,
+                                                float2* __restrict__ residual, float* __restrict__ log_softmax, int h,
+                                                int w, int c, bool vec, float inv_temperature) {
+  using G = AnyCfg<NQ, P>;
+  constexpr int L = G::L, R = G::R, PP = G::PP, K = G::K, J = G::J;
+  const int lane = threadIdx.x & 31;
+  const int c4 = lane % L, px_local = lane / L;
+  // the slot order: lanes reading the same tap column of neighbouring rows
+  // (the box's rows are 128-byte multiples apart: the same banks) read
+  // different float4s of it
+  const int rot = (c4 + L * (px_local >> 1)) % NQ;
+  int chs[NQ];
+#pragma unroll
+  for (int s = 0; s < NQ; ++s) chs[s] = 4 * ((s + rot) % NQ);
+  float* st = stage + px_local * K * P;  // this pixel's x-passed rows
+#pragma unroll 1
+  for (int pass = 0; pass < G::kPasses; ++pass) {
+    const int u0 = pass * kThreads + (threadIdx.x & ~31);  // this warp's first (pixel, lane) unit
+    const int pix = (u0 + lane) / L;
+    const int x = tl.x0 + pix % kTileW, y = tl.y0 + pix / kTileW;
+    const bool valid = x < w && y < h;
+    const long long n = (static_cast<long long>(tl.img) * h + y) * w + x;
+    float4 qv[NQ];
+#pragma unroll
+    for (int s = 0; s < NQ; ++s) {
+      qv[s] = valid ? load_channels(q + n * c, chs[s], c, vec) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    const float2 p = pos[pix];
+    const float fx = floorf(p.x), fy = floorf(p.y);
+    float wx[4], wy[4];
+    cubic_weights(p.x - fx, wx);
+    cubic_weights(p.y - fy, wy);
+    const int xb = static_cast<int>(fx) - R - 1;  // leftmost tap
+    const int yb = static_cast<int>(fy) - R - 1;  // topmost tap
+    const float* fimg = f + static_cast<long long>(tl.img) * h * w * c;
+    // the box covers every valid pixel's taps; a pixel outside the image
+    // reads the box's corner and is never stored
+    const float* tap0 = box + (kStaged && valid ? ((yb - pl.z) * kBoxW + xb - pl.y) * c : 0);
+
+#pragma unroll 1
+    for (int r = 0; r < G::kRows; ++r) {
+      const int v = c4 + L * r;
+      if (v < K) {
+        // the row's whole dots, tap by tap; the x pass of column j = u - 3
+        // once its last tap u has arrived (d0 .. d2: the three before it)
+        float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;
+#pragma unroll(G::kUnrollTaps)
+        for (int u = 0; u < K; ++u) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int s = 0; s < NQ; ++s) {
+            float4 t;
+            if constexpr (kStaged) {
+              t = *reinterpret_cast<const float4*>(tap0 + (v * kBoxW + u) * c + chs[s]);
+            } else {
+              const int iy = yb + v, ix = xb + u;
+              t = (iy >= 0 && iy < h && ix >= 0 && ix < w)
+                      ? load_channels(fimg + (static_cast<long long>(iy) * w + ix) * c, chs[s], c, vec)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            }
+            dot = dot4(qv[s], t, dot);
+          }
+          if (u >= 3) st[v * P + u - 3] = fmaf(wx[3], dot, fmaf(wx[2], d2, fmaf(wx[1], d1, wx[0] * d0)));
+          d0 = d1;
+          d1 = d2;
+          d2 = dot;
+        }
+      }
+    }
+    __syncwarp();  // every row of the warp's pixels is in the stage
+
+    // the y pass of this lane's scores k = L t + c4, then the tail
+    float sc[J];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < J; ++t) {
+      const int k = L * t + c4;
+      float s = 0.0f;
+      if (k < PP) {  // score (i, j) = (k / P, k % P) from rows i .. i + 3 of column j: st[k + l P]
+#pragma unroll
+        for (int l = 0; l < 4; ++l) s = fmaf(wy[l], st[k + l * P], s);
+        s = fmaf(s, inv_temperature, __ldg(bias + k));
+        mx = fmaxf(mx, s);
+      }
+      sc[t] = s;
+    }
+    mx = lanes_max<L>(mx);
+    float sum = 0.0f, rx = 0.0f, ry = 0.0f;
+#pragma unroll
+    for (int t = 0; t < J; ++t) {
+      const int k = L * t + c4;
+      if (k < PP) {
+        const float e = expf(sc[t] - mx);
+        sum += e;
+        rx = fmaf(e, static_cast<float>(k % P - R), rx);
+        ry = fmaf(e, static_cast<float>(k / P - R), ry);
+      }
+    }
+    sum = lanes_sum<L>(sum);
+    rx = lanes_sum<L>(rx);
+    ry = lanes_sum<L>(ry);
+    const float lse = logf(sum);
+    __syncwarp();  // the stage is read: it takes the warp's log_softmax rows
+#pragma unroll
+    for (int t = 0; t < J; ++t) {
+      const int k = L * t + c4;
+      if (k < PP) stage[px_local * PP + k] = sc[t] - mx - lse;
+    }
+    if (valid && c4 == 0) residual[n] = make_float2(__fdividef(rx, sum), __fdividef(ry, sum));
+    __syncwarp();
+    // the warp's pixels lie in one tile row; those in the image are a prefix
+    const int pix0 = u0 / L;
+    const int x_first = tl.x0 + pix0 % kTileW, y_row = tl.y0 + pix0 / kTileW;
+    const int count = y_row < h ? min(max(w - x_first, 0), G::kPxPerWarp) : 0;
+    float* out = log_softmax + ((static_cast<long long>(tl.img) * h + y_row) * w + x_first) * PP;
+    for (int e = lane; e < count * PP; e += 32) out[e] = stage[e];
+    __syncwarp();
+  }
+}
+
+// The fixed kernel's persistent loop with its two stages, over
+// refine_tile_any; `box_bytes` is one box's size where this launch stages
+// (C % 4 == 0), else 0 (the boxes then take no shared memory).
+template <int NQ, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+    window_refinement_fwd_any_kernel(const __grid_constant__ CUtensorMap tm_f, const float* __restrict__ q,
+                                     const float* __restrict__ f, const float* __restrict__ flow,
+                                     const float* __restrict__ bias, float* __restrict__ residual,
+                                     float* __restrict__ log_softmax, int* __restrict__ staged_count, int h, int w,
+                                     int c, int box_bytes, float2 clamp_hi, int tiles_x, int tiles_per_image,
+                                     int num_tiles, float inv_temperature) {
+  using G = AnyCfg<NQ, P>;
+  extern __shared__ __align__(128) uint8_t smem[];  // stage s's box at s * box_bytes
+  uint8_t* fixed = smem + 2 * box_bytes;
+  float2* pos = reinterpret_cast<float2*>(fixed + G::kPosOff);
+  float* stage = reinterpret_cast<float*>(fixed + G::kStageOff) + (threadIdx.x / 32) * G::kStageFloats;
+  int4* red = reinterpret_cast<int4*>(fixed + G::kRedOff);
+  int4* plan = reinterpret_cast<int4*>(fixed + G::kPlanOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fixed + G::kBarOff);
+  const float2* flow2 = reinterpret_cast<const float2*>(flow);
+  float2* res2 = reinterpret_cast<float2*>(residual);
+  const bool vec = c % 4 == 0;
+  const bool staging = box_bytes != 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bars[s], 1);
+      plan[s].w = 0;
+    }
+    fence_mbar_init();
+    if (staging) prefetch_tensor_map(&tm_f);
+  }
+  plan_pixels<G::R>(tile_at(blockIdx.x, tiles_x, tiles_per_image), flow2, pos, red, h, w, clamp_hi);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    finish_plan<G::K>(blockIdx.x / tiles_per_image, 0, red, plan, smem, bars, &tm_f, staged_count, staging,
+                      box_bytes, box_bytes);
+  }
+  __syncthreads();
+
+  for (int t = blockIdx.x, k = 0; t < num_tiles; t += gridDim.x, ++k) {
+    const int s = k & 1;
+    const int t_next = t + gridDim.x;
+    if (t_next < num_tiles) {
+      plan_pixels<G::R>(tile_at(t_next, tiles_x, tiles_per_image), flow2, pos + (s ^ 1) * kTilePx, red, h, w,
+                        clamp_hi);
+    }
+    __syncthreads();
+    if (t_next < num_tiles && threadIdx.x == 0) {
+      finish_plan<G::K>(t_next / tiles_per_image, s ^ 1, red, plan, smem, bars, &tm_f, staged_count, staging,
+                        box_bytes, box_bytes);
+    }
+    const Tile tl = tile_at(t, tiles_x, tiles_per_image);
+    const int4 pl = plan[s];
+    if (pl.x) {
+      mbar_wait(&bars[s], pl.w ^ 1);
+      refine_tile_any<NQ, P, true>(tl, pos + s * kTilePx, reinterpret_cast<const float*>(smem + s * box_bytes), pl,
+                                   stage, q, f, bias, res2, log_softmax, h, w, c, vec, inv_temperature);
+    } else {
+      refine_tile_any<NQ, P, false>(tl, pos + s * kTilePx, reinterpret_cast<const float*>(smem), pl, stage, q, f,
+                                    bias, res2, log_softmax, h, w, c, vec, inv_temperature);
+    }
+    __syncthreads();
+  }
+}
+
+// ---- C > 16: L = 8 or 16 lanes a pixel split the channels (no staging)
 
 template <int L, int P>
-struct AnyCfg {
-  static_assert(L == 4 || L == 8 || L == 16, "4, 8 or 16 lanes a pixel");
+struct WideCfg {
+  static_assert(L == 8 || L == 16, "8 or 16 lanes a pixel");
   static constexpr int K = P + 3;
   static constexpr int R = (P - 1) / 2;
   static constexpr int PP = P * P;
   static constexpr int J = (P + L - 1) / L;  // columns of each score row a lane finishes
   static constexpr int kPxPerWarp = 32 / L;
   static constexpr int kPasses = (kTilePx * L + kThreads - 1) / kThreads;
-  // a staged box holds up to 16 channels a pixel (C <= 16: L = 4, or 16 at
-  // P = 9); every instance has room for two (one CTA an SM fills the
-  // register file anyway)
-  static constexpr int kBoxBytes = kBoxW * kBoxH * 16 * 4;
   static constexpr int kStageFloats = kPxPerWarp * PP;
-  static constexpr int kPosOff = kStages * kBoxBytes;
-  static constexpr int kLsOff = kPosOff + kStages * kTilePx * 8;
-  static constexpr int kRedOff = kLsOff + kWarps * kStageFloats * 4;
-  static constexpr int kPlanOff = kRedOff + kWarps * 16;
-  static constexpr int kBarOff = kPlanOff + kStages * 16;
-  static constexpr int kSmemBytes = kBarOff + kStages * 8;
-  static_assert(kSmemBytes <= 232448, "shared memory over the 227 KB a block may use");
-  static_assert(kBoxBytes % 128 == 0 && kRedOff % 16 == 0, "TMA destinations and int4 slots need alignment");
+  static constexpr int kPosOff = 0;                                  // float2 [kTilePx]
+  static constexpr int kLsOff = kPosOff + kTilePx * 8;               // float [kWarps][kStageFloats]
+  static constexpr int kRedOff = kLsOff + kWarps * kStageFloats * 4;  // int4 [kWarps]
+  static constexpr int kSmemBytes = kRedOff + kWarps * 16;
+  static_assert(kRedOff % 16 == 0, "int4 slots need alignment");
 };
 
 // One step of reduce_scatter_lanes and the steps after it: of the live
@@ -472,15 +697,15 @@ __device__ __forceinline__ void reduce_scatter_lanes(const float (&sc)[N], float
   for (int t = 0; t < J; ++t) own[t] = buf[t * L];
 }
 
-// Every thread: the tile's pixels, L lanes a pixel; taps from the staged box
-// (kStaged: origin (pl.y, pl.z), C channels a pixel) or from global memory.
-template <int L, int P, bool kStaged>
-__device__ __forceinline__ void refine_tile_any(const Tile& tl, const float2* pos, const float* box, int4 pl,
-                                                float* ls_warp, const float* __restrict__ q,
-                                                const float* __restrict__ f, const float* __restrict__ bias,
-                                                float2* __restrict__ residual, float* __restrict__ log_softmax, int h,
-                                                int w, int c, bool vec, float inv_temperature) {
-  using G = AnyCfg<L, P>;
+// Every thread: the tile's pixels, L lanes a pixel, one float4 of channels
+// each; the taps from global memory.
+template <int L, int P>
+__device__ __forceinline__ void refine_tile_wide(const Tile& tl, const float2* pos, float* ls_warp,
+                                                 const float* __restrict__ q, const float* __restrict__ f,
+                                                 const float* __restrict__ bias, float2* __restrict__ residual,
+                                                 float* __restrict__ log_softmax, int h, int w, int c, bool vec,
+                                                 float inv_temperature) {
+  using G = WideCfg<L, P>;
   constexpr int R = G::R, PP = G::PP, K = G::K, J = G::J;
   const int lane = threadIdx.x & 31;
   const int c4 = lane % L;
@@ -507,7 +732,6 @@ __device__ __forceinline__ void refine_tile_any(const Tile& tl, const float2* po
 #pragma unroll
     for (int k = 0; k < P * J; ++k) sc[k] = 0.0f;
     const float* fimg = f + static_cast<long long>(tl.img) * h * w * c;
-    const float* tap0 = box + (valid ? ((yb - pl.z) * kBoxW + xb - pl.y) * c : 0);
     // one tap row at a time: unrolled over the rows, ptxas hoists the tap
     // loads of many rows and spills (L = 16, P = 3 did)
 #pragma unroll 1
@@ -515,16 +739,10 @@ __device__ __forceinline__ void refine_tile_any(const Tile& tl, const float2* po
       float d[K];  // this lane's partial dots of tap row v
 #pragma unroll
       for (int u = 0; u < K; ++u) {
-        float4 t;
-        if constexpr (kStaged) {
-          t = ch < c ? *reinterpret_cast<const float4*>(tap0 + (v * kBoxW + u) * c + ch)
-                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        } else {
-          const int iy = yb + v, ix = xb + u;
-          t = (iy >= 0 && iy < h && ix >= 0 && ix < w)
-                  ? load_channels(fimg + (static_cast<long long>(iy) * w + ix) * c, ch, c, vec)
-                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        }
+        const int iy = yb + v, ix = xb + u;
+        const float4 t = (iy >= 0 && iy < h && ix >= 0 && ix < w)
+                             ? load_channels(fimg + (static_cast<long long>(iy) * w + ix) * c, ch, c, vec)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         d[u] = dot4(qv, t, 0.0f);
       }
       float sx[P];  // x pass of the row, partial over the lanes
@@ -599,170 +817,137 @@ __device__ __forceinline__ void refine_tile_any(const Tile& tl, const float2* po
   }
 }
 
-// The fast kernel's persistent loop with the changes above; `stage` is
-// whether this launch stages (C <= 16 and C % 4 == 0), `c` the width.
+// Persistent CTAs over the tiles, no staging (two boxes of C > 16 channels
+// outgrow shared memory): each tile's positions, then its pixels.
 template <int L, int P>
 __global__ void __launch_bounds__(kThreads, 1)
-    window_refinement_fwd_any_kernel(const __grid_constant__ CUtensorMap tm_f, const float* __restrict__ q,
-                                     const float* __restrict__ f, const float* __restrict__ flow,
-                                     const float* __restrict__ bias, float* __restrict__ residual,
-                                     float* __restrict__ log_softmax, int* __restrict__ staged_count, int h, int w,
-                                     int c, int stage, float2 clamp_hi, int tiles_x, int tiles_per_image,
-                                     int num_tiles, float inv_temperature) {
-  using G = AnyCfg<L, P>;
-  extern __shared__ __align__(128) uint8_t smem[];  // stage s's box at s * kBoxBytes
+    window_refinement_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ f,
+                                      const float* __restrict__ flow, const float* __restrict__ bias,
+                                      float* __restrict__ residual, float* __restrict__ log_softmax, int h, int w,
+                                      int c, float2 clamp_hi, int tiles_x, int tiles_per_image, int num_tiles,
+                                      float inv_temperature) {
+  using G = WideCfg<L, P>;
+  extern __shared__ __align__(128) uint8_t smem[];
   float2* pos = reinterpret_cast<float2*>(smem + G::kPosOff);
   float* ls_warp = reinterpret_cast<float*>(smem + G::kLsOff) + (threadIdx.x / 32) * G::kStageFloats;
-  int4* red = reinterpret_cast<int4*>(smem + G::kRedOff);
-  int4* plan = reinterpret_cast<int4*>(smem + G::kPlanOff);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::kBarOff);
-  const float2* flow2 = reinterpret_cast<const float2*>(flow);
-  float2* res2 = reinterpret_cast<float2*>(residual);
+  int4* red = reinterpret_cast<int4*>(smem + G::kRedOff);  // plan_pixels' bounds, unused here
   const bool vec = c % 4 == 0;
-  const bool staging = stage != 0;
-  const int box_bytes = kBoxW * kBoxH * c * 4;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&bars[s], 1);
-      plan[s].w = 0;
-    }
-    fence_mbar_init();
-    if (staging) prefetch_tensor_map(&tm_f);
-  }
-  plan_pixels<G::R>(tile_at(blockIdx.x, tiles_x, tiles_per_image), flow2, pos, red, h, w, clamp_hi);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    finish_plan<G::K>(blockIdx.x / tiles_per_image, 0, red, plan, smem, bars, &tm_f, staged_count, staging,
-                      box_bytes, G::kBoxBytes);
-  }
-  __syncthreads();
-
-  for (int t = blockIdx.x, k = 0; t < num_tiles; t += gridDim.x, ++k) {
-    const int s = k & 1;
-    const int t_next = t + gridDim.x;
-    if (t_next < num_tiles) {
-      plan_pixels<G::R>(tile_at(t_next, tiles_x, tiles_per_image), flow2, pos + (s ^ 1) * kTilePx, red, h, w,
-                        clamp_hi);
-    }
-    __syncthreads();
-    if (t_next < num_tiles && threadIdx.x == 0) {
-      finish_plan<G::K>(t_next / tiles_per_image, s ^ 1, red, plan, smem, bars, &tm_f, staged_count, staging,
-                        box_bytes, G::kBoxBytes);
-    }
+  for (int t = blockIdx.x; t < num_tiles; t += gridDim.x) {
     const Tile tl = tile_at(t, tiles_x, tiles_per_image);
-    const int4 pl = plan[s];
-    if (pl.x) {
-      mbar_wait(&bars[s], pl.w ^ 1);
-      refine_tile_any<L, P, true>(tl, pos + s * kTilePx, reinterpret_cast<const float*>(smem + s * G::kBoxBytes),
-                                   pl, ls_warp, q, f, bias, res2, log_softmax, h, w, c, vec, inv_temperature);
-    } else {
-      refine_tile_any<L, P, false>(tl, pos + s * kTilePx, reinterpret_cast<const float*>(smem), pl, ls_warp, q, f,
-                                    bias, res2, log_softmax, h, w, c, vec, inv_temperature);
-    }
+    plan_pixels<G::R>(tl, reinterpret_cast<const float2*>(flow), pos, red, h, w, clamp_hi);
+    __syncthreads();
+    refine_tile_wide<L, P>(tl, pos, ls_warp, q, f, bias, reinterpret_cast<float2*>(residual), log_softmax, h, w, c,
+                           vec, inv_temperature);
     __syncthreads();
   }
 }
 
-// Rank-4 map of the contiguous (B, H, W, C) fp32 target map: dimensions
-// (C, W, H, B) innermost first, boxes of (C, kBoxW, kBoxH, 1), no swizzle,
-// coordinates outside the tensor read as zeros. Returns 0 or a kErr* code.
-int encode_f_map(CUtensorMap* map, const void* f, int batch, int h, int w, int c) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return kErrNoTensorMapEncoder;
-  const cuuint64_t row = static_cast<cuuint64_t>(c) * 4;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {row, row * w, row * w * h};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(c), kBoxW, kBoxH, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(f), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+// Tiles of an (B, H, W) map and the clamp's upper corner (W, H) + R + 4.
+struct Grid {
+  int tiles_x, tiles_per_image, num_tiles;
+  float2 clamp_hi;
+};
+
+Grid grid_of(int batch, int h, int w, int r) {
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const int tiles_per_image = tiles_x * ((h + kTileH - 1) / kTileH);
+  const float m = static_cast<float>(r + 4);
+  return {tiles_x, tiles_per_image, batch * tiles_per_image,
+          make_float2(static_cast<float>(w) + m, static_cast<float>(h) + m)};
 }
 
-// The grid of persistent CTAs of `kernel` (`smem` bytes a CTA) over
-// `num_tiles` tiles: at most one CTA a tile. Returns 0 or a cudaError_t.
-int persistent_grid(const void* kernel, int smem, int& smem_set, int num_tiles, int& grid) {
-  cudaError_t e = allow_smem(kernel, smem, smem_set);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  grid = num_tiles < sms * per_sm ? num_tiles : sms * per_sm;
-  return static_cast<int>(e);
-}
+// One call's arguments (see ufm_window_refinement_fwd_f32).
+struct Args {
+  const void *q, *f, *flow, *bias;
+  void *residual, *log_softmax;
+  int* staged_count;
+  int batch, h, w, c;
+  float temperature;
+  cudaStream_t stream;
+};
 
 template <int C, int P>
-int launch(const CUtensorMap& tm_f, const void* q, const void* f, const void* flow, const void* bias, void* residual,
-           void* log_softmax, int* staged_count, int batch, int h, int w, float temperature, cudaStream_t stream) {
+int launch(const CUtensorMap& tm_f, const Args& a) {
   using G = Cfg<C, P>;
   static int smem_set = 0;  // devices on which this instance may use kSmemBytes
   const void* kernel = reinterpret_cast<const void*>(window_refinement_fwd_kernel<C, P>);
-  const int tiles_x = (w + kTileW - 1) / kTileW;
-  const int tiles_per_image = tiles_x * ((h + kTileH - 1) / kTileH);
-  const int num_tiles = batch * tiles_per_image;
+  const Grid g = grid_of(a.batch, a.h, a.w, G::R);
   int grid = 0;
-  const int e = persistent_grid(kernel, G::kSmemBytes, smem_set, num_tiles, grid);
+  const int e = persistent_grid(kernel, kThreads, G::kSmemBytes, G::kSmemBytes, smem_set, g.num_tiles, grid);
   if (e != 0) return e;
-  const float m = static_cast<float>(G::R + 4);
-  window_refinement_fwd_kernel<C, P><<<grid, kThreads, G::kSmemBytes, stream>>>(
-      tm_f, static_cast<const float*>(q), static_cast<const float*>(f), static_cast<const float*>(flow),
-      static_cast<const float*>(bias), static_cast<float*>(residual), static_cast<float*>(log_softmax), staged_count,
-      h, w, make_float2(static_cast<float>(w) + m, static_cast<float>(h) + m), tiles_x, tiles_per_image, num_tiles,
-      1.0f / temperature);
+  window_refinement_fwd_kernel<C, P><<<grid, kThreads, G::kSmemBytes, a.stream>>>(
+      tm_f, static_cast<const float*>(a.q), static_cast<const float*>(a.f), static_cast<const float*>(a.flow),
+      static_cast<const float*>(a.bias), static_cast<float*>(a.residual), static_cast<float*>(a.log_softmax),
+      a.staged_count, a.h, a.w, g.clamp_hi, g.tiles_x, g.tiles_per_image, g.num_tiles, 1.0f / a.temperature);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NQ, int P>
+int launch_any(const CUtensorMap& tm_f, const Args& a) {
+  using G = AnyCfg<NQ, P>;
+  static int smem_set = 0;  // devices on which this instance may use kMaxSmemBytes
+  const void* kernel = reinterpret_cast<const void*>(window_refinement_fwd_any_kernel<NQ, P>);
+  const Grid g = grid_of(a.batch, a.h, a.w, G::R);
+  const int box_bytes = a.c % 4 == 0 ? kBoxW * kBoxH * a.c * 4 : 0;  // the launches that stage
+  const int smem = 2 * box_bytes + G::kFixedBytes;
+  int grid = 0;
+  const int e = persistent_grid(kernel, kThreads, G::kMaxSmemBytes, smem, smem_set, g.num_tiles, grid);
+  if (e != 0) return e;
+  window_refinement_fwd_any_kernel<NQ, P><<<grid, kThreads, smem, a.stream>>>(
+      tm_f, static_cast<const float*>(a.q), static_cast<const float*>(a.f), static_cast<const float*>(a.flow),
+      static_cast<const float*>(a.bias), static_cast<float*>(a.residual), static_cast<float*>(a.log_softmax),
+      a.staged_count, a.h, a.w, a.c, box_bytes, g.clamp_hi, g.tiles_x, g.tiles_per_image, g.num_tiles,
+      1.0f / a.temperature);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int L, int P>
-int launch_any(const CUtensorMap& tm_f, const void* q, const void* f, const void* flow, const void* bias,
-               void* residual, void* log_softmax, int* staged_count, int batch, int h, int w, int c,
-               float temperature, cudaStream_t stream) {
-  using G = AnyCfg<L, P>;
+int launch_wide(const Args& a) {
+  using G = WideCfg<L, P>;
   static int smem_set = 0;  // devices on which this instance may use kSmemBytes
-  const void* kernel = reinterpret_cast<const void*>(window_refinement_fwd_any_kernel<L, P>);
-  const int tiles_x = (w + kTileW - 1) / kTileW;
-  const int tiles_per_image = tiles_x * ((h + kTileH - 1) / kTileH);
-  const int num_tiles = batch * tiles_per_image;
+  const void* kernel = reinterpret_cast<const void*>(window_refinement_fwd_wide_kernel<L, P>);
+  const Grid g = grid_of(a.batch, a.h, a.w, G::R);
   int grid = 0;
-  const int e = persistent_grid(kernel, G::kSmemBytes, smem_set, num_tiles, grid);
+  const int e = persistent_grid(kernel, kThreads, G::kSmemBytes, G::kSmemBytes, smem_set, g.num_tiles, grid);
   if (e != 0) return e;
-  const float m = static_cast<float>(G::R + 4);
-  const int stage = c <= 16 && c % 4 == 0;
-  window_refinement_fwd_any_kernel<L, P><<<grid, kThreads, G::kSmemBytes, stream>>>(
-      tm_f, static_cast<const float*>(q), static_cast<const float*>(f), static_cast<const float*>(flow),
-      static_cast<const float*>(bias), static_cast<float*>(residual), static_cast<float*>(log_softmax), staged_count,
-      h, w, c, stage, make_float2(static_cast<float>(w) + m, static_cast<float>(h) + m), tiles_x, tiles_per_image,
-      num_tiles, 1.0f / temperature);
+  window_refinement_fwd_wide_kernel<L, P><<<grid, kThreads, G::kSmemBytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.f), static_cast<const float*>(a.flow),
+      static_cast<const float*>(a.bias), static_cast<float*>(a.residual), static_cast<float*>(a.log_softmax), a.h,
+      a.w, a.c, g.clamp_hi, g.tiles_x, g.tiles_per_image, g.num_tiles, 1.0f / a.temperature);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int C>
-int launch_p(int p, const CUtensorMap& tm_f, const void* q, const void* f, const void* flow, const void* bias,
-             void* residual, void* log_softmax, int* staged_count, int batch, int h, int w, float temperature,
-             cudaStream_t stream) {
+int launch_p(int p, const CUtensorMap& tm_f, const Args& a) {
   switch (p) {
-    case 1: return launch<C, 1>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, temperature, stream);
-    case 3: return launch<C, 3>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, temperature, stream);
-    case 5: return launch<C, 5>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, temperature, stream);
+    case 1: return launch<C, 1>(tm_f, a);
+    case 3: return launch<C, 3>(tm_f, a);
+    case 5: return launch<C, 5>(tm_f, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int NQ>
+int launch_any_p(int p, const CUtensorMap& tm_f, const Args& a) {
+  switch (p) {
+    case 1: return launch_any<NQ, 1>(tm_f, a);
+    case 3: return launch_any<NQ, 3>(tm_f, a);
+    case 5: return launch_any<NQ, 5>(tm_f, a);
+    case 7: return launch_any<NQ, 7>(tm_f, a);
+    case 9: return launch_any<NQ, 9>(tm_f, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int L>
-int launch_any_p(int p, const CUtensorMap& tm_f, const void* q, const void* f, const void* flow, const void* bias,
-                 void* residual, void* log_softmax, int* staged_count, int batch, int h, int w, int c,
-                 float temperature, cudaStream_t stream) {
+int launch_wide_p(int p, const Args& a) {
   switch (p) {
-    case 1: return launch_any<L, 1>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
-    case 3: return launch_any<L, 3>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
-    case 5: return launch_any<L, 5>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
-    case 7: return launch_any<L, 7>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
+    case 1: return launch_wide<L, 1>(a);
+    case 3: return launch_wide<L, 3>(a);
+    case 5: return launch_wide<L, 5>(a);
+    case 7: return launch_wide<L, 7>(a);
     case 9:  // fewer lanes a pixel spill at P = 9: every C takes 16
-      if constexpr (L == 16) {
-        return launch_any<L, 9>(tm_f, q, f, flow, bias, residual, log_softmax, staged_count, batch, h, w, c, temperature, stream);
-      }
+      if constexpr (L == 16) return launch_wide<L, 9>(a);
       return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -773,38 +958,44 @@ int launch_any_p(int p, const CUtensorMap& tm_f, const void* q, const void* f, c
 // q, f: (B, H, W, C) fp32 contiguous, 16-byte aligned; flow: (B, H, W, 2);
 // bias: (P * P,); residual: (B, H, W, 2); log_softmax: (B, H, W, P, P).
 // 1 <= C <= 64, P odd in 1 .. 9: C in {4, 8, 16} with P <= 5 runs
-// window_refinement_fwd_kernel, the rest window_refinement_fwd_any_kernel.
-// `staged_count` is null or one device int to which the kernel adds the
-// number of tiles whose taps it staged through TMA (the rest took the direct
-// path; none are staged at C > 16 or C % 4 != 0, where f gets no tensor
-// map). Launches on `stream`; returns 0, a cudaError_t
+// window_refinement_fwd_kernel, the rest of C <= 16
+// window_refinement_fwd_any_kernel, C > 16 window_refinement_fwd_wide_kernel.
+// `any_kernel` nonzero sends C in {4, 8, 16} with P <= 5 to
+// window_refinement_fwd_any_kernel too (to time the two designs on the same
+// shapes). `staged_count` is null or one device int to which the kernel adds
+// the number of tiles whose taps it staged through TMA (the rest took the
+// direct path; none are staged at C > 16 or C % 4 != 0, where f gets no
+// tensor map). Launches on `stream`; returns 0, a cudaError_t
 // (cudaErrorInvalidValue for an unsupported C or P), or a kErr* code of
 // sm90_async.cuh when the tensor map of f cannot be made.
 extern "C" int ufm_window_refinement_fwd_f32(const void* q, const void* f, const void* flow, const void* bias,
                                              void* residual, void* log_softmax, void* staged_count, int batch, int h,
-                                             int w, int c, int p, float temperature, void* stream) {
+                                             int w, int c, int p, float temperature, int any_kernel, void* stream) {
   if (static_cast<long long>(batch) * h * w == 0) return 0;
   if (!in_domain(c, p)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_f;
   memset(&tm_f, 0, sizeof(tm_f));
   if (c <= 16 && c % 4 == 0) {  // the widths whose tiles may be staged
-    const int err = encode_f_map(&tm_f, f, batch, h, w, c);
+    const int err = encode_box_map(&tm_f, f, batch, h, w, c);
     if (err != 0) return err;
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* count = static_cast<int*>(staged_count);
-  if ((c == 4 || c == 8 || c == 16) && p <= 5) {
+  const Args a{q, f, flow, bias, residual, log_softmax, static_cast<int*>(staged_count), batch, h, w, c,
+               temperature, static_cast<cudaStream_t>(stream)};
+  if (!any_kernel && (c == 4 || c == 8 || c == 16) && p <= 5) {
     switch (c) {
-      case 4: return launch_p<4>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
-      case 8: return launch_p<8>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
-      default: return launch_p<16>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, temperature, s);
+      case 4: return launch_p<4>(p, tm_f, a);
+      case 8: return launch_p<8>(p, tm_f, a);
+      default: return launch_p<16>(p, tm_f, a);
     }
   }
-  if (c <= 16 && p < 9) {
-    return launch_any_p<4>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, c, temperature, s);
+  if (c <= 16) {
+    switch ((c + 3) / 4) {
+      case 1: return launch_any_p<1>(p, tm_f, a);
+      case 2: return launch_any_p<2>(p, tm_f, a);
+      case 3: return launch_any_p<3>(p, tm_f, a);
+      default: return launch_any_p<4>(p, tm_f, a);
+    }
   }
-  if (c <= 32 && p < 9) {
-    return launch_any_p<8>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, c, temperature, s);
-  }
-  return launch_any_p<16>(p, tm_f, q, f, flow, bias, residual, log_softmax, count, batch, h, w, c, temperature, s);
+  if (c <= 32 && p < 9) return launch_wide_p<8>(p, a);
+  return launch_wide_p<16>(p, a);
 }

@@ -30,11 +30,12 @@ offset-weighted flow residual; and its backward, the JAX package's
   through its XLA path; the Pallas kernel itself took C in {4, 8, 16} and
   P <= 5.
 - :func:`staged_tiles` counts, in plain PyTorch, the tiles of
-  ``TILE`` pixels whose taps the forward kernel stages in shared memory:
-  those whose taps all fit one ``BOX`` of the target map, at a feature width
-  it stages (C <= 16 and a multiple of 4). The kernel reads the other
-  tiles' taps from global memory; given a counter it adds the number it
-  staged, which equals this count.
+  ``TILE`` pixels whose taps the kernels stage in shared memory: those
+  whose taps all fit one ``BOX`` of the target map, at a feature width they
+  stage (C <= 16 and a multiple of 4). The kernels read the other tiles'
+  taps from global memory; given a counter each adds the number it staged,
+  which equals this count. At P <= 5 the backward sums a staged tile's df
+  over a box of the same extent and adds each box pixel to df once.
 
 All clamp the sample position to [-(r+4), W+r+4] x [-(r+4), H+r+4] before
 the integer conversion, as the Pallas path does: a window wholly outside the
@@ -87,8 +88,8 @@ MAX_PATCH = 9
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-# the kernel's tiles of pixels and the box of the target map it stages for a
-# tile, (x, y) in pixels (kTileW, kTileH, kBoxW, kBoxH of the CUDA source)
+# the kernels' tiles of pixels and the box of the target map they stage for a
+# tile, (x, y) in pixels (kTileW, kTileH, kBoxW, kBoxH of csrc/window_refinement.cuh)
 TILE = (32, 8)
 BOX = (64, 22)
 
@@ -179,13 +180,13 @@ def tile_count(b: int, h: int, w: int) -> int:
 
 
 def staged_tiles(flow: torch.Tensor, p: int, c: int = 16) -> int:
-    """How many of the forward kernel's tiles (:func:`tile_count`) stage
-    their taps: none at a feature width ``c`` over 16 (two boxes of f would
-    outgrow shared memory) or not a multiple of 4 (TMA maps only rows of a
-    multiple of 16 bytes), else those where the span of the pixels' leftmost
-    taps plus P + 3 is at most ``BOX[0]`` and that of their topmost taps plus
-    P + 3 at most ``BOX[1]`` (the kernel's fit rule; pixels past the border
-    take no part)."""
+    """How many of the kernels' tiles (:func:`tile_count`) stage their taps
+    (the forward and the backward stage the same ones): none at a feature
+    width ``c`` over 16 (two boxes would outgrow shared memory) or not a
+    multiple of 4 (TMA maps only rows of a multiple of 16 bytes), else those
+    where the span of the pixels' leftmost taps plus P + 3 is at most
+    ``BOX[0]`` and that of their topmost taps plus P + 3 at most ``BOX[1]``
+    (the kernels' fit rule; pixels past the border take no part)."""
     if c > 16 or c % 4:
         return 0
     b, h, w, _ = flow.shape
@@ -320,7 +321,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load_library("window_refinement_fwd").ufm_window_refinement_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -330,7 +331,7 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = _build.load_library("window_refinement_bwd").ufm_window_refinement_bwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
@@ -373,12 +374,15 @@ def _check(q: torch.Tensor, f: torch.Tensor, flow: torch.Tensor, bias: torch.Ten
                          f"{tuple(staged_count.shape)} on {staged_count.device}")
 
 
-def launch(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[torch.Tensor] = None):
+def launch(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[torch.Tensor] = None,
+           any_kernel: bool = False):
     """The op's CUDA implementation, one kernel launch: fp32 contiguous CUDA
     tensors -> (residual (B, H, W, 2), log_softmax (B, H, W, P, P)), fresh
     tensors. ``staged_count``, one int32 element on the same card, receives
     the number of tiles whose taps the kernel staged in shared memory (added
-    to it)."""
+    to it). ``any_kernel`` sends C in {4, 8, 16} at P <= 5 to the kernel
+    that takes the rest of C <= 16 as well (the op never does: it is there
+    to compare the two on the same shapes)."""
     global LAUNCHES
     _check(q, f, flow, bias, p, staged_count)
     b, h, w, c = q.shape
@@ -391,7 +395,8 @@ def launch(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), f.data_ptr(), flow.data_ptr(), bias.data_ptr(), residual.data_ptr(), log_softmax.data_ptr(),
-            None if staged_count is None else staged_count.data_ptr(), b, h, w, c, p, float(temperature), stream,
+            None if staged_count is None else staged_count.data_ptr(), b, h, w, c, p, float(temperature),
+            int(any_kernel), stream,
         )
         LAUNCHES += 1
     if err != 0:
@@ -411,14 +416,20 @@ def plain(q, f, flow, bias, temperature: float, p: int, staged_count: Optional[t
     return out
 
 
-def launch_backward(q, f, flow, bias, log_softmax, g_residual, g_log_softmax, temperature: float, p: int):
-    """The backward op's CUDA implementation, one call (two kernels: the
-    gradients, with per-tile partial sums of dbias, then the sum of those
-    partials in a fixed order): fp32 contiguous CUDA tensors -> (dq, df,
-    dflow, dbias), fresh tensors. dq, dflow and dbias are the same bits on
-    every call; df is summed with atomics, in an order that varies."""
+def launch_backward(q, f, flow, bias, log_softmax, g_residual, g_log_softmax, temperature: float, p: int,
+                    staged_count: Optional[torch.Tensor] = None):
+    """The backward op's CUDA implementation, one call (the gradients, with
+    per-tile partial sums of dbias, in a kernel for the tiles read from
+    global memory and, at a width that stages, one for the staged tiles; then
+    the sum of the partials in a fixed order): fp32 contiguous CUDA tensors
+    -> (dq, df, dflow, dbias), fresh tensors. dq, dflow and dbias are the
+    same bits on every call; df is summed with atomics, in an order that
+    varies.
+    ``staged_count``, one int32 element on the same card, receives the
+    number of tiles whose taps the kernel staged in shared memory (added to
+    it; the same tiles as the forward's, :func:`staged_tiles`)."""
     global BWD_LAUNCHES
-    _check(q, f, flow, bias, p, None, op="window_refinement_bwd")
+    _check(q, f, flow, bias, p, staged_count, op="window_refinement_bwd")
     _check_tensors("window_refinement_bwd", (("q", q), ("log_softmax", log_softmax), ("g_residual", g_residual),
                                              ("g_log_softmax", g_log_softmax)))
     b, h, w, c = q.shape
@@ -433,13 +444,16 @@ def launch_backward(q, f, flow, bias, log_softmax, g_residual, g_log_softmax, te
     if dq.numel() == 0:
         return dq, df, torch.zeros_like(flow), torch.zeros_like(bias)
     partials = torch.empty((tile_count(b, h, w), p * p), dtype=torch.float32, device=q.device)
+    plans = torch.empty((tile_count(b, h, w), 4), dtype=torch.int32, device=q.device)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), f.data_ptr(), flow.data_ptr(), log_softmax.data_ptr(), g_residual.data_ptr(),
             g_log_softmax.data_ptr(), dq.data_ptr(), df.data_ptr(), dflow.data_ptr(), dbias.data_ptr(),
-            partials.data_ptr(), b, h, w, c, p, float(temperature), stream,
+            partials.data_ptr(), plans.data_ptr(), None if staged_count is None else staged_count.data_ptr(), b, h, w,
+            c, p,
+            float(temperature), stream,
         )
         BWD_LAUNCHES += 1
     if err != 0:

@@ -95,9 +95,14 @@ def covariance_nll_loss(
 def covisibility_bce_loss(
     logits: torch.Tensor, gt_mask: torch.Tensor, valid: Optional[torch.Tensor] = None, group=None
 ) -> torch.Tensor:
-    """Binary cross-entropy on covisibility logits (B, H, W)."""
+    """Binary cross-entropy on covisibility logits (B, H, W). At a logit of
+    exactly 0 (a pixel whose head features are all zero, as random weights
+    with zero biases give) the gradient is JAX's: ``jnp.maximum``'s 0.5 at the
+    tie and ``jnp.abs``'s slope of 1 at 0, where ``clamp`` and ``abs`` would
+    give 1 and 0."""
     gt = gt_mask.to(logits.dtype)
-    bce = logits.clamp(min=0) - logits * gt + torch.log1p(torch.exp(-logits.abs()))
+    magnitude = torch.where(logits >= 0, logits, -logits)
+    bce = torch.maximum(logits, torch.zeros_like(logits)) - logits * gt + torch.log1p(torch.exp(-magnitude))
     return _masked_mean(bce, valid, group)
 
 
