@@ -101,6 +101,24 @@ direct predict of its pair among other neighbours; ``stream`` drives
 The UFM-Refine stage breakdown (``refine_path``) runs eagerly: its CUDA
 events sit around Python calls that a replay does not make.
 
+Every model variant through every entry point of the JAX package (each
+path's launches counted exactly, and no call of the plain attention or
+window refinement): ``refine_serve`` and ``refine_stream`` drive UFM-Refine
+through the daemon and ``stream_predict`` as ``serve`` and ``stream`` drive
+UFM-Base, and ``stream_predict_staged`` with the network's backbone and
+refinement tail as its two stages; ``serve`` and ``refine_serve`` give the
+batch-size dependence in px (a pair at batch 4 against the pair alone,
+held within 0.1 px); ``artifact_batch4`` runs ``ufm export --random-init
+--batch 4`` for both models in this process, holds each artifact bitwise to
+the live network and serves it through ``ufm serve --artifact`` (the lane
+width pinned to 4) under 8 clients; ``uniflowmatch`` runs the variant
+without the uncertainty head (requests eager and captured, a batch-1
+artifact, training with its gradients against plain attention);
+``refine_fp32`` runs UFM-Refine in fp32 (the mma attention pair beside the
+window pair: requests, training, gradients against the plain step);
+``refine_remat`` the UFM-Refine step under two remat policies and
+``refine_sharded`` its sharded step on the world-1 mesh.
+
 Deployment (the kernels are dispatcher ops, ``ufm_torch/ops/library.py``, so
 ``torch.export`` traces them as graph nodes): ``export`` exports the
 flagship UFM-Base on the card at batch 1 (parameters stored in fp32 and in
@@ -462,6 +480,14 @@ PROFILE_REQUESTS = 5
 SLOT_BAR = 5e-3
 # stream: pairs through stream_predict in lane-width batches (the last padded)
 STREAM_PAIRS = 14
+# serve: a pair's flow in a lane-width batch against the pair alone at batch
+# 1 (another program: other GEMM and convolution algorithms), end-point
+# difference in px: the 0.1 px EPE drift budget of SURVEY.md 6, held on
+# every pixel
+BATCH_DRIFT_BUDGET_PX = 0.1
+# artifact_batch4: the lane width `ufm serve --artifact` is asked for; the
+# CLI pins it to the artifact's batch (SERVE_MAX_BATCH)
+SERVE_ARTIFACT_ASKED_BATCH = 2
 # export: an artifact's raw outputs against the live network on the same
 # inputs (the same kernels and ops: bitwise expected), flow relative L2 and
 # covisibility max abs difference; parameters stored in bf16 against the fp32
@@ -503,6 +529,41 @@ def mlp_path(path: str, gelu: int, fused: int, mlps: int, grad: bool = False) ->
     FUSED_LAUNCHES[path] = FUSED_LAUNCHES.get(path, 0) + fused
     want = (mlps, 0) if grad else (0, mlps)
     check((gelu, fused) == want, f"{path}: {gelu} GELU / {fused} fused fc1 + GELU launches, expected {want}")
+
+
+# the kernels' names in the summary, in the launch counters' order
+# (ufm_torch.ops.launches)
+COUNTER_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
+                   "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any", "window_refinement_bwd")
+# the launches of the paths recorded by record_path, {path: {kernel: n}}
+# (the two MLP kernels: mlp_path)
+PATH_LAUNCHES = {}
+
+
+def record_path(path: str, launched, mlps: int, grad: bool = False) -> None:
+    """Record a path's launches (a ``ufm_torch.ops.launches`` tuple) for the
+    kernels' summary: each attention and window kernel it ran, and the two
+    MLP kernels through ``mlp_path`` (held there to ``mlps`` MLP forwards;
+    a path with no bf16 MLP must launch neither)."""
+    launched = tuple(launched)
+    counts = PATH_LAUNCHES.setdefault(path, {})
+    for name, n in zip(COUNTER_KERNELS, launched):
+        if n and name not in ("gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
+            counts[name] = counts.get(name, 0) + n
+    if mlps:
+        mlp_path(path, launched[GELU_AT], launched[FUSED_AT], mlps, grad)
+    else:
+        check(launched[GELU_AT] == launched[FUSED_AT] == 0, f"{path}: launches {launched}, expected no MLP kernel")
+
+
+def with_recorded_paths(kernel: dict) -> dict:
+    """``kernel`` (one entry of the summary) with the recorded paths that
+    ran it added to its ``launches_by_path`` and ``launches``."""
+    for path, counts in PATH_LAUNCHES.items():
+        if kernel["name"] in counts:
+            kernel["launches_by_path"][path] = counts[kernel["name"]]
+            kernel["launches"] += counts[kernel["name"]]
+    return kernel
 
 
 def time_ms(fn, reps: int = 10, batches: int = 7) -> float:
@@ -1360,8 +1421,10 @@ def phase_bf16_golden():
 
 
 def _outputs_equal(a, b) -> bool:
-    fields = lambda r: (r.flow.flow_output, r.flow.flow_covariance, r.covisibility.mask, r.keypoint_confidence)
-    return all(torch.equal(x, y) for x, y in zip(fields(a), fields(b)))
+    def fields(r):
+        return r.flow.flow_output, r.flow.flow_covariance, r.covisibility and r.covisibility.mask, r.keypoint_confidence
+
+    return all(x is y if x is None or y is None else torch.equal(x, y) for x, y in zip(fields(a), fields(b)))
 
 
 def phase_checkpoint(model, pair):
@@ -2053,11 +2116,24 @@ def phase_train_self_check(model, batch):
 # forward launches and backward calls, 36 GELU launches, and one launch each
 # of the window forward and backward
 REFINE_TRAIN_EACH = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1, GELU_PER_FORWARD, 0, 0, 0, 1)
+# a bf16 UFM-Base (or UniFlowMatch) train step: 36 attention forward launches
+# and backward calls, 36 GELU launches
+BF16_TRAIN_EACH = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0, GELU_PER_FORWARD, 0, 0, 0, 0)
 # the kernels of the window backward at a width that stages (C <= 16, C % 4
 # == 0), by the name of their __global__ function: the direct kernel, the
 # staged kernel, the dbias sum
 WINDOW_BWD_KERNEL_NAMES = ("window_refinement_bwd_kernel", "window_refinement_bwd_staged_kernel",
                            "window_refinement_bias_kernel")
+# UFM-Refine in fp32: each train step 36 mma attention forward launches and
+# backward calls, one window forward and one window backward launch
+REFINE_FP32_TRAIN_EACH = (0, 0, 1, 0, 0, ANY_PER_FORWARD, ANY_BWD_PER_STEP, 1)
+# UniFlowMatch (no uncertainty head): the metrics of the JAX package's
+# ufm_total_loss for its outputs (tests/test_torch_port_paths.py holds the
+# port's names to JAX's)
+FLOW_ONLY_METRICS = ("flow_loss", "epe", "total_loss")
+# UFM-Refine under remat (refine_remat): no remat, then the two policies of
+# REMAT_CASES that recompute the attention forward and that keep it
+REFINE_REMAT_CASES = tuple(c for c in REMAT_CASES if c[0] in ("none", "nothing_saveable", "attn_out"))
 # the seeds of refine_train_self_check's batch-1 synthetic batches
 REFINE_SELF_CHECK_SEEDS = (0, 1, 2)
 # the widened UFM-Refine (wide_refine_config): window P and feature width C
@@ -2066,30 +2142,35 @@ WIDE_WINDOW = (9, 12)
 
 
 @contextlib.contextmanager
-def _plain_window_calls():
-    """Count calls of the window refinement's plain versions (forward and
-    backward) while the block runs: a list whose one entry is the count.
-    The model reaches the forward through ops.refinement's own name for it."""
+def _plain_calls():
+    """Count calls of the plain versions of the attention (forward and
+    backward) and of the window refinement (forward and backward) while the
+    block runs, in any thread: a dict {"attention": n, "window": n}. The
+    models reach the plain forwards through ops.attention's and
+    ops.refinement's own names for them."""
+    from ufm_torch.ops import attention as at
+    from ufm_torch.ops import flash_attention as fa
     from ufm_torch.ops import refinement as rf
     from ufm_torch.ops import window_refinement as wr
 
-    calls = [0]
-    patched = [(wr, "window_refinement_reference"), (rf, "window_refinement_reference"),
-               (wr, "window_refinement_backward_reference")]
-    saved = [getattr(m, name) for m, name in patched]
+    calls = {"attention": 0, "window": 0}
+    patched = [("attention", fa, "attention_reference"), ("attention", at, "attention_reference"),
+               ("attention", fa, "attention_backward_reference"), ("window", wr, "window_refinement_reference"),
+               ("window", rf, "window_refinement_reference"), ("window", wr, "window_refinement_backward_reference")]
+    saved = [getattr(m, name) for _, m, name in patched]
 
-    def counting(fn):
+    def counting(kind, fn):
         def wrapper(*args, **kwargs):
-            calls[0] += 1
+            calls[kind] += 1
             return fn(*args, **kwargs)
         return wrapper
 
-    for (m, name), fn in zip(patched, saved):
-        setattr(m, name, counting(fn))
+    for (kind, m, name), fn in zip(patched, saved):
+        setattr(m, name, counting(kind, fn))
     try:
         yield calls
     finally:
-        for (m, name), fn in zip(patched, saved):
+        for (_, m, name), fn in zip(patched, saved):
             setattr(m, name, fn)
 
 
@@ -2124,30 +2205,41 @@ def _device_ms(fn, names):
             "named_ms": named_us / 1e3, "named_kernels": named}
 
 
-def phase_refine_train(config=None, label="refine_train", path="ufm_refine_train"):
-    """UFM-Refine (``ufm_refine_config()``: the UNet and the patch MLP, bf16
-    backbone, 5 x 5 window at C = 16; or ``config``) trains at TRAIN_BATCH on
-    TRAIN_HW: TRAIN_STEPS of make_train_step, then FIT_STEPS of fit, each
-    step's launches held to REFINE_TRAIN_EACH, no call of the window
-    refinement's plain versions, finite metrics, a falling loss; the spans,
-    step ms, pairs/s, peak memory, one more step under the profiler for the
+def phase_model_train(cls=None, config=None, label="refine_train", path="ufm_refine_train", each=None,
+                      metric_names=None, falls_through_fit=True):
+    """A model (``cls``, UFM-Refine by default) on ``config``
+    (``ufm_refine_config()`` by default: the UNet and the patch MLP, bf16
+    backbone, 5 x 5 window at C = 16) trains at TRAIN_BATCH on TRAIN_HW:
+    TRAIN_STEPS of make_train_step, then FIT_STEPS of fit, each step's
+    launches held to ``each`` (REFINE_TRAIN_EACH by default), no call of the
+    plain attention or window refinement, finite metrics (named
+    ``metric_names`` where given; a refine model's include the refinement
+    loss), a loss that falls from the first step to the last (to the last of
+    make_train_step's without ``falls_through_fit``: fit's fresh optimizer
+    may take a first step up); the spans, step ms, pairs/s, peak memory, one more
+    step under the profiler (its busy ms and idle share; for UFM-Refine the
     window backward's kernel ms within it, and the staged-tile share of the
-    model's own regression flow in that step. ``path`` names the path in the
-    kernels' launch counts."""
+    model's own regression flow in that step). ``path`` names the path in
+    the kernels' launch counts."""
     from ufm_torch.models import UniFlowMatchClassificationRefinement, ufm_refine_config
     from ufm_torch.ops import launches as counters
     from ufm_torch.ops import window_refinement as wr
     from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
 
+    each = each or REFINE_TRAIN_EACH
     t0 = time.perf_counter()
-    model = UniFlowMatchClassificationRefinement.from_config(config or ufm_refine_config(), seed=0)
+    model = (cls or UniFlowMatchClassificationRefinement).from_config(config or ufm_refine_config(), seed=0)
     net = model.net
+    refine = model.config.has_classification_head
     batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
     optimizer = make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS)
     step = make_train_step(net, optimizer)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    p, c = model.config.refinement_range, model.config.classification_head_kwargs["output_dim"]
+    window = {}
+    if refine:
+        window = {"window_p": model.config.refinement_range,
+                  "window_c": model.config.classification_head_kwargs["output_dim"]}
     losses, refine_losses, times = [], [], []
 
     def run():
@@ -2158,18 +2250,21 @@ def phase_refine_train(config=None, label="refine_train", path="ufm_refine_train
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             launched = counters.since(before)
-            check(launched == REFINE_TRAIN_EACH, f"refine train step {i}: launches {launched} (wgmma fwd / bwd, "
-                  f"window, GELU, fused fc1 + GELU, mma fwd / bwd, window bwd), expected {REFINE_TRAIN_EACH}")
+            check(launched == each, f"{label} step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, "
+                  f"fused fc1 + GELU, mma fwd / bwd, window bwd), expected {each}")
             vals = {k: v.item() for k, v in metrics.items()}
-            check(all(np.isfinite(v) for v in vals.values()) and "refinement_loss" in vals,
-                  f"refine train step {i}: metrics {vals}")
+            check(all(np.isfinite(v) for v in vals.values()) and ("refinement_loss" in vals) == refine,
+                  f"{label} step {i}: metrics {vals}")
+            check(metric_names is None or set(vals) == set(metric_names),
+                  f"{label} step {i}: metric names {sorted(vals)}, expected {sorted(metric_names or ())}")
             losses.append(vals["total_loss"])
-            refine_losses.append(vals["refinement_loss"])
+            if refine:
+                refine_losses.append(vals["refinement_loss"])
             emit(f"{label}_step", step=i, seconds=times[-1], **vals)
 
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()  # the UFM-Refine training path's counts start here
-    with _plain_window_calls() as plain_calls:
+    counters.reset()  # this training path's counts start here
+    with _plain_calls() as plain_calls:
         spans = _span_ms(net, optimizer, run)
         peak = torch.cuda.max_memory_allocated()
         fit_losses = []
@@ -2181,47 +2276,52 @@ def phase_refine_train(config=None, label="refine_train", path="ufm_refine_train
         fit_launched = counters.since(before)
         launched = counters.snapshot()
         tail_events = []
-        net.refine_tail = _timed(net.refine_tail, tail_events)  # its third argument is the regression flow
-        profiled = _device_ms(lambda: step(batch), WINDOW_BWD_KERNEL_NAMES)
-        del net.refine_tail  # back to the method
-    regression_flow = tail_events[-1][2][2].detach()
-    staged_share = wr.staged_tiles(regression_flow, p, c) / wr.tile_count(*regression_flow.shape[:3])
-    check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"refine fit ran {out['step']} steps")
-    check(all(np.isfinite(v) for v in fit_losses), f"refine fit: non-finite losses {fit_losses}")
-    check(fit_launched == tuple(FIT_STEPS * n for n in REFINE_TRAIN_EACH),
-          f"refine fit: launches {fit_launched} over {FIT_STEPS} steps")
-    check(plain_calls[0] == 0, f"UFM-Refine training called the window refinement's plain versions {plain_calls[0]} times")
-    check(profiled["named_kernels"] == len(WINDOW_BWD_KERNEL_NAMES),
-          f"the profiled step ran {profiled['named_kernels']} window backward kernels, expected "
-          f"{len(WINDOW_BWD_KERNEL_NAMES)}")
+        if refine:
+            net.refine_tail = _timed(net.refine_tail, tail_events)  # its third argument is the regression flow
+        profiled = _device_ms(lambda: step(batch), WINDOW_BWD_KERNEL_NAMES if refine else ())
+        if refine:
+            del net.refine_tail  # back to the method
+    if refine:
+        regression_flow = tail_events[-1][2][2].detach()
+        window["window_staged_tile_share_in_step"] = wr.staged_tiles(
+            regression_flow, window["window_p"], window["window_c"]) / wr.tile_count(*regression_flow.shape[:3])
+        window["window_bwd_kernel_ms_in_step"] = profiled["named_ms"]
+        # the window backward's kernels, one each (at C <= 16, C % 4 == 0)
+        check(profiled["named_kernels"] == len(WINDOW_BWD_KERNEL_NAMES),
+              f"the profiled step ran {profiled['named_kernels']} window backward kernels, expected "
+              f"{len(WINDOW_BWD_KERNEL_NAMES)}")
+    check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"{label} fit ran {out['step']} steps")
+    check(all(np.isfinite(v) for v in fit_losses), f"{label} fit: non-finite losses {fit_losses}")
+    check(fit_launched == tuple(FIT_STEPS * n for n in each), f"{label} fit: launches {fit_launched} over {FIT_STEPS} steps")
+    check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
     trajectory = losses + fit_losses
-    check(trajectory[-1] < trajectory[0], f"{label}: the loss did not fall on the fixed batch: {trajectory}")
+    falling = trajectory if falls_through_fit else losses
+    check(falling[-1] < falling[0], f"{label}: the loss did not fall on the fixed batch: {trajectory}")
     steps = TRAIN_STEPS + FIT_STEPS
-    mlp_path(path, launched[GELU_AT], launched[FUSED_AT], steps * GELU_PER_FORWARD, grad=True)
-    launches = {"flash_attention_fwd": launched[0], "flash_attention_bwd": launched[1],
-                "window_refinement_fwd": launched[WINDOW_AT], "window_refinement_bwd": launched[WINDOW_BWD_AT]}
+    record_path(path, launched, steps * each[GELU_AT], grad=True)
+    launches = dict(zip(COUNTER_KERNELS, launched))
     step_s = statistics.median(times[1:])
-    emit(label, model="ufm_refine", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), window_c=c, window_p=p,
-         setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, fit_learning_rate=FIT_LR, steps=steps,
-         launches=launches, launches_per_step=list(REFINE_TRAIN_EACH), plain_window_calls=plain_calls[0],
-         first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s, spans_ms=spans,
-         max_memory_allocated=peak, loss_trajectory=trajectory, refinement_loss_trajectory=refine_losses,
-         profiled_step_ms=profiled["wall_ms"], profiled_step_device_busy_ms=profiled["device_busy_ms"],
-         profiled_step_idle_share=profiled["idle_share"], window_bwd_kernel_ms_in_step=profiled["named_ms"],
-         window_staged_tile_share_in_step=staged_share)
+    emit(label, model=type(model).__name__, compute_dtype=model.config.compute_dtype, batch=TRAIN_BATCH,
+         input_hw=list(TRAIN_HW), setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+         fit_learning_rate=FIT_LR, steps=steps, launches=launches, launches_per_step=list(each),
+         plain_calls=plain_calls, first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s,
+         spans_ms=spans, max_memory_allocated=peak, loss_trajectory=trajectory,
+         refinement_loss_trajectory=refine_losses, profiled_step_ms=profiled["wall_ms"],
+         profiled_step_device_busy_ms=profiled["device_busy_ms"], profiled_step_idle_share=profiled["idle_share"],
+         **window)
     del out, step, optimizer
     _free_card_memory()
     return model, batch, launches
 
 
 @contextlib.contextmanager
-def _fp32_plain_attention():
+def _wide_plain_attention(dtype=torch.float32):
     """While the block runs, the plain attention (impl ``"torch"``) computes
-    in fp32: q, k and v upcast, the output cast back to their dtype."""
+    in ``dtype``: q, k and v upcast, the output cast back to their dtype."""
     from ufm_torch.ops import attention as at
 
     plain = at.attention_reference
-    at.attention_reference = lambda q, k, v, scale: plain(q.float(), k.float(), v.float(), scale).to(q.dtype)
+    at.attention_reference = lambda q, k, v, scale: plain(q.to(dtype), k.to(dtype), v.to(dtype), scale).to(q.dtype)
     try:
         yield
     finally:
@@ -2239,15 +2339,17 @@ def _refine_classes(regression_flow, gt_flow, p):
     return torch.where(inside, iy * p + jx, -1)
 
 
-def phase_refine_train_self_check(model, label="refine_train_self_check", against_plain_step=True):
+def phase_refine_train_self_check(model, label="refine_train_self_check", against_plain_step=True,
+                                  train_each=None, bound=TRAIN_GRAD_REL_L2_BOUND):
     """Each optimizer group's gradient of one step at batch 1, on the
     synthetic batch of each of REFINE_SELF_CHECK_SEEDS with its own ground
     truth, four ways: through every kernel (REFINE_TRAIN_EACH launches, the
     backward ones twice: see below); with the plain window refinement (the
     attention kernels kept: the window kernels' own part); with plain
     attention and the plain window refinement (the plain step: bf16 logits,
-    as the JAX package's plain attention); and the plain step with its
-    attention in fp32 (q, k, v upcast), the witness. Without
+    as the JAX package's plain attention, for a bf16 model); and the plain
+    step with its attention in a wider type (q, k, v upcast: fp32 for a bf16
+    model, fp64 for an fp32 one), the witness. Without
     ``against_plain_step`` only the first two.
 
     The refinement loss's target class is the rounded offset from a step's
@@ -2260,18 +2362,22 @@ def phase_refine_train_self_check(model, label="refine_train_self_check", agains
     fixed_flow, one["gt_flow"], one.get("valid"))``, where fixed_flow is the
     witness's regression flow (without ``against_plain_step``, the kernel
     step's), detached as the loss detaches its own. Held, each group, with
-    the classes fixed: the kernel step within TRAIN_GRAD_REL_L2_BOUND of the
-    plain-window step and of the plain step. Reported: the same readings of
-    the loss as it is (each step's own classes), the plain step's distance
-    from the witness, and the share of pixels whose class differs between
-    two steps' own regression flows."""
+    the classes fixed: the kernel step within ``bound`` of the plain-window
+    step and of the plain step. ``train_each``: a train step's launches
+    (REFINE_TRAIN_EACH by default). Reported: the same readings of the loss
+    as it is (each step's own classes), the plain step's distance from the
+    witness, the share of pixels whose class differs between two steps' own
+    regression flows, and the share of flow components whose whole pixel
+    (where the window's bilinear taps have a kink) does."""
     from ufm_torch.ops import launches
     from ufm_torch.training import refinement_classification_loss, synthetic_batch, ufm_total_loss
 
     p = model.config.refinement_range
     net = model.net
+    wide = torch.float64 if model.config.compute_dtype == "float32" else torch.float32
     # one forward, two backward passes (the loss with fixed classes, then as it is)
-    each = tuple(n * (2 if i in (1, ANY_BWD_AT, WINDOW_BWD_AT) else 1) for i, n in enumerate(REFINE_TRAIN_EACH))
+    each = tuple(n * (2 if i in (1, ANY_BWD_AT, WINDOW_BWD_AT) else 1)
+                 for i, n in enumerate(train_each or REFINE_TRAIN_EACH))
 
     def grads(attention, window, step_label, fixed_flow):
         """The groups' gradients of one step on ``one`` with the classes of
@@ -2306,35 +2412,37 @@ def phase_refine_train_self_check(model, label="refine_train_self_check", agains
     for seed in REFINE_SELF_CHECK_SEEDS:
         one = synthetic_batch(1, *TRAIN_HW, seed=seed, device="cuda")
         if against_plain_step:
-            with _fp32_plain_attention():
-                r_fixed, r_own, c_ref, fixed_flow = grads("torch", "torch", "plain step, fp32 attention", None)
-            k_fixed, k_own, c_kernel, _ = grads(None, None, "kernels", fixed_flow)
+            with _wide_plain_attention(wide):
+                r_fixed, r_own, c_ref, fixed_flow = grads("torch", "torch", "plain step, wide attention", None)
+            k_fixed, k_own, c_kernel, k_flow = grads(None, None, "kernels", fixed_flow)
         else:
             k_fixed, k_own, c_kernel, fixed_flow = grads(None, None, "kernels", None)
         w_fixed, w_own, _, _ = grads(None, "torch", "plain window refinement", fixed_flow)
         row = {"vs_plain_window": _rel_l2(k_fixed, w_fixed), "vs_plain_window_own_classes": _rel_l2(k_own, w_own),
                "supervised_share": (c_kernel >= 0).float().mean().item()}
         if against_plain_step:
-            p_fixed, p_own, c_plain, _ = grads("torch", "torch", "plain attention and window refinement", fixed_flow)
+            p_fixed, p_own, c_plain, p_flow = grads("torch", "torch", "plain attention and window refinement", fixed_flow)
             check(set(k_fixed) == set(w_fixed) == set(p_fixed) == set(r_fixed), f"{label}: gradient groups differ")
             row.update(
                 vs_plain=_rel_l2(k_fixed, p_fixed), vs_plain_own_classes=_rel_l2(k_own, p_own),
                 vs_witness=_rel_l2(k_fixed, r_fixed), vs_witness_own_classes=_rel_l2(k_own, r_own),
                 plain_vs_witness=_rel_l2(p_fixed, r_fixed), plain_vs_witness_own_classes=_rel_l2(p_own, r_own),
                 class_flip_share={"kernel_vs_plain": (c_kernel != c_plain).float().mean().item(),
-                                  "plain_vs_witness": (c_plain != c_ref).float().mean().item()})
+                                  "plain_vs_witness": (c_plain != c_ref).float().mean().item()},
+                whole_pixel_flip_share=(torch.floor(k_flow) != torch.floor(p_flow)).float().mean().item())
             del p_fixed, p_own, r_fixed, r_own
         by_seed[seed] = row
         del k_fixed, k_own, w_fixed, w_own
     held = ("vs_plain_window", "vs_plain") if against_plain_step else ("vs_plain_window",)
     emit(label, batch=1, seeds=list(REFINE_SELF_CHECK_SEEDS), window_p=p, by_seed=by_seed,
-         bound=TRAIN_GRAD_REL_L2_BOUND, launches=list(each), held_with_fixed_classes=list(held),
+         bound=bound, launches=list(each), held_with_fixed_classes=list(held),
+         witness_attention=str(wide).replace("torch.", "") if against_plain_step else None,
          classes_fixed_by="the witness's regression flow" if against_plain_step else "the kernel step's regression flow")
     for seed, row in by_seed.items():
         for name in held:
             for k, r in row[name].items():
-                check(r <= TRAIN_GRAD_REL_L2_BOUND, f"{label}, seed {seed}, kernels {name.replace('_', ' ')} (fixed "
-                      f"classes), group {k}: relative L2 {r:.3e} > {TRAIN_GRAD_REL_L2_BOUND}")
+                check(r <= bound, f"{label}, seed {seed}, kernels {name.replace('_', ' ')} (fixed "
+                      f"classes), group {k}: relative L2 {r:.3e} > {bound}")
 
 
 def wide_refine_config():
@@ -2355,10 +2463,9 @@ def phase_wide_refine():
     predict_correspondences_batched, eager and captured (phase_captured: 36
     attention, 36 fc1 + GELU and 1 window launches a request, the replay's
     kernels seen by the profiler); the batch-2 train steps of
-    phase_refine_train; the gradient check of phase_refine_train_self_check
+    phase_model_train; the gradient check of phase_refine_train_self_check
     against the plain window refinement with fixed classes. No call of the
-    window refinement's plain versions in the first two. Returns the
-    window kernels' launches by path."""
+    plain attention or window refinement in the first two."""
     from ufm_torch.models import UniFlowMatchClassificationRefinement
 
     cfg = wide_refine_config()
@@ -2369,17 +2476,15 @@ def phase_wide_refine():
     emit("wide_refine_model", seconds=time.perf_counter() - t0, params=sum(x.numel() for x in model.parameters()),
          window_p=p, window_c=c)
     pair = tuple(np.random.default_rng(5).integers(0, 256, (2, *TRAIN_HW, 3), dtype=np.uint8))
-    with _plain_window_calls() as plain_calls:
-        captured = phase_captured(model, "ufm_refine_wide", pair, (1,), refine=True,
-                                  window_kernel="window_refinement_fwd_any_kernel")
-    check(plain_calls[0] == 0, f"the widened UFM-Refine request called the plain window versions {plain_calls[0]} times")
+    with _plain_calls() as plain_calls:
+        phase_captured(model, "ufm_refine_wide", pair, (1,), refine=True, window_kernel="window_refinement_fwd_any_kernel")
+    check(plain_calls == {"attention": 0, "window": 0}, f"the widened UFM-Refine request called plain versions: {plain_calls}")
     del model
     _free_card_memory()
-    train_model, _, train_launches = phase_refine_train(cfg, label="wide_refine_train", path="ufm_refine_wide_train")
+    train_model, _, _ = phase_model_train(config=cfg, label="wide_refine_train", path="ufm_refine_wide_train")
     phase_refine_train_self_check(train_model, label="wide_refine_train_self_check", against_plain_step=False)
     del train_model
     _free_card_memory()
-    return {"captured": captured, "train": train_launches}
 
 
 def _world1_group():
@@ -2446,63 +2551,62 @@ def _free_card_memory():
     torch.cuda.empty_cache()
 
 
-def _train_steps(step, batch, n, label,
-                 launches_each=(LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD)):
+def _train_steps(step, batch, n, label, each=BF16_TRAIN_EACH):
     """``n`` train steps on ``batch``: host seconds, metrics; each step's
-    attention forward, backward and GELU launches held to ``launches_each``."""
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
+    launches (``ufm_torch.ops.launches`` order) held to ``each``."""
+    from ufm_torch.ops import launches as counters
 
     times, metrics = [], []
     for i in range(n):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES)
+        before = counters.snapshot()
         t = time.perf_counter()
         m = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-        launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2])
-        check(launched == launches_each and lg.LAUNCHES == before[3],
-              f"{label} step {i}: {launched} attention forward / backward / GELU launches, expected {launches_each}, "
-              f"and {lg.LAUNCHES - before[3]} fused fc1 + GELU launches, expected 0")
-        check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == before[4:],
-              f"{label} step {i}: the bf16 step launched an mma attention kernel")
+        launched = counters.since(before)
+        check(launched == each, f"{label} step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, fused fc1 "
+              f"+ GELU, mma fwd / bwd, window bwd), expected {each}")
         vals = {k: v.item() for k, v in m.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
         metrics.append(vals)
     return times, metrics
 
 
-def phase_sharded_train():
+def phase_sharded_train(cls=None, config=None, label="sharded_train", path="ufm_base_sharded_train",
+                        each=BF16_TRAIN_EACH, with_fit=True):
     """make_sharded_train_step on a (1, 1, 1) mesh (FSDP2 over NCCL, one
-    rank) against make_train_step from the same weights and batch; then
-    fit(mesh=...) stopping after one step and resuming from its checkpoint."""
+    rank) against make_train_step from the same weights and batch, for a
+    model (``cls`` on ``config``: UFM-Base by default), each step's launches
+    held to ``each``, no call of the plain attention or window refinement;
+    then (``with_fit``) fit(mesh=...) stopping after one step and resuming
+    from its checkpoint. Returns the launches of the two by kernel."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
+    from ufm_torch.ops import launches as counters
     from ufm_torch.parallel import make_mesh
     from ufm_torch.training import fit, make_optimizer, make_sharded_train_step, make_train_step, synthetic_batch
+
+    def build():
+        return (cls or UniFlowMatchConfidence).from_config(config or ufm_base_config(), seed=0)
 
     # fit's rate without warm-up (FIT_LR): the loss falls step by step
     opt_kwargs = dict(learning_rate=FIT_LR, warmup_steps=0, total_steps=TRAIN_TOTAL_STEPS)
     batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=1, device="cuda")
 
-    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    model = build()
     initial = _param_snapshot(model.net)
     optimizer = make_optimizer(model.net, **opt_kwargs)
     step = make_train_step(model.net, optimizer)
     torch.cuda.reset_peak_memory_stats()
     ran = {}
     plain_spans = _span_ms(model.net, optimizer, lambda: ran.update(
-        zip(("times", "metrics"), _train_steps(step, batch, SHARDED_STEPS, "unsharded"))))
+        zip(("times", "metrics"), _train_steps(step, batch, SHARDED_STEPS, f"{label} unsharded", each))))
     plain_times, plain_metrics = ran["times"], ran["metrics"]
     plain_peak = torch.cuda.max_memory_allocated()
     plain_delta = _group_deltas(_stepped_values(model.net, optimizer), initial)
     del model, step, optimizer
     _free_card_memory()
 
-    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    model = build()
     check(all(torch.equal(p.detach().float().cpu(), initial[n]) for n, p in model.net.named_parameters()),
           "two models from seed 0 differ: the sharded step cannot be held to the unsharded one")
     mesh = make_mesh(1)
@@ -2512,42 +2616,48 @@ def phase_sharded_train():
     torch.cuda.synchronize()
     shard_s = time.perf_counter() - t
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the sharded path's counts start here
-    spans = _span_ms(net, optimizer, lambda: ran.update(
-        zip(("times", "metrics"), _train_steps(step, placed, SHARDED_STEPS, "sharded"))))
+    counters.reset()  # the sharded path's counts start here
+    with _plain_calls() as plain_calls:
+        spans = _span_ms(net, optimizer, lambda: ran.update(
+            zip(("times", "metrics"), _train_steps(step, placed, SHARDED_STEPS, label, each))))
     times, metrics = ran["times"], ran["metrics"]
     peak = torch.cuda.max_memory_allocated()
-    step_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
-    mlp_path("ufm_base_sharded_train", ge.LAUNCHES, lg.LAUNCHES, SHARDED_STEPS * GELU_PER_FORWARD, grad=True)
+    launched = counters.snapshot()
+    record_path(path, launched, SHARDED_STEPS * each[GELU_AT], grad=True)
+    step_launches = dict(zip(COUNTER_KERNELS, launched))
     delta = _group_deltas(_stepped_values(net, optimizer), initial)
     metric_rel = {k: abs(metrics[0][k] - v) / max(abs(v), 1e-12) for k, v in plain_metrics[0].items()}
     delta_rel = {k: ((delta[k] - d).norm() / d.norm()).item() for k, d in plain_delta.items()}
     losses = [m["total_loss"] for m in metrics]
     step_s, plain_s = statistics.median(times[1:]), statistics.median(plain_times[1:])
-    emit("sharded_train", mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), batch=TRAIN_BATCH, input_hw=list(TRAIN_HW),
-         steps=SHARDED_STEPS, shard_s=shard_s, step_s=times, step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s,
-         max_memory_allocated=peak, spans_ms=spans, unsharded_spans_ms=plain_spans,
+    emit(label, model=type(model).__name__, mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), batch=TRAIN_BATCH,
+         input_hw=list(TRAIN_HW), steps=SHARDED_STEPS, shard_s=shard_s, step_s=times, step_ms=step_s * 1e3,
+         pairs_per_s=TRAIN_BATCH / step_s, max_memory_allocated=peak, spans_ms=spans, unsharded_spans_ms=plain_spans,
          unsharded_step_s=plain_times, unsharded_step_ms=plain_s * 1e3,
          unsharded_pairs_per_s=TRAIN_BATCH / plain_s, unsharded_max_memory_allocated=plain_peak,
          losses=losses, unsharded_losses=[m["total_loss"] for m in plain_metrics],
-         step0_metric_rel=metric_rel, param_delta_rel_l2=delta_rel, launches=step_launches)
+         step0_metric_rel=metric_rel, metric_bound=SHARDED_METRIC_REL, param_delta_rel_l2=delta_rel,
+         launches=step_launches, launches_per_step=list(each), plain_calls=plain_calls)
+    check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
     check(set(metric_rel) == set(metrics[0]), f"metric names differ: {sorted(metrics[0])} vs {sorted(metric_rel)}")
     for k, r in metric_rel.items():
-        check(r <= SHARDED_METRIC_REL, f"sharded vs unsharded step 0: {k} relative difference {r:.3e} > {SHARDED_METRIC_REL}")
+        check(r <= SHARDED_METRIC_REL, f"{label} vs unsharded step 0: {k} relative difference {r:.3e} > {SHARDED_METRIC_REL}")
     for k, r in delta_rel.items():
-        check(r <= TRAIN_GRAD_REL_L2_BOUND, f"sharded vs unsharded parameter change, group {k}: relative L2 {r:.3e}")
-    check(losses[-1] < losses[0], f"sharded step: the loss did not fall on the fixed batch: {losses}")
+        check(r <= TRAIN_GRAD_REL_L2_BOUND, f"{label} vs unsharded parameter change, group {k}: relative L2 {r:.3e}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall on the fixed batch: {losses}")
     del model, net, optimizer, step, placed, initial, plain_delta, delta
     _free_card_memory()
+    if not with_fit:
+        return step_launches, None
 
     # fit(mesh=...): 1 step and its checkpoint (the data runs out), then a
     # new sharded net resumes it for the 2nd
     ckpt = os.path.join(ARTIFACT_DIR, "sharded_fit")
     shutil.rmtree(ckpt, ignore_errors=True)
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the sharded fit's counts start here
+    counters.reset()  # the sharded fit's counts start here
     runs = []
     for n_batches in (1, 1):
-        model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+        model = build()
         logs, seen = [], []
         t = time.perf_counter()
         out = fit(model.net, (batch for _ in range(n_batches)), num_steps=FIT_STEPS, learning_rate=FIT_LR, mesh=make_mesh(1),
@@ -2557,8 +2667,9 @@ def phase_sharded_train():
         runs.append({"seconds": time.perf_counter() - t, "step": out["step"], "losses": seen, "log": logs})
         del model, out
         _free_card_memory()
-    fit_launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
-    mlp_path("ufm_base_sharded_fit", ge.LAUNCHES, lg.LAUNCHES, FIT_STEPS * GELU_PER_FORWARD, grad=True)
+    launched = counters.snapshot()
+    fit_launches = dict(zip(COUNTER_KERNELS, launched))
+    record_path(f"{path.removesuffix('_train')}_fit", launched, FIT_STEPS * each[GELU_AT], grad=True)
     last = os.path.join(ckpt, str(FIT_STEPS), "train_state.pt")
     ckpt_bytes = os.path.getsize(last)  # one step's file
     state = torch.load(last, map_location="cpu", weights_only=True, mmap=True)
@@ -2568,8 +2679,7 @@ def phase_sharded_train():
     check([r["step"] for r in runs] == [1, FIT_STEPS], f"fit(mesh=...) stopped at {[r['step'] for r in runs]}")
     check(any("resumed from step 1" in line for line in runs[1]["log"]), f"the second fit did not resume: {runs[1]['log']}")
     check(all(np.isfinite(v) for r in runs for v in r["losses"]), "fit(mesh=...): non-finite losses")
-    check(fit_launches == {"flash_attention_fwd": FIT_STEPS * LAUNCHES_PER_FORWARD, "flash_attention_bwd": FIT_STEPS * LAUNCHES_PER_FORWARD},
-          f"fit(mesh=...) launches {fit_launches} over {FIT_STEPS} steps")
+    check(launched == tuple(FIT_STEPS * n for n in each), f"fit(mesh=...) launches {launched} over {FIT_STEPS} steps")
     shutil.rmtree(ckpt, ignore_errors=True)
     return step_launches, fit_launches
 
@@ -2634,43 +2744,53 @@ def _set_remat(net, remat, policy):
         stack.remat, stack.remat_policy = remat, policy
 
 
-def phase_remat():
-    """The batch-2 train step under train_remat with no policy and with each
-    of the JAX package's policy names: step time, peak memory and attention
-    forward and GELU launches a step; each policy's gradients against no
-    remat's."""
+def phase_remat(cls=None, config=None, cases=REMAT_CASES, label="remat", path="ufm_base_remat"):
+    """The batch-2 train step of a model (``cls`` on ``config``: UFM-Base by
+    default) under train_remat with no policy and with each of ``cases``
+    (the JAX package's policy names): step time, peak memory and the
+    launches a step (attention forward and GELU as each case gives them; a
+    UFM-Refine step one window forward and one window backward: the window
+    refinement lies outside the rematerialised blocks), no call of the
+    plain attention or window refinement; each policy's gradients against
+    no remat's (no remat against itself: the run-to-run spread)."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
+    from ufm_torch.ops import launches as counters
     from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
 
     _free_card_memory()
-    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    model = (cls or UniFlowMatchConfidence).from_config(config or ufm_base_config(), seed=0)
     net = model.net
+    window = int(model.config.has_classification_head)
     batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
     step = make_train_step(net, make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS))
-    rows = {label: {"policy": policy, "train_remat": remat, "attention_fwd_launches_per_step": fwd,
-                    "gelu_launches_per_step": gelu_fwd, "step_s": [], "max_memory_allocated": [], "resident_before": []}
-            for label, remat, policy, fwd, gelu_fwd in REMAT_CASES}
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+
+    def each_of(fwd, gelu_fwd):
+        return (fwd, LAUNCHES_PER_FORWARD, window, gelu_fwd, 0, 0, 0, window)
+
+    rows = {label_: {"policy": policy, "train_remat": remat, "launches_per_step": dict(zip(COUNTER_KERNELS, each_of(fwd, gelu_fwd))),
+                     "window_forward_recomputed": False if window else None,
+                     "step_s": [], "max_memory_allocated": [], "resident_before": []}
+            for label_, remat, policy, fwd, gelu_fwd in cases}
+    counters.reset()  # this path's counts start here
     # two rounds, the second in the reverse order: a case's numbers do not
     # depend on which case ran before it
-    for cases in (REMAT_CASES, REMAT_CASES[::-1]):
-        for label, remat, policy, fwd, gelu_fwd in cases:
-            each = (fwd, LAUNCHES_PER_FORWARD, gelu_fwd)
-            _set_remat(net, remat, policy)
-            _train_steps(step, batch, 1, f"remat {label} warm-up", each)
-            torch.cuda.reset_peak_memory_stats()
-            rows[label]["resident_before"].append(torch.cuda.memory_allocated())
-            times, _ = _train_steps(step, batch, REMAT_TIMED_STEPS, f"remat {label}", each)
-            rows[label]["step_s"] += times
-            rows[label]["max_memory_allocated"].append(torch.cuda.max_memory_allocated())
+    with _plain_calls() as plain_calls:
+        for round_cases in (cases, cases[::-1]):
+            for label_, remat, policy, fwd, gelu_fwd in round_cases:
+                each = each_of(fwd, gelu_fwd)
+                _set_remat(net, remat, policy)
+                _train_steps(step, batch, 1, f"{label} {label_} warm-up", each)
+                torch.cuda.reset_peak_memory_stats()
+                rows[label_]["resident_before"].append(torch.cuda.memory_allocated())
+                times, _ = _train_steps(step, batch, REMAT_TIMED_STEPS, f"{label} {label_}", each)
+                rows[label_]["step_s"] += times
+                rows[label_]["max_memory_allocated"].append(torch.cuda.max_memory_allocated())
+    check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
     for row in rows.values():
         row["step_ms"] = statistics.median(row["step_s"]) * 1e3
-    launches = {"flash_attention_fwd": fa.LAUNCHES, "flash_attention_bwd": fa.BWD_LAUNCHES}
-    mlp_path("ufm_base_remat", ge.LAUNCHES, lg.LAUNCHES, 2 * (1 + REMAT_TIMED_STEPS) * sum(c[4] for c in REMAT_CASES),
-             grad=True)
+    launched = counters.snapshot()
+    record_path(path, launched, 2 * (1 + REMAT_TIMED_STEPS) * sum(c[4] for c in cases), grad=True)
+    launches = dict(zip(COUNTER_KERNELS, launched))
     del step
     net.zero_grad(set_to_none=True)
     _free_card_memory()
@@ -2683,17 +2803,20 @@ def phase_remat():
         torch.cuda.synchronize()
         return _group_grads(net)
 
+    # no remat twice: the run-to-run spread (the window backward sums df by
+    # atomics in a varying order), the floor of every policy's reading
     _set_remat(net, False, None)
     reference = grads()
-    for label, remat, policy, _, _ in REMAT_CASES[1:]:
+    for label_, remat, policy, _, _ in cases:
         _set_remat(net, remat, policy)
         g = grads()
-        rows[label]["grad_rel_l2"] = {k: ((g[k] - r).norm() / r.norm()).item() for k, r in reference.items()}
+        rows[label_]["grad_rel_l2"] = {k: ((g[k] - r).norm() / r.norm()).item() for k, r in reference.items()}
         del g
-    emit("remat", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), cases=rows, launches=launches, bound=TRAIN_GRAD_REL_L2_BOUND)
-    for label, row in rows.items():
+    emit(label, model=type(model).__name__, batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), cases=rows, launches=launches,
+         plain_calls=plain_calls, bound=TRAIN_GRAD_REL_L2_BOUND)
+    for label_, row in rows.items():
         for k, r in row.get("grad_rel_l2", {}).items():
-            check(r <= TRAIN_GRAD_REL_L2_BOUND, f"remat {label} vs no remat, group {k}: gradient relative L2 {r:.3e}")
+            check(r <= TRAIN_GRAD_REL_L2_BOUND, f"{label} {label_} vs no remat, group {k}: gradient relative L2 {r:.3e}")
     del model, net, reference
     _free_card_memory()
     return launches
@@ -2776,10 +2899,10 @@ def phase_captured(model, label, pair, batches, refine, window_kernel="window_re
     each batch: one first call and three timed calls a mode; the captured
     mode's launches counted per call; one batch-1 request of each mode
     profiled (a UFM-Refine replay runs one ``window_kernel``); the modes'
-    outputs compared. Returns the captured mode's launches {kernel: n}."""
+    outputs compared (a model without the uncertainty head answers with no
+    covisibility in either mode). The captured mode's launches are recorded
+    as the path ``<label>_captured``. Returns the rows by batch."""
     from ufm_torch.models import base
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import window_refinement as wr
 
     # no other thread runs here: capture in the strictest mode, where any
     # call unsafe during a capture (the window launch queries its device and
@@ -2790,10 +2913,7 @@ def phase_captured(model, label, pair, batches, refine, window_kernel="window_re
 
 def _captured(model, label, pair, batches, refine, window_kernel):
     from ufm_torch.models import base
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
-    from ufm_torch.ops import window_refinement as wr
+    from ufm_torch.ops import launches as counters
 
     def request(b):
         src, tgt = pair
@@ -2810,43 +2930,43 @@ def _captured(model, label, pair, batches, refine, window_kernel):
             times.append(time.perf_counter() - t)
         return res, times
 
-    per_call = (LAUNCHES_PER_FORWARD, 1 if refine else 0, 0, GELU_PER_FORWARD)
+    per_call = (LAUNCHES_PER_FORWARD, 0, 1 if refine else 0, 0, GELU_PER_FORWARD, 0, 0, 0)
     torch.cuda.reset_peak_memory_stats()
-    rows, launched = {}, {"flash_attention_fwd": 0, "window_refinement_fwd": 0}
+    rows, launched = {}, (0,) * len(per_call)
     for b in batches:
         fn = request(b)
         model.capture_graphs = False
         eager, eager_times = timed(fn)
         model.capture_graphs = True
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the captured path's counts start here
+        counters.reset()  # the captured path's counts start here
         captured_times, calls = [], []
         for _ in range(4):  # the first call warms up and captures
+            before = counters.snapshot()
             t = time.perf_counter()
             res = fn()
             torch.cuda.synchronize()
             captured_times.append(time.perf_counter() - t)
-            calls.append((fa.LAUNCHES - sum(c[0] for c in calls), wr.LAUNCHES - sum(c[1] for c in calls),
-                          ge.LAUNCHES - sum(c[2] for c in calls), lg.LAUNCHES - sum(c[3] for c in calls)))
-        launched["flash_attention_fwd"] += fa.LAUNCHES
-        launched["window_refinement_fwd"] += wr.LAUNCHES
-        check(all(c == per_call for c in calls),
-              f"{label} b{b}: attention / window / GELU / fused fc1 + GELU launches per call {calls}, "
-              f"expected {per_call} each")
-        mlp_path(f"{label}_captured", ge.LAUNCHES, lg.LAUNCHES, len(calls) * GELU_PER_FORWARD)
+            calls.append(counters.since(before))
+        launched = tuple(a + n for a, n in zip(launched, counters.snapshot()))
+        check(all(c == per_call for c in calls), f"{label} b{b}: launches per call {calls} (wgmma fwd / bwd, window, "
+              f"GELU, fused fc1 + GELU, mma fwd / bwd, window bwd), expected {per_call} each")
+        record_path(f"{label}_captured", counters.snapshot(), len(calls) * GELU_PER_FORWARD)
 
         f_c, f_e = res.flow.flow_output.float(), eager.flow.flow_output.float()
         flow_rel = ((f_c - f_e).norm() / f_e.norm()).item()
-        covis_diff = (res.covisibility.mask - eager.covisibility.mask).abs().max().item()
+        covis_diff = 0.0 if res.covisibility is None else \
+            (res.covisibility.mask - eager.covisibility.mask).abs().max().item()
         row = dict(
             batch=b, input_hw=list(pair[0].shape[:2]),
             eager_first_s=eager_times[0], eager_latency_s=statistics.median(eager_times[1:]),
             captured_first_s=captured_times[0], captured_latency_s=statistics.median(captured_times[1:]),
             launches_per_call=calls, flow_max_abs_diff=(f_c - f_e).abs().max().item(), flow_rel_l2=flow_rel,
-            covis_max_abs_diff=covis_diff, bitwise_equal=_outputs_equal(res, eager), bar=CAPTURED_BAR,
-            capture_error_mode=base._CAPTURE_ERROR_MODE,
+            covisibility=res.covisibility is not None, covis_max_abs_diff=covis_diff,
+            bitwise_equal=_outputs_equal(res, eager), bar=CAPTURED_BAR, capture_error_mode=base._CAPTURE_ERROR_MODE,
         )
         row["speedup"] = row["eager_latency_s"] / row["captured_latency_s"]
         check(tuple(f_c.shape) == (b, 2, *pair[0].shape[:2]) and _finite(f_c), f"{label} b{b}: flow {tuple(f_c.shape)}")
+        check((res.covisibility is None) == (eager.covisibility is None), f"{label} b{b}: covisibility in one mode only")
         check(flow_rel <= CAPTURED_BAR, f"{label} b{b}: captured vs eager flow relative L2 {flow_rel:.3e} > {CAPTURED_BAR}")
         check(covis_diff <= CAPTURED_BAR, f"{label} b{b}: captured vs eager covisibility {covis_diff:.3e} > {CAPTURED_BAR}")
 
@@ -2857,7 +2977,7 @@ def _captured(model, label, pair, batches, refine, window_kernel):
             model.capture_graphs = True
             row.update(profiled_requests=PROFILE_REQUESTS, replay_profiled=replay, eager_profiled=eager_prof,
                        profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()})
-            want = {"flash_attention_fwd_kernel": per_call[0], "linear_gelu_bf16_fwd_kernel": per_call[3],
+            want = {"flash_attention_fwd_kernel": per_call[0], "linear_gelu_bf16_fwd_kernel": per_call[FUSED_AT],
                     **({window_kernel: 1} if refine else {})}
             want = {k: v * PROFILE_REQUESTS for k, v in want.items()}
             check(replay_counts == want,
@@ -2865,9 +2985,10 @@ def _captured(model, label, pair, batches, refine, window_kernel):
         rows[f"b{b}"] = row
         emit("captured", model=label, **row)
     peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(COUNTER_KERNELS, launched))
     emit("captured_memory", model=label, programs=len(model._programs), max_memory_allocated=peak,
-         memory_allocated=torch.cuda.memory_allocated(), launches=launched)
-    return launched
+         memory_allocated=torch.cuda.memory_allocated(), launches=launches)
+    return rows
 
 
 def _first_row_mixing_module(model, src, tgt):
@@ -2966,23 +3087,61 @@ def _http(port, path, body=None):
         return r.read()
 
 
-def phase_serve(model):
-    """``UFMServer`` on the flagship (lanes of SERVE_MAX_BATCH): a warm-up
-    request (the lane's capture), then SERVE_CLIENTS threads sending
-    SERVE_REQUESTS npz requests each over loopback. The slot each pair ran
-    in is recorded, and every response is held to a direct predict of that
-    pair among other neighbours (a batch of copies of it) at the same slot
-    within CAPTURED_BAR (a crossed, stale or mixed row fails it), and at
-    slot 0 within SLOT_BAR (``batch_rows``)."""
+def _artifact_server(path, log):
+    """``ufm_torch.cli.main(["serve", "--artifact", path, ...])`` as a user
+    starts it, asked for lanes of SERVE_ARTIFACT_ASKED_BATCH, in a thread of
+    this process (so that its launches are counted here), its output in
+    ``log``. Returns the server it started once it serves, and the thread."""
+    import threading
+
+    from ufm_torch import cli
+    from ufm_torch.runtime import server as server_mod
+
+    started = []
+
+    class Recorded(server_mod.UFMServer):
+        def start(self):
+            started.append(self)
+            super().start()
+
+    argv = ["serve", "--artifact", path, "--port", str(_free_port()), "--max-batch", str(SERVE_ARTIFACT_ASKED_BATCH)]
+    with unittest.mock.patch.object(server_mod, "UFMServer", Recorded), contextlib.redirect_stdout(log):
+        thread = threading.Thread(target=cli.main, args=(argv,), name="ufm-serve-artifact", daemon=True)
+        thread.start()
+        t = time.perf_counter()
+        while "Serving" not in log.getvalue():
+            check(thread.is_alive(), f"serve --artifact exited:\n{log.getvalue()}")
+            check(time.perf_counter() - t < 300, "serve --artifact: not serving within 300 s")
+            time.sleep(0.2)
+    return started[0], thread
+
+
+def phase_serve(model, label="serve", path="ufm_base_served", artifact=None):
+    """The HTTP daemon at the lane width SERVE_MAX_BATCH: ``UFMServer`` on
+    ``model`` or, given an ``artifact`` exported at that batch, ``ufm serve
+    --artifact`` (``_artifact_server``: asked for another width, pinned to
+    the artifact's). A warm-up request (the lane's capture), then
+    SERVE_CLIENTS threads sending SERVE_REQUESTS npz requests each over
+    loopback. Each lane batch's launches are counted (36 attention and 36
+    fused fc1 + GELU launches, and 1 window launch for UFM-Refine; no call
+    of a plain version), and the profiler sees the lane program's kernels
+    once a replay. The slot each pair ran in is recorded, and every
+    response is held to a direct predict of the live ``model`` on that pair
+    among other neighbours (a batch of copies of it) at the same slot within
+    CAPTURED_BAR (a crossed, stale or mixed row fails it), and at slot 0
+    within SLOT_BAR (``batch_rows``). For a live model, the batch-size
+    dependence: the first SERVE_MAX_BATCH pairs' responses against the pair
+    alone at batch 1, in px (the end-point difference's mean, 99th
+    percentile and max, the max held within BATCH_DRIFT_BUDGET_PX)."""
     import concurrent.futures
     import hashlib
     import io
 
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
+    from ufm_torch.ops import launches as counters
     from ufm_torch.runtime import UFMServer
 
+    refine = model.config.has_classification_head
+    per_batch = (LAUNCHES_PER_FORWARD, 0, int(refine), 0, GELU_PER_FORWARD, 0, 0, 0)
     rng = np.random.default_rng(0)
     n = SERVE_CLIENTS * SERVE_REQUESTS
     pairs = rng.integers(0, 256, (n + 1, 2, *SERVE_HW, 3), dtype=np.uint8)  # the last: the warm-up's
@@ -2993,7 +3152,12 @@ def phase_serve(model):
         return buf.getvalue()
 
     bodies = [body(i) for i in range(n + 1)]
-    server = UFMServer(model, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS)
+    log = io.StringIO()
+    if artifact is None:
+        server, thread = UFMServer(model, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS), None
+        server.start()
+    else:
+        server, thread = _artifact_server(artifact, log)
     lane_batches = []  # (source, target) of each batch the lane ran
     predict_batch = server._predict_batch
 
@@ -3002,13 +3166,12 @@ def phase_serve(model):
         return predict_batch(src, tgt)
 
     server._predict_batch = recording
-    server.start()
     try:
         health = json.loads(_http(server.port, "/healthz"))
         t = time.perf_counter()
         _http(server.port, "/v1/predict", bodies[n])  # warm-up: the lane's first batch captures its program
         warm_s = time.perf_counter() - t
-        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the served path's counts start here
+        counters.reset()  # the served path's counts start here
         served, latency = [None] * n, [0.0] * n
 
         def client(k):
@@ -3019,15 +3182,20 @@ def phase_serve(model):
                 with np.load(io.BytesIO(raw)) as z:
                     served[i] = {k_: z[k_] for k_ in z.files}
 
-        t = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
-            for f in [pool.submit(client, k) for k in range(SERVE_CLIENTS)]:
-                f.result()
-        wall = time.perf_counter() - t
-        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
+        with _plain_calls() as plain_calls:
+            t = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                for f in [pool.submit(client, k) for k in range(SERVE_CLIENTS)]:
+                    f.result()
+            wall = time.perf_counter() - t
+        launched = counters.snapshot()
         stats = json.loads(_http(server.port, "/stats"))
+        copies0 = np.stack([pairs[0, 0]] * SERVE_MAX_BATCH), np.stack([pairs[0, 1]] * SERVE_MAX_BATCH)
+        _, replay_counts = _profile_requests(lambda: server.model.predict_correspondences_batched(*copies0))
     finally:
         server.close()
+        if thread is not None:
+            thread.join(timeout=60)
     (lane,) = stats.values()
     batches_timed = lane["batches"] - 1  # the warm-up request was a batch of its own
 
@@ -3045,11 +3213,11 @@ def phase_serve(model):
 
     same_slot = {"flow_rel_l2": 0.0, "covis_max_abs_diff": 0.0}
     slot0 = {"flow_rel_l2": 0.0, "covis_max_abs_diff": 0.0}
-    batch1 = 0.0
+    batch1_rel, batch1_epe, batch1_abs = 0.0, [], 0.0
     bitwise = True
     for i in range(n):
         got, r = served[i], slots[i]
-        check(got["flow"].shape == (2, *SERVE_HW) and np.isfinite(got["flow"]).all(), f"serve: response {i}")
+        check(got["flow"].shape == (2, *SERVE_HW) and np.isfinite(got["flow"]).all(), f"{label}: response {i}")
         copies = model.predict_correspondences_batched(np.stack([pairs[i, 0]] * SERVE_MAX_BATCH),
                                                        np.stack([pairs[i, 1]] * SERVE_MAX_BATCH))
         flow, covis = copies.flow.flow_output.float().cpu().numpy(), copies.covisibility.mask.cpu().numpy()
@@ -3058,85 +3226,171 @@ def phase_serve(model):
             worst["flow_rel_l2"] = max(worst["flow_rel_l2"], rel(got["flow"], flow[k]))
             worst["covis_max_abs_diff"] = max(worst["covis_max_abs_diff"],
                                               float(np.abs(got["covisibility"] - covis[k]).max()))
-        if i < SERVE_MAX_BATCH:  # the pair alone: batch 1, another program with other GEMM shapes
+        if artifact is None and i < SERVE_MAX_BATCH:  # the pair alone: batch 1, another program, other GEMM shapes
             alone = model.predict_correspondences_batched(pairs[i, 0], pairs[i, 1]).flow.flow_output[0]
-            batch1 = max(batch1, rel(got["flow"], alone.float().cpu().numpy()))
+            alone = alone.float().cpu().numpy()
+            batch1_rel = max(batch1_rel, rel(got["flow"], alone))
+            batch1_abs = max(batch1_abs, float(np.abs(got["flow"] - alone).max()))
+            batch1_epe.append(np.linalg.norm(got["flow"] - alone, axis=0).ravel())
     lat = np.array(latency)
-    emit("serve", requests=n, clients=SERVE_CLIENTS, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS,
-         input_hw=list(SERVE_HW), warm_up_s=warm_s, wall_s=wall, pairs_per_s=n / wall,
-         latency_p50_s=float(np.percentile(lat, 50)), latency_p99_s=float(np.percentile(lat, 99)),
-         mean_batch_size=lane["mean_batch_size"], batcher=lane, healthz_backend=health["backend"],
-         healthz=health, launches=launches, launches_expected=LAUNCHES_PER_FORWARD * batches_timed,
+    if artifact is None:
+        epe = np.concatenate(batch1_epe)
+        fields = dict(flow_rel_l2_vs_batch1_first_pairs=batch1_rel, batch_drift_px={
+            "pairs": SERVE_MAX_BATCH, "from_batch": SERVE_MAX_BATCH, "to_batch": 1, "epe_mean": float(epe.mean()),
+            "epe_p99": float(np.percentile(epe, 99)), "epe_max": float(epe.max()), "abs_diff_max": batch1_abs,
+            "budget": BATCH_DRIFT_BUDGET_PX})
+    else:
+        fields = dict(artifact_batch=server.model.exported.batch, asked_max_batch=SERVE_ARTIFACT_ASKED_BATCH,
+                      cli_said=log.getvalue().strip().splitlines())
+    want_counts = {"flash_attention_fwd_kernel": LAUNCHES_PER_FORWARD, "linear_gelu_bf16_fwd_kernel": GELU_PER_FORWARD,
+                   **({"window_refinement_fwd_kernel": 1} if refine else {})}
+    want_counts = {k: v * PROFILE_REQUESTS for k, v in want_counts.items()}
+    emit(label, model=type(model).__name__, artifact=artifact is not None, requests=n, clients=SERVE_CLIENTS,
+         max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS, input_hw=list(SERVE_HW), warm_up_s=warm_s,
+         wall_s=wall, pairs_per_s=n / wall, latency_p50_s=float(np.percentile(lat, 50)),
+         latency_p99_s=float(np.percentile(lat, 99)), mean_batch_size=lane["mean_batch_size"], batcher=lane,
+         healthz_backend=health["backend"], healthz=health, launches=dict(zip(COUNTER_KERNELS, launched)),
+         launches_per_batch=list(per_batch), batches_counted=batches_timed, plain_calls=plain_calls,
+         profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()},
          responses_by_slot=[slots.count(k) for k in range(SERVE_MAX_BATCH)],
          vs_copies_same_slot=same_slot, bitwise_equal=bool(bitwise), bar=CAPTURED_BAR,
-         vs_copies_slot0=slot0, slot_bar=SLOT_BAR, flow_rel_l2_vs_batch1_first_pairs=batch1)
-    check(health["backend"] == "cuda", f"serve: /healthz backend {health['backend']}")
+         vs_copies_slot0=slot0, slot_bar=SLOT_BAR, **fields)
+    check(health["backend"] == "cuda", f"{label}: /healthz backend {health['backend']}")
     check(lane["dispatched"] == n + 1 and len(lane_batches) == lane["batches"],
-          f"serve: the batcher dispatched {lane['dispatched']} of {n + 1} requests in {lane['batches']} batches")
-    check(launches == LAUNCHES_PER_FORWARD * batches_timed,
-          f"serve: {launches} attention launches for {batches_timed} batches")
-    mlp_path("ufm_base_served", gelu_launches, fused_launches, GELU_PER_FORWARD * batches_timed)
+          f"{label}: the batcher dispatched {lane['dispatched']} of {n + 1} requests in {lane['batches']} batches")
+    check(all(len(src) == SERVE_MAX_BATCH for src, _ in lane_batches),
+          f"{label}: lane batches of {sorted({len(src) for src, _ in lane_batches})}, expected {SERVE_MAX_BATCH}")
+    if artifact is not None:
+        check(f"using --max-batch {SERVE_MAX_BATCH} (requested {SERVE_ARTIFACT_ASKED_BATCH})" in log.getvalue(),
+              f"{label}: --max-batch was not pinned to the artifact's batch:\n{log.getvalue()}")
+    check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
+    check(launched == tuple(batches_timed * k for k in per_batch),
+          f"{label}: launches {launched} for {batches_timed} batches, expected {per_batch} a batch")
+    record_path(path, launched, GELU_PER_FORWARD * batches_timed)
+    check(replay_counts == want_counts,
+          f"{label}: the profiler saw {replay_counts} in {PROFILE_REQUESTS} replays, expected {want_counts}")
     check(same_slot["flow_rel_l2"] <= CAPTURED_BAR and same_slot["covis_max_abs_diff"] <= CAPTURED_BAR,
-          f"serve: a response differs from the direct predict of its pair at its slot: {same_slot}")
+          f"{label}: a response differs from the direct predict of its pair at its slot: {same_slot}")
     check(slot0["flow_rel_l2"] <= SLOT_BAR and slot0["covis_max_abs_diff"] <= SLOT_BAR,
-          f"serve: a response differs from the direct predict of its pair at slot 0: {slot0}")
-    return launches
+          f"{label}: a response differs from the direct predict of its pair at slot 0: {slot0}")
+    if artifact is None:
+        drift = fields["batch_drift_px"]
+        check(drift["epe_max"] <= BATCH_DRIFT_BUDGET_PX,
+              f"{label}: a pair at batch {SERVE_MAX_BATCH} and alone at batch 1 differ by {drift['epe_max']:.4f} px "
+              f"(end-point difference, max), budget {BATCH_DRIFT_BUDGET_PX} px")
 
 
-def phase_stream(model):
-    """``stream_predict`` on the card into the flagship's lane-width program:
+def phase_stream(model, label="stream", path="ufm_base_streamed"):
+    """``stream_predict`` on the card into a model's lane-width program:
     STREAM_PAIRS pairs in batches of SERVE_MAX_BATCH (the last padded), through
     pinned copies on the copy stream and the one-deep pipeline. Outputs come
     in order, cut back to the valid pairs, each batch bitwise the direct
-    predict of the same stacked (padded) batch. Returns its launches."""
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
+    predict of the same stacked (padded) batch; each batch's launches
+    counted, no call of a plain version. For UFM-Refine also
+    ``stream_predict_staged`` with the network's ``backbone`` as stage 1 and
+    its ``refine_tail`` as stage 2 (the JAX package's two-program refine
+    inference, eager; the intermediates stay on the card) on normalized
+    pairs at the model resolution, each output within CAPTURED_BAR of the
+    one-program forward of the same batch (path ``<path>_staged``)."""
+    from ufm_torch.ops import launches as counters
     from ufm_torch.runtime import stream_predict
 
+    refine = model.config.has_classification_head
+    per_batch = (LAUNCHES_PER_FORWARD, 0, int(refine), 0, GELU_PER_FORWARD, 0, 0, 0)
     b = SERVE_MAX_BATCH
     pairs = np.random.default_rng(3).integers(0, 256, (STREAM_PAIRS, 2, *SERVE_HW, 3), dtype=np.uint8)
     batches = [list(range(k, min(k + b, STREAM_PAIRS))) for k in range(0, STREAM_PAIRS, b)]
     batches = [idx + [idx[-1]] * (b - len(idx)) for idx in batches]
     model.predict_correspondences_batched(pairs[batches[0], 0], pairs[batches[0], 1])  # the lane's program exists
     torch.cuda.synchronize()
-    fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the streamed path's counts start here
-    t = time.perf_counter()
-    outs = [(o.flow.flow_output, o.covisibility.mask)
-            for o in stream_predict(model.predict_correspondences_batched, ((p[0], p[1]) for p in pairs),
-                                    batch_size=b, device="cuda")]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
+    counters.reset()  # the streamed path's counts start here
+    with _plain_calls() as plain_calls:
+        t = time.perf_counter()
+        outs = [(o.flow.flow_output, o.covisibility.mask)
+                for o in stream_predict(model.predict_correspondences_batched, ((p[0], p[1]) for p in pairs),
+                                        batch_size=b, device="cuda")]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launched = counters.snapshot()
     sizes = [len(f) for f, _ in outs]
     bitwise = True
     for (f, c), idx in zip(outs, batches):
         d = model.predict_correspondences_batched(pairs[idx, 0], pairs[idx, 1])
         bitwise &= (f.is_cuda and torch.equal(f, d.flow.flow_output[:len(f)])
                     and torch.equal(c, d.covisibility.mask[:len(f)]))
-    emit("stream", pairs=STREAM_PAIRS, batch=b, input_hw=list(SERVE_HW), wall_s=wall, pairs_per_s=STREAM_PAIRS / wall,
-         batch_sizes=sizes, bitwise_equal=bool(bitwise), launches=launches)
+    staged = _stream_staged(model, f"{path}_staged") if refine else {}
+    emit(label, model=type(model).__name__, pairs=STREAM_PAIRS, batch=b, input_hw=list(SERVE_HW), wall_s=wall,
+         pairs_per_s=STREAM_PAIRS / wall, batch_sizes=sizes, bitwise_equal=bool(bitwise),
+         launches=dict(zip(COUNTER_KERNELS, launched)), plain_calls=plain_calls, **staged)
     check(sizes == [b] * (len(batches) - 1) + [STREAM_PAIRS - b * (len(batches) - 1)],
-          f"stream: batch sizes {sizes}")
-    check(bitwise, "stream: a streamed batch differs from the direct predict of the same batch")
-    check(launches == LAUNCHES_PER_FORWARD * len(batches), f"stream: {launches} attention launches")
-    mlp_path("ufm_base_streamed", gelu_launches, fused_launches, GELU_PER_FORWARD * len(batches))
-    return launches
+          f"{label}: batch sizes {sizes}")
+    check(bitwise, f"{label}: a streamed batch differs from the direct predict of the same batch")
+    check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
+    check(launched == tuple(len(batches) * k for k in per_batch), f"{label}: launches {launched}")
+    record_path(path, launched, GELU_PER_FORWARD * len(batches))
+
+
+def _stream_staged(model, path):
+    """``stream_predict_staged`` of UFM-Refine's two stages (phase_stream):
+    returns the fields phase_stream reports as ``staged``."""
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.runtime import stream_predict_staged
+
+    net, b = model.net, SERVE_MAX_BATCH
+    per_batch = (LAUNCHES_PER_FORWARD, 0, 1, 0, GELU_PER_FORWARD, 0, 0, 0)
+
+    @torch.inference_mode()
+    def stage1(img1, img2):
+        out = net.backbone(img1, img2)
+        return img1, img2, out["flow"], out["cls_in_0"], out["cls_in_1"]
+
+    stage2 = torch.inference_mode()(net.refine_tail)
+    w, h = model.inference_resolution[0]
+    images = np.random.default_rng(4).standard_normal((STREAM_PAIRS, 2, h, w, 3), dtype=np.float32)
+    batches = [list(range(k, min(k + b, STREAM_PAIRS))) for k in range(0, STREAM_PAIRS, b)]
+    batches = [idx + [idx[-1]] * (b - len(idx)) for idx in batches]
+    stacked = [tuple(torch.from_numpy(images[idx, i]).cuda() for i in (0, 1)) for idx in batches]
+    stage2(*stage1(*stacked[0]))  # warm-up
+    torch.cuda.synchronize()
+    counters.reset()  # the staged path's counts start here
+    with _plain_calls() as plain_calls:
+        t = time.perf_counter()
+        outs = list(stream_predict_staged(stage1, stage2, ((p[0], p[1]) for p in images), batch_size=b, device="cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launched = counters.snapshot()
+    keys = ("flow", "regression_flow", "refinement_residual", "refinement_log_softmax")
+    diff, bitwise = {k: 0.0 for k in keys}, True
+    for out, (x, y), idx in zip(outs, stacked, batches):
+        with torch.inference_mode():
+            want = net(x, y)
+        valid = len(set(idx))
+        for k in keys:
+            check(out[k].is_cuda and out[k].shape[0] == valid, f"staged stream: {k} {tuple(out[k].shape)}")
+            diff[k] = max(diff[k], (out[k] - want[k][:valid]).abs().max().item())
+            bitwise &= torch.equal(out[k], want[k][:valid])
+    check(plain_calls == {"attention": 0, "window": 0}, f"staged stream called plain versions: {plain_calls}")
+    check(launched == tuple(len(batches) * k for k in per_batch), f"staged stream: launches {launched}")
+    check(max(diff.values()) <= CAPTURED_BAR, f"staged stream vs the one-program forward: {diff}")
+    record_path(path, launched, GELU_PER_FORWARD * len(batches))
+    return {"staged": {"input_hw": [h, w], "wall_s": wall, "pairs_per_s": STREAM_PAIRS / wall,
+                       "max_abs_diff_vs_one_program": diff, "bar": CAPTURED_BAR, "bitwise_equal": bool(bitwise),
+                       "launches": dict(zip(COUNTER_KERNELS, launched)), "plain_calls": plain_calls}}
 
 
 def _raw_diff(got, want) -> dict:
     """Flow relative L2, covisibility max abs difference and bitwise
     equality of two raw output dicts of the network."""
     f_g, f_w = got["flow"].float(), want["flow"].float()
-    return {"flow_rel_l2": ((f_g - f_w).norm() / f_w.norm()).item(),
-            "covis_max_abs_diff": (got["covis_mask"] - want["covis_mask"]).abs().max().item(),
+    covis = (got["covis_mask"] - want["covis_mask"]).abs().max().item() if "covis_mask" in want else 0.0
+    return {"flow_rel_l2": ((f_g - f_w).norm() / f_w.norm()).item(), "covis_max_abs_diff": covis,
             "bitwise_equal": set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)}
 
 
-def _artifact_inputs(model, seed):
+def _artifact_inputs(model, seed, batch=1):
     w, h = model.inference_resolution[0]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(torch.randn(1, h, w, 3, generator=gen, device="cuda") for _ in range(2))
+    return tuple(torch.randn(batch, h, w, 3, generator=gen, device="cuda") for _ in range(2))
 
 
 def phase_export(model):
@@ -3283,44 +3537,108 @@ def phase_artifact_predict(model, art, pair):
     return art_model, launches
 
 
-def phase_artifact_refine(model):
-    """UFM-Refine exported on the card and loaded: raw outputs against the
-    live network's, 36 attention and 1 window launch a call. Returns its
-    launches {kernel: n}."""
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
-    from ufm_torch.ops import window_refinement as wr
+def phase_artifact_model(model, label="artifact_refine", path="ufm_refine_artifact"):
+    """A model (UFM-Refine, UniFlowMatch) exported on the card at batch 1
+    and loaded: raw outputs against the live network's (the same kernels and
+    ops: held within ARTIFACT_BAR, bitwise reported), 36 attention launches a
+    call and for UFM-Refine 1 window launch."""
+    from ufm_torch.ops import launches as counters
     from ufm_torch.runtime import export_model, load_exported
 
-    path = os.path.join(ARTIFACT_DIR, "ufm_refine.ufmt")
+    refine = model.config.has_classification_head
+    file = os.path.join(ARTIFACT_DIR, f"{path}.ufmt")
     t = time.perf_counter()
-    manifest = export_model(model, path)
+    manifest = export_model(model, file)
     export_s = time.perf_counter() - t
     t = time.perf_counter()
-    art = load_exported(path)
+    art = load_exported(file)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t
     x, y = _artifact_inputs(model, seed=13)
     with torch.inference_mode():
         want = model.network_apply(x, y)
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        counters.reset()  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
-    mlp_path("ufm_refine_artifact", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD)
+    launched = counters.snapshot()
+    record_path(path, launched, GELU_PER_FORWARD)
     diff = _raw_diff(got, want)
-    refined = (got["flow"] - want["flow"]).abs().max().item()
-    emit("artifact_refine", export_s=export_s, load_s=load_s, program_bytes=manifest["program_bytes"],
+    fields = {}
+    if refine:
+        fields = dict(refined_flow_max_abs_diff_px=(got["flow"] - want["flow"]).abs().max().item(),
+                      refined_bound_px=REFINED_FLOW_MAX_ABS)
+    emit(label, model=type(model).__name__, export_s=export_s, load_s=load_s, program_bytes=manifest["program_bytes"],
          param_bytes=manifest["param_bytes"], ops=manifest["ops"], staged=manifest["staged"],
-         launches_per_call=launches, **diff, bar=ARTIFACT_BAR, refined_flow_max_abs_diff_px=refined,
-         refined_bound_px=REFINED_FLOW_MAX_ABS)
-    check(launches == {"flash_attention_fwd": LAUNCHES_PER_FORWARD, "window_refinement_fwd": 1},
-          f"artifact_refine: launches {launches} in one call")
+         launches_per_call=dict(zip(COUNTER_KERNELS, launched)), outputs=sorted(got), **diff, bar=ARTIFACT_BAR, **fields)
+    per_call = (LAUNCHES_PER_FORWARD, 0, int(refine), 0, GELU_PER_FORWARD, 0, 0, 0)
+    check(launched == per_call, f"{label}: launches {launched} in one call, expected {per_call}")
     check(diff["flow_rel_l2"] <= ARTIFACT_BAR and diff["covis_max_abs_diff"] <= ARTIFACT_BAR,
-          f"artifact_refine: the artifact differs from the live network: {diff}")
-    check(refined <= REFINED_FLOW_MAX_ABS, f"artifact_refine: refined flow {refined:.3e} px from the live model")
-    return launches
+          f"{label}: the artifact differs from the live network: {diff}")
+    if refine:
+        check(fields["refined_flow_max_abs_diff_px"] <= REFINED_FLOW_MAX_ABS,
+              f"{label}: refined flow {fields['refined_flow_max_abs_diff_px']:.3e} px from the live model")
+    return diff
+
+
+def phase_artifact_batch4():
+    """``ufm export --model M --random-init --batch 4`` as a user runs it
+    (``ufm_torch.cli.main`` in this process) for UFM-Base and UFM-Refine:
+    each artifact loaded by ``load_artifact_model``; its raw outputs at
+    batch 4 bitwise the live network's (the same seed's weights) on the
+    same inputs, 36 attention and 36 fused fc1 + GELU launches a call (and
+    1 window launch for UFM-Refine); then served through ``ufm serve
+    --artifact`` (phase_serve: the lane width pinned to the artifact's 4)
+    under SERVE_CLIENTS clients, each response held to the live model at
+    its slot."""
+    import io
+
+    from ufm_torch import cli
+    from ufm_torch.models import (UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_base_config,
+                                  ufm_refine_config)
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.runtime import load_artifact_model
+
+    b = SERVE_MAX_BATCH
+    for m, cls, cfg in (("base", UniFlowMatchConfidence, ufm_base_config()),
+                        ("refine", UniFlowMatchClassificationRefinement, ufm_refine_config())):
+        file = os.path.join(ARTIFACT_DIR, f"ufm_{m}_b{b}.ufmt")
+        log = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                cli.main(["export", file, "--model", m, "--random-init", "--batch", str(b)])
+        except SystemExit as e:
+            check(False, f"ufm export exited {e.code}:\n{log.getvalue()}")
+        export_s = time.perf_counter() - t
+        _free_card_memory()
+        t = time.perf_counter()
+        art = load_artifact_model(file)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        live = cls.from_config(cfg, seed=0)
+        x, y = _artifact_inputs(live, seed=14, batch=b)
+        with torch.inference_mode():
+            want = live.network_apply(x, y)
+            counters.reset()  # this path's counts start here
+            got = art.exported(x, y)
+            torch.cuda.synchronize()
+        launched = counters.snapshot()
+        path = f"ufm_{m}_artifact_b{b}"
+        record_path(path, launched, GELU_PER_FORWARD)
+        diff = _raw_diff(got, want)
+        per_call = (LAUNCHES_PER_FORWARD, 0, int(m == "refine"), 0, GELU_PER_FORWARD, 0, 0, 0)
+        emit("artifact_batch4", model=type(live).__name__, cli_said=log.getvalue().strip().splitlines(),
+             batch=art.exported.batch, input_hw=list(x.shape[1:3]), export_s=export_s, load_s=load_s,
+             file_bytes=os.path.getsize(file), launches_per_call=dict(zip(COUNTER_KERNELS, launched)), **diff)
+        check(art.exported.batch == b and art.manifest["model_class"] == type(live).__name__,
+              f"artifact_batch4: {art.manifest['model_class']} at batch {art.exported.batch}")
+        check(launched == per_call, f"artifact_batch4 {m}: launches {launched} in one call, expected {per_call}")
+        check(diff["bitwise_equal"], f"artifact_batch4 {m}: the artifact differs from the live network: {diff}")
+        del art, got, want
+        _free_card_memory()
+        phase_serve(live, label="artifact_batch4_serve", path=f"{path}_served", artifact=file)
+        del live
+        _free_card_memory()
 
 
 def _free_port() -> int:
@@ -3535,52 +3853,59 @@ def phase_fp32_anchor():
     return {"flash_attention_fwd_any": fa.ANY_LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
 
 
-def phase_fp32_path():
-    """UFM-Base at full width with compute_dtype="float32", 480x640 batch 1,
-    through predict_correspondences_batched, eagerly and captured: host clock,
-    device busy and idle share of a profiled window, peak memory; 36
-    mma attention launches a forward and none of the wgmma kernel (nor
-    of the bf16 MLP kernels); flow against the same model on plain attention
-    within FP32_FLOW_BAR_PX with TF32 off (with cuDNN's TF32 on, the
-    default, the heads round their inputs to TF32, which turns the two
-    attentions' last-bit differences into ~1e-3 relative ones: held within
-    FP32_FLOW_BAR_TF32_ON_PX).
-    Returns the path's mma launches by mode."""
+def phase_fp32_path(cls=None, config=None, label="fp32_path", path="ufm_base_fp32"):
+    """A model at full width with compute_dtype="float32" (``cls`` on
+    ``config``: UFM-Base by default), 480x640 batch 1, through
+    predict_correspondences_batched, eagerly and captured: host clock,
+    device busy and idle share of a profiled window, peak memory; 36 mma
+    attention launches a forward and none of the wgmma kernel (nor of the
+    bf16 MLP kernels), 1 window launch for UFM-Refine, no call of a plain
+    version; flow against the same model on the plain route (plain
+    attention, and the plain window refinement for UFM-Refine) within
+    FP32_FLOW_BAR_PX with TF32 off (with cuDNN's TF32 on, the default, the
+    heads round their inputs to TF32, which turns the two routes' last-bit
+    differences into ~1e-3 relative ones: held within
+    FP32_FLOW_BAR_TF32_ON_PX). For UFM-Refine also the refinement's residual
+    and log_softmax with the window kernel against the plain window
+    refinement on the same inputs (the attention kernels' backbone), TF32
+    off, within WINDOW_RESIDUAL_ATOL / WINDOW_LOG_SOFTMAX_ATOL. The modes'
+    launches are recorded as ``path`` and ``<path>_captured``."""
     from ufm_torch.models import UniFlowMatchConfidence, base, ufm_base_config
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
+    from ufm_torch.ops import launches as counters
 
-    model = UniFlowMatchConfidence.from_config(ufm_base_config(compute_dtype="float32"), seed=0)
+    model = (cls or UniFlowMatchConfidence).from_config(config or ufm_base_config(compute_dtype="float32"), seed=0)
+    refine = model.config.has_classification_head
+    check(model.config.compute_dtype == "float32", f"{label}: compute dtype {model.config.compute_dtype}")
     src, tgt = np.random.default_rng(0).integers(0, 256, (2, *SERVE_HW, 3), dtype=np.uint8)
+    per_call = (0, 0, int(refine), 0, 0, ANY_PER_FORWARD, 0, 0)
 
     def request():
         return model.predict_correspondences_batched(source_image=src, target_image=tgt)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rows, results, launched = {}, {}, {}
+    rows, results = {}, {}
     for mode in ("eager", "captured"):
         model.capture_graphs = mode == "captured"
-        fa.LAUNCHES = fa.ANY_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        counters.reset()  # this path's counts start here
         times, calls = [], []
-        with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
+        with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"), _plain_calls() as plain_calls:
             for _ in range(4):  # one first call (the captured mode's warm-up and capture), three timed
-                before = (fa.LAUNCHES, fa.ANY_LAUNCHES)
+                before = counters.snapshot()
                 t = time.perf_counter()
                 res = request()
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t)
-                calls.append((fa.LAUNCHES - before[0], fa.ANY_LAUNCHES - before[1]))
-            launched[mode] = fa.ANY_LAUNCHES
-            check(all(c == (0, ANY_PER_FORWARD) for c in calls),
-                  f"fp32 {mode}: wgmma / mma launches per call {calls}, expected (0, {ANY_PER_FORWARD})")
-            check((ge.LAUNCHES, lg.LAUNCHES) == (0, 0), f"fp32 {mode}: bf16 MLP kernels launched")
+                calls.append(counters.since(before))
+            record_path(path if mode == "eager" else f"{path}_captured", counters.snapshot(), 0)
+            check(all(c == per_call for c in calls), f"{label} {mode}: launches per call {calls}, expected {per_call}")
+            check(plain_calls == {"attention": 0, "window": 0}, f"{label} {mode} called plain versions: {plain_calls}")
             profiled, counts = _profile_requests(request)
-        want = {"flash_attention_fwd_any_kernel": ANY_PER_FORWARD * PROFILE_REQUESTS}
-        check(counts == want, f"fp32 {mode}: the profiler saw {counts} in {PROFILE_REQUESTS} requests, expected {want}")
+        want = {"flash_attention_fwd_any_kernel": ANY_PER_FORWARD * PROFILE_REQUESTS,
+                **({"window_refinement_fwd_kernel": PROFILE_REQUESTS} if refine else {})}
+        check(counts == want, f"{label} {mode}: the profiler saw {counts} in {PROFILE_REQUESTS} requests, expected {want}")
         flow = res.flow.flow_output
-        check(tuple(flow.shape) == (1, 2, *SERVE_HW) and _finite(flow), f"fp32 {mode}: flow {tuple(flow.shape)}")
+        check(tuple(flow.shape) == (1, 2, *SERVE_HW) and _finite(flow), f"{label} {mode}: flow {tuple(flow.shape)}")
         results[mode] = res
         rows[mode] = dict(first_s=times[0], latency_s=statistics.median(times[1:]), launches_per_call=calls,
                           profiled=profiled)
@@ -3591,27 +3916,65 @@ def phase_fp32_path():
         with _TF32(tf32):
             for impl in (None, "torch"):
                 model.attention_impl = impl
-                before = fa.ANY_LAUNCHES
+                if refine:
+                    model.refinement_impl = impl
+                before = counters.snapshot()
                 flows[tf32, impl] = request().flow.flow_output.float()
                 torch.cuda.synchronize()
-                check((fa.ANY_LAUNCHES - before) == (0 if impl else ANY_PER_FORWARD),
-                      f"fp32 TF32 {tf32} attention {impl}: {fa.ANY_LAUNCHES - before} mma launches")
+                launched = counters.since(before)
+                check(launched == ((0,) * len(per_call) if impl else per_call),
+                      f"{label} TF32 {tf32} route {impl}: launches {launched}")
     model.attention_impl = None
+    fields = {}
+    if refine:
+        model.refinement_impl = None
+        fields = _window_vs_plain(model, src, tgt)
     diff_px = (flows[False, None] - flows[False, "torch"]).abs().max().item()
     diff_on_px = (flows[True, None] - flows[True, "torch"]).abs().max().item()
     f_k, f_c = (r.flow.flow_output.float() for r in (results["eager"], results["captured"]))
     captured_diff_px = (f_c - f_k).abs().max().item()
-    emit("fp32_path", model="ufm_base", compute_dtype=model.config.compute_dtype, input_hw=list(SERVE_HW), batch=1,
+    emit(label, model=type(model).__name__, compute_dtype=model.config.compute_dtype, input_hw=list(SERVE_HW), batch=1,
          max_memory_allocated=peak, flow_max_abs_diff_px_vs_plain_tf32_off=diff_px, bar_px=FP32_FLOW_BAR_PX,
          flow_max_abs_diff_px_vs_plain_tf32_on=diff_on_px, bar_tf32_on_px=FP32_FLOW_BAR_TF32_ON_PX,
-         flow_max_abs_diff_px_captured_vs_eager=captured_diff_px, flow_abs_max_px=f_k.abs().max().item(), **rows)
-    check(diff_px <= FP32_FLOW_BAR_PX, f"fp32 flagship: flow {diff_px:.3e} px from plain attention")
-    check(diff_on_px <= FP32_FLOW_BAR_TF32_ON_PX,
-          f"fp32 flagship, TF32 on: flow {diff_on_px:.3e} px from plain attention")
-    check(captured_diff_px <= FP32_FLOW_BAR_PX, f"fp32 flagship: captured flow {captured_diff_px:.3e} px from eager")
+         flow_max_abs_diff_px_captured_vs_eager=captured_diff_px, flow_abs_max_px=f_k.abs().max().item(),
+         **fields, **rows)
+    check(diff_px <= FP32_FLOW_BAR_PX, f"{label}: flow {diff_px:.3e} px from the plain route")
+    check(diff_on_px <= FP32_FLOW_BAR_TF32_ON_PX, f"{label}, TF32 on: flow {diff_on_px:.3e} px from the plain route")
+    check(captured_diff_px <= FP32_FLOW_BAR_PX, f"{label}: captured flow {captured_diff_px:.3e} px from eager")
+    if refine:
+        check(fields["residual_max_abs_err"] <= WINDOW_RESIDUAL_ATOL and
+              fields["log_softmax_max_abs_err"] <= WINDOW_LOG_SOFTMAX_ATOL,
+              f"{label}: the window kernel vs the plain window refinement: {fields}")
     del model, results, flows
     _free_card_memory()
-    return launched
+
+
+def _window_vs_plain(model, src, tgt):
+    """An eager request of a UFM-Refine model with the window kernel and
+    with the plain window refinement, TF32 off: the refinement's residual
+    and log_softmax (read through a wrapper of ``net.refine_tail``) and
+    whether the regression flows the windows sit at are the same."""
+    refine_tail, refined = model.net.refine_tail, []
+
+    def recording(*args, **kwargs):
+        refined.append(refine_tail(*args, **kwargs))
+        return refined[-1]
+
+    model.net.refine_tail = recording
+    try:
+        with _TF32(False):
+            for impl in (None, "torch"):
+                model.refinement_impl = impl
+                model.predict_correspondences_batched(source_image=src, target_image=tgt)
+    finally:
+        model.refinement_impl = None
+        del model.net.refine_tail  # back to the method
+    kernel, plain = refined
+    return {"residual_max_abs_err": (kernel["refinement_residual"] - plain["refinement_residual"]).abs().max().item(),
+            "residual_atol": WINDOW_RESIDUAL_ATOL, "log_softmax_atol": WINDOW_LOG_SOFTMAX_ATOL,
+            "log_softmax_max_abs_err":
+                (kernel["refinement_log_softmax"] - plain["refinement_log_softmax"]).abs().max().item(),
+            "same_regression_flow": torch.equal(kernel["regression_flow"], plain["regression_flow"])}
 
 
 def phase_entry():
@@ -3899,6 +4262,110 @@ def phase_fine_tune():
     return launches
 
 
+def phase_uniflowmatch():
+    """UniFlowMatch, the variant without the uncertainty head
+    (``ufm_base_config(has_uncertainty_head=False)``: the flow head alone),
+    at full width: a batch-1 request at SERVE_HW eagerly (36 attention and
+    36 fused fc1 + GELU launches) and captured (phase_captured), no
+    covisibility, covariance or keypoint confidence in its answer, its flow
+    held to plain attention within FLOW_REL_L2_BOUND; a batch-1 artifact
+    (phase_artifact_model); training at TRAIN_BATCH on TRAIN_HW
+    (phase_model_train: BF16_TRAIN_EACH launches a step, its metrics
+    FLOW_ONLY_METRICS, finite, the loss falling over make_train_step's
+    steps), its gradients at batch 1 held to plain attention at
+    TRAIN_GRAD_REL_L2_BOUND. No call of a plain version on the kernel
+    paths."""
+    from ufm_torch.models import UniFlowMatch, ufm_base_config
+    from ufm_torch.ops import launches as counters
+
+    cfg = ufm_base_config(has_uncertainty_head=False)
+    t0 = time.perf_counter()
+    model = UniFlowMatch.from_config(cfg, seed=0)
+    check(not hasattr(model.net, "uncertainty_head"), "UniFlowMatch built an uncertainty head")
+    build_s = time.perf_counter() - t0
+    pair = tuple(np.random.default_rng(9).integers(0, 256, (2, *SERVE_HW, 3), dtype=np.uint8))
+    per_call = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
+    with _plain_calls() as plain_calls:
+        rows = phase_captured(model, "uniflowmatch", pair, (1,), refine=False)
+        model.capture_graphs = False
+        counters.reset()  # the eager request's counts start here
+        res = model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+        torch.cuda.synchronize()
+        eager = counters.snapshot()
+    record_path("uniflowmatch", eager, GELU_PER_FORWARD)
+    model.attention_impl = "torch"
+    plain = model.predict_correspondences_batched(source_image=pair[0], target_image=pair[1])
+    model.attention_impl, model.capture_graphs = None, True
+    f_k, f_p = res.flow.flow_output.float(), plain.flow.flow_output.float()
+    rel = ((f_k - f_p).norm() / f_p.norm()).item()
+    empty = {"covisibility": res.covisibility, "keypoint_confidence": res.keypoint_confidence,
+             "flow_covariance": res.flow.flow_covariance}
+    emit("uniflowmatch", config="ufm_base_config(has_uncertainty_head=False)", build_s=build_s,
+         params=sum(p.numel() for p in model.parameters()), input_hw=list(SERVE_HW), batch=1,
+         request_ms_captured=rows["b1"]["captured_latency_s"] * 1e3, request_ms_eager=rows["b1"]["eager_latency_s"] * 1e3,
+         launches_eager=dict(zip(COUNTER_KERNELS, eager)), plain_calls=plain_calls,
+         absent_outputs=[k for k, v in empty.items() if v is None], flow_rel_l2_vs_plain_attention=rel,
+         bound=FLOW_REL_L2_BOUND)
+    check(plain_calls == {"attention": 0, "window": 0}, f"uniflowmatch requests called plain versions: {plain_calls}")
+    check(eager == per_call, f"uniflowmatch eager request: launches {eager}, expected {per_call}")
+    check(all(v is None for v in empty.values()), f"uniflowmatch answered {[k for k, v in empty.items() if v is not None]}")
+    check(tuple(f_k.shape) == (1, 2, *SERVE_HW) and _finite(f_k), f"uniflowmatch flow {tuple(f_k.shape)}")
+    check(rel <= FLOW_REL_L2_BOUND, f"uniflowmatch kernel vs plain attention: flow relative L2 {rel:.3e}")
+    phase_artifact_model(model, label="uniflowmatch_artifact", path="uniflowmatch_artifact")
+    del model, res, plain
+    _free_card_memory()
+    # its one loss term, the flow's, moves by ~0.1% in these 6 steps at the
+    # warm-up's rates: fit's fresh AdamW took it 0.17% up in its first step
+    # (NVIDIA H100 80GB HBM3, 700 W), so the fall is held over make_train_step's
+    train_model, batch, _ = phase_model_train(UniFlowMatch, cfg, label="uniflowmatch_train", path="uniflowmatch_train",
+                                              each=BF16_TRAIN_EACH, metric_names=FLOW_ONLY_METRICS,
+                                              falls_through_fit=False)
+    one = {k: v[:1] for k, v in batch.items()}
+    counters.reset()
+    _kernel_vs_plain_grads(train_model, one, "uniflowmatch_train_self_check", BF16_TRAIN_EACH, TRAIN_GRAD_REL_L2_BOUND)
+    # the kernel pass and the plain-attention pass each run the 36 GELUs
+    record_path("uniflowmatch_train_self_check", counters.snapshot(), 2 * GELU_PER_FORWARD, grad=True)
+    del train_model, batch, one
+    _free_card_memory()
+
+
+def phase_refine_fp32():
+    """UFM-Refine in fp32 (``ufm_refine_config(compute_dtype="float32")``:
+    the mma attention pair beside the window pair): a batch-1 request at
+    SERVE_HW eager and captured (phase_fp32_path: 36 mma forward and 1
+    window launch a request, none of the wgmma or bf16 MLP kernels, the
+    flow within FP32_FLOW_BAR_PX of the plain route with TF32 off, the
+    refinement within the window bars); training at TRAIN_BATCH on TRAIN_HW
+    (phase_model_train: REFINE_FP32_TRAIN_EACH launches a step); the
+    gradients at batch 1 of the seeded model, TF32 off, held to the plain
+    window refinement's and to the plain step's with the target classes
+    fixed (phase_refine_train_self_check, its witness the plain step with
+    fp64 attention) at FP32_TRAIN_GRAD_REL_L2_BOUND."""
+    from ufm_torch.models import UniFlowMatchClassificationRefinement, ufm_refine_config
+    from ufm_torch.ops import launches as counters
+
+    cfg = ufm_refine_config(compute_dtype="float32")
+    phase_fp32_path(UniFlowMatchClassificationRefinement, cfg, label="refine_fp32", path="ufm_refine_fp32")
+    trained, _, _ = phase_model_train(config=cfg, label="refine_fp32_train", path="ufm_refine_fp32_train",
+                                      each=REFINE_FP32_TRAIN_EACH)
+    del trained
+    _free_card_memory()
+    # the seeded weights, which every run reproduces bitwise: the trained
+    # ones differ in the last bits from run to run (the window backward sums
+    # df by atomics), and at batch 1 the fp32 gradient is as far from the
+    # fp64 witness's as ~1e-3 relative, so a reading on them moves past the
+    # bar with no change of the kernels (NVIDIA H100 80GB HBM3, 700 W: 1.566e-3
+    # in one run, 4.2e-4 in the next, PERF.md)
+    model = UniFlowMatchClassificationRefinement.from_config(cfg, seed=0)
+    counters.reset()
+    with _TF32(False):
+        phase_refine_train_self_check(model, label="refine_fp32_train_self_check", train_each=REFINE_FP32_TRAIN_EACH,
+                                      bound=FP32_TRAIN_GRAD_REL_L2_BOUND)
+    record_path("ufm_refine_fp32_train_self_check", counters.snapshot(), 0)
+    del model
+    _free_card_memory()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this check needs a GPU", file=sys.stderr)
@@ -3937,49 +4404,58 @@ def run_phases(smi: str) -> int:
     torch.cuda.empty_cache()
     cpu_export_launches = phase_export_cpu()
     torch.cuda.empty_cache()
-    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchConfidence, ufm_base_config, ufm_refine_config
 
     model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)  # no program yet
-    captured_launches = phase_captured(model, "ufm_base", pair, CAPTURED_BASE_BATCHES, refine=False)
+    phase_captured(model, "ufm_base", pair, CAPTURED_BASE_BATCHES, refine=False)
     phase_batch_rows(model)
-    served_launches = phase_serve(model)
-    streamed_launches = phase_stream(model)
+    phase_serve(model)
+    phase_stream(model)
     del model
     torch.cuda.empty_cache()
     refine_model, refine_pair, refine_res, refine_launches = phase_refine_path()
-    refine_captured = phase_captured(refine_model, "ufm_refine", refine_pair, (1,), refine=True)
+    phase_captured(refine_model, "ufm_refine", refine_pair, (1,), refine=True)
     phase_refine_self_check(refine_model, refine_pair, refine_res)
-    refine_artifact = phase_artifact_refine(refine_model)
+    phase_artifact_model(refine_model)
+    phase_serve(refine_model, label="refine_serve", path="ufm_refine_served")
+    phase_stream(refine_model, label="refine_stream", path="ufm_refine_streamed")
     tiled_refine_launches = phase_tiled_refine(refine_model)
     del refine_model, refine_res
-    torch.cuda.empty_cache()
-    fp32_launches = phase_fp32_path()
+    _free_card_memory()
+    phase_artifact_batch4()
+    phase_uniflowmatch()
+    phase_fp32_path()
     entry_launches = phase_entry()
     train_model, train_batch, train_launches = phase_train()
     phase_train_self_check(train_model, train_batch)
     del train_model, train_batch
     _free_card_memory()
-    refine_train_model, refine_train_batch, refine_train_launches = phase_refine_train()
+    refine_train_model, _, _ = phase_model_train()
     phase_refine_train_self_check(refine_train_model)
-    del refine_train_model, refine_train_batch
+    del refine_train_model
     _free_card_memory()
-    wide_launches = phase_wide_refine()
+    phase_wide_refine()
     import torch.distributed as dist
 
     _world1_group()
     try:
-        sharded_launches, sharded_fit_launches = phase_sharded_train()
+        phase_sharded_train()
+        phase_sharded_train(UniFlowMatchClassificationRefinement, ufm_refine_config(), label="refine_sharded",
+                            path="ufm_refine_sharded_train", each=REFINE_TRAIN_EACH, with_fit=False)
         dp_launches = phase_data_parallel()
     finally:
         dist.destroy_process_group()
-    remat_launches = phase_remat()
+    phase_remat()
+    phase_remat(UniFlowMatchClassificationRefinement, ufm_refine_config(), cases=REFINE_REMAT_CASES,
+                label="refine_remat", path="ufm_refine_remat")
     moge_launches = phase_moge()
     from ufm_torch.ops import flash_attention as fa
 
-    # every bf16 D = 64 training path since phase_refine_train reset the counts
+    # every bf16 D = 64 training path since phase_model_train reset the counts
     emit("bf16_training_paths", mma_backward_launches=fa.ANY_BWD_LAUNCHES)
     check(fa.ANY_BWD_LAUNCHES == 0, f"the bf16 D = 64 training paths made {fa.ANY_BWD_LAUNCHES} mma backward calls")
     fp32_train_launches = phase_fp32_train()
+    phase_refine_fp32()
     fine_tune_launches = phase_fine_tune()
 
     # one batch-1 forward's attention: each number sums its 36 calls
@@ -3993,37 +4469,21 @@ def run_phases(smi: str) -> int:
         "replaces": "ufm_tpu/ops/flash_attention.py:558",
         "launches": launches + tiled_launches + refine_launches["flash_attention_fwd"]
         + train_launches["flash_attention_fwd"] + golden_launches["flash_attention_fwd"]
-        + captured_launches["flash_attention_fwd"] + refine_captured["flash_attention_fwd"] + served_launches
-        + streamed_launches + export_launches + cpu_export_launches + artifact_launches
-        + refine_artifact["flash_attention_fwd"] + loader_launches
-        + sharded_launches["flash_attention_fwd"] + sharded_fit_launches["flash_attention_fwd"]
+        + export_launches + cpu_export_launches + artifact_launches + loader_launches
         + dp_launches["ufm_base"]["flash_attention_fwd"] + dp_launches["ufm_refine"]["flash_attention_fwd"]
-        + remat_launches["flash_attention_fwd"] + moge_launches + refine_train_launches["flash_attention_fwd"]
-        + tiled_refine_launches["flash_attention_fwd"] + wide_launches["captured"]["flash_attention_fwd"]
-        + wide_launches["train"]["flash_attention_fwd"],
+        + moge_launches + tiled_refine_launches["flash_attention_fwd"],
         "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
                              "ufm_refine": refine_launches["flash_attention_fwd"],
                              "ufm_base_train": train_launches["flash_attention_fwd"],
                              "bf16_golden": golden_launches["flash_attention_fwd"],
-                             "ufm_base_captured": captured_launches["flash_attention_fwd"],
-                             "ufm_refine_captured": refine_captured["flash_attention_fwd"],
-                             "ufm_base_served": served_launches,
-                             "ufm_base_streamed": streamed_launches,
                              "ufm_base_artifact": export_launches,
                              "ufm_base_artifact_cpu_export": cpu_export_launches,
                              "ufm_base_artifact_captured": artifact_launches,
-                             "ufm_refine_artifact": refine_artifact["flash_attention_fwd"],
                              "ufm_base_loader_streamed": loader_launches,
-                             "ufm_base_sharded_train": sharded_launches["flash_attention_fwd"],
-                             "ufm_base_sharded_fit": sharded_fit_launches["flash_attention_fwd"],
                              "ufm_base_data_parallel": dp_launches["ufm_base"]["flash_attention_fwd"],
                              "ufm_refine_data_parallel": dp_launches["ufm_refine"]["flash_attention_fwd"],
-                             "ufm_base_remat": remat_launches["flash_attention_fwd"],
                              "ufm_base_moge": moge_launches,
-                             "ufm_refine_train": refine_train_launches["flash_attention_fwd"],
-                             "ufm_refine_tiled": tiled_refine_launches["flash_attention_fwd"],
-                             "ufm_refine_wide_captured": wide_launches["captured"]["flash_attention_fwd"],
-                             "ufm_refine_wide_train": wide_launches["train"]["flash_attention_fwd"]},
+                             "ufm_refine_tiled": tiled_refine_launches["flash_attention_fwd"]},
         "op": "ufm_torch::flash_attention_fwd",
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": sum(r["ms"] for r in fwd),
@@ -4047,15 +4507,8 @@ def run_phases(smi: str) -> int:
         "route": "cuda",
         "source": "ufm_torch/csrc/flash_attention_bwd.cu",
         "replaces": "ufm_tpu/ops/flash_attention.py:452",
-        "launches": train_launches["flash_attention_bwd"] + sharded_launches["flash_attention_bwd"]
-        + sharded_fit_launches["flash_attention_bwd"] + remat_launches["flash_attention_bwd"]
-        + refine_train_launches["flash_attention_bwd"] + wide_launches["train"]["flash_attention_bwd"],
-        "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"],
-                             "ufm_base_sharded_train": sharded_launches["flash_attention_bwd"],
-                             "ufm_base_sharded_fit": sharded_fit_launches["flash_attention_bwd"],
-                             "ufm_base_remat": remat_launches["flash_attention_bwd"],
-                             "ufm_refine_train": refine_train_launches["flash_attention_bwd"],
-                             "ufm_refine_wide_train": wide_launches["train"]["flash_attention_bwd"]},
+        "launches": train_launches["flash_attention_bwd"],
+        "launches_by_path": {"ufm_base_train": train_launches["flash_attention_bwd"]},
         "op": "ufm_torch::flash_attention_bwd",
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
         "ms": sum(r["ms"] for r in bwd),
@@ -4077,19 +4530,11 @@ def run_phases(smi: str) -> int:
         "replaces": "ufm_tpu/ops/window_dots.py:280",
         "replaces_also": "ufm_tpu/ops/window_dots.py:238",
         "launches": refine_launches["window_refinement_fwd"] + golden_launches["window_refinement_fwd"]
-        + refine_captured["window_refinement_fwd"] + refine_artifact["window_refinement_fwd"]
-        + dp_launches["ufm_refine"]["window_refinement_fwd"] + refine_train_launches["window_refinement_fwd"]
-        + tiled_refine_launches["window_refinement_fwd"] + wide_launches["captured"]["window_refinement_fwd"]
-        + wide_launches["train"]["window_refinement_fwd"],
+        + dp_launches["ufm_refine"]["window_refinement_fwd"] + tiled_refine_launches["window_refinement_fwd"],
         "launches_by_path": {"ufm_refine": refine_launches["window_refinement_fwd"],
                              "ufm_refine_data_parallel": dp_launches["ufm_refine"]["window_refinement_fwd"],
                              "bf16_golden": golden_launches["window_refinement_fwd"],
-                             "ufm_refine_captured": refine_captured["window_refinement_fwd"],
-                             "ufm_refine_artifact": refine_artifact["window_refinement_fwd"],
-                             "ufm_refine_train": refine_train_launches["window_refinement_fwd"],
-                             "ufm_refine_tiled": tiled_refine_launches["window_refinement_fwd"],
-                             "ufm_refine_wide_captured": wide_launches["captured"]["window_refinement_fwd"],
-                             "ufm_refine_wide_train": wide_launches["train"]["window_refinement_fwd"]},
+                             "ufm_refine_tiled": tiled_refine_launches["window_refinement_fwd"]},
         "op": "ufm_torch::window_refinement",
         "max_abs_err": max(max(r["residual_max_abs_err"], r["log_softmax_max_abs_err"]) for r in window_rows.values()),
         "ms": flagship["ms"],
@@ -4113,9 +4558,8 @@ def run_phases(smi: str) -> int:
         "replaces": "ufm_tpu/ops/refinement.py:242",
         "replaces_note": "_fused_refinement_pallas_bwd, the XLA VJP of _fused_refinement_xla (:257) that the JAX "
                          "package runs as its Pallas window kernel's backward (no pallas_call)",
-        "launches": refine_train_launches["window_refinement_bwd"] + wide_launches["train"]["window_refinement_bwd"],
-        "launches_by_path": {"ufm_refine_train": refine_train_launches["window_refinement_bwd"],
-                             "ufm_refine_wide_train": wide_launches["train"]["window_refinement_bwd"]},
+        "launches": 0,
+        "launches_by_path": {},
         "op": "ufm_torch::window_refinement_bwd",
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in window_bwd_rows.values()),
         "ms": train_case["ms"],
@@ -4202,8 +4646,7 @@ def run_phases(smi: str) -> int:
     }
     # one batch-1 forward of UFM-Base in fp32: each number sums its 36 calls
     any_fwd = [any_rows[n] for n, *_, calls in ANY_ATTN_CASES for _ in range(calls)]
-    any_by_path = {"ufm_base_fp32": fp32_launches["eager"], "ufm_base_fp32_captured": fp32_launches["captured"],
-                   "fp32_anchor": anchor_launches["flash_attention_fwd_any"], "ufm_infer_tiny_real224": entry_launches,
+    any_by_path = {"fp32_anchor": anchor_launches["flash_attention_fwd_any"], "ufm_infer_tiny_real224": entry_launches,
                    "ufm_base_fp32_train": fp32_train_launches["train"][0],
                    "ufm_base_fp32_train_self_check": fp32_train_launches["self_check"][0],
                    "tiny_real224_fine_tune": fine_tune_launches["fine_tune"],
@@ -4271,8 +4714,9 @@ def run_phases(smi: str) -> int:
         "max_abs_err_by_case": {n: r["max_abs_err"] for n, r in any_bwd_rows.items()},
     }
     print(smi)
-    print(json.dumps({"kernels": [attention, backward, window, window_bwd, gelu, linear_gelu, attention_any,
-                                  backward_any]}))
+    kernels = [with_recorded_paths(k) for k in (attention, backward, window, window_bwd, gelu, linear_gelu,
+                                                attention_any, backward_any)]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

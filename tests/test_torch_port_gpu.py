@@ -889,6 +889,106 @@ def test_artifact_launches_the_kernels_on_the_card(cuda, tmp_path, where, refine
         assert ((a - b).norm() / b.norm().clamp_min(1e-12)).item() <= 1e-5, key
 
 
+# ---- the model x entry-point paths: UFM-Refine served and exported at batch 2,
+# UniFlowMatch (no uncertainty head) trained --------------------------------------
+
+
+def test_refine_served_at_lane_width_two(cuda):
+    """A small bf16 UFM-Refine behind ``UFMServer`` with lanes of 2: two
+    clients send three pairs each; every lane batch is one replay of the
+    lane's program (4 attention, 1 window, 4 fused fc1 + GELU launches), and
+    each response is bitwise the direct predict of the batch it ran in, at
+    its slot."""
+    import threading
+
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.runtime import UFMServer
+
+    model = UniFlowMatchClassificationRefinement.from_config(_small_config(has_classification_head=True), seed=0)
+    g = np.random.default_rng(12)
+    pairs = [tuple(g.integers(0, 256, (60, 80, 3), dtype=np.uint8) for _ in range(2)) for _ in range(6)]
+    server = UFMServer(model, port=0, max_batch=2, max_delay_ms=20.0)
+    lane_batches, predict_batch = [], server._predict_batch
+
+    def recording(src, tgt):
+        lane_batches.append((src.copy(), tgt.copy()))
+        return predict_batch(src, tgt)
+
+    server._predict_batch = recording
+    server.predict(*pairs[0])  # the lane's program is captured
+    lane_batches.clear()
+    counters.reset()
+    served = [None] * len(pairs)
+
+    def client(k):
+        for i in range(k, len(pairs), 2):
+            served[i] = server.predict(*pairs[i])
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        server.close()
+    assert not any(t.is_alive() for t in threads) and all(r is not None for r in served)
+    launched = counters.snapshot()
+    n = len(lane_batches)
+    assert launched == (4 * n, 0, n, 0, 4 * n, 0, 0, 0)
+    for i, (src, tgt) in enumerate(pairs):
+        (bs, bt), slot = next((b, r) for b in lane_batches for r in range(2)
+                              if np.array_equal(b[0][r], src) and np.array_equal(b[1][r], tgt))
+        direct = model.predict_correspondences_batched(bs, bt)
+        assert np.array_equal(served[i]["flow"], direct.flow.flow_output[slot].float().cpu().numpy())
+        assert np.array_equal(served[i]["covisibility"], direct.covisibility.mask[slot].cpu().numpy())
+
+
+def test_flow_only_train_step_on_the_card(cuda):
+    """A small bf16 UniFlowMatch (``has_uncertainty_head=False``): one train
+    step launches 4 attention forwards, 4 backward calls and 4 GELUs and
+    nothing else; its metrics are the flow loss, the EPE and the total."""
+    from ufm_torch.models import UniFlowMatch
+    from ufm_torch.ops import launches as counters
+
+    model = UniFlowMatch.from_config(_small_config(has_uncertainty_head=False), seed=0)
+    assert not hasattr(model.net, "uncertainty_head")
+    step = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))
+    batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
+    before = counters.snapshot()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    assert counters.since(before) == (4, 4, 0, 4, 0, 0, 0, 0)
+    assert set(metrics) == {"flow_loss", "epe", "total_loss"}
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+def test_refine_artifact_at_batch_two_on_the_card(cuda, tmp_path):
+    """A small bf16 UFM-Refine exported on the card at batch 2: one call of
+    the loaded program launches 4 attention, 1 window and 4 fused fc1 + GELU
+    kernels, and its raw outputs are bitwise the live network's."""
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.runtime import export_model, load_exported
+
+    model = UniFlowMatchClassificationRefinement.from_config(_small_config(has_classification_head=True), seed=0)
+    path = str(tmp_path / "refine_b2.ufmt")
+    export_model(model, path, batch=2)
+    art = load_exported(path)
+    assert art.batch == 2
+    w, h = model.inference_resolution[0]
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x, y = (torch.randn(2, h, w, 3, generator=g, device=cuda) for _ in range(2))
+    with torch.inference_mode():
+        want = model.net(x, y)
+        before = counters.snapshot()
+        got = art(x, y)
+        torch.cuda.synchronize()
+    assert counters.since(before) == (4, 0, 1, 0, 4, 0, 0, 0)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
 # ---- sharded training and the remat policies on the card ---------------------
 
 

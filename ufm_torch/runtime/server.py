@@ -16,8 +16,8 @@ Endpoints
     or JSON ``{"source_png_b64": ..., "target_png_b64": ...}`` (PNG by the
     port's codec; another image format needs ``cv2``, without which the
     answer is 400). Response: an ``.npz`` with
-    ``flow`` (2, H, W) float32 at the input resolution, ``covisibility``
-    (H, W) and, where the model makes it, ``keypoint_confidence`` (H, W).
+    ``flow`` (2, H, W) float32 at the input resolution and, where the model
+    makes them, ``covisibility`` (H, W) and ``keypoint_confidence`` (H, W).
 
 Requests are grouped into lanes by their (source, target) shape pair; each
 lane owns one ``ServingRuntime`` that pads its batches to ``max_batch``, so
@@ -103,8 +103,11 @@ class UFMServer:
     # -- model plumbing ----------------------------------------------------
     def _predict_batch(self, src: np.ndarray, tgt: np.ndarray) -> list:
         res = self.model.predict_correspondences_batched(src, tgt)
-        # one copy to the host per output and batch
-        fields = {"flow": res.flow.flow_output, "covisibility": res.covisibility.mask}
+        # one copy to the host per output and batch; a model without the
+        # uncertainty head (UniFlowMatch) answers with the flow alone
+        fields = {"flow": res.flow.flow_output}
+        if res.covisibility is not None:
+            fields["covisibility"] = res.covisibility.mask
         if res.keypoint_confidence is not None:
             fields["keypoint_confidence"] = res.keypoint_confidence
         host = {k: v.float().cpu().numpy() for k, v in fields.items()}
@@ -206,10 +209,15 @@ class UFMServer:
         self._thread.join()
 
     def close(self) -> None:
-        if self._httpd is not None:
-            self._httpd.shutdown()
-            self._httpd.server_close()
-            self._httpd = None
+        """Stop the HTTP loop and the lanes. Safe to call more than once and
+        from several threads at a time (``serve`` closes the daemon when
+        ``serve_forever`` returns, which another thread's ``close`` causes):
+        the first caller takes the HTTP server, the others find none."""
+        with self._lane_lock:
+            httpd, self._httpd = self._httpd, None
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
         with self._lane_lock:
             lanes = list(self._lanes.values())
             self._lanes.clear()

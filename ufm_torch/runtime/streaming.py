@@ -147,9 +147,12 @@ def stream_predict_staged(
     tgt_batch)`` returns intermediates on the device (a tuple, or one value)
     and ``stage2(*intermediates)`` the outputs. Both dispatches of batch N+1
     are enqueued before batch N's outputs are handed out; the intermediates
-    never leave the device. Otherwise as :func:`stream_predict`. (UFM-Refine
-    itself is one captured program on the card; this loop serves callers
-    that split their own work in two.)"""
+    never leave the device. Otherwise as :func:`stream_predict`. (UFM-Refine's
+    predict is one captured program on the card; the JAX package's two
+    refine programs are its network's ``backbone``, returning ``flow``,
+    ``cls_in_0`` and ``cls_in_1``, and ``refine_tail(img1, img2, flow,
+    cls_in_0, cls_in_1)``, which make the two stages here on normalized
+    model-resolution images.)"""
 
     def dispatch(src, tgt):
         mid = stage1(src, tgt)
