@@ -129,10 +129,16 @@ traces the flagship on the CPU and runs the moved program on the card;
 predict API) to the live model on a 480x640 pair; ``serve_artifact`` starts
 ``python -m ufm_torch.cli serve --artifact`` and sends it one request;
 ``artifact_refine`` exports UFM-Refine (36 + 1 launches a call);
-``loader`` decodes PNG files written here (with zlib) and the committed
-JPEG with the native loader and streams them, or says on its own line that
-this host lacks the loader's system headers. Artifacts are written under
-``build/`` and removed at the end.
+``loader`` builds the native loader from the repository alone (no image
+library linked: the port's own PNG / JPEG decoders), decodes PNG files
+written here, the committed JPEG cases (bitwise their committed libjpeg and
+cv2 decodes, through the loader and ``read_rgb``) and the committed
+1080x1920 JPEG pair (against libjpeg's SHA-256; decode ms and frames/s at 1,
+2, 4 and 8 threads), and streams 32 pairs of it from the files into
+UFM-Base, bitwise the stream of the same frames from memory;
+``jpeg_entry`` runs ``ufm infer`` on that pair in this process and sends it
+as a JSON request to a ``UFMServer``, with cv2 and PIL unimportable.
+Artifacts are written under ``build/`` and removed at the end.
 
 Each path's launch counts are set to 0 just before it and read just after;
 every inference path that runs the bf16 backbone launches the fused fc1 +
@@ -499,10 +505,19 @@ ARTIFACT_BF16_DRIFT = 5e-2
 ARTIFACT_CPU_BAR = 2e-2
 # artifacts are written here (git-ignored) and removed at the end
 ARTIFACT_DIR = os.path.join(HERE, "build", "chip_smoke_artifacts")
-# loader: PNG pairs written by this script, decoded and streamed
+# loader: PNG pairs written by this script, decoded exactly; the committed
+# JPEG cases (tests/test_torch_port_jpeg.py wrote them and their libjpeg and
+# cv2 decodes) bitwise; the committed 1080x1920 JPEG pair timed and streamed
 LOADER_PAIRS, LOADER_HW = 8, (480, 640)
 LOADER_JPEG = os.path.join(HERE, "tests", "golden", "loader_smooth")
 LOADER_JPEG_MEAN_ABS = 6  # tests/test_torch_port_loader.py's bar
+JPEG_CASES = os.path.join(HERE, "tests", "golden", "jpeg_cases")
+JPEG_PAIR = os.path.join(HERE, "tests", "golden", "jpeg_pair")
+JPEG_PAIR_FILES = ("frame0.jpg", "frame1.jpg")
+JPEG_STREAM_PAIRS = 32
+JPEG_DECODE_REPS = 12  # one frame on one thread, the median of these
+JPEG_THREADS = (1, 2, 4, 8)
+JPEG_FRAMES_PER_COUNT = 48  # frames decoded at each thread count
 
 
 def emit(phase: str, **fields) -> None:
@@ -3078,11 +3093,11 @@ def phase_batch_rows(model):
           f"batch_rows: the slot's effect starts at {mixer}, not at an fp32 convolution")
 
 
-def _http(port, path, body=None):
+def _http(port, path, body=None, content_type="application/x-npz"):
     import urllib.request
 
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
-                                 headers={"Content-Type": "application/x-npz"} if body is not None else {})
+                                 headers={"Content-Type": content_type} if body is not None else {})
     with urllib.request.urlopen(req, timeout=300) as r:
         return r.read()
 
@@ -3706,24 +3721,146 @@ def write_png(path: str, rgb: np.ndarray) -> None:
     image_io.write_png(path, rgb)
 
 
-def phase_loader(model):
-    """The native image loader on this machine: PNG pairs written by this
-    script and the committed JPEG, decoded by ``NativeImageLoader`` (PNG
-    frames exact, the JPEG within the CPU test's bar) and streamed into
-    ``stream_predict``. Where the host lacks libjpeg's or libpng's headers the
-    loader cannot be built: the phase says so on its own line and runs
-    nothing. Returns its attention launches (0 when it did not run)."""
-    from ufm_torch.ops import flash_attention as fa
-    from ufm_torch.ops import gelu as ge
-    from ufm_torch.ops import linear_gelu as lg
-    from ufm_torch.runtime import stream_predict
-    from ufm_torch.runtime.loader import NativeImageLoader, iter_decoded_pairs, missing_system_headers
+def _loader_library_links_no_image_library() -> dict:
+    """The loader's build: no ``-l`` flag in the host build, and no libjpeg /
+    libpng / zlib among the built library's NEEDED names."""
+    from ufm_torch.ops import _build
 
-    missing = missing_system_headers()
-    if missing:
-        emit("loader", ran=False, missing_headers=missing,
-             reason="the loader (ufm_torch/csrc/host/ufm_loader.cc) includes these; this host cannot build it")
-        return 0
+    lib = _build.load_host_library("ufm_loader")
+    with open(lib._name, "rb") as f:
+        binary = f.read()
+    needed = [name for name in ("libjpeg.so", "libpng", "libz.so") if name.encode() in binary]
+    flags = [f for f in _build.CXX_FLAGS if f.startswith("-l")]
+    check(not flags and not needed, f"loader: link flags {flags}, image libraries in the library: {needed}")
+    return {"link_flags": flags, "image_libraries_needed": needed, "library": os.path.basename(lib._name)}
+
+
+def _decode_one(loader, path):
+    loader.submit(0, path)
+    polled = loader.poll(timeout_s=30.0)
+    check(polled is not None, f"loader: {path} timed out")
+    return polled[1]
+
+
+def _jpeg_cases_bitwise() -> dict:
+    """Every committed JPEG case through the loader (libjpeg's JCS_RGB
+    decode) and ``read_rgb`` (cv2's), held bitwise to the committed
+    decodes; a case the JAX package's loader refused (CMYK) refused too."""
+    from ufm_torch.runtime.loader import NativeImageLoader
+    from ufm_torch.utils.image_io import read_rgb
+
+    with np.load(os.path.join(JPEG_CASES, "decodes.npz")) as z:
+        stored = {k: z[k] for k in z.files}
+    names = sorted(k[len("cv2/"):] for k in stored if k.startswith("cv2/"))
+    mismatched = []
+    for name in names:
+        path = os.path.join(JPEG_CASES, name)
+        if not np.array_equal(read_rgb(path), stored[f"cv2/{name}"]):
+            mismatched.append(f"read_rgb {name}")
+        want = stored.get(f"libjpeg/{name}")
+        hw = want.shape[:2] if want is not None else stored[f"cv2/{name}"].shape[:2]
+        with NativeImageLoader(hw, num_threads=1) as loader:
+            got = _decode_one(loader, path)
+        if (got is None) != (want is None) or (got is not None and not np.array_equal(got, want)):
+            mismatched.append(f"loader {name}")
+    check(not mismatched and len(names) == 16, f"loader: {len(names)} cases, not bitwise: {mismatched}")
+    return {"cases": len(names), "refused_as_libjpeg": sorted(set(names) - {k[len("libjpeg/"):] for k in stored})}
+
+
+def _jpeg_decode_rates() -> dict:
+    """The 1080x1920 pair at its size: SHA-256 of each decode against the
+    committed one; one frame on one thread (median of JPEG_DECODE_REPS
+    submit-to-poll times, the frame's copy out included); frames/s at each
+    of JPEG_THREADS (JPEG_FRAMES_PER_COUNT frames, both files in turn)."""
+    import hashlib
+
+    from ufm_torch.runtime.loader import NativeImageLoader
+
+    with open(os.path.join(JPEG_PAIR, "sha256.json")) as f:
+        hashes = json.load(f)
+    paths = [os.path.join(JPEG_PAIR, n) for n in JPEG_PAIR_FILES]
+    hw = tuple(hashes[JPEG_PAIR_FILES[0]]["shape"][:2])
+    with NativeImageLoader(hw, num_threads=1) as loader:
+        digests = {n: hashlib.sha256(_decode_one(loader, p).tobytes()).hexdigest() for n, p in zip(JPEG_PAIR_FILES, paths)}
+        times = []
+        for _ in range(JPEG_DECODE_REPS):
+            t = time.perf_counter()
+            _decode_one(loader, paths[0])
+            times.append(time.perf_counter() - t)
+    rates = {}
+    for threads in JPEG_THREADS:
+        with NativeImageLoader(hw, num_threads=threads) as loader:
+            t = time.perf_counter()
+            for i in range(JPEG_FRAMES_PER_COUNT):
+                loader.submit(i, paths[i % 2])
+            for _ in range(JPEG_FRAMES_PER_COUNT):
+                polled = loader.poll(timeout_s=30.0)
+                check(polled is not None and polled[1] is not None, f"loader: a frame failed at {threads} threads")
+            rates[threads] = JPEG_FRAMES_PER_COUNT / (time.perf_counter() - t)
+    check(all(digests[n] == hashes[n]["sha256"] for n in JPEG_PAIR_FILES),
+          f"loader: the 1080x1920 pair decodes to {digests}, libjpeg's are {hashes}")
+    return {"pair_sha256_match": True, "pair_bytes": [os.path.getsize(p) for p in paths],
+            "decode_ms_1_thread": float(np.median(times)) * 1e3, "decode_ms_all": [t * 1e3 for t in times],
+            "frames_per_s_by_threads": rates}
+
+
+def _jpeg_stream(model) -> dict:
+    """JPEG_STREAM_PAIRS pairs of the committed 1080x1920 files through
+    ``iter_decoded_pairs`` (resized to SERVE_HW in the loader, 4 threads)
+    into ``stream_predict`` at lanes of SERVE_MAX_BATCH: 36 attention and 36
+    fused fc1 + GELU launches a batch, no plain call, each output bitwise the
+    stream of the same decoded frames from memory."""
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.runtime import iter_decoded_pairs, stream_predict
+
+    paths = [tuple(os.path.join(JPEG_PAIR, n) for n in JPEG_PAIR_FILES)] * JPEG_STREAM_PAIRS
+    b = SERVE_MAX_BATCH
+    frames = list(iter_decoded_pairs(paths[:1], SERVE_HW, num_threads=4)) * JPEG_STREAM_PAIRS
+    model.predict_correspondences_batched(np.stack([frames[0][0]] * b), np.stack([frames[0][1]] * b))  # the lane's program
+    torch.cuda.synchronize()
+    counters.reset()  # the streamed path's counts start here
+    with _plain_calls() as plain_calls:
+        t = time.perf_counter()
+        from_files = [(o.flow.flow_output, o.covisibility.mask)
+                      for o in stream_predict(model.predict_correspondences_batched,
+                                              iter_decoded_pairs(paths, SERVE_HW, num_threads=4), batch_size=b,
+                                              device="cuda")]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launched = counters.snapshot()
+    t = time.perf_counter()
+    from_memory = [(o.flow.flow_output, o.covisibility.mask)
+                   for o in stream_predict(model.predict_correspondences_batched, iter(frames), batch_size=b,
+                                           device="cuda")]
+    torch.cuda.synchronize()
+    memory_wall = time.perf_counter() - t
+    batches = -(-JPEG_STREAM_PAIRS // b)
+    bitwise = len(from_files) == len(from_memory) == batches and all(
+        torch.equal(f, g) and torch.equal(c, d) for (f, c), (g, d) in zip(from_files, from_memory))
+    per_batch = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
+    check(bitwise, "loader: streamed outputs from JPEG files differ from the stream of the same frames from memory")
+    check(plain_calls == {"attention": 0, "window": 0}, f"loader stream called plain versions: {plain_calls}")
+    check(launched == tuple(batches * k for k in per_batch), f"loader stream: launches {launched}")
+    record_path("ufm_base_loader_streamed", launched, GELU_PER_FORWARD * batches)
+    return {"stream_pairs": JPEG_STREAM_PAIRS, "stream_input": "1080x1920 JPEG files resized to 480x640 by the loader",
+            "streamed_pairs_per_s_from_jpeg": JPEG_STREAM_PAIRS / wall,
+            "streamed_pairs_per_s_from_memory": JPEG_STREAM_PAIRS / memory_wall,
+            "stream_bitwise_from_memory": bool(bitwise), "stream_launches": dict(zip(COUNTER_KERNELS, launched)),
+            "stream_plain_calls": plain_calls}
+
+
+def phase_loader(model):
+    """The native image loader where this script runs, built from the repository
+    alone (no image library linked): PNG pairs written by this script and
+    the committed smooth JPEG decoded by ``NativeImageLoader`` (PNG frames
+    exact, the JPEG bitwise its committed decode); the committed JPEG cases
+    bitwise; the 1080x1920 JPEG pair's decodes against libjpeg's SHA-256,
+    its decode ms and frames/s by thread count; JPEG files streamed into
+    ``stream_predict`` on ``model`` (UFM-Base), bitwise the stream from
+    memory (path ``ufm_base_loader_streamed``)."""
+    from ufm_torch.runtime.loader import NativeImageLoader, iter_decoded_pairs
+
+    build = _loader_library_links_no_image_library()
     rng = np.random.default_rng(4)
     frames = rng.integers(0, 256, (LOADER_PAIRS, 2, *LOADER_HW, 3), dtype=np.uint8)
     paths = []
@@ -3736,27 +3873,19 @@ def phase_loader(model):
     decode_s = time.perf_counter() - t
     exact = all(np.array_equal(a, frames[i, 0]) and np.array_equal(b, frames[i, 1]) for i, (a, b) in enumerate(decoded))
     with np.load(LOADER_JPEG + ".npz") as z:
-        source = z["source"]
+        source, committed = z["source"], z["decoded"]
     with NativeImageLoader(source.shape[:2], num_threads=1) as loader:
-        loader.submit(0, LOADER_JPEG + ".jpg")
-        _, jpeg = loader.poll()
+        jpeg = _decode_one(loader, LOADER_JPEG + ".jpg")
     jpeg_err = float(np.abs(jpeg.astype(int) - source.astype(int)).mean())
-    fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
-    t = time.perf_counter()
-    outs = [o.flow.flow_output for o in stream_predict(model.predict_correspondences_batched,
-                                                       iter_decoded_pairs(paths, LOADER_HW, num_threads=4),
-                                                       batch_size=SERVE_MAX_BATCH, device="cuda")]
-    torch.cuda.synchronize()
-    stream_s = time.perf_counter() - t
-    launches = fa.LAUNCHES
-    mlp_path("ufm_base_loader_streamed", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD * -(-LOADER_PAIRS // SERVE_MAX_BATCH))
-    emit("loader", ran=True, pairs=LOADER_PAIRS, input_hw=list(LOADER_HW), png_frames_exact=exact,
-         frames_per_s=2 * LOADER_PAIRS / decode_s, jpeg_mean_abs_err=jpeg_err, jpeg_bar=LOADER_JPEG_MEAN_ABS,
-         streamed_pairs_per_s=LOADER_PAIRS / stream_s, launches=launches)
+    cases = _jpeg_cases_bitwise()
+    rates = _jpeg_decode_rates()
+    stream = _jpeg_stream(model)
+    emit("loader", ran=True, build=build, png_pairs=LOADER_PAIRS, png_hw=list(LOADER_HW), png_frames_exact=exact,
+         png_frames_per_s=2 * LOADER_PAIRS / decode_s, jpeg_mean_abs_err=jpeg_err, jpeg_bar=LOADER_JPEG_MEAN_ABS,
+         smooth_jpeg_bitwise=bool(np.array_equal(jpeg, committed)), jpeg_cases=cases, **rates, **stream)
     check(exact, "loader: a decoded PNG frame differs from the array written")
     check(jpeg_err < LOADER_JPEG_MEAN_ABS, f"loader: the JPEG decodes {jpeg_err:.2f} from its source")
-    check(sum(len(f) for f in outs) == LOADER_PAIRS and all(_finite(f) for f in outs), "loader: streamed outputs")
-    return launches
+    check(np.array_equal(jpeg, committed), "loader: the smooth JPEG differs from its committed decode")
 
 
 class _TF32:
@@ -4045,6 +4174,104 @@ def phase_entry():
     check(diffs[False] <= ENTRY_FLOW_BAR_PX, f"ufm infer: flow {diffs[False]:.3e} px from the CPU run")
     check(diffs[True] <= ENTRY_FLOW_BAR_TF32_ON_PX, f"ufm infer, TF32 on: flow {diffs[True]:.3e} px from the CPU run")
     return fa.ANY_LAUNCHES
+
+
+def phase_jpeg_entry():
+    """UFM-Base from JPEG files through the entry points, with
+    ENTRY_BLOCKED_IMPORTS (cv2, PIL, ...) unimportable: ``ufm infer`` on the
+    committed 1080x1920 pair with seeded random weights (``--random-init``)
+    in this process, its inputs bitwise ``read_rgb``'s arrays and its flow
+    (recorded from the predict call) bitwise a direct predict of a model
+    built the same way on them; then a JSON request carrying the JPEG bytes
+    to a ``UFMServer`` at lanes of SERVE_MAX_BATCH on that model, answered
+    bitwise as the lane program's slot 0 (a batch of copies of the pair).
+    Each path: 36 attention and 36 fused fc1 + GELU launches a forward, no
+    plain call (paths ``ufm_infer_jpeg``, ``ufm_base_jpeg_served``)."""
+    import base64
+    import io
+
+    from ufm_torch import cli
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.models.base import UniFlowMatchModelsBase
+    from ufm_torch.ops import launches as counters
+    from ufm_torch.runtime import UFMServer
+    from ufm_torch.utils.image_io import read_png, read_rgb
+
+    src_path, tgt_path = (os.path.join(JPEG_PAIR, n) for n in JPEG_PAIR_FILES)
+    out_dir = os.path.join(ARTIFACT_DIR, "infer_jpeg")
+    predict = UniFlowMatchModelsBase.predict_correspondences_batched
+    calls = []
+
+    def recording(self, *args, **kwargs):
+        res = predict(self, *args, **kwargs)
+        calls.append((kwargs["source_image"].copy(), kwargs["target_image"].copy(), res.flow.flow_output.clone(),
+                      res.covisibility.mask.clone()))
+        return res
+
+    log = io.StringIO()
+    per_forward = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
+    with _blocked_imports(ENTRY_BLOCKED_IMPORTS):
+        counters.reset()  # the infer path's counts start here
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log), _plain_calls() as infer_plain, \
+                    unittest.mock.patch.object(UniFlowMatchModelsBase, "predict_correspondences_batched", recording):
+                cli.main(["infer", src_path, tgt_path, "--random-init", "-o", out_dir])
+        except SystemExit as e:
+            check(False, f"ufm infer exited {e.code}:\n{log.getvalue()}")
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t
+        infer_launched = counters.snapshot()
+        panels = {name: list(read_png(os.path.join(out_dir, name)).shape) for name in cli.OUTPUT_FILES}
+        src, tgt = read_rgb(src_path), read_rgb(tgt_path)
+        model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+        direct = model.predict_correspondences_batched(source_image=src, target_image=tgt)
+        check(len(calls) == 1, f"ufm infer made {len(calls)} predict calls")
+        got_src, got_tgt, infer_flow, _ = calls[0]
+        inputs_bitwise = np.array_equal(got_src, src) and np.array_equal(got_tgt, tgt)
+        infer_bitwise = torch.equal(infer_flow, direct.flow.flow_output)
+        infer_diff = (infer_flow.float() - direct.flow.flow_output.float()).abs().max().item()
+
+        body = json.dumps({key: base64.b64encode(open(path, "rb").read()).decode()
+                           for key, path in (("source_png_b64", src_path), ("target_png_b64", tgt_path))}).encode()
+        server = UFMServer(model, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS)
+        server.start()
+        try:
+            t = time.perf_counter()
+            _http(server.port, "/v1/predict", body, "application/json")  # the lane's first batch captures its program
+            warm_s = time.perf_counter() - t
+            counters.reset()  # the served path's counts start here
+            with _plain_calls() as served_plain:
+                t = time.perf_counter()
+                raw = _http(server.port, "/v1/predict", body, "application/json")
+                served_s = time.perf_counter() - t
+            served_launched = counters.snapshot()
+        finally:
+            server.close()
+    with np.load(io.BytesIO(raw)) as z:
+        served = {k: z[k] for k in z.files}
+    copies = model.predict_correspondences_batched(np.stack([src] * SERVE_MAX_BATCH), np.stack([tgt] * SERVE_MAX_BATCH))
+    served_bitwise = (np.array_equal(served["flow"], copies.flow.flow_output[0].float().cpu().numpy())
+                      and np.array_equal(served["covisibility"], copies.covisibility.mask[0].cpu().numpy()))
+    emit("jpeg_entry", files=list(JPEG_PAIR_FILES), input_hw=list(src.shape[:2]),
+         imports_blocked=list(ENTRY_BLOCKED_IMPORTS), infer_command="ufm_torch.cli.main(['infer', frame0.jpg, "
+         "frame1.jpg, '--random-init', '-o', DIR])", infer_s=infer_s, infer_panels=panels,
+         infer_inputs_bitwise_read_rgb=bool(inputs_bitwise), infer_flow_bitwise_direct=bool(infer_bitwise),
+         infer_flow_max_abs_diff_px=infer_diff, infer_launches=dict(zip(COUNTER_KERNELS, infer_launched)),
+         infer_plain_calls=infer_plain, served_warm_up_s=warm_s, served_request_s=served_s,
+         served_bitwise_lane_slot0=bool(served_bitwise), served_launches=dict(zip(COUNTER_KERNELS, served_launched)),
+         served_plain_calls=served_plain)
+    check(all(shape == [*src.shape[:2], 3] for shape in panels.values()), f"ufm infer panels: {panels}")
+    check(inputs_bitwise, "ufm infer: its input arrays differ from read_rgb's")
+    check(infer_bitwise, f"ufm infer: flow {infer_diff:.3e} px from the direct predict")
+    check(served_bitwise, "jpeg served: the response differs from the lane program's answer at slot 0")
+    for label, plain, launched in (("ufm infer", infer_plain, infer_launched), ("jpeg served", served_plain, served_launched)):
+        check(plain == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain}")
+        check(launched == per_forward, f"{label}: launches {launched}, expected {per_forward}")
+    record_path("ufm_infer_jpeg", infer_launched, GELU_PER_FORWARD)
+    record_path("ufm_base_jpeg_served", served_launched, GELU_PER_FORWARD)
+    del model
+    _free_card_memory()
 
 
 def _model_hw(config):
@@ -4399,7 +4626,7 @@ def run_phases(smi: str) -> int:
     art_path, art, export_launches = phase_export(model)
     art_model, artifact_launches = phase_artifact_predict(model, art, pair)
     phase_serve_artifact(art_path, art_model, pair)
-    loader_launches = phase_loader(model)
+    phase_loader(model)
     del model, kernel_res, art, art_model
     torch.cuda.empty_cache()
     cpu_export_launches = phase_export_cpu()
@@ -4426,6 +4653,7 @@ def run_phases(smi: str) -> int:
     phase_uniflowmatch()
     phase_fp32_path()
     entry_launches = phase_entry()
+    phase_jpeg_entry()
     train_model, train_batch, train_launches = phase_train()
     phase_train_self_check(train_model, train_batch)
     del train_model, train_batch
@@ -4469,7 +4697,7 @@ def run_phases(smi: str) -> int:
         "replaces": "ufm_tpu/ops/flash_attention.py:558",
         "launches": launches + tiled_launches + refine_launches["flash_attention_fwd"]
         + train_launches["flash_attention_fwd"] + golden_launches["flash_attention_fwd"]
-        + export_launches + cpu_export_launches + artifact_launches + loader_launches
+        + export_launches + cpu_export_launches + artifact_launches
         + dp_launches["ufm_base"]["flash_attention_fwd"] + dp_launches["ufm_refine"]["flash_attention_fwd"]
         + moge_launches + tiled_refine_launches["flash_attention_fwd"],
         "launches_by_path": {"ufm_base": launches, "ufm_base_tiled": tiled_launches,
@@ -4479,7 +4707,6 @@ def run_phases(smi: str) -> int:
                              "ufm_base_artifact": export_launches,
                              "ufm_base_artifact_cpu_export": cpu_export_launches,
                              "ufm_base_artifact_captured": artifact_launches,
-                             "ufm_base_loader_streamed": loader_launches,
                              "ufm_base_data_parallel": dp_launches["ufm_base"]["flash_attention_fwd"],
                              "ufm_refine_data_parallel": dp_launches["ufm_refine"]["flash_attention_fwd"],
                              "ufm_base_moge": moge_launches,

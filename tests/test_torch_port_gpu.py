@@ -825,6 +825,34 @@ def test_stream_predict_on_the_card(cuda, staged):
         assert torch.equal(got.covisibility.mask, want.covisibility.mask[:n])
 
 
+@pytest.mark.parametrize("threads", [1, 4])
+def test_loader_feeds_stream_predict_on_the_card(cuda, threads):
+    """The committed JPEG cases (tests/golden/jpeg_cases, 117x157) decoded by
+    the native loader into ``stream_predict`` on the card: each decoded frame
+    bitwise its committed libjpeg decode, and the streamed outputs bitwise
+    the stream of the same frames from memory."""
+    from ufm_torch.runtime import iter_decoded_pairs, stream_predict
+
+    cases = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "jpeg_cases")
+    names = ["s444_prog.jpg", "s422_base_opt.jpg", "s420_base_rst_opt.jpg", "s411_prog_rst.jpg", "s440_prog.jpg"]
+    paths = [(os.path.join(cases, a), os.path.join(cases, b)) for a, b in zip(names, names[1:] + names[:1])]
+    with np.load(os.path.join(cases, "decodes.npz")) as z:
+        stored = {n: z[f"libjpeg/{n}"] for n in names}
+    frames = list(iter_decoded_pairs(paths, (117, 157), num_threads=threads))
+    for (a, b), (src, tgt) in zip(frames, paths):
+        assert np.array_equal(a, stored[os.path.basename(src)]) and np.array_equal(b, stored[os.path.basename(tgt)])
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    predict = model.predict_correspondences_batched
+    from_files = list(stream_predict(predict, iter_decoded_pairs(paths, (117, 157), num_threads=threads),
+                                     batch_size=2, device="cuda"))
+    from_memory = list(stream_predict(predict, iter(frames), batch_size=2, device="cuda"))
+    torch.cuda.synchronize()
+    assert [o.flow.flow_output.shape[0] for o in from_files] == [2, 2, 1]
+    for got, want in zip(from_files, from_memory):
+        assert torch.equal(got.flow.flow_output, want.flow.flow_output)
+        assert torch.equal(got.covisibility.mask, want.covisibility.mask)
+
+
 def test_ops_on_the_card_match_their_plain_versions(cuda):
     """Each dispatcher op on CUDA tensors runs its kernel (one launch each)
     and agrees with the plain version on the same inputs: the attention op

@@ -131,8 +131,8 @@ def test_port_loads_nothing_from_native():
 
 
 # not installed on the GPU machine: the port needs none of them for flax
-# msgpack checkpoints or PNG files (its own codecs), and imports cv2 only for
-# other image formats
+# msgpack checkpoints, PNG or JPEG files (its own codecs), and imports cv2
+# only for other image formats
 CARD_LACKS = ("msgpack", "safetensors", "cv2", "PIL")
 
 
@@ -186,6 +186,45 @@ def test_cli_infer_without_the_packages_the_card_lacks(tmp_path):
         assert panel.shape == (540, 720, 3) and panel.dtype.name == "uint8", name
 
 
+def test_jpeg_read_and_infer_without_the_packages_the_card_lacks(tmp_path):
+    """A JPEG through ``read_rgb`` (bitwise its committed cv2 decode) and
+    ``ufm infer`` on a JPEG pair (the committed 4:2:0 baseline and 4:2:2
+    progressive cases, 117x157) in a process where JAX, msgpack,
+    safetensors, cv2 and PIL cannot be imported: the port's own decoder
+    reads them, and infer writes three 117x157 panels."""
+    cases, out_dir = ROOT / "tests" / "golden" / "jpeg_cases", tmp_path / "out"
+    src, tgt = cases / "s420_base_rst_opt.jpg", cases / "s422_prog_rst.jpg"
+    code = (
+        "import sys\n"
+        f"for name in {sorted(FORBIDDEN) + list(CARD_LACKS)!r}: sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from ufm_torch.utils.image_io import read_rgb\n"
+        f"with np.load({str(cases / 'decodes.npz')!r}) as z: want = z['cv2/s420_base_rst_opt.jpg']\n"
+        f"assert np.array_equal(read_rgb({str(src)!r}), want)\n"
+        "from ufm_torch.cli import main\n"
+        f"main(['infer', {str(src)!r}, {str(tgt)!r}, "
+        f"'--checkpoint', {str(ROOT / 'examples' / 'checkpoints' / 'tiny_real224')!r}, '--device', 'cpu', "
+        f"'-o', {str(out_dir)!r}])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    from ufm_torch.cli import OUTPUT_FILES
+    from ufm_torch.utils.image_io import read_png
+
+    for name in OUTPUT_FILES:
+        assert read_png(str(out_dir / name)).shape == (117, 157, 3), name
+
+
+def test_host_sources_include_no_system_image_header():
+    """The host libraries build from the repository alone: no source in
+    ``csrc/host`` includes libjpeg's, libpng's or zlib's header."""
+    sources = sorted((ROOT / "ufm_torch" / "csrc" / "host").glob("*.*"))
+    assert {p.name for p in sources} >= {"ufm_loader.cc", "ufm_runtime.cc", "image_decode.h"}
+    for path in sources:
+        included = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]", path.read_text(), re.M)
+        assert not {"jpeglib.h", "png.h", "zlib.h"} & set(included), (path.name, included)
+
+
 def test_from_config_without_device_needs_cuda(monkeypatch):
     from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config
 
@@ -225,7 +264,7 @@ def test_chip_smoke_fails_without_a_gpu_or_the_package(tmp_path):
 def test_package_data_ships_every_source():
     """``pip install`` ships each source the package builds at run time: the
     kernels (``csrc/*.cu``, ``*.cuh``) and the host libraries
-    (``csrc/host/*.cc``)."""
+    (``csrc/host/*.cc`` and their headers, ``csrc/host/*.h``)."""
     import tomllib
 
     from ufm_torch.ops import _build
@@ -234,4 +273,6 @@ def test_package_data_ships_every_source():
     shipped = {p for g in globs for p in (ROOT / "ufm_torch").glob(g)}
     needed = {_build.CSRC_DIR / f"{n}.cu" for n in _build.KERNEL_SOURCES}
     needed |= set(_build.CSRC_DIR.glob("*.cuh")) | {_build.CSRC_DIR / "host" / f"{n}.cc" for n in _build.HOST_SOURCES}
+    needed |= set((_build.CSRC_DIR / "host").glob("*.h"))
+    assert _build.CSRC_DIR / "host" / "image_decode.h" in needed
     assert needed <= shipped, sorted(str(p) for p in needed - shipped)

@@ -1,16 +1,18 @@
 // ufm_torch image loader: multithreaded image decode off the GIL.
 //
 // The port's own copy of the JAX package's native/ufm_loader.cc, built by
-// ufm_torch/ops/_build.py with the host C++ compiler (-ljpeg -lpng) into
-// build/ufm_torch/ at first use. One change: ufm_loader_shutdown, which
-// wakes every thread waiting in ufm_loader_poll (it then returns -1), so
-// that the owner can wait for them to leave before ufm_loader_destroy frees
-// the loader (the original destroyed it under a waiting poller).
+// ufm_torch/ops/_build.py with the host C++ compiler into build/ufm_torch/
+// at first use. Two changes: the decoders are the port's own
+// (image_decode.h: PNG and JPEG bit for bit what the original's libpng and
+// libjpeg give, with no system image library), and ufm_loader_shutdown,
+// which wakes every thread waiting in ufm_loader_poll (it then returns -1),
+// so that the owner can wait for them to leave before ufm_loader_destroy
+// frees the loader (the original destroyed it under a waiting poller).
 //
 // Host-side image decoding is the serial bottleneck of a streaming
 // correspondence pipeline (the reference decodes with cv2 on the Python
 // thread, one image at a time — reference cli.py:97-106). This loader runs
-// libjpeg/libpng decoding on a pthread pool entirely off the GIL and hands
+// the decoders on a pthread pool entirely off the GIL and hands
 // fixed-size RGB8 frames back through a completion queue; frames whose
 // native size differs from the requested size are bilinearly resized in C.
 //
@@ -22,23 +24,25 @@
 //                                                    -1 shut down
 //   ufm_loader_shutdown(handle)              wakes pollers; submits fail
 //   ufm_loader_destroy(handle)               shuts down, joins, frees
-
-#include <cstddef>
-#include <cstdio>
-
-#include <jpeglib.h>
-#include <png.h>
+//   ufm_image_decode(data, len, &h, &w, out, err, err_len)
+//       one JPEG as cv2.imdecode(IMREAD_COLOR) gives it, in RGB order (EXIF
+//       orientation applied, CMYK converted): with out == NULL it sets the
+//       size only, else it writes h * w * 3 bytes. 0 ok / -1 refused (the
+//       reason in err).
 
 #include <chrono>
 #include <condition_variable>
-#include <csetjmp>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <deque>
 #include <mutex>
+#include <new>
 #include <string>
 #include <thread>
 #include <vector>
+
+#include "image_decode.h"
 
 namespace {
 
@@ -58,71 +62,34 @@ struct Loader {
   std::vector<std::thread> workers;
 };
 
-struct JpegErr {
-  jpeg_error_mgr mgr;
-  jmp_buf env;
-};
-
-void jpeg_error_jump(j_common_ptr cinfo) {
-  longjmp(reinterpret_cast<JpegErr*>(cinfo->err)->env, 1);
-}
-
-bool decode_jpeg(FILE* f, std::vector<uint8_t>* out, int* w, int* h) {
-  jpeg_decompress_struct cinfo;
-  JpegErr err;
-  cinfo.err = jpeg_std_error(&err.mgr);
-  err.mgr.error_exit = jpeg_error_jump;
-  if (setjmp(err.env)) {
-    jpeg_destroy_decompress(&cinfo);
+// The file at ``path`` decoded as the original loader's libjpeg (JCS_RGB) /
+// libpng calls decode it; false for any other file or a refused one.
+bool decode_file(const std::string& path, std::vector<uint8_t>* out, int* w, int* h) {
+  FILE* f = fopen(path.c_str(), "rb");
+  if (!f) return false;
+  std::vector<uint8_t> data;
+  uint8_t chunk[1 << 16];
+  size_t got;
+  while ((got = fread(chunk, 1, sizeof chunk, f)) > 0) data.insert(data.end(), chunk, chunk + got);
+  fclose(f);
+  static constexpr uint8_t kPngSig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1A, '\n'};
+  ufm_image::Image img;
+  std::string err;
+  try {
+    if (data.size() >= 3 && data[0] == 0xFF && data[1] == 0xD8) {
+      err = ufm_image::decode_jpeg(data.data(), data.size(), ufm_image::JpegTarget::kRgb, &img);
+    } else if (data.size() >= 8 && std::memcmp(data.data(), kPngSig, 8) == 0) {
+      err = ufm_image::decode_png(data.data(), data.size(), &img);
+    } else {
+      return false;
+    }
+  } catch (const std::bad_alloc&) {  // a header asking for more memory than there is
     return false;
   }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  *w = cinfo.output_width;
-  *h = cinfo.output_height;
-  out->resize((size_t)*w * *h * 3);
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t* row = out->data() + (size_t)cinfo.output_scanline * *w * 3;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  return true;
-}
-
-bool decode_png(FILE* f, std::vector<uint8_t>* out, int* w, int* h) {
-  png_structp png = png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  if (!png) return false;
-  png_infop info = png_create_info_struct(png);
-  if (!info) {
-    png_destroy_read_struct(&png, nullptr, nullptr);
-    return false;
-  }
-  if (setjmp(png_jmpbuf(png))) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    return false;
-  }
-  png_init_io(png, f);
-  png_read_info(png, info);
-  png_set_strip_16(png);
-  png_set_palette_to_rgb(png);
-  png_set_expand_gray_1_2_4_to_8(png);
-  if (png_get_color_type(png, info) == PNG_COLOR_TYPE_GRAY ||
-      png_get_color_type(png, info) == PNG_COLOR_TYPE_GRAY_ALPHA)
-    png_set_gray_to_rgb(png);
-  png_set_strip_alpha(png);
-  if (png_get_valid(png, info, PNG_INFO_tRNS)) png_set_tRNS_to_alpha(png);
-  png_read_update_info(png, info);
-  *w = png_get_image_width(png, info);
-  *h = png_get_image_height(png, info);
-  out->resize((size_t)*w * *h * 3);
-  std::vector<png_bytep> rows(*h);
-  for (int y = 0; y < *h; y++) rows[y] = out->data() + (size_t)y * *w * 3;
-  png_read_image(png, rows.data());
-  png_destroy_read_struct(&png, &info, nullptr);
+  if (!err.empty()) return false;
+  *w = img.width;
+  *h = img.height;
+  *out = std::move(img.rgb);
   return true;
 }
 
@@ -168,28 +135,15 @@ void worker(Loader* L) {
     frame.id = job.first;
     frame.ok = false;
 
-    FILE* f = fopen(job.second.c_str(), "rb");
-    if (f) {
-      uint8_t magic[8] = {0};
-      size_t got = fread(magic, 1, 8, f);
-      rewind(f);
-      std::vector<uint8_t> raw;
-      int w = 0, h = 0;
-      bool ok = false;
-      if (got >= 3 && magic[0] == 0xFF && magic[1] == 0xD8) {
-        ok = decode_jpeg(f, &raw, &w, &h);
-      } else if (got >= 8 && png_sig_cmp(magic, 0, 8) == 0) {
-        ok = decode_png(f, &raw, &w, &h);
+    std::vector<uint8_t> raw;
+    int w = 0, h = 0;
+    if (decode_file(job.second, &raw, &w, &h)) {
+      if (w == L->out_w && h == L->out_h) {
+        frame.rgb = std::move(raw);
+      } else {
+        resize_bilinear(raw, w, h, &frame.rgb, L->out_w, L->out_h);
       }
-      fclose(f);
-      if (ok) {
-        if (w == L->out_w && h == L->out_h) {
-          frame.rgb = std::move(raw);
-        } else {
-          resize_bilinear(raw, w, h, &frame.rgb, L->out_w, L->out_h);
-        }
-        frame.ok = true;
-      }
+      frame.ok = true;
     }
 
     {
@@ -259,6 +213,28 @@ void ufm_loader_destroy(void* handle) {
   ufm_loader_shutdown(handle);
   for (auto& t : L->workers) t.join();
   delete L;
+}
+
+int ufm_image_decode(const uint8_t* data, size_t len, int* h, int* w, uint8_t* out, char* err, int err_len) {
+  std::string why;
+  try {
+    if (!out) {
+      why = ufm_image::jpeg_size(data, len, ufm_image::JpegTarget::kOpenCv, w, h);
+    } else {
+      ufm_image::Image img;
+      why = ufm_image::decode_jpeg(data, len, ufm_image::JpegTarget::kOpenCv, &img);
+      if (why.empty() && (img.width != *w || img.height != *h)) why = "decoded size differs from the header's";
+      if (why.empty()) std::memcpy(out, img.rgb.data(), img.rgb.size());
+    }
+  } catch (const std::bad_alloc&) {
+    why = "image too large to decode in memory";
+  }
+  if (why.empty()) return 0;
+  if (err && err_len > 0) {
+    std::strncpy(err, why.c_str(), (size_t)err_len - 1);
+    err[err_len - 1] = 0;
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -5,10 +5,11 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/ufm_torch/`` at the repository root (git-ignored) the first time it is
 needed, and loaded with :mod:`ctypes`. The host libraries, framework-free
 C++ (``csrc/host/``: the serving runtime's scheduler ``ufm_runtime.cc`` and
-the image loader ``ufm_loader.cc``, which links libjpeg and libpng), are
-compiled the same way by the host C++ compiler (:func:`load_host_library`).
-A library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt.
+the image loader ``ufm_loader.cc`` with its PNG / JPEG decoders
+``image_decode.h``; no system library beyond the C++ runtime), are compiled
+the same way by the host C++ compiler (:func:`load_host_library`).
+A library's file name carries a hash of the sources, headers and flags, so an
+edited source is rebuilt.
 Nothing here runs at import time: the CPU tests import every module of the
 package.
 """
@@ -52,8 +53,6 @@ NVCC_FLAGS = (
 # host libraries (csrc/host/<name>.cc), built by the host C++ compiler
 HOST_SOURCES = ("ufm_runtime", "ufm_loader")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
-# the system libraries a host library links (after its source)
-HOST_LINK_FLAGS = {"ufm_loader": ("-ljpeg", "-lpng")}
 
 # extra flags of one library: at ptxas's default -O3 the window kernel's
 # direct path (hoisted global tap loads) takes all 128 registers a thread and
@@ -99,8 +98,10 @@ def _library_path(name: str) -> Path:
 
 
 def _host_library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS + HOST_LINK_FLAGS.get(name, ())).encode())
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     h.update((CSRC_DIR / "host" / f"{name}.cc").read_bytes())
+    for header in sorted((CSRC_DIR / "host").glob("*.h")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -161,13 +162,13 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def load_host_library(name: str) -> ctypes.CDLL:
     """The loaded host library ``csrc/host/<name>.cc``, built on first use by
-    the host C++ compiler (``-O2 -std=c++17 -fPIC -pthread -shared``, then
-    its ``HOST_LINK_FLAGS``)."""
+    the host C++ compiler (``-O2 -std=c++17 -fPIC -pthread -shared``; no
+    library linked beyond the C++ runtime)."""
     with _lock:
         if name not in _loaded:
             path = _host_library_path(name)
             if not path.exists():
                 source = str(CSRC_DIR / "host" / f"{name}.cc")
-                _compile([(name, path, [_cxx(), *CXX_FLAGS, source, *HOST_LINK_FLAGS.get(name, ())])])
+                _compile([(name, path, [_cxx(), *CXX_FLAGS, source])])
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]

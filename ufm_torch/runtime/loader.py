@@ -1,44 +1,27 @@
-"""Native image-pair loader: threaded libjpeg / libpng decoding off the GIL
+"""Native image-pair loader: threaded PNG / JPEG decoding off the GIL
 (counterpart of ``ufm_tpu/runtime/loader.py``).
 
 Binds the port's own copy of the loader, ``ufm_torch/csrc/host/ufm_loader.cc``,
-built by the host C++ compiler with ``-ljpeg -lpng`` into ``build/ufm_torch/``
-at first use. C threads decode PNG and JPEG files (and resize them
-bilinearly when their size is not the requested one) into fixed-size uint8
-RGB frames, so the Python thread stays free to feed the card:
-:func:`iter_decoded_pairs` is a producer for
-:func:`ufm_torch.runtime.streaming.stream_predict`. The build needs the
-system's ``jpeglib.h`` and ``png.h`` (:func:`missing_system_headers`).
+built by the host C++ compiler into ``build/ufm_torch/`` at first use from the
+repository's sources alone: its decoders (``csrc/host/image_decode.h``) give
+bit for bit what the JAX package's loader gets from libpng and libjpeg. C
+threads decode PNG and JPEG files (and resize them bilinearly when their size
+is not the requested one) into fixed-size uint8 RGB frames, so the Python
+thread stays free to feed the card: :func:`iter_decoded_pairs` is a producer
+for :func:`ufm_torch.runtime.streaming.stream_predict`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import threading
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
 from ufm_torch.ops import _build
 
-__all__ = ["NativeImageLoader", "iter_decoded_pairs", "missing_system_headers", "SYSTEM_HEADERS"]
-
-# the system headers the loader's source includes
-SYSTEM_HEADERS = ("jpeglib.h", "png.h")
-
-
-def missing_system_headers() -> List[str]:
-    """The headers of :data:`SYSTEM_HEADERS` that the host C++ compiler
-    cannot find (then the loader cannot be built)."""
-    cxx = _build._cxx()
-    missing = []
-    for header in SYSTEM_HEADERS:
-        probe = subprocess.run([cxx, "-E", "-x", "c++", "-", "-o", "/dev/null"], input=f"#include <cstdio>\n#include <{header}>\n",
-                               capture_output=True, text=True, timeout=60)
-        if probe.returncode != 0:
-            missing.append(header)
-    return missing
+__all__ = ["NativeImageLoader", "iter_decoded_pairs"]
 
 
 def _load_lib() -> ctypes.CDLL:

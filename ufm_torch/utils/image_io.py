@@ -1,5 +1,5 @@
-"""PNG files without an image library: a reader and a writer built on
-``zlib`` and numpy.
+"""Image files without an image library: PNG read and written with ``zlib``
+and numpy, JPEG read by the port's own decoder.
 
 The reader gives what ``cv2.imread`` gives for the same file, bit for bit,
 in RGB order: colour type 0 (gray), 2 (RGB), 3 (palette), 4 (gray + alpha)
@@ -11,9 +11,17 @@ high byte without it (``cv2.IMREAD_COLOR``), and gray below 8 bits is scaled
 to 0..255. Adam7-interlaced files raise, naming the file. The writer writes
 8-bit RGB and 16-bit three-channel files.
 
-Other formats (JPEG, ...) go through ``cv2`` in :func:`read_rgb` and
-:func:`decode_rgb`, which raise ``ImportError`` naming it where it is not
-installed: the split is by file format, PNG never reaches ``cv2``.
+JPEG goes to the decoder of the port's host library
+(``ufm_torch/csrc/host/image_decode.h`` through ``ufm_image_decode`` of
+``ufm_loader.cc``, built at first use): bit for bit what ``cv2.imdecode``
+with ``IMREAD_COLOR`` gives, in RGB order, the EXIF orientation applied and
+CMYK converted as OpenCV converts it. A JPEG it refuses (arithmetic coding,
+lossless, hierarchical, 12-bit, ...) raises ``ValueError`` naming the file and
+the feature; a JPEG never reaches ``cv2``.
+
+Other formats (BMP, TIFF, WebP, ...) go through ``cv2`` in :func:`read_rgb`
+and :func:`decode_rgb`, which raise ``ImportError`` naming it where it is not
+installed: the split is by file format.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import zlib
 
 import numpy as np
 
-__all__ = ["PNG_SIGNATURE", "is_png", "decode_png", "read_png", "write_png", "read_rgb", "decode_rgb"]
+__all__ = ["PNG_SIGNATURE", "is_png", "is_jpeg", "decode_png", "decode_jpeg", "read_png", "write_png", "read_rgb",
+           "decode_rgb"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples a pixel, by colour type
@@ -34,6 +43,11 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 def is_png(data: bytes) -> bool:
     """Whether ``data`` starts with the PNG signature."""
     return bytes(data[:8]) == PNG_SIGNATURE
+
+
+def is_jpeg(data: bytes) -> bool:
+    """Whether ``data`` starts with JPEG's SOI marker."""
+    return bytes(data[:2]) == b"\xff\xd8"
 
 
 def _chunks(data: bytes, name: str):
@@ -204,19 +218,54 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         f.write(data)
 
 
+def _decoder():
+    import ctypes
+
+    from ufm_torch.ops import _build
+
+    lib = _build.load_host_library("ufm_loader")
+    lib.ufm_image_decode.restype = ctypes.c_int
+    lib.ufm_image_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+                                     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    return lib.ufm_image_decode
+
+
+def decode_jpeg(data: bytes, name: str = "<jpeg data>") -> np.ndarray:
+    """A JPEG file's bytes -> (H, W, 3) RGB uint8, bit for bit
+    ``cv2.imdecode(..., IMREAD_COLOR)`` in RGB order, by the port's own
+    decoder: the size from the headers (EXIF orientation applied), then the
+    pixels. Raises ``ValueError`` naming ``name`` and why for a file it
+    refuses."""
+    import ctypes
+
+    decode = _decoder()
+    data = bytes(data)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    if decode(data, len(data), ctypes.byref(h), ctypes.byref(w), None, err, len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if decode(data, len(data), ctypes.byref(h), ctypes.byref(w), out.ctypes.data, err, len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out
+
+
 def _cv2(what: str):
     try:
         import cv2
     except ImportError:
-        raise ImportError(f"{what} is not a PNG file: reading it needs cv2 (opencv-python), which is not installed") from None
+        raise ImportError(f"{what} is neither PNG nor JPEG: reading it needs cv2 (opencv-python), which is not "
+                          "installed") from None
     return cv2
 
 
 def decode_rgb(data: bytes, name: str = "<image data>") -> np.ndarray:
     """An image file's bytes -> (H, W, 3) RGB uint8: PNG by :func:`decode_png`,
-    any other format by ``cv2.imdecode``."""
+    JPEG by :func:`decode_jpeg`, any other format by ``cv2.imdecode``."""
     if is_png(data):
         return decode_png(data, name=name)
+    if is_jpeg(data):
+        return decode_jpeg(data, name=name)
     cv2 = _cv2(name)
     bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     if bgr is None:

@@ -2,7 +2,8 @@
 ``ufm_tpu/utils/viz.py``).
 
 ``flow_to_color`` is a Middlebury colorwheel; ``visualize_flow`` the HSV
-rendering (``cv2``, imported when called); the warp is ``F.grid_sample``
+rendering (``hsv_to_bgr``: ``cv2.cvtColor(..., COLOR_HSV2BGR)`` in numpy, bit
+for bit); the warp is ``F.grid_sample``
 bilinear with ``align_corners=False`` and zero padding, the semantics the JAX
 package's own ``grid_sample`` reproduces.
 """
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["warp_image_with_flow", "visualize_flow", "flow_to_color", "correspondence_panels"]
+__all__ = ["warp_image_with_flow", "visualize_flow", "hsv_to_bgr", "flow_to_color", "correspondence_panels"]
 
 
 def warp_image_with_flow(source_image, source_mask, target_image, flow) -> np.ndarray:
@@ -44,11 +45,36 @@ def warp_image_with_flow(source_image, source_mask, target_image, flow) -> np.nd
     return warped
 
 
+def hsv_to_bgr(hsv: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 HSV (hue 0..179) -> uint8 BGR, bit for bit
+    ``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` as OpenCV computes it with AVX2:
+    float32 steps, six sectors of the hue scaled by 6 / 180, ``1 - s * x`` as
+    one fused multiply-add; each row's pixels in blocks of 32 go through its
+    vector path, which truncates each channel to an integer, and the rest of
+    the row through its scalar path, which rounds half to even."""
+    hsv = np.asarray(hsv, dtype=np.uint8)
+    h = hsv[..., 0].astype(np.float32) * np.float32(6.0 / 180.0)
+    s = hsv[..., 1].astype(np.float32) * np.float32(1.0 / 255.0)
+    v = hsv[..., 2].astype(np.float32) * np.float32(1.0 / 255.0)
+    sector = np.trunc(h)
+    h = h - sector
+    one = np.float32(1.0)
+
+    def one_minus_s_times(x):  # fma(-s, x, 1): a single rounding of the exact value
+        return (1.0 - s.astype(np.float64) * x.astype(np.float64)).astype(np.float32)
+
+    tab = np.stack([v, v * (one - s), v * one_minus_s_times(h), v * one_minus_s_times(one - h)], axis=-1)
+    # (b, g, r) = tab[...] by sector, as OpenCV's sector_data
+    order = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+    bgr = np.take_along_axis(tab, order[sector.astype(np.int64) % 6], axis=-1) * np.float32(255.0)
+    width = hsv.shape[1]
+    vector = (np.arange(width) < width - width % 32)[:, None]
+    return np.clip(np.where(vector, np.trunc(bgr), np.rint(bgr)), 0, 255).astype(np.uint8)
+
+
 def visualize_flow(flow: np.ndarray, flow_scale: float) -> np.ndarray:
     """HSV flow rendering: direction as hue, magnitude / ``flow_scale`` as
     saturation. Returns BGR uint8, as cv2 gives it."""
-    import cv2
-
     magnitude = np.sqrt(np.square(flow[..., 0]) + np.square(flow[..., 1]))
     angle = np.arctan2(flow[..., 1], flow[..., 0])
     magnitude = np.clip(magnitude / flow_scale, 0, 1)
@@ -58,7 +84,7 @@ def visualize_flow(flow: np.ndarray, flow_scale: float) -> np.ndarray:
     hsv[..., 0] = (angle_deg / 2).astype(np.uint8)
     hsv[..., 1] = (magnitude * 255).astype(np.uint8)
     hsv[..., 2] = 255
-    return cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)
+    return hsv_to_bgr(hsv)
 
 
 def _make_colorwheel() -> np.ndarray:
