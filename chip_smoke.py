@@ -135,9 +135,14 @@ written here, the committed JPEG cases (bitwise their committed libjpeg and
 cv2 decodes, through the loader and ``read_rgb``) and the committed
 1080x1920 JPEG pair (against libjpeg's SHA-256; decode ms and frames/s at 1,
 2, 4 and 8 threads), and streams 32 pairs of it from the files into
-UFM-Base, bitwise the stream of the same frames from memory;
+UFM-Base, bitwise the stream of the same frames from memory; then the same
+for the pair transcoded to arithmetic coding (decodes against the Huffman
+pair's SHA-256s, the stream bitwise the Huffman files' stream), and frame 1
+of each pair cut inside its AC scans (libjpeg's block-smoothed SHA-256);
 ``jpeg_entry`` runs ``ufm infer`` on that pair in this process and sends it
-as a JSON request to a ``UFMServer``, with cv2 and PIL unimportable.
+as a JSON request to a ``UFMServer``, with cv2 and PIL unimportable, runs
+``ufm infer`` on the arithmetic pair (bitwise the Huffman pair's flow) and
+sends a JSON request carrying a cut JPEG (a 400 naming its key).
 Artifacts are written under ``build/`` and removed at the end.
 
 Each path's launch counts are set to 0 just before it and read just after;
@@ -518,6 +523,12 @@ JPEG_STREAM_PAIRS = 32
 JPEG_DECODE_REPS = 12  # one frame on one thread, the median of these
 JPEG_THREADS = (1, 2, 4, 8)
 JPEG_FRAMES_PER_COUNT = 48  # frames decoded at each thread count
+# the pair transcoded to arithmetic coding (the DCT coefficients unchanged:
+# its decodes are the Huffman pair's SHA-256s) and cut.json: frame 1 of each
+# pair cut inside its AC scans, with libjpeg's block-smoothed SHA-256
+# (tests/test_torch_port_jpeg_arith.py wrote them)
+JPEG_PAIR_ARITH = os.path.join(HERE, "tests", "golden", "jpeg_pair_arith")
+JPEG_CUT_REPS = 5  # a cut frame's decode ms: the median of these
 
 
 def emit(phase: str, **fields) -> None:
@@ -3767,18 +3778,19 @@ def _jpeg_cases_bitwise() -> dict:
     return {"cases": len(names), "refused_as_libjpeg": sorted(set(names) - {k[len("libjpeg/"):] for k in stored})}
 
 
-def _jpeg_decode_rates() -> dict:
-    """The 1080x1920 pair at its size: SHA-256 of each decode against the
-    committed one; one frame on one thread (median of JPEG_DECODE_REPS
-    submit-to-poll times, the frame's copy out included); frames/s at each
-    of JPEG_THREADS (JPEG_FRAMES_PER_COUNT frames, both files in turn)."""
+def _jpeg_decode_rates(folder=JPEG_PAIR) -> dict:
+    """The 1080x1920 pair in ``folder`` (JPEG_PAIR, or JPEG_PAIR_ARITH) at its
+    size: SHA-256 of each decode against the committed Huffman pair's; one
+    frame on one thread (median of JPEG_DECODE_REPS submit-to-poll times, the
+    frame's copy out included); frames/s at each of JPEG_THREADS
+    (JPEG_FRAMES_PER_COUNT frames, both files in turn)."""
     import hashlib
 
     from ufm_torch.runtime.loader import NativeImageLoader
 
     with open(os.path.join(JPEG_PAIR, "sha256.json")) as f:
         hashes = json.load(f)
-    paths = [os.path.join(JPEG_PAIR, n) for n in JPEG_PAIR_FILES]
+    paths = [os.path.join(folder, n) for n in JPEG_PAIR_FILES]
     hw = tuple(hashes[JPEG_PAIR_FILES[0]]["shape"][:2])
     with NativeImageLoader(hw, num_threads=1) as loader:
         digests = {n: hashlib.sha256(_decode_one(loader, p).tobytes()).hexdigest() for n, p in zip(JPEG_PAIR_FILES, paths)}
@@ -3798,22 +3810,23 @@ def _jpeg_decode_rates() -> dict:
                 check(polled is not None and polled[1] is not None, f"loader: a frame failed at {threads} threads")
             rates[threads] = JPEG_FRAMES_PER_COUNT / (time.perf_counter() - t)
     check(all(digests[n] == hashes[n]["sha256"] for n in JPEG_PAIR_FILES),
-          f"loader: the 1080x1920 pair decodes to {digests}, libjpeg's are {hashes}")
+          f"loader: the 1080x1920 pair in {folder} decodes to {digests}, libjpeg's are {hashes}")
     return {"pair_sha256_match": True, "pair_bytes": [os.path.getsize(p) for p in paths],
             "decode_ms_1_thread": float(np.median(times)) * 1e3, "decode_ms_all": [t * 1e3 for t in times],
             "frames_per_s_by_threads": rates}
 
 
-def _jpeg_stream(model) -> dict:
-    """JPEG_STREAM_PAIRS pairs of the committed 1080x1920 files through
-    ``iter_decoded_pairs`` (resized to SERVE_HW in the loader, 4 threads)
-    into ``stream_predict`` at lanes of SERVE_MAX_BATCH: 36 attention and 36
-    fused fc1 + GELU launches a batch, no plain call, each output bitwise the
-    stream of the same decoded frames from memory."""
+def _jpeg_stream(model, folder=JPEG_PAIR, path_name="ufm_base_loader_streamed"):
+    """JPEG_STREAM_PAIRS pairs of the committed 1080x1920 files in ``folder``
+    through ``iter_decoded_pairs`` (resized to SERVE_HW in the loader, 4
+    threads) into ``stream_predict`` at lanes of SERVE_MAX_BATCH: 36 attention
+    and 36 fused fc1 + GELU launches a batch, no plain call, each output
+    bitwise the stream of the same decoded frames from memory. Returns the
+    summary and the streamed (flow, covisibility) of each batch."""
     from ufm_torch.ops import launches as counters
     from ufm_torch.runtime import iter_decoded_pairs, stream_predict
 
-    paths = [tuple(os.path.join(JPEG_PAIR, n) for n in JPEG_PAIR_FILES)] * JPEG_STREAM_PAIRS
+    paths = [tuple(os.path.join(folder, n) for n in JPEG_PAIR_FILES)] * JPEG_STREAM_PAIRS
     b = SERVE_MAX_BATCH
     frames = list(iter_decoded_pairs(paths[:1], SERVE_HW, num_threads=4)) * JPEG_STREAM_PAIRS
     model.predict_correspondences_batched(np.stack([frames[0][0]] * b), np.stack([frames[0][1]] * b))  # the lane's program
@@ -3838,15 +3851,81 @@ def _jpeg_stream(model) -> dict:
     bitwise = len(from_files) == len(from_memory) == batches and all(
         torch.equal(f, g) and torch.equal(c, d) for (f, c), (g, d) in zip(from_files, from_memory))
     per_batch = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
-    check(bitwise, "loader: streamed outputs from JPEG files differ from the stream of the same frames from memory")
+    check(bitwise, f"loader: streamed outputs from the JPEG files in {folder} differ from the stream of the same "
+                   "frames from memory")
     check(plain_calls == {"attention": 0, "window": 0}, f"loader stream called plain versions: {plain_calls}")
     check(launched == tuple(batches * k for k in per_batch), f"loader stream: launches {launched}")
-    record_path("ufm_base_loader_streamed", launched, GELU_PER_FORWARD * batches)
+    record_path(path_name, launched, GELU_PER_FORWARD * batches)
     return {"stream_pairs": JPEG_STREAM_PAIRS, "stream_input": "1080x1920 JPEG files resized to 480x640 by the loader",
             "streamed_pairs_per_s_from_jpeg": JPEG_STREAM_PAIRS / wall,
             "streamed_pairs_per_s_from_memory": JPEG_STREAM_PAIRS / memory_wall,
             "stream_bitwise_from_memory": bool(bitwise), "stream_launches": dict(zip(COUNTER_KERNELS, launched)),
-            "stream_plain_calls": plain_calls}
+            "stream_plain_calls": plain_calls}, from_files
+
+
+def _jpeg_stage_split() -> dict:
+    """Where a 1080x1920 frame's decode goes, by the decoder's own clock
+    (``ufm_image_decode_stages``, the loader's target, one thread): ms of
+    headers and entropy decoding, the IDCT (with block smoothing in a cut
+    frame), upsampling and colour conversion; the median of JPEG_CUT_REPS,
+    for frame 0 of each pair and frame 1 of each cut at its committed offset."""
+    import ctypes
+
+    from ufm_torch.ops import _build
+
+    lib = _build.load_host_library("ufm_loader")
+    lib.ufm_image_decode_stages.restype = ctypes.c_int
+    lib.ufm_image_decode_stages.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_double)]
+    with open(os.path.join(JPEG_PAIR_ARITH, "cut.json")) as f:
+        cuts = json.load(f)
+    frames = {}
+    for key, folder in (("frame0.jpg", JPEG_PAIR), ("frame0_arith.jpg", JPEG_PAIR_ARITH)):
+        with open(os.path.join(folder, "frame0.jpg"), "rb") as f:
+            frames[key] = f.read()
+    for key, entry in cuts.items():
+        with open(os.path.join(JPEG_PAIR if key == "frame1.jpg" else JPEG_PAIR_ARITH, "frame1.jpg"), "rb") as f:
+            frames[key.replace("frame1", "frame1_cut")] = f.read(entry["bytes"])
+    split = {}
+    for key, data in frames.items():
+        runs = []
+        for _ in range(JPEG_CUT_REPS):
+            seconds = (ctypes.c_double * 3)()
+            check(lib.ufm_image_decode_stages(data, len(data), seconds) == 0, f"loader: {key} refused")
+            runs.append([t * 1e3 for t in seconds])
+        split[key] = dict(zip(("entropy_ms", "idct_ms", "upsample_color_ms"), np.median(runs, axis=0).tolist()))
+    return split
+
+
+def _jpeg_cut_frames() -> dict:
+    """Frame 1 of the Huffman and the arithmetic pair cut inside its AC scans
+    (JPEG_PAIR_ARITH/cut.json): the loader's decode, block-smoothed, against
+    libjpeg's committed SHA-256, and its decode ms (the median of
+    JPEG_CUT_REPS)."""
+    import hashlib
+
+    from ufm_torch.runtime.loader import NativeImageLoader
+
+    with open(os.path.join(JPEG_PAIR_ARITH, "cut.json")) as f:
+        cuts = json.load(f)
+    out = {}
+    with NativeImageLoader((1080, 1920), num_threads=1) as loader:
+        for key, entry in sorted(cuts.items()):
+            with open(os.path.join(JPEG_PAIR if key == "frame1.jpg" else JPEG_PAIR_ARITH, "frame1.jpg"), "rb") as f:
+                data = f.read(entry["bytes"])
+            path = os.path.join(ARTIFACT_DIR, f"cut_{key}")
+            with open(path, "wb") as f:
+                f.write(data)
+            digest = hashlib.sha256(_decode_one(loader, path).tobytes()).hexdigest()
+            times = []
+            for _ in range(JPEG_CUT_REPS):
+                t = time.perf_counter()
+                _decode_one(loader, path)
+                times.append(time.perf_counter() - t)
+            out[key] = {"bytes": entry["bytes"], "sha256_match": digest == entry["sha256"],
+                        "decode_ms": float(np.median(times)) * 1e3}
+    check(sorted(out) == ["frame1.jpg", "frame1_arith.jpg"] and all(v["sha256_match"] for v in out.values()),
+          f"loader: cut frames {out} against libjpeg's smoothed SHA-256s")
+    return out
 
 
 def phase_loader(model):
@@ -3857,7 +3936,10 @@ def phase_loader(model):
     bitwise; the 1080x1920 JPEG pair's decodes against libjpeg's SHA-256,
     its decode ms and frames/s by thread count; JPEG files streamed into
     ``stream_predict`` on ``model`` (UFM-Base), bitwise the stream from
-    memory (path ``ufm_base_loader_streamed``)."""
+    memory (path ``ufm_base_loader_streamed``); the same for the arithmetic
+    pair (``ufm_base_loader_streamed_arith``: the outputs bitwise the
+    Huffman stream's); frame 1 of each pair cut inside its AC scans against
+    libjpeg's block-smoothed SHA-256; the decoder's stage split."""
     from ufm_torch.runtime.loader import NativeImageLoader, iter_decoded_pairs
 
     build = _loader_library_links_no_image_library()
@@ -3879,10 +3961,21 @@ def phase_loader(model):
     jpeg_err = float(np.abs(jpeg.astype(int) - source.astype(int)).mean())
     cases = _jpeg_cases_bitwise()
     rates = _jpeg_decode_rates()
-    stream = _jpeg_stream(model)
+    stream, huffman_out = _jpeg_stream(model)
+    arith = _jpeg_decode_rates(JPEG_PAIR_ARITH)
+    arith_stream, arith_out = _jpeg_stream(model, JPEG_PAIR_ARITH, "ufm_base_loader_streamed_arith")
+    arith_bitwise = len(arith_out) == len(huffman_out) and all(
+        torch.equal(f, g) and torch.equal(c, d) for (f, c), (g, d) in zip(arith_out, huffman_out))
+    del huffman_out, arith_out
+    arith.update(arith_stream, stream_bitwise_huffman_stream=bool(arith_bitwise))
+    arith["pair_sha256_match_huffman_pair"] = arith.pop("pair_sha256_match")
+    cut = _jpeg_cut_frames()
+    stages = _jpeg_stage_split()
     emit("loader", ran=True, build=build, png_pairs=LOADER_PAIRS, png_hw=list(LOADER_HW), png_frames_exact=exact,
          png_frames_per_s=2 * LOADER_PAIRS / decode_s, jpeg_mean_abs_err=jpeg_err, jpeg_bar=LOADER_JPEG_MEAN_ABS,
-         smooth_jpeg_bitwise=bool(np.array_equal(jpeg, committed)), jpeg_cases=cases, **rates, **stream)
+         smooth_jpeg_bitwise=bool(np.array_equal(jpeg, committed)), jpeg_cases=cases, **rates, **stream, arith=arith,
+         cut_frames=cut, decode_stages_ms=stages)
+    check(arith_bitwise, "loader: the stream from the arithmetic files differs from the Huffman files' stream")
     check(exact, "loader: a decoded PNG frame differs from the array written")
     check(jpeg_err < LOADER_JPEG_MEAN_ABS, f"loader: the JPEG decodes {jpeg_err:.2f} from its source")
     check(np.array_equal(jpeg, committed), "loader: the smooth JPEG differs from its committed decode")
@@ -4185,10 +4278,14 @@ def phase_jpeg_entry():
     built the same way on them; then a JSON request carrying the JPEG bytes
     to a ``UFMServer`` at lanes of SERVE_MAX_BATCH on that model, answered
     bitwise as the lane program's slot 0 (a batch of copies of the pair).
-    Each path: 36 attention and 36 fused fc1 + GELU launches a forward, no
-    plain call (paths ``ufm_infer_jpeg``, ``ufm_base_jpeg_served``)."""
+    ``ufm infer`` on the arithmetic pair the same way, its flow bitwise the
+    Huffman pair's; a JSON request whose source is frame 0 cut to 90% of its
+    bytes answered 400 naming its key (cv2.imdecode's None). Each path: 36
+    attention and 36 fused fc1 + GELU launches a forward, no plain call (paths
+    ``ufm_infer_jpeg``, ``ufm_infer_jpeg_arith``, ``ufm_base_jpeg_served``)."""
     import base64
     import io
+    import urllib.error
 
     from ufm_torch import cli
     from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
@@ -4210,18 +4307,21 @@ def phase_jpeg_entry():
 
     log = io.StringIO()
     per_forward = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
-    with _blocked_imports(ENTRY_BLOCKED_IMPORTS):
+
+    def infer(src, tgt, out):  # seconds, launches, plain calls of one ``ufm infer``
         counters.reset()  # the infer path's counts start here
         t = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(log), _plain_calls() as infer_plain, \
+            with contextlib.redirect_stdout(log), _plain_calls() as plain, \
                     unittest.mock.patch.object(UniFlowMatchModelsBase, "predict_correspondences_batched", recording):
-                cli.main(["infer", src_path, tgt_path, "--random-init", "-o", out_dir])
+                cli.main(["infer", src, tgt, "--random-init", "-o", out])
         except SystemExit as e:
             check(False, f"ufm infer exited {e.code}:\n{log.getvalue()}")
         torch.cuda.synchronize()
-        infer_s = time.perf_counter() - t
-        infer_launched = counters.snapshot()
+        return time.perf_counter() - t, counters.snapshot(), plain
+
+    with _blocked_imports(ENTRY_BLOCKED_IMPORTS):
+        infer_s, infer_launched, infer_plain = infer(src_path, tgt_path, out_dir)
         panels = {name: list(read_png(os.path.join(out_dir, name)).shape) for name in cli.OUTPUT_FILES}
         src, tgt = read_rgb(src_path), read_rgb(tgt_path)
         model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
@@ -4231,6 +4331,10 @@ def phase_jpeg_entry():
         inputs_bitwise = np.array_equal(got_src, src) and np.array_equal(got_tgt, tgt)
         infer_bitwise = torch.equal(infer_flow, direct.flow.flow_output)
         infer_diff = (infer_flow.float() - direct.flow.flow_output.float()).abs().max().item()
+        arith_s, arith_launched, arith_plain = infer(*(os.path.join(JPEG_PAIR_ARITH, n) for n in JPEG_PAIR_FILES),
+                                                     out_dir + "_arith")
+        check(len(calls) == 2, f"ufm infer on the arithmetic pair made {len(calls) - 1} predict calls")
+        arith_bitwise = torch.equal(calls[1][2], infer_flow) and torch.equal(calls[1][3], calls[0][3])
 
         body = json.dumps({key: base64.b64encode(open(path, "rb").read()).decode()
                            for key, path in (("source_png_b64", src_path), ("target_png_b64", tgt_path))}).encode()
@@ -4246,6 +4350,15 @@ def phase_jpeg_entry():
                 raw = _http(server.port, "/v1/predict", body, "application/json")
                 served_s = time.perf_counter() - t
             served_launched = counters.snapshot()
+            with open(src_path, "rb") as f:
+                whole = f.read()
+            cut_body = json.dumps({"source_png_b64": base64.b64encode(whole[:len(whole) * 9 // 10]).decode(),
+                                   "target_png_b64": json.loads(body)["target_png_b64"]}).encode()
+            cut_status, cut_error = 200, ""
+            try:
+                _http(server.port, "/v1/predict", cut_body, "application/json")
+            except urllib.error.HTTPError as e:
+                cut_status, cut_error = e.code, json.loads(e.read())["error"]
         finally:
             server.close()
     with np.load(io.BytesIO(raw)) as z:
@@ -4260,15 +4373,24 @@ def phase_jpeg_entry():
          infer_flow_max_abs_diff_px=infer_diff, infer_launches=dict(zip(COUNTER_KERNELS, infer_launched)),
          infer_plain_calls=infer_plain, served_warm_up_s=warm_s, served_request_s=served_s,
          served_bitwise_lane_slot0=bool(served_bitwise), served_launches=dict(zip(COUNTER_KERNELS, served_launched)),
-         served_plain_calls=served_plain)
+         served_plain_calls=served_plain, arith_files=[os.path.relpath(JPEG_PAIR_ARITH, HERE)], arith_infer_s=arith_s,
+         arith_infer_flow_bitwise_huffman=bool(arith_bitwise),
+         arith_infer_launches=dict(zip(COUNTER_KERNELS, arith_launched)), arith_infer_plain_calls=arith_plain,
+         cut_request_bytes=len(whole) * 9 // 10, cut_request_status=cut_status, cut_request_error=cut_error)
     check(all(shape == [*src.shape[:2], 3] for shape in panels.values()), f"ufm infer panels: {panels}")
     check(inputs_bitwise, "ufm infer: its input arrays differ from read_rgb's")
     check(infer_bitwise, f"ufm infer: flow {infer_diff:.3e} px from the direct predict")
     check(served_bitwise, "jpeg served: the response differs from the lane program's answer at slot 0")
-    for label, plain, launched in (("ufm infer", infer_plain, infer_launched), ("jpeg served", served_plain, served_launched)):
+    check(arith_bitwise, "ufm infer: the arithmetic pair's flow differs from the Huffman pair's")
+    check(cut_status == 400 and "source_png_b64" in cut_error and "EOI" in cut_error,
+          f"jpeg served: a cut JPEG answered {cut_status} {cut_error!r}")
+    for label, plain, launched in (("ufm infer", infer_plain, infer_launched),
+                                   ("jpeg served", served_plain, served_launched),
+                                   ("ufm infer arith", arith_plain, arith_launched)):
         check(plain == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain}")
         check(launched == per_forward, f"{label}: launches {launched}, expected {per_forward}")
     record_path("ufm_infer_jpeg", infer_launched, GELU_PER_FORWARD)
+    record_path("ufm_infer_jpeg_arith", arith_launched, GELU_PER_FORWARD)
     record_path("ufm_base_jpeg_served", served_launched, GELU_PER_FORWARD)
     del model
     _free_card_memory()

@@ -853,6 +853,28 @@ def test_loader_feeds_stream_predict_on_the_card(cuda, threads):
         assert torch.equal(got.covisibility.mask, want.covisibility.mask)
 
 
+def test_arithmetic_pair_streams_as_the_huffman_pair_on_the_card(cuda):
+    """The 1080x1920 pair transcoded to arithmetic coding
+    (tests/golden/jpeg_pair_arith: the same DCT coefficients) decoded by the
+    loader at 240x320 into a lane of 2 on the card: outputs bitwise the
+    Huffman pair's (tests/golden/jpeg_pair)."""
+    from ufm_torch.runtime import iter_decoded_pairs, stream_predict
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    outs = {}
+    for folder in ("jpeg_pair", "jpeg_pair_arith"):
+        pair = tuple(os.path.join(golden, folder, n) for n in ("frame0.jpg", "frame1.jpg"))
+        outs[folder] = list(stream_predict(model.predict_correspondences_batched,
+                                           iter_decoded_pairs([pair, pair[::-1], pair], (240, 320), num_threads=2),
+                                           batch_size=2, device="cuda"))
+    torch.cuda.synchronize()
+    assert [o.flow.flow_output.shape[0] for o in outs["jpeg_pair_arith"]] == [2, 1]
+    for got, want in zip(outs["jpeg_pair_arith"], outs["jpeg_pair"]):
+        assert torch.equal(got.flow.flow_output, want.flow.flow_output)
+        assert torch.equal(got.covisibility.mask, want.covisibility.mask)
+
+
 def test_ops_on_the_card_match_their_plain_versions(cuda):
     """Each dispatcher op on CUDA tensors runs its kernel (one launch each)
     and agrees with the plain version on the same inputs: the attention op

@@ -408,7 +408,7 @@ def test_read_rgb_applies_every_exif_orientation(built, orientation, order):
     np.testing.assert_array_equal(got, want)
 
 
-REFUSED = ("12-bit", "arithmetic", "hierarchical", "incomplete progressive", "lossless", "not a JPEG body")
+REFUSED = ("12-bit", "hierarchical", "hierarchical arithmetic", "lossless", "lossless arithmetic", "not a JPEG body")
 
 
 def _with_byte(data, marker, offset, value):
@@ -418,13 +418,13 @@ def _with_byte(data, marker, offset, value):
 
 
 def _refused():
-    base, prog = _read("s420_base_rst_opt.jpg"), _read("s420_prog.jpg")
+    base = _read("s420_base_rst_opt.jpg")
     return {
-        "arithmetic": (_with_byte(base, b"\xff\xc0", 1, 0xC9), "arithmetic"),
         "lossless": (_with_byte(base, b"\xff\xc0", 1, 0xC3), "lossless"),
+        "lossless arithmetic": (_with_byte(base, b"\xff\xc0", 1, 0xCB), "lossless"),
         "hierarchical": (_with_byte(base, b"\xff\xc0", 1, 0xC5), "hierarchical"),
+        "hierarchical arithmetic": (_with_byte(base, b"\xff\xc0", 1, 0xCD), "hierarchical"),
         "12-bit": (_with_byte(base, b"\xff\xc0", 4, 12), "12-bit"),
-        "incomplete progressive": (prog[:len(prog) // 2], "block-smooth"),
         "not a JPEG body": (b"\xff\xd8\x00\x00", "JPEG"),
     }
 

@@ -10,21 +10,27 @@
 //                the same files refused (CRC errors in critical chunks,
 //                short or corrupt image data, bad filter types).
 //   decode_jpeg  what libjpeg-turbo's default decompression gives:
-//                baseline / extended Huffman (SOF0, SOF1) and progressive
-//                (SOF2) 8-bit files, restart intervals, every integral
-//                sampling factor; the ISLOW IDCT of jidctint.c, fancy
-//                upsampling of jdsample.c (h2v1, h2v2, h1v2; other ratios
-//                replicated), YCbCr -> RGB of jdcolor.c; Adobe transform 0
-//                stored RGB; entropy data that ends early decodes the rest
-//                of its segment as zeros (libjpeg's warning, not an error).
-//                Two targets: kRgb (out_color_space = JCS_RGB: CMYK / YCCK
-//                refused) and kOpenCv (cv2.imdecode with IMREAD_COLOR, in RGB
-//                order: CMYK / YCCK converted as OpenCV converts them, and
-//                the EXIF Orientation tag applied).
-//                Refused with an error that names the feature: arithmetic
-//                coding, lossless, hierarchical and 12-bit files, and
-//                progressive files that leave low-frequency coefficients
-//                incomplete (libjpeg block-smooths those; not implemented).
+//                baseline / extended Huffman (SOF0, SOF1), progressive
+//                Huffman (SOF2), sequential and progressive arithmetic
+//                (SOF9, SOF10; jpeg_arith.h) 8-bit files, restart
+//                intervals, every integral sampling factor; the ISLOW IDCT
+//                of jidctint.c, fancy upsampling of jdsample.c (h2v1, h2v2,
+//                h1v2; other ratios replicated), YCbCr -> RGB of jdcolor.c;
+//                Adobe transform 0 stored RGB; entropy data that ends early
+//                decodes the rest of its segment as zeros (libjpeg's
+//                warning, not an error); a progressive image whose scans
+//                leave any of coefficients 1-9 incomplete block-smoothed as
+//                jdcoefct.c's decompress_smooth_data smooths it.
+//                Three targets: kRgb (libjpeg-turbo 2.1 read from a file,
+//                out_color_space = JCS_RGB: CMYK / YCCK refused), kOpenCvFile
+//                (cv2.imread with IMREAD_COLOR, in RGB order: CMYK / YCCK
+//                converted as OpenCV converts them, the EXIF Orientation tag
+//                applied, libjpeg-turbo 3.1's smoothing rows, nothing read
+//                after a single-scan image's scan) and kOpenCv (cv2.imdecode
+//                of a buffer: the same, and data that ends before libjpeg is
+//                done with it, which a buffer cannot refill, is refused).
+//                Refused with an error that names the feature: lossless,
+//                hierarchical and 12-bit files.
 //
 // Every function is reentrant: no mutable static state (the tables below are
 // constant), so the loader runs them on a thread pool.
@@ -34,6 +40,7 @@
 
 #include <algorithm>
 #include <array>
+#include <chrono>
 #include <climits>
 #include <cstddef>
 #include <cstdint>
@@ -41,6 +48,8 @@
 #include <memory>
 #include <string>
 #include <vector>
+
+#include "jpeg_arith.h"
 
 namespace ufm_image {
 
@@ -567,8 +576,9 @@ inline std::string decode_png(const uint8_t* d, size_t n, Image* img) {
 // ------------------------------------------------------------------ JPEG
 
 enum class JpegTarget {
-  kRgb,     // libjpeg with out_color_space = JCS_RGB
-  kOpenCv,  // cv2.imdecode(IMREAD_COLOR) in RGB order: CMYK converted, EXIF orientation applied
+  kRgb,         // libjpeg-turbo 2.1's stdio source with out_color_space = JCS_RGB
+  kOpenCvFile,  // cv2.imread(IMREAD_COLOR) in RGB order: CMYK converted, EXIF orientation applied
+  kOpenCv,      // cv2.imdecode(IMREAD_COLOR): kOpenCvFile, and data that ends early is refused
 };
 
 namespace jpeg_detail {
@@ -682,6 +692,9 @@ struct Source {
     const int hi = byte();
     return hi << 8 | byte();
   }
+  // a byte past the end was asked for (a buffer source that cannot refill
+  // fails there)
+  bool past_end() const { return pos > size; }
   // jdmarker.c's next_marker: skip to the next FF xx with xx neither 00 nor FF
   int next_marker() {
     for (;;) {
@@ -777,6 +790,7 @@ struct Component {
   uint16_t q[64] = {0};            // latched at the component's first scan
   bool latched = false;
   int coef_bits[64];               // progressive: Al of the last scan per coefficient, -1 before any
+  int prev_bits[10] = {0};         // coef_bits[0..9] before the component's last scan (0 before scan 2)
   int dc_tbl = 0, ac_tbl = 0;
 };
 
@@ -895,9 +909,12 @@ class Decoder {
   }
 
   // Parse to the first SOS (libjpeg's jpeg_read_header): frame size, the
-  // colour space and, for kOpenCv, the EXIF orientation.
+  // colour space and, for the OpenCV targets, the EXIF orientation.
   std::string read_header() {
     if (src_.byte() != 0xFF || src_.byte() != 0xD8) return "not a JPEG file (no SOI marker)";
+    // OpenCV takes a file for JPEG by its first three bytes
+    if (target_ != JpegTarget::kRgb && (src_.size < 3 || src_.data[2] != 0xFF))
+      return "not a JPEG file for OpenCV (no marker after the SOI marker)";
     std::string err = read_markers();
     if (!err.empty()) return err;
     if (marker_ == 0xD9) return "JPEG file without an image";
@@ -909,7 +926,13 @@ class Decoder {
   int height() const { return height_; }
   int orientation() const { return orientation_; }
 
+  // Seconds the last decode spent in its stages: headers and entropy
+  // decoding; the IDCT (with any block smoothing); upsampling and colour
+  // conversion (with the EXIF orientation).
+  const std::array<double, 3>& stage_seconds() const { return stage_s_; }
+
   std::string decode(Image* img) {
+    lap_ = Clock::now();
     std::string err = read_header();
     if (!err.empty()) return err;
     const bool multi = progressive_ || comps_in_scan_ < (int)comp_.size();
@@ -917,7 +940,10 @@ class Decoder {
       err = decode_scan();
       if (!err.empty()) return err;
       if (!multi) {
-        // single-scan: libjpeg reads the rest in jpeg_finish_decompress
+        // single-scan: libjpeg reads the rest in jpeg_finish_decompress,
+        // whose errors (and a buffer's end) OpenCV ignores: it has the
+        // image by then
+        if (target_ != JpegTarget::kRgb) break;
         err = read_markers();
         if (!err.empty()) return err;
         if (marker_ != 0xD9) return "JPEG file with a second scan in a single-scan image";
@@ -927,9 +953,12 @@ class Decoder {
       if (!err.empty()) return err;
       if (marker_ == 0xD9) break;
     }
-    if (progressive_ && smoothing_applies())
-      return "progressive JPEG whose scans leave low-frequency coefficients incomplete "
-             "(libjpeg block-smooths those; not supported)";
+    // OpenCV's buffer source cannot refill: libjpeg suspends (Huffman) or
+    // fails (arithmetic), and cv2.imdecode returns None
+    if (target_ == JpegTarget::kOpenCv && src_.past_end())
+      return "premature end of JPEG data (the buffer ends before its EOI marker)";
+    smooth_ = progressive_ && smoothing_applies();
+    lap(0);
     return output(img);
   }
 
@@ -939,14 +968,15 @@ class Decoder {
       if (marker_ == 0) marker_ = src_.next_marker();
       const int m = marker_;
       std::string err;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-        err = read_sof(m == 0xC2);
-      } else if (m == 0xC3) {
-        return "lossless JPEG (SOF3) is not supported";
-      } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xDE || m == 0xDF) {
-        return "hierarchical JPEG (SOF5-7, DHP, EXP markers) is not supported";
-      } else if (m == 0xC9 || m == 0xCA || m == 0xCB || m == 0xCC || m == 0xCD || m == 0xCE || m == 0xCF) {
-        return "arithmetic-coded JPEG (SOF9-11, SOF13-15, DAC) is not supported";
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
+        err = read_sof(m == 0xC2 || m == 0xCA, m >= 0xC9);
+      } else if (m == 0xC3 || m == 0xCB) {
+        return "lossless JPEG (SOF3, SOF11) is not supported";
+      } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF || m == 0xDE ||
+                 m == 0xDF) {
+        return "hierarchical JPEG (SOF5-7, SOF13-15, DHP, EXP markers) is not supported";
+      } else if (m == 0xCC) {
+        err = read_dac();
       } else if (m == 0xC8) {
         return "JPEG file with a reserved JPG marker";
       } else if (m == 0xDA) {
@@ -977,10 +1007,11 @@ class Decoder {
     }
   }
 
-  std::string read_sof(bool progressive) {
+  std::string read_sof(bool progressive, bool arith) {
     if (saw_sof_) return "JPEG file with two SOF markers";
     saw_sof_ = true;
     progressive_ = progressive;
+    arith_ = arith;
     const int len = src_.u16();
     const int precision = src_.byte();
     height_ = src_.u16();
@@ -1036,6 +1067,25 @@ class Decoder {
       (index & 0x10 ? ac_ : dc_)[index & 3] = t;
     }
     if (len != 0) return "bad JPEG DHT length";
+    return "";
+  }
+
+  // jdmarker.c's get_dac: arithmetic conditioning, DC L / U or AC K per table
+  std::string read_dac() {
+    int len = src_.u16() - 2;
+    while (len > 0) {
+      const int index = src_.byte(), val = src_.byte();
+      len -= 2;
+      if (index >= 2 * jpeg_arith::kTables) return "bad JPEG DAC table index";
+      if (index >= jpeg_arith::kTables) {
+        cond_.ac_k[index - jpeg_arith::kTables] = (uint8_t)val;
+      } else {
+        cond_.dc_l[index] = (uint8_t)(val & 0x0F);
+        cond_.dc_u[index] = (uint8_t)(val >> 4);
+        if (cond_.dc_l[index] > cond_.dc_u[index]) return "bad JPEG DAC value";
+      }
+    }
+    if (len != 0) return "bad JPEG DAC length";
     return "";
   }
 
@@ -1152,8 +1202,8 @@ class Decoder {
       scan_[i] = ci;
       comp_[ci].dc_tbl = tables >> 4;
       comp_[ci].ac_tbl = tables & 15;
-      if (comp_[ci].dc_tbl > 3 || comp_[ci].ac_tbl > 3) return "bad JPEG Huffman table index";
     }
+    scan_number_++;
     ss_ = src_.byte();
     se_ = src_.byte();
     const int a = src_.byte();
@@ -1179,6 +1229,7 @@ class Decoder {
     if (bad) return "bad JPEG progression parameters";
     for (int i = 0; i < comps_in_scan_; i++) {
       Component& c = comp_[scan_[i]];
+      for (int k = std::min(ss_, 1); k <= 9; k++) c.prev_bits[k] = scan_number_ > 1 ? c.coef_bits[k] : 0;
       for (int k = ss_; k <= se_; k++) c.coef_bits[k] = al_;
     }
     return "";
@@ -1194,8 +1245,10 @@ class Decoder {
       std::string err = start_progressive_scan();
       if (!err.empty()) return err;
     }
-    // libjpeg-turbo installs its standard tables in undefined slots 0 and 1
-    if (!std_tables_) {
+    // libjpeg-turbo's sequential Huffman decoder (jinit_huff_decoder, not
+    // the progressive one) installs its standard tables in undefined slots
+    // 0 and 1
+    if (!arith_ && !progressive_ && !std_tables_) {
       std_tables_ = true;
       for (int k = 0; k < 2; k++) {
         if (!dc_[k].defined) {
@@ -1210,7 +1263,9 @@ class Decoder {
         }
       }
     }
+    const bool dc_pass = !progressive_ || (ss_ == 0 && ah_ == 0), ac_pass = !progressive_ || ss_ != 0;
     Derived dcd[4], acd[4];
+    int dc_tbl[4], ac_tbl[4];  // by index in the scan
     for (int i = 0; i < comps_in_scan_; i++) {
       Component& c = comp_[scan_[i]];
       if (!c.latched) {
@@ -1219,13 +1274,20 @@ class Decoder {
         c.latched = true;
         c.coef.assign((size_t)c.bw_alloc * c.bh_alloc * 64, 0);
       }
+      dc_tbl[i] = c.dc_tbl;
+      ac_tbl[i] = c.ac_tbl;
+      if (arith_) continue;
+      // only the tables the scan uses (jdphuff.c: no DC table in an AC scan)
+      if ((dc_pass && c.dc_tbl > 3) || (ac_pass && c.ac_tbl > 3)) return "bad JPEG Huffman table index";
       std::string err;
-      if (!progressive_ || (ss_ == 0 && ah_ == 0)) err = derive(dc_[c.dc_tbl], true, &dcd[c.dc_tbl]);
-      if (err.empty() && (!progressive_ || ss_ != 0)) err = derive(ac_[c.ac_tbl], false, &acd[c.ac_tbl]);
+      if (dc_pass) err = derive(dc_[c.dc_tbl], true, &dcd[c.dc_tbl]);
+      if (err.empty() && ac_pass) err = derive(ac_[c.ac_tbl], false, &acd[c.ac_tbl]);
       if (!err.empty()) return err;
     }
-    bool insufficient = false;
+    bool insufficient = false;  // Huffman data ran out in this restart interval
     BitReader br{&src_, &marker_};
+    jpeg_arith::Scan<Source> ar(&src_, &marker_, cond_, kNatural);
+    if (arith_) ar.reset(comps_in_scan_, dc_tbl, ac_tbl, dc_pass, ac_pass);
     int dc_pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     int restarts_to_go = restart_interval_;
@@ -1236,14 +1298,18 @@ class Decoder {
     int block_comp[10];
     for (int my = 0; my < mcus_y; my++) {
       for (int mx = 0; mx < mcus_x; mx++) {
-        if (restart_interval_) {
-          if (restarts_to_go == 0) {
-            // process_restart: drop the bits left, find the marker, reset
+        // jdcoefct.c's consume_data, before each MCU (the smoothing reads it)
+        if (!insufficient) last_good_imcu_ = single ? my / c0.v : my;
+        if (restart_interval_ && restarts_to_go == 0) {
+          read_restart_marker();
+          restarts_to_go = restart_interval_;
+          if (arith_) {
+            ar.reset(comps_in_scan_, dc_tbl, ac_tbl, dc_pass, ac_pass);
+          } else {
+            // process_restart: drop the bits left, reset
             br.reset();
-            read_restart_marker();
             std::fill(dc_pred, dc_pred + 4, 0);
             eobrun = 0;
-            restarts_to_go = restart_interval_;
             if (marker_ == 0) insufficient = false;
           }
         }
@@ -1264,7 +1330,18 @@ class Decoder {
               }
           }
         }
-        if (!insufficient) {
+        if (arith_) {
+          if (!progressive_)
+            ar.mcu_sequential(blocks, block_comp, nblocks, dc_tbl, ac_tbl);
+          else if (ss_ == 0 && ah_ == 0)
+            ar.mcu_dc_first(blocks, block_comp, nblocks, dc_tbl, al_);
+          else if (ss_ == 0)
+            ar.mcu_dc_refine(blocks, nblocks, al_);
+          else if (ah_ == 0)
+            ar.mcu_ac_first(blocks[0], ac_tbl[0], ss_, se_, al_);
+          else
+            ar.mcu_ac_refine(blocks[0], ac_tbl[0], ss_, se_, al_);
+        } else if (!insufficient) {
           std::string err;
           if (!progressive_)
             err = mcu_sequential(br, blocks, block_comp, nblocks, dcd, acd, dc_pred);
@@ -1421,7 +1498,9 @@ class Decoder {
     }
   }
 
-  // jdcoefct.c's smoothing_ok: would libjpeg block-smooth this image?
+  // jdcoefct.c's smoothing_ok: would libjpeg block-smooth this image? (Some
+  // of coefficients 1-9 of a component not known exactly, every component's
+  // DC partly known, no zero among the ten quantizers the estimates divide by.)
   bool smoothing_applies() const {
     static constexpr int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // Q00 Q01 Q10 Q20 Q11 Q02 Q03 Q12 Q21 Q30
     bool useful = false;
@@ -1436,6 +1515,122 @@ class Decoder {
     return useful;
   }
 
+  // jdcoefct.c's decompress_smooth_data: the IDCT of each block after the
+  // coefficients 1-9 that are zero and not known exactly (their coef_bits
+  // not 0) are estimated from the DC values of the 5 x 5 blocks around it
+  // (and the DC itself where no AC coefficient was coded). The estimates are
+  // libjpeg's, integer for integer. iMCU rows the last scan did not reach
+  // before its data ran out (last_good_imcu_) use the coef_bits from before
+  // that scan. The neighbouring block rows: libjpeg-turbo 2.1 (kRgb) takes
+  // those of the next / previous two iMCU rows only where such rows exist,
+  // which at v >= 2 drops some that do; 3.1 (the OpenCV targets) takes every
+  // row before, and every row after in the iMCU rows it holds: at the
+  // bottom, those of dummy blocks (their DC is the encoder's copy of the
+  // last real block's in the MCU). The DC values slide along a row in five
+  // registers as libjpeg's do (in an image two blocks wide the right-hand
+  // registers do not repeat the edge block).
+  void smooth_idct(const Component& c, uint8_t* plane, size_t stride) const {
+    int cur[10], prev[10];
+    for (int k = 0; k < 10; k++) {
+      cur[k] = c.coef_bits[k];
+      prev[k] = scan_number_ > 1 ? c.prev_bits[k] : -1;
+    }
+    const int64_t q00 = c.q[0], q01 = c.q[1], q10 = c.q[8], q20 = c.q[16], q11 = c.q[9], q02 = c.q[2], q03 = c.q[3],
+                  q12 = c.q[10], q21 = c.q[17], q30 = c.q[24];
+    const int last_imcu = mcuy_ - 1, last_col = c.bw - 1;
+    const bool whole_rows = target_ != JpegTarget::kRgb;
+    alignas(32) int16_t ws[64];
+    for (int by = 0; by < c.bh; by++) {
+      const int imcu = by / c.v, block_row = by % c.v;
+      const int block_rows = imcu < last_imcu || c.bh % c.v == 0 ? c.v : c.bh % c.v;
+      int rp, rpp, rn, rnn;
+      if (whole_rows) {
+        // rows before: any; after: any in the iMCU rows libjpeg holds, which
+        // past the last iMCU row's are the padding rows of dummy blocks
+        const int reach = imcu + 1 < last_imcu ? INT_MAX
+                          : imcu < last_imcu   ? (imcu + 2) * c.v
+                                               : by - block_row + block_rows;
+        rp = by > 0 ? by - 1 : by;
+        rpp = by > 1 ? by - 2 : rp;
+        rn = by + 1 < reach ? by + 1 : by;
+        rnn = by + 2 < reach ? by + 2 : rn;
+      } else {
+        rp = block_row > 0 || imcu > 0 ? by - 1 : by;
+        rpp = block_row > 1 || imcu > 1 ? by - 2 : rp;
+        rn = block_row < block_rows - 1 || imcu < last_imcu ? by + 1 : by;
+        rnn = block_row < block_rows - 2 || imcu + 1 < last_imcu ? by + 2 : rn;
+      }
+      const int* bits = imcu > last_good_imcu_ ? prev : cur;
+      bool change_dc = true;  // no AC coefficient coded: the DC is estimated too
+      for (int k = 1; k < 10; k++) change_dc = change_dc && bits[k] == -1;
+      const int16_t* row[5];
+      const int rows[5] = {rpp, rp, by, rn, rnn};
+      for (int r = 0; r < 5; r++) row[r] = c.coef.data() + (size_t)rows[r] * c.bw_alloc * 64;
+      int dc[5][5];  // dc[r][j]: libjpeg's DC(5 r + j + 1), column j - 2 around the block
+      for (int r = 0; r < 5; r++)
+        for (int j = 0; j < 5; j++) dc[r][j] = row[r][0];
+      for (int bx = 0; bx <= last_col; bx++) {
+        if (bx == 0 && bx < last_col)
+          for (int r = 0; r < 5; r++) dc[r][3] = row[r][(size_t)(bx + 1) * 64];
+        if (bx + 1 < last_col)
+          for (int r = 0; r < 5; r++) dc[r][4] = row[r][(size_t)(bx + 2) * 64];
+        std::memcpy(ws, row[2] + (size_t)bx * 64, sizeof ws);
+        const int DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2], DC04 = dc[0][3], DC05 = dc[0][4];
+        const int DC06 = dc[1][0], DC07 = dc[1][1], DC08 = dc[1][2], DC09 = dc[1][3], DC10 = dc[1][4];
+        const int DC11 = dc[2][0], DC12 = dc[2][1], DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4];
+        const int DC16 = dc[3][0], DC17 = dc[3][1], DC18 = dc[3][2], DC19 = dc[3][3], DC20 = dc[3][4];
+        const int DC21 = dc[4][0], DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3], DC25 = dc[4][4];
+        // coefficient ``pos`` estimated as q00 * sum / (q << 8), rounded, and
+        // held below 2^Al where Al > 0
+        auto estimate = [&](int al, int pos, int64_t q, int64_t sum) {
+          if (al == 0 || ws[pos] != 0) return;
+          const int64_t num = q00 * sum;
+          int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+          if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          ws[pos] = (int16_t)(num >= 0 ? pred : -pred);
+        };
+        estimate(bits[1], 1, q01,
+                 change_dc ? -DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 - 3 * DC11 +
+                                 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                                 DC21 - DC22 + DC24 + DC25
+                           : -7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15);
+        estimate(bits[2], 8, q10,
+                 change_dc ? -DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+                                 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25
+                           : -7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23);
+        estimate(bits[3], 16, q20,
+                 change_dc ? DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 + 2 * DC17 +
+                                 7 * DC18 + 2 * DC19 + DC23
+                           : -DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23);
+        estimate(bits[4], 9, q11,
+                 change_dc ? -DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25
+                           : DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+                                 10 * DC07 - 10 * DC09);
+        estimate(bits[5], 2, q02,
+                 change_dc ? 2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+                                 2 * DC17 - 5 * DC18 + 2 * DC19
+                           : -DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15);
+        if (change_dc) {
+          estimate(bits[6], 3, q03, DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+          estimate(bits[7], 10, q12, DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+          estimate(bits[8], 17, q21, DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+          estimate(bits[9], 24, q30, DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+          const int64_t num =
+              q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 + 42 * DC08 +
+                     6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                     6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                     2 * DC25);
+          const int pred = (int)(((q00 << 7) + (num >= 0 ? num : -num)) / (q00 << 8));
+          ws[0] = (int16_t)(num >= 0 ? pred : -pred);
+        }
+        idct_islow(ws, c.q, plane + (size_t)by * 8 * stride + (size_t)bx * 8, stride);
+        for (int r = 0; r < 5; r++)
+          for (int j = 0; j < 4; j++) dc[r][j] = dc[r][j + 1];
+      }
+    }
+  }
+
   // IDCT every block into a plane per component, then upsample and convert
   // row by row.
   std::string output(Image* img) {
@@ -1446,11 +1641,16 @@ class Decoder {
       const size_t stride = (size_t)c.bw * 8;
       planes[ci].reset(new uint8_t[stride * c.bh * 8]);
       if (c.coef.empty()) c.coef.assign((size_t)c.bw_alloc * c.bh_alloc * 64, 0);  // never scanned: zeros
+      if (smooth_) {
+        smooth_idct(c, planes[ci].get(), stride);
+        continue;
+      }
       for (int by = 0; by < c.bh; by++)
         for (int bx = 0; bx < c.bw; bx++)
           idct_islow(c.coef.data() + ((size_t)by * c.bw_alloc + bx) * 64, c.q,
                      planes[ci].get() + (size_t)by * 8 * stride + (size_t)bx * 8, stride);
     }
+    lap(1);
     // jdsample.c's method per component
     enum Method { kFull, kH2V1, kH1V2, kH2V2, kBox };
     std::vector<Method> method(nc);
@@ -1535,7 +1735,16 @@ class Decoder {
       uint8_t* o = pixels.data() + (size_t)y * w * 3;
       convert_row(up, o, w);
     }
-    return orient(std::move(pixels), img);
+    std::string err = orient(std::move(pixels), img);
+    lap(2);
+    return err;
+  }
+
+  using Clock = std::chrono::steady_clock;
+  void lap(int stage) {
+    const Clock::time_point now = Clock::now();
+    stage_s_[stage] = std::chrono::duration<double>(now - lap_).count();
+    lap_ = now;
   }
 
   void convert_row(const uint8_t* const* in, uint8_t* o, int w) const {
@@ -1580,10 +1789,10 @@ class Decoder {
     }
   }
 
-  // OpenCV's ExifTransform for orientations 2-8 (kOpenCv only)
+  // OpenCV's ExifTransform for orientations 2-8 (the OpenCV targets only)
   std::string orient(std::vector<uint8_t> pixels, Image* img) const {
     const int w = width_, h = height_;
-    const int o = target_ == JpegTarget::kOpenCv ? orientation_ : 1;
+    const int o = target_ != JpegTarget::kRgb ? orientation_ : 1;
     if (o < 2 || o > 8) {
       img->width = w;
       img->height = h;
@@ -1617,7 +1826,14 @@ class Decoder {
   JpegTarget target_;
   Source src_{};
   int marker_ = 0;  // libjpeg's unread_marker
-  bool saw_sof_ = false, progressive_ = false, saw_jfif_ = false, saw_adobe_ = false, saw_app1_ = false;
+  bool saw_sof_ = false, progressive_ = false, arith_ = false, saw_jfif_ = false, saw_adobe_ = false,
+       saw_app1_ = false;
+  bool smooth_ = false;  // output through smooth_idct
+  jpeg_arith::Conditioning cond_;
+  int scan_number_ = 0;     // libjpeg's input_scan_number
+  int last_good_imcu_ = 0;  // master->last_good_iMCU_row: the last iMCU row entered with data left
+  Clock::time_point lap_;
+  std::array<double, 3> stage_s_{};
   bool std_tables_ = false;
   int adobe_transform_ = 0, orientation_ = 1;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
@@ -1639,13 +1855,13 @@ inline std::string decode_jpeg(const uint8_t* d, size_t n, JpegTarget target, Im
   return dec.decode(img);
 }
 
-// The size decode_jpeg gives (EXIF orientation included for kOpenCv) from
+// The size decode_jpeg gives (EXIF orientation included for the OpenCV targets) from
 // the headers alone.
 inline std::string jpeg_size(const uint8_t* d, size_t n, JpegTarget target, int* width, int* height) {
   jpeg_detail::Decoder dec(d, n, target);
   std::string err = dec.read_header();
   if (!err.empty()) return err;
-  const bool transposed = target == JpegTarget::kOpenCv && dec.orientation() >= 5 && dec.orientation() <= 8;
+  const bool transposed = target != JpegTarget::kRgb && dec.orientation() >= 5 && dec.orientation() <= 8;
   *width = transposed ? dec.height() : dec.width();
   *height = transposed ? dec.width() : dec.height();
   return "";

@@ -24,11 +24,16 @@
 //                                                    -1 shut down
 //   ufm_loader_shutdown(handle)              wakes pollers; submits fail
 //   ufm_loader_destroy(handle)               shuts down, joins, frees
-//   ufm_image_decode(data, len, &h, &w, out, err, err_len)
-//       one JPEG as cv2.imdecode(IMREAD_COLOR) gives it, in RGB order (EXIF
+//   ufm_image_decode(data, len, &h, &w, out, err, err_len, from_file)
+//       one JPEG as cv2.imdecode(IMREAD_COLOR) gives it (from_file: as
+//       cv2.imread gives the file holding these bytes), in RGB order (EXIF
 //       orientation applied, CMYK converted): with out == NULL it sets the
 //       size only, else it writes h * w * 3 bytes. 0 ok / -1 refused (the
 //       reason in err).
+//   ufm_image_decode_stages(data, len, seconds)
+//       one JPEG decoded as the loader decodes it; seconds[0..2] receive the
+//       seconds of its stages (headers and entropy decoding, the IDCT with
+//       any block smoothing, upsampling and colour conversion). 0 ok / -1.
 
 #include <chrono>
 #include <condition_variable>
@@ -215,14 +220,16 @@ void ufm_loader_destroy(void* handle) {
   delete L;
 }
 
-int ufm_image_decode(const uint8_t* data, size_t len, int* h, int* w, uint8_t* out, char* err, int err_len) {
+int ufm_image_decode(const uint8_t* data, size_t len, int* h, int* w, uint8_t* out, char* err, int err_len,
+                     int from_file) {
+  const ufm_image::JpegTarget target = from_file ? ufm_image::JpegTarget::kOpenCvFile : ufm_image::JpegTarget::kOpenCv;
   std::string why;
   try {
     if (!out) {
-      why = ufm_image::jpeg_size(data, len, ufm_image::JpegTarget::kOpenCv, w, h);
+      why = ufm_image::jpeg_size(data, len, target, w, h);
     } else {
       ufm_image::Image img;
-      why = ufm_image::decode_jpeg(data, len, ufm_image::JpegTarget::kOpenCv, &img);
+      why = ufm_image::decode_jpeg(data, len, target, &img);
       if (why.empty() && (img.width != *w || img.height != *h)) why = "decoded size differs from the header's";
       if (why.empty()) std::memcpy(out, img.rgb.data(), img.rgb.size());
     }
@@ -235,6 +242,18 @@ int ufm_image_decode(const uint8_t* data, size_t len, int* h, int* w, uint8_t* o
     err[err_len - 1] = 0;
   }
   return -1;
+}
+
+int ufm_image_decode_stages(const uint8_t* data, size_t len, double* seconds) {
+  ufm_image::jpeg_detail::Decoder dec(data, len, ufm_image::JpegTarget::kRgb);
+  ufm_image::Image img;
+  try {
+    if (!dec.decode(&img).empty()) return -1;
+  } catch (const std::bad_alloc&) {
+    return -1;
+  }
+  for (int i = 0; i < 3; i++) seconds[i] = dec.stage_seconds()[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -14,10 +14,16 @@ to 0..255. Adam7-interlaced files raise, naming the file. The writer writes
 JPEG goes to the decoder of the port's host library
 (``ufm_torch/csrc/host/image_decode.h`` through ``ufm_image_decode`` of
 ``ufm_loader.cc``, built at first use): bit for bit what ``cv2.imdecode``
-with ``IMREAD_COLOR`` gives, in RGB order, the EXIF orientation applied and
-CMYK converted as OpenCV converts it. A JPEG it refuses (arithmetic coding,
-lossless, hierarchical, 12-bit, ...) raises ``ValueError`` naming the file and
-the feature; a JPEG never reaches ``cv2``.
+with ``IMREAD_COLOR`` gives for bytes (:func:`decode_rgb`), and what
+``cv2.imread`` gives for a file (:func:`read_rgb`), in RGB order, the EXIF
+orientation applied and CMYK converted as OpenCV converts it; Huffman and
+arithmetic coding, baseline and progressive, an incomplete progressive image
+block-smoothed as libjpeg smooths it. The two differ where the data ends
+before its EOI marker: ``cv2.imread`` decodes such a file (the rest of the
+image gray, or smoothed), ``cv2.imdecode`` returns None, and
+:func:`decode_rgb` refuses it. A JPEG it refuses (lossless, hierarchical,
+12-bit, cut short in bytes, ...) raises ``ValueError`` naming the file and
+why; a JPEG never reaches ``cv2``.
 
 Other formats (BMP, TIFF, WebP, ...) go through ``cv2`` in :func:`read_rgb`
 and :func:`decode_rgb`, which raise ``ImportError`` naming it where it is not
@@ -226,26 +232,27 @@ def _decoder():
     lib = _build.load_host_library("ufm_loader")
     lib.ufm_image_decode.restype = ctypes.c_int
     lib.ufm_image_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
-                                     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+                                     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+                                     ctypes.c_int]
     return lib.ufm_image_decode
 
 
-def decode_jpeg(data: bytes, name: str = "<jpeg data>") -> np.ndarray:
+def decode_jpeg(data: bytes, name: str = "<jpeg data>", from_file: bool = False) -> np.ndarray:
     """A JPEG file's bytes -> (H, W, 3) RGB uint8, bit for bit
-    ``cv2.imdecode(..., IMREAD_COLOR)`` in RGB order, by the port's own
-    decoder: the size from the headers (EXIF orientation applied), then the
-    pixels. Raises ``ValueError`` naming ``name`` and why for a file it
-    refuses."""
+    ``cv2.imdecode(..., IMREAD_COLOR)`` in RGB order (with ``from_file``:
+    ``cv2.imread`` of a file holding ``data``), by the port's own decoder:
+    the size from the headers (EXIF orientation applied), then the pixels.
+    Raises ``ValueError`` naming ``name`` and why for a file it refuses."""
     import ctypes
 
     decode = _decoder()
     data = bytes(data)
     h, w = ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(256)
-    if decode(data, len(data), ctypes.byref(h), ctypes.byref(w), None, err, len(err)) != 0:
+    if decode(data, len(data), ctypes.byref(h), ctypes.byref(w), None, err, len(err), from_file) != 0:
         raise ValueError(f"{name}: {err.value.decode()}")
     out = np.empty((h.value, w.value, 3), np.uint8)
-    if decode(data, len(data), ctypes.byref(h), ctypes.byref(w), out.ctypes.data, err, len(err)) != 0:
+    if decode(data, len(data), ctypes.byref(h), ctypes.byref(w), out.ctypes.data, err, len(err), from_file) != 0:
         raise ValueError(f"{name}: {err.value.decode()}")
     return out
 
@@ -259,13 +266,14 @@ def _cv2(what: str):
     return cv2
 
 
-def decode_rgb(data: bytes, name: str = "<image data>") -> np.ndarray:
+def decode_rgb(data: bytes, name: str = "<image data>", from_file: bool = False) -> np.ndarray:
     """An image file's bytes -> (H, W, 3) RGB uint8: PNG by :func:`decode_png`,
-    JPEG by :func:`decode_jpeg`, any other format by ``cv2.imdecode``."""
+    JPEG by :func:`decode_jpeg` (``from_file``: as ``cv2.imread`` reads the
+    file), any other format by ``cv2.imdecode``."""
     if is_png(data):
         return decode_png(data, name=name)
     if is_jpeg(data):
-        return decode_jpeg(data, name=name)
+        return decode_jpeg(data, name=name, from_file=from_file)
     cv2 = _cv2(name)
     bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     if bgr is None:
@@ -274,9 +282,9 @@ def decode_rgb(data: bytes, name: str = "<image data>") -> np.ndarray:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """The image at ``path`` as (H, W, 3) RGB uint8 (:func:`decode_rgb`).
-    Raises FileNotFoundError for a missing file."""
+    """The image at ``path`` as (H, W, 3) RGB uint8 (:func:`decode_rgb`, a JPEG
+    as ``cv2.imread`` reads it). Raises FileNotFoundError for a missing file."""
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no such image file: {path}")
     with open(path, "rb") as f:
-        return decode_rgb(f.read(), name=str(path))
+        return decode_rgb(f.read(), name=str(path), from_file=True)
