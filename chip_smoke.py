@@ -20,20 +20,29 @@ holds the fused fc1 + GELU kernel (``linear_gelu``: the MLP's first product
 with the GELU as its epilogue) to the GELU of its own pre-activation bit for
 bit, to the exact product and to its plain version at the MLP shapes and at
 row, K and N tails, and to the table on every finite bf16 pre-activation,
-then drives three paths with seeded random weights at full width:
+and in its training launch (y and the pre-activation h in one launch) to
+the inference launch and to the plain version, its gradient to the two-op
+route's; holds the GELU gradient kernel (``gelu_backward``) bit for bit to
+the JAX package's VJP on every finite bf16 input under six cotangent sets
+(``tests/golden/gelu_bf16_vjp_table.npz``) and to its plain version at the
+training shapes; then drives three paths with seeded random weights at full
+width:
 
 - UFM-Base (ViT-L/14 encoder, 24 layers; 12 info-sharing layers; both DPT
   heads; 560x420), answering requests through
   ``predict_correspondences_batched``: 36 flash-attention launches and 36
   fused fc1 + GELU launches (one per transformer block's MLP) per forward;
-  the same forward on the two-op path (grad mode: fc1, then the GELU
-  kernel) holds the fused one's flow (``fused_mlp_model``);
+  the same forward with a gradient recorded gives the same flow bit for
+  bit, and on the two-op path (grad mode under activation checkpointing:
+  fc1, then the GELU kernel) holds the fused one's flow
+  (``fused_mlp_model``);
 - UFM-Refine (the same backbone and heads, the patch-MLP classification head,
   the UNet and the window refinement), the same way: 36 flash-attention
   launches and 1 window-refinement launch per forward;
 - UFM-Base training at batch 2 on 420x560 (``make_train_step`` and ``fit``,
   fp32 master weights): 36 flash-attention forward launches and 36 backward
-  calls per step; UFM-Refine the same way (``refine_train``): also one
+  calls, 36 fused fc1 + GELU launches (writing the pre-activation) and 36
+  GELU gradient launches per step; UFM-Refine the same way (``refine_train``): also one
   window forward and one window backward launch a step, no call of the
   window refinement's plain versions, its gradients at batch 1 held to the
   plain window refinement's and to the plain step's with fp32 attention,
@@ -48,9 +57,10 @@ and ``fit(mesh=...)`` through a checkpoint and its resumption
 UFM-Refine at batch 2, held to their own forwards (``data_parallel``: 36 and
 36 + 1 launches); the batch-2 step under ``train_remat`` with no policy and
 each of the JAX package's policy names, with its time, peak memory and
-attention launches (72 where the backward runs the attention forward again,
-36 where a policy keeps its outputs), its gradients held to no remat's
-(``remat``); and UFM-Base with the ``moge_conv`` head, held to its
+launches (attention: 72 where the backward runs the attention forward
+again, 36 where a policy keeps its outputs; the MLPs: fc1 and the
+standalone GELU under remat, 72 or 36 launches, the fused kernel without),
+its gradients held to no remat's (``remat``); and UFM-Base with the ``moge_conv`` head, held to its
 plain-attention forward (``moge``).
 
 The rest of the attention forward's domain (fp32 and fp16 at any head dim,
@@ -241,6 +251,24 @@ GELU_ODD_COUNTS = (1, 7, 8 * 1001 + 3, 0)
 GELU_SHAPES = (("encoder", (2, 1201, 4096), 24), ("info_sharing", (1, 2400, 3072), 12))
 # GELU launches per forward of either model: one per transformer block's MLP
 GELU_PER_FORWARD = sum(n for _, _, n in GELU_SHAPES)  # 36
+# the JAX package's gradient of the bf16 GELU (jax.vjp of fast_exact_gelu)
+# over every bf16 bit pattern under six cotangent sets (written by
+# tests/test_torch_port_gelu_vjp.py): the gradient kernel must give these bits
+# on every finite input
+GELU_VJP_TABLE = os.path.join(HERE, "tests", "golden", "gelu_bf16_vjp_table.npz")
+# fp32 operations per element on the gradient kernel's main branch, an fma
+# counted as 2 (csrc/gelu_bf16_bwd.cu: -x c, t^2, P's 8 Horner steps, 1 - t P,
+# the half share's 2 products, 0.5 x, h g, t g_p, the 8 transposed steps (an
+# fma and a product, the last product unused), tc g_u, its double, the
+# selected sum (an fma and an add), the t share's product and the last sum):
+# the operations bound's count
+GELU_BWD_OPS_PER_ELEMENT = 55
+# the MLP hidden activations of one batch-2 train step and their MLPs a step
+GELU_BWD_SHAPES = (("encoder", (4, 1201, 4096), 24), ("info_sharing", (2, 2400, 3072), 12))
+# cotangents at the training shapes: seeded normals, and the same with this
+# share of them replaced by +0, -0 and values of 1e-38 (the zeros' signs and
+# the flushes)
+GELU_BWD_ZERO_SHARE = 0.05
 # the fused fc1 + GELU kernel (ufm_torch::linear_gelu_bf16): (M, K, N) of
 # the MLPs of one batch-1 forward and their calls, of one forward of 16 tiles
 # (the encoder at batch 32, info sharing at 16), and rows off the 128-row
@@ -250,6 +278,14 @@ LINEAR_GELU_TILED_SHAPES = (("encoder_tiled", (38432, 1024, 4096), 24), ("info_s
 LINEAR_GELU_ODD = ((1, 1024, 4096), (7, 1024, 4096), (129, 1024, 4096), (130, 48, 200))
 # y against the plain version (F.linear, then the GELU's plain chain), relative L2
 LINEAR_GELU_REL_L2 = 4e-3
+# the fused op's training route at the MLP shapes of a batch-2 train step, (M,
+# K, N) and calls a step; its dx, dw and db against the two-op route's
+# (F.linear, then the GELU op: the same gradient kernel and products on
+# F.linear's h, which differs from the kernel's h by an ulp where fp32 sums
+# round apart), relative L2: the bar of y against the plain version, for the
+# same cause
+LINEAR_GELU_TRAIN_SHAPES = (("encoder", (4804, 1024, 4096), 24), ("info_sharing", (4800, 768, 3072), 12))
+LINEAR_GELU_GRAD_REL_L2 = LINEAR_GELU_REL_L2
 # the bias's spread in the kernel's cases (phase_linear_gelu.operands)
 LINEAR_GELU_BIAS_STD = 0.1
 # the share of h allowed more than one bf16 ulp from the exact product + bias
@@ -359,12 +395,22 @@ FP32_TRAIN_GRAD_REL_L2_BOUND = 1e-3
 # CPU's, relative
 FINE_TUNE_BATCH, FINE_TUNE_STEPS, FINE_TUNE_LR = 2, 3, 1e-5
 FINE_TUNE_LOSS_REL = 1e-4
-# the launch counters' order (ufm_torch.ops.launches): wgmma attention forward
-# and backward, window, GELU, fused fc1 + GELU, mma attention forward and
-# backward, window backward
-ANY_FWD_AT, ANY_BWD_AT, GELU_AT, FUSED_AT = 5, 6, 3, 4
-WINDOW_AT, WINDOW_BWD_AT = 2, 7
-ATTENTION_AT = (0, 1, 5, 6)
+# the launch counters' names (ufm_torch.ops.launches.COUNTERS: each kernel's
+# source): wgmma attention forward and backward, window, GELU, fused fc1 +
+# GELU, mma attention forward and backward, window backward, GELU gradient
+COUNTER_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
+                   "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any",
+                   "window_refinement_bwd", "gelu_bf16_bwd")
+FWD_AT, BWD_AT, WINDOW_AT, GELU_AT, FUSED_AT, ANY_FWD_AT, ANY_BWD_AT, WINDOW_BWD_AT, GELU_BWD_AT = COUNTER_KERNELS
+ATTENTION_AT = (FWD_AT, BWD_AT, ANY_FWD_AT, ANY_BWD_AT)
+
+
+def launch_counts(**n) -> dict:
+    """Launches by kernel name, every counter's: ``n`` where given, else 0."""
+    unknown = set(n) - set(COUNTER_KERNELS)
+    if unknown:
+        raise KeyError(f"no launch counter named {sorted(unknown)}")
+    return {k: n.get(k, 0) for k in COUNTER_KERNELS}
 # sharded training (ufm_torch.parallel) at world 1 over NCCL, on a
 # (data, fsdp, model) = (1, 1, 1) mesh: the batch-2 step of make_sharded_train_step
 # against make_train_step from the same weights and batch (3 steps each, at
@@ -377,11 +423,14 @@ SHARDED_STEPS, SHARDED_METRIC_REL = 3, 1e-3
 # abs difference over the output's largest value
 DATA_PARALLEL_BATCH, DATA_PARALLEL_BAR = 2, 1e-5
 # train_remat and each train_remat_policy (the JAX package's names): label,
-# train_remat, policy, attention forward launches and GELU launches a step
-# (the forward runs again in the backward unless its outputs are kept: no
-# policy keeps the GELU op's but everything_saveable, nn/layers.py::REMAT_POLICIES)
+# train_remat, policy, attention forward launches and standalone GELU
+# launches a step (the forward runs again in the backward unless its outputs
+# are kept: no policy keeps the GELU op's but everything_saveable,
+# nn/layers.py::REMAT_POLICIES). Without remat the MLPs take the fused fc1 +
+# GELU kernel (36 launches a step) and no standalone GELU; under remat fc1 and
+# the standalone GELU. Every case launches the GELU gradient 36 times a step
 REMAT_CASES = (
-    ("none", False, None, 36, 36),
+    ("none", False, None, 36, 0),
     ("full", True, None, 72, 72),
     ("everything_saveable", True, "everything_saveable", 36, 36),
     ("nothing_saveable", True, "nothing_saveable", 72, 72),
@@ -540,46 +589,55 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-# each path's launches of the standalone GELU kernel and of the fused fc1 +
-# GELU kernel, by the name of its launches_by_path entry
-GELU_LAUNCHES, FUSED_LAUNCHES = {}, {}
+# each path's launches of the standalone GELU kernel, of the fused fc1 + GELU
+# kernel and of the GELU gradient kernel, by the name of its launches_by_path
+# entry
+GELU_LAUNCHES, FUSED_LAUNCHES, GELU_BWD_LAUNCHES = {}, {}, {}
 
 
-def mlp_path(path: str, gelu: int, fused: int, mlps: int, grad: bool = False) -> None:
-    """Record a path's launches of the two MLP kernels and hold them to what
-    the code gives for ``mlps`` MLP forwards (GELU_PER_FORWARD a forward of
-    the bf16 backbone): where no gradient is recorded each is one fused fc1 +
-    GELU launch; where one is (``grad``: training), fc1 and one standalone
-    GELU launch."""
-    GELU_LAUNCHES[path] = GELU_LAUNCHES.get(path, 0) + gelu
-    FUSED_LAUNCHES[path] = FUSED_LAUNCHES.get(path, 0) + fused
-    want = (mlps, 0) if grad else (0, mlps)
-    check((gelu, fused) == want, f"{path}: {gelu} GELU / {fused} fused fc1 + GELU launches, expected {want}")
+def mlp_counts(ge, lg) -> dict:
+    """The three MLP kernels' counters (``ufm_torch.ops.gelu`` and
+    ``ufm_torch.ops.linear_gelu`` modules), by kernel name."""
+    return {GELU_AT: ge.LAUNCHES, FUSED_AT: lg.LAUNCHES, GELU_BWD_AT: ge.BWD_LAUNCHES}
 
 
-# the kernels' names in the summary, in the launch counters' order
-# (ufm_torch.ops.launches)
-COUNTER_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
-                   "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any", "window_refinement_bwd")
+def mlp_path(path: str, launched: dict, fused: int, two_op: int = 0, backward: int = 0) -> None:
+    """Record a path's launches of the three MLP kernels (``launched``: by
+    kernel name) and hold them to what the code gives for its bf16 MLPs:
+    ``fused`` forwards through the fused fc1 + GELU kernel (every MLP outside
+    activation checkpointing, with a gradient recorded or not: GELU_PER_FORWARD
+    a forward of the backbone), ``two_op`` forwards of fc1 then the standalone
+    GELU (under checkpointing, the backward's recomputes included) and
+    ``backward`` launches of the GELU gradient (one an MLP backward)."""
+    for store, name in ((GELU_LAUNCHES, GELU_AT), (FUSED_LAUNCHES, FUSED_AT), (GELU_BWD_LAUNCHES, GELU_BWD_AT)):
+        store[path] = store.get(path, 0) + launched[name]
+    got = (launched[GELU_AT], launched[FUSED_AT], launched[GELU_BWD_AT])
+    check(got == (two_op, fused, backward), f"{path}: {got} GELU / fused fc1 + GELU / GELU gradient launches, "
+          f"expected {(two_op, fused, backward)}")
+
+
 # the launches of the paths recorded by record_path, {path: {kernel: n}}
-# (the two MLP kernels: mlp_path)
+# (the three MLP kernels: mlp_path)
 PATH_LAUNCHES = {}
+MLP_KERNELS = (GELU_AT, FUSED_AT, GELU_BWD_AT)
 
 
-def record_path(path: str, launched, mlps: int, grad: bool = False) -> None:
-    """Record a path's launches (a ``ufm_torch.ops.launches`` tuple) for the
-    kernels' summary: each attention and window kernel it ran, and the two
-    MLP kernels through ``mlp_path`` (held there to ``mlps`` MLP forwards;
-    a path with no bf16 MLP must launch neither)."""
-    launched = tuple(launched)
-    counts = PATH_LAUNCHES.setdefault(path, {})
-    for name, n in zip(COUNTER_KERNELS, launched):
-        if n and name not in ("gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
-            counts[name] = counts.get(name, 0) + n
-    if mlps:
-        mlp_path(path, launched[GELU_AT], launched[FUSED_AT], mlps, grad)
-    else:
-        check(launched[GELU_AT] == launched[FUSED_AT] == 0, f"{path}: launches {launched}, expected no MLP kernel")
+def record_path(path: str, launched: dict, fused: int, two_op: int = 0, backward: int = 0) -> None:
+    """Record a path's launches (a ``ufm_torch.ops.launches`` snapshot, by
+    kernel name) for the kernels' summary: each attention and window kernel
+    it ran, and the three MLP kernels through ``mlp_path``, held there to
+    ``fused`` / ``two_op`` MLP forwards and ``backward`` MLP backwards (a
+    path with no bf16 MLP launches none of them)."""
+    paths = PATH_LAUNCHES.setdefault(path, {})
+    for name in COUNTER_KERNELS:
+        if launched[name] and name not in MLP_KERNELS:
+            paths[name] = paths.get(name, 0) + launched[name]
+    mlp_path(path, launched, fused, two_op, backward)
+
+
+def record_steps(path: str, launched: dict, each: dict, steps: int) -> None:
+    """record_path for ``steps`` train steps of ``each`` launches a step."""
+    record_path(path, launched, steps * each[FUSED_AT], steps * each[GELU_AT], steps * each[GELU_BWD_AT])
 
 
 def with_recorded_paths(kernel: dict) -> dict:
@@ -678,7 +736,8 @@ def phase_build():
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
     for name in ("window_refinement_fwd", "window_refinement_bwd", "linear_gelu_bf16_fwd"):
         check(sass[name]["UTMALDG"] > 0, f"{name}: no UTMALDG (TMA load) in its SASS")
-    for name in ("window_refinement_fwd", "window_refinement_bwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd"):
+    for name in ("window_refinement_fwd", "window_refinement_bwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd",
+                 "gelu_bf16_bwd"):
         local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
         check(bool(ptxas[name]) and not local, f"{name} uses local memory: {local}")
     # the mma attention pair: tensor-core products, and no local memory in the
@@ -1286,6 +1345,203 @@ def phase_linear_gelu():
     return rows, host["kernel"], max_abs_err
 
 
+def gelu_bwd_bound_ms(numel: int):
+    """Bytes: g and x read once, dx written once (bf16). Operations:
+    GELU_BWD_OPS_PER_ELEMENT fp32 operations an element."""
+    t_ops = GELU_BWD_OPS_PER_ELEMENT * numel / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 6 * numel / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _differ(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Where two bf16 tensors' bits differ, NaN counted equal to NaN."""
+    return (_bits(got) != _bits(want)) & ~(torch.isnan(got) & torch.isnan(want))
+
+
+def _gelu_bwd_cotangents(shape, gen) -> torch.Tensor:
+    """Seeded normal cotangents with GELU_BWD_ZERO_SHARE of them each +0, -0
+    and 1e-38 (flushed where XLA's CPU flushes)."""
+    g = torch.randn(shape, generator=gen, device="cuda")
+    pick = torch.rand(shape, generator=gen, device="cuda")
+    share = GELU_BWD_ZERO_SHARE
+    g = torch.where(pick < share, 0.0, torch.where(pick < 2 * share, -0.0, torch.where(pick < 3 * share, 1e-38, g)))
+    return g.to(torch.bfloat16)
+
+
+def phase_gelu_backward():
+    """The GELU gradient kernel (``ufm_torch::gelu_bf16_bwd``) against the JAX
+    package's VJP (the committed table) on all 65,536 bf16 bit patterns under
+    each of its six cotangent sets: bit for bit on the finite inputs (NaN
+    equal to NaN), NaN on the others; against its plain version (run on the
+    card) at the train step's MLP shapes, with normal cotangents and with a
+    share of them zero, signed zero and tiny; odd element counts, a
+    misaligned and a non-contiguous operand against the plain version; fp32
+    and mismatched shapes refused without a launch. Then timed at the train
+    step's MLP shapes beside its bound, ``aten.gelu_backward`` (the library
+    call) and the plain version; the host's cost per launch. Returns (rows by
+    shape, host us per launch, max abs error against the table)."""
+    from ufm_torch.ops import _build, gelu
+
+    with np.load(GELU_VJP_TABLE) as z:
+        sets, g_bits, dx_bits = [str(n) for n in z["sets"]], z["g_bits"], z["dx_bits"]
+        finite = torch.from_numpy(z["finite"])
+    x = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16)).view(torch.bfloat16)  # x[i] has bits i
+    check(torch.equal(finite, torch.isfinite(x)) and int(finite.sum()) == 65280, "the VJP table's finite mask")
+    table, max_abs_err = {}, 0.0
+    for name, gb, db in zip(sets, g_bits, dx_bits):
+        g = torch.from_numpy(gb.view(np.int16).copy()).view(torch.bfloat16)
+        want = torch.from_numpy(db.view(np.int16).copy()).view(torch.bfloat16)
+        card = gelu.gelu_bf16_bwd(g.cuda(), x.cuda()).cpu()
+        plain_card = gelu.fast_exact_gelu_vjp_reference(x.cuda(), g.cuda()).cpu()
+        table[name] = {"kernel_vs_table": int(_differ(card, want)[finite].sum()),
+                       "kernel_vs_plain_on_card": int(_differ(card, plain_card).sum()),
+                       "nonfinite_x_nan": bool(torch.isnan(card[~finite]).all())}
+        both = finite & ~torch.isnan(want)
+        max_abs_err = max(max_abs_err, (card.float() - want.float())[both].abs().max().item())
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    odd = {}
+    base = (torch.randn(2, 8 * 1001 + 16, generator=gen, device="cuda") * 4).to(torch.bfloat16)
+    cases = {f"n{n}": (base[0, :n], base[1, :n]) for n in GELU_ODD_COUNTS}
+    cases["misaligned"] = (base[0, 3:8 * 1001 + 3], base[1, :8 * 1001])  # g 6 bytes past a 16-byte boundary
+    cases["non_contiguous"] = (base[0, :40 * 200].view(40, 200).t(), base[1, :40 * 200].view(200, 40))
+    for name, (g, h) in cases.items():
+        before = gelu.BWD_LAUNCHES
+        got = gelu.gelu_bf16_bwd(g, h)
+        launched = gelu.BWD_LAUNCHES - before
+        ok = got.shape == h.shape and not bool(_differ(got, gelu.fast_exact_gelu_vjp_reference(h, g)).any())
+        odd[name] = dict(numel=h.numel(), bitwise_plain=ok, launches=launched)
+        check(ok, f"gelu_backward {name}: the kernel differs from the plain version")
+        check(launched == int(h.numel() > 0), f"gelu_backward {name}: {launched} launches")
+    refused = {}
+    before = gelu.BWD_LAUNCHES
+    for what, args in (("fp32", (base[0].float(), base[1])), ("shape", (base[0, :8], base[1, :16]))):
+        try:
+            gelu.launch_backward(*args)
+            refused[what] = False
+        except ValueError:
+            refused[what] = True
+    refusals_launched_nothing = gelu.BWD_LAUNCHES == before
+
+    rows = {}
+    for name, shape, per_step in GELU_BWD_SHAPES:
+        h = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        mismatches = {}
+        for label, cot in (("normal", g), ("zeros_and_tiny", _gelu_bwd_cotangents(shape, gen))):
+            got = gelu.gelu_bf16_bwd(cot, h)
+            mismatches[label] = int(_differ(got, gelu.fast_exact_gelu_vjp_reference(h, cot)).sum())
+            del cot
+        ms = time_ms(lambda: gelu.gelu_bf16_bwd(g, h))
+        library_ms = time_ms(lambda: torch.ops.aten.gelu_backward(g, h, approximate="none"))
+        plain_ms = time_ms(lambda: gelu.fast_exact_gelu_vjp_reference(h, g), reps=2, batches=3)
+        bound_ms, bound_by = gelu_bwd_bound_ms(h.numel())
+        rows[name] = dict(shape=list(shape), mlps_per_step=per_step, plain_mismatches=mismatches, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          share_of_bound=bound_ms / ms, gbytes_per_s=6 * h.numel() / ms / 1e6)
+        emit("kernel", kernel="gelu_bf16_bwd", case=name, **rows[name])
+        for label, n in mismatches.items():
+            check(n == 0, f"gelu_backward {name}, {label} cotangents: {n} elements differ from the plain version")
+        del h, g
+        _free_card_memory()
+    small = torch.randn(2, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    host = {"kernel": host_us_per_launch(lambda: gelu.gelu_bf16_bwd(small[0], small[1])),
+            "library": host_us_per_launch(lambda: torch.ops.aten.gelu_backward(small[0], small[1]))}
+    per_step = {k: sum(r["mlps_per_step"] * r[k] for r in rows.values())
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    emit("gelu_backward", inputs=int(finite.sum()), sets=sets, table=table, max_abs_err=max_abs_err, odd=odd,
+         refused=refused, refusals_launched_nothing=refusals_launched_nothing, per_step_ms=per_step,
+         host_us_per_call=host, ptxas=ptxas_report(_build.BUILD_LOGS.get("gelu_bf16_bwd", "")))
+    for name, row in table.items():
+        check(row["kernel_vs_table"] == 0 and row["kernel_vs_plain_on_card"] == 0 and row["nonfinite_x_nan"],
+              f"gelu_backward, cotangents {name}: {row}")
+    check(all(refused.values()) and refusals_launched_nothing, f"gelu_backward refusals: {refused}")
+    return rows, host["kernel"], max_abs_err
+
+
+def phase_linear_gelu_train():
+    """The fused op's training route at the MLP shapes of a batch-2 train
+    step: under autograd, one launch gives y and h
+    (``ufm_torch::linear_gelu_bf16_preact``); y bit for bit the inference
+    launch's and the GELU's plain chain of h, h bit for bit the inference
+    launch's ``preact_out``, and against the exact product + bias; y
+    against the plain version (F.linear, then the GELU's plain chain); the
+    gradient: dx, dw and db bit for bit ``dh w``, ``dh^T x`` and the column
+    sums of ``dh = gelu_bf16_bwd(dy, h)`` on the saved h, and against the
+    two-op route (F.linear, then the GELU op) within LINEAR_GELU_GRAD_REL_L2.
+    Timed: the training launch beside the inference launch, and the fused
+    op's backward beside the two-op route's. Returns rows by shape."""
+    import torch.nn.functional as F
+
+    from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import library
+    from ufm_torch.ops import linear_gelu as lg
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for name, (m, k, n), per_step in LINEAR_GELU_TRAIN_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device="cuda") * k**-0.5).to(torch.bfloat16)
+        b = (torch.randn(n, generator=gen, device="cuda") * LINEAR_GELU_BIAS_STD).to(torch.bfloat16)
+        dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+        pre = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        y_inf = lg.launch(x, w, b, preact_out=pre)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        before = (lg.LAUNCHES, ge.LAUNCHES, ge.BWD_LAUNCHES)
+        y = library.linear_gelu_bf16(*leaves)
+        h = y.grad_fn.saved_tensors[2]
+        got = torch.autograd.grad(y, leaves, dy)
+        launched = (lg.LAUNCHES - before[0], ge.LAUNCHES - before[1], ge.BWD_LAUNCHES - before[2])
+        dh = ge.gelu_bf16_bwd(dy, h)
+        formulas = (dh.mm(w), dh.t().mm(x), dh.sum(0))
+        two = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        y_two = ge.gelu_bf16(F.linear(*two))
+        want = torch.autograd.grad(y_two, two, dy)
+        plain = lg.linear_gelu_reference(x, w, b)
+        torch.cuda.synchronize()
+        row = dict(shape=[m, k, n], calls_per_step=per_step, launches=launched,
+                   y_vs_inference_bitwise=torch.equal(_bits(y.detach()), _bits(y_inf)),
+                   h_vs_preact_out_bitwise=torch.equal(_bits(h), _bits(pre)),
+                   y_vs_gelu_of_h_bitwise=torch.equal(_bits(y.detach()), _bits(ge.fast_exact_gelu_reference(h))),
+                   h_share_differs_from_f_linear=(h != F.linear(x, w, b)).double().mean().item(),
+                   **_preact_check(h, x, w, b),
+                   y_rel_l2_vs_plain=((y.detach().float() - plain.float()).norm() / plain.float().norm()).item(),
+                   grads_bitwise_formulas={g_name: torch.equal(_bits(a), _bits(c)) for g_name, a, c
+                                           in zip(("dx", "dw", "db"), got, formulas)},
+                   grad_rel_l2_vs_two_op={g_name: ((a.float() - c.float()).norm() / c.float().norm()).item()
+                                          for g_name, a, c in zip(("dx", "dw", "db"), got, want)})
+        del plain, dh, formulas
+
+        def fused_step():
+            out = library.linear_gelu_bf16(*leaves)
+            torch.autograd.grad(out, leaves, dy)
+
+        def two_op_step():
+            out = ge.gelu_bf16(F.linear(*two))
+            torch.autograd.grad(out, two, dy)
+
+        row["ms"] = time_ms(lambda: lg.launch(x, w, b))
+        row["with_preact_ms"] = time_ms(lambda: lg.launch_preact(x, w, b))
+        row["fused_forward_backward_ms"] = time_ms(fused_step)
+        row["two_op_forward_backward_ms"] = time_ms(two_op_step)
+        rows[name] = row
+        emit("kernel", kernel="linear_gelu_bf16_fwd", case=f"{name}_train", **row)
+        check(launched == (1, 0, 1), f"linear_gelu_train {name}: (fused, GELU, GELU gradient) launches {launched}")
+        check(row["y_vs_inference_bitwise"] and row["h_vs_preact_out_bitwise"] and row["y_vs_gelu_of_h_bitwise"],
+              f"linear_gelu_train {name}: {row}")
+        check(row["within_ulp_plus_summation_bound"] and row["y_rel_l2_vs_plain"] <= LINEAR_GELU_REL_L2,
+              f"linear_gelu_train {name}: h or y {row}")
+        check(all(row["grads_bitwise_formulas"].values()), f"linear_gelu_train {name}: {row['grads_bitwise_formulas']}")
+        for g_name, r in row["grad_rel_l2_vs_two_op"].items():
+            check(r <= LINEAR_GELU_GRAD_REL_L2, f"linear_gelu_train {name}: {g_name} vs the two-op route {r:.3e}")
+        del x, w, b, dy, pre, y_inf, leaves, y, h, got, two, y_two, want
+        _free_card_memory()
+    per_step = {k: sum(r["calls_per_step"] * r[k] for r in rows.values())
+                for k in ("ms", "with_preact_ms", "fused_forward_backward_ms", "two_op_forward_backward_ms")}
+    emit("linear_gelu_train", per_step_ms=per_step)
+    return rows
+
+
 def _finite(t: torch.Tensor) -> bool:
     return bool(torch.isfinite(t).all())
 
@@ -1309,7 +1565,7 @@ def phase_main_path():
         ("480x640_b2", rng.integers(0, 256, (2, 2, 480, 640, 3), dtype=np.uint8)),
     )
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.ANY_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the main path's counts start here
+    fa.LAUNCHES = fa.ANY_LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # the main path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -1341,7 +1597,7 @@ def phase_main_path():
              covis_mean=covis.mean().item())
     launches = fa.LAUNCHES
     check(fa.ANY_LAUNCHES == 0, f"the bf16 d = 64 path launched the mma attention kernel {fa.ANY_LAUNCHES} times")
-    mlp_path("ufm_base", ge.LAUNCHES, lg.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
+    mlp_path("ufm_base", mlp_counts(ge, lg), 4 * len(requests) * GELU_PER_FORWARD)
     emit("main_path", launches=launches, mma_launches=fa.ANY_LAUNCHES, forwards=4 * len(requests),
          launches_per_forward=LAUNCHES_PER_FORWARD,
          gelu_launches=ge.LAUNCHES, linear_gelu_launches=lg.LAUNCHES,
@@ -1350,36 +1606,47 @@ def phase_main_path():
 
 
 def phase_fused_mlp_model(model):
-    """The flagship UFM-Base forward at batch 1 on the fused path (no
-    gradient: 36 fused fc1 + GELU launches) and on the two-op path of the
-    same weights (grad mode with parameters that require grad: fc1, then 36
-    GELU launches): flow within FLOW_REL_L2_BOUND."""
+    """The flagship UFM-Base forward at batch 1 on the fused path without a
+    gradient (36 fused fc1 + GELU launches), with one (grad mode, parameters
+    that require grad: the 36 launches also write the pre-activation; the
+    same flow bit for bit) and on the two-op path of the same weights (grad
+    mode under activation checkpointing: fc1, then 36 standalone GELU
+    launches): flow within FLOW_REL_L2_BOUND."""
     from ufm_torch.ops import gelu as ge
     from ufm_torch.ops import linear_gelu as lg
 
     net = model.net
     img1, img2 = _normalized_pair(1, TRAIN_HW, seed=4)
-    ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+    ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
     with torch.no_grad():
         fused = net(img1, img2)["flow"].float()
     torch.cuda.synchronize()
-    mlp_path("ufm_base_fused_check", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD)
+    mlp_path("ufm_base_fused_check", mlp_counts(ge, lg), GELU_PER_FORWARD)
     wanted = [p.requires_grad for p in net.parameters()]
     net.requires_grad_(True)
-    ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+    flows = {}
     try:
-        with torch.enable_grad():
-            two_op = net(img1, img2)["flow"].detach().float()
-        torch.cuda.synchronize()
+        for label, remat in (("grad", False), ("two_op", True)):
+            ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+            _set_remat(net, remat, None)
+            with torch.enable_grad():
+                flows[label] = net(img1, img2)["flow"].detach().float()
+            torch.cuda.synchronize()
+            if remat:
+                mlp_path("ufm_base_two_op_check", mlp_counts(ge, lg), 0, two_op=GELU_PER_FORWARD)
+            else:
+                mlp_path("ufm_base_fused_grad_check", mlp_counts(ge, lg), GELU_PER_FORWARD)
     finally:
+        _set_remat(net, False, None)
         for p, want in zip(net.parameters(), wanted):
             p.requires_grad_(want)
-    mlp_path("ufm_base_two_op_check", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD, grad=True)
+    two_op = flows["two_op"]
     rel = ((fused - two_op).norm() / two_op.norm()).item()
     emit("fused_mlp_model", input_hw=list(TRAIN_HW), flow_rel_l2=rel, flow_max_abs_diff=(fused - two_op).abs().max().item(),
-         bound=FLOW_REL_L2_BOUND)
+         bound=FLOW_REL_L2_BOUND, grad_mode_bitwise=torch.equal(fused, flows["grad"]))
+    check(torch.equal(fused, flows["grad"]), "the fused path's flow with a gradient recorded differs from without")
     check(_finite(fused) and rel <= FLOW_REL_L2_BOUND, f"fused vs two-op MLPs: flow relative L2 {rel:.3e}")
-    del fused, two_op
+    del fused, two_op, flows
     _free_card_memory()
 
 
@@ -1420,7 +1687,7 @@ def phase_bf16_golden():
     from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.ops import window_refinement as wr
 
-    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
     for name in BF16_GOLDENS:
         cfg, (i1, i2), params, want = _load_bf16_golden(name)
         with torch.device("cuda"):
@@ -1429,14 +1696,14 @@ def phase_bf16_golden():
         refine = net.cfg.has_classification_head
         if refine:
             net.refinement_impl = None  # the window kernel (the golden's config asks for the plain "xla")
-        before = (fa.LAUNCHES, wr.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
+        before = (fa.LAUNCHES, wr.LAUNCHES, mlp_counts(ge, lg))
         with torch.inference_mode():
             got = net(torch.from_numpy(i1).cuda(), torch.from_numpy(i2).cuda())
         torch.cuda.synchronize()
         launched = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1])
         layers = cfg["encoder_kwargs"]["depth"] + cfg["info_sharing_kwargs"]["depth"]
         check(launched == (layers, int(refine)), f"bf16 golden {name}: {launched} attention / window launches")
-        mlp_path("bf16_golden", ge.LAUNCHES - before[2], lg.LAUNCHES - before[3],
+        mlp_path("bf16_golden", {k: n - before[2][k] for k, n in mlp_counts(ge, lg).items()},
                  layers if net.cfg.compute_dtype == "bfloat16" else 0)
         diffs = {k: (got[k].float().cpu() - torch.from_numpy(v)).abs().max().item() for k, v in want.items()}
         emit("bf16_golden", model=name, input_hw=list(i1.shape[1:3]), max_abs_diff=diffs, bound=BF16_GOLDEN_ATOL,
@@ -1520,11 +1787,11 @@ def phase_tiled(model):
         tiled.predict_correspondences_tiled(model, src, tgt)  # warm-up
         calls.clear()
         torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the tiled path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # the tiled path's counts start here
         t = time.perf_counter()
         flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
         total_s = time.perf_counter() - t
-        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
+        launches, mlps = fa.LAUNCHES, mlp_counts(ge, lg)
         peak = torch.cuda.max_memory_allocated()
         stats = dict(tiled.last_tile_stats)
         kernel_calls = list(calls)
@@ -1554,7 +1821,7 @@ def phase_tiled(model):
     check(stats.get("tiles") == TILED_TILES, f"tiled: {stats} (expected {TILED_TILES} tiles)")
     check(batches == TILED_BATCHES, f"tiled: forwards at batches {batches}, expected {TILED_BATCHES}")
     check(launches == LAUNCHES_PER_FORWARD * len(TILED_BATCHES), f"tiled: {launches} attention launches")
-    mlp_path("ufm_base_tiled", gelu_launches, fused_launches, GELU_PER_FORWARD * len(TILED_BATCHES))
+    mlp_path("ufm_base_tiled", mlps, GELU_PER_FORWARD * len(TILED_BATCHES))
     check(flow.shape == (*TILED_HW, 2) and covis.shape == TILED_HW, f"tiled: shapes {flow.shape} {covis.shape}")
     check(bool(np.isfinite(flow).all() and np.isfinite(covis).all()), "tiled: non-finite outputs")
 
@@ -1621,12 +1888,13 @@ def phase_tiled_refine(model):
         tiled.predict_correspondences_tiled(model, src, tgt)  # warm-up
         calls.clear()
         torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the tiled UFM-Refine path's counts start here
+        # the tiled UFM-Refine path's counts start here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0
         t = time.perf_counter()
         flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
         total_s = time.perf_counter() - t
         launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
-        gelu_launches, fused_launches = ge.LAUNCHES, lg.LAUNCHES
+        mlps = mlp_counts(ge, lg)
         peak = torch.cuda.max_memory_allocated()
         stats = dict(tiled.last_tile_stats)
         kernel_calls = list(calls)
@@ -1661,7 +1929,7 @@ def phase_tiled_refine(model):
     check(batches == TILED_BATCHES, f"tiled refine: forwards at batches {batches}, expected {TILED_BATCHES}")
     check(all(c[6] == (LAUNCHES_PER_FORWARD, 1) for c in kernel_calls),
           f"tiled refine: attention / window launches by forward {[c[6] for c in kernel_calls]}")
-    mlp_path("ufm_refine_tiled", gelu_launches, fused_launches, GELU_PER_FORWARD * len(TILED_BATCHES))
+    mlp_path("ufm_refine_tiled", mlps, GELU_PER_FORWARD * len(TILED_BATCHES))
     check(plain_window_launches == 0, "the plain-window tiled forwards launched the window kernel")
     check(flow.shape == (*TILED_HW, 2) and covis.shape == TILED_HW, f"tiled refine: shapes {flow.shape} {covis.shape}")
     check(bool(np.isfinite(flow).all() and np.isfinite(covis).all()), "tiled refine: non-finite outputs")
@@ -1973,7 +2241,7 @@ def phase_refine_path():
     )
     p = model.config.refinement_range
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the refine path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # the refine path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -2009,7 +2277,7 @@ def phase_refine_path():
              refine_tail_share=tail_ms / fwd_ms, window_in_image_share=share, window_staged_tile_share=staged_share,
              regression_flow_abs_max=regression_flow.abs().max().item(), flow_abs_mean=flow.abs().mean().item())
     launches = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
-    mlp_path("ufm_refine", ge.LAUNCHES, lg.LAUNCHES, 4 * len(requests) * GELU_PER_FORWARD)
+    mlp_path("ufm_refine", mlp_counts(ge, lg), 4 * len(requests) * GELU_PER_FORWARD)
     emit("refine_path", launches=launches, forwards=4 * len(requests),
          pairs_per_s_b1=1.0 / latencies["refine_480x640_b1"], max_memory_allocated=torch.cuda.max_memory_allocated())
     del model.network_apply, model.net.refine_tail  # back to the unwrapped methods
@@ -2080,20 +2348,21 @@ def phase_train():
     net.forward = _timed(net.forward, fwd_events)
     optimizer.step = _timed(optimizer.step, opt_events)
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # the training path's counts start here
+    # the training path's counts start here
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0
     fa.ANY_LAUNCHES = fa.ANY_BWD_LAUNCHES = 0
     losses, times = [], []
     for i in range(TRAIN_STEPS):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, ge.BWD_LAUNCHES)
         t = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2],
-                    lg.LAUNCHES - before[3])
-        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, GELU_PER_FORWARD, 0),
+                    lg.LAUNCHES - before[3], ge.BWD_LAUNCHES - before[4])
+        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0, GELU_PER_FORWARD, GELU_PER_FORWARD),
               f"train step {i}: {launched} attention forward launches / backward calls / GELU / fused fc1 + GELU "
-              "launches, expected 36 / 36 / 36 / 0")
+              "/ GELU gradient launches, expected 36 / 36 / 0 / 36 / 36")
         check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0),
               f"bf16 train step {i}: mma attention launches ({fa.ANY_LAUNCHES}, {fa.ANY_BWD_LAUNCHES})")
         vals = {k: v.item() for k, v in metrics.items()}
@@ -2118,7 +2387,7 @@ def phase_train():
     check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0), "the bf16 fit launched an mma attention kernel")
     check(launches == {"flash_attention_fwd": steps * LAUNCHES_PER_FORWARD, "flash_attention_bwd": steps * LAUNCHES_PER_FORWARD},
           f"training path launches {launches} over {steps} steps, expected 36 + 36 per step")
-    mlp_path("ufm_base_train", ge.LAUNCHES, lg.LAUNCHES, steps * GELU_PER_FORWARD, grad=True)
+    mlp_path("ufm_base_train", mlp_counts(ge, lg), steps * GELU_PER_FORWARD, backward=steps * GELU_PER_FORWARD)
     trajectory = losses + fit_losses
     check(trajectory[-1] < trajectory[0], f"loss did not fall on the fixed batch: {trajectory}")
     emit("train_path", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), learning_rate=TRAIN_LR,
@@ -2133,18 +2402,19 @@ def phase_train():
 
 def phase_train_self_check(model, batch):
     one = {k: v[:1] for k, v in batch.items()}
-    _kernel_vs_plain_grads(model, one, "train_self_check", (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0,
-                                                            GELU_PER_FORWARD, 0, 0, 0, 0), TRAIN_GRAD_REL_L2_BOUND)
+    _kernel_vs_plain_grads(model, one, "train_self_check", BF16_TRAIN_EACH, TRAIN_GRAD_REL_L2_BOUND)
 
 
-# UFM-Refine training (refine_train): TRAIN_BATCH at TRAIN_HW, TRAIN_STEPS of
-# make_train_step, then FIT_STEPS of fit, as train: each step 36 attention
-# forward launches and backward calls, 36 GELU launches, and one launch each
-# of the window forward and backward
-REFINE_TRAIN_EACH = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1, GELU_PER_FORWARD, 0, 0, 0, 1)
 # a bf16 UFM-Base (or UniFlowMatch) train step: 36 attention forward launches
-# and backward calls, 36 GELU launches
-BF16_TRAIN_EACH = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0, GELU_PER_FORWARD, 0, 0, 0, 0)
+# and backward calls, 36 fused fc1 + GELU launches (each writing the
+# pre-activation) and 36 GELU gradient launches
+BF16_TRAIN_EACH = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, flash_attention_bwd=LAUNCHES_PER_FORWARD,
+                                linear_gelu_bf16_fwd=GELU_PER_FORWARD, gelu_bf16_bwd=GELU_PER_FORWARD)
+# UFM-Refine training (refine_train): TRAIN_BATCH at TRAIN_HW, TRAIN_STEPS of
+# make_train_step, then FIT_STEPS of fit, as train: each step the launches
+# of a bf16 UFM-Base step and one launch each of the window forward and
+# backward
+REFINE_TRAIN_EACH = {**BF16_TRAIN_EACH, WINDOW_AT: 1, WINDOW_BWD_AT: 1}
 # the kernels of the window backward at a width that stages (C <= 16, C % 4
 # == 0), by the name of their __global__ function: the direct kernel, the
 # staged kernel, the dbias sum
@@ -2152,7 +2422,8 @@ WINDOW_BWD_KERNEL_NAMES = ("window_refinement_bwd_kernel", "window_refinement_bw
                            "window_refinement_bias_kernel")
 # UFM-Refine in fp32: each train step 36 mma attention forward launches and
 # backward calls, one window forward and one window backward launch
-REFINE_FP32_TRAIN_EACH = (0, 0, 1, 0, 0, ANY_PER_FORWARD, ANY_BWD_PER_STEP, 1)
+REFINE_FP32_TRAIN_EACH = launch_counts(window_refinement_fwd=1, flash_attention_fwd_any=ANY_PER_FORWARD,
+                                       flash_attention_bwd_any=ANY_BWD_PER_STEP, window_refinement_bwd=1)
 # UniFlowMatch (no uncertainty head): the metrics of the JAX package's
 # ufm_total_loss for its outputs (tests/test_torch_port_paths.py holds the
 # port's names to JAX's)
@@ -2276,8 +2547,7 @@ def phase_model_train(cls=None, config=None, label="refine_train", path="ufm_ref
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             launched = counters.since(before)
-            check(launched == each, f"{label} step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, "
-                  f"fused fc1 + GELU, mma fwd / bwd, window bwd), expected {each}")
+            check(launched == each, f"{label} step {i}: launches {launched}, expected {each}")
             vals = {k: v.item() for k, v in metrics.items()}
             check(all(np.isfinite(v) for v in vals.values()) and ("refinement_loss" in vals) == refine,
                   f"{label} step {i}: metrics {vals}")
@@ -2318,18 +2588,19 @@ def phase_model_train(cls=None, config=None, label="refine_train", path="ufm_ref
               f"{len(WINDOW_BWD_KERNEL_NAMES)}")
     check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"{label} fit ran {out['step']} steps")
     check(all(np.isfinite(v) for v in fit_losses), f"{label} fit: non-finite losses {fit_losses}")
-    check(fit_launched == tuple(FIT_STEPS * n for n in each), f"{label} fit: launches {fit_launched} over {FIT_STEPS} steps")
+    check(fit_launched == {k: FIT_STEPS * n for k, n in each.items()},
+          f"{label} fit: launches {fit_launched} over {FIT_STEPS} steps")
     check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
     trajectory = losses + fit_losses
     falling = trajectory if falls_through_fit else losses
     check(falling[-1] < falling[0], f"{label}: the loss did not fall on the fixed batch: {trajectory}")
     steps = TRAIN_STEPS + FIT_STEPS
-    record_path(path, launched, steps * each[GELU_AT], grad=True)
-    launches = dict(zip(COUNTER_KERNELS, launched))
+    record_steps(path, launched, each, steps)
+    launches = launched
     step_s = statistics.median(times[1:])
     emit(label, model=type(model).__name__, compute_dtype=model.config.compute_dtype, batch=TRAIN_BATCH,
          input_hw=list(TRAIN_HW), setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-         fit_learning_rate=FIT_LR, steps=steps, launches=launches, launches_per_step=list(each),
+         fit_learning_rate=FIT_LR, steps=steps, launches=launches, launches_per_step=each,
          plain_calls=plain_calls, first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s,
          spans_ms=spans, max_memory_allocated=peak, loss_trajectory=trajectory,
          refinement_loss_trajectory=refine_losses, profiled_step_ms=profiled["wall_ms"],
@@ -2402,8 +2673,8 @@ def phase_refine_train_self_check(model, label="refine_train_self_check", agains
     net = model.net
     wide = torch.float64 if model.config.compute_dtype == "float32" else torch.float32
     # one forward, two backward passes (the loss with fixed classes, then as it is)
-    each = tuple(n * (2 if i in (1, ANY_BWD_AT, WINDOW_BWD_AT) else 1)
-                 for i, n in enumerate(train_each or REFINE_TRAIN_EACH))
+    each = {k: n * (2 if k in (BWD_AT, ANY_BWD_AT, WINDOW_BWD_AT, GELU_BWD_AT) else 1)
+            for k, n in (train_each or REFINE_TRAIN_EACH).items()}
 
     def grads(attention, window, step_label, fixed_flow):
         """The groups' gradients of one step on ``one`` with the classes of
@@ -2461,7 +2732,7 @@ def phase_refine_train_self_check(model, label="refine_train_self_check", agains
         del k_fixed, k_own, w_fixed, w_own
     held = ("vs_plain_window", "vs_plain") if against_plain_step else ("vs_plain_window",)
     emit(label, batch=1, seeds=list(REFINE_SELF_CHECK_SEEDS), window_p=p, by_seed=by_seed,
-         bound=bound, launches=list(each), held_with_fixed_classes=list(held),
+         bound=bound, launches=each, held_with_fixed_classes=list(held),
          witness_attention=str(wide).replace("torch.", "") if against_plain_step else None,
          classes_fixed_by="the witness's regression flow" if against_plain_step else "the kernel step's regression flow")
     for seed, row in by_seed.items():
@@ -2590,8 +2861,7 @@ def _train_steps(step, batch, n, label, each=BF16_TRAIN_EACH):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         launched = counters.since(before)
-        check(launched == each, f"{label} step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, fused fc1 "
-              f"+ GELU, mma fwd / bwd, window bwd), expected {each}")
+        check(launched == each, f"{label} step {i}: launches {launched}, expected {each}")
         vals = {k: v.item() for k, v in m.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
         metrics.append(vals)
@@ -2649,8 +2919,8 @@ def phase_sharded_train(cls=None, config=None, label="sharded_train", path="ufm_
     times, metrics = ran["times"], ran["metrics"]
     peak = torch.cuda.max_memory_allocated()
     launched = counters.snapshot()
-    record_path(path, launched, SHARDED_STEPS * each[GELU_AT], grad=True)
-    step_launches = dict(zip(COUNTER_KERNELS, launched))
+    record_steps(path, launched, each, SHARDED_STEPS)
+    step_launches = launched
     delta = _group_deltas(_stepped_values(net, optimizer), initial)
     metric_rel = {k: abs(metrics[0][k] - v) / max(abs(v), 1e-12) for k, v in plain_metrics[0].items()}
     delta_rel = {k: ((delta[k] - d).norm() / d.norm()).item() for k, d in plain_delta.items()}
@@ -2663,7 +2933,7 @@ def phase_sharded_train(cls=None, config=None, label="sharded_train", path="ufm_
          unsharded_pairs_per_s=TRAIN_BATCH / plain_s, unsharded_max_memory_allocated=plain_peak,
          losses=losses, unsharded_losses=[m["total_loss"] for m in plain_metrics],
          step0_metric_rel=metric_rel, metric_bound=SHARDED_METRIC_REL, param_delta_rel_l2=delta_rel,
-         launches=step_launches, launches_per_step=list(each), plain_calls=plain_calls)
+         launches=step_launches, launches_per_step=each, plain_calls=plain_calls)
     check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
     check(set(metric_rel) == set(metrics[0]), f"metric names differ: {sorted(metrics[0])} vs {sorted(metric_rel)}")
     for k, r in metric_rel.items():
@@ -2694,8 +2964,8 @@ def phase_sharded_train(cls=None, config=None, label="sharded_train", path="ufm_
         del model, out
         _free_card_memory()
     launched = counters.snapshot()
-    fit_launches = dict(zip(COUNTER_KERNELS, launched))
-    record_path(f"{path.removesuffix('_train')}_fit", launched, FIT_STEPS * each[GELU_AT], grad=True)
+    fit_launches = launched
+    record_steps(f"{path.removesuffix('_train')}_fit", launched, each, FIT_STEPS)
     last = os.path.join(ckpt, str(FIT_STEPS), "train_state.pt")
     ckpt_bytes = os.path.getsize(last)  # one step's file
     state = torch.load(last, map_location="cpu", weights_only=True, mmap=True)
@@ -2705,7 +2975,8 @@ def phase_sharded_train(cls=None, config=None, label="sharded_train", path="ufm_
     check([r["step"] for r in runs] == [1, FIT_STEPS], f"fit(mesh=...) stopped at {[r['step'] for r in runs]}")
     check(any("resumed from step 1" in line for line in runs[1]["log"]), f"the second fit did not resume: {runs[1]['log']}")
     check(all(np.isfinite(v) for r in runs for v in r["losses"]), "fit(mesh=...): non-finite losses")
-    check(launched == tuple(FIT_STEPS * n for n in each), f"fit(mesh=...) launches {launched} over {FIT_STEPS} steps")
+    check(launched == {k: FIT_STEPS * n for k, n in each.items()},
+          f"fit(mesh=...) launches {launched} over {FIT_STEPS} steps")
     shutil.rmtree(ckpt, ignore_errors=True)
     return step_launches, fit_launches
 
@@ -2739,13 +3010,13 @@ def phase_data_parallel():
                             ("ufm_refine", UniFlowMatchClassificationRefinement, ufm_refine_config())):
         model = cls.from_config(cfg, seed=0)
         forward = make_data_parallel_forward(model, make_mesh(1))
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         t = time.perf_counter()
         got = forward(img1, img2)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches[label] = {"flash_attention_fwd": fa.LAUNCHES, "window_refinement_fwd": wr.LAUNCHES}
-        mlp_path(f"{label}_data_parallel", ge.LAUNCHES, lg.LAUNCHES, GELU_PER_FORWARD)
+        mlp_path(f"{label}_data_parallel", mlp_counts(ge, lg), GELU_PER_FORWARD)
         with torch.no_grad():
             want = model.net(img1, img2)
         torch.cuda.synchronize()
@@ -2791,9 +3062,12 @@ def phase_remat(cls=None, config=None, cases=REMAT_CASES, label="remat", path="u
     step = make_train_step(net, make_optimizer(net, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL_STEPS))
 
     def each_of(fwd, gelu_fwd):
-        return (fwd, LAUNCHES_PER_FORWARD, window, gelu_fwd, 0, 0, 0, window)
+        return launch_counts(flash_attention_fwd=fwd, flash_attention_bwd=LAUNCHES_PER_FORWARD,
+                             window_refinement_fwd=window, gelu_bf16_fwd=gelu_fwd,
+                             linear_gelu_bf16_fwd=0 if gelu_fwd else GELU_PER_FORWARD, window_refinement_bwd=window,
+                             gelu_bf16_bwd=GELU_PER_FORWARD)
 
-    rows = {label_: {"policy": policy, "train_remat": remat, "launches_per_step": dict(zip(COUNTER_KERNELS, each_of(fwd, gelu_fwd))),
+    rows = {label_: {"policy": policy, "train_remat": remat, "launches_per_step": each_of(fwd, gelu_fwd),
                      "window_forward_recomputed": False if window else None,
                      "step_s": [], "max_memory_allocated": [], "resident_before": []}
             for label_, remat, policy, fwd, gelu_fwd in cases}
@@ -2815,8 +3089,10 @@ def phase_remat(cls=None, config=None, cases=REMAT_CASES, label="remat", path="u
     for row in rows.values():
         row["step_ms"] = statistics.median(row["step_s"]) * 1e3
     launched = counters.snapshot()
-    record_path(path, launched, 2 * (1 + REMAT_TIMED_STEPS) * sum(c[4] for c in cases), grad=True)
-    launches = dict(zip(COUNTER_KERNELS, launched))
+    steps = 2 * (1 + REMAT_TIMED_STEPS)  # each case's steps, over both rounds
+    record_path(path, launched, steps * sum(GELU_PER_FORWARD for c in cases if not c[4]),
+                two_op=steps * sum(c[4] for c in cases), backward=steps * len(cases) * GELU_PER_FORWARD)
+    launches = launched
     del step
     net.zero_grad(set_to_none=True)
     _free_card_memory()
@@ -2861,13 +3137,13 @@ def phase_moge():
     img1, img2 = _normalized_pair(1, TRAIN_HW, seed=3)
     with torch.no_grad():
         model.net(img1, img2)  # warm-up
-        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = model.net(img1, img2)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
+        launches, mlps = fa.LAUNCHES, mlp_counts(ge, lg)
         model.attention_impl = "torch"
         plain = model.net(img1, img2)
         model.attention_impl = None
@@ -2879,7 +3155,7 @@ def phase_moge():
     check(tuple(flow.shape) == (1, *TRAIN_HW, 2), f"moge flow shape {tuple(flow.shape)}")
     check(all(_finite(v) for v in out.values()), "moge: non-finite outputs")
     check(launches == LAUNCHES_PER_FORWARD, f"moge forward: {launches} attention launches, expected 36")
-    mlp_path("ufm_base_moge", gelu_launches, fused_launches, GELU_PER_FORWARD)
+    mlp_path("ufm_base_moge", mlps, GELU_PER_FORWARD)
     check(rel <= FLOW_REL_L2_BOUND, f"moge kernel vs plain attention: flow relative L2 {rel:.3e}")
     del model, out, plain
     _free_card_memory()
@@ -2956,9 +3232,10 @@ def _captured(model, label, pair, batches, refine, window_kernel):
             times.append(time.perf_counter() - t)
         return res, times
 
-    per_call = (LAUNCHES_PER_FORWARD, 0, 1 if refine else 0, 0, GELU_PER_FORWARD, 0, 0, 0)
+    per_call = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, window_refinement_fwd=int(refine),
+                             linear_gelu_bf16_fwd=GELU_PER_FORWARD)
     torch.cuda.reset_peak_memory_stats()
-    rows, launched = {}, (0,) * len(per_call)
+    rows, launched = {}, launch_counts()
     for b in batches:
         fn = request(b)
         model.capture_graphs = False
@@ -2973,9 +3250,8 @@ def _captured(model, label, pair, batches, refine, window_kernel):
             torch.cuda.synchronize()
             captured_times.append(time.perf_counter() - t)
             calls.append(counters.since(before))
-        launched = tuple(a + n for a, n in zip(launched, counters.snapshot()))
-        check(all(c == per_call for c in calls), f"{label} b{b}: launches per call {calls} (wgmma fwd / bwd, window, "
-              f"GELU, fused fc1 + GELU, mma fwd / bwd, window bwd), expected {per_call} each")
+        launched = {k: n + counters.snapshot()[k] for k, n in launched.items()}
+        check(all(c == per_call for c in calls), f"{label} b{b}: launches per call {calls}, expected {per_call} each")
         record_path(f"{label}_captured", counters.snapshot(), len(calls) * GELU_PER_FORWARD)
 
         f_c, f_e = res.flow.flow_output.float(), eager.flow.flow_output.float()
@@ -3003,7 +3279,7 @@ def _captured(model, label, pair, batches, refine, window_kernel):
             model.capture_graphs = True
             row.update(profiled_requests=PROFILE_REQUESTS, replay_profiled=replay, eager_profiled=eager_prof,
                        profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()})
-            want = {"flash_attention_fwd_kernel": per_call[0], "linear_gelu_bf16_fwd_kernel": per_call[FUSED_AT],
+            want = {"flash_attention_fwd_kernel": per_call[FWD_AT], "linear_gelu_bf16_fwd_kernel": per_call[FUSED_AT],
                     **({window_kernel: 1} if refine else {})}
             want = {k: v * PROFILE_REQUESTS for k, v in want.items()}
             check(replay_counts == want,
@@ -3011,7 +3287,7 @@ def _captured(model, label, pair, batches, refine, window_kernel):
         rows[f"b{b}"] = row
         emit("captured", model=label, **row)
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(zip(COUNTER_KERNELS, launched))
+    launches = launched
     emit("captured_memory", model=label, programs=len(model._programs), max_memory_allocated=peak,
          memory_allocated=torch.cuda.memory_allocated(), launches=launches)
     return rows
@@ -3167,7 +3443,8 @@ def phase_serve(model, label="serve", path="ufm_base_served", artifact=None):
     from ufm_torch.runtime import UFMServer
 
     refine = model.config.has_classification_head
-    per_batch = (LAUNCHES_PER_FORWARD, 0, int(refine), 0, GELU_PER_FORWARD, 0, 0, 0)
+    per_batch = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, window_refinement_fwd=int(refine),
+                              linear_gelu_bf16_fwd=GELU_PER_FORWARD)
     rng = np.random.default_rng(0)
     n = SERVE_CLIENTS * SERVE_REQUESTS
     pairs = rng.integers(0, 256, (n + 1, 2, *SERVE_HW, 3), dtype=np.uint8)  # the last: the warm-up's
@@ -3275,8 +3552,8 @@ def phase_serve(model, label="serve", path="ufm_base_served", artifact=None):
          max_batch=SERVE_MAX_BATCH, max_delay_ms=SERVE_MAX_DELAY_MS, input_hw=list(SERVE_HW), warm_up_s=warm_s,
          wall_s=wall, pairs_per_s=n / wall, latency_p50_s=float(np.percentile(lat, 50)),
          latency_p99_s=float(np.percentile(lat, 99)), mean_batch_size=lane["mean_batch_size"], batcher=lane,
-         healthz_backend=health["backend"], healthz=health, launches=dict(zip(COUNTER_KERNELS, launched)),
-         launches_per_batch=list(per_batch), batches_counted=batches_timed, plain_calls=plain_calls,
+         healthz_backend=health["backend"], healthz=health, launches=launched,
+         launches_per_batch=per_batch, batches_counted=batches_timed, plain_calls=plain_calls,
          profiler_kernels_per_replay={k: v / PROFILE_REQUESTS for k, v in replay_counts.items()},
          responses_by_slot=[slots.count(k) for k in range(SERVE_MAX_BATCH)],
          vs_copies_same_slot=same_slot, bitwise_equal=bool(bitwise), bar=CAPTURED_BAR,
@@ -3290,7 +3567,7 @@ def phase_serve(model, label="serve", path="ufm_base_served", artifact=None):
         check(f"using --max-batch {SERVE_MAX_BATCH} (requested {SERVE_ARTIFACT_ASKED_BATCH})" in log.getvalue(),
               f"{label}: --max-batch was not pinned to the artifact's batch:\n{log.getvalue()}")
     check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
-    check(launched == tuple(batches_timed * k for k in per_batch),
+    check(launched == {k: batches_timed * n for k, n in per_batch.items()},
           f"{label}: launches {launched} for {batches_timed} batches, expected {per_batch} a batch")
     record_path(path, launched, GELU_PER_FORWARD * batches_timed)
     check(replay_counts == want_counts,
@@ -3322,7 +3599,8 @@ def phase_stream(model, label="stream", path="ufm_base_streamed"):
     from ufm_torch.runtime import stream_predict
 
     refine = model.config.has_classification_head
-    per_batch = (LAUNCHES_PER_FORWARD, 0, int(refine), 0, GELU_PER_FORWARD, 0, 0, 0)
+    per_batch = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, window_refinement_fwd=int(refine),
+                              linear_gelu_bf16_fwd=GELU_PER_FORWARD)
     b = SERVE_MAX_BATCH
     pairs = np.random.default_rng(3).integers(0, 256, (STREAM_PAIRS, 2, *SERVE_HW, 3), dtype=np.uint8)
     batches = [list(range(k, min(k + b, STREAM_PAIRS))) for k in range(0, STREAM_PAIRS, b)]
@@ -3347,12 +3625,12 @@ def phase_stream(model, label="stream", path="ufm_base_streamed"):
     staged = _stream_staged(model, f"{path}_staged") if refine else {}
     emit(label, model=type(model).__name__, pairs=STREAM_PAIRS, batch=b, input_hw=list(SERVE_HW), wall_s=wall,
          pairs_per_s=STREAM_PAIRS / wall, batch_sizes=sizes, bitwise_equal=bool(bitwise),
-         launches=dict(zip(COUNTER_KERNELS, launched)), plain_calls=plain_calls, **staged)
+         launches=launched, plain_calls=plain_calls, **staged)
     check(sizes == [b] * (len(batches) - 1) + [STREAM_PAIRS - b * (len(batches) - 1)],
           f"{label}: batch sizes {sizes}")
     check(bitwise, f"{label}: a streamed batch differs from the direct predict of the same batch")
     check(plain_calls == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain_calls}")
-    check(launched == tuple(len(batches) * k for k in per_batch), f"{label}: launches {launched}")
+    check(launched == {k: len(batches) * n for k, n in per_batch.items()}, f"{label}: launches {launched}")
     record_path(path, launched, GELU_PER_FORWARD * len(batches))
 
 
@@ -3363,7 +3641,8 @@ def _stream_staged(model, path):
     from ufm_torch.runtime import stream_predict_staged
 
     net, b = model.net, SERVE_MAX_BATCH
-    per_batch = (LAUNCHES_PER_FORWARD, 0, 1, 0, GELU_PER_FORWARD, 0, 0, 0)
+    per_batch = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, window_refinement_fwd=1,
+                              linear_gelu_bf16_fwd=GELU_PER_FORWARD)
 
     @torch.inference_mode()
     def stage1(img1, img2):
@@ -3396,12 +3675,12 @@ def _stream_staged(model, path):
             diff[k] = max(diff[k], (out[k] - want[k][:valid]).abs().max().item())
             bitwise &= torch.equal(out[k], want[k][:valid])
     check(plain_calls == {"attention": 0, "window": 0}, f"staged stream called plain versions: {plain_calls}")
-    check(launched == tuple(len(batches) * k for k in per_batch), f"staged stream: launches {launched}")
+    check(launched == {k: len(batches) * n for k, n in per_batch.items()}, f"staged stream: launches {launched}")
     check(max(diff.values()) <= CAPTURED_BAR, f"staged stream vs the one-program forward: {diff}")
     record_path(path, launched, GELU_PER_FORWARD * len(batches))
     return {"staged": {"input_hw": [h, w], "wall_s": wall, "pairs_per_s": STREAM_PAIRS / wall,
                        "max_abs_diff_vs_one_program": diff, "bar": CAPTURED_BAR, "bitwise_equal": bool(bitwise),
-                       "launches": dict(zip(COUNTER_KERNELS, launched)), "plain_calls": plain_calls}}
+                       "launches": launched, "plain_calls": plain_calls}}
 
 
 def _raw_diff(got, want) -> dict:
@@ -3445,13 +3724,13 @@ def phase_export(model):
     art = loaded["fp32"]
     with torch.inference_mode():
         want = model.network_apply(x, y)
-        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
         per_call, fused_per_call = fa.LAUNCHES, lg.LAUNCHES
         half = loaded["bf16"](x, y)
         torch.cuda.synchronize()
-        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
+        launches, mlps = fa.LAUNCHES, mlp_counts(ge, lg)
         _, counts = _profile_requests(lambda: art(x, y))
     diff = _raw_diff(got, want)
     drift = {k: ((half[k].float() - got[k].float()).abs().max() / got[k].float().abs().max().clamp_min(1e-6)).item()
@@ -3466,7 +3745,7 @@ def phase_export(model):
          **diff, bar=ARTIFACT_BAR, bf16_relative_drift=drift, bf16_bound=ARTIFACT_BF16_DRIFT)
     check(per_call == LAUNCHES_PER_FORWARD, f"export: {per_call} attention launches in one artifact call")
     # the fp32- and the bf16-stored artifact
-    mlp_path("ufm_base_artifact", gelu_launches, fused_launches, 2 * GELU_PER_FORWARD)
+    mlp_path("ufm_base_artifact", mlps, 2 * GELU_PER_FORWARD)
     check(counts == {"flash_attention_fwd_kernel": LAUNCHES_PER_FORWARD * PROFILE_REQUESTS,
                      "linear_gelu_bf16_fwd_kernel": GELU_PER_FORWARD * PROFILE_REQUESTS},
           f"export: the profiler saw {counts} in {PROFILE_REQUESTS} artifact calls")
@@ -3504,10 +3783,10 @@ def phase_export_cpu():
     model.net.to("cuda")
     x, y = _artifact_inputs(model, seed=12)
     with torch.inference_mode():
-        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
-        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
+        launches, mlps = fa.LAUNCHES, mlp_counts(ge, lg)
         want = model.network_apply(x, y)
     diff = _raw_diff(got, want)
     emit("export_cpu", model="ufm_base", traced_on=manifest["devices"], loaded_on=str(art.device), depth_cut=None,
@@ -3515,7 +3794,7 @@ def phase_export_cpu():
          launches_per_call=launches, **diff, bar=ARTIFACT_CPU_BAR)
     check(manifest["devices"] == ["cpu"] and art.device.type == "cuda", "export_cpu: not traced on the CPU and run on the card")
     check(launches == LAUNCHES_PER_FORWARD, f"export_cpu: {launches} attention launches in one call")
-    mlp_path("ufm_base_artifact_cpu_export", gelu_launches, fused_launches, GELU_PER_FORWARD)
+    mlp_path("ufm_base_artifact_cpu_export", mlps, GELU_PER_FORWARD)
     check(diff["flow_rel_l2"] <= ARTIFACT_CPU_BAR, f"export_cpu: the moved program differs from the card model: {diff}")
     return launches
 
@@ -3545,9 +3824,9 @@ def phase_artifact_predict(model, art, pair):
         return res, times, calls
 
     with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
-        fa.LAUNCHES = ge.LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
         got, art_times, art_calls = timed(art_model)
-        launches, gelu_launches, fused_launches = fa.LAUNCHES, ge.LAUNCHES, lg.LAUNCHES
+        launches, mlps = fa.LAUNCHES, mlp_counts(ge, lg)
         want, live_times, _ = timed(model)
     f_g, f_w = got.flow.flow_output.float(), want.flow.flow_output.float()
     rel = ((f_g - f_w).norm() / f_w.norm()).item()
@@ -3558,7 +3837,7 @@ def phase_artifact_predict(model, art, pair):
          flow_rel_l2=rel, covis_max_abs_diff=covis, bitwise_equal=_outputs_equal(got, want), bar=ARTIFACT_BAR)
     check(all(c == (LAUNCHES_PER_FORWARD, 0, GELU_PER_FORWARD) for c in art_calls),
           f"artifact_predict: attention / GELU / fused fc1 + GELU launches per call {art_calls}")
-    mlp_path("ufm_base_artifact_captured", gelu_launches, fused_launches, len(art_calls) * GELU_PER_FORWARD)
+    mlp_path("ufm_base_artifact_captured", mlps, len(art_calls) * GELU_PER_FORWARD)
     check(rel <= ARTIFACT_BAR and covis <= ARTIFACT_BAR, f"artifact_predict: {rel:.3e} / {covis:.3e} from the live model")
     return art_model, launches
 
@@ -3595,8 +3874,9 @@ def phase_artifact_model(model, label="artifact_refine", path="ufm_refine_artifa
                       refined_bound_px=REFINED_FLOW_MAX_ABS)
     emit(label, model=type(model).__name__, export_s=export_s, load_s=load_s, program_bytes=manifest["program_bytes"],
          param_bytes=manifest["param_bytes"], ops=manifest["ops"], staged=manifest["staged"],
-         launches_per_call=dict(zip(COUNTER_KERNELS, launched)), outputs=sorted(got), **diff, bar=ARTIFACT_BAR, **fields)
-    per_call = (LAUNCHES_PER_FORWARD, 0, int(refine), 0, GELU_PER_FORWARD, 0, 0, 0)
+         launches_per_call=launched, outputs=sorted(got), **diff, bar=ARTIFACT_BAR, **fields)
+    per_call = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, window_refinement_fwd=int(refine),
+                             linear_gelu_bf16_fwd=GELU_PER_FORWARD)
     check(launched == per_call, f"{label}: launches {launched} in one call, expected {per_call}")
     check(diff["flow_rel_l2"] <= ARTIFACT_BAR and diff["covis_max_abs_diff"] <= ARTIFACT_BAR,
           f"{label}: the artifact differs from the live network: {diff}")
@@ -3652,10 +3932,11 @@ def phase_artifact_batch4():
         path = f"ufm_{m}_artifact_b{b}"
         record_path(path, launched, GELU_PER_FORWARD)
         diff = _raw_diff(got, want)
-        per_call = (LAUNCHES_PER_FORWARD, 0, int(m == "refine"), 0, GELU_PER_FORWARD, 0, 0, 0)
+        per_call = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, window_refinement_fwd=int(m == "refine"),
+                                 linear_gelu_bf16_fwd=GELU_PER_FORWARD)
         emit("artifact_batch4", model=type(live).__name__, cli_said=log.getvalue().strip().splitlines(),
              batch=art.exported.batch, input_hw=list(x.shape[1:3]), export_s=export_s, load_s=load_s,
-             file_bytes=os.path.getsize(file), launches_per_call=dict(zip(COUNTER_KERNELS, launched)), **diff)
+             file_bytes=os.path.getsize(file), launches_per_call=launched, **diff)
         check(art.exported.batch == b and art.manifest["model_class"] == type(live).__name__,
               f"artifact_batch4: {art.manifest['model_class']} at batch {art.exported.batch}")
         check(launched == per_call, f"artifact_batch4 {m}: launches {launched} in one call, expected {per_call}")
@@ -3850,16 +4131,16 @@ def _jpeg_stream(model, folder=JPEG_PAIR, path_name="ufm_base_loader_streamed"):
     batches = -(-JPEG_STREAM_PAIRS // b)
     bitwise = len(from_files) == len(from_memory) == batches and all(
         torch.equal(f, g) and torch.equal(c, d) for (f, c), (g, d) in zip(from_files, from_memory))
-    per_batch = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
+    per_batch = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, linear_gelu_bf16_fwd=GELU_PER_FORWARD)
     check(bitwise, f"loader: streamed outputs from the JPEG files in {folder} differ from the stream of the same "
                    "frames from memory")
     check(plain_calls == {"attention": 0, "window": 0}, f"loader stream called plain versions: {plain_calls}")
-    check(launched == tuple(batches * k for k in per_batch), f"loader stream: launches {launched}")
+    check(launched == {k: batches * n for k, n in per_batch.items()}, f"loader stream: launches {launched}")
     record_path(path_name, launched, GELU_PER_FORWARD * batches)
     return {"stream_pairs": JPEG_STREAM_PAIRS, "stream_input": "1080x1920 JPEG files resized to 480x640 by the loader",
             "streamed_pairs_per_s_from_jpeg": JPEG_STREAM_PAIRS / wall,
             "streamed_pairs_per_s_from_memory": JPEG_STREAM_PAIRS / memory_wall,
-            "stream_bitwise_from_memory": bool(bitwise), "stream_launches": dict(zip(COUNTER_KERNELS, launched)),
+            "stream_bitwise_from_memory": bool(bitwise), "stream_launches": launched,
             "stream_plain_calls": plain_calls}, from_files
 
 
@@ -4099,7 +4380,7 @@ def phase_fp32_path(cls=None, config=None, label="fp32_path", path="ufm_base_fp3
     refine = model.config.has_classification_head
     check(model.config.compute_dtype == "float32", f"{label}: compute dtype {model.config.compute_dtype}")
     src, tgt = np.random.default_rng(0).integers(0, 256, (2, *SERVE_HW, 3), dtype=np.uint8)
-    per_call = (0, 0, int(refine), 0, 0, ANY_PER_FORWARD, 0, 0)
+    per_call = launch_counts(window_refinement_fwd=int(refine), flash_attention_fwd_any=ANY_PER_FORWARD)
 
     def request():
         return model.predict_correspondences_batched(source_image=src, target_image=tgt)
@@ -4144,7 +4425,7 @@ def phase_fp32_path(cls=None, config=None, label="fp32_path", path="ufm_base_fp3
                 flows[tf32, impl] = request().flow.flow_output.float()
                 torch.cuda.synchronize()
                 launched = counters.since(before)
-                check(launched == ((0,) * len(per_call) if impl else per_call),
+                check(launched == (launch_counts() if impl else per_call),
                       f"{label} TF32 {tf32} route {impl}: launches {launched}")
     model.attention_impl = None
     fields = {}
@@ -4306,7 +4587,7 @@ def phase_jpeg_entry():
         return res
 
     log = io.StringIO()
-    per_forward = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
+    per_forward = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, linear_gelu_bf16_fwd=GELU_PER_FORWARD)
 
     def infer(src, tgt, out):  # seconds, launches, plain calls of one ``ufm infer``
         counters.reset()  # the infer path's counts start here
@@ -4370,12 +4651,12 @@ def phase_jpeg_entry():
          imports_blocked=list(ENTRY_BLOCKED_IMPORTS), infer_command="ufm_torch.cli.main(['infer', frame0.jpg, "
          "frame1.jpg, '--random-init', '-o', DIR])", infer_s=infer_s, infer_panels=panels,
          infer_inputs_bitwise_read_rgb=bool(inputs_bitwise), infer_flow_bitwise_direct=bool(infer_bitwise),
-         infer_flow_max_abs_diff_px=infer_diff, infer_launches=dict(zip(COUNTER_KERNELS, infer_launched)),
+         infer_flow_max_abs_diff_px=infer_diff, infer_launches=infer_launched,
          infer_plain_calls=infer_plain, served_warm_up_s=warm_s, served_request_s=served_s,
-         served_bitwise_lane_slot0=bool(served_bitwise), served_launches=dict(zip(COUNTER_KERNELS, served_launched)),
+         served_bitwise_lane_slot0=bool(served_bitwise), served_launches=served_launched,
          served_plain_calls=served_plain, arith_files=[os.path.relpath(JPEG_PAIR_ARITH, HERE)], arith_infer_s=arith_s,
          arith_infer_flow_bitwise_huffman=bool(arith_bitwise),
-         arith_infer_launches=dict(zip(COUNTER_KERNELS, arith_launched)), arith_infer_plain_calls=arith_plain,
+         arith_infer_launches=arith_launched, arith_infer_plain_calls=arith_plain,
          cut_request_bytes=len(whole) * 9 // 10, cut_request_status=cut_status, cut_request_error=cut_error)
     check(all(shape == [*src.shape[:2], 3] for shape in panels.values()), f"ufm infer panels: {panels}")
     check(inputs_bitwise, "ufm infer: its input arrays differ from read_rgb's")
@@ -4425,7 +4706,7 @@ def _rel_l2(got, want):
 def _kernel_vs_plain_grads(model, batch, label, launches_each, bound, **fields):
     """Each optimizer group's gradient of one forward + loss + backward on
     ``batch`` through the kernels (their launches held to ``launches_each``,
-    in the counters' order) and on plain attention (no attention launch):
+    by kernel name) and on plain attention (no attention launch):
     the relative L2, emitted as phase ``label`` (with the plain pass's peak
     memory and ``fields``), then each held within ``bound``."""
     from ufm_torch.ops import launches
@@ -4446,7 +4727,7 @@ def _kernel_vs_plain_grads(model, batch, label, launches_each, bound, **fields):
     check(set(g_plain) == set(g_kernel), f"{label}: gradient groups differ: {sorted(g_kernel)} vs {sorted(g_plain)}")
     rel = _rel_l2(g_kernel, g_plain)
     emit(label, batch=int(batch["img1"].shape[0]), grad_rel_l2=rel, bound=bound,
-         plain_max_memory_allocated=plain_peak, launches=list(kernel_launched), **fields)
+         plain_max_memory_allocated=plain_peak, launches=kernel_launched, **fields)
     for k, r in rel.items():
         check(r <= bound, f"{label} kernel vs plain gradient, group {k}: relative L2 {r:.3e} > {bound}")
 
@@ -4475,7 +4756,7 @@ def phase_fp32_train():
     check(not optimizer.masters(), f"the fp32 model's optimizer keeps {len(optimizer.masters())} masters")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    each = (0, 0, 0, 0, 0, ANY_PER_FORWARD, ANY_BWD_PER_STEP, 0)
+    each = launch_counts(flash_attention_fwd_any=ANY_PER_FORWARD, flash_attention_bwd_any=ANY_BWD_PER_STEP)
     torch.cuda.reset_peak_memory_stats()
     counters.reset()  # the fp32 training path's counts start here
     losses, times = [], []
@@ -4488,8 +4769,7 @@ def phase_fp32_train():
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             launched = counters.since(before)
-            check(launched == each, f"fp32 train step {i}: launches {launched} (wgmma fwd / bwd, window, GELU, "
-                  f"fused fc1 + GELU, mma fwd / bwd, window bwd), expected {each}")
+            check(launched == each, f"fp32 train step {i}: launches {launched}, expected {each}")
             vals = {k: v.item() for k, v in metrics.items()}
             check(all(np.isfinite(v) for v in vals.values()), f"fp32 train step {i}: non-finite metrics {vals}")
             losses.append(vals["total_loss"])
@@ -4507,10 +4787,12 @@ def phase_fp32_train():
     fit_launched = counters.since(before)
     check(out["step"] == FIT_STEPS and len(fit_losses) == FIT_STEPS, f"fp32 fit ran {out['step']} steps")
     check(all(np.isfinite(v) for v in fit_losses), f"fp32 fit: non-finite losses {fit_losses}")
-    check(fit_launched == tuple(FIT_STEPS * n for n in each), f"fp32 fit: launches {fit_launched} over {FIT_STEPS} steps")
+    check(fit_launched == {k: FIT_STEPS * n for k, n in each.items()},
+          f"fp32 fit: launches {fit_launched} over {FIT_STEPS} steps")
     trajectory = losses + fit_losses
     check(trajectory[-1] < trajectory[0], f"fp32: the loss did not fall on the fixed batch: {trajectory}")
-    launches = {"train": counters.snapshot()[ANY_FWD_AT:WINDOW_BWD_AT]}
+    snap = counters.snapshot()
+    launches = {"train": (snap[ANY_FWD_AT], snap[ANY_BWD_AT])}
     del out, step, optimizer
     _free_card_memory()
 
@@ -4518,13 +4800,11 @@ def phase_fp32_train():
     counters.reset()
     with _TF32(False):
         _kernel_vs_plain_grads(model, one, "fp32_train_self_check", each, FP32_TRAIN_GRAD_REL_L2_BOUND, tf32=False)
-    launches["self_check"] = counters.snapshot()[ANY_FWD_AT:WINDOW_BWD_AT]
+    snap = counters.snapshot()
+    launches["self_check"] = (snap[ANY_FWD_AT], snap[ANY_BWD_AT])
     emit("fp32_train", model="ufm_base", compute_dtype=model.config.compute_dtype, batch=TRAIN_BATCH,
          input_hw=list(TRAIN_HW), setup_s=setup_s, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-         fit_learning_rate=FIT_LR, steps=TRAIN_STEPS + FIT_STEPS, launches_per_step=dict(zip(
-             ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
-              "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any", "window_refinement_bwd"),
-             each)),
+         fit_learning_rate=FIT_LR, steps=TRAIN_STEPS + FIT_STEPS, launches_per_step=each,
          first_step_s=times[0], step_ms=step_s * 1e3, pairs_per_s=TRAIN_BATCH / step_s, spans_ms=spans,
          max_memory_allocated=peak, loss_trajectory=trajectory)
     del model, batch, one
@@ -4540,8 +4820,9 @@ def phase_fine_tune():
     none of the wgmma kernels, each step's loss within FINE_TUNE_LOSS_REL of
     the CPU run's. Then the tiny config in bf16 (D = 32 / 24: the mma
     kernels in bf16) takes one train step on the card: its gradients within
-    TRAIN_GRAD_REL_L2_BOUND of plain attention a group at a time, its GELU
-    kernel launched once an MLP. Returns the paths' mma launches."""
+    TRAIN_GRAD_REL_L2_BOUND of plain attention a group at a time, its fused
+    fc1 + GELU and GELU gradient kernels launched once an MLP a pass.
+    Returns the paths' mma launches."""
     from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config
     from ufm_torch.ops import launches as counters
     from ufm_torch.training import fit, make_optimizer, make_train_step, synthetic_batch
@@ -4567,13 +4848,13 @@ def phase_fine_tune():
                       on_metrics=on_metrics)
             seconds = time.perf_counter() - t
             check(out["step"] == FINE_TUNE_STEPS and len(losses) == FINE_TUNE_STEPS, f"fine-tune on {where}: {out['step']}")
-            per_step = [tuple(n - m for n, m in zip(c, p)) for c, p in zip(counts, [(0,) * len(counts[0])] + counts[:-1])]
+            per_step = [{k: n - p[k] for k, n in c.items()} for c, p in zip(counts, [launch_counts()] + counts[:-1])]
             runs[where] = dict(seconds=seconds, losses=losses, launches_per_step=per_step)
             del model, out
-    want = (0, 0, 0, 0, 0, layers, layers, 0)
+    want = launch_counts(flash_attention_fwd_any=layers, flash_attention_bwd_any=layers)
     check(all(c == want for c in runs["cuda"]["launches_per_step"]),
           f"fine-tune on the card: launches per step {runs['cuda']['launches_per_step']}, expected {want}")
-    check(not any(any(c) for c in runs["cpu"]["launches_per_step"]), "fine-tune on the CPU launched a kernel")
+    check(not any(any(c.values()) for c in runs["cpu"]["launches_per_step"]), "fine-tune on the CPU launched a kernel")
     rel = [abs(c - p) / abs(p) for c, p in zip(runs["cuda"]["losses"], runs["cpu"]["losses"])]
     launches = {"fine_tune": sum(c[ANY_FWD_AT] for c in runs["cuda"]["launches_per_step"]),
                 "fine_tune_bwd": sum(c[ANY_BWD_AT] for c in runs["cuda"]["launches_per_step"])}
@@ -4589,7 +4870,8 @@ def phase_fine_tune():
     h, w = _model_hw(model.config)
     bf16_batch = synthetic_batch(FINE_TUNE_BATCH, h, w, seed=1, device="cuda")
     counters.reset()
-    each = (0, 0, 0, layers, 0, layers, layers, 0)
+    each = launch_counts(linear_gelu_bf16_fwd=layers, flash_attention_fwd_any=layers, flash_attention_bwd_any=layers,
+                         gelu_bf16_bwd=layers)
     _kernel_vs_plain_grads(model, bf16_batch, "tiny_bf16_self_check", each, TRAIN_GRAD_REL_L2_BOUND)
     optimizer = make_optimizer(model.net, learning_rate=1e-4, warmup_steps=0, total_steps=10)
     before = counters.snapshot()
@@ -4600,12 +4882,12 @@ def phase_fine_tune():
     check(all(np.isfinite(v) for v in metrics.values()), f"tiny bf16 train step: non-finite metrics {metrics}")
     counts = counters.snapshot()
     # the kernel and the plain gradients, then the step
-    mlp_path("ufm_tiny_bf16_train", counts[GELU_AT], counts[FUSED_AT], 3 * layers, grad=True)
+    mlp_path("ufm_tiny_bf16_train", counts, 3 * layers, backward=3 * layers)
     launches["tiny_bf16_train"], launches["tiny_bf16_train_bwd"] = counts[ANY_FWD_AT], counts[ANY_BWD_AT]
     emit("tiny_bf16_train", compute_dtype="bfloat16", head_dims=[
         model.config.encoder_kwargs["embed_dim"] // model.config.encoder_kwargs["num_heads"],
         model.config.info_sharing_kwargs["dim"] // model.config.info_sharing_kwargs["num_heads"]],
-        batch=FINE_TUNE_BATCH, input_hw=[h, w], metrics=metrics, launches_per_step=list(each))
+        batch=FINE_TUNE_BATCH, input_hw=[h, w], metrics=metrics, launches_per_step=each)
     del model, optimizer
     _free_card_memory()
     return launches
@@ -4633,7 +4915,7 @@ def phase_uniflowmatch():
     check(not hasattr(model.net, "uncertainty_head"), "UniFlowMatch built an uncertainty head")
     build_s = time.perf_counter() - t0
     pair = tuple(np.random.default_rng(9).integers(0, 256, (2, *SERVE_HW, 3), dtype=np.uint8))
-    per_call = (LAUNCHES_PER_FORWARD, 0, 0, 0, GELU_PER_FORWARD, 0, 0, 0)
+    per_call = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, linear_gelu_bf16_fwd=GELU_PER_FORWARD)
     with _plain_calls() as plain_calls:
         rows = phase_captured(model, "uniflowmatch", pair, (1,), refine=False)
         model.capture_graphs = False
@@ -4652,7 +4934,7 @@ def phase_uniflowmatch():
     emit("uniflowmatch", config="ufm_base_config(has_uncertainty_head=False)", build_s=build_s,
          params=sum(p.numel() for p in model.parameters()), input_hw=list(SERVE_HW), batch=1,
          request_ms_captured=rows["b1"]["captured_latency_s"] * 1e3, request_ms_eager=rows["b1"]["eager_latency_s"] * 1e3,
-         launches_eager=dict(zip(COUNTER_KERNELS, eager)), plain_calls=plain_calls,
+         launches_eager=eager, plain_calls=plain_calls,
          absent_outputs=[k for k, v in empty.items() if v is None], flow_rel_l2_vs_plain_attention=rel,
          bound=FLOW_REL_L2_BOUND)
     check(plain_calls == {"attention": 0, "window": 0}, f"uniflowmatch requests called plain versions: {plain_calls}")
@@ -4672,8 +4954,9 @@ def phase_uniflowmatch():
     one = {k: v[:1] for k, v in batch.items()}
     counters.reset()
     _kernel_vs_plain_grads(train_model, one, "uniflowmatch_train_self_check", BF16_TRAIN_EACH, TRAIN_GRAD_REL_L2_BOUND)
-    # the kernel pass and the plain-attention pass each run the 36 GELUs
-    record_path("uniflowmatch_train_self_check", counters.snapshot(), 2 * GELU_PER_FORWARD, grad=True)
+    # the kernel pass and the plain-attention pass each run the 36 MLPs forward and backward
+    record_path("uniflowmatch_train_self_check", counters.snapshot(), 2 * GELU_PER_FORWARD,
+                backward=2 * GELU_PER_FORWARD)
     del train_model, batch, one
     _free_card_memory()
 
@@ -4736,6 +5019,8 @@ def run_phases(smi: str) -> int:
     window_bwd_rows = phase_window_bwd_kernel()
     gelu_rows, gelu_host_us, gelu_err = phase_gelu()
     lg_rows, lg_host_us, lg_err = phase_linear_gelu()
+    gelu_bwd_rows, gelu_bwd_host_us, gelu_bwd_err = phase_gelu_backward()
+    lg_train_rows = phase_linear_gelu_train()
     golden_launches = phase_bf16_golden()
     anchor_launches = phase_fp32_anchor()
     model, pair, kernel_res, launches = phase_main_path()
@@ -4957,8 +5242,34 @@ def run_phases(smi: str) -> int:
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in gelu_rows.items()},
         "library_ms_by_case": {n: r["library_ms"] for n, r in gelu_rows.items()},
         "host_us_per_launch": gelu_host_us,
-        "main_path_note": "inference paths take the fused fc1 + GELU kernel; the launches here are the paths "
-                          "that record a gradient (training)",
+        "main_path_note": "every path outside activation checkpointing takes the fused fc1 + GELU kernel; the "
+                          "launches here are the forwards under remat (fc1, then this kernel) and their recomputes",
+    }
+    # one batch-2 train step's GELU gradient: each number sums its 36 calls
+    gelu_bwd_step = [gelu_bwd_rows[n] for n, _, calls in GELU_BWD_SHAPES for _ in range(calls)]
+    gelu_backward = {
+        "name": "gelu_bf16_bwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/gelu_bf16_bwd.cu",
+        "replaces": "ufm_tpu/ops/gelu.py:106",
+        "replaces_note": "jax.vjp of fast_exact_gelu: XLA's transposed chain (one fused elementwise pass on the TPU), "
+                         "no pallas_call and no custom_vjp",
+        "launches": sum(GELU_BWD_LAUNCHES.values()),
+        "launches_by_path": dict(GELU_BWD_LAUNCHES),
+        "op": "ufm_torch::gelu_bf16_bwd",
+        "max_abs_err": gelu_bwd_err,
+        "ms": sum(r["ms"] for r in gelu_bwd_step),
+        "plain_ms": sum(r["plain_ms"] for r in gelu_bwd_step),
+        "bound_ms": sum(r["bound_ms"] for r in gelu_bwd_step),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in gelu_bwd_step) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in gelu_bwd_step),
+        "per_step": "times sum the 24 encoder and 12 info-sharing MLPs of one batch-2 train step",
+        "library": "aten.gelu_backward(g, h, approximate='none') on the same tensors (the exact derivative rounded "
+                   "once: not the JAX package's bits)",
+        "ms_by_case": {n: r["ms"] for n, r in gelu_bwd_rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in gelu_bwd_rows.items()},
+        "library_ms_by_case": {n: r["library_ms"] for n, r in gelu_bwd_rows.items()},
+        "host_us_per_launch": gelu_bwd_host_us,
     }
     # one batch-1 forward's fc1 + GELU: each number sums its 36 calls
     lg_fwd = [lg_rows[n] for n, _, calls in LINEAR_GELU_SHAPES for _ in range(calls)]
@@ -4992,6 +5303,10 @@ def run_phases(smi: str) -> int:
         "ms_by_case": {n: r["ms"] for n, r in lg_rows.items() if "ms" in r},
         "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in lg_rows.items() if "ms" in r},
         "host_us_per_launch": lg_host_us,
+        "train_step": {k: sum(r["calls_per_step"] * r[k] for r in lg_train_rows.values())
+                       for k in ("ms", "with_preact_ms", "fused_forward_backward_ms", "two_op_forward_backward_ms")},
+        "train_step_note": "the 36 MLPs of one batch-2 train step: the inference launch, the training launch "
+                           "(y and h), and the fused op's forward + backward beside the two-op route's",
     }
     # one batch-1 forward of UFM-Base in fp32: each number sums its 36 calls
     any_fwd = [any_rows[n] for n, *_, calls in ANY_ATTN_CASES for _ in range(calls)]
@@ -5064,7 +5379,7 @@ def run_phases(smi: str) -> int:
     }
     print(smi)
     kernels = [with_recorded_paths(k) for k in (attention, backward, window, window_bwd, gelu, linear_gelu,
-                                                attention_any, backward_any)]
+                                                attention_any, backward_any, gelu_backward)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

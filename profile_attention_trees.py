@@ -2,7 +2,7 @@
 """Time the attention kernels of several checkouts of the port in one process.
 
     python3 profile_attention_trees.py PARENT . . PARENT [--train-steps 8] [--requests 5] [--any]
-        [--fp32-requests 5] [--fp32-train-steps 4]
+        [--fp32-requests 5] [--fp32-train-steps 4] [--remat-steps 3]
 
 Each argument is the root of a checkout that holds ``ufm_torch`` (an
 unpacked ``git archive`` of another commit, or this one). The trees are
@@ -33,6 +33,9 @@ tree's sources and prints one JSON line per kernel and shape:
   (``torch.profiler``; the rest of the step the card is idle), the peak
   memory, and both times once more with every MLP's activation swapped for
   one ``F.gelu`` (what the tree's ``gelu_exact`` costs a step beyond it);
+- with ``--remat-steps N``, the same train step under no remat, full remat
+  and each of the seven ``train_remat_policy`` names: the median host time
+  of N steps (after one warm-up step) and their peak memory, by case;
 - with ``--requests N``, a batch-1 480x640 UFM-Base request through the
   predict API, captured (a CUDA graph replay) and eager: N requests, each
   waited for, inside one ``torch.profiler`` window: the host clock a
@@ -134,7 +137,7 @@ def views(shape, seed):
 
 
 def run_tree(root: str, turn: int, train_steps: int = 0, requests: int = 0, any_cases: bool = False,
-             fp32_requests: int = 0, fp32_train_steps: int = 0) -> dict:
+             fp32_requests: int = 0, fp32_train_steps: int = 0, remat_steps: int = 0) -> dict:
     fa = load_tree(root)
     scale = 64**-0.5
     out = {}
@@ -184,6 +187,9 @@ def run_tree(root: str, turn: int, train_steps: int = 0, requests: int = 0, any_
         time_any_cases(fa, emit)
     if train_steps:
         emit("train_step", "ufm_base_b2", **train_step(train_steps))
+    if remat_steps:
+        for case, fields in remat_train_steps(remat_steps).items():
+            emit("remat_step", case, **fields)
     if requests:
         for mode, fields in predict_requests(requests).items():
             emit("request", f"ufm_base_480x640_b1_{mode}", **fields)
@@ -331,6 +337,39 @@ def train_step(steps: int, compute_dtype: str = "bfloat16") -> dict:
     return out
 
 
+def remat_train_steps(steps: int) -> dict:
+    """The batch-2 UFM-Base train step of the tree loaded last under no
+    remat, full remat and each remat policy of its ``REMAT_POLICIES``: the
+    median step ms of ``steps`` steps after one warm-up step, and the peak
+    memory of those steps, by case."""
+    from ufm_torch.models import UniFlowMatchConfidence, ufm_base_config
+    from ufm_torch.nn.layers import REMAT_POLICIES
+    from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_config(), seed=0)
+    batch = synthetic_batch(TRAIN_BATCH, *TRAIN_HW, seed=0, device="cuda")
+    optimizer = make_optimizer(model.net, learning_rate=1e-4, warmup_steps=100, total_steps=10000)
+    step = make_train_step(model.net, optimizer)
+    out = {}
+    for case, remat, policy in (("none", False, None), ("full", True, None), *((p, True, p) for p in REMAT_POLICIES)):
+        for stack in (model.net.encoder, model.net.info_sharing):
+            stack.remat, stack.remat_policy = remat, policy
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(steps):
+            t = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[case] = {"step_ms": statistics.median(times), "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, optimizer, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("trees", nargs="+", help="checkout roots, timed in this order")
@@ -343,6 +382,8 @@ def main(argv) -> int:
                         help="also profile N batch-1 fp32 UFM-Base requests per tree, captured and eager")
     parser.add_argument("--fp32-train-steps", type=int, default=0,
                         help="also time N batch-2 fp32 UFM-Base train steps per tree")
+    parser.add_argument("--remat-steps", type=int, default=0,
+                        help="also time N batch-2 UFM-Base train steps per tree under each remat case")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_attention_trees: needs a CUDA device", file=sys.stderr)
@@ -354,7 +395,7 @@ def main(argv) -> int:
     runs = {}
     for turn, root in enumerate(argv):
         runs.setdefault(root, []).append(run_tree(root, turn, args.train_steps, args.requests, args.any,
-                                                  args.fp32_requests, args.fp32_train_steps))
+                                                  args.fp32_requests, args.fp32_train_steps, args.remat_steps))
     summary = {}
     for root, outs in runs.items():
         summary[root] = {}

@@ -24,7 +24,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ufm_tpu.ops import flash_attention as jfa
 from ufm_torch.ops import flash_attention as fa
-from ufm_torch.ops import launches, library
+from ufm_torch.ops import _build, launches, library
 
 DTYPES = ("float32", "bfloat16", "float16")
 HEAD_DIMS = (1, 24, 40, 128, 256)
@@ -90,7 +90,7 @@ def test_op_gradient_on_the_cpu_matches_the_pallas_backward(pallas_backward_only
     before = launches.snapshot()
     out = library.attention(*leaves, 40**-0.5)
     got = torch.autograd.grad(out, leaves, torch.from_numpy(g).to(tt))
-    assert launches.since(before) == (0,) * len(before)  # the CPU launches no kernel
+    assert launches.since(before) == dict.fromkeys(before, 0)  # the CPU launches no kernel
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == tt, name
         np.testing.assert_allclose(a.float().numpy(), w, atol=ATOL[dtype], rtol=0, err_msg=name)
@@ -136,14 +136,15 @@ def test_fma_backward_refuses_cpu_tensors_and_counts_nothing():
         fa.launch_backward(x, x, x, x, lse, x, 0.2)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_backward(x.half(), x.half(), x.half(), x.half(), lse, x.half(), 0.2)
-    assert launches.since(before) == (0,) * len(before)
+    assert launches.since(before) == dict.fromkeys(before, 0)
 
 
 def test_launch_counters_hold_the_fma_backward_last_and_reset_together():
-    """The mma backward's counter is the seventh of ``launches``' eight
-    (the window backward's came after it), and ``reset`` zeroes them all."""
+    """The mma backward's counter is ``launches``' entry named after its
+    kernel, among one entry per kernel source, and ``reset`` zeroes them
+    all."""
     fa.ANY_BWD_LAUNCHES += 3
-    assert launches.snapshot()[6] == fa.ANY_BWD_LAUNCHES >= 3
-    assert len(launches.snapshot()) == 8
+    assert launches.snapshot()["flash_attention_bwd_any"] == fa.ANY_BWD_LAUNCHES >= 3
+    assert set(launches.snapshot()) == set(_build.KERNEL_SOURCES)
     launches.reset()
-    assert launches.snapshot() == (0,) * 8 and fa.ANY_BWD_LAUNCHES == 0
+    assert launches.snapshot() == dict.fromkeys(_build.KERNEL_SOURCES, 0) and fa.ANY_BWD_LAUNCHES == 0

@@ -129,22 +129,40 @@ def test_gelu_exact_bf16_gradient_is_finite_and_close_to_fp32():
     torch.testing.assert_close(x.grad.float(), ref.grad, rtol=0, atol=2e-2)
 
 
-def test_gelu_exact_bf16_backward_is_f_gelu_backward_on_the_saved_input():
-    """The op's backward is one gelu_backward: the same bf16 gradient as
-    F.gelu's, and the input the only tensor kept for it (autograd through
-    the plain chain would keep three intermediates of the hidden
-    activation)."""
-    x, _ = _all_finite_bf16()
-    x = x[x.float().abs() < 1e4].clone().requires_grad_(True)
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for tests that run the plain GELU gradient (~400
+    elementwise ops) on every bf16 input: the threads' synchronisation
+    dominates such ops where the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_gelu_exact_bf16_backward_is_f_gelu_backward_on_the_saved_input(one_thread):
+    """The op's backward is one op on the saved input, the input the only
+    tensor kept for it (autograd through the plain chain would keep three
+    intermediates of the hidden activation), and its bf16 gradient is the
+    JAX package's (``jax.vjp`` of ``fast_exact_gelu``) bit for bit, where
+    ``F.gelu``'s exact derivative, rounded once, is not."""
+    x, bits = _all_finite_bf16()
+    x = x.clone().requires_grad_(True)
     y = gelu_exact(x)
     (saved,) = y.grad_fn.saved_tensors
     assert torch.equal(saved, x)
     g = torch.randn(x.shape, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     (got,) = torch.autograd.grad(y, x, g)
-    x2 = x.detach().clone().requires_grad_(True)
-    (want,) = torch.autograd.grad(F.gelu(x2, approximate="none"), x2, g)
-    assert torch.equal(got, want)
-    assert torch.equal(got, torch.ops.aten.gelu_backward(g, x.detach(), approximate="none"))
+    vjp = jax.jit(lambda a, c: jax.vjp(jax_fast_exact_gelu, a)[1](c)[0])
+    want = np.asarray(jax.lax.bitcast_convert_type(
+        vjp(jax.lax.bitcast_convert_type(jnp.asarray(bits), jnp.bfloat16),
+            jax.lax.bitcast_convert_type(jnp.asarray(_bits(g)), jnp.bfloat16)), jnp.uint16))
+    want_t = torch.from_numpy(want.view(np.int16).copy()).view(torch.bfloat16)
+    nan = torch.isnan(got) & torch.isnan(want_t)
+    assert int(((_bits(got) != want) & ~nan.numpy()).sum()) == 0
+    assert np.array_equal(_bits(got), _bits(gelu.fast_exact_gelu_vjp_reference(x.detach(), g)))
+    f_gelu = torch.ops.aten.gelu_backward(g, x.detach(), approximate="none")
+    assert int((_bits(f_gelu) != want).sum()) > 0
 
 
 def test_gelu_exact_bf16_without_grad_is_the_same_chain():
@@ -230,9 +248,6 @@ def test_cpu_forward_launches_nothing():
     model = _bf16_tiny_model()
     x, y = _normalized_pair(model, seed=4)
     before = launches.snapshot()
-    # attention forward (wgmma), backward, window, GELU, fused fc1 + GELU, attention forward and backward (mma),
-    # window backward
-    assert len(before) == 8
     seen = []
     handles = [m.register_forward_hook(lambda mod, inp, out: seen.append(inp[0])) for n, m in model.net.named_modules()
                if n.endswith("mlp.fc2")]
@@ -242,7 +257,7 @@ def test_cpu_forward_launches_nothing():
     finally:
         for h in handles:
             h.remove()
-    assert launches.since(before) == (0,) * len(before)
+    assert launches.since(before) == dict.fromkeys(launches.COUNTERS, 0)
     cfg = model.config
     assert len(seen) == cfg.encoder_kwargs["depth"] + cfg.info_sharing_kwargs["depth"]
     assert all(t.dtype == torch.bfloat16 for t in seen)

@@ -730,9 +730,8 @@ def test_captured_launch_counts(cuda):
         got = (fa.LAUNCHES - before[0], wr.LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3])
         assert got == (4, 1, 0, 4)
     (program,) = model._programs.values()
-    # attention forward, backward, window, GELU, fused fc1 + GELU, mma attention forward and backward,
-    # window backward
-    assert program.launches == (4, 0, 1, 0, 4, 0, 0, 0)
+    assert {name: n for name, n in program.launches.items() if n} == {
+        "flash_attention_fwd": 4, "window_refinement_fwd": 1, "linear_gelu_bf16_fwd": 4}
 
 
 def test_captured_output_survives_the_next_call(cuda):
@@ -985,7 +984,8 @@ def test_refine_served_at_lane_width_two(cuda):
     assert not any(t.is_alive() for t in threads) and all(r is not None for r in served)
     launched = counters.snapshot()
     n = len(lane_batches)
-    assert launched == (4 * n, 0, n, 0, 4 * n, 0, 0, 0)
+    assert {k: v for k, v in launched.items() if v} == {
+        "flash_attention_fwd": 4 * n, "window_refinement_fwd": n, "linear_gelu_bf16_fwd": 4 * n}
     for i, (src, tgt) in enumerate(pairs):
         (bs, bt), slot = next((b, r) for b in lane_batches for r in range(2)
                               if np.array_equal(b[0][r], src) and np.array_equal(b[1][r], tgt))
@@ -996,8 +996,9 @@ def test_refine_served_at_lane_width_two(cuda):
 
 def test_flow_only_train_step_on_the_card(cuda):
     """A small bf16 UniFlowMatch (``has_uncertainty_head=False``): one train
-    step launches 4 attention forwards, 4 backward calls and 4 GELUs and
-    nothing else; its metrics are the flow loss, the EPE and the total."""
+    step launches 4 attention forwards, 4 backward calls, 4 fused fc1 + GELU
+    and 4 GELU gradient kernels and nothing else; its metrics are the flow
+    loss, the EPE and the total."""
     from ufm_torch.models import UniFlowMatch
     from ufm_torch.ops import launches as counters
 
@@ -1008,7 +1009,8 @@ def test_flow_only_train_step_on_the_card(cuda):
     before = counters.snapshot()
     metrics = step(batch)
     torch.cuda.synchronize()
-    assert counters.since(before) == (4, 4, 0, 4, 0, 0, 0, 0)
+    assert {k: v for k, v in counters.since(before).items() if v} == {
+        "flash_attention_fwd": 4, "flash_attention_bwd": 4, "linear_gelu_bf16_fwd": 4, "gelu_bf16_bwd": 4}
     assert set(metrics) == {"flow_loss", "epe", "total_loss"}
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -1033,7 +1035,8 @@ def test_refine_artifact_at_batch_two_on_the_card(cuda, tmp_path):
         before = counters.snapshot()
         got = art(x, y)
         torch.cuda.synchronize()
-    assert counters.since(before) == (4, 0, 1, 0, 4, 0, 0, 0)
+    assert {k: v for k, v in counters.since(before).items() if v} == {
+        "flash_attention_fwd": 4, "window_refinement_fwd": 1, "linear_gelu_bf16_fwd": 4}
     assert set(got) == set(want)
     for key in want:
         assert torch.equal(got[key], want[key]), key
@@ -1084,18 +1087,20 @@ def test_sharded_step_at_world_one(cuda):
 def test_remat_step_attention_launches(cuda, policy, forwards):
     """Under train_remat, the backward runs the attention forward kernel
     again (8 launches a step of the small model) unless the policy keeps its
-    outputs (the "+attn_out" composite: 4); 4 backward calls either way. No
-    policy here keeps the GELU op's output: 8 GELU launches a step, and
-    training never takes the fused fc1 + GELU op."""
+    outputs (the "+attn_out" composite: 4); 4 backward calls either way.
+    Under checkpointing the MLP takes fc1 and the GELU op, never the fused
+    fc1 + GELU op; no policy here keeps the GELU op's output: 8 GELU launches
+    a step, and 4 of the GELU gradient."""
     cfg = _small_config(train_remat=True, train_remat_policy=policy)
     model = UniFlowMatchConfidence.from_config(cfg, seed=0)
     step = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))
     batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
-    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, ge.BWD_LAUNCHES)
     metrics = step(batch)
     torch.cuda.synchronize()
-    got = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3])
-    assert got == (forwards, 4, 8, 0)
+    got = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3],
+           ge.BWD_LAUNCHES - before[4])
+    assert got == (forwards, 4, 8, 0, 4)
     assert all(torch.isfinite(v) for v in metrics.values())
 
 
@@ -1177,13 +1182,88 @@ def test_gelu_kernel_in_a_captured_graph(cuda):
 
 
 def test_gelu_op_gradient_on_the_card(cuda):
-    """The op's backward on the card is F.gelu's gelu_backward on the saved
-    input, bit for bit."""
+    """The op's backward on the card is one launch of the gradient kernel on
+    the saved input, bit for bit the plain VJP (the JAX package's)."""
     g = torch.Generator(device=cuda).manual_seed(5)
     x = (torch.randn(4, 1201, 512, generator=g, device=cuda) * 3).to(torch.bfloat16).requires_grad_(True)
     dy = torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
+    before = ge.BWD_LAUNCHES
     (got,) = torch.autograd.grad(ge.gelu_bf16(x), x, dy)
-    assert torch.equal(got, torch.ops.aten.gelu_backward(dy, x.detach(), approximate="none"))
+    torch.cuda.synchronize()
+    assert ge.BWD_LAUNCHES - before == 1
+    assert not _differ(got, ge.fast_exact_gelu_vjp_reference(x.detach(), dy)).any()
+
+
+# ---- the bf16 GELU's gradient kernel ---------------------------------------------
+
+GELU_VJP_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "gelu_bf16_vjp_table.npz")
+
+
+def _differ(a, b):
+    """Where two bf16 tensors' bits differ, NaN counted equal to NaN."""
+    return (_bits(a) != _bits(b)) & ~(torch.isnan(a) & torch.isnan(b))
+
+
+def test_gelu_backward_kernel_matches_the_vjp_table_bit_for_bit(cuda):
+    """The gradient kernel at every bf16 bit pattern under each cotangent
+    set of tests/golden/gelu_bf16_vjp_table.npz: the JAX package's bits at
+    every finite input (NaN equal to NaN), NaN at the others, the plain
+    version's everywhere, one launch a call."""
+    with np.load(GELU_VJP_TABLE) as z:
+        g_bits, dx_bits, finite = z["g_bits"], z["dx_bits"], torch.from_numpy(z["finite"]).to(cuda)
+    x = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16)).view(torch.bfloat16).to(cuda)
+    for gb, db in zip(g_bits, dx_bits):
+        g = torch.from_numpy(gb.view(np.int16).copy()).view(torch.bfloat16).to(cuda)
+        want = torch.from_numpy(db.view(np.int16).copy()).view(torch.bfloat16).to(cuda)
+        before = ge.BWD_LAUNCHES
+        got = ge.gelu_bf16_bwd(g, x)
+        torch.cuda.synchronize()
+        assert ge.BWD_LAUNCHES - before == 1
+        assert int(_differ(got, want)[finite].sum()) == 0
+        assert bool(torch.isnan(got[~finite]).all())
+        assert int(_differ(got, ge.fast_exact_gelu_vjp_reference(x, g)).sum()) == 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 8 * 1001 + 3, 4 * 1201 * 4096 + 5, 0])
+@pytest.mark.parametrize("offset", [0, 3], ids=["aligned", "misaligned"])
+def test_gelu_backward_kernel_odd_counts_and_alignment(cuda, n, offset):
+    """Counts off the 8-element vector, an empty tensor (no launch) and a
+    cotangent 6 bytes past a 16-byte boundary (the scalar instance), with a
+    share of the cotangents zero, negative zero and subnormal: bitwise the
+    plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = (torch.randn(n, generator=gen, device=cuda) * 4).to(torch.bfloat16)
+    base = torch.randn(n + 8, generator=gen, device=cuda)
+    pick = torch.rand(n + 8, generator=gen, device=cuda)
+    base = torch.where(pick < 0.05, 0.0, torch.where(pick < 0.1, -0.0, torch.where(pick < 0.15, 1e-39, base)))
+    g = base.to(torch.bfloat16)[offset:offset + n]
+    before = ge.BWD_LAUNCHES
+    got = ge.gelu_bf16_bwd(g, x)
+    torch.cuda.synchronize()
+    assert ge.BWD_LAUNCHES - before == int(n > 0)
+    assert got.shape == x.shape and not _differ(got, ge.fast_exact_gelu_vjp_reference(x, g)).any()
+
+
+def test_gelu_backward_kernel_refusals(cuda):
+    """fp32 and mismatched shapes are refused by the wrapper and the op, CPU
+    tensors by the wrapper, none of them launching; a non-contiguous pair
+    is read through contiguous copies."""
+    from ufm_torch.ops import library
+
+    x = torch.zeros(4, 64, dtype=torch.bfloat16, device=cuda)
+    before = ge.BWD_LAUNCHES
+    for fn in (ge.launch_backward, library.gelu_bf16_bwd):
+        for args in ((x.float(), x), (x, x[:2])):
+            with pytest.raises(ValueError):
+                fn(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        ge.launch_backward(x.cpu(), x.cpu())
+    assert ge.BWD_LAUNCHES == before
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    h = torch.randn(64, 300, generator=gen, device=cuda).to(torch.bfloat16).t()
+    g = torch.randn(300, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    got = ge.gelu_bf16_bwd(g, h)
+    assert got.is_contiguous() and not _differ(got, ge.fast_exact_gelu_vjp_reference(h.contiguous(), g)).any()
 
 
 # ---- the fused fc1 + GELU kernel ----------------------------------------------
@@ -1282,6 +1362,61 @@ def test_linear_gelu_kernel_in_a_captured_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(_bits(out), _bits(lg.launch(x, w, b)))
+
+
+# the fused op's gradient against the two-op route's (F.linear's h, an ulp
+# from the kernel's where fp32 sums round apart), relative L2: the bar of y
+# against the plain version (chip_smoke's LINEAR_GELU_REL_L2)
+LINEAR_GELU_GRAD_REL_L2 = 4e-3
+
+
+@pytest.mark.parametrize("m,k,n", [(4804, 1024, 4096), (4800, 768, 3072), (130, 48, 200)])
+def test_fused_op_trains_on_the_card(cuda, m, k, n):
+    """The fused op under autograd: one fused launch (writing h) and, in the
+    backward, one gradient launch; y bit for bit the inference launch's, h
+    the inference launch's preact_out; dx, dw and db bit for bit the
+    gradient kernel's dh through dh w, dh^T x and its column sums, and
+    within LINEAR_GELU_GRAD_REL_L2 of the two-op route."""
+    import torch.nn.functional as F
+
+    from ufm_torch.ops import library
+
+    x, w, b = _linear_gelu_inputs(cuda, m, k, n, seed=m)
+    dy = torch.randn(m, n, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda).to(torch.bfloat16)
+    pre = torch.empty(m, n, dtype=torch.bfloat16, device=cuda)
+    y_inf = lg.launch(x, w, b, preact_out=pre)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = (lg.LAUNCHES, ge.LAUNCHES, ge.BWD_LAUNCHES)
+    y = library.linear_gelu_bf16(*leaves)
+    h = y.grad_fn.saved_tensors[2]
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (lg.LAUNCHES - before[0], ge.LAUNCHES - before[1], ge.BWD_LAUNCHES - before[2]) == (1, 0, 1)
+    assert torch.equal(_bits(y.detach()), _bits(y_inf)) and torch.equal(_bits(h), _bits(pre))
+    dh = ge.gelu_bf16_bwd(dy, h)
+    for a, c in zip(got, (dh.mm(w), dh.t().mm(x), dh.sum(0))):
+        assert torch.equal(_bits(a), _bits(c))
+    two = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    want = torch.autograd.grad(ge.gelu_bf16(F.linear(*two)), two, dy)
+    for name, a, c in zip(("dx", "dw", "db"), got, want):
+        rel = ((a.float() - c.float()).norm() / c.float().norm()).item()
+        assert rel <= LINEAR_GELU_GRAD_REL_L2, (name, rel)
+
+
+def test_small_model_train_step_takes_the_fused_op(cuda):
+    """A small bf16 UFM-Base train step without remat: every MLP through the
+    fused fc1 + GELU kernel (writing h) and the gradient kernel, no
+    standalone GELU launch; finite metrics."""
+    model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
+    step = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))
+    batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, ge.BWD_LAUNCHES)
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    got = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3],
+           ge.BWD_LAUNCHES - before[4])
+    assert got == (4, 4, 0, 4, 4)
+    assert all(torch.isfinite(v) for v in metrics.values())
 
 
 # ---- the fp32-FMA attention forward (csrc/flash_attention_fwd_any.cu) ------

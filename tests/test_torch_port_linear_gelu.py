@@ -6,15 +6,16 @@ version, against the two ops it replaces and against the JAX package.
   of ``F.linear``, at 2-D and 3-D inputs, one row, odd row counts and K / N
   tails; and the JAX package's ``fast_exact_gelu`` of the port's own
   pre-activation is the op's output bit for bit.
-- ``nn.layers.Mlp`` takes the fused op exactly where no gradient is recorded:
-  its inference-mode output is bitwise its grad-mode output (fc1, then
-  ``ufm_torch::gelu_bf16``), and a tiny bf16 model's forward calls one of the
-  two per MLP, never both (the ops are counted at the dispatcher).
+- ``nn.layers.Mlp`` takes the fused op in every bf16 forward outside
+  activation checkpointing: without a gradient the single-output launch,
+  bitwise the grad-mode output (the launch that also writes the
+  pre-activation, ``ufm_torch::linear_gelu_bf16_preact``); a tiny bf16
+  model's forward calls one of them per MLP and the standalone GELU op
+  never (the ops are counted at the dispatcher).
 - The port's bf16 MLP against the JAX package's (``fast_exact_gelu``, weights
   carried by ``ufm_torch/checkpoint/convert.py``) within 1e-2 relative L2.
-- ``opcheck``; fp32 and wrong shapes refused; the CUDA implementation refuses
-  a CPU tensor without counting a launch; the op refuses inputs that
-  require grad under grad mode.
+- ``opcheck``; fp32 and wrong shapes refused; the CUDA implementations refuse
+  a CPU tensor without counting a launch.
 Inputs are made with numpy from a seed and fed to both packages.
 """
 
@@ -31,7 +32,7 @@ from ufm_tpu.nn.layers import Mlp as JaxMlp
 from ufm_tpu.ops.gelu import fast_exact_gelu as jax_fast_exact_gelu
 from ufm_torch.checkpoint import load_jax_params
 from ufm_torch.models import UniFlowMatchConfidence, ufm_tiny_config
-from ufm_torch.nn.layers import Mlp
+from ufm_torch.nn.layers import Mlp, run_blocks
 from ufm_torch.ops import launches, library
 from ufm_torch.ops import linear_gelu as lg
 from ufm_torch.ops.gelu import fast_exact_gelu_reference
@@ -59,7 +60,7 @@ class _OpCalls(TorchDispatchMode):
 
     def __init__(self):
         super().__init__()
-        self.calls = {library.gelu_bf16: 0, library.linear_gelu_bf16: 0}
+        self.calls = {library.gelu_bf16: 0, library.linear_gelu_bf16: 0, library.linear_gelu_bf16_preact: 0}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func in self.calls:
@@ -109,13 +110,14 @@ def _bf16_mlp(k=48, hidden=192, seed=0):
 @pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "frozen_params"])
 def test_mlp_takes_the_fused_op_without_a_gradient(mode):
     """Without a recorded gradient the MLP is one fused op and fc2, bitwise
-    the grad-mode path (fc1, the GELU op, fc2)."""
+    the grad-mode path (the fused launch that also writes the
+    pre-activation, then fc2)."""
     mlp = _bf16_mlp()
     x = _inputs((2, 33), 48, 1)[0]
     with _OpCalls() as grad_calls:
         want = mlp(x)
     assert want.requires_grad
-    assert grad_calls.calls == {library.gelu_bf16: 1, library.linear_gelu_bf16: 0}
+    assert grad_calls.calls == {library.gelu_bf16: 0, library.linear_gelu_bf16: 0, library.linear_gelu_bf16_preact: 1}
     with _OpCalls() as calls:
         if mode == "inference_mode":
             with torch.inference_mode():
@@ -126,25 +128,31 @@ def test_mlp_takes_the_fused_op_without_a_gradient(mode):
         else:
             mlp.requires_grad_(False)
             got = mlp(x)
-    assert calls.calls == {library.gelu_bf16: 0, library.linear_gelu_bf16: 1}
+    assert calls.calls == {library.gelu_bf16: 0, library.linear_gelu_bf16: 1, library.linear_gelu_bf16_preact: 0}
     assert torch.equal(_bits(got), _bits(want.detach()))
 
 
 def test_mlp_keeps_two_ops_where_the_fused_op_does_not_apply():
-    """fp32 MLPs take F.gelu, a tanh MLP its own activation, and a bf16 input
-    that requires grad the GELU op: none of them the fused op."""
+    """fp32 MLPs take F.gelu, a tanh MLP its own activation, and a bf16 MLP
+    inside a checkpointed block the GELU op (in its forward and in the
+    backward's recompute): none of them the fused op."""
     x = _inputs((3, 5), 48, 1)[0]
-    for mlp, inp in ((Mlp(48, 192), x.float()), (Mlp(48, 192, act="gelu_tanh").to(torch.bfloat16), x),
-                     (_bf16_mlp().requires_grad_(False), x.clone().requires_grad_(True))):
+    for mlp, inp in ((Mlp(48, 192), x.float()), (Mlp(48, 192, act="gelu_tanh").to(torch.bfloat16), x)):
         with _OpCalls() as calls:
             mlp(inp)
-        assert calls.calls[library.linear_gelu_bf16] == 0
+        assert calls.calls[library.linear_gelu_bf16] == calls.calls[library.linear_gelu_bf16_preact] == 0
+    mlp = _bf16_mlp()
+    with _OpCalls() as calls:
+        out, _ = run_blocks([mlp], x.clone().requires_grad_(True), (), remat=True)
+        out.float().sum().backward()
+    assert calls.calls == {library.gelu_bf16: 2, library.linear_gelu_bf16: 0, library.linear_gelu_bf16_preact: 0}
 
 
 def test_tiny_model_forward_calls_one_gelu_op_per_mlp():
-    """A tiny bf16 UFM-Base: a grad-mode forward calls the GELU op once per
-    MLP and the fused op never; a no-grad forward the reverse, with the same
-    outputs bit for bit; the CPU launches nothing."""
+    """A tiny bf16 UFM-Base: a grad-mode forward calls the fused op that
+    also writes the pre-activation once per MLP, a no-grad forward the
+    single-output fused op, with the same outputs bit for bit; neither calls
+    the standalone GELU op, and the CPU launches nothing."""
     model = UniFlowMatchConfidence.from_config(ufm_tiny_config(compute_dtype="bfloat16"), device="cpu")
     cfg = model.config
     layers = cfg.encoder_kwargs["depth"] + cfg.info_sharing_kwargs["depth"]
@@ -154,11 +162,12 @@ def test_tiny_model_forward_calls_one_gelu_op_per_mlp():
     before = launches.snapshot()
     with _OpCalls() as grad_calls:
         want = model.net(img1, img2)
-    assert grad_calls.calls == {library.gelu_bf16: layers, library.linear_gelu_bf16: 0}
+    assert grad_calls.calls == {library.gelu_bf16: 0, library.linear_gelu_bf16: 0,
+                                library.linear_gelu_bf16_preact: layers}
     with _OpCalls() as calls, torch.no_grad():
         got = model.net(img1, img2)
-    assert calls.calls == {library.gelu_bf16: 0, library.linear_gelu_bf16: layers}
-    assert launches.since(before) == (0,) * len(before)
+    assert calls.calls == {library.gelu_bf16: 0, library.linear_gelu_bf16: layers, library.linear_gelu_bf16_preact: 0}
+    assert launches.since(before) == dict.fromkeys(before, 0)
     for k in want:
         assert torch.equal(got[k], want[k].detach()), k
 
@@ -191,9 +200,9 @@ def test_opcheck(case):
 
 
 def test_refusals():
-    """fp32 and shapes that do not fit are refused by the op and the plain
-    version; the CUDA implementation refuses CPU tensors before it counts a
-    launch; the op refuses inputs that require grad under grad mode."""
+    """fp32 and shapes that do not fit are refused by both ops and their
+    plain versions; the CUDA implementations refuse CPU tensors before they
+    count a launch."""
     x, w, b = _inputs((4,), 64, 128)
     bad = {
         "fp32": ((x.float(), w, b), "bfloat16"),
@@ -202,14 +211,12 @@ def test_refusals():
         "w_rank": ((x, w[None], b), "takes x"),
     }
     for args, match in bad.values():
-        for fn in (library.linear_gelu_bf16, lg.linear_gelu_reference, lg.linear_gelu_bf16):
+        for fn in (library.linear_gelu_bf16, lg.linear_gelu_reference, lg.linear_gelu_bf16,
+                   library.linear_gelu_bf16_preact, lg.linear_gelu_preact_reference):
             with pytest.raises(ValueError, match=match):
                 fn(*args)
     before = lg.LAUNCHES
-    with pytest.raises(ValueError, match="CUDA"):
-        lg.launch(x, w, b)
+    for fn in (lg.launch, lg.launch_preact):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, w, b)
     assert lg.LAUNCHES == before
-    with pytest.raises(RuntimeError, match="no gradient"):
-        library.linear_gelu_bf16(x, w.clone().requires_grad_(True), b)
-    with torch.no_grad():
-        library.linear_gelu_bf16(x, w.clone().requires_grad_(True), b)

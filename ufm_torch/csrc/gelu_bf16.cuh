@@ -1,6 +1,7 @@
 // The JAX package's bf16 exact GELU as device functions, shared by the
 // standalone kernel (gelu_bf16_fwd.cu) and the epilogue of the MLP's fc1
-// product (linear_gelu_bf16_fwd.cu), so the two give the same bits:
+// product (linear_gelu_bf16_fwd.cu), so the two give the same bits, and its
+// constants and flush rules, shared with the gradient (gelu_bf16_bwd.cu):
 //
 //   y = bf16(bf16(0.5 x) * bf16(erfc(bf16(-x * bf16(sqrt(0.5))))))
 //
@@ -29,6 +30,7 @@ __constant__ float kTail[6] = {
     0x1.20d040p-1f, 0x1.5536fep-9f, -0x1.3b1846p-2f, 0x1.ddfc46p-4f, 0x1.bdac00p-3f, -0x1.801ecep-3f,
 };
 constexpr float kLog2e = 0x1.715476p+0f;
+constexpr float kLn2 = 0x1.62e430p-1f;  // log(2) in fp32: exp2'(v) = log(2) exp2(v)
 constexpr float kSat = 2.046875f;         // the main / tail split; erfc rounds to 2 below -kSat
 constexpr float kClamp = 32.0f;           // |t| clamp before squaring
 constexpr float kSqrtHalfBf16 = 0.70703125f;  // bf16(sqrt(0.5)), exact in fp32
@@ -38,6 +40,32 @@ constexpr float kSmallestNormal = 0x1.0p-126f;
 __device__ __forceinline__ float flush(float v) { return fabsf(v) < kSmallestNormal ? copysignf(0.0f, v) : v; }
 
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// One fp32 operation as XLA's CPU does it: subnormal operands read as zeros
+// of their sign, the result rounded to nearest, a subnormal result flushed
+// to a zero of its sign (PTX .ftz), and never contracted with another
+// operation (inline PTX: nvcc cannot fuse or reorder it). fma_ftz is one
+// fused multiply-add, where XLA's CPU code contracts one.
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float r;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(r) : "f"(a), "f"(b), "f"(c));
+  return r;
+}
+__device__ __forceinline__ float div_ftz(float a, float b) {
+  float r;
+  asm("div.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 // erfc(t) = 1 - t P(t^2) on the main range (u = t^2)
 __device__ __forceinline__ float erfc_main(float t, float u) {

@@ -14,8 +14,9 @@
 // bf16 bias (a second rounding), so h may differ from the JAX package's by
 // one bf16 ulp: a gap that already lies between the two packages' products
 // and that the cross-backend golden tolerance (0.15) covers. The GELU of a
-// given h is the JAX package's bit for bit; the checks read h back through
-// `pre` and hold y == gelu(h) on every element.
+// given h is the JAX package's bit for bit. Training writes h through `pre`
+// too (the GELU gradient's input, gelu_bf16_bwd.cu); the checks read it and
+// hold y == gelu(h) on every element.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 2 M N K
 // operations against x, W and b read once and y written once.

@@ -165,7 +165,7 @@ class PredictProgram:
         self.static_in: Tuple[torch.Tensor, ...] = ()
         self.staging: Tuple[torch.Tensor, ...] = ()
         self.static_out: Dict[str, torch.Tensor] = {}
-        self.launches: Tuple[int, ...] = ()  # kernel launches one replay makes
+        self.launches: Dict[str, int] = {}  # kernel launches one replay makes, by kernel name
         self._h2d_done: Optional[torch.cuda.Event] = None
 
     # ---- the eager pipeline -------------------------------------------------
@@ -257,7 +257,7 @@ class PredictProgram:
         finally:
             # the wrappers counted launches that did not run: take them back
             self.launches = launches.since(before)
-            launches.add(tuple(-d for d in self.launches))
+            launches.add({name: -d for name, d in self.launches.items()})
         self.graph, self.static_out = graph, static_out
         return warm
 

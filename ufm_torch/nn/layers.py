@@ -9,6 +9,7 @@ renaming plus layout changes.
 
 from __future__ import annotations
 
+import contextvars
 from functools import partial
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
@@ -52,9 +53,9 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU as the JAX package computes it. On bf16 it is the
     op ``ufm_torch::gelu_bf16`` (:func:`ufm_torch.ops.gelu.gelu_bf16`: one
     kernel on the card, bit for bit ``jax.nn.gelu(approximate=False)`` as the
-    JAX package's ``fast_exact_gelu`` computes it); its gradient is
-    ``F.gelu``'s. Other dtypes take ``F.gelu``, as the JAX package's take
-    ``jax.nn.gelu``."""
+    JAX package's ``fast_exact_gelu`` computes it); its gradient is the op
+    ``ufm_torch::gelu_bf16_bwd``, bit for bit ``jax.vjp`` of it. Other dtypes
+    take ``F.gelu``, as the JAX package's take ``jax.nn.gelu``."""
     if x.dtype != torch.bfloat16:
         return F.gelu(x, approximate="none")
     return gelu_bf16(x)
@@ -66,15 +67,23 @@ _ACTIVATIONS = {
 }
 
 
+# set while a block runs under activation checkpointing (run_blocks with
+# remat), in its forward and in the backward's recompute alike
+_REMAT = contextvars.ContextVar("remat", default=False)
+
+
 class Mlp(nn.Module):
     """Transformer MLP: fc1 -> act -> fc2.
 
-    With the exact GELU on a bf16 ``fc1`` and no gradient recorded, fc1 and
-    the GELU are one op, ``ufm_torch::linear_gelu_bf16`` (on the card one
-    kernel with the GELU in the product's epilogue; on the CPU the same bits
-    as the two ops). Under grad mode with a tensor that requires grad, and
-    for a tensor-parallel (DTensor) ``fc1``, they stay two ops: the fused op
-    has no gradient and no sharding rule.
+    With the exact GELU on a bf16 ``fc1``, fc1 and the GELU are one op,
+    ``ufm_torch::linear_gelu_bf16`` (on the card one kernel with the GELU in
+    the product's epilogue; on the CPU the same bits as the two ops). Under
+    grad mode it writes the pre-activation ``h`` beside its output in the
+    same launch and keeps it for its gradient, where the two ops kept it
+    for the GELU's. They stay two ops for a tensor-parallel (DTensor)
+    ``fc1`` (the fused op has no sharding rule) and under activation
+    checkpointing, where a remat policy decides op by op what to keep and
+    the standalone GELU is what it recomputes.
     """
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None, act: str = "gelu_exact"):
@@ -89,7 +98,7 @@ class Mlp(nn.Module):
             return False
         if isinstance(w, DTensor) or isinstance(x, DTensor):
             return False
-        return not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad))
+        return not _REMAT.get()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fused(x):
@@ -175,6 +184,8 @@ class TransformerBlock(nn.Module):
 # backward does not run the attention forward again. ``None`` saves every op.
 # The GELU op (``ufm_torch::gelu_bf16``) is in no list, as JAX's activation is
 # no dot: every policy but ``None`` runs it again (72 launches a UFM-Base step).
+# Under checkpointing the MLP keeps fc1 and the GELU apart (``_REMAT``), so
+# each policy sees the ops it sees without the fused op.
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 _BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default, torch.ops.aten.convolution.default)
 REMAT_POLICIES = {
@@ -211,6 +222,14 @@ def resolve_remat_policy(name: Optional[str]) -> Optional[Callable]:
     return _saving(REMAT_POLICIES[name])
 
 
+def _remat_block(blk: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    token = _REMAT.set(True)
+    try:
+        return blk(x)
+    finally:
+        _REMAT.reset(token)
+
+
 def run_blocks(
     blocks: Sequence[nn.Module],
     x: torch.Tensor,
@@ -228,7 +247,8 @@ def run_blocks(
     policy in the JAX package). ``remat_policy`` (a name of
     :data:`REMAT_POLICIES`) keeps the outputs of the ops it names as well,
     and the backward recomputes only the rest. It changes memory and time,
-    not values."""
+    not values. Under checkpointing the blocks' MLPs take fc1 and the GELU
+    as two ops (:class:`Mlp`)."""
     policy = resolve_remat_policy(remat_policy)
     checkpointed = remat and torch.is_grad_enabled()
     kwargs = {"use_reentrant": False}
@@ -237,7 +257,7 @@ def run_blocks(
     tapped = {}
     wanted = set(taps)
     for i, blk in enumerate(blocks):
-        x = torch.utils.checkpoint.checkpoint(blk, x, **kwargs) if checkpointed else blk(x)
+        x = torch.utils.checkpoint.checkpoint(_remat_block, blk, x, **kwargs) if checkpointed else blk(x)
         if i in wanted:
             tapped[i] = x
     return x, [tapped[t] for t in taps]

@@ -1,6 +1,6 @@
 """The port's Hopper kernels as dispatcher ops (``torch.library``).
 
-Six ops in the ``ufm_torch`` namespace:
+Eight ops in the ``ufm_torch`` namespace:
 
 - ``flash_attention_fwd(q, k, v, scale, with_lse) -> (out, lse)``: softmax
   attention over (B, S, H, D); ``lse`` (B, H, Sq) fp32 is each row's
@@ -14,18 +14,23 @@ Six ops in the ``ufm_torch`` namespace:
   op's backward;
 - ``gelu_bf16(x) -> y``: the JAX package's exact GELU of a bf16 tensor, bit
   for bit (``ufm_torch/ops/gelu.py``);
+- ``gelu_bf16_bwd(g, x) -> dx``: the GELU's gradient at ``x`` under the
+  cotangent ``g``, the JAX package's VJP bit for bit;
 - ``linear_gelu_bf16(x, w, b) -> y``: ``gelu_bf16(F.linear(x, w, b))`` on
   bf16, the MLP's ``fc1`` with the GELU as its epilogue
-  (``ufm_torch/ops/linear_gelu.py``).
+  (``ufm_torch/ops/linear_gelu.py``);
+- ``linear_gelu_bf16_preact(x, w, b) -> (y, h)``: the same launch writing
+  the rounded pre-activation ``h = bf16(F.linear(x, w, b))`` too, which the
+  fused op's gradient reads.
 
 The tensors' device picks the implementation inside the op: CUDA runs the
 hand-written kernel (``flash_attention.launch_forward`` /
 ``launch_backward``, which pick the wgmma or the mma kernel by dtype
 and head dim, ``window_refinement.launch`` / ``launch_backward``,
-``gelu.launch``,
-``linear_gelu.launch``: every pointer, stride and alignment check and the
-launch counters live there, and they raise on what the kernels do not
-take), CPU runs the plain version. A fake implementation gives each output's
+``gelu.launch`` / ``launch_backward``,
+``linear_gelu.launch`` / ``launch_preact``: every pointer, stride and
+alignment check and the launch counters live there, and they raise on what
+the kernels do not take), CPU runs the plain version. A fake implementation gives each output's
 shape and dtype from the inputs' (with the shape checks, and on a CUDA
 tensor the kernels' dtype and head-dim domain: fp32, bf16 or fp16 at 1 <= D
 <= 256, as ``forward_kernel`` / ``backward_kernel`` route it; the window
@@ -37,15 +42,17 @@ Gradients: the forward attention op's backward is the backward op (its
 forward then writes ``lse``, which the backward kernel reads); the window
 op's is the window backward op on the saved inputs and log_softmax (the JAX
 package's is the XLA VJP of its plain version; the TPU kernel had no
-backward); the GELU op's backward is one
-``aten.gelu_backward`` on the saved input. Each is an ``Autograd`` kernel
-around an ``autograd.Function``, which is what
+backward); the GELU op's backward is the GELU gradient op on the saved
+input. The fused ``linear_gelu_bf16``'s, under grad mode, runs the forward
+as ``linear_gelu_bf16_preact`` and keeps ``x``, ``w`` and ``h`` (not ``y``):
+``dh = gelu_bf16_bwd(dy, h)``, then ``dx = dh w``, ``dw = dh^T x`` and ``db =
+sum(dh)`` as ``F.linear``'s own backward computes them (the JAX package
+leaves those products to XLA, outside any kernel). Each is an ``Autograd``
+kernel around an ``autograd.Function``, which is what
 ``torch.library.register_autograd`` registers, written out:
 ``register_autograd`` refuses an op with a mutated argument (the window op's
 ``staged_count``), and its generic kernel does more host work a call. The
-backward ops have no gradient of their own, and the fused ``linear_gelu_bf16``
-none: its ``Autograd`` kernel refuses inputs that require grad under grad
-mode (the MLP takes the two ops there).
+backward ops and ``linear_gelu_bf16_preact`` have no gradient of their own.
 
 Registration runs when the module is imported (``ufm_torch.ops`` imports
 it); it builds nothing: a kernel is compiled at its first CUDA launch.
@@ -62,7 +69,7 @@ from ufm_torch.ops import window_refinement as _wr
 
 __all__ = [
     "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "window_refinement_bwd",
-    "gelu_bf16", "linear_gelu_bf16", "OPS", "attention",
+    "gelu_bf16", "gelu_bf16_bwd", "linear_gelu_bf16", "linear_gelu_bf16_preact", "OPS", "attention",
 ]
 
 NAMESPACE = "ufm_torch"
@@ -82,15 +89,20 @@ _LIB.define(
     " Tensor g_log_softmax, float temperature, int p) -> (Tensor, Tensor, Tensor, Tensor)"
 )
 _LIB.define("gelu_bf16(Tensor x) -> Tensor")
+_LIB.define("gelu_bf16_bwd(Tensor g, Tensor x) -> Tensor")
 _LIB.define("linear_gelu_bf16(Tensor x, Tensor w, Tensor b) -> Tensor")
+_LIB.define("linear_gelu_bf16_preact(Tensor x, Tensor w, Tensor b) -> (Tensor, Tensor)")
 
 flash_attention_fwd = torch.ops.ufm_torch.flash_attention_fwd.default
 flash_attention_bwd = torch.ops.ufm_torch.flash_attention_bwd.default
 window_refinement = torch.ops.ufm_torch.window_refinement.default
 window_refinement_bwd = torch.ops.ufm_torch.window_refinement_bwd.default
 gelu_bf16 = torch.ops.ufm_torch.gelu_bf16.default
+gelu_bf16_bwd = torch.ops.ufm_torch.gelu_bf16_bwd.default
 linear_gelu_bf16 = torch.ops.ufm_torch.linear_gelu_bf16.default
-OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, window_refinement_bwd, gelu_bf16, linear_gelu_bf16)
+linear_gelu_bf16_preact = torch.ops.ufm_torch.linear_gelu_bf16_preact.default
+OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, window_refinement_bwd, gelu_bf16, gelu_bf16_bwd,
+       linear_gelu_bf16, linear_gelu_bf16_preact)
 
 _LIB.impl("flash_attention_fwd", _fa.launch_forward, "CUDA")
 _LIB.impl("flash_attention_fwd", _fa.plain_forward, "CPU")
@@ -102,8 +114,12 @@ _LIB.impl("window_refinement_bwd", _wr.launch_backward, "CUDA")
 _LIB.impl("window_refinement_bwd", _wr.plain_backward, "CPU")
 _LIB.impl("gelu_bf16", _gelu.launch, "CUDA")
 _LIB.impl("gelu_bf16", _gelu.fast_exact_gelu_reference, "CPU")
+_LIB.impl("gelu_bf16_bwd", _gelu.launch_backward, "CUDA")
+_LIB.impl("gelu_bf16_bwd", lambda g, x: _gelu.fast_exact_gelu_vjp_reference(x, g), "CPU")
 _LIB.impl("linear_gelu_bf16", _lg.launch, "CUDA")
 _LIB.impl("linear_gelu_bf16", _lg.linear_gelu_reference, "CPU")
+_LIB.impl("linear_gelu_bf16_preact", _lg.launch_preact, "CUDA")
+_LIB.impl("linear_gelu_bf16_preact", _lg.linear_gelu_preact_reference, "CPU")
 
 
 # ---- fake implementations: shapes and dtypes --------------------------------
@@ -171,10 +187,26 @@ def _gelu_fake(x):
     return x.new_empty(x.shape)
 
 
+@torch.library.register_fake(f"{NAMESPACE}::gelu_bf16_bwd", lib=_LIB)
+def _gelu_bwd_fake(g, x):
+    if g.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+        raise ValueError(f"gelu_bf16_bwd takes bfloat16, got g {g.dtype}, x {x.dtype}")
+    if g.shape != x.shape:
+        raise ValueError(f"gelu_bf16_bwd: g {tuple(g.shape)} and x {tuple(x.shape)} must share a shape")
+    return x.new_empty(x.shape)
+
+
 @torch.library.register_fake(f"{NAMESPACE}::linear_gelu_bf16", lib=_LIB)
 def _linear_gelu_fake(x, w, b):
     _lg._check(x, w, b)
     return x.new_empty((*x.shape[:-1], w.shape[0]))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::linear_gelu_bf16_preact", lib=_LIB)
+def _linear_gelu_preact_fake(x, w, b):
+    _lg._check(x, w, b)
+    shape = (*x.shape[:-1], w.shape[0])
+    return x.new_empty(shape), x.new_empty(shape)
 
 
 # ---- autograd --------------------------------------------------------------
@@ -235,9 +267,9 @@ def _window_autograd(q, f, flow, bias, temperature, p, staged_count=None):
 
 
 class _GeluBf16(torch.autograd.Function):
-    """The GELU op below autograd; the backward is ``F.gelu``'s exact
-    derivative (``aten.gelu_backward``) on the saved input: one op, where
-    autograd through the plain chain would keep three intermediates."""
+    """The GELU op below autograd; the backward is the GELU gradient op on
+    the saved input: one op, where autograd through the plain chain would
+    keep three intermediates."""
 
     @staticmethod
     def forward(ctx, x):
@@ -249,7 +281,7 @@ class _GeluBf16(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
-        return torch.ops.aten.gelu_backward(grad, x, approximate="none")
+        return gelu_bf16_bwd(grad, x)
 
 
 def _gelu_autograd(x):
@@ -264,12 +296,33 @@ _LIB.impl("window_refinement", _window_autograd, "Autograd")
 _LIB.impl("gelu_bf16", _gelu_autograd, "Autograd")
 
 
+class _LinearGeluBf16(torch.autograd.Function):
+    """The fused op's forward with the pre-activation written beside the
+    output (one launch); the backward is the GELU gradient op on the saved
+    ``h``, then ``F.linear``'s backward on ``dh`` (``addmm``'s formulas on the
+    flattened rows: the two-op route's products, bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        with torch._C._AutoDispatchBelowAutograd():
+            y, h = linear_gelu_bf16_preact(x, w, b)
+        ctx.save_for_backward(x, w, h)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, h = ctx.saved_tensors
+        dh = gelu_bf16_bwd(dy, h).reshape(-1, w.shape[0])
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dx = dh.mm(w).view(x.shape) if need_x else None
+        dw = dh.t().mm(x.reshape(-1, w.shape[1])) if need_w else None
+        db = dh.sum(0) if need_b else None
+        return dx, dw, db
+
+
 def _linear_gelu_autograd(x, w, b):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
-        raise RuntimeError(
-            "ufm_torch::linear_gelu_bf16 has no gradient: under grad mode take fc1 and "
-            "ufm_torch::gelu_bf16 (nn.layers.Mlp does)"
-        )
+        return _LinearGeluBf16.apply(x, w, b)
     with torch._C._AutoDispatchBelowAutograd():
         return linear_gelu_bf16(x, w, b)
 

@@ -20,9 +20,10 @@ is written once, already activated:
 - :func:`linear_gelu_bf16` calls the op; the device of the tensors picks the
   implementation.
 
-The op has no gradient: training keeps ``fc1`` and ``ufm_torch::gelu_bf16``
-(:class:`ufm_torch.nn.layers.Mlp` picks the fused op only where no gradient
-is recorded).
+Training runs the same launch with ``h`` written beside ``y``
+(:func:`launch_preact`, the op ``ufm_torch::linear_gelu_bf16_preact``, plain
+version :func:`linear_gelu_preact_reference`): the op's gradient reads ``h``
+(:mod:`ufm_torch.ops.library`).
 """
 
 from __future__ import annotations
@@ -36,7 +37,10 @@ import torch.nn.functional as F
 from ufm_torch.ops import _build
 from ufm_torch.ops.gelu import fast_exact_gelu_reference
 
-__all__ = ["linear_gelu_reference", "launch", "linear_gelu_bf16", "SCHEDULES", "LAUNCHES"]
+__all__ = [
+    "linear_gelu_reference", "linear_gelu_preact_reference", "launch", "launch_preact", "linear_gelu_bf16",
+    "SCHEDULES", "LAUNCHES",
+]
 
 # kernel launches since the count was last reset (``LAUNCHES = 0``)
 LAUNCHES = 0
@@ -53,6 +57,14 @@ def linear_gelu_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> 
     bf16 ``x`` (..., K), ``w`` (N, K) and ``b`` (N,) on any device."""
     _check(x, w, b)
     return fast_exact_gelu_reference(F.linear(x, w, b))
+
+
+def linear_gelu_preact_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """The plain version of the training launch: ``(y, h)`` with ``h =
+    F.linear(x, w, b)`` (bf16) and ``y`` the bf16 GELU's plain chain of it."""
+    _check(x, w, b)
+    h = F.linear(x, w, b)
+    return fast_exact_gelu_reference(h), h
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
@@ -84,8 +96,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, preact_out: Option
     non-contiguous ``x`` is read through a contiguous copy. K and N must be
     multiples of 8 and every base address 16-byte aligned (TMA's
     conditions). ``preact_out``, a contiguous bf16 tensor of the output's
-    shape, also receives the rounded pre-activation ``h`` (the checks read
-    it). An empty ``x`` launches nothing."""
+    shape, also receives the rounded pre-activation ``h`` (the training
+    launch, :func:`launch_preact`). An empty ``x`` launches nothing."""
     global LAUNCHES
     for name, t in (("x", x), ("w", w), ("b", b)):
         if not t.is_cuda:
@@ -126,6 +138,13 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, preact_out: Option
         raise RuntimeError(f"linear + GELU kernel launch failed: {_build.launch_error_cause(err)} at "
                            f"M={m}, N={n}, K={k}")
     return out
+
+
+def launch_preact(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """The training launch: :func:`launch` with a fresh ``h`` as its
+    ``preact_out``; returns ``(y, h)``."""
+    h = torch.empty((*x.shape[:-1], w.shape[0]), dtype=torch.bfloat16, device=x.device)
+    return launch(x, w, b, preact_out=h), h
 
 
 def linear_gelu_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
