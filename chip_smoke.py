@@ -291,6 +291,14 @@ LINEAR_GELU_BIAS_STD = 0.1
 # the share of h allowed more than one bf16 ulp from the exact product + bias
 # (fp32 sums in another order than the reference's)
 LINEAR_GELU_ULP_SHARE = 1e-3
+# fc2's input gradient with the GELU gradient as its epilogue
+# (ufm_torch::linear_gelu_bf16_bwd) at the train step's MLP shapes: g (M, N2),
+# w2 (N2, N), h (M, N) = LINEAR_GELU_TRAIN_SHAPES' (M, K, N) with N2 = K; its
+# epilogue's issue floor counts this many warp instructions a 32-element warp
+# slice (the VJP chain's ~60 instructions an element, csrc/gelu_bf16_bwd.cu)
+# at one a scheduler a clock, four schedulers an SM, at the card's maximum SM clock
+LINEAR_GELU_BWD_ISSUE_INSTR = 60
+LINEAR_GELU_BWD_ODD = ((1, 64, 128), (4803, 1024, 4096), (300, 200, 136))
 ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
 # the attention pair over the rest of the domain (TF32 mma.sync)
 ANY_LIBRARIES = ("flash_attention_fwd_any", "flash_attention_bwd_any")
@@ -397,11 +405,13 @@ FINE_TUNE_BATCH, FINE_TUNE_STEPS, FINE_TUNE_LR = 2, 3, 1e-5
 FINE_TUNE_LOSS_REL = 1e-4
 # the launch counters' names (ufm_torch.ops.launches.COUNTERS: each kernel's
 # source): wgmma attention forward and backward, window, GELU, fused fc1 +
-# GELU, mma attention forward and backward, window backward, GELU gradient
+# GELU, mma attention forward and backward, window backward, GELU gradient,
+# fc2's input gradient with the GELU gradient as its epilogue
 COUNTER_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
                    "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any",
-                   "window_refinement_bwd", "gelu_bf16_bwd")
-FWD_AT, BWD_AT, WINDOW_AT, GELU_AT, FUSED_AT, ANY_FWD_AT, ANY_BWD_AT, WINDOW_BWD_AT, GELU_BWD_AT = COUNTER_KERNELS
+                   "window_refinement_bwd", "gelu_bf16_bwd", "linear_gelu_bf16_bwd")
+(FWD_AT, BWD_AT, WINDOW_AT, GELU_AT, FUSED_AT, ANY_FWD_AT, ANY_BWD_AT, WINDOW_BWD_AT, GELU_BWD_AT,
+ FUSED_BWD_AT) = COUNTER_KERNELS
 ATTENTION_AT = (FWD_AT, BWD_AT, ANY_FWD_AT, ANY_BWD_AT)
 
 
@@ -427,8 +437,9 @@ DATA_PARALLEL_BATCH, DATA_PARALLEL_BAR = 2, 1e-5
 # launches a step (the forward runs again in the backward unless its outputs
 # are kept: no policy keeps the GELU op's but everything_saveable,
 # nn/layers.py::REMAT_POLICIES). Without remat the MLPs take the fused fc1 +
-# GELU kernel (36 launches a step) and no standalone GELU; under remat fc1 and
-# the standalone GELU. Every case launches the GELU gradient 36 times a step
+# GELU kernel (36 launches a step), no standalone GELU, and fc2's input
+# gradient with the GELU gradient as its epilogue (36 a step); under remat
+# fc1, the standalone GELU and the standalone GELU gradient (36 a step)
 REMAT_CASES = (
     ("none", False, None, 36, 0),
     ("full", True, None, 72, 72),
@@ -577,6 +588,9 @@ JPEG_FRAMES_PER_COUNT = 48  # frames decoded at each thread count
 # pair cut inside its AC scans, with libjpeg's block-smoothed SHA-256
 # (tests/test_torch_port_jpeg_arith.py wrote them)
 JPEG_PAIR_ARITH = os.path.join(HERE, "tests", "golden", "jpeg_pair_arith")
+# a lossless (SOF3) file, 240x320, predictor 5, a restart every two MCU rows,
+# and its samples (tests/test_torch_port_jpeg_lossless.py writes both)
+JPEG_LOSSLESS = os.path.join(HERE, "tests", "golden", "jpeg_lossless")
 JPEG_CUT_REPS = 5  # a cut frame's decode ms: the median of these
 
 
@@ -590,54 +604,61 @@ def check(cond: bool, msg: str) -> None:
 
 
 # each path's launches of the standalone GELU kernel, of the fused fc1 + GELU
-# kernel and of the GELU gradient kernel, by the name of its launches_by_path
-# entry
-GELU_LAUNCHES, FUSED_LAUNCHES, GELU_BWD_LAUNCHES = {}, {}, {}
+# kernel, of the GELU gradient kernel and of the fused fc2 input-gradient +
+# GELU gradient kernel, by the name of its launches_by_path entry
+GELU_LAUNCHES, FUSED_LAUNCHES, GELU_BWD_LAUNCHES, FUSED_BWD_LAUNCHES = {}, {}, {}, {}
 
 
 def mlp_counts(ge, lg) -> dict:
-    """The three MLP kernels' counters (``ufm_torch.ops.gelu`` and
+    """The four MLP kernels' counters (``ufm_torch.ops.gelu`` and
     ``ufm_torch.ops.linear_gelu`` modules), by kernel name."""
-    return {GELU_AT: ge.LAUNCHES, FUSED_AT: lg.LAUNCHES, GELU_BWD_AT: ge.BWD_LAUNCHES}
+    return {GELU_AT: ge.LAUNCHES, FUSED_AT: lg.LAUNCHES, GELU_BWD_AT: ge.BWD_LAUNCHES, FUSED_BWD_AT: lg.BWD_LAUNCHES}
 
 
-def mlp_path(path: str, launched: dict, fused: int, two_op: int = 0, backward: int = 0) -> None:
-    """Record a path's launches of the three MLP kernels (``launched``: by
+def mlp_path(path: str, launched: dict, fused: int, two_op: int = 0, backward: int = 0,
+             fused_backward: int = 0) -> None:
+    """Record a path's launches of the four MLP kernels (``launched``: by
     kernel name) and hold them to what the code gives for its bf16 MLPs:
     ``fused`` forwards through the fused fc1 + GELU kernel (every MLP outside
     activation checkpointing, with a gradient recorded or not: GELU_PER_FORWARD
     a forward of the backbone), ``two_op`` forwards of fc1 then the standalone
-    GELU (under checkpointing, the backward's recomputes included) and
-    ``backward`` launches of the GELU gradient (one an MLP backward)."""
-    for store, name in ((GELU_LAUNCHES, GELU_AT), (FUSED_LAUNCHES, FUSED_AT), (GELU_BWD_LAUNCHES, GELU_BWD_AT)):
+    GELU (under checkpointing, the backward's recomputes included),
+    ``backward`` launches of the standalone GELU gradient (an MLP backward
+    under checkpointing) and ``fused_backward`` launches of the fused fc2
+    input-gradient + GELU gradient kernel (an MLP backward outside it)."""
+    for store, name in ((GELU_LAUNCHES, GELU_AT), (FUSED_LAUNCHES, FUSED_AT), (GELU_BWD_LAUNCHES, GELU_BWD_AT),
+                        (FUSED_BWD_LAUNCHES, FUSED_BWD_AT)):
         store[path] = store.get(path, 0) + launched[name]
-    got = (launched[GELU_AT], launched[FUSED_AT], launched[GELU_BWD_AT])
-    check(got == (two_op, fused, backward), f"{path}: {got} GELU / fused fc1 + GELU / GELU gradient launches, "
-          f"expected {(two_op, fused, backward)}")
+    got = (launched[GELU_AT], launched[FUSED_AT], launched[GELU_BWD_AT], launched[FUSED_BWD_AT])
+    want = (two_op, fused, backward, fused_backward)
+    check(got == want, f"{path}: {got} GELU / fused fc1 + GELU / GELU gradient / fused fc2 + GELU gradient "
+          f"launches, expected {want}")
 
 
 # the launches of the paths recorded by record_path, {path: {kernel: n}}
 # (the three MLP kernels: mlp_path)
 PATH_LAUNCHES = {}
-MLP_KERNELS = (GELU_AT, FUSED_AT, GELU_BWD_AT)
+MLP_KERNELS = (GELU_AT, FUSED_AT, GELU_BWD_AT, FUSED_BWD_AT)
 
 
-def record_path(path: str, launched: dict, fused: int, two_op: int = 0, backward: int = 0) -> None:
+def record_path(path: str, launched: dict, fused: int, two_op: int = 0, backward: int = 0,
+                fused_backward: int = 0) -> None:
     """Record a path's launches (a ``ufm_torch.ops.launches`` snapshot, by
     kernel name) for the kernels' summary: each attention and window kernel
-    it ran, and the three MLP kernels through ``mlp_path``, held there to
-    ``fused`` / ``two_op`` MLP forwards and ``backward`` MLP backwards (a
-    path with no bf16 MLP launches none of them)."""
+    it ran, and the four MLP kernels through ``mlp_path``, held there to
+    ``fused`` / ``two_op`` MLP forwards and ``backward`` / ``fused_backward``
+    MLP backwards (a path with no bf16 MLP launches none of them)."""
     paths = PATH_LAUNCHES.setdefault(path, {})
     for name in COUNTER_KERNELS:
         if launched[name] and name not in MLP_KERNELS:
             paths[name] = paths.get(name, 0) + launched[name]
-    mlp_path(path, launched, fused, two_op, backward)
+    mlp_path(path, launched, fused, two_op, backward, fused_backward)
 
 
 def record_steps(path: str, launched: dict, each: dict, steps: int) -> None:
     """record_path for ``steps`` train steps of ``each`` launches a step."""
-    record_path(path, launched, steps * each[FUSED_AT], steps * each[GELU_AT], steps * each[GELU_BWD_AT])
+    record_path(path, launched, steps * each[FUSED_AT], steps * each[GELU_AT], steps * each[GELU_BWD_AT],
+                steps * each[FUSED_BWD_AT])
 
 
 def with_recorded_paths(kernel: dict) -> dict:
@@ -731,15 +752,18 @@ def phase_build():
     serialized = {n: lines for n, lines in serialized.items() if lines}
     emit("build", seconds=seconds, kernels=list(_build.KERNEL_SOURCES), ptxas=ptxas, sass=sass,
          wgmma_serialized=serialized)
-    for name in ATTENTION_LIBRARIES + ("linear_gelu_bf16_fwd",):
+    for name in ATTENTION_LIBRARIES + ("linear_gelu_bf16_fwd", "linear_gelu_bf16_bwd"):
         check(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA (wgmma) instruction in its SASS")
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
-    for name in ("window_refinement_fwd", "window_refinement_bwd", "linear_gelu_bf16_fwd"):
+    for name in ("window_refinement_fwd", "window_refinement_bwd", "linear_gelu_bf16_fwd", "linear_gelu_bf16_bwd"):
         check(sass[name]["UTMALDG"] > 0, f"{name}: no UTMALDG (TMA load) in its SASS")
     for name in ("window_refinement_fwd", "window_refinement_bwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd",
                  "gelu_bf16_bwd"):
         local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
         check(bool(ptxas[name]) and not local, f"{name} uses local memory: {local}")
+    # the fused MLP backward spills a few dozen bytes a thread (values live
+    # across its products): reported, not refused
+    emit("build_fused_mlp_backward", library="linear_gelu_bf16_bwd", ptxas=ptxas["linear_gelu_bf16_bwd"])
     # the mma attention pair: tensor-core products, and no local memory in the
     # head dims the repository's models run (DP = 32 / 64; the others reported)
     for name in ANY_LIBRARIES:
@@ -1542,6 +1566,192 @@ def phase_linear_gelu_train():
     return rows
 
 
+def linear_gelu_bwd_bound_ms(m: int, n2: int, n: int):
+    """Operations: 2 M N N2 on the tensor cores. Bytes: g, w2 and h read
+    once, dh written once (bf16)."""
+    t_ops = 2 * m * n * n2 / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 2 * (m * n2 + n2 * n + 2 * m * n) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def _ulp_gaps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (_ordered_bf16(a) - _ordered_bf16(b)).abs()
+
+
+def phase_linear_gelu_backward():
+    """fc2's input gradient with the GELU gradient as its epilogue
+    (``ufm_torch::linear_gelu_bf16_bwd``) at the train step's MLP shapes:
+    dh bit for bit the plain VJP and the standalone gradient kernel of the
+    kernel's own dy (the check instance's dy_out), and the op's launch bit
+    for bit the check instance's; dy against cuBLAS's g.mm(w2) (elements
+    that differ, the largest gap in ulps) and against the exact product
+    (float64; within one ulp plus fp32 summation's bound everywhere, more
+    than one ulp on at most LINEAR_GELU_ULP_SHARE of the elements); every
+    bf16 h under three cotangent scales; rows off the tile and N2 / N tails;
+    fp32, a misaligned w2 and a non-contiguous w2 refused without a launch;
+    the profiler sees the kernel by its name. Timed beside its bound, its
+    epilogue's issue floor, cuBLAS g.mm(w2) alone, g.mm(w2) +
+    aten.gelu_backward (the library pair), g.mm(w2) + gelu_bf16_bwd (the
+    parent's route), the plain version and each schedule. Then an MLP at the
+    encoder's widths: its five gradients through the route against the
+    two-node route's (bit for bit where the kernel's dy is cuBLAS's, else
+    within LINEAR_GELU_GRAD_REL_L2), one fused launch and no standalone
+    gradient. Returns (rows by shape, host us per launch, max abs error of dh
+    against the plain version)."""
+    from ufm_torch.nn.layers import Mlp
+    from ufm_torch.ops import _build
+    from ufm_torch.ops import gelu as ge
+    from ufm_torch.ops import linear_gelu as lg
+
+    clock = _max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows, max_abs_err = {}, 0.0
+    for name, (m, n2, n), per_step in LINEAR_GELU_TRAIN_SHAPES:
+        g = torch.randn(m, n2, generator=gen, device="cuda").to(torch.bfloat16)
+        w2 = (torch.randn(n2, n, generator=gen, device="cuda") * n2**-0.5).to(torch.bfloat16)
+        h = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+        dy = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        before = lg.BWD_LAUNCHES
+        dh = lg.launch_backward(g, w2, h, dy_out=dy)
+        launched = lg.BWD_LAUNCHES - before
+        plain_own = ge.fast_exact_gelu_vjp_reference(h, dy)
+        cublas = g.mm(w2)
+        gaps = _ulp_gaps(dy, cublas)
+        row = dict(shape_m_n2_n=[m, n2, n], calls_per_step=per_step, launches=launched,
+                   dh_vs_plain_of_own_dy_mismatches=int(_differ(dh, plain_own).sum()),
+                   dh_vs_gelu_bwd_of_own_dy_mismatches=int(_differ(dh, ge.gelu_bf16_bwd(dy, h)).sum()),
+                   op_launch_vs_check_instance_bitwise=torch.equal(_bits(lg.linear_gelu_bf16_bwd(g, w2, h)), _bits(dh)),
+                   dy_vs_cublas_differing=int((gaps > 0).sum()), dy_vs_cublas_max_ulps=int(gaps.max()),
+                   dy_vs_exact=_preact_check(dy, g, w2.t(), torch.zeros(n, dtype=torch.bfloat16, device="cuda")),
+                   dh_share_differs_from_parent_route=(_differ(dh, ge.gelu_bf16_bwd(cublas, h))).double().mean().item())
+        both = ~(torch.isnan(dh) | torch.isnan(plain_own))
+        max_abs_err = max(max_abs_err, (dh.float() - plain_own.float())[both].abs().max().item())
+        del plain_own, gaps
+        schedules = {sch: time_ms(lambda: lg.launch_backward(g, w2, h, schedule=sch)) for sch in lg.BWD_SCHEDULES}
+        row["ms"] = schedules.pop("pingpong")
+        row.update({f"{sch}_ms": ms for sch, ms in schedules.items()})
+        row["cublas_mm_ms"] = time_ms(lambda: g.mm(w2))
+        row["parent_pair_ms"] = time_ms(lambda: ge.gelu_bf16_bwd(g.mm(w2), h))
+        row["library_pair_ms"] = time_ms(lambda: torch.ops.aten.gelu_backward(g.mm(w2), h, approximate="none"))
+        row["plain_ms"] = time_ms(lambda: lg.linear_gelu_bwd_reference(g, w2, h), reps=2, batches=3)
+        row["bound_ms"], row["bound_by"] = linear_gelu_bwd_bound_ms(m, n2, n)
+        row["issue_floor_ms"] = m * n / 32 * LINEAR_GELU_BWD_ISSUE_INSTR / (4 * sms * clock) * 1e3
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        emit("kernel", kernel="linear_gelu_bf16_bwd", case=name, **row)
+        check(launched == 1, f"linear_gelu_backward {name}: {launched} launches")
+        check(row["dh_vs_plain_of_own_dy_mismatches"] == 0 and row["dh_vs_gelu_bwd_of_own_dy_mismatches"] == 0
+              and row["op_launch_vs_check_instance_bitwise"], f"linear_gelu_backward {name}: dh {row}")
+        ex = row["dy_vs_exact"]
+        check(ex["within_ulp_plus_summation_bound"] and ex["share_over_1ulp"] <= LINEAR_GELU_ULP_SHARE
+              and ex["max_ulps_where_summation_bounded"] <= 2, f"linear_gelu_backward {name}: dy {ex}")
+        del g, w2, h, dy, dh, cublas
+        _free_card_memory()
+
+    # every bf16 h, under small, unit and large cotangents
+    hb = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16).reshape(128, 512)).view(torch.bfloat16)
+    hb = hb.cuda()
+    table = {}
+    for scale in (1e-3, 1.0, 30.0):
+        g = (torch.randn(128, 64, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+        w2 = (torch.randn(64, 512, generator=gen, device="cuda") / 8).to(torch.bfloat16)
+        dy = torch.empty(128, 512, dtype=torch.bfloat16, device="cuda")
+        dh = lg.launch_backward(g, w2, hb, dy_out=dy)
+        table[str(scale)] = int(_differ(dh, ge.fast_exact_gelu_vjp_reference(hb, dy)).sum())
+    odd = {}
+    for m, n2, n in LINEAR_GELU_BWD_ODD:
+        g = torch.randn(m, n2, generator=gen, device="cuda").to(torch.bfloat16)
+        w2 = (torch.randn(n2, n, generator=gen, device="cuda") * n2**-0.5).to(torch.bfloat16)
+        h = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        dy = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        per_schedule = {}
+        for sch in lg.BWD_SCHEDULES:
+            dh = lg.launch_backward(g, w2, h, dy_out=dy, schedule=sch)
+            per_schedule[sch] = int(_differ(dh, ge.fast_exact_gelu_vjp_reference(h, dy)).sum())
+        odd[f"m{m}_n2{n2}_n{n}"] = per_schedule
+    base = torch.zeros(64 * 128 + 8, dtype=torch.bfloat16, device="cuda")
+    g, h = torch.zeros(8, 64, dtype=torch.bfloat16, device="cuda"), torch.zeros(8, 128, dtype=torch.bfloat16, device="cuda")
+    refused, before = {}, lg.BWD_LAUNCHES
+    for what, args in (("fp32", (g.float(), base[:64 * 128].view(64, 128), h)),
+                       ("misaligned_w2", (g, base[1:1 + 64 * 128].view(64, 128), h)),
+                       ("non_contiguous_w2", (g, base[:64 * 128].view(128, 64).t(), h)),
+                       ("n_off_8", (g, base[:64 * 100].view(64, 100), h[:, :100]))):
+        try:
+            lg.launch_backward(*args)
+            refused[what] = False
+        except ValueError:
+            refused[what] = True
+    refusals_launched_nothing = lg.BWD_LAUNCHES == before
+    # the profiler sees the kernel by its __global__ name
+    g = torch.randn(4804, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    w2 = (torch.randn(1024, 4096, generator=gen, device="cuda") / 32).to(torch.bfloat16)
+    h = torch.randn(4804, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lg.linear_gelu_bf16_bwd(g, w2, h)
+        torch.cuda.synchronize()
+    profiled = sum(e.count for e in prof.key_averages() if "linear_gelu_bf16_bwd_kernel" in e.key)
+    small = (g[:64, :64].contiguous(), w2[:64, :128].contiguous(), h[:64, :128].contiguous())
+    host_us = host_us_per_launch(lambda: lg.linear_gelu_bf16_bwd(*small))
+    del g, w2, h, small
+    _free_card_memory()
+
+    # an MLP at the encoder's widths: the route against the two-node route
+    torch.manual_seed(0)
+    mlp = Mlp(1024, 4096).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        mlp.fc1.bias.normal_(0.0, LINEAR_GELU_BIAS_STD)
+    x = torch.randn(4, 1201, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    cot = torch.randn(4, 1201, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def mlp_grads(fused):
+        xt = x.clone().requires_grad_(True)
+        mlp.zero_grad(set_to_none=True)
+        before = (lg.BWD_LAUNCHES, ge.BWD_LAUNCHES)
+        out = mlp(xt) if fused else mlp.fc2(lg.linear_gelu_bf16(xt, mlp.fc1.weight, mlp.fc1.bias))
+        out.backward(cot)
+        torch.cuda.synchronize()
+        return [xt.grad] + [p.grad for p in mlp.parameters()], (lg.BWD_LAUNCHES - before[0], ge.BWD_LAUNCHES - before[1])
+
+    got, got_launched = mlp_grads(True)
+    want, want_launched = mlp_grads(False)
+    hpre = lg.launch_preact(x, mlp.fc1.weight, mlp.fc1.bias)[1]
+    dy_kernel = torch.empty(4 * 1201, 4096, dtype=torch.bfloat16, device="cuda")
+    lg.launch_backward(cot.reshape(-1, 1024), mlp.fc2.weight, hpre, dy_out=dy_kernel)
+    dy_equal = torch.equal(_bits(dy_kernel), _bits(cot.reshape(-1, 1024).mm(mlp.fc2.weight)))
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    mlp_row = dict(launches_fused_route=got_launched, launches_two_node_route=want_launched,
+                   dy_kernel_equals_cublas=dy_equal,
+                   bitwise={k: torch.equal(_bits(a), _bits(b)) for k, a, b in zip(names, got, want)},
+                   rel_l2={k: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                           for k, a, b in zip(names, got, want)})
+    del mlp, x, cot, got, want, hpre, dy_kernel
+    _free_card_memory()
+    per_step = {k: sum(r["calls_per_step"] * r[k] for r in rows.values())
+                for k in ("ms", "serial_ms", "rr3_ms", "cublas_mm_ms", "parent_pair_ms", "library_pair_ms",
+                          "plain_ms", "bound_ms", "issue_floor_ms")}
+    emit("linear_gelu_backward", table_mismatches=table, odd=odd, refused=refused,
+         refusals_launched_nothing=refusals_launched_nothing, profiler_kernel_count=profiled, mlp=mlp_row,
+         per_step_ms=per_step, max_sm_clock_hz=clock, host_us_per_call=host_us,
+         ptxas=ptxas_report(_build.BUILD_LOGS.get("linear_gelu_bf16_bwd", "")))
+    check(all(v == 0 for v in table.values()), f"linear_gelu_backward: every-bf16-h mismatches {table}")
+    check(all(v == 0 for r in odd.values() for v in r.values()), f"linear_gelu_backward: tails {odd}")
+    check(all(refused.values()) and refusals_launched_nothing, f"linear_gelu_backward refusals: {refused}")
+    check(profiled == 1, f"linear_gelu_backward: the profiler saw {profiled} linear_gelu_bf16_bwd_kernel launches")
+    check(got_launched == (1, 0) and want_launched == (0, 1), f"linear_gelu_backward MLP launches {mlp_row}")
+    if dy_equal:
+        check(all(mlp_row["bitwise"].values()), f"linear_gelu_backward MLP: dy equal, gradients not bitwise {mlp_row}")
+    check(all(r <= LINEAR_GELU_GRAD_REL_L2 for r in mlp_row["rel_l2"].values()),
+          f"linear_gelu_backward MLP gradients vs the two-node route {mlp_row['rel_l2']}")
+    return rows, host_us, max_abs_err
+
+
 def _finite(t: torch.Tensor) -> bool:
     return bool(torch.isfinite(t).all())
 
@@ -1565,7 +1775,7 @@ def phase_main_path():
         ("480x640_b2", rng.integers(0, 256, (2, 2, 480, 640, 3), dtype=np.uint8)),
     )
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.ANY_LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # the main path's counts start here
+    fa.LAUNCHES = fa.ANY_LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # the main path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -1617,7 +1827,7 @@ def phase_fused_mlp_model(model):
 
     net = model.net
     img1, img2 = _normalized_pair(1, TRAIN_HW, seed=4)
-    ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+    ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
     with torch.no_grad():
         fused = net(img1, img2)["flow"].float()
     torch.cuda.synchronize()
@@ -1627,7 +1837,7 @@ def phase_fused_mlp_model(model):
     flows = {}
     try:
         for label, remat in (("grad", False), ("two_op", True)):
-            ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+            ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
             _set_remat(net, remat, None)
             with torch.enable_grad():
                 flows[label] = net(img1, img2)["flow"].detach().float()
@@ -1687,7 +1897,7 @@ def phase_bf16_golden():
     from ufm_torch.ops import linear_gelu as lg
     from ufm_torch.ops import window_refinement as wr
 
-    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
     for name in BF16_GOLDENS:
         cfg, (i1, i2), params, want = _load_bf16_golden(name)
         with torch.device("cuda"):
@@ -1787,7 +1997,7 @@ def phase_tiled(model):
         tiled.predict_correspondences_tiled(model, src, tgt)  # warm-up
         calls.clear()
         torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # the tiled path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # the tiled path's counts start here
         t = time.perf_counter()
         flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
         total_s = time.perf_counter() - t
@@ -1889,7 +2099,7 @@ def phase_tiled_refine(model):
         calls.clear()
         torch.cuda.reset_peak_memory_stats()
         # the tiled UFM-Refine path's counts start here
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0
         t = time.perf_counter()
         flow, covis = tiled.predict_correspondences_tiled(model, src, tgt)
         total_s = time.perf_counter() - t
@@ -2241,7 +2451,7 @@ def phase_refine_path():
     )
     p = model.config.refinement_range
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # the refine path's counts start here
+    fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # the refine path's counts start here
     results, latencies = {}, {}
     for name, pair in requests:
         src, tgt = pair[0], pair[1]
@@ -2349,20 +2559,20 @@ def phase_train():
     optimizer.step = _timed(optimizer.step, opt_events)
     torch.cuda.reset_peak_memory_stats()
     # the training path's counts start here
-    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0
     fa.ANY_LAUNCHES = fa.ANY_BWD_LAUNCHES = 0
     losses, times = [], []
     for i in range(TRAIN_STEPS):
-        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, ge.BWD_LAUNCHES)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, ge.BWD_LAUNCHES, lg.BWD_LAUNCHES)
         t = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         launched = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2],
-                    lg.LAUNCHES - before[3], ge.BWD_LAUNCHES - before[4])
-        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0, GELU_PER_FORWARD, GELU_PER_FORWARD),
+                    lg.LAUNCHES - before[3], ge.BWD_LAUNCHES - before[4], lg.BWD_LAUNCHES - before[5])
+        check(launched == (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 0, GELU_PER_FORWARD, 0, GELU_PER_FORWARD),
               f"train step {i}: {launched} attention forward launches / backward calls / GELU / fused fc1 + GELU "
-              "/ GELU gradient launches, expected 36 / 36 / 0 / 36 / 36")
+              "/ GELU gradient / fused fc2 + GELU gradient launches, expected 36 / 36 / 0 / 36 / 0 / 36")
         check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0),
               f"bf16 train step {i}: mma attention launches ({fa.ANY_LAUNCHES}, {fa.ANY_BWD_LAUNCHES})")
         vals = {k: v.item() for k, v in metrics.items()}
@@ -2387,7 +2597,7 @@ def phase_train():
     check((fa.ANY_LAUNCHES, fa.ANY_BWD_LAUNCHES) == (0, 0), "the bf16 fit launched an mma attention kernel")
     check(launches == {"flash_attention_fwd": steps * LAUNCHES_PER_FORWARD, "flash_attention_bwd": steps * LAUNCHES_PER_FORWARD},
           f"training path launches {launches} over {steps} steps, expected 36 + 36 per step")
-    mlp_path("ufm_base_train", mlp_counts(ge, lg), steps * GELU_PER_FORWARD, backward=steps * GELU_PER_FORWARD)
+    mlp_path("ufm_base_train", mlp_counts(ge, lg), steps * GELU_PER_FORWARD, fused_backward=steps * GELU_PER_FORWARD)
     trajectory = losses + fit_losses
     check(trajectory[-1] < trajectory[0], f"loss did not fall on the fixed batch: {trajectory}")
     emit("train_path", batch=TRAIN_BATCH, input_hw=list(TRAIN_HW), learning_rate=TRAIN_LR,
@@ -2407,9 +2617,10 @@ def phase_train_self_check(model, batch):
 
 # a bf16 UFM-Base (or UniFlowMatch) train step: 36 attention forward launches
 # and backward calls, 36 fused fc1 + GELU launches (each writing the
-# pre-activation) and 36 GELU gradient launches
+# pre-activation) and 36 launches of fc2's input gradient with the GELU
+# gradient as its epilogue
 BF16_TRAIN_EACH = launch_counts(flash_attention_fwd=LAUNCHES_PER_FORWARD, flash_attention_bwd=LAUNCHES_PER_FORWARD,
-                                linear_gelu_bf16_fwd=GELU_PER_FORWARD, gelu_bf16_bwd=GELU_PER_FORWARD)
+                                linear_gelu_bf16_fwd=GELU_PER_FORWARD, linear_gelu_bf16_bwd=GELU_PER_FORWARD)
 # UFM-Refine training (refine_train): TRAIN_BATCH at TRAIN_HW, TRAIN_STEPS of
 # make_train_step, then FIT_STEPS of fit, as train: each step the launches
 # of a bf16 UFM-Base step and one launch each of the window forward and
@@ -2673,7 +2884,7 @@ def phase_refine_train_self_check(model, label="refine_train_self_check", agains
     net = model.net
     wide = torch.float64 if model.config.compute_dtype == "float32" else torch.float32
     # one forward, two backward passes (the loss with fixed classes, then as it is)
-    each = {k: n * (2 if k in (BWD_AT, ANY_BWD_AT, WINDOW_BWD_AT, GELU_BWD_AT) else 1)
+    each = {k: n * (2 if k in (BWD_AT, ANY_BWD_AT, WINDOW_BWD_AT, GELU_BWD_AT, FUSED_BWD_AT) else 1)
             for k, n in (train_each or REFINE_TRAIN_EACH).items()}
 
     def grads(attention, window, step_label, fixed_flow):
@@ -3010,7 +3221,7 @@ def phase_data_parallel():
                             ("ufm_refine", UniFlowMatchClassificationRefinement, ufm_refine_config())):
         model = cls.from_config(cfg, seed=0)
         forward = make_data_parallel_forward(model, make_mesh(1))
-        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = wr.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
         t = time.perf_counter()
         got = forward(img1, img2)
         torch.cuda.synchronize()
@@ -3065,7 +3276,8 @@ def phase_remat(cls=None, config=None, cases=REMAT_CASES, label="remat", path="u
         return launch_counts(flash_attention_fwd=fwd, flash_attention_bwd=LAUNCHES_PER_FORWARD,
                              window_refinement_fwd=window, gelu_bf16_fwd=gelu_fwd,
                              linear_gelu_bf16_fwd=0 if gelu_fwd else GELU_PER_FORWARD, window_refinement_bwd=window,
-                             gelu_bf16_bwd=GELU_PER_FORWARD)
+                             gelu_bf16_bwd=GELU_PER_FORWARD if gelu_fwd else 0,
+                             linear_gelu_bf16_bwd=0 if gelu_fwd else GELU_PER_FORWARD)
 
     rows = {label_: {"policy": policy, "train_remat": remat, "launches_per_step": each_of(fwd, gelu_fwd),
                      "window_forward_recomputed": False if window else None,
@@ -3091,7 +3303,8 @@ def phase_remat(cls=None, config=None, cases=REMAT_CASES, label="remat", path="u
     launched = counters.snapshot()
     steps = 2 * (1 + REMAT_TIMED_STEPS)  # each case's steps, over both rounds
     record_path(path, launched, steps * sum(GELU_PER_FORWARD for c in cases if not c[4]),
-                two_op=steps * sum(c[4] for c in cases), backward=steps * len(cases) * GELU_PER_FORWARD)
+                two_op=steps * sum(c[4] for c in cases), backward=steps * sum(GELU_PER_FORWARD for c in cases if c[4]),
+                fused_backward=steps * sum(GELU_PER_FORWARD for c in cases if not c[4]))
     launches = launched
     del step
     net.zero_grad(set_to_none=True)
@@ -3137,7 +3350,7 @@ def phase_moge():
     img1, img2 = _normalized_pair(1, TRAIN_HW, seed=3)
     with torch.no_grad():
         model.net(img1, img2)  # warm-up
-        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = model.net(img1, img2)
@@ -3724,7 +3937,7 @@ def phase_export(model):
     art = loaded["fp32"]
     with torch.inference_mode():
         want = model.network_apply(x, y)
-        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
         per_call, fused_per_call = fa.LAUNCHES, lg.LAUNCHES
@@ -3783,7 +3996,7 @@ def phase_export_cpu():
     model.net.to("cuda")
     x, y = _artifact_inputs(model, seed=12)
     with torch.inference_mode():
-        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
         got = art(x, y)
         torch.cuda.synchronize()
         launches, mlps = fa.LAUNCHES, mlp_counts(ge, lg)
@@ -3824,7 +4037,7 @@ def phase_artifact_predict(model, art, pair):
         return res, times, calls
 
     with unittest.mock.patch.object(base, "_CAPTURE_ERROR_MODE", "global"):
-        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = 0  # this path's counts start here
+        fa.LAUNCHES = ge.LAUNCHES = ge.BWD_LAUNCHES = lg.LAUNCHES = lg.BWD_LAUNCHES = 0  # this path's counts start here
         got, art_times, art_calls = timed(art_model)
         launches, mlps = fa.LAUNCHES, mlp_counts(ge, lg)
         want, live_times, _ = timed(model)
@@ -4561,9 +4774,13 @@ def phase_jpeg_entry():
     bitwise as the lane program's slot 0 (a batch of copies of the pair).
     ``ufm infer`` on the arithmetic pair the same way, its flow bitwise the
     Huffman pair's; a JSON request whose source is frame 0 cut to 90% of its
-    bytes answered 400 naming its key (cv2.imdecode's None). Each path: 36
-    attention and 36 fused fc1 + GELU launches a forward, no plain call (paths
-    ``ufm_infer_jpeg``, ``ufm_infer_jpeg_arith``, ``ufm_base_jpeg_served``)."""
+    bytes answered 400 naming its key (cv2.imdecode's None). A lossless JPEG
+    (SOF3: predictor 5, restart intervals) read by ``read_rgb`` and
+    ``decode_rgb`` bitwise its encoded samples, then sent as both images of a
+    JSON request, answered bitwise as the lane program's slot 0 on those
+    samples. Each path: 36 attention and 36 fused fc1 + GELU launches a
+    forward, no plain call (paths ``ufm_infer_jpeg``, ``ufm_infer_jpeg_arith``,
+    ``ufm_base_jpeg_served``, ``ufm_base_jpeg_lossless_served``)."""
     import base64
     import io
     import urllib.error
@@ -4573,9 +4790,14 @@ def phase_jpeg_entry():
     from ufm_torch.models.base import UniFlowMatchModelsBase
     from ufm_torch.ops import launches as counters
     from ufm_torch.runtime import UFMServer
-    from ufm_torch.utils.image_io import read_png, read_rgb
+    from ufm_torch.utils.image_io import decode_rgb, read_png, read_rgb
 
     src_path, tgt_path = (os.path.join(JPEG_PAIR, n) for n in JPEG_PAIR_FILES)
+    lossless_path = os.path.join(JPEG_LOSSLESS, "lossless_p5_rst.jpg")
+    with open(lossless_path, "rb") as f:
+        lossless = f.read()
+    with np.load(os.path.join(JPEG_LOSSLESS, "samples.npz")) as z:
+        lossless_samples = z["rgb"]
     out_dir = os.path.join(ARTIFACT_DIR, "infer_jpeg")
     predict = UniFlowMatchModelsBase.predict_correspondences_batched
     calls = []
@@ -4640,6 +4862,16 @@ def phase_jpeg_entry():
                 _http(server.port, "/v1/predict", cut_body, "application/json")
             except urllib.error.HTTPError as e:
                 cut_status, cut_error = e.code, json.loads(e.read())["error"]
+            # the lossless file: both decoders, then a request (its lane's first batch captures)
+            lossless_read_bitwise = np.array_equal(read_rgb(lossless_path), lossless_samples)
+            lossless_decode_bitwise = np.array_equal(decode_rgb(lossless, name="lossless.jpg"), lossless_samples)
+            lossless_body = json.dumps({key: base64.b64encode(lossless).decode()
+                                        for key in ("source_png_b64", "target_png_b64")}).encode()
+            _http(server.port, "/v1/predict", lossless_body, "application/json")
+            counters.reset()  # the lossless request's counts start here
+            with _plain_calls() as lossless_plain:
+                lossless_raw = _http(server.port, "/v1/predict", lossless_body, "application/json")
+            lossless_launched = counters.snapshot()
         finally:
             server.close()
     with np.load(io.BytesIO(raw)) as z:
@@ -4647,6 +4879,14 @@ def phase_jpeg_entry():
     copies = model.predict_correspondences_batched(np.stack([src] * SERVE_MAX_BATCH), np.stack([tgt] * SERVE_MAX_BATCH))
     served_bitwise = (np.array_equal(served["flow"], copies.flow.flow_output[0].float().cpu().numpy())
                       and np.array_equal(served["covisibility"], copies.covisibility.mask[0].cpu().numpy()))
+    with np.load(io.BytesIO(lossless_raw)) as z:
+        lossless_served = {k: z[k] for k in z.files}
+    lossless_copies = model.predict_correspondences_batched(np.stack([lossless_samples] * SERVE_MAX_BATCH),
+                                                            np.stack([lossless_samples] * SERVE_MAX_BATCH))
+    lossless_flow = lossless_served["flow"]
+    lossless_served_bitwise = (
+        np.array_equal(lossless_flow, lossless_copies.flow.flow_output[0].float().cpu().numpy())
+        and np.array_equal(lossless_served["covisibility"], lossless_copies.covisibility.mask[0].cpu().numpy()))
     emit("jpeg_entry", files=list(JPEG_PAIR_FILES), input_hw=list(src.shape[:2]),
          imports_blocked=list(ENTRY_BLOCKED_IMPORTS), infer_command="ufm_torch.cli.main(['infer', frame0.jpg, "
          "frame1.jpg, '--random-init', '-o', DIR])", infer_s=infer_s, infer_panels=panels,
@@ -4657,7 +4897,13 @@ def phase_jpeg_entry():
          served_plain_calls=served_plain, arith_files=[os.path.relpath(JPEG_PAIR_ARITH, HERE)], arith_infer_s=arith_s,
          arith_infer_flow_bitwise_huffman=bool(arith_bitwise),
          arith_infer_launches=arith_launched, arith_infer_plain_calls=arith_plain,
-         cut_request_bytes=len(whole) * 9 // 10, cut_request_status=cut_status, cut_request_error=cut_error)
+         cut_request_bytes=len(whole) * 9 // 10, cut_request_status=cut_status, cut_request_error=cut_error,
+         lossless_file=os.path.relpath(lossless_path, HERE), lossless_bytes=len(lossless),
+         lossless_hw=list(lossless_samples.shape[:2]), lossless_read_rgb_bitwise_samples=bool(lossless_read_bitwise),
+         lossless_decode_rgb_bitwise_samples=bool(lossless_decode_bitwise),
+         lossless_served_bitwise_lane_slot0=bool(lossless_served_bitwise),
+         lossless_flow_shape=list(lossless_flow.shape), lossless_flow_finite=bool(np.isfinite(lossless_flow).all()),
+         lossless_launches=lossless_launched, lossless_plain_calls=lossless_plain)
     check(all(shape == [*src.shape[:2], 3] for shape in panels.values()), f"ufm infer panels: {panels}")
     check(inputs_bitwise, "ufm infer: its input arrays differ from read_rgb's")
     check(infer_bitwise, f"ufm infer: flow {infer_diff:.3e} px from the direct predict")
@@ -4665,14 +4911,20 @@ def phase_jpeg_entry():
     check(arith_bitwise, "ufm infer: the arithmetic pair's flow differs from the Huffman pair's")
     check(cut_status == 400 and "source_png_b64" in cut_error and "EOI" in cut_error,
           f"jpeg served: a cut JPEG answered {cut_status} {cut_error!r}")
+    check(lossless_read_bitwise and lossless_decode_bitwise,
+          f"lossless JPEG: read_rgb {lossless_read_bitwise}, decode_rgb {lossless_decode_bitwise} bitwise its samples")
+    check(lossless_served_bitwise and np.isfinite(lossless_flow).all(),
+          f"lossless JPEG served: flow {list(lossless_flow.shape)} differs from the lane program's answer at slot 0")
     for label, plain, launched in (("ufm infer", infer_plain, infer_launched),
                                    ("jpeg served", served_plain, served_launched),
-                                   ("ufm infer arith", arith_plain, arith_launched)):
+                                   ("ufm infer arith", arith_plain, arith_launched),
+                                   ("lossless jpeg served", lossless_plain, lossless_launched)):
         check(plain == {"attention": 0, "window": 0}, f"{label} called plain versions: {plain}")
         check(launched == per_forward, f"{label}: launches {launched}, expected {per_forward}")
     record_path("ufm_infer_jpeg", infer_launched, GELU_PER_FORWARD)
     record_path("ufm_infer_jpeg_arith", arith_launched, GELU_PER_FORWARD)
     record_path("ufm_base_jpeg_served", served_launched, GELU_PER_FORWARD)
+    record_path("ufm_base_jpeg_lossless_served", lossless_launched, GELU_PER_FORWARD)
     del model
     _free_card_memory()
 
@@ -4871,7 +5123,7 @@ def phase_fine_tune():
     bf16_batch = synthetic_batch(FINE_TUNE_BATCH, h, w, seed=1, device="cuda")
     counters.reset()
     each = launch_counts(linear_gelu_bf16_fwd=layers, flash_attention_fwd_any=layers, flash_attention_bwd_any=layers,
-                         gelu_bf16_bwd=layers)
+                         linear_gelu_bf16_bwd=layers)
     _kernel_vs_plain_grads(model, bf16_batch, "tiny_bf16_self_check", each, TRAIN_GRAD_REL_L2_BOUND)
     optimizer = make_optimizer(model.net, learning_rate=1e-4, warmup_steps=0, total_steps=10)
     before = counters.snapshot()
@@ -4882,7 +5134,7 @@ def phase_fine_tune():
     check(all(np.isfinite(v) for v in metrics.values()), f"tiny bf16 train step: non-finite metrics {metrics}")
     counts = counters.snapshot()
     # the kernel and the plain gradients, then the step
-    mlp_path("ufm_tiny_bf16_train", counts, 3 * layers, backward=3 * layers)
+    mlp_path("ufm_tiny_bf16_train", counts, 3 * layers, fused_backward=3 * layers)
     launches["tiny_bf16_train"], launches["tiny_bf16_train_bwd"] = counts[ANY_FWD_AT], counts[ANY_BWD_AT]
     emit("tiny_bf16_train", compute_dtype="bfloat16", head_dims=[
         model.config.encoder_kwargs["embed_dim"] // model.config.encoder_kwargs["num_heads"],
@@ -4956,7 +5208,7 @@ def phase_uniflowmatch():
     _kernel_vs_plain_grads(train_model, one, "uniflowmatch_train_self_check", BF16_TRAIN_EACH, TRAIN_GRAD_REL_L2_BOUND)
     # the kernel pass and the plain-attention pass each run the 36 MLPs forward and backward
     record_path("uniflowmatch_train_self_check", counters.snapshot(), 2 * GELU_PER_FORWARD,
-                backward=2 * GELU_PER_FORWARD)
+                fused_backward=2 * GELU_PER_FORWARD)
     del train_model, batch, one
     _free_card_memory()
 
@@ -5021,6 +5273,7 @@ def run_phases(smi: str) -> int:
     lg_rows, lg_host_us, lg_err = phase_linear_gelu()
     gelu_bwd_rows, gelu_bwd_host_us, gelu_bwd_err = phase_gelu_backward()
     lg_train_rows = phase_linear_gelu_train()
+    lg_bwd_rows, lg_bwd_host_us, lg_bwd_err = phase_linear_gelu_backward()
     golden_launches = phase_bf16_golden()
     anchor_launches = phase_fp32_anchor()
     model, pair, kernel_res, launches = phase_main_path()
@@ -5308,6 +5561,42 @@ def run_phases(smi: str) -> int:
         "train_step_note": "the 36 MLPs of one batch-2 train step: the inference launch, the training launch "
                            "(y and h), and the fused op's forward + backward beside the two-op route's",
     }
+    # one batch-2 train step's fc2 input gradient + GELU gradient: each number sums its 36 calls
+    lg_bwd_step = [lg_bwd_rows[n] for n, _, calls in LINEAR_GELU_TRAIN_SHAPES for _ in range(calls)]
+    linear_gelu_backward = {
+        "name": "linear_gelu_bf16_bwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/linear_gelu_bf16_bwd.cu",
+        "replaces": "ufm_tpu/ops/gelu.py:106",
+        "replaces_also": "ufm_tpu/nn/layers.py:39",
+        "replaces_note": "jax.vjp of fast_exact_gelu inside Mlp's backward (XLA code, no pallas_call), with fc2's "
+                         "input-gradient product (a bf16 nn.Dense transpose) before it: the pair as one kernel",
+        "launches": sum(FUSED_BWD_LAUNCHES.values()),
+        "launches_by_path": dict(FUSED_BWD_LAUNCHES),
+        "op": "ufm_torch::linear_gelu_bf16_bwd",
+        "max_abs_err": lg_bwd_err,
+        "ms": sum(r["ms"] for r in lg_bwd_step),
+        "plain_ms": sum(r["plain_ms"] for r in lg_bwd_step),
+        "bound_ms": sum(r["bound_ms"] for r in lg_bwd_step),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in lg_bwd_step) else "bytes",
+        "library_ms": None,
+        "library_none": "no single PyTorch call computes a product followed by the GELU's gradient",
+        "library_pair_ms": sum(r["library_pair_ms"] for r in lg_bwd_step),
+        "library_pair": "g.mm(w2) then aten.gelu_backward(dy, h, approximate='none') (cuBLAS, then the exact "
+                        "derivative rounded once: not the JAX package's bits)",
+        "parent_pair_ms": sum(r["parent_pair_ms"] for r in lg_bwd_step),
+        "parent_pair": "g.mm(w2) then ufm_torch::gelu_bf16_bwd, the two kernels this one replaces on the parent's "
+                       "main path",
+        "cublas_mm_ms": sum(r["cublas_mm_ms"] for r in lg_bwd_step),
+        "issue_floor_ms": sum(r["issue_floor_ms"] for r in lg_bwd_step),
+        "serial_ms": sum(r["serial_ms"] for r in lg_bwd_step),
+        "rr3_ms": sum(r["rr3_ms"] for r in lg_bwd_step),
+        "per_step": "times sum the 24 encoder and 12 info-sharing MLPs of one batch-2 train step",
+        "ms_by_case": {n: r["ms"] for n, r in lg_bwd_rows.items()},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in lg_bwd_rows.items()},
+        "parent_pair_ms_by_case": {n: r["parent_pair_ms"] for n, r in lg_bwd_rows.items()},
+        "host_us_per_launch": lg_bwd_host_us,
+    }
     # one batch-1 forward of UFM-Base in fp32: each number sums its 36 calls
     any_fwd = [any_rows[n] for n, *_, calls in ANY_ATTN_CASES for _ in range(calls)]
     any_by_path = {"fp32_anchor": anchor_launches["flash_attention_fwd_any"], "ufm_infer_tiny_real224": entry_launches,
@@ -5379,7 +5668,7 @@ def run_phases(smi: str) -> int:
     }
     print(smi)
     kernels = [with_recorded_paths(k) for k in (attention, backward, window, window_bwd, gelu, linear_gelu,
-                                                attention_any, backward_any, gelu_backward)]
+                                                attention_any, backward_any, gelu_backward, linear_gelu_backward)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -435,7 +435,9 @@ def test_port_gradients_match_the_jax_module(kind):
     want_dx, want = _jax_grads(jmod, params, x, dy)
     with _OpCalls() as calls:
         got_dx, got = _port_grads(port, x, dy)
-    assert calls.calls == {library.linear_gelu_bf16_preact: 1, library.gelu_bf16: 0, library.gelu_bf16_bwd: 1}
+    # the MLP's gradient through the GELU gradient in fc2's input-gradient epilogue
+    assert calls.calls == {library.linear_gelu_bf16_preact: 1, library.gelu_bf16: 0, library.gelu_bf16_bwd: 0,
+                           library.linear_gelu_bf16_bwd: 1}
     assert _rel(got_dx, want_dx) <= JAX_GRAD_REL_L2
     want = jax_params_to_state_dict(want)  # the port's names and layouts
     assert set(got) == set(want)
@@ -448,7 +450,7 @@ class _OpCalls(TorchDispatchMode):
     """Counts executions of the MLP's ops below autograd (a kept output read
     back by a checkpointing policy is no execution)."""
 
-    OPS = (library.gelu_bf16, library.linear_gelu_bf16_preact, library.gelu_bf16_bwd)
+    OPS = (library.gelu_bf16, library.linear_gelu_bf16_preact, library.gelu_bf16_bwd, library.linear_gelu_bf16_bwd)
 
     def __init__(self):
         super().__init__()
@@ -481,15 +483,18 @@ def test_remat_policy_values_are_no_remat_bitwise(remat_net, policy):
     """A tiny bf16 UFMNet's loss and gradients under each remat policy are
     no remat's bit for bit (no remat runs the fused op, remat the two ops,
     whose CPU implementations give the same bits). No remat launches the
-    fused op once a layer; under remat the standalone GELU runs once a layer
-    and again in the backward unless the policy keeps its output; the GELU's
-    gradient op runs once a layer either way."""
+    fused op once a layer and the fused gradient (fc2's input gradient with
+    the GELU's gradient) once a layer; under remat the standalone GELU runs
+    once a layer and again in the backward unless the policy keeps its
+    output, and the GELU's gradient op once a layer."""
     grads, (loss0, g0, calls0) = remat_net
     layers = 4  # 2 encoder and 2 info-sharing blocks
-    assert calls0 == {library.gelu_bf16: 0, library.linear_gelu_bf16_preact: layers, library.gelu_bf16_bwd: layers}
+    assert calls0 == {library.gelu_bf16: 0, library.linear_gelu_bf16_preact: layers, library.gelu_bf16_bwd: 0,
+                      library.linear_gelu_bf16_bwd: layers}
     loss, g, calls = grads(train_remat=True, train_remat_policy=None if policy == "full" else policy)
     runs = layers if policy == "everything_saveable" else 2 * layers
-    assert calls == {library.gelu_bf16: runs, library.linear_gelu_bf16_preact: 0, library.gelu_bf16_bwd: layers}
+    assert calls == {library.gelu_bf16: runs, library.linear_gelu_bf16_preact: 0, library.gelu_bf16_bwd: layers,
+                     library.linear_gelu_bf16_bwd: 0}
     assert torch.equal(loss, loss0)
     assert set(g) == set(g0)
     for n in g0:

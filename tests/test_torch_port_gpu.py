@@ -997,8 +997,8 @@ def test_refine_served_at_lane_width_two(cuda):
 def test_flow_only_train_step_on_the_card(cuda):
     """A small bf16 UniFlowMatch (``has_uncertainty_head=False``): one train
     step launches 4 attention forwards, 4 backward calls, 4 fused fc1 + GELU
-    and 4 GELU gradient kernels and nothing else; its metrics are the flow
-    loss, the EPE and the total."""
+    and 4 fused fc2 input-gradient + GELU gradient kernels and nothing else;
+    its metrics are the flow loss, the EPE and the total."""
     from ufm_torch.models import UniFlowMatch
     from ufm_torch.ops import launches as counters
 
@@ -1010,7 +1010,7 @@ def test_flow_only_train_step_on_the_card(cuda):
     metrics = step(batch)
     torch.cuda.synchronize()
     assert {k: v for k, v in counters.since(before).items() if v} == {
-        "flash_attention_fwd": 4, "flash_attention_bwd": 4, "linear_gelu_bf16_fwd": 4, "gelu_bf16_bwd": 4}
+        "flash_attention_fwd": 4, "flash_attention_bwd": 4, "linear_gelu_bf16_fwd": 4, "linear_gelu_bf16_bwd": 4}
     assert set(metrics) == {"flow_loss", "epe", "total_loss"}
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -1405,17 +1405,18 @@ def test_fused_op_trains_on_the_card(cuda, m, k, n):
 
 def test_small_model_train_step_takes_the_fused_op(cuda):
     """A small bf16 UFM-Base train step without remat: every MLP through the
-    fused fc1 + GELU kernel (writing h) and the gradient kernel, no
-    standalone GELU launch; finite metrics."""
+    fused fc1 + GELU kernel (writing h) and the fused fc2 input-gradient +
+    GELU gradient kernel, no standalone GELU or GELU gradient launch; finite
+    metrics."""
     model = UniFlowMatchConfidence.from_config(_small_config(), seed=0)
     step = make_train_step(model.net, make_optimizer(model.net, warmup_steps=0, total_steps=10))
     batch = synthetic_batch(2, 42, 56, seed=0, device=cuda)
-    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, ge.BWD_LAUNCHES)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES, ge.LAUNCHES, lg.LAUNCHES, ge.BWD_LAUNCHES, lg.BWD_LAUNCHES)
     metrics = step(batch)
     torch.cuda.synchronize()
     got = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1], ge.LAUNCHES - before[2], lg.LAUNCHES - before[3],
-           ge.BWD_LAUNCHES - before[4])
-    assert got == (4, 4, 0, 4, 4)
+           ge.BWD_LAUNCHES - before[4], lg.BWD_LAUNCHES - before[5])
+    assert got == (4, 4, 0, 4, 0, 4)
     assert all(torch.isfinite(v) for v in metrics.values())
 
 
@@ -1724,3 +1725,102 @@ def test_mma_backward_recomputes_the_forwards_row_statistics(cuda, dtype, shape)
     _, _, dv = fa.flash_attention_backward(q, k, v, out, lse, g, scale)
     want = g.double().sum(1)
     assert (dv.double().sum(1) - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---- fc2's input gradient with the GELU gradient as its epilogue ----------------
+
+
+def _linear_gelu_bwd_inputs(device, m, n2, n, seed=0, h_scale=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn(m, n2, generator=gen, device=device).to(torch.bfloat16)
+    w2 = (torch.randn(n2, n, generator=gen, device=device) * n2**-0.5).to(torch.bfloat16)
+    h = (torch.randn(m, n, generator=gen, device=device) * h_scale).to(torch.bfloat16)
+    return g, w2, h
+
+
+@pytest.mark.parametrize("schedule", list(lg.BWD_SCHEDULES))
+@pytest.mark.parametrize("m,n2,n", [(1, 64, 128), (7, 48, 200), (129, 1024, 4096), (300, 200, 136),
+                                    (4804, 1024, 4096), (4800, 768, 3072)])
+def test_linear_gelu_backward_kernel_against_plain(cuda, schedule, m, n2, n):
+    """The fused kernel at the train step's MLP shapes and at M, N2 and N
+    tails: dh is bit for bit the plain VJP (and the standalone gradient
+    kernel) of the kernel's own dy (the check instance's dy_out); dy is
+    within one bf16 ulp of the exact product on all but 0.1% of the
+    elements."""
+    g, w2, h = _linear_gelu_bwd_inputs(cuda, m, n2, n, seed=m + n, h_scale=3.0)
+    dy = torch.empty(m, n, dtype=torch.bfloat16, device=cuda)
+    before = lg.BWD_LAUNCHES
+    dh = lg.launch_backward(g, w2, h, dy_out=dy, schedule=schedule)
+    torch.cuda.synchronize()
+    assert lg.BWD_LAUNCHES - before == 1
+    assert not _differ(dh, ge.fast_exact_gelu_vjp_reference(h, dy)).any()
+    assert not _differ(dh, ge.gelu_bf16_bwd(dy, h)).any()
+    assert torch.equal(_bits(lg.launch_backward(g, w2, h, schedule=schedule)), _bits(dh))
+    exact = g.double() @ w2.double()
+    ulps = (_ordered(dy) - _ordered(exact.to(torch.bfloat16))).abs()
+    assert (ulps <= 1).double().mean().item() >= 0.999
+
+
+def test_linear_gelu_backward_kernel_on_every_bf16_h(cuda):
+    """Every bf16 bit pattern as h, under small, unit and large cotangents:
+    bit for bit the plain VJP of the kernel's dy (NaN equal to NaN)."""
+    h = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).reshape(128, 512).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for scale in (1e-3, 1.0, 30.0):
+        g = (torch.randn(128, 64, generator=gen, device=cuda) * scale).to(torch.bfloat16)
+        w2 = (torch.randn(64, 512, generator=gen, device=cuda) / 8).to(torch.bfloat16)
+        dy = torch.empty(128, 512, dtype=torch.bfloat16, device=cuda)
+        dh = lg.launch_backward(g, w2, h, dy_out=dy)
+        assert not _differ(dh, ge.fast_exact_gelu_vjp_reference(h, dy)).any()
+
+
+def test_linear_gelu_backward_kernel_refusals(cuda):
+    """Rows off the tile and 3-D operands are taken; fp32, N or N2 off a
+    multiple of 8, a misaligned or non-contiguous w2 and CPU tensors are
+    refused without a launch."""
+    g, w2, h = _linear_gelu_bwd_inputs(cuda, 3 * 43, 32, 128, seed=2)
+    got = lg.linear_gelu_bf16_bwd(g.view(3, 43, 32), w2, h.view(3, 43, 128))
+    assert got.shape == (3, 43, 128)
+    assert torch.equal(_bits(got.view(-1, 128)), _bits(lg.launch_backward(g, w2, h)))
+    before = lg.BWD_LAUNCHES
+    base = torch.zeros(32 * 128 + 8, dtype=torch.bfloat16, device=cuda)
+    bad = [(g.float(), w2, h), (g[:, :30], w2[:30, :], h), (g, w2[:, :100], h[:, :100]),
+           (g, base[1:1 + 32 * 128].view(32, 128), h), (g, w2.t().contiguous().t(), h), (g.cpu(), w2.cpu(), h.cpu())]
+    for args in bad:
+        with pytest.raises(ValueError):
+            lg.launch_backward(*args)
+    assert lg.BWD_LAUNCHES == before
+
+
+def test_mlp_gradients_through_the_fused_backward_on_the_card(cuda):
+    """A bf16 MLP at the encoder's widths: one fused gradient launch and no
+    standalone one; the five gradients against the two-node route's (cuBLAS
+    dy, then the standalone gradient) within 4e-3 relative L2, and bit for
+    bit where the kernel's dy equals cuBLAS's."""
+    from ufm_torch.nn.layers import Mlp
+
+    torch.manual_seed(0)
+    mlp = Mlp(1024, 4096).to(cuda, torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 601, 1024, generator=gen, device=cuda).to(torch.bfloat16)
+    dy = torch.randn(2, 601, 1024, generator=gen, device=cuda).to(torch.bfloat16)
+
+    def grads(fused):
+        xt = x.clone().requires_grad_(True)
+        mlp.zero_grad(set_to_none=True)
+        before = (lg.BWD_LAUNCHES, ge.BWD_LAUNCHES)
+        if fused:
+            mlp(xt).backward(dy)
+        else:
+            mlp.fc2(lg.linear_gelu_bf16(xt, mlp.fc1.weight, mlp.fc1.bias)).backward(dy)
+        torch.cuda.synchronize()
+        launched = (lg.BWD_LAUNCHES - before[0], ge.BWD_LAUNCHES - before[1])
+        return [xt.grad] + [p.grad for p in mlp.parameters()], launched
+
+    got, launched = grads(True)
+    assert launched == (1, 0)
+    want, launched = grads(False)
+    assert launched == (0, 1)
+    for a, b in zip(got, want):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 4e-3, rel

@@ -431,9 +431,16 @@ def _refused():
 
 @pytest.mark.parametrize("feature", REFUSED)
 def test_refused_features_raise_naming_them(built, feature):
+    """A refused feature raises naming the file and the feature. The two
+    lossless entries are baseline streams relabelled SOF3 / SOF11: lossless
+    files now decode where cv2 decodes them (test_torch_port_jpeg_lossless.py),
+    so these get cv2.imdecode's answer on the same bytes, which is None (a
+    JFIF YCbCr lossless file; arithmetic lossless)."""
     from ufm_torch.utils.image_io import decode_rgb
 
     data, words = _refused()[feature]
+    if feature.startswith("lossless"):
+        assert _cv2_rgb(data) is None
     with pytest.raises(ValueError, match=f"request.jpg: .*{words}"):
         decode_rgb(data, name="request.jpg")
 

@@ -315,6 +315,8 @@ def test_half_a_progressive_file_decodes_as_libjpeg_and_cv2_imread(built, tmp_pa
 @pytest.mark.parametrize("marker,words", [(0xCB, "lossless"), (0xCD, "hierarchical"), (0xCE, "hierarchical"),
                                           (0xCF, "hierarchical")], ids=["SOF11", "SOF13", "SOF14", "SOF15"])
 def test_lossless_and_hierarchical_arithmetic_are_refused(built, tmp_path, marker, words):
+    """SOF11 (arithmetic lossless) as cv2 answers it, None, and the loader as
+    the JAX package's; the hierarchical markers refused as before."""
     from ufm_torch.utils.image_io import decode_rgb
 
     data = bytearray(_case("a420_seq_dac.jpg"))

@@ -1,7 +1,9 @@
-// The JAX package's bf16 exact GELU as device functions, shared by the
-// standalone kernel (gelu_bf16_fwd.cu) and the epilogue of the MLP's fc1
-// product (linear_gelu_bf16_fwd.cu), so the two give the same bits, and its
-// constants and flush rules, shared with the gradient (gelu_bf16_bwd.cu):
+// The JAX package's bf16 exact GELU and its gradient as device functions.
+// The GELU is shared by the standalone kernel (gelu_bf16_fwd.cu) and the
+// epilogue of the MLP's fc1 product (linear_gelu_bf16_fwd.cu), the gradient
+// by the standalone gradient kernel (gelu_bf16_bwd.cu) and the epilogue of
+// fc2's input-gradient product (linear_gelu_bf16_bwd.cu), so each pair gives
+// the same bits. The forward:
 //
 //   y = bf16(bf16(0.5 x) * bf16(erfc(bf16(-x * bf16(sqrt(0.5))))))
 //
@@ -144,6 +146,203 @@ __device__ __forceinline__ uint32_t gelu_table_lookup(uint32_t u, const uint16_t
   // |x| >= 16: x itself, or -0 below -16; -inf gives NaN (-inf * 0), NaN itself
   const uint32_t big = neg == 0 ? u : (e == 0xFFu ? ((u & 0x7Fu) != 0 ? u : 0x7FFFu) : 0x8000u);
   return e < kTableExpLo ? half : (e >= kTableExpHi ? big : y);
+}
+
+// ---- the gradient: the JAX package's VJP of the chain above, bit for bit
+// (gelu_bf16_bwd.cu's header says how), shared by the standalone gradient
+// kernel (gelu_bf16_bwd.cu) and the epilogue of fc2's input-gradient product
+// (linear_gelu_bf16_bwd.cu). gelu_grad(g, x) is the entry: the bf16 cotangent
+// g at the bf16 input x, bf16 out.
+
+// dx_h = bf16(0.5 bf16(g e)): 0.5 x's share of the gradient
+__device__ __forceinline__ float half_share(float g, float e) {
+  return round_bf16(mul_ftz(round_bf16(mul_ftz(g, e)), 0.5f));
+}
+
+// dx = bf16(dx_h - bf16(bf16(d_t) c)): t = -x c's share added
+__device__ __forceinline__ __nv_bfloat16 finish(float dx_h, float d_t) {
+  const float dx_t = -round_bf16(mul_ftz(round_bf16(d_t), kSqrtHalfBf16));
+  return __float2bfloat16_rn(add_ftz(dx_h, dx_t));
+}
+
+// The tail (t > 2.046875): erfc = exp(-u) inv Q(inv), inv = u^-1/2. Out of
+// line: ~0.2% of a normal pre-activation takes it, and inlined, its fp64 exp
+// and division would be copied into each of the eight unrolled elements.
+static __device__ __noinline__ __nv_bfloat16 tail_grad(float g, float h, float ta, float tc, float u) {
+  const double ud = static_cast<double>(u);
+  const float ex = flush(__double2float_rn(exp(-ud)));
+  const float inv = __double2float_rn(__ddiv_rn(1.0, __dsqrt_rn(ud)));
+  const float ex_inv = mul_ftz(ex, inv);
+  float hq[6];
+  hq[0] = kTail[5];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) hq[k] = fma_ftz(hq[k - 1], inv, kTail[5 - k]);
+  const float q = hq[5];
+  const float dx_h = half_share(g, round_bf16(mul_ftz(ex_inv, q)));
+  const float g_e = mul_ftz(h, g);
+  const float g_ex_inv = mul_ftz(g_e, q);
+  float g_q = mul_ftz(ex_inv, g_e);
+  float g_inv = fma_ftz(ex, g_ex_inv, mul_ftz(hq[4], g_q));
+#pragma unroll
+  for (int k = 1; k < 5; ++k) {
+    g_q = mul_ftz(g_q, inv);
+    g_inv = fma_ftz(hq[4 - k], g_q, g_inv);
+  }
+  const float d_exp = mul_ftz(mul_ftz(mul_ftz(g_ex_inv, inv), kLn2), ex);
+  float g_u = fma_ftz(-d_exp, kLog2e, mul_ftz(g_inv, mul_ftz(div_ftz(inv, u), -0.5f)));
+  if (g_u == 0.0f && signbit(g_u)) {
+    // the main branch's zeros: -0 where P's partial is positive, +0 where negative
+    float hp = kMain[8];
+    bool negative = false;
+#pragma unroll
+    for (int k = 1; k < 8; ++k) {
+      hp = fma_ftz(hp, u, kMain[8 - k]);
+      negative |= hp < 0.0f;
+    }
+    if (negative) g_u = 0.0f;
+  }
+  const float g_tc = mul_ftz(tc, g_u);
+  // min(|t|, 32)'s cotangent: whole below 32, half at the tie, none above
+  const float clamp_share = ta < kClamp ? 1.0f : (ta == kClamp ? 0.5f : 0.0f);
+  return finish(dx_h, mul_ftz(add_ftz(g_tc, g_tc), clamp_share));
+}
+
+// v_e rounded to bf16 for each e, two values a conversion where kN is even
+template <int kN>
+__device__ __forceinline__ void round_bf16_n(float (&v)[kN]) {
+  if constexpr (kN % 2 == 0) {
+#pragma unroll
+    for (int e = 0; e < kN; e += 2) {
+      __nv_bfloat162 r = __floats2bfloat162_rn(v[e], v[e + 1]);
+      const uint32_t u = *reinterpret_cast<uint32_t*>(&r);
+      v[e] = __uint_as_float(u << 16);
+      v[e + 1] = __uint_as_float(u & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) v[e] = round_bf16(v[e]);
+  }
+}
+
+// The main branch (|t| <= 2.046875, finite x), erfc = 1 - t P(u), for kN
+// elements: dx before its last rounding to bf16. Each step runs across the
+// kN elements, so that independent instructions sit side by side and a
+// single warp keeps issuing (no branch: an element off the main branch
+// gets a value its caller throws away).
+template <int kN>
+__device__ __forceinline__ void gelu_grad_main(const float (&g)[kN], const float (&x)[kN], float (&dx)[kN]) {
+  float t[kN], h[kN], tc[kN], u[kN], a[kN], b[kN];
+  float hp[9][kN];  // P's Horner partials, the top first (hp[0] = kMain[8])
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    t[e] = mul_ftz(-x[e], kSqrtHalfBf16);
+    h[e] = mul_ftz(x[e], 0.5f);
+    tc[e] = fminf(fabsf(t[e]), kClamp);
+    u[e] = mul_ftz(tc[e], tc[e]);
+    hp[0][e] = kMain[8];
+  }
+  round_bf16_n(h);
+#pragma unroll
+  for (int k = 1; k < 9; ++k) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) hp[k][e] = fma_ftz(hp[k - 1][e], u[e], kMain[8 - k]);
+  }
+  // dx_h = bf16(0.5 bf16(g e)), e = bf16(1 - t p): 0.5 x's share (in a)
+#pragma unroll
+  for (int e = 0; e < kN; ++e) a[e] = fma_ftz(-t[e], hp[8][e], 1.0f);
+  round_bf16_n(a);
+#pragma unroll
+  for (int e = 0; e < kN; ++e) a[e] = mul_ftz(g[e], a[e]);
+  round_bf16_n(a);
+#pragma unroll
+  for (int e = 0; e < kN; ++e) a[e] = mul_ftz(a[e], 0.5f);
+  round_bf16_n(a);
+  // the transposed chain: g_p = -h g (the cotangent of t P), then P's Horner
+  // steps transposed into g_u (in b), g_t (in h)
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    const float g_p = -mul_ftz(h[e], g[e]);
+    dx[e] = g_p;
+    h[e] = mul_ftz(t[e], g_p);
+    b[e] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      b[e] = fma_ftz(hp[7 - k][e], h[e], b[e]);
+      h[e] = mul_ftz(h[e], u[e]);
+    }
+  }
+  // d_t = g_p p + g_ta's share by t's sign (|t| < 32: the clamp passes g_ta
+  // whole), then dx = bf16(dx_h - bf16(bf16(d_t) c)) before its rounding
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    const float g_tc = mul_ftz(tc[e], b[e]);
+    const float g_ta = add_ftz(g_tc, g_tc);
+    const bool nonneg = t[e] >= 0.0f;
+    b[e] = add_ftz(fma_ftz(dx[e], hp[8][e], nonneg ? g_ta : 0.0f), nonneg ? -0.0f : -g_ta);
+  }
+  round_bf16_n(b);
+#pragma unroll
+  for (int e = 0; e < kN; ++e) b[e] = mul_ftz(b[e], kSqrtHalfBf16);
+  round_bf16_n(b);
+#pragma unroll
+  for (int e = 0; e < kN; ++e) dx[e] = add_ftz(a[e], -b[e]);
+}
+
+// Whether gelu_grad leaves the main branch for x: the tail, the saturated
+// side or an infinite x (a NaN x stays on it).
+__device__ __forceinline__ bool gelu_grad_off_main(float x) { return fabsf(mul_ftz(-x, kSqrtHalfBf16)) > kSat; }
+
+__device__ __forceinline__ __nv_bfloat16 gelu_grad(__nv_bfloat16 gb, __nv_bfloat16 xb) {
+  const float x = __bfloat162float(xb);
+  const float g = __bfloat162float(gb);
+  const float nan = __int_as_float(0x7fc00000);
+  const float t = mul_ftz(-x, kSqrtHalfBf16);  // NaN x: NaN through the main branch
+  if (t <= -kSat)  // e = 2, no cotangent reaches t (x = +inf: inf * 0 in the chain)
+    return __float2bfloat16_rn(isinf(x) ? nan : half_share(g, 2.0f));
+  if (t > kSat) {
+    const float ta = fabsf(t);
+    const float tc = fminf(ta, kClamp);
+    return isinf(x) ? __float2bfloat16_rn(nan) : tail_grad(g, round_bf16(mul_ftz(x, 0.5f)), ta, tc, mul_ftz(tc, tc));
+  }
+  float gv[1] = {g}, xv[1] = {x}, dx[1];
+  gelu_grad_main(gv, xv, dx);
+  return __float2bfloat16_rn(dx[0]);
+}
+
+// gelu_grad of 8 elements (one 16-byte vector each of g and x; g's
+// replaced by the result), kN at a time, without a branch: the main
+// branch's chains straight-line for all of them (gelu_grad_main). Returns
+// the mask of the elements off the main branch (bit e), whose results are
+// still to be computed by gelu_grad (~0.4% of a normal pre-activation), so
+// that a caller can gather them and run them together. An epilogue with
+// one warp a scheduler needs the chains' parallelism to keep issuing.
+template <int kN>
+__device__ __forceinline__ uint32_t gelu_grad8(uint4& gv, const uint4& xv) {
+  static_assert(8 % kN == 0 && kN % 2 == 0, "kN divides the vector, in pairs");
+  uint32_t* gw = reinterpret_cast<uint32_t*>(&gv);
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv);
+  uint32_t off = 0;
+#pragma unroll
+  for (int e0 = 0; e0 < 8; e0 += kN) {
+    float g[kN], x[kN], dx[kN];
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const uint32_t gb = gw[(e0 + e) / 2], xb = xw[(e0 + e) / 2];
+      g[e] = __uint_as_float((e % 2) ? (gb & 0xFFFF0000u) : (gb << 16));
+      x[e] = __uint_as_float((e % 2) ? (xb & 0xFFFF0000u) : (xb << 16));
+      off |= static_cast<uint32_t>(gelu_grad_off_main(x[e])) << (e0 + e);
+    }
+    gelu_grad_main(g, x, dx);
+#pragma unroll
+    for (int e = 0; e < kN; e += 2) {
+      __nv_bfloat162 r = __floats2bfloat162_rn(dx[e], dx[e + 1]);
+      gw[(e0 + e) / 2] = *reinterpret_cast<uint32_t*>(&r);
+    }
+  }
+  return off;
 }
 
 }  // namespace ufm

@@ -69,102 +69,11 @@
 
 namespace {
 
-using ufm::add_ftz;
-using ufm::div_ftz;
-using ufm::fma_ftz;
-using ufm::mul_ftz;
-using ufm::round_bf16;
+using ufm::gelu_grad;
 
 constexpr int kThreads = 256;
 constexpr int kVec = 8;  // bf16 elements in a 16-byte vector
 constexpr int kMaxDevices = 64;
-
-// dx_h = bf16(0.5 bf16(g e)): 0.5 x's share of the gradient
-__device__ __forceinline__ float half_share(float g, float e) {
-  return round_bf16(mul_ftz(round_bf16(mul_ftz(g, e)), 0.5f));
-}
-
-// dx = bf16(dx_h - bf16(bf16(d_t) c)): t = -x c's share added
-__device__ __forceinline__ __nv_bfloat16 finish(float dx_h, float d_t) {
-  const float dx_t = -round_bf16(mul_ftz(round_bf16(d_t), ufm::kSqrtHalfBf16));
-  return __float2bfloat16_rn(add_ftz(dx_h, dx_t));
-}
-
-// The tail (t > 2.046875): erfc = exp(-u) inv Q(inv), inv = u^-1/2. Out of
-// line: ~0.2% of a normal pre-activation takes it, and inlined, its fp64 exp
-// and division would be copied into each of the eight unrolled elements.
-__device__ __noinline__ __nv_bfloat16 tail_grad(float g, float h, float ta, float tc, float u) {
-  const double ud = static_cast<double>(u);
-  const float ex = ufm::flush(__double2float_rn(exp(-ud)));
-  const float inv = __double2float_rn(__ddiv_rn(1.0, __dsqrt_rn(ud)));
-  const float ex_inv = mul_ftz(ex, inv);
-  float hq[6];
-  hq[0] = ufm::kTail[5];
-#pragma unroll
-  for (int k = 1; k < 6; ++k) hq[k] = fma_ftz(hq[k - 1], inv, ufm::kTail[5 - k]);
-  const float q = hq[5];
-  const float dx_h = half_share(g, round_bf16(mul_ftz(ex_inv, q)));
-  const float g_e = mul_ftz(h, g);
-  const float g_ex_inv = mul_ftz(g_e, q);
-  float g_q = mul_ftz(ex_inv, g_e);
-  float g_inv = fma_ftz(ex, g_ex_inv, mul_ftz(hq[4], g_q));
-#pragma unroll
-  for (int k = 1; k < 5; ++k) {
-    g_q = mul_ftz(g_q, inv);
-    g_inv = fma_ftz(hq[4 - k], g_q, g_inv);
-  }
-  const float d_exp = mul_ftz(mul_ftz(mul_ftz(g_ex_inv, inv), ufm::kLn2), ex);
-  float g_u = fma_ftz(-d_exp, ufm::kLog2e, mul_ftz(g_inv, mul_ftz(div_ftz(inv, u), -0.5f)));
-  if (g_u == 0.0f && signbit(g_u)) {
-    // the main branch's zeros: -0 where P's partial is positive, +0 where negative
-    float hp = ufm::kMain[8];
-    bool negative = false;
-#pragma unroll
-    for (int k = 1; k < 8; ++k) {
-      hp = fma_ftz(hp, u, ufm::kMain[8 - k]);
-      negative |= hp < 0.0f;
-    }
-    if (negative) g_u = 0.0f;
-  }
-  const float g_tc = mul_ftz(tc, g_u);
-  // min(|t|, 32)'s cotangent: whole below 32, half at the tie, none above
-  const float clamp_share = ta < ufm::kClamp ? 1.0f : (ta == ufm::kClamp ? 0.5f : 0.0f);
-  return finish(dx_h, mul_ftz(add_ftz(g_tc, g_tc), clamp_share));
-}
-
-__device__ __forceinline__ __nv_bfloat16 gelu_grad(__nv_bfloat16 gb, __nv_bfloat16 xb) {
-  const float x = __bfloat162float(xb);
-  const float g = __bfloat162float(gb);
-  const float nan = __int_as_float(0x7fc00000);
-  const float t = mul_ftz(-x, ufm::kSqrtHalfBf16);  // NaN x: NaN through the main branch
-  if (t <= -ufm::kSat)  // e = 2, no cotangent reaches t (x = +inf: inf * 0 in the chain)
-    return __float2bfloat16_rn(isinf(x) ? nan : half_share(g, 2.0f));
-  const float h = round_bf16(mul_ftz(x, 0.5f));
-  const float ta = fabsf(t);
-  const float tc = fminf(ta, ufm::kClamp);
-  const float u = mul_ftz(tc, tc);
-  if (t > ufm::kSat) return isinf(x) ? __float2bfloat16_rn(nan) : tail_grad(g, h, ta, tc, u);
-  // main: erfc = 1 - t P(u); P's Horner partials, the top first
-  float hp[9];
-  hp[0] = ufm::kMain[8];
-#pragma unroll
-  for (int k = 1; k < 9; ++k) hp[k] = fma_ftz(hp[k - 1], u, ufm::kMain[8 - k]);
-  const float p = hp[8];
-  const float dx_h = half_share(g, round_bf16(fma_ftz(-t, p, 1.0f)));
-  const float g_p = -mul_ftz(h, g);  // the cotangent of P's product t P
-  float g_t = mul_ftz(t, g_p);
-  float g_u = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    g_u = fma_ftz(hp[7 - k], g_t, g_u);
-    g_t = mul_ftz(g_t, u);
-  }
-  const float g_tc = mul_ftz(tc, g_u);
-  const float g_ta = add_ftz(g_tc, g_tc);  // |t| < 32: the clamp passes it whole
-  const bool nonneg = t >= 0.0f;
-  const float d_t = add_ftz(fma_ftz(g_p, p, nonneg ? g_ta : 0.0f), nonneg ? -0.0f : -g_ta);
-  return finish(dx_h, d_t);
-}
 
 // kVector: g, x and dx 16-byte aligned, n / 8 vectors then n % 8 scalars;
 // otherwise n scalars.

@@ -20,7 +20,13 @@
 //                decodes the rest of its segment as zeros (libjpeg's
 //                warning, not an error); a progressive image whose scans
 //                leave any of coefficients 1-9 incomplete block-smoothed as
-//                jdcoefct.c's decompress_smooth_data smooths it.
+//                jdcoefct.c's decompress_smooth_data smooths it; for the
+//                OpenCV targets, Huffman lossless files (SOF3) as
+//                libjpeg-turbo 3.1's jdlossls.c / jddiffct.c / jdlhuff.c
+//                decode them (predictors 1-7, the point transform, restart
+//                intervals that reset the predictor, any scan layout,
+//                replicated upsampling, no colour transform: YCbCr, YCCK and
+//                gray refused as OpenCV's libjpeg refuses them).
 //                Three targets: kRgb (libjpeg-turbo 2.1 read from a file,
 //                out_color_space = JCS_RGB: CMYK / YCCK refused), kOpenCvFile
 //                (cv2.imread with IMREAD_COLOR, in RGB order: CMYK / YCCK
@@ -29,8 +35,9 @@
 //                after a single-scan image's scan) and kOpenCv (cv2.imdecode
 //                of a buffer: the same, and data that ends before libjpeg is
 //                done with it, which a buffer cannot refill, is refused).
-//                Refused with an error that names the feature: lossless,
-//                hierarchical and 12-bit files.
+//                Refused with an error that names the feature: lossless
+//                files for kRgb (libjpeg-turbo 2.1 has no lossless mode),
+//                arithmetic lossless (SOF11), hierarchical and 12-bit files.
 //
 // Every function is reentrant: no mutable static state (the tables below are
 // constant), so the loader runs them on a thread pool.
@@ -632,7 +639,7 @@ struct Derived {
   const uint8_t* vals;
 };
 
-inline std::string derive(const HuffTable& t, bool dc, Derived* d) {
+inline std::string derive(const HuffTable& t, bool dc, Derived* d, int dc_max = 15) {
   if (!t.defined) return "JPEG scan uses an undefined Huffman table";
   char size[257];
   int p = 0;
@@ -674,7 +681,7 @@ inline std::string derive(const HuffTable& t, bool dc, Derived* d) {
   }
   if (dc)
     for (int i = 0; i < nsym; i++)
-      if (t.vals[i] > 15) return "bad JPEG Huffman table (DC symbol above 15)";
+      if (t.vals[i] > dc_max) return "bad JPEG Huffman table (DC symbol above " + std::to_string(dc_max) + ")";
   d->vals = t.vals;
   return "";
 }
@@ -787,6 +794,7 @@ struct Component {
   int bw = 0, bh = 0;              // blocks covering them
   int bw_alloc = 0, bh_alloc = 0;  // padded to whole MCUs
   std::vector<int16_t> coef;       // bh_alloc * bw_alloc blocks of 64, natural order
+  std::vector<uint8_t> samples;    // a lossless file's dh rows of dw samples
   uint16_t q[64] = {0};            // latched at the component's first scan
   bool latched = false;
   int coef_bits[64];               // progressive: Al of the last scan per coefficient, -1 before any
@@ -970,8 +978,11 @@ class Decoder {
       std::string err;
       if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
         err = read_sof(m == 0xC2 || m == 0xCA, m >= 0xC9);
-      } else if (m == 0xC3 || m == 0xCB) {
-        return "lossless JPEG (SOF3, SOF11) is not supported";
+      } else if (m == 0xC3) {
+        if (target_ == JpegTarget::kRgb) return "lossless JPEG (SOF3) is not supported by libjpeg-turbo 2.1";
+        err = read_sof(false, false, true);
+      } else if (m == 0xCB) {
+        return "arithmetic-coded lossless JPEG (SOF11) is not supported (libjpeg-turbo has no such decoder)";
       } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF || m == 0xDE ||
                  m == 0xDF) {
         return "hierarchical JPEG (SOF5-7, SOF13-15, DHP, EXP markers) is not supported";
@@ -1007,11 +1018,12 @@ class Decoder {
     }
   }
 
-  std::string read_sof(bool progressive, bool arith) {
+  std::string read_sof(bool progressive, bool arith, bool lossless = false) {
     if (saw_sof_) return "JPEG file with two SOF markers";
     saw_sof_ = true;
     progressive_ = progressive;
     arith_ = arith;
+    lossless_ = lossless;
     const int len = src_.u16();
     const int precision = src_.byte();
     height_ = src_.u16();
@@ -1038,13 +1050,14 @@ class Decoder {
       hmax_ = std::max(hmax_, c.h);
       vmax_ = std::max(vmax_, c.v);
     }
-    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    const int bs = lossless ? 1 : 8;  // a block's side: 8 samples, one in a lossless file
+    mcux_ = (width_ + bs * hmax_ - 1) / (bs * hmax_);
+    mcuy_ = (height_ + bs * vmax_ - 1) / (bs * vmax_);
     for (Component& c : comp_) {
       c.dw = (int)(((int64_t)width_ * c.h + hmax_ - 1) / hmax_);
       c.dh = (int)(((int64_t)height_ * c.v + vmax_ - 1) / vmax_);
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + bs - 1) / bs;
+      c.bh = (c.dh + bs - 1) / bs;
       c.bw_alloc = std::max(c.bw, mcux_ * c.h);
       c.bh_alloc = std::max(c.bh, mcuy_ * c.v);
     }
@@ -1165,7 +1178,9 @@ class Decoder {
     if (n == 1) {
       space_ = kGray;
     } else if (n == 3) {
-      if (saw_jfif_) {
+      if (lossless_ && !saw_jfif_ && !saw_adobe_) {
+        space_ = kRgbSpace;  // libjpeg-turbo 3's guess for lossless files, whatever the ids
+      } else if (saw_jfif_) {
         space_ = kYcc;
       } else if (saw_adobe_) {
         space_ = adobe_transform_ == 0 ? kRgbSpace : kYcc;
@@ -1182,6 +1197,11 @@ class Decoder {
     } else {
       return "JPEG file with " + std::to_string(n) + " components";
     }
+    // libjpeg-turbo 3 converts no colour in a lossless file: OpenCV's
+    // request (BGR from 1 or 3 components, CMYK from 4) then fails
+    if (lossless_ && space_ != kRgbSpace && space_ != kCmyk)
+      return space_ == kGray ? "grayscale lossless JPEG: libjpeg-turbo does not convert it to colour"
+                             : "lossless JPEG with a colour transform (YCbCr / YCCK): libjpeg-turbo does not convert it";
     return "";
   }
 
@@ -1241,6 +1261,7 @@ class Decoder {
       for (int i = 0; i < comps_in_scan_; i++) blocks += comp_[scan_[i]].h * comp_[scan_[i]].v;
       if (blocks > 10) return "bad JPEG MCU size";
     }
+    if (lossless_) return decode_lossless_scan();
     if (progressive_) {
       std::string err = start_progressive_scan();
       if (!err.empty()) return err;
@@ -1357,6 +1378,115 @@ class Decoder {
           insufficient = br.exhausted();
         }
         if (restart_interval_) restarts_to_go--;
+      }
+    }
+    return "";
+  }
+
+  // One lossless scan as libjpeg-turbo 3.1 decodes it (jddiffct.c's
+  // decompress_data, jdlhuff.c's decode_mcus, jdlossls.c's undifferencers
+  // and scaler): the MCU rows of each iMCU row are decoded into sample
+  // differences, then each component's rows of that iMCU row are
+  // undifferenced and shifted left by Pt. A restart, or a row entered after
+  // the data ran out (whose differences are zeros), puts every component
+  // back on its first-row rule (the first sample 2^(7 - Pt), then the one to
+  // its left); libjpeg applies that at the first row of the iMCU row it
+  // happens in. Sums wrap to 16 bits, a sample is their low 8 bits.
+  std::string decode_lossless_scan() {
+    if (ss_ < 1 || ss_ > 7 || se_ != 0 || ah_ != 0 || al_ >= 8)
+      return "bad JPEG lossless scan parameters (predictor, Se, Ah or Pt)";
+    const bool single = comps_in_scan_ == 1;
+    const Component& c0 = comp_[scan_[0]];
+    const int per_row = single ? c0.dw : mcux_;  // MCUs in an MCU row
+    if (restart_interval_ % per_row != 0) return "JPEG restart interval is not a whole number of MCU rows";
+    Derived tbl[4];
+    std::vector<std::vector<int>> diff(comps_in_scan_), prev(comps_in_scan_);
+    for (int i = 0; i < comps_in_scan_; i++) {
+      Component& c = comp_[scan_[i]];
+      if (c.dc_tbl > 3) return "bad JPEG Huffman table index";
+      const std::string err = derive(dc_[c.dc_tbl], true, &tbl[c.dc_tbl], 16);
+      if (!err.empty()) return err;
+      if (c.samples.empty()) c.samples.assign((size_t)c.dw * c.dh, 0);
+      diff[i].assign((size_t)c.v * (single ? c.dw : mcux_ * c.h), 0);  // the iMCU row's, MCU padding included
+      prev[i].assign(c.dw, 0);
+    }
+    bool first_row[10];  // jdlossls.c's start_pass: every component's predictor reset
+    std::fill(first_row, first_row + 10, true);
+    BitReader br{&src_, &marker_};
+    bool insufficient = false;  // the data ran out before this row (jdlhuff.c's insufficient_data)
+    int restart_rows_to_go = restart_interval_ / per_row;
+    auto sample_diff = [&](const Derived& t) {
+      const int s = br.decode(t);
+      return s == 16 ? 32768 : s ? extend(br.bits(s), s) : 0;
+    };
+    for (int iy = 0; iy < mcuy_; iy++) {
+      const bool last = iy == mcuy_ - 1;
+      auto rows_of = [&](const Component& c) { return last && c.dh % c.v ? c.dh % c.v : c.v; };
+      const int mcu_rows = single ? rows_of(c0) : 1;
+      for (int yo = 0; yo < mcu_rows; yo++) {
+        if (restart_interval_ && restart_rows_to_go == 0) {
+          read_restart_marker();
+          br.reset();
+          if (marker_ == 0) insufficient = false;
+          std::fill(first_row, first_row + 10, true);
+          restart_rows_to_go = restart_interval_ / per_row;
+        }
+        if (insufficient) {
+          for (int i = 0; i < comps_in_scan_; i++) {
+            const size_t width = diff[i].size() / comp_[scan_[i]].v;
+            std::fill(diff[i].begin() + (single ? yo * width : 0), diff[i].begin() + (single ? (yo + 1) * width : diff[i].size()), 0);
+          }
+          std::fill(first_row, first_row + 10, true);
+        } else if (single) {
+          int* d = diff[0].data() + (size_t)yo * c0.dw;
+          for (int x = 0; x < per_row; x++) d[x] = sample_diff(tbl[c0.dc_tbl]);
+          insufficient = br.exhausted();
+        } else {
+          for (int mx = 0; mx < per_row; mx++)
+            for (int i = 0; i < comps_in_scan_; i++) {
+              const Component& c = comp_[scan_[i]];
+              const size_t width = (size_t)mcux_ * c.h;
+              for (int yy = 0; yy < c.v; yy++)
+                for (int xx = 0; xx < c.h; xx++) diff[i][yy * width + (size_t)mx * c.h + xx] = sample_diff(tbl[c.dc_tbl]);
+            }
+          insufficient = br.exhausted();
+        }
+        if (restart_interval_) restart_rows_to_go--;
+      }
+      for (int i = 0; i < comps_in_scan_; i++) {
+        Component& c = comp_[scan_[i]];
+        const size_t width = diff[i].size() / c.v;
+        for (int r = 0; r < rows_of(c); r++) {
+          const int* d = diff[i].data() + r * width;
+          int* p = prev[i].data();  // the row above, overwritten by this row
+          int ra;
+          if (first_row[scan_[i]]) {
+            first_row[scan_[i]] = false;
+            ra = (d[0] + (1 << (7 - al_))) & 0xFFFF;
+            p[0] = ra;
+            for (int x = 1; x < c.dw; x++) p[x] = ra = (d[x] + ra) & 0xFFFF;
+          } else {
+            int rb = p[0], rc;
+            p[0] = ra = (d[0] + rb) & 0xFFFF;
+            for (int x = 1; x < c.dw; x++) {
+              rc = rb;
+              rb = p[x];
+              int pred;
+              switch (ss_) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+              }
+              p[x] = ra = (d[x] + pred) & 0xFFFF;
+            }
+          }
+          uint8_t* out = c.samples.data() + ((size_t)iy * c.v + r) * c.dw;
+          for (int x = 0; x < c.dw; x++) out[x] = (uint8_t)(p[x] << al_);
+        }
       }
     }
     return "";
@@ -1636,10 +1766,20 @@ class Decoder {
   std::string output(Image* img) {
     const int nc = (int)comp_.size();
     std::vector<std::unique_ptr<uint8_t[]>> planes(nc);  // every sample written by the IDCT
+    std::vector<const uint8_t*> plane_of(nc);
+    std::vector<size_t> stride_of(nc);
     for (int ci = 0; ci < nc; ci++) {
       Component& c = comp_[ci];
+      if (lossless_) {  // the decoded samples (zeros for a component no scan reached)
+        if (c.samples.empty()) c.samples.assign((size_t)c.dw * c.dh, 0);
+        plane_of[ci] = c.samples.data();
+        stride_of[ci] = (size_t)c.dw;
+        continue;
+      }
       const size_t stride = (size_t)c.bw * 8;
       planes[ci].reset(new uint8_t[stride * c.bh * 8]);
+      plane_of[ci] = planes[ci].get();
+      stride_of[ci] = stride;
       if (c.coef.empty()) c.coef.assign((size_t)c.bw_alloc * c.bh_alloc * 64, 0);  // never scanned: zeros
       if (smooth_) {
         smooth_idct(c, planes[ci].get(), stride);
@@ -1651,7 +1791,8 @@ class Decoder {
                      planes[ci].get() + (size_t)by * 8 * stride + (size_t)bx * 8, stride);
     }
     lap(1);
-    // jdsample.c's method per component
+    // jdsample.c's method per component (a lossless file's min_DCT_scaled_size
+    // of 1 turns fancy upsampling off: every ratio replicates)
     enum Method { kFull, kH2V1, kH1V2, kH2V2, kBox };
     std::vector<Method> method(nc);
     std::vector<int> hr(nc), vr(nc);
@@ -1670,6 +1811,7 @@ class Decoder {
         method[ci] = c.dw > 2 ? kH2V2 : kBox;
       else
         method[ci] = kBox;
+      if (lossless_ && method[ci] != kFull) method[ci] = kBox;
     }
     const int w = width_, h = height_;
     std::vector<std::vector<uint8_t>> rows(nc, std::vector<uint8_t>((size_t)w + 32));
@@ -1679,8 +1821,8 @@ class Decoder {
     for (int y = 0; y < h; y++) {
       for (int ci = 0; ci < nc; ci++) {
         const Component& c = comp_[ci];
-        const size_t stride = (size_t)c.bw * 8;
-        const uint8_t* plane = planes[ci].get();
+        const size_t stride = stride_of[ci];
+        const uint8_t* plane = plane_of[ci];
         uint8_t* out = rows[ci].data();
         const int dw = c.dw;
         switch (method[ci]) {
@@ -1826,8 +1968,8 @@ class Decoder {
   JpegTarget target_;
   Source src_{};
   int marker_ = 0;  // libjpeg's unread_marker
-  bool saw_sof_ = false, progressive_ = false, arith_ = false, saw_jfif_ = false, saw_adobe_ = false,
-       saw_app1_ = false;
+  bool saw_sof_ = false, progressive_ = false, arith_ = false, lossless_ = false, saw_jfif_ = false,
+       saw_adobe_ = false, saw_app1_ = false;
   bool smooth_ = false;  // output through smooth_idct
   jpeg_arith::Conditioning cond_;
   int scan_number_ = 0;     // libjpeg's input_scan_number

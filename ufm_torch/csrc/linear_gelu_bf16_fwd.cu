@@ -141,15 +141,6 @@ __device__ __forceinline__ uint4 gelu8(uint4 hv, const uint16_t* table) {
   return hv;
 }
 
-// 16 bytes to global memory where `ok`: a predicated store, no branch in the
-// unrolled store loop.
-__device__ __forceinline__ void store16_if(void* p, uint4 v, bool ok) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n@p st.global.v4.b32 [%0], {%1, %2, %3, %4};\n}\n" ::"l"(p),
-      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(static_cast<int>(ok))
-      : "memory");
-}
-
 // h = bf16(acc + bias) of a consumer's rows into its padded tile.
 template <int kBN, int kHalves, int kAccRegs, int kRowBytes>
 __device__ __forceinline__ void stage_h(const float (&acc)[kHalves][kAccRegs], const __nv_bfloat16* __restrict__ bias,

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile loads, wgmma shared-memory descriptors and products, setmaxnreg,
 // named barriers, and the host-side encoding of the TMA tensor maps (the
-// window kernels use the mbarriers and the TMA loads; the fused fc1 + GELU
-// kernel the rank-2 maps and the m64n256 product).
+// window kernels use the mbarriers and the TMA loads; the fused MLP kernels
+// the rank-2 maps, the m64n256 product and the predicated 16-byte store).
 //
 // Shared-memory tiles. Every operand tile is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B in boxes of 64 rows x 64 bf16: one 128-byte
@@ -303,6 +303,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
+
+// 16 bytes to global memory where `ok`: a predicated store, no branch (an
+// epilogue's unrolled store loop stays straight).
+__device__ __forceinline__ void store16_if(void* p, uint4 v, bool ok) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n@p st.global.v4.b32 [%0], {%1, %2, %3, %4};\n}\n" ::"l"(p),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(static_cast<int>(ok))
+      : "memory");
+}
 
 // --- named barriers (id 0 is __syncthreads): `count` threads, a multiple of
 // 32, take part in each phase; arrive does not wait for the others.

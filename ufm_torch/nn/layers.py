@@ -22,7 +22,7 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 
 from ufm_torch.ops.attention import dot_product_attention
 from ufm_torch.ops.gelu import gelu_bf16
-from ufm_torch.ops.library import flash_attention_fwd, linear_gelu_bf16
+from ufm_torch.ops.library import flash_attention_fwd, linear_gelu_bf16, mlp_bf16
 
 __all__ = [
     "Mlp",
@@ -100,8 +100,18 @@ class Mlp(nn.Module):
             return False
         return not _REMAT.get()
 
+    def _fused_backward(self, x: torch.Tensor) -> bool:
+        params = (self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
+        if not torch.is_grad_enabled() or not any(t.requires_grad for t in (x, *params)):
+            return False
+        w2, b2 = self.fc2.weight, self.fc2.bias
+        return b2 is not None and w2.dtype == b2.dtype == torch.bfloat16 and not isinstance(w2, DTensor) \
+            and not isinstance(b2, DTensor)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fused(x):
+            if self._fused_backward(x):
+                return mlp_bf16(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
             return self.fc2(linear_gelu_bf16(x, self.fc1.weight, self.fc1.bias))
         return self.fc2(self.act(self.fc1(x)))
 

@@ -27,6 +27,7 @@ COUNTERS = {
     "flash_attention_bwd_any": (flash_attention, "ANY_BWD_LAUNCHES"),
     "window_refinement_bwd": (window_refinement, "BWD_LAUNCHES"),
     "gelu_bf16_bwd": (gelu, "BWD_LAUNCHES"),
+    "linear_gelu_bf16_bwd": (linear_gelu, "BWD_LAUNCHES"),
 }
 
 

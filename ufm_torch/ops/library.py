@@ -1,6 +1,6 @@
 """The port's Hopper kernels as dispatcher ops (``torch.library``).
 
-Eight ops in the ``ufm_torch`` namespace:
+Nine ops in the ``ufm_torch`` namespace:
 
 - ``flash_attention_fwd(q, k, v, scale, with_lse) -> (out, lse)``: softmax
   attention over (B, S, H, D); ``lse`` (B, H, Sq) fp32 is each row's
@@ -21,14 +21,17 @@ Eight ops in the ``ufm_torch`` namespace:
   (``ufm_torch/ops/linear_gelu.py``);
 - ``linear_gelu_bf16_preact(x, w, b) -> (y, h)``: the same launch writing
   the rounded pre-activation ``h = bf16(F.linear(x, w, b))`` too, which the
-  fused op's gradient reads.
+  fused op's gradient reads;
+- ``linear_gelu_bf16_bwd(g, w2, h) -> dh``: ``gelu_bf16_bwd(g @ w2, h)``,
+  the MLP's ``fc2`` input gradient with the GELU's gradient as its epilogue
+  (``dy`` rounded to bf16 first, as the two ops round it).
 
 The tensors' device picks the implementation inside the op: CUDA runs the
 hand-written kernel (``flash_attention.launch_forward`` /
 ``launch_backward``, which pick the wgmma or the mma kernel by dtype
 and head dim, ``window_refinement.launch`` / ``launch_backward``,
 ``gelu.launch`` / ``launch_backward``,
-``linear_gelu.launch`` / ``launch_preact``: every pointer, stride and
+``linear_gelu.launch`` / ``launch_preact`` / ``launch_backward``: every pointer, stride and
 alignment check and the launch counters live there, and they raise on what
 the kernels do not take), CPU runs the plain version. A fake implementation gives each output's
 shape and dtype from the inputs' (with the shape checks, and on a CUDA
@@ -47,7 +50,14 @@ input. The fused ``linear_gelu_bf16``'s, under grad mode, runs the forward
 as ``linear_gelu_bf16_preact`` and keeps ``x``, ``w`` and ``h`` (not ``y``):
 ``dh = gelu_bf16_bwd(dy, h)``, then ``dx = dh w``, ``dw = dh^T x`` and ``db =
 sum(dh)`` as ``F.linear``'s own backward computes them (the JAX package
-leaves those products to XLA, outside any kernel). Each is an ``Autograd``
+leaves those products to XLA, outside any kernel). A whole bf16 MLP under
+grad mode (:func:`mlp_bf16`: fc1, the GELU and a plain bf16 ``fc2`` with a
+bias) is one ``autograd.Function``: its forward is the training launch and
+``F.linear`` (the same bits as the fused op, then ``fc2``), it keeps ``x``,
+``w1``, ``h``, ``y`` and ``w2`` (what the two nodes kept), and its backward
+takes ``dh`` from ``linear_gelu_bf16_bwd(g, w2, h)`` (one launch: ``dy = g
+w2`` never reaches memory), ``dw2 = g^T y`` and ``db2 = sum(g)``, then fc1's
+gradients from ``dh`` as above. Each is an ``Autograd``
 kernel around an ``autograd.Function``, which is what
 ``torch.library.register_autograd`` registers, written out:
 ``register_autograd`` refuses an op with a mutated argument (the window op's
@@ -61,6 +71,7 @@ it); it builds nothing: a kernel is compiled at its first CUDA launch.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ufm_torch.ops import flash_attention as _fa
 from ufm_torch.ops import gelu as _gelu
@@ -69,7 +80,8 @@ from ufm_torch.ops import window_refinement as _wr
 
 __all__ = [
     "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "window_refinement_bwd",
-    "gelu_bf16", "gelu_bf16_bwd", "linear_gelu_bf16", "linear_gelu_bf16_preact", "OPS", "attention",
+    "gelu_bf16", "gelu_bf16_bwd", "linear_gelu_bf16", "linear_gelu_bf16_preact", "linear_gelu_bf16_bwd", "OPS",
+    "attention", "mlp_bf16",
 ]
 
 NAMESPACE = "ufm_torch"
@@ -92,6 +104,7 @@ _LIB.define("gelu_bf16(Tensor x) -> Tensor")
 _LIB.define("gelu_bf16_bwd(Tensor g, Tensor x) -> Tensor")
 _LIB.define("linear_gelu_bf16(Tensor x, Tensor w, Tensor b) -> Tensor")
 _LIB.define("linear_gelu_bf16_preact(Tensor x, Tensor w, Tensor b) -> (Tensor, Tensor)")
+_LIB.define("linear_gelu_bf16_bwd(Tensor g, Tensor w2, Tensor h) -> Tensor")
 
 flash_attention_fwd = torch.ops.ufm_torch.flash_attention_fwd.default
 flash_attention_bwd = torch.ops.ufm_torch.flash_attention_bwd.default
@@ -101,8 +114,9 @@ gelu_bf16 = torch.ops.ufm_torch.gelu_bf16.default
 gelu_bf16_bwd = torch.ops.ufm_torch.gelu_bf16_bwd.default
 linear_gelu_bf16 = torch.ops.ufm_torch.linear_gelu_bf16.default
 linear_gelu_bf16_preact = torch.ops.ufm_torch.linear_gelu_bf16_preact.default
+linear_gelu_bf16_bwd = torch.ops.ufm_torch.linear_gelu_bf16_bwd.default
 OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, window_refinement_bwd, gelu_bf16, gelu_bf16_bwd,
-       linear_gelu_bf16, linear_gelu_bf16_preact)
+       linear_gelu_bf16, linear_gelu_bf16_preact, linear_gelu_bf16_bwd)
 
 _LIB.impl("flash_attention_fwd", _fa.launch_forward, "CUDA")
 _LIB.impl("flash_attention_fwd", _fa.plain_forward, "CPU")
@@ -120,6 +134,8 @@ _LIB.impl("linear_gelu_bf16", _lg.launch, "CUDA")
 _LIB.impl("linear_gelu_bf16", _lg.linear_gelu_reference, "CPU")
 _LIB.impl("linear_gelu_bf16_preact", _lg.launch_preact, "CUDA")
 _LIB.impl("linear_gelu_bf16_preact", _lg.linear_gelu_preact_reference, "CPU")
+_LIB.impl("linear_gelu_bf16_bwd", _lg.launch_backward, "CUDA")
+_LIB.impl("linear_gelu_bf16_bwd", _lg.linear_gelu_bwd_reference, "CPU")
 
 
 # ---- fake implementations: shapes and dtypes --------------------------------
@@ -207,6 +223,12 @@ def _linear_gelu_preact_fake(x, w, b):
     _lg._check(x, w, b)
     shape = (*x.shape[:-1], w.shape[0])
     return x.new_empty(shape), x.new_empty(shape)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::linear_gelu_bf16_bwd", lib=_LIB)
+def _linear_gelu_bwd_fake(g, w2, h):
+    _lg._check_bwd(g, w2, h)
+    return h.new_empty(h.shape)
 
 
 # ---- autograd --------------------------------------------------------------
@@ -328,6 +350,46 @@ def _linear_gelu_autograd(x, w, b):
 
 
 _LIB.impl("linear_gelu_bf16", _linear_gelu_autograd, "Autograd")
+
+
+class _MlpBf16(torch.autograd.Function):
+    """A bf16 MLP, fc1 -> GELU -> fc2, as one node: the forward is the fused
+    op's training launch, then ``F.linear`` (the bits of
+    ``fc2(linear_gelu_bf16(...))``); the backward takes ``dh`` from one
+    launch of ``linear_gelu_bf16_bwd`` (the GELU's gradient in the epilogue
+    of fc2's input-gradient product), and the four weight and bias
+    gradients and ``dx`` from ``addmm``'s formulas on the flattened rows (the
+    two-node route's products, bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        with torch._C._AutoDispatchBelowAutograd():
+            y, h = linear_gelu_bf16_preact(x, w1, b1)
+        ctx.save_for_backward(x, w1, h, y, w2)
+        return F.linear(y, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, h, y, w2 = ctx.saved_tensors
+        n1, n2 = w1.shape[0], w2.shape[0]
+        g = g.reshape(-1, n2)
+        need_x, need_w1, need_b1, need_w2, need_b2 = ctx.needs_input_grad
+        dw2 = g.t().mm(y.reshape(-1, n1)) if need_w2 else None
+        db2 = g.sum(0) if need_b2 else None
+        dx = dw1 = db1 = None
+        if need_x or need_w1 or need_b1:
+            dh = linear_gelu_bf16_bwd(g, w2, h.reshape(-1, n1))
+            dx = dh.mm(w1).view(x.shape) if need_x else None
+            dw1 = dh.t().mm(x.reshape(-1, w1.shape[1])) if need_w1 else None
+            db1 = dh.sum(0) if need_b1 else None
+        return dx, dw1, db1, dw2, db2
+
+
+def mlp_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """``F.linear(linear_gelu_bf16(x, w1, b1), w2, b2)`` on bf16, recording
+    one autograd node whose backward runs ``linear_gelu_bf16_bwd`` (the
+    MLP's training route; ``nn.layers.Mlp`` decides when it applies)."""
+    return _MlpBf16.apply(x, w1, b1, w2, b2)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
