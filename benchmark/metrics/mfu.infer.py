@@ -1,0 +1,11 @@
+"""mfu.infer: the reference model's operations on one pair (counted on the
+meta device) times the pairs answered a second, over the card's 989 TFLOP/s
+bf16 dense peak, in %."""
+
+from benchmark.harness.yardstick import PEAK_BF16_FLOPS, model_flops_per_pair
+
+
+def read(run):
+    if not run.pairs:
+        return None
+    return 100.0 * model_flops_per_pair(run.arch, train=False) * run.pairs / run.window_s / PEAK_BF16_FLOPS
