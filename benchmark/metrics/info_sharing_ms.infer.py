@@ -1,0 +1,8 @@
+"""info_sharing_ms.infer: the median device ms a replay between the
+``net.info_sharing`` span's timing events in the captured graph."""
+
+from benchmark.spans import device_ms
+
+
+def read(run):
+    return device_ms(run, ["net.info_sharing"])

@@ -64,6 +64,9 @@ KEPT_OUT = {
     ("ops/flash_attention.py", "fits_vmem_single_pass"): "the TPU kernel's VMEM guard",
     ("runtime/batcher.py", "build_native_library"): "builds native/; the port builds csrc/host through "
                                                     "ops/_build.load_host_library",
+    ("utils/profiling.py", "timed"): "a block's host-clock time, read by nothing; the port's spans "
+                                     "(profiling.span, read by profiling.spans) time its stages on the host "
+                                     "and, by CUDA events, on the card",
 }
 
 

@@ -734,6 +734,46 @@ def test_captured_launch_counts(cuda):
         "flash_attention_fwd": 4, "window_refinement_fwd": 1, "linear_gelu_bf16_fwd": 4}
 
 
+def test_captured_replay_stage_times(cuda):
+    """The stage spans' timing events in a captured UFM-Refine graph: under a
+    profile each traced replay's stages are read (positive device ms, one
+    reading of each stage a call), and they sum to within 10% of the call's
+    device time: events around the call (the inputs' copy, the replay, the
+    output clones), queued behind a device sleep so that no host time lies
+    between them, in the same profile (its kernel tracing slows every
+    kernel of a small model)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ufm_torch.utils import profiling
+
+    model = UniFlowMatchClassificationRefinement.from_config(_small_refine_config(), seed=0)
+    src, tgt = _pairs()
+    model.predict_correspondences_batched(src, tgt)  # captures
+    (program,) = model._programs.values()
+    stages = ["predict.pre", "net.encoder", "net.info_sharing", "net.heads", "net.refine", "predict.post"]
+    assert [name for name, _, _ in program.stages.stages] == stages
+    profiling.clear()
+    whole = []
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(100_000_000)  # ~50 ms: the call is enqueued before the device reaches start
+            start.record()
+            model.predict_correspondences_batched(src, tgt)
+            end.record()
+            end.synchronize()
+            whole.append(start.elapsed_time(end))
+    spans = profiling.spans()
+    profiling.clear()
+    calls = [sp.call for sp in spans if sp.name == "predict.call"]
+    assert len(calls) == 3
+    for call, call_ms in zip(calls, whole):
+        got = [(sp.name, sp.device_ms) for sp in spans if sp.call == call and sp.start_ns is None]
+        assert [name for name, _ in got] == stages, got
+        assert all(ms > 0 for _, ms in got), got
+        assert 0.9 * call_ms <= sum(ms for _, ms in got) <= call_ms, (got, call_ms)
+
+
 def test_captured_output_survives_the_next_call(cuda):
     """Each call returns fresh tensors: a result stays as it was after the
     next replay of the same program (inputs on the card and on the host)."""

@@ -13,7 +13,7 @@ against the JAX package on the same inputs.
 - ``train_batches`` arrays (1e-6) and one ``fit`` step on them,
   ``unmap_predicted_pairs`` (1e-5), the geometry functions on seeded inputs
   (1e-6 relative), ``synthetic_pair`` / ``warped_pair_from_image`` bytes,
-  ``visualize_flow`` bytes, and the profiling helpers.
+  ``visualize_flow`` bytes, and the profiling helpers (``sync``, ``span``, ``trace``).
 """
 
 import numpy as np
@@ -336,12 +336,24 @@ def test_visualize_flow_matches_jax():
 
 
 def test_profiling_helpers_on_the_cpu(tmp_path):
+    import json
+
     x = torch.ones(4)
     profiling.sync({"a": [x, (x, 2)]})  # CPU tensors: nothing to wait for
-    result = {}
-    with profiling.timed("block", result):
+    with profiling.span("outside"):  # no profile: nothing recorded
         (x * 2).sum()
-    assert result["block"] >= 0.0
     with profiling.trace(str(tmp_path / "trace")):
-        (x @ x.T if x.dim() > 1 else x * 3).sum()
-    assert (tmp_path / "trace" / "trace.json").exists()
+        with profiling.span("block", call=True):
+            with profiling.span("block.inner"):
+                (x * 3).sum()
+    doc = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    events = doc["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "ufm_torch.span"}
+    assert set(spans) == {"block", "block.inner"}
+    assert spans["block.inner"]["args"]["parent"] == spans["block"]["args"]["id"]
+    # on the profiler's clock: inside the record_function event the span opened
+    (kept,) = [e for e in events if e.get("name") == "block" and e.get("cat") != "ufm_torch.span"]
+    assert kept["ts"] <= spans["block"]["ts"] + 1e-3
+    assert spans["block"]["ts"] + spans["block"]["dur"] <= kept["ts"] + kept["dur"] + 1e-3
+    assert "outside" not in {sp.name for sp in profiling.spans()}
+    profiling.clear()

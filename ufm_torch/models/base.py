@@ -21,6 +21,15 @@ CUDA graph; later calls copy the inputs into the graph's static buffers,
 replay it and return fresh copies of its outputs. On a CPU model, or with
 ``capture_graphs = False`` (the checks' eager path, as ``jax.disable_jit``),
 the program runs the pipeline eagerly.
+
+A call names its phases by spans (:mod:`ufm_torch.utils.profiling`, recorded
+under a profile): ``predict.call`` > ``predict.prepare`` (input layout,
+checks, program lookup), ``predict.staging`` (the staging buffers' wait, the
+pinned copy, the host-to-device enqueue), ``predict.launch`` (the replay),
+``predict.outputs`` (the clones, the output dataclasses), or a first call's
+``predict.capture``. ``predict.pre`` and ``predict.post`` (normalize and
+resize; unmap) and the network's stages are spans too: in a captured graph
+they are timing events, read per replay under a profile.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 
 from ufm_torch.nn.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
 from ufm_torch.ops import launches
+from ufm_torch.utils import profiling
 from ufm_torch.utils.flow_resizing import (
     AutomaticShapeSelection,
     ResizeToFixedManipulation,
@@ -166,26 +176,33 @@ class PredictProgram:
         self.staging: Tuple[torch.Tensor, ...] = ()
         self.static_out: Dict[str, torch.Tensor] = {}
         self.launches: Dict[str, int] = {}  # kernel launches one replay makes, by kernel name
+        self.stages: Optional[profiling.GraphStages] = None  # the stage timing events in the graph
         self._h2d_done: Optional[torch.cuda.Event] = None
 
     # ---- the eager pipeline -------------------------------------------------
     def run(self, model, src_bchw: torch.Tensor, tgt_bchw: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The pipeline, op by op, on inputs on the program's device."""
-        (h0, w0), (h1, w1) = self.source_hw
-        src = src_bchw.permute(0, 2, 3, 1)
-        tgt = tgt_bchw.permute(0, 2, 3, 1)
-        if self.uint8:
-            src = (src.float() / 255.0 - self.mean) / self.std
-            tgt = (tgt.float() / 255.0 - self.mean) / self.std
-        elif self.prev is not None:
-            prev_mean, prev_std = self.prev
-            src = src * (prev_std / self.std) + (prev_mean - self.mean) / self.std
-            tgt = tgt * (prev_std / self.std) + (prev_mean - self.mean) / self.std
+        with profiling.span("predict.pre"):
+            src = src_bchw.permute(0, 2, 3, 1)
+            tgt = tgt_bchw.permute(0, 2, 3, 1)
+            if self.uint8:
+                src = (src.float() / 255.0 - self.mean) / self.std
+                tgt = (tgt.float() / 255.0 - self.mean) / self.std
+            elif self.prev is not None:
+                prev_mean, prev_std = self.prev
+                src = src * (prev_std / self.std) + (prev_mean - self.mean) / self.std
+                tgt = tgt * (prev_std / self.std) + (prev_mean - self.mean) / self.std
 
-        # the selected manipulation to the model grid (its regions are the probe's)
-        src_region_source, tgt_region_source, src_region_repr, tgt_region_repr = self.regions
-        src_s, tgt_s = self.manipulation(src, tgt, *(_identity_regions(*hw) for hw in self.source_hw * 2))[:2]
+            # the selected manipulation to the model grid (its regions are the probe's)
+            src_s, tgt_s = self.manipulation(src, tgt, *(_identity_regions(*hw) for hw in self.source_hw * 2))[:2]
         raw = model.network_apply(src_s, tgt_s)
+        with profiling.span("predict.post"):
+            return self._unmap(raw)
+
+    def _unmap(self, raw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The network's outputs back at the input resolution, BCHW."""
+        (h0, w0), (h1, w1) = self.source_hw
+        src_region_source, tgt_region_source, src_region_repr, tgt_region_repr = self.regions
 
         out: Dict[str, torch.Tensor] = {}
         flow_unmapped, _ = unmap_predicted_flow(
@@ -252,13 +269,16 @@ class PredictProgram:
         graph = torch.cuda.CUDAGraph()
         before = launches.snapshot()
         try:
-            with torch.cuda.graph(graph, pool=model._graph_pool, capture_error_mode=_CAPTURE_ERROR_MODE):
+            # the pipeline's spans record timing events into the graph
+            with profiling.capturing() as stages, torch.cuda.graph(
+                graph, pool=model._graph_pool, capture_error_mode=_CAPTURE_ERROR_MODE
+            ):
                 static_out = self.run(model, *self.static_in)
         finally:
             # the wrappers counted launches that did not run: take them back
             self.launches = launches.since(before)
             launches.add({name: -d for name, d in self.launches.items()})
-        self.graph, self.static_out = graph, static_out
+        self.graph, self.static_out, self.stages = graph, static_out, stages
         return warm
 
     def __call__(self, model, src_bchw: torch.Tensor, tgt_bchw: torch.Tensor, capture: bool) -> Dict[str, torch.Tensor]:
@@ -273,12 +293,17 @@ class PredictProgram:
                 model._replay_done = torch.cuda.Event()
             stream.wait_event(model._replay_done)  # graphs of one pool never overlap
             if self.graph is None:
-                out = self._capture(model, src_bchw, tgt_bchw)
+                with profiling.span("predict.capture"):
+                    out = self._capture(model, src_bchw, tgt_bchw)
             else:
-                self._load(src_bchw, tgt_bchw)
-                self.graph.replay()
+                with profiling.span("predict.staging"):
+                    self._load(src_bchw, tgt_bchw)
+                with profiling.span("predict.launch", graph=self.stages):
+                    self.graph.replay()
+                    self.stages.replays += 1
                 launches.add(self.launches)
-                out = {k: v.clone() for k, v in self.static_out.items()}
+                with profiling.span("predict.outputs"):
+                    out = {k: v.clone() for k, v in self.static_out.items()}
             model._replay_done.record(stream)
         return out
 
@@ -363,33 +388,36 @@ class UniFlowMatchModelsBase:
         fresh tensors on the model's device: flow (B, 2, H, W) in source-image
         pixel space plus covisibility (B, H, W).
         """
-        src = _to_bchw(source_image)
-        tgt = _to_bchw(target_image)
+        with profiling.span("predict.call", call=True):
+            with profiling.span("predict.prepare"):
+                src = _to_bchw(source_image)
+                tgt = _to_bchw(target_image)
 
-        if src.dtype == torch.float32:
-            if data_norm_type is None:
-                raise ValueError("data_norm_type must be provided for float32 images")
-            if data_norm_type not in IMAGE_NORMALIZATION_DICT:
-                raise ValueError(f"data_norm_type must be one of {list(IMAGE_NORMALIZATION_DICT)}")
-        elif src.dtype == torch.uint8:
-            data_norm_type = None
-        else:
-            raise ValueError("images must be uint8 or float32")
+                if src.dtype == torch.float32:
+                    if data_norm_type is None:
+                        raise ValueError("data_norm_type must be provided for float32 images")
+                    if data_norm_type not in IMAGE_NORMALIZATION_DICT:
+                        raise ValueError(f"data_norm_type must be one of {list(IMAGE_NORMALIZATION_DICT)}")
+                elif src.dtype == torch.uint8:
+                    data_norm_type = None
+                else:
+                    raise ValueError("images must be uint8 or float32")
 
-        device = self.device
-        program = self._program(src, tgt, data_norm_type, device)
-        with torch.inference_mode():
-            raw = program(self, src, tgt, capture=self.capture_graphs and device.type == "cuda")
+                device = self.device
+                program = self._program(src, tgt, data_norm_type, device)
+            with torch.inference_mode():
+                raw = program(self, src, tgt, capture=self.capture_graphs and device.type == "cuda")
 
-        result = UFMOutputInterface()
-        result.flow = UFMFlowFieldOutput(flow_output=raw["flow"])
-        if "flow_covariance" in raw:
-            result.flow.flow_covariance = raw["flow_covariance"]
-        if "covisibility" in raw:
-            result.covisibility = UFMMaskFieldOutput(mask=raw["covisibility"], logits=None)
-        if "keypoint_confidence" in raw:
-            result.keypoint_confidence = raw["keypoint_confidence"]
-        return result
+            with profiling.span("predict.outputs"):
+                result = UFMOutputInterface()
+                result.flow = UFMFlowFieldOutput(flow_output=raw["flow"])
+                if "flow_covariance" in raw:
+                    result.flow.flow_covariance = raw["flow_covariance"]
+                if "covisibility" in raw:
+                    result.covisibility = UFMMaskFieldOutput(mask=raw["covisibility"], logits=None)
+                if "keypoint_confidence" in raw:
+                    result.keypoint_confidence = raw["keypoint_confidence"]
+            return result
 
     def _program(self, src: torch.Tensor, tgt: torch.Tensor, data_norm_type: Optional[str], device) -> PredictProgram:
         key = (

@@ -52,6 +52,7 @@ from ufm_torch.nn.prediction_heads import (
 )
 from ufm_torch.nn.unet import UNet
 from ufm_torch.ops.refinement import fused_refinement_attention
+from ufm_torch.utils import profiling
 
 __all__ = ["UFMNet", "CLASSNAME_TO_ADAPTOR_CLASS", "REFINEMENT_IMPL_FROM_CONFIG", "interleave", "is_symmetrized"]
 
@@ -247,12 +248,19 @@ class UFMNet(nn.Module):
         """Encoder -> info sharing -> DPT heads; ``out["flow"]`` is the
         regression flow. Refine configs also get the two classification-feature
         inputs ``cls_in_0/1`` for :meth:`refine_tail`."""
+        with profiling.span("net.encoder"):
+            feat1_list, feat2_list = self._encode_symmetrized(img1, img2, symmetrized)
+        with profiling.span("net.info_sharing"):
+            final, intermediates = self.info_sharing(
+                MultiViewTransformerInput(features=[feat1_list[-1], feat2_list[-1]])
+            )
+        with profiling.span("net.heads"):
+            return self._heads((img1.shape[1], img1.shape[2]), feat1_list, feat2_list, final, intermediates)
+
+    def _heads(self, shape1, feat1_list, feat2_list, final, intermediates) -> Dict[str, torch.Tensor]:
+        """The DPT heads on the pyramid of view 0 (and the classification
+        inputs): :meth:`backbone` after info sharing."""
         c = self.cfg
-        shape1 = (img1.shape[1], img1.shape[2])
-
-        feat1_list, feat2_list = self._encode_symmetrized(img1, img2, symmetrized)
-        final, intermediates = self.info_sharing(MultiViewTransformerInput(features=[feat1_list[-1], feat2_list[-1]]))
-
         pyr1: List[torch.Tensor] = [
             feat1_list[-1].float(),
             intermediates[0].features[0].float(),
@@ -308,30 +316,31 @@ class UFMNet(nn.Module):
         features) -> fused window attention -> flow residual. ``flow`` is the
         regression flow from :meth:`backbone`."""
         c = self.cfg
-        cls_features = self.classification_head(
-            PredictionHeadInput(last_feature=torch.cat([cls_in_0, cls_in_1], dim=0))
-        ).decoded_channels
+        with profiling.span("net.refine"):
+            cls_features = self.classification_head(
+                PredictionHeadInput(last_feature=torch.cat([cls_in_0, cls_in_1], dim=0))
+            ).decoded_channels
 
-        if c.use_unet_feature:
-            unet_feat = self.unet_feature(torch.cat([img1, img2], dim=0)).float()
-            if c.feature_combine_method == "conv":
-                combined = torch.cat([cls_features, unet_feat], dim=-1)
-                cls_features = self.conv2(F.relu(self.conv1(combined.permute(0, 3, 1, 2))))
-            else:  # "modulate"
-                cls_features = self.conv2((cls_features * torch.tanh(unet_feat)).permute(0, 3, 1, 2))
-            cls_features = cls_features.permute(0, 2, 3, 1)
+            if c.use_unet_feature:
+                unet_feat = self.unet_feature(torch.cat([img1, img2], dim=0)).float()
+                if c.feature_combine_method == "conv":
+                    combined = torch.cat([cls_features, unet_feat], dim=-1)
+                    cls_features = self.conv2(F.relu(self.conv1(combined.permute(0, 3, 1, 2))))
+                else:  # "modulate"
+                    cls_features = self.conv2((cls_features * torch.tanh(unet_feat)).permute(0, 3, 1, 2))
+                cls_features = cls_features.permute(0, 2, 3, 1)
 
-        b = img1.shape[0]
-        cls_feat_0, cls_feat_1 = cls_features[:b], cls_features[b:]
-        residual, log_softmax = fused_refinement_attention(
-            cls_feat_0, cls_feat_1, flow, self.classification_bias, c.temperature, c.refinement_range,
-            impl=self.refinement_impl,
-        )
-        return {
-            "regression_flow": flow,
-            "flow": flow + residual,
-            "refinement_residual": residual,
-            "refinement_log_softmax": log_softmax,
-            "refinement_feature_map_0": cls_feat_0,
-            "refinement_feature_map_1": cls_feat_1,
-        }
+            b = img1.shape[0]
+            cls_feat_0, cls_feat_1 = cls_features[:b], cls_features[b:]
+            residual, log_softmax = fused_refinement_attention(
+                cls_feat_0, cls_feat_1, flow, self.classification_bias, c.temperature, c.refinement_range,
+                impl=self.refinement_impl,
+            )
+            return {
+                "regression_flow": flow,
+                "flow": flow + residual,
+                "refinement_residual": residual,
+                "refinement_log_softmax": log_softmax,
+                "refinement_feature_map_0": cls_feat_0,
+                "refinement_feature_map_1": cls_feat_1,
+            }

@@ -37,6 +37,7 @@ import torch.nn as nn
 from torch.distributed.tensor import DTensor
 
 from ufm_torch.training.losses import ufm_total_loss
+from ufm_torch.utils import profiling
 
 __all__ = [
     "make_optimizer",
@@ -147,6 +148,7 @@ class MasterWeightAdamW:
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.adamw, [lambda n, s=scale: schedule(n) * s for _, scale, _ in groups]
         )
+        self.device = next((p.device for _, _, pairs in groups for p, _ in pairs), None)  # the step's span times it
 
     def zero_grad(self) -> None:
         for _, _, pairs in self.groups:
@@ -160,28 +162,29 @@ class MasterWeightAdamW:
         """Clip each group at global norm :data:`MAX_GRAD_NORM`, step AdamW and
         the schedule, write the masters back. A parameter that got no
         gradient counts as a zero gradient (as under ``jax.grad``). No host
-        synchronisation."""
-        for _, _, pairs in self.groups:
-            grads = []
-            for p, m in pairs:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                if m is not None:
-                    m.grad = g.float()
-                    g = m.grad
-                else:
-                    p.grad = g
-                grads.append(g)
-            norm = _global_norm(grads)
-            # optax's clip_by_global_norm: unchanged below the limit, else
-            # times max / norm (no epsilon)
-            local = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
-            torch._foreach_mul_(local, torch.where(norm < MAX_GRAD_NORM, 1.0, MAX_GRAD_NORM / norm))
-        self.adamw.step()
-        self.scheduler.step()
-        for _, _, pairs in self.groups:
-            for p, m in pairs:
-                if m is not None:
-                    p.copy_(m)
+        synchronisation. Span ``train.optimizer``, device-timed."""
+        with profiling.span("train.optimizer", device=self.device):
+            for _, _, pairs in self.groups:
+                grads = []
+                for p, m in pairs:
+                    g = p.grad if p.grad is not None else torch.zeros_like(p)
+                    if m is not None:
+                        m.grad = g.float()
+                        g = m.grad
+                    else:
+                        p.grad = g
+                    grads.append(g)
+                norm = _global_norm(grads)
+                # optax's clip_by_global_norm: unchanged below the limit, else
+                # times max / norm (no epsilon)
+                local = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
+                torch._foreach_mul_(local, torch.where(norm < MAX_GRAD_NORM, 1.0, MAX_GRAD_NORM / norm))
+            self.adamw.step()
+            self.scheduler.step()
+            for _, _, pairs in self.groups:
+                for p, m in pairs:
+                    if m is not None:
+                        p.copy_(m)
 
     def masters(self) -> Dict[int, torch.Tensor]:
         return {i: m for i, (_, m) in enumerate(pair for _, _, pairs in self.groups for pair in pairs) if m is not None}
@@ -253,17 +256,29 @@ def make_train_step(
     ``gt_covisibility``, optional ``valid``, on the net's device): zero the
     grads, forward, :func:`ufm_total_loss`, backward, clip, AdamW, schedule.
     Returns the step's metrics as detached device tensors (reading one
-    synchronises the host; the step itself does not)."""
+    synchronises the host; the step itself does not). Spans: ``train.step``
+    > ``train.forward``, ``train.loss``, ``train.backward`` (device-timed)
+    and the optimizer's ``train.optimizer``."""
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        out = net(batch["img1"], batch["img2"])
-        loss, metrics = ufm_total_loss(out, batch, loss_weights)
-        loss.backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        with profiling.span("train.step", call=True):
+            optimizer.zero_grad()
+            loss, metrics = _forward_loss(net, batch, loss_weights)
+            with profiling.span("train.backward", device=loss.device):
+                loss.backward()
+            optimizer.step()
+            return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def _forward_loss(net: nn.Module, batch: Dict[str, torch.Tensor], loss_weights, group=None):
+    """The forward and :func:`ufm_total_loss`, each in its device-timed span."""
+    device = batch["img1"].device
+    with profiling.span("train.forward", device=device):
+        out = net(batch["img1"], batch["img2"])
+    with profiling.span("train.loss", device=device):
+        return ufm_total_loss(out, batch, loss_weights, group=group)
 
 
 def make_sharded_train_step(
@@ -295,15 +310,16 @@ def make_sharded_train_step(
         return {k: shard_batch(torch.as_tensor(v).to(device), mesh) for k, v in batch.items()}
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        out = net(batch["img1"], batch["img2"])
-        loss, metrics = ufm_total_loss(out, batch, loss_weights, group=data_group)
-        # FSDP averages the gradients over the data x fsdp ranks, and the
-        # ranks of one data index hold the same batch shard: times the data
-        # size, the average is the sum of the shares, the global gradient
-        (loss * data_n).backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        with profiling.span("train.step", call=True):
+            optimizer.zero_grad()
+            loss, metrics = _forward_loss(net, batch, loss_weights, group=data_group)
+            # FSDP averages the gradients over the data x fsdp ranks, and the
+            # ranks of one data index hold the same batch shard: times the data
+            # size, the average is the sum of the shares, the global gradient
+            with profiling.span("train.backward", device=loss.device):
+                (loss * data_n).backward()
+            optimizer.step()
+            return {k: v.detach() for k, v in metrics.items()}
 
     return step, net, optimizer, place_batch
 
