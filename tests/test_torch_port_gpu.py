@@ -833,7 +833,49 @@ def test_tf32_flag_reaches_the_program_key(cuda):
     assert all(p.graph is not None for p in model._programs.values())
 
 
-@pytest.mark.parametrize("staged", [False, True], ids=["stream_predict", "stream_predict_staged"])
+def test_captured_input_layouts(cuda):
+    """Each input staged in its own memory order: a planar source with a
+    channel-last target, the reverse, and BCHW arrays each capture one
+    program with buffers in the inputs' orders, and its replays equal the
+    channel-last program's replays bit for bit (its first call, the
+    warm-up, the channel-last warm-up); one ``own_order`` staging a
+    replayed input, and the launches a replay makes unchanged."""
+    from ufm_torch.models import input_layout
+    from ufm_torch.ops import launches
+
+    def planar(a):  # the channels outermost in memory, as tensor.permute(0, 2, 3, 1).numpy()
+        return np.ascontiguousarray(a.transpose(0, 3, 1, 2)).transpose(0, 2, 3, 1)
+
+    model = UniFlowMatchClassificationRefinement.from_config(_small_refine_config(), seed=0)
+    src, tgt = (t.numpy() for t in _pairs())
+    first = _fields(model.predict_correspondences_batched(src, tgt))
+    replay = _fields(model.predict_correspondences_batched(src, tgt))
+    torch.cuda.synchronize()
+    (base,) = model._programs.values()
+    cases = {
+        "planar_source": ((planar(src), tgt), ((0, 1, 2, 3), (0, 2, 3, 1))),
+        "planar_target": ((src, planar(tgt)), ((0, 2, 3, 1), (0, 1, 2, 3))),
+        "bchw": ((src.transpose(0, 3, 1, 2).copy(), tgt.transpose(0, 3, 1, 2).copy()), ((0, 1, 2, 3),) * 2),
+    }
+    for name, (pair, orders) in cases.items():
+        before = set(map(id, model._programs.values()))
+        for call in range(3):
+            staged, counted = input_layout.snapshot(), launches.snapshot()
+            got = _fields(model.predict_correspondences_batched(*pair))
+            torch.cuda.synchronize()
+            assert input_layout.since(staged) == {"own_order": 2, "gathered": 0, "host_copy": 0}, name
+            assert launches.since(counted) == base.launches, name
+            for k, want in (first if call == 0 else replay).items():
+                assert torch.equal(got[k], want), (name, call, k)
+        (program,) = [p for p in model._programs.values() if id(p) not in before]
+        assert program.graph is not None and program.orders == orders, name
+        assert [input_layout.memory_order(t) for t in program.static_in] == list(orders), name
+        assert [input_layout.memory_order(t) for t in program.staging] == list(orders), name
+        assert program.launches == base.launches, name
+    assert len(model._programs) == 1 + len(cases)
+
+
+@pytest.mark.parametrize("staged",[False, True], ids=["stream_predict", "stream_predict_staged"])
 def test_stream_predict_on_the_card(cuda, staged):
     """The streaming loops on the card: pinned copies on the copy stream, the
     compute stream's wait, the one-deep pipeline into a captured program.

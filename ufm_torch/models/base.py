@@ -10,17 +10,21 @@ covariance.
 
 Like the JAX package, which compiles one program per key,
 ``predict_correspondences_batched`` keeps one :class:`PredictProgram` per key:
-the source and target shapes and dtypes, the normalization, the scaler
-generation (bumped by every assignment to ``image_scaler``), the model's
-kernel choices, the TF32 flags (cuDNN and cuBLAS fix their algorithms when a
-graph is captured) and the device. A program holds what its key fixes: the
-selected manipulation, its region bookkeeping and the device constants. On a
+the source and target shapes, dtypes and memory orders, the normalization,
+the scaler generation (bumped by every assignment to ``image_scaler``), the
+model's kernel choices, the TF32 flags (cuDNN and cuBLAS fix their algorithms
+when a graph is captured) and the device. A program holds what its key fixes:
+the selected manipulation, its region bookkeeping and the device constants. On a
 CUDA model the first call of a key runs the pipeline once eagerly on a side
 stream (the warm-up, whose answer that call returns) and captures it into a
 CUDA graph; later calls copy the inputs into the graph's static buffers,
-replay it and return fresh copies of its outputs. On a CPU model, or with
-``capture_graphs = False`` (the checks' eager path, as ``jax.disable_jit``),
-the program runs the pipeline eagerly.
+replay it and return fresh copies of its outputs. Each input is staged in its
+own memory order (:mod:`ufm_torch.models.input_layout`): the pinned staging
+buffer and the static buffer are laid out as the input is, so both copies are
+flat memcpys, and the graph's first op makes the channel-last view that the
+normalize reads contiguous on the card (a no-op for channel-last inputs). On a
+CPU model, or with ``capture_graphs = False`` (the checks' eager path, as
+``jax.disable_jit``), the program runs the pipeline eagerly.
 
 A call names its phases by spans (:mod:`ufm_torch.utils.profiling`, recorded
 under a profile): ``predict.call`` > ``predict.prepare`` (input layout,
@@ -41,6 +45,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ufm_torch.models import input_layout
 from ufm_torch.nn.encoders.image_normalizations import IMAGE_NORMALIZATION_DICT
 from ufm_torch.ops import launches
 from ufm_torch.utils import profiling
@@ -107,9 +112,19 @@ class UFMOutputInterface:
     keypoint_confidence: Optional[torch.Tensor] = None
 
 
-def _to_bchw(image) -> torch.Tensor:
-    """Accept BCHW/BHWC/CHW/HWC numpy arrays or tensors, return a BCHW tensor."""
-    t = image if isinstance(image, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(image))
+def _to_bchw(image) -> Tuple[torch.Tensor, bool]:
+    """Accept BCHW/BHWC/CHW/HWC numpy arrays or tensors; return a BCHW tensor
+    and whether the host copied the input. A numpy array is viewed as it lies
+    in memory, whatever its strides; only one that torch cannot view (a
+    negative stride, as ``img[..., ::-1]`` has, or a stride that is no
+    multiple of the item size) is copied into C order first."""
+    copied = False
+    if isinstance(image, torch.Tensor):
+        t = image
+    else:
+        a = np.asarray(image)
+        copied = any(s < 0 or s % a.itemsize for s in a.strides)
+        t = torch.from_numpy(np.ascontiguousarray(a) if copied else a)
     if t.dim() not in (3, 4):
         raise ValueError(f"image must have 3 or 4 dims, got {t.dim()}")
     if t.dim() == 3:
@@ -120,16 +135,18 @@ def _to_bchw(image) -> torch.Tensor:
         t = t.permute(0, 3, 1, 2)
     else:
         raise ValueError("images must have 3 channels in either BCHW or BHWC format")
-    return t
+    return t, copied
 
 
 class PredictProgram:
     """The predict pipeline of one key: the selected manipulation with its
     regions, the device constants, and on a CUDA model the captured graph
     with its static buffers. Built by ``predict_correspondences_batched``;
-    call it with the model and BCHW inputs."""
+    call it with the model and BCHW inputs. ``orders``: the memory order of
+    the source's and the target's staging and static buffers
+    (:func:`input_layout.memory_order`'s form)."""
 
-    def __init__(self, model, src_shape, tgt_shape, src_dtype, tgt_dtype, data_norm_type, device):
+    def __init__(self, model, src_shape, tgt_shape, src_dtype, tgt_dtype, data_norm_type, device, orders):
         b0, _, h0, w0 = src_shape
         b1, _, h1, w1 = tgt_shape
         shapes, manipulation = model.image_scaler.select(h0, w0, h1, w1)
@@ -140,6 +157,7 @@ class PredictProgram:
             raise ValueError("both views must map to one model resolution")
         self.shapes = (tuple(src_shape), tuple(tgt_shape))
         self.dtypes = (src_dtype, tgt_dtype)
+        self.orders = tuple(orders)
         self.device = device
         self.manipulation = manipulation
         self.source_hw = ((h0, w0), (h1, w1))
@@ -181,10 +199,12 @@ class PredictProgram:
 
     # ---- the eager pipeline -------------------------------------------------
     def run(self, model, src_bchw: torch.Tensor, tgt_bchw: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The pipeline, op by op, on inputs on the program's device."""
+        """The pipeline, op by op, on inputs on the program's device, in any
+        memory order: the channel-last views are made contiguous first, so
+        every later op sees the same tensors whatever the order."""
         with profiling.span("predict.pre"):
-            src = src_bchw.permute(0, 2, 3, 1)
-            tgt = tgt_bchw.permute(0, 2, 3, 1)
+            src = src_bchw.permute(0, 2, 3, 1).contiguous()
+            tgt = tgt_bchw.permute(0, 2, 3, 1).contiguous()
             if self.uint8:
                 src = (src.float() / 255.0 - self.mean) / self.std
                 tgt = (tgt.float() / 255.0 - self.mean) / self.std
@@ -243,15 +263,12 @@ class PredictProgram:
 
     def _capture(self, model, src: torch.Tensor, tgt: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Warm up on a side stream (its answer is this call's), then capture
-        the pipeline into a graph in the model's pool."""
+        the pipeline into a graph in the model's pool. The static and staging
+        buffers are BCHW views of memory in the program's orders."""
         dev = self.device
-
-        def channel_last(shape, dtype, **kw):  # a BCHW view of channel-last memory
-            b, c, h, w = shape
-            return torch.empty((b, h, w, c), dtype=dtype, **kw).permute(0, 3, 1, 2)
-
-        self.static_in = tuple(channel_last(s, d, device=dev) for s, d in zip(self.shapes, self.dtypes))
-        self.staging = tuple(channel_last(s, d, pin_memory=True) for s, d in zip(self.shapes, self.dtypes))
+        layouts = tuple(zip(self.shapes, self.orders, self.dtypes))
+        self.static_in = tuple(input_layout.empty_in_order(*a, device=dev) for a in layouts)
+        self.staging = tuple(input_layout.empty_in_order(*a, pin_memory=True) for a in layouts)
         self._h2d_done = torch.cuda.Event()
         self._load(src, tgt)
 
@@ -387,11 +404,20 @@ class UniFlowMatchModelsBase:
         or float32 (float inputs must state their ``data_norm_type``). Returns
         fresh tensors on the model's device: flow (B, 2, H, W) in source-image
         pixel space plus covisibility (B, H, W).
+
+        An input in any memory order (channel-last, channel-planar, a
+        transposed view) is taken without a host copy: it is staged in its own
+        order. Only a numpy array torch cannot view (a negative stride, as
+        ``img[..., ::-1]`` has, or one that is no multiple of the item size)
+        is copied on the host first; a view that is not dense (a crop) is
+        gathered once, by the staging copy. Each memory order at a shape gets
+        its own program, so on the card a caller that alternates layouts
+        keeps one captured graph and one set of static buffers for each.
         """
         with profiling.span("predict.call", call=True):
             with profiling.span("predict.prepare"):
-                src = _to_bchw(source_image)
-                tgt = _to_bchw(target_image)
+                src, src_copied = _to_bchw(source_image)
+                tgt, tgt_copied = _to_bchw(target_image)
 
                 if src.dtype == torch.float32:
                     if data_norm_type is None:
@@ -404,7 +430,10 @@ class UniFlowMatchModelsBase:
                     raise ValueError("images must be uint8 or float32")
 
                 device = self.device
-                program = self._program(src, tgt, data_norm_type, device)
+                orders = (input_layout.memory_order(src), input_layout.memory_order(tgt))
+                program = self._program(src, tgt, orders, data_norm_type, device)
+                input_layout.count("host_copy" if copied else "own_order" if order else "gathered"
+                                   for copied, order in zip((src_copied, tgt_copied), orders))
             with torch.inference_mode():
                 raw = program(self, src, tgt, capture=self.capture_graphs and device.type == "cuda")
 
@@ -419,12 +448,17 @@ class UniFlowMatchModelsBase:
                     result.keypoint_confidence = raw["keypoint_confidence"]
             return result
 
-    def _program(self, src: torch.Tensor, tgt: torch.Tensor, data_norm_type: Optional[str], device) -> PredictProgram:
+    def _program(self, src: torch.Tensor, tgt: torch.Tensor, orders, data_norm_type: Optional[str],
+                 device) -> PredictProgram:
+        """The program of the inputs' key; ``orders``: their memory orders
+        (``None``: not dense, staged channel-last)."""
+        orders = tuple(order or input_layout.CHANNEL_LAST for order in orders)
         key = (
             tuple(src.shape),
             tuple(tgt.shape),
             src.dtype,
             tgt.dtype,
+            orders,
             data_norm_type,
             self._scaler_generation,
             *self._program_key(),
@@ -440,6 +474,7 @@ class UniFlowMatchModelsBase:
                 self._programs_generation = generation
             program = self._programs.get(key)
             if program is None:
-                program = PredictProgram(self, src.shape, tgt.shape, src.dtype, tgt.dtype, data_norm_type, device)
+                program = PredictProgram(self, src.shape, tgt.shape, src.dtype, tgt.dtype, data_norm_type, device,
+                                         orders)
                 self._programs[key] = program
         return program

@@ -224,7 +224,7 @@ def _artifact_model_cls():
             return self.exported(img1_bhwc, img2_bhwc)
 
         def predict_correspondences_batched(self, source_image, target_image, data_norm_type=None):
-            b = _to_bchw(source_image).shape[0]
+            b = _to_bchw(source_image)[0].shape[0]
             if b != self.exported.batch:
                 raise ValueError(
                     f"artifact was exported at fixed batch {self.exported.batch}; "
