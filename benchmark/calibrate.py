@@ -7,10 +7,11 @@ cell's own size (``benchmark/limits/<cell>.json`` records them).
   timed path (a run of ``--seconds``, then the comparison with the reference):
   the lower readings.
 - ``--control``: the reference put in the system's place and computed one
-  precision step below what the configuration states (``reference.ufm.
-  CONTROL``: fp8 e4m3 products in the bf16 backbone, bf16 in the fp32
-  heads), compared with the float32 reference on the same inputs: the upper
-  readings (the flow's numbers, shares of the control's own error, read 1).
+  precision step below what the configuration states (the configuration's
+  reference module's ``CONTROL``; ``ufm``'s: fp8 e4m3 products in the bf16
+  backbone, bf16 in the fp32 heads), compared with the float32 reference on
+  the same inputs: the upper readings (the flow's numbers, shares of the
+  control's own error, read 1).
 - ``--half-batch`` (training cells): the float32 reference stepping on the
   first half of each batch only, its loss the mean over that half, compared
   with the reference on the whole batch: one of the faults a training
@@ -40,8 +41,9 @@ def _predict_control(run_cfg, traffic, seed: int, device) -> dict:
     import torch
 
     from benchmark.harness import check, inputs
-    from benchmark.reference import ufm as ref
+    from benchmark.reference import load
 
+    ref = load(run_cfg)
     arch = ref.Arch(run_cfg["model"])
     params = {k: v.float() for k, v in inputs.make_params(arch, seed, device, run_cfg["weights"]).items()}
     pool = inputs.predict_pool(seed, traffic, device)
@@ -67,9 +69,10 @@ def _train_readings(run_cfg, traffic, seed: int, device, numerics=None, half: bo
 
     from benchmark.harness import check, inputs
     from benchmark.harness.cells import _leaf_norms
+    from benchmark.reference import load
     from benchmark.reference import train as ref_train
-    from benchmark.reference import ufm as ref
 
+    ref = load(run_cfg)
     arch = ref.Arch(run_cfg["model"])
     batches = inputs.train_pool(seed, traffic, device)[:3]
 
@@ -114,12 +117,13 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import run as bench_run
-    from benchmark.reference import ufm as ref
+    from benchmark.reference import load
 
     bench = bench_run.load_json("BENCHMARK.json")
     entry = next(w for w in bench["workloads"] if w["name"] == args.workload)
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
     cfg = bench_run.load_json(conf["file"])
+    ref = load(cfg)
     torch.set_num_threads(cfg["deployment"]["intra_op_threads"])  # as benchmark/run.py runs the system
     traffic = bench_run.load_json("benchmark", "traffic", f"{entry['traffic']}.json")
     training = traffic["kind"] == "train_steps"

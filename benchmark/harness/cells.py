@@ -28,20 +28,22 @@ import torch
 from benchmark.harness import check, inputs
 from benchmark.harness.trace import profile_stretch
 from benchmark.harness.yardstick import percentile, window_taps
+from benchmark.reference import load as load_reference
 from benchmark.reference import train as ref_train
-from benchmark.reference import ufm as ref
 
 __all__ = ["Run", "DRIVERS"]
 
 
 class Run:
     """One run of one cell: its inputs, and what the loops and the check
-    recorded. The metric readers (``benchmark/metrics/*.py``) read it."""
+    recorded. The metric readers (``benchmark/metrics/*.py``) read it.
+    ``ref`` is the configuration's reference module, ``arch`` its sizes."""
 
     def __init__(self, cell: str, config: dict, traffic: dict, seed: int, seconds: float, trace: bool, device,
                  limits: Dict[str, float], process_start: float):
         self.cell, self.config, self.traffic = cell, config, traffic
-        self.arch = ref.Arch(config["model"])
+        self.ref = load_reference(config)
+        self.arch = self.ref.Arch(config["model"])
         self.seed, self.seconds, self.trace, self.device = seed, seconds, trace, torch.device(device)
         self.limits = limits
         self.process_start = process_start  # time.time() at the process's start
@@ -211,8 +213,8 @@ def predict_cell(run: Run) -> None:
             src, tgt = pool[p]
             raw: Dict[str, torch.Tensor] = {}
             src, tgt = _as_batch(src, run.device), _as_batch(tgt, run.device)
-            want = ref.predict(params, run.arch, src, tgt, raw=raw)
-            control = ref.predict(params, run.arch, src, tgt, ref.CONTROL)
+            want = run.ref.predict(params, run.arch, src, tgt, raw=raw)
+            control = run.ref.predict(params, run.arch, src, tgt, run.ref.CONTROL)
             for k, v in check.predict_gaps(got, want, control).items():
                 worst[k] = max(worst.get(k, 0.0), v)
             run.readings.setdefault("flow_rms_px", []).append(float(want["flow"].double().pow(2).mean().sqrt()))

@@ -8,7 +8,7 @@ pair's pixels of its end-point error, the 90th percentile (the bulk of the
 image) and the 99.9th (its tail: the border pixels, where the window's taps
 leave the image and the unmap works, are 0.7% of a 480x640 pair), each as a
 share of the same quantile of the control's error on that pair (the
-reference one precision step below, ``reference.ufm.CONTROL``): how far a
+reference one precision step below, its module's ``CONTROL``): how far a
 rounding moves the flow depends on the weights (UFM-Refine's window softmax
 is more or less peaked from seed to seed: at the 90th percentile the program
 read 0.024-0.127 px over 12 seeds and the control 0.29-1.32, a steady

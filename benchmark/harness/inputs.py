@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference.ufm import Arch, param_specs
+from benchmark.reference import module_of
 
 __all__ = ["generator", "make_params", "predict_pool", "train_pool", "fan_in"]
 
@@ -37,15 +37,16 @@ def fan_in(name: str, shape: tuple) -> int:
     return int(np.prod(shape[1:]))
 
 
-def make_params(arch: Arch, seed: int, device, weights: dict) -> Dict[str, torch.Tensor]:
-    """Every parameter of ``arch`` from one normal draw on ``device``, held in
+def make_params(arch, seed: int, device, weights: dict) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``arch`` (its reference module's ``param_specs``,
+    in their order) from one normal draw on ``device``, held in
     the type it is served in (the compute dtype for the backbone and the
     UNet, fp32 for the heads). ``weights`` (the configuration file's) sets
     the scales: dense and conv kernels normal / sqrt(fan-in) times ``gain``
     (a per-name ``gains`` entry overrides it), biases and embeddings normal
     times ``bias_std`` / ``embed_std``, LayerNorm scales 1 + normal times
     ``norm_std``, LayerScale ``layerscale`` + normal times ``norm_std``."""
-    specs = param_specs(arch)
+    specs = module_of(arch).param_specs(arch)
     total = sum(math.prod(shape) for shape, _ in specs.values())
     flat = torch.randn(total, generator=generator(seed, "weights", device), device=device)
     backbone = _DTYPES[arch.compute_dtype]

@@ -97,21 +97,23 @@ def percentile(values: Sequence[float], q: float) -> float:
 
 
 def model_flops_per_pair(arch, train: bool) -> float:
-    """The operations of the reference network on one pair at the model
-    resolution, counted by ``torch.utils.flop_counter.FlopCounterMode`` on
-    the meta device (matrix products and convolutions): the forward, or with
-    ``train`` the forward, the loss and the backward."""
+    """The operations of ``arch``'s reference network on one pair at the
+    model resolution, counted by ``torch.utils.flop_counter.FlopCounterMode``
+    on the meta device (matrix products and convolutions): the forward, or
+    with ``train`` the forward, the loss and the backward."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from benchmark.reference import module_of
     from benchmark.reference.train import loss_terms
-    from benchmark.reference.ufm import forward, param_specs
 
+    ref = module_of(arch)
     h, w = arch.model_hw
-    params = {k: torch.empty(shape, device="meta", requires_grad=train) for k, (shape, _) in param_specs(arch).items()}
+    params = {k: torch.empty(shape, device="meta", requires_grad=train)
+              for k, (shape, _) in ref.param_specs(arch).items()}
     img = torch.empty((1, h, w, 3), device="meta")
     counter = FlopCounterMode(display=False)
     with counter, torch.set_grad_enabled(train):
-        out = forward(params, arch, img, img)
+        out = ref.forward(params, arch, img, img)
         if train:
             loss_terms(out, torch.empty((1, h, w, 2), device="meta"), torch.empty((1, h, w), device="meta")).backward()
     return float(counter.get_total_flops())
@@ -124,7 +126,7 @@ def per_forward_bounds(arch, batch: int) -> Dict[str, float]:
     joint sequences), fc1 + GELU and fc2's input gradient with the GELU's."""
     e, i = arch.enc, arch.info
     h, w = arch.model_hw
-    s_enc = (h // e["patch_size"]) * (w // e["patch_size"]) + int(e["cls"])
+    s_enc = arch.encoder_tokens(h // e["patch_size"], w // e["patch_size"])
     s_info = 2 * (h // e["patch_size"]) * (w // e["patch_size"])
     d_enc, d_info = e["embed_dim"] // e["num_heads"], i["dim"] // i["num_heads"]
     attn = e["depth"] * attention_bound_ms(2 * batch, s_enc, e["num_heads"], d_enc)[0] \

@@ -19,7 +19,7 @@ from typing import Dict, List
 
 import torch
 
-from benchmark.reference.ufm import FP32, Arch, Numerics, forward
+from benchmark.reference import module_of
 
 __all__ = ["GROUP_LR_SCALE", "group_of", "loss_terms", "Trainer"]
 
@@ -64,11 +64,14 @@ def warmup_cosine(step: int, peak: float, warmup: int, total: int) -> float:
 
 class Trainer:
     """fp32 parameters (the masters) and AdamW's state over them; ``step``
-    takes one batch and returns its loss."""
+    takes one batch and returns its loss. The network is ``arch``'s
+    reference module's ``forward``, under ``numerics`` (default: the
+    module's ``FP32``)."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], arch: Arch, lr: float = 1e-4, weight_decay: float = 0.05,
-                 warmup: int = 100, total: int = 10000, numerics: Numerics = FP32):
-        self.arch, self.numerics = arch, numerics
+    def __init__(self, params: Dict[str, torch.Tensor], arch, lr: float = 1e-4, weight_decay: float = 0.05,
+                 warmup: int = 100, total: int = 10000, numerics=None):
+        self.ref = module_of(arch)
+        self.arch, self.numerics = arch, numerics or self.ref.FP32
         self.params = {k: v.detach().float().clone().requires_grad_(True) for k, v in params.items()}
         self.m = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.v = {k: torch.zeros_like(v) for k, v in self.params.items()}
@@ -83,7 +86,8 @@ class Trainer:
         b = batch["img1"].shape[0]
         total = 0.0
         for i in range(b):
-            out = forward(self.params, self.arch, batch["img1"][i:i + 1], batch["img2"][i:i + 1], self.numerics)
+            out = self.ref.forward(self.params, self.arch, batch["img1"][i:i + 1], batch["img2"][i:i + 1],
+                                   self.numerics)
             loss = loss_terms(out, batch["gt_flow"][i:i + 1], batch["gt_covisibility"][i:i + 1]) / b
             loss.backward()
             total += float(loss.detach())

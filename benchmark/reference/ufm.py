@@ -35,12 +35,32 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 LN_EPS = 1e-6
 
-# public DINOv2 encoder sizes by name
+# public DINOv2 encoder sizes by name, each with the GELU MLP this module writes
 _DINOV2 = {
     "dinov2_small": dict(embed_dim=384, depth=12, num_heads=6),
     "dinov2_base": dict(embed_dim=768, depth=12, num_heads=12),
     "dinov2_large": dict(embed_dim=1024, depth=24, num_heads=16),
-    "dinov2_giant": dict(embed_dim=1536, depth=40, num_heads=24),
+}
+# published names whose model this module does not write
+_NOT_WRITTEN = {
+    "dinov2_giant": "the published DINOv2 ViT-g/14 has a SwiGLU FFN (w12 1536 -> 2 x 4096, silu(x1) * x2, "
+                    "w3 4096 -> 1536), which this module does not write: it writes the GELU MLP",
+}
+# bookkeeping keys of a UniCeption-style config that build nothing (the system's encoder factory ignores the
+# same); a copy, since the reference imports nothing of the system
+_BOOKKEEPING = {"name", "size", "uses_torch_hub", "torch_hub_force_reload", "pretrained_checkpoint_path",
+                "gradient_checkpointing", "device"}
+# options this module writes at one value only, by group: key -> that value
+_FIXED = {
+    "encoder_kwargs": dict(num_register_tokens=0, use_cls_token=True, qkv_bias=True, norm_intermediate=True,
+                           data_norm_type="dinov2", mlp_act="gelu_exact", ffn_layer="mlp"),
+    "info_sharing_kwargs": dict(num_register_tokens=0, qkv_bias=True, norm_intermediate=True, use_pos_embed=True,
+                                num_views=2, layerscale_init=None, mlp_act="gelu_exact", ffn_layer="mlp"),
+}
+_READ = {
+    "encoder_kwargs": {"embed_dim", "depth", "num_heads", "patch_size", "mlp_ratio", "pretrain_grid_size",
+                       "layerscale_init", "intermediate_layer_idx"},
+    "info_sharing_kwargs": {"input_embed_dim", "dim", "depth", "num_heads", "mlp_ratio", "intermediate_layer_idx"},
 }
 
 
@@ -107,7 +127,9 @@ class Arch:
     constructor keywords of the published model classes)."""
 
     def __init__(self, cfg: dict):
-        enc_kw = dict(cfg.get("encoder_kwargs", {}))
+        enc_kw = _modelled(cfg, "encoder_kwargs")
+        if cfg["encoder_str"] in _NOT_WRITTEN:
+            raise ValueError(f"encoder_str {cfg['encoder_str']!r}: {_NOT_WRITTEN[cfg['encoder_str']]}")
         enc = dict(patch_size=14, mlp_ratio=4.0, layerscale=1e-5, pretrain_grid=37, cls=True)
         enc.update(_DINOV2.get(cfg["encoder_str"], {}))
         for k in ("embed_dim", "depth", "num_heads", "patch_size", "mlp_ratio"):
@@ -117,9 +139,12 @@ class Arch:
             enc["pretrain_grid"] = enc_kw["pretrain_grid_size"]
         if "layerscale_init" in enc_kw:
             enc["layerscale"] = enc_kw["layerscale_init"]
+        missing = [k for k in ("embed_dim", "depth", "num_heads") if k not in enc]
+        if missing:
+            raise ValueError(f"encoder_str {cfg['encoder_str']!r} is no preset here and encoder_kwargs lacks {missing}")
         enc["taps"] = tuple(int(t) % enc["depth"] for t in enc_kw.get("intermediate_layer_idx", (enc["depth"] - 1,)))
         self.enc = enc
-        info_kw = cfg["info_sharing_kwargs"]
+        info_kw = _modelled(cfg, "info_sharing_kwargs")
         self.info = dict(
             in_dim=info_kw.get("input_embed_dim", 1024), dim=info_kw.get("dim", 768), depth=info_kw.get("depth", 12),
             num_heads=info_kw.get("num_heads", 12), mlp_ratio=info_kw.get("mlp_ratio", 4.0),
@@ -145,6 +170,23 @@ class Arch:
             raise ValueError("only the dual+single structure exists")
         if self.refine and cfg.get("feature_combine_method", "conv") != "conv":
             raise ValueError("only the conv feature combination is written here")
+
+    def encoder_tokens(self, hp: int, wp: int) -> int:
+        """The encoder's tokens for an image of ``hp x wp`` patches."""
+        return hp * wp + int(self.enc["cls"])
+
+
+def _modelled(cfg: dict, group: str) -> dict:
+    """``cfg[group]``, refusing a key that this module does not model: one it
+    does not read, or an option at another value than the one it writes."""
+    kw = dict(cfg.get(group) or {})
+    for k, v in kw.items():
+        if k in _FIXED[group]:
+            if v != _FIXED[group][k]:
+                raise ValueError(f"{group} {k}={v!r}: this module writes only {k}={_FIXED[group][k]!r}")
+        elif k not in _READ[group] and k not in _BOOKKEEPING:
+            raise ValueError(f"{group} key {k!r} is not modelled here")
+    return kw
 
 
 def _block_specs(prefix: str, dim: int, mlp_ratio: float, layerscale: bool) -> Dict[str, tuple]:

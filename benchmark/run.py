@@ -16,9 +16,11 @@ end-to-end metrics, or with ``--trace 1`` its per-layer metrics, each read by
 and last ``compared``: each number compared beside its limit, which the last
 lines of standard error repeat.
 
-It refuses to run (exit code 2, no result) without CUDA or with fewer cards
-than the cell asks for, and exits with code 3 and no result if JAX, flax or
-the JAX package was loaded.
+It refuses to run (exit code 2, no result) when the configuration's
+reference module is unknown or breaks the contract of
+``benchmark/reference/__init__.py``, without CUDA, or with fewer cards than
+the cell asks for, and exits with code 3 and no result if JAX, flax or the
+JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -132,18 +134,26 @@ def main(argv=None) -> int:
 
     import torch
 
+    from benchmark import reference
+
     bench = load_json("BENCHMARK.json")
     entry = next((w for w in bench["workloads"] if w["name"] == args.workload), None)
     if entry is None:
         print(f"no workload {args.workload!r} in BENCHMARK.json", file=sys.stderr)
+        return 2
+    conf_entry = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    config = load_json(conf_entry["file"])
+    try:
+        reference.load(config)
+    except reference.Refused as exc:
+        print(f"configuration {entry['config']!r}: {exc}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available() or torch.cuda.device_count() < entry["chips"]:
         print(f"this cell needs {entry['chips']} CUDA device(s); torch.cuda.is_available() is "
               f"{torch.cuda.is_available()}, {torch.cuda.device_count()} found", file=sys.stderr)
         return 2
     # the caller's process as the configuration states it deployed
-    conf_entry = next(c for c in bench["configs"] if c["name"] == entry["config"])
-    torch.set_num_threads(load_json(conf_entry["file"])["deployment"]["intra_op_threads"])
+    torch.set_num_threads(config["deployment"]["intra_op_threads"])
     run, result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), "cuda", process_start)
     found = forbidden_modules()
     if found:

@@ -1,7 +1,8 @@
 """Tiny stand-ins for the benchmark's cells, for its CPU tests: the cells'
 configurations swapped for ``ufm_tiny_config`` (with UFM-Refine's
-classification head and a two-level UNet where the cell runs UFM-Refine) and
-their traffic shrunk to 48 x 64 pairs or 42 x 56 training batches."""
+classification head and a two-level UNet where the cell runs UFM-Refine),
+optionally naming another reference module, and their traffic shrunk to
+48 x 64 pairs or 42 x 56 training batches."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 if ROOT not in sys.path:
@@ -17,7 +19,7 @@ if ROOT not in sys.path:
 SEED = 2**33 + 12345  # wider than 32 bits, as the driver's seeds are
 
 
-def tiny_config(cell: str) -> dict:
+def tiny_config(cell: str, reference: Optional[str] = None) -> dict:
     from ufm_torch.models import ufm_tiny_config
 
     refine = cell.startswith("ufm_refine")
@@ -26,6 +28,8 @@ def tiny_config(cell: str) -> dict:
     with open(os.path.join(ROOT, "benchmark", "configs", f"{cell.split('.')[0]}.json")) as f:
         conf = json.load(f)
     conf["model"] = json.loads(json.dumps(cfg.to_dict()))
+    if reference is not None:
+        conf["reference"] = reference
     return conf
 
 
@@ -39,9 +43,11 @@ def tiny_traffic(cell: str) -> dict:
     return traffic
 
 
-def run_tiny(cell: str, seed: int = SEED, seconds: float = 1.5):
-    """One run of ``cell`` at the tiny sizes on the CPU: (Run, result)."""
+def run_tiny(cell: str, seed: int = SEED, seconds: float = 1.5, reference: Optional[str] = None):
+    """One run of ``cell`` at the tiny sizes on the CPU, held to the
+    reference module ``reference`` names (default: the configuration's):
+    (Run, result)."""
     from benchmark import run as bench_run
 
-    return bench_run.run_cell(cell, seed, seconds, False, "cpu", time.time(), config_override=tiny_config(cell),
-                              traffic_override=tiny_traffic(cell))
+    return bench_run.run_cell(cell, seed, seconds, False, "cpu", time.time(),
+                              config_override=tiny_config(cell, reference), traffic_override=tiny_traffic(cell))

@@ -120,7 +120,8 @@ def test_idle_gaps_are_named_by_the_host():
 
 def test_roofline_sums_the_bounds_over_the_kernel_time():
     arch = types.SimpleNamespace(enc=dict(depth=1, patch_size=14, cls=True, embed_dim=1024, num_heads=16, mlp_ratio=4.0),
-                                 info=dict(depth=1, dim=768, num_heads=12, mlp_ratio=4.0), model_hw=(420, 560))
+                                 info=dict(depth=1, dim=768, num_heads=12, mlp_ratio=4.0), model_hw=(420, 560),
+                                 encoder_tokens=lambda hp, wp: hp * wp + 1)
     tr = _trace()
     run = _run(stretch=tr, stretch_batches=[0, 1], arch=arch)
     per = ys.attention_bound_ms(2, 1201, 16, 64)[0] + ys.attention_bound_ms(1, 2400, 12, 64)[0]

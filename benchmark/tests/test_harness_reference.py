@@ -1,7 +1,8 @@
 """The benchmark's frozen reference against ``ufm_torch``'s plain CPU path at
 the tiny configuration: every predict output field of UFM-Base and
-UFM-Refine, one training run's three checked steps, and the parameter names
-and shapes of the full-size models."""
+UFM-Refine, one training run's three checked steps, and the parameter names,
+shapes and types of every configuration's full-size model, through the
+reference module the configuration names."""
 
 from __future__ import annotations
 
@@ -37,24 +38,36 @@ def test_train_steps_match_the_plain_path():
     assert result["correct"]
 
 
-@pytest.mark.parametrize("config,cls", [("ufm_base", "UniFlowMatchConfidence"),
-                                        ("ufm_refine", "UniFlowMatchClassificationRefinement")])
-def test_full_size_parameters_are_the_systems(config, cls):
+def _bench_configs():
     import json
     import os
 
     from bench_tiny import ROOT
+
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        entries = json.load(f)["configs"]
+    confs = []
+    for c in entries:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            confs.append(pytest.param(json.load(f), id=c["name"]))
+    return confs
+
+
+@pytest.mark.parametrize("conf", _bench_configs())
+def test_full_size_parameters_are_the_systems(conf):
+    """Every configuration of ``BENCHMARK.json``, through the reference
+    module it names: the system's parameters, names, shapes and types."""
     from ufm_torch import models
 
-    with open(os.path.join(ROOT, "benchmark", "configs", f"{config}.json")) as f:
-        conf = json.load(f)
-    assert conf["model_class"] == cls
-    model = getattr(models, cls)(**conf["model"], device="meta")
+    from benchmark.reference import load
+
+    module = load(conf)
+    model = getattr(models, conf["model_class"])(**conf["model"], device="meta")
+    specs = module.param_specs(module.Arch(conf["model"]))
     got = {k: tuple(v.shape) for k, v in model.net.named_parameters()}
-    want = {k: tuple(shape) for k, (shape, _) in ref.param_specs(ref.Arch(conf["model"])).items()}
-    assert got == want
+    assert got == {k: tuple(shape) for k, (shape, _) in specs.items()}
     dtypes = {k: v.dtype for k, v in model.net.named_parameters()}
-    for k, (_, part) in ref.param_specs(ref.Arch(conf["model"])).items():
+    for k, (_, part) in specs.items():
         assert dtypes[k] == (torch.bfloat16 if part == "backbone" else torch.float32), k
 
 
