@@ -299,12 +299,23 @@ LINEAR_GELU_ULP_SHARE = 1e-3
 # at one a scheduler a clock, four schedulers an SM, at the card's maximum SM clock
 LINEAR_GELU_BWD_ISSUE_INSTR = 60
 LINEAR_GELU_BWD_ODD = ((1, 64, 128), (4803, 1024, 4096), (300, 200, 136))
+# the SwiGLU FFN's w12 with the gate in its epilogue (ufm_torch::linear_swiglu_bf16):
+# (M, K, H) of the 40 ViT-g/14 blocks of a batch-1 and a batch-4 forward
+# (M = 2B x 1205 tokens) and their calls, and rows, K and H off the tiles
+LINEAR_SWIGLU_SHAPES = (("vitg_b1", (2410, 1536, 4096), 40), ("vitg_b4", (9640, 1536, 4096), 40))
+LINEAR_SWIGLU_ODD = ((1, 1536, 4096), (1077, 1536, 4096), (130, 48, 200))
+# the share of y allowed more than one bf16 ulp from the exact gate of the
+# exact halves rounded to bf16 (fp32 sums land a half across a rounding
+# boundary), and y against the composition (F.linear, then the gate), relative L2
+LINEAR_SWIGLU_ULP_SHARE = 5e-3
+LINEAR_SWIGLU_REL_L2 = 4e-3
 ATTENTION_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
 # the attention pair over the rest of the domain (TF32 mma.sync)
 ANY_LIBRARIES = ("flash_attention_fwd_any", "flash_attention_bwd_any")
 # the kernels the profiler counts, by the name of their __global__ function
 KERNEL_NAMES = ("flash_attention_fwd_kernel", "window_refinement_fwd_kernel", "gelu_bf16_fwd_kernel",
-                "linear_gelu_bf16_fwd_kernel", "flash_attention_fwd_any_kernel", "window_refinement_fwd_any_kernel")
+                "linear_gelu_bf16_fwd_kernel", "flash_attention_fwd_any_kernel", "window_refinement_fwd_any_kernel",
+                "linear_swiglu_bf16_fwd_kernel")
 
 # the mma attention forward (csrc/flash_attention_fwd_any.cu), the rest
 # of the TPU kernel's domain: (case, dtype, q (B, Sq, H, D), Sk, calls a
@@ -406,12 +417,13 @@ FINE_TUNE_LOSS_REL = 1e-4
 # the launch counters' names (ufm_torch.ops.launches.COUNTERS: each kernel's
 # source): wgmma attention forward and backward, window, GELU, fused fc1 +
 # GELU, mma attention forward and backward, window backward, GELU gradient,
-# fc2's input gradient with the GELU gradient as its epilogue
+# fc2's input gradient with the GELU gradient as its epilogue, the SwiGLU
+# FFN's w12 with the gate as its epilogue
 COUNTER_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "window_refinement_fwd", "gelu_bf16_fwd",
                    "linear_gelu_bf16_fwd", "flash_attention_fwd_any", "flash_attention_bwd_any",
-                   "window_refinement_bwd", "gelu_bf16_bwd", "linear_gelu_bf16_bwd")
+                   "window_refinement_bwd", "gelu_bf16_bwd", "linear_gelu_bf16_bwd", "linear_swiglu_bf16_fwd")
 (FWD_AT, BWD_AT, WINDOW_AT, GELU_AT, FUSED_AT, ANY_FWD_AT, ANY_BWD_AT, WINDOW_BWD_AT, GELU_BWD_AT,
- FUSED_BWD_AT) = COUNTER_KERNELS
+ FUSED_BWD_AT, SWIGLU_AT) = COUNTER_KERNELS
 ATTENTION_AT = (FWD_AT, BWD_AT, ANY_FWD_AT, ANY_BWD_AT)
 
 
@@ -752,13 +764,14 @@ def phase_build():
     serialized = {n: lines for n, lines in serialized.items() if lines}
     emit("build", seconds=seconds, kernels=list(_build.KERNEL_SOURCES), ptxas=ptxas, sass=sass,
          wgmma_serialized=serialized)
-    for name in ATTENTION_LIBRARIES + ("linear_gelu_bf16_fwd", "linear_gelu_bf16_bwd"):
+    for name in ATTENTION_LIBRARIES + ("linear_gelu_bf16_fwd", "linear_gelu_bf16_bwd", "linear_swiglu_bf16_fwd"):
         check(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA (wgmma) instruction in its SASS")
     check(not serialized, f"ptxas serialized the wgmma instructions of {sorted(serialized)}")
-    for name in ("window_refinement_fwd", "window_refinement_bwd", "linear_gelu_bf16_fwd", "linear_gelu_bf16_bwd"):
+    for name in ("window_refinement_fwd", "window_refinement_bwd", "linear_gelu_bf16_fwd", "linear_gelu_bf16_bwd",
+                 "linear_swiglu_bf16_fwd"):
         check(sass[name]["UTMALDG"] > 0, f"{name}: no UTMALDG (TMA load) in its SASS")
     for name in ("window_refinement_fwd", "window_refinement_bwd", "gelu_bf16_fwd", "linear_gelu_bf16_fwd",
-                 "gelu_bf16_bwd"):
+                 "gelu_bf16_bwd", "linear_swiglu_bf16_fwd"):
         local = {k: v for k, v in ptxas[name].items() if v["stack_frame"] or v["spill_stores"] or v["spill_loads"]}
         check(bool(ptxas[name]) and not local, f"{name} uses local memory: {local}")
     # the fused MLP backward spills a few dozen bytes a thread (values live
@@ -1367,6 +1380,103 @@ def phase_linear_gelu():
     check(tuple(empty.shape) == (0, 128) and no_launch, "linear_gelu: an empty x or a refused call launched")
     check(all(refused.values()), f"linear_gelu: the kernel took what it refuses: {refused}")
     return rows, host["kernel"], max_abs_err
+
+
+def phase_linear_swiglu():
+    """The SwiGLU FFN's w12 with the gate in its epilogue
+    (``ufm_torch::linear_swiglu_bf16``) at the 40 ViT-g/14 blocks' shape of a
+    batch-1 and a batch-4 forward and off the tiles: y against the exact gate
+    of the exact halves rounded to bf16 (within one bf16 ulp on all but
+    LINEAR_SWIGLU_ULP_SHARE) and against the composition the FFN runs
+    without it (F.linear, then the gate in fp32); an empty x launches
+    nothing. Then the kernel, ``F.linear`` alone, the pair it replaces
+    (``F.linear`` then DINOv2's ``F.silu(x1) * x2``), the port's composition
+    and the bound timed at each forward shape, and the host's cost per
+    call. Returns the summary entry."""
+    import torch.nn.functional as F
+
+    from benchmark.harness.swiglu import linear_swiglu_bound_ms
+    from ufm_torch.ops import linear_swiglu as ls
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def operands(m, k, hidden):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w12 = (torch.randn(2 * hidden, k, generator=gen, device="cuda") * k**-0.5).to(torch.bfloat16)
+        b12 = (torch.randn(2 * hidden, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        return x, w12, b12
+
+    def pair(x, w12, b12):
+        x1, x2 = F.linear(x, w12, b12).chunk(2, dim=-1)
+        return F.silu(x1) * x2
+
+    rows = {}
+    cases = [(name, shape, calls) for name, shape, calls in LINEAR_SWIGLU_SHAPES]
+    cases += [(f"m{m}_k{k}_h{h}", (m, k, h), 0) for m, k, h in LINEAR_SWIGLU_ODD]
+    for name, (m, k, hidden), calls in cases:
+        x, w12, b12 = operands(m, k, hidden)
+        before = ls.LAUNCHES
+        y = ls.launch(x, w12, b12)
+        torch.cuda.synchronize()
+        h = (x.double() @ w12.double().t() + b12.double()).float().to(torch.bfloat16).double()
+        h1, h2 = h.chunk(2, dim=-1)
+        exact = (h1 * torch.sigmoid(h1) * h2).float().to(torch.bfloat16)
+        ulps = (_ordered_bf16(y) - _ordered_bf16(exact)).abs()
+        plain = ls.linear_swiglu_reference(x, w12, b12).float()
+        row = dict(shape=[m, k, hidden], calls_per_forward=calls, launches=ls.LAUNCHES - before,
+                   share_over_1ulp=(ulps > 1).double().mean().item(), max_ulps=int(ulps.max()),
+                   rel_l2_vs_plain=((y.float() - plain).norm() / plain.norm()).item(),
+                   max_abs_diff_vs_plain=(y.float() - plain).abs().max().item())
+        del h, h1, h2, exact, ulps, plain
+        check(row["launches"] == 1, f"linear_swiglu {name}: {row['launches']} launches")
+        check(row["share_over_1ulp"] <= LINEAR_SWIGLU_ULP_SHARE, f"linear_swiglu {name}: {row}")
+        check(row["rel_l2_vs_plain"] <= LINEAR_SWIGLU_REL_L2, f"linear_swiglu {name}: {row}")
+        if calls:
+            row["ms"] = time_ms(lambda: ls.launch(x, w12, b12))
+            row["linear_only_ms"] = time_ms(lambda: F.linear(x, w12, b12))
+            row["pair_ms"] = time_ms(lambda: pair(x, w12, b12))
+            row["plain_ms"] = time_ms(lambda: ls.linear_swiglu_reference(x, w12, b12))
+            row["bound_ms"], row["bound_by"] = linear_swiglu_bound_ms(m, k, hidden)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["share_of_bound_of_pair"] = row["bound_ms"] / row["pair_ms"]
+            row["tflops"] = 2 * m * k * 2 * hidden / row["ms"] / 1e9
+        rows[name] = row
+        emit("kernel", kernel="linear_swiglu_bf16_fwd", case=name, **row)
+        del x, w12, b12, y
+    x, w12, b12 = operands(8, 64, 64)
+    before = ls.LAUNCHES
+    empty = ls.linear_swiglu_bf16(x[:0], w12, b12)
+    check(tuple(empty.shape) == (0, 64) and ls.LAUNCHES == before, "linear_swiglu: an empty x launched")
+    host = {"kernel": host_us_per_launch(lambda: ls.linear_swiglu_bf16(x, w12, b12)),
+            "pair": host_us_per_launch(lambda: pair(x, w12, b12))}
+    b1 = rows["vitg_b1"]
+    emit("linear_swiglu", per_forward_ms={k: b1["calls_per_forward"] * b1[k]
+                                          for k in ("ms", "linear_only_ms", "pair_ms", "plain_ms", "bound_ms")},
+         host_us_per_call=host, kernel_over_pair={n: rows[n]["ms"] / rows[n]["pair_ms"] for n, *_ in
+                                                  LINEAR_SWIGLU_SHAPES})
+    return {
+        "name": "linear_swiglu_bf16_fwd",
+        "route": "cuda",
+        "source": "ufm_torch/csrc/linear_swiglu_bf16_fwd.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel (the JAX package has no SwiGLU FFN): w12 -> silu(x1) * x2 of DINOv2's "
+                         "SwiGLUFFNFused as one kernel",
+        "launches": 0,
+        "launches_by_path": {},
+        "op": "ufm_torch::linear_swiglu_bf16",
+        "max_abs_err": max(r["max_abs_diff_vs_plain"] for r in rows.values()),
+        "ms": b1["calls_per_forward"] * b1["ms"],
+        "plain_ms": b1["calls_per_forward"] * b1["plain_ms"],
+        "bound_ms": b1["calls_per_forward"] * b1["bound_ms"],
+        "bound_by": b1["bound_by"],
+        "library_ms": b1["calls_per_forward"] * b1["pair_ms"],
+        "library": "F.linear(x, w12, b12) then F.silu(x1) * x2 (DINOv2's SwiGLUFFNFused): no single PyTorch call "
+                   "computes the product and the gate",
+        "per_forward": "times sum the 40 ViT-g/14 blocks of one batch-1 forward",
+        "ms_by_case": {n: r["ms"] for n, r in rows.items() if "ms" in r},
+        "share_of_bound_by_case": {n: r["share_of_bound"] for n, r in rows.items() if "ms" in r},
+        "host_us_per_launch": host["kernel"],
+    }
 
 
 def gelu_bwd_bound_ms(numel: int):
@@ -5271,6 +5381,7 @@ def run_phases(smi: str) -> int:
     window_bwd_rows = phase_window_bwd_kernel()
     gelu_rows, gelu_host_us, gelu_err = phase_gelu()
     lg_rows, lg_host_us, lg_err = phase_linear_gelu()
+    linear_swiglu = phase_linear_swiglu()
     gelu_bwd_rows, gelu_bwd_host_us, gelu_bwd_err = phase_gelu_backward()
     lg_train_rows = phase_linear_gelu_train()
     lg_bwd_rows, lg_bwd_host_us, lg_bwd_err = phase_linear_gelu_backward()
@@ -5668,7 +5779,8 @@ def run_phases(smi: str) -> int:
     }
     print(smi)
     kernels = [with_recorded_paths(k) for k in (attention, backward, window, window_bwd, gelu, linear_gelu,
-                                                attention_any, backward_any, gelu_backward, linear_gelu_backward)]
+                                                attention_any, backward_any, gelu_backward, linear_gelu_backward,
+                                                linear_swiglu)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,6 +17,7 @@ from ufm_torch.models import UniFlowMatchClassificationRefinement, UniFlowMatchC
 from ufm_torch.ops import flash_attention as fa
 from ufm_torch.ops import gelu as ge
 from ufm_torch.ops import linear_gelu as lg
+from ufm_torch.ops import linear_swiglu as ls
 from ufm_torch.ops import window_refinement as wr
 from ufm_torch.training import make_optimizer, make_train_step, synthetic_batch, ufm_total_loss
 from ufm_torch.training.trainer import group_of
@@ -1906,3 +1907,106 @@ def test_mlp_gradients_through_the_fused_backward_on_the_card(cuda):
     for a, b in zip(got, want):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 4e-3, rel
+
+
+# ---- the SwiGLU FFN's w12 with the gate in its epilogue (linear_swiglu_bf16_fwd.cu)
+def _swiglu_inputs(device, m, k, hidden, seed):
+    """x ~ N(0, 1) (a LayerNorm's output), w12 of std 1 / sqrt(K) (the
+    seeded init), a bias of std 0.02: h1, h2 ~ N(0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+    w12 = (torch.randn(2 * hidden, k, generator=gen, device=device) * k**-0.5).to(torch.bfloat16)
+    b12 = (torch.randn(2 * hidden, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    return x, w12, b12
+
+
+@pytest.mark.parametrize("m,k,hidden", [(2410, 1536, 4096), (1077, 1536, 4096), (130, 48, 200), (1, 64, 64)])
+def test_linear_swiglu_kernel_against_its_rounded_halves(cuda, m, k, hidden):
+    """The kernel at the ViT-g/14 cell's shape (M = 2 x 1205), at a ragged M
+    and at M, K and H tails: y within one bf16 ulp of the exact gate
+    (float64) of the exact halves rounded to bf16, on all but 0.5% of the
+    elements (where fp32 summation lands a half on the other side of a bf16
+    rounding boundary: ~K 2^-24 / 2^-9 of them a half); within 4e-3 relative
+    L2 (bf16's epsilon) of the composition the FFN runs without it (cuBLAS's
+    F.linear, then the gate)."""
+    x, w12, b12 = _swiglu_inputs(cuda, m, k, hidden, seed=m + k + hidden)
+    before = ls.LAUNCHES
+    y = ls.launch(x, w12, b12)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES - before == 1 and y.shape == (m, hidden)
+    h = (x.double() @ w12.double().t() + b12.double()).float().to(torch.bfloat16).double()
+    h1, h2 = h.chunk(2, dim=-1)
+    want = h1 * torch.sigmoid(h1) * h2
+    ulps = (_ordered(y) - _ordered(want.float().to(torch.bfloat16))).abs()
+    assert (ulps <= 1).double().mean().item() >= 0.995
+    plain = ls.linear_swiglu_reference(x, w12, b12).float()
+    assert ((y.float() - plain).norm() / plain.norm().clamp_min(1e-30)).item() <= 4e-3
+
+
+def test_linear_swiglu_kernel_layouts_refusals_and_capture(cuda):
+    """A 3-D and a non-contiguous x; an empty x launches nothing; fp32, an
+    odd w12, K or H off a multiple of 8, a misaligned operand and a CPU
+    tensor are refused without a launch; the launch captures in the
+    strictest mode and each replay computes the new input's output."""
+    x, w12, b12 = _swiglu_inputs(cuda, 260, 64, 96, seed=1)
+    x3 = x.view(2, 130, 64)
+    got = ls.linear_swiglu_bf16(x3, w12, b12)
+    strided = x3.transpose(0, 1).contiguous().transpose(0, 1)
+    assert got.shape == (2, 130, 96) and torch.equal(_bits(got), _bits(ls.linear_swiglu_bf16(strided, w12, b12)))
+    before = ls.LAUNCHES
+    assert ls.linear_swiglu_bf16(x3[:, :0], w12, b12).shape == (2, 0, 96) and ls.LAUNCHES == before
+    flat = torch.zeros(65 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    for args, match in [((x.float(), w12, b12), "bfloat16"), ((x, w12[:191], b12[:191]), "2H"),
+                        ((x[:, :60], w12[:, :60], b12), "multiples of 8"),
+                        ((x, w12[:180], b12[:180]), "multiples of 8"),
+                        ((flat[1:1 + 65 * 64].view(65, 64), w12, b12), "aligned"), ((x.cpu(), w12, b12), "CUDA")]:
+        with pytest.raises(ValueError, match=match):
+            ls.launch(*args)
+    assert ls.LAUNCHES == before
+    x, w12, b12 = _swiglu_inputs(cuda, 2410, 1536, 4096, seed=3)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        out = ls.linear_swiglu_bf16(x, w12, b12)
+    for seed in (4, 5):
+        x.copy_(_swiglu_inputs(cuda, 2410, 1536, 4096, seed=seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(ls.launch(x, w12, b12)))
+
+
+def test_vitg_reg_replay_runs_the_swiglu_kernel(cuda):
+    """UFM-Base on DINOv2 ViT-g/14 with registers, captured at batch 1: every
+    replay adds 40 to the SwiGLU counter (one a ViT-g block), 12 to the fused
+    fc1 + GELU counter (the info sharing) and 52 to the attention's; the
+    profiler sees 40 ``linear_swiglu_bf16_fwd_kernel`` and 12
+    ``linear_gelu_bf16_fwd_kernel`` in one replay; the outputs are finite.
+    Under grad mode the FFN takes the plain composition (no launch)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ufm_torch.models import ufm_base_vitg_reg_config
+
+    model = UniFlowMatchConfidence.from_config(ufm_base_vitg_reg_config(), seed=0)
+    src, tgt = _pairs()
+    model.predict_correspondences_batched(src, tgt)  # captures
+    torch.cuda.synchronize()
+    for _ in range(2):
+        before = (ls.LAUNCHES, lg.LAUNCHES, fa.LAUNCHES)
+        res = model.predict_correspondences_batched(src, tgt)
+        torch.cuda.synchronize()
+        assert (ls.LAUNCHES - before[0], lg.LAUNCHES - before[1], fa.LAUNCHES - before[2]) == (40, 12, 52)
+        assert all(bool(torch.isfinite(t).all()) for t in _fields(res).values())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.predict_correspondences_batched(src, tgt)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = {k: sum(bool(re.search(rf"(?<![A-Za-z_]){k}", n)) for n in names)
+             for k in ("linear_swiglu_bf16_fwd_kernel", "linear_gelu_bf16_fwd_kernel")}
+    assert count == {"linear_swiglu_bf16_fwd_kernel": 40, "linear_gelu_bf16_fwd_kernel": 12}
+    ffn = model.net.encoder.blocks[0].mlp
+    x = torch.randn(1, 8, 1536, device=cuda).to(torch.bfloat16).requires_grad_(True)
+    before = ls.LAUNCHES
+    ffn(x).float().sum().backward()
+    assert ls.LAUNCHES == before and x.grad is not None

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Command line for the PyTorch / CUDA port (counterpart of ``ufm_tpu/cli.py``).
 
-    python -m ufm_torch.cli infer SOURCE TARGET (--checkpoint DIR | --random-init | --artifact PATH) [--model {base,refine}] [-o DIR] [--device cpu]
-    python -m ufm_torch.cli eval DIR (--checkpoint DIR | --random-init) [--model {base,refine}] [--tiled] [-o JSON] [--device cpu]
-    python -m ufm_torch.cli export OUTPUT (--checkpoint DIR | --random-init) [--model {base,refine}] [--batch N] [--params-dtype {bfloat16,float16}] [--device cpu]
-    python -m ufm_torch.cli serve (--checkpoint DIR | --random-init | --artifact PATH) [--model {base,refine}] [--host H] [--port P] [--max-batch N] [--max-delay-ms MS] [--device cpu]
+    python -m ufm_torch.cli infer SOURCE TARGET (--checkpoint DIR | --random-init | --artifact PATH) [--model {base,refine,base-vitg-reg}] [-o DIR] [--device cpu]
+    python -m ufm_torch.cli eval DIR (--checkpoint DIR | --random-init) [--model {base,refine,base-vitg-reg}] [--tiled] [-o JSON] [--device cpu]
+    python -m ufm_torch.cli export OUTPUT (--checkpoint DIR | --random-init) [--model {base,refine,base-vitg-reg}] [--batch N] [--params-dtype {bfloat16,float16}] [--device cpu]
+    python -m ufm_torch.cli serve (--checkpoint DIR | --random-init | --artifact PATH) [--model {base,refine,base-vitg-reg}] [--host H] [--port P] [--max-batch N] [--max-delay-ms MS] [--device cpu]
     python -m ufm_torch.cli demo [--checkpoint DIR] [--model {base,refine}] [--port P] [--share] [--device cpu]
     python -m ufm_torch.cli test
 
-``infer`` runs UFM-Base (``--model base``, the default) or UFM-Refine
-(``--model refine``) on an image pair and writes ``flow_visualization.png``,
+``infer`` runs UFM-Base (``--model base``, the default), UFM-Refine
+(``--model refine``) or UFM-Base's heads on DINOv2 ViT-g/14 with registers
+(``--model base-vitg-reg``, :func:`ufm_torch.models.ufm_base_vitg_reg_config`)
+on an image pair and writes ``flow_visualization.png``,
 ``covisibility_mask.png`` and ``warped_source.png``. ``eval`` scores a
 directory of pairs (``name_0.png`` / ``name_1.png`` with ``name_flow.npy``,
 ``name.flo`` or ``name_flow.png`` ground truth; pairs without it by
@@ -101,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _add_model_arguments(p: argparse.ArgumentParser, artifact: bool = False) -> None:
     p.add_argument(
-        "--model", choices=("base", "refine"), default="base", help="UFM-Base or UFM-Refine (default: base)"
+        "--model", choices=("base", "refine", "base-vitg-reg"), default="base",
+        help="UFM-Base, UFM-Refine, or UFM-Base on DINOv2 ViT-g/14 with registers (default: base)",
     )
     p.add_argument("--checkpoint", help="Local checkpoint directory (config.json + weights)")
     p.add_argument(
@@ -155,13 +158,15 @@ def _load_model(args):
         UniFlowMatchClassificationRefinement,
         UniFlowMatchConfidence,
         ufm_base_config,
+        ufm_base_vitg_reg_config,
         ufm_refine_config,
     )
 
     cls = UniFlowMatchClassificationRefinement if args.model == "refine" else UniFlowMatchConfidence
     if args.checkpoint:
         return cls.from_pretrained(args.checkpoint, device=args.device)
-    config = ufm_refine_config() if args.model == "refine" else ufm_base_config()
+    config = {"base": ufm_base_config, "refine": ufm_refine_config,
+              "base-vitg-reg": ufm_base_vitg_reg_config}[args.model]()
     return cls.from_config(config, seed=0, device=args.device)
 
 

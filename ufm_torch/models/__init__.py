@@ -10,6 +10,7 @@ from ufm_torch.models.base import (
 from ufm_torch.models.config import (
     UFMArchConfig,
     ufm_base_config,
+    ufm_base_vitg_reg_config,
     ufm_refine_config,
     ufm_tiny_config,
 )
@@ -30,6 +31,7 @@ __all__ = [
     "UniFlowMatchModelsBase",
     "predict_correspondences_tiled",
     "ufm_base_config",
+    "ufm_base_vitg_reg_config",
     "ufm_refine_config",
     "ufm_tiny_config",
 ]

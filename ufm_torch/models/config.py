@@ -6,9 +6,11 @@ Field names mirror the reference constructor kwargs exactly
 (the config.json is the single source of architecture truth; reference
 ufm.py:120 + SURVEY.md §3.5).
 
-A verbatim copy of ``ufm_tpu/models/config.py``: the port never imports the
-JAX package, so it keeps its own. Fields the port does not use yet (training
-remat, refinement) are kept so one config dict drives both packages.
+A copy of ``ufm_tpu/models/config.py``: the port never imports the JAX
+package, so it keeps its own. Fields the port does not use yet (training
+remat, refinement) are kept so one config dict drives both packages. The
+port adds :func:`ufm_base_vitg_reg_config` (DINOv2 ViT-g/14 with registers,
+which the JAX package does not build).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
-__all__ = ["UFMArchConfig", "ufm_base_config", "ufm_refine_config", "ufm_tiny_config"]
+__all__ = ["UFMArchConfig", "ufm_base_config", "ufm_base_vitg_reg_config", "ufm_refine_config", "ufm_tiny_config"]
 
 
 def _d() -> Dict[str, Any]:
@@ -106,13 +108,14 @@ def _dpt_kwargs(enc_dim: int, info_dim: int, output_dim: int) -> Dict[str, Any]:
     }
 
 
-def ufm_base_config(**overrides) -> UFMArchConfig:
-    """Flagship UFM-Base class config: DINOv2 ViT-L/14 encoder + dual-view
-    global attention + DPT flow head + DPT uncertainty head."""
-    enc_dim, info_dim = 1024, 768
-    cfg = UFMArchConfig(
-        encoder_str="dinov2_large",
-        encoder_kwargs={"intermediate_layer_idx": (0, 23)},
+def _ufm_base(encoder_str: str, encoder_kwargs: Dict[str, Any], enc_dim: int) -> UFMArchConfig:
+    """UFM-Base's info sharing and heads on an encoder of width ``enc_dim``:
+    the info sharing's input projection and the DPT heads' first input take
+    the encoder's width."""
+    info_dim = 768
+    return UFMArchConfig(
+        encoder_str=encoder_str,
+        encoder_kwargs=encoder_kwargs,
         info_sharing_str="global_attention",
         info_sharing_kwargs={
             "input_embed_dim": enc_dim,
@@ -133,7 +136,22 @@ def ufm_base_config(**overrides) -> UFMArchConfig:
         },
         inference_resolution=(560, 420),
     )
+
+
+def ufm_base_config(**overrides) -> UFMArchConfig:
+    """Flagship UFM-Base class config: DINOv2 ViT-L/14 encoder + dual-view
+    global attention + DPT flow head + DPT uncertainty head."""
+    cfg = _ufm_base("dinov2_large", {"intermediate_layer_idx": (0, 23)}, 1024)
     return dataclasses.replace(cfg, **overrides)
+
+
+def ufm_base_vitg_reg_config(**overrides) -> UFMArchConfig:
+    """UFM-Base's info sharing and DPT heads on DINOv2 ViT-g/14 with
+    registers (``dinov2_vitg14_reg``: 40 x 1536, 24 heads, the SwiGLU FFN, 4
+    registers), tapped at its first and last blocks as UFM-Base taps ViT-L.
+    No published UFM checkpoint uses this encoder."""
+    encoder_kwargs = {"num_register_tokens": 4, "ffn_layer": "swiglufused", "intermediate_layer_idx": (0, 39)}
+    return dataclasses.replace(_ufm_base("dinov2_giant", encoder_kwargs, 1536), **overrides)
 
 
 def ufm_refine_config(**overrides) -> UFMArchConfig:

@@ -68,7 +68,8 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in the JAX package's scheme: dense and conv kernels
     normal with std 1/sqrt(fan_in), biases zero, LayerNorm identity,
     LayerScale at its init value, learned position / view embeddings normal
-    with std 0.02, cls token and its position zero. The refinement's
+    with std 0.02, cls token and its position zero, register tokens normal
+    with std 1e-6 (DINOv2's init; the JAX package has none). The refinement's
     classification bias is not touched: it stays zero, as flax's ``zeros``
     init leaves it."""
     for m in net.modules():
@@ -93,6 +94,8 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
             if m.use_cls_token:
                 m.cls_token.zero_()
                 m.cls_pos_embed.zero_()
+            if m.num_register_tokens:
+                m.register_tokens.normal_(0.0, 1e-6, generator=generator)
         elif isinstance(m, MultiViewGlobalAttentionTransformer):
             m.view_embed.normal_(0.0, 0.02, generator=generator)
 

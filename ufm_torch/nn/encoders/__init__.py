@@ -29,11 +29,13 @@ __all__ = [
 _FACTORIES: Dict[str, Callable[..., Any]] = {}
 
 _PRESETS: Dict[str, Dict[str, Any]] = {
-    # DINOv2 family (patch 14). `size` presets follow the standard ViT dims.
+    # DINOv2 family (patch 14). `size` presets follow the standard ViT dims;
+    # the published ViT-g/14 (facebookresearch/dinov2 hubconf.py, vit_giant2)
+    # has a SwiGLU FFN (a GELU ViT-g only by an explicit ffn_layer="mlp").
     "dinov2_small": dict(embed_dim=384, depth=12, num_heads=6),
     "dinov2_base": dict(embed_dim=768, depth=12, num_heads=12),
     "dinov2_large": dict(embed_dim=1024, depth=24, num_heads=16),
-    "dinov2_giant": dict(embed_dim=1536, depth=40, num_heads=24),
+    "dinov2_giant": dict(embed_dim=1536, depth=40, num_heads=24, ffn_layer="swiglufused"),
 }
 
 # Bookkeeping / weight-loading keys a UniCeption-style config.json may carry
@@ -94,8 +96,6 @@ def feature_returner_encoder_factory(encoder_str: str, **kwargs) -> ViTEncoder:
         img_size = kwargs.pop("img_size")
         patch = kwargs.get("patch_size", 14)
         kwargs.setdefault("pretrain_grid_size", int(img_size) // int(patch))
-    if kwargs.get("num_register_tokens", 0) == 0:
-        kwargs.pop("num_register_tokens", None)  # 0 registers == plain ViT
 
     cfg: Dict[str, Any] = {}
     if encoder_str in _PRESETS:

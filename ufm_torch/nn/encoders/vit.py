@@ -3,9 +3,13 @@
 The encoder takes a normalized channel-last image batch and returns a list of
 tapped per-layer feature maps, (B, Hp, Wp, C) each. The patch embedding is a
 stride-14 convolution; attention goes through the shared dispatch (the Hopper
-flash-attention kernel on the card). Parameters live in the compute dtype
-given at construction (bf16 for the flagship backbone); training keeps fp32
-master copies of them in the optimizer (``ufm_torch/training/trainer.py``).
+flash-attention kernel on the card). DINOv2's register variants
+(``num_register_tokens``, arXiv:2309.16588) place R learned tokens after the
+class token, without a position embedding, and the taps drop them with it;
+``ffn_layer`` picks the blocks' FFN (``"swiglufused"``: DINOv2 ViT-g/14's).
+Parameters live in the compute dtype given at construction (bf16 for the
+flagship backbone); training keeps fp32 master copies of them in the
+optimizer (``ufm_torch/training/trainer.py``).
 """
 
 from __future__ import annotations
@@ -116,6 +120,8 @@ class ViTEncoder(nn.Module):
         norm_intermediate: bool = True,
         data_norm_type: str = "dinov2",
         mlp_act: str = "gelu_exact",
+        num_register_tokens: int = 0,
+        ffn_layer: str = "mlp",
         dtype: Union[str, torch.dtype] = torch.float32,
         # training memory knob: checkpoint every block (run_blocks), keeping
         # what ``remat_policy`` saves (nn/layers.py::REMAT_POLICIES)
@@ -130,6 +136,9 @@ class ViTEncoder(nn.Module):
         self.embed_dim = embed_dim
         self.depth = depth
         self.use_cls_token = use_cls_token
+        if num_register_tokens < 0:
+            raise ValueError(f"num_register_tokens must be >= 0, got {num_register_tokens}")
+        self.num_register_tokens = int(num_register_tokens)
         self.norm_intermediate = norm_intermediate
         self.data_norm_type = data_norm_type
         taps = tuple(intermediate_layer_idx) if intermediate_layer_idx is not None else (depth - 1,)
@@ -140,8 +149,10 @@ class ViTEncoder(nn.Module):
         if use_cls_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
             self.cls_pos_embed = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        if self.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, self.num_register_tokens, embed_dim))
         self.blocks = nn.ModuleList(
-            TransformerBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, layerscale_init, mlp_act)
+            TransformerBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, layerscale_init, mlp_act, ffn_layer)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
@@ -158,17 +169,22 @@ class ViTEncoder(nn.Module):
         x = self.patch_embed(image.to(self.dtype).permute(0, 3, 1, 2))  # (B, C, hp, wp)
         x = x.flatten(2).transpose(1, 2)  # (B, hp*wp, C), row-major over (hp, wp)
         x = x + interpolate_pos_embed(self.pos_embed, (hp, wp))
+        lead = []  # the class token, then the registers (no position embedding)
         if self.use_cls_token:
-            cls = (self.cls_token + self.cls_pos_embed).expand(b, 1, self.embed_dim)
-            x = torch.cat([cls, x], dim=1)
+            lead.append((self.cls_token + self.cls_pos_embed).expand(b, 1, self.embed_dim))
+        if self.num_register_tokens:
+            lead.append(self.register_tokens.expand(b, -1, -1))
+        if lead:
+            x = torch.cat([*lead, x], dim=1)
 
         _, outputs = run_blocks(self.blocks, x, self.taps, remat=self.remat, remat_policy=self.remat_policy)
 
+        skip = int(self.use_cls_token) + self.num_register_tokens
         results = []
         for feat in outputs:
             if self.norm_intermediate:
                 feat = self.norm(feat)
-            if self.use_cls_token:
-                feat = feat[:, 1:]
+            if skip:
+                feat = feat[:, skip:]
             results.append(ViTEncoderOutput(features=feat.reshape(b, hp, wp, self.embed_dim)))
         return results

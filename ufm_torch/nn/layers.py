@@ -4,7 +4,8 @@ The primitives behind both transformer stacks: the ViT feature encoder and the
 two-view info-sharing transformer. Parameter names follow the JAX package
 (``attn.qkv``, ``mlp.fc1``, ``ls1.gamma``, ...) with ``weight`` for
 ``kernel``/``scale``, so :mod:`ufm_torch.checkpoint.convert` is a fixed
-renaming plus layout changes.
+renaming plus layout changes. The SwiGLU FFN, which the JAX package does not
+have, takes DINOv2's names (``mlp.w12``, ``mlp.w3``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,13 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 
 from ufm_torch.ops.attention import dot_product_attention
 from ufm_torch.ops.gelu import gelu_bf16
-from ufm_torch.ops.library import flash_attention_fwd, linear_gelu_bf16, mlp_bf16
+from ufm_torch.ops.library import flash_attention_fwd, linear_gelu_bf16, linear_swiglu_bf16, mlp_bf16
 
 __all__ = [
     "Mlp",
+    "SwiGLUFFN",
+    "FFN_LAYERS",
+    "swiglu_hidden_dim",
     "Attention",
     "LayerScale",
     "TransformerBlock",
@@ -116,6 +120,53 @@ class Mlp(nn.Module):
         return self.fc2(self.act(self.fc1(x)))
 
 
+def swiglu_hidden_dim(hidden_dim: int) -> int:
+    """DINOv2's ``SwiGLUFFNFused`` width for an MLP width of ``hidden_dim``:
+    two thirds of it, rounded up to a multiple of 8 (ViT-g/14: 6144 -> 4096)."""
+    return (int(hidden_dim * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLUFFN(nn.Module):
+    """DINOv2's ``SwiGLUFFNFused``: ``w12 -> chunk -> silu(x1) * x2 -> w3``,
+    with biases on ``w12`` and ``w3``; ``x1`` is the first half of ``w12``'s
+    output. ``hidden_dim`` is the block's MLP width before the two-thirds rule
+    (:func:`swiglu_hidden_dim`).
+
+    The gate runs in fp32 on the rounded halves and is rounded once. Where no
+    gradient is recorded (inference) on a bf16 ``w12`` with a bias, ``w12``
+    and the gate are one op, ``ufm_torch::linear_swiglu_bf16`` (on the card
+    one kernel with the gate in the product's epilogue; on the CPU the same
+    bits as the composition). Under grad mode, under activation checkpointing
+    and for a tensor-parallel (DTensor) ``w12`` the FFN takes the plain
+    composition, whose gradient autograd records.
+    """
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None):
+        super().__init__()
+        hidden = swiglu_hidden_dim(hidden_dim)
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, out_dim or dim)
+
+    def _fused(self, x: torch.Tensor) -> bool:
+        w, b = self.w12.weight, self.w12.bias
+        if w.dtype != torch.bfloat16 or x.dtype != torch.bfloat16 or b is None or b.dtype != torch.bfloat16:
+            return False
+        if isinstance(w, DTensor) or isinstance(x, DTensor) or _REMAT.get():
+            return False
+        return not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fused(x):
+            return self.w3(linear_swiglu_bf16(x, self.w12.weight, self.w12.bias))
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3((F.silu(x1.float()) * x2.float()).to(x1.dtype))
+
+
+# a block's ``ffn_layer`` values (DINOv2's names): "mlp" is the GELU Mlp; DINOv2
+# maps both SwiGLU names to ``SwiGLUFFNFused`` (SwiGLUFFN here)
+FFN_LAYERS = ("mlp", "swiglufused", "swiglu")
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection.
 
@@ -157,7 +208,10 @@ class LayerScale(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm transformer block with optional LayerScale."""
+    """Pre-norm transformer block with optional LayerScale. ``ffn_layer``
+    (:data:`FFN_LAYERS`) picks the FFN: ``"mlp"`` the GELU :class:`Mlp`,
+    ``"swiglufused"`` or ``"swiglu"`` the :class:`SwiGLUFFN` (which has no
+    activation to pick: ``mlp_act`` is the MLP's)."""
 
     def __init__(
         self,
@@ -167,12 +221,18 @@ class TransformerBlock(nn.Module):
         qkv_bias: bool = True,
         layerscale_init: Optional[float] = None,
         mlp_act: str = "gelu_exact",
+        ffn_layer: str = "mlp",
     ):
         super().__init__()
+        if ffn_layer not in FFN_LAYERS:
+            raise ValueError(f"unknown ffn_layer {ffn_layer!r}; valid: {list(FFN_LAYERS)}")
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), act=mlp_act)
+        if ffn_layer == "mlp":
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), act=mlp_act)
+        else:
+            self.mlp = SwiGLUFFN(dim, int(dim * mlp_ratio))
         if layerscale_init is not None:
             self.ls1 = LayerScale(dim, layerscale_init)
             self.ls2 = LayerScale(dim, layerscale_init)

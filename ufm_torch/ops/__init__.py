@@ -3,7 +3,8 @@
 
 Each kernel's wrapper and launch count live in its submodule
 (``ufm_torch.ops.flash_attention``, ``ufm_torch.ops.window_refinement``,
-``ufm_torch.ops.gelu``, ``ufm_torch.ops.linear_gelu``; not re-exported, so ``LAUNCHES`` stays the
+``ufm_torch.ops.gelu``, ``ufm_torch.ops.linear_gelu``,
+``ufm_torch.ops.linear_swiglu``; not re-exported, so ``LAUNCHES`` stays the
 module's). The kernels are dispatcher
 ops (``torch.ops.ufm_torch.*``), registered by ``ufm_torch.ops.library``,
 which importing this package imports.

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from ufm_torch.ops import flash_attention, gelu, linear_gelu, window_refinement
+from ufm_torch.ops import flash_attention, gelu, linear_gelu, linear_swiglu, window_refinement
 
 __all__ = ["COUNTERS", "snapshot", "since", "add", "reset"]
 
@@ -28,6 +28,7 @@ COUNTERS = {
     "window_refinement_bwd": (window_refinement, "BWD_LAUNCHES"),
     "gelu_bf16_bwd": (gelu, "BWD_LAUNCHES"),
     "linear_gelu_bf16_bwd": (linear_gelu, "BWD_LAUNCHES"),
+    "linear_swiglu_bf16_fwd": (linear_swiglu, "LAUNCHES"),
 }
 
 

@@ -1,6 +1,6 @@
 """The port's Hopper kernels as dispatcher ops (``torch.library``).
 
-Nine ops in the ``ufm_torch`` namespace:
+Ten ops in the ``ufm_torch`` namespace:
 
 - ``flash_attention_fwd(q, k, v, scale, with_lse) -> (out, lse)``: softmax
   attention over (B, S, H, D); ``lse`` (B, H, Sq) fp32 is each row's
@@ -24,14 +24,17 @@ Nine ops in the ``ufm_torch`` namespace:
   fused op's gradient reads;
 - ``linear_gelu_bf16_bwd(g, w2, h) -> dh``: ``gelu_bf16_bwd(g @ w2, h)``,
   the MLP's ``fc2`` input gradient with the GELU's gradient as its epilogue
-  (``dy`` rounded to bf16 first, as the two ops round it).
+  (``dy`` rounded to bf16 first, as the two ops round it);
+- ``linear_swiglu_bf16(x, w12, b12) -> y``: ``bf16(silu(h1) * h2)`` of the
+  two halves of ``bf16(F.linear(x, w12, b12))``, the SwiGLU FFN's ``w12``
+  with the gate as its epilogue (``ufm_torch/ops/linear_swiglu.py``).
 
 The tensors' device picks the implementation inside the op: CUDA runs the
 hand-written kernel (``flash_attention.launch_forward`` /
 ``launch_backward``, which pick the wgmma or the mma kernel by dtype
 and head dim, ``window_refinement.launch`` / ``launch_backward``,
 ``gelu.launch`` / ``launch_backward``,
-``linear_gelu.launch`` / ``launch_preact`` / ``launch_backward``: every pointer, stride and
+``linear_gelu.launch`` / ``launch_preact`` / ``launch_backward``, ``linear_swiglu.launch``: every pointer, stride and
 alignment check and the launch counters live there, and they raise on what
 the kernels do not take), CPU runs the plain version. A fake implementation gives each output's
 shape and dtype from the inputs' (with the shape checks, and on a CUDA
@@ -62,7 +65,9 @@ kernel around an ``autograd.Function``, which is what
 ``torch.library.register_autograd`` registers, written out:
 ``register_autograd`` refuses an op with a mutated argument (the window op's
 ``staged_count``), and its generic kernel does more host work a call. The
-backward ops and ``linear_gelu_bf16_preact`` have no gradient of their own.
+backward ops, ``linear_gelu_bf16_preact`` and ``linear_swiglu_bf16`` have no
+gradient of their own (``nn.layers.SwiGLUFFN`` takes the latter only where
+no gradient is recorded).
 
 Registration runs when the module is imported (``ufm_torch.ops`` imports
 it); it builds nothing: a kernel is compiled at its first CUDA launch.
@@ -76,11 +81,13 @@ import torch.nn.functional as F
 from ufm_torch.ops import flash_attention as _fa
 from ufm_torch.ops import gelu as _gelu
 from ufm_torch.ops import linear_gelu as _lg
+from ufm_torch.ops import linear_swiglu as _ls
 from ufm_torch.ops import window_refinement as _wr
 
 __all__ = [
     "NAMESPACE", "flash_attention_fwd", "flash_attention_bwd", "window_refinement", "window_refinement_bwd",
-    "gelu_bf16", "gelu_bf16_bwd", "linear_gelu_bf16", "linear_gelu_bf16_preact", "linear_gelu_bf16_bwd", "OPS",
+    "gelu_bf16", "gelu_bf16_bwd", "linear_gelu_bf16", "linear_gelu_bf16_preact", "linear_gelu_bf16_bwd",
+    "linear_swiglu_bf16", "OPS",
     "attention", "mlp_bf16",
 ]
 
@@ -105,6 +112,7 @@ _LIB.define("gelu_bf16_bwd(Tensor g, Tensor x) -> Tensor")
 _LIB.define("linear_gelu_bf16(Tensor x, Tensor w, Tensor b) -> Tensor")
 _LIB.define("linear_gelu_bf16_preact(Tensor x, Tensor w, Tensor b) -> (Tensor, Tensor)")
 _LIB.define("linear_gelu_bf16_bwd(Tensor g, Tensor w2, Tensor h) -> Tensor")
+_LIB.define("linear_swiglu_bf16(Tensor x, Tensor w12, Tensor b12) -> Tensor")
 
 flash_attention_fwd = torch.ops.ufm_torch.flash_attention_fwd.default
 flash_attention_bwd = torch.ops.ufm_torch.flash_attention_bwd.default
@@ -115,8 +123,9 @@ gelu_bf16_bwd = torch.ops.ufm_torch.gelu_bf16_bwd.default
 linear_gelu_bf16 = torch.ops.ufm_torch.linear_gelu_bf16.default
 linear_gelu_bf16_preact = torch.ops.ufm_torch.linear_gelu_bf16_preact.default
 linear_gelu_bf16_bwd = torch.ops.ufm_torch.linear_gelu_bf16_bwd.default
+linear_swiglu_bf16 = torch.ops.ufm_torch.linear_swiglu_bf16.default
 OPS = (flash_attention_fwd, flash_attention_bwd, window_refinement, window_refinement_bwd, gelu_bf16, gelu_bf16_bwd,
-       linear_gelu_bf16, linear_gelu_bf16_preact, linear_gelu_bf16_bwd)
+       linear_gelu_bf16, linear_gelu_bf16_preact, linear_gelu_bf16_bwd, linear_swiglu_bf16)
 
 _LIB.impl("flash_attention_fwd", _fa.launch_forward, "CUDA")
 _LIB.impl("flash_attention_fwd", _fa.plain_forward, "CPU")
@@ -136,6 +145,8 @@ _LIB.impl("linear_gelu_bf16_preact", _lg.launch_preact, "CUDA")
 _LIB.impl("linear_gelu_bf16_preact", _lg.linear_gelu_preact_reference, "CPU")
 _LIB.impl("linear_gelu_bf16_bwd", _lg.launch_backward, "CUDA")
 _LIB.impl("linear_gelu_bf16_bwd", _lg.linear_gelu_bwd_reference, "CPU")
+_LIB.impl("linear_swiglu_bf16", _ls.launch, "CUDA")
+_LIB.impl("linear_swiglu_bf16", _ls.linear_swiglu_reference, "CPU")
 
 
 # ---- fake implementations: shapes and dtypes --------------------------------
@@ -229,6 +240,12 @@ def _linear_gelu_preact_fake(x, w, b):
 def _linear_gelu_bwd_fake(g, w2, h):
     _lg._check_bwd(g, w2, h)
     return h.new_empty(h.shape)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::linear_swiglu_bf16", lib=_LIB)
+def _linear_swiglu_fake(x, w12, b12):
+    _ls._check(x, w12, b12)
+    return x.new_empty((*x.shape[:-1], w12.shape[0] // 2))
 
 
 # ---- autograd --------------------------------------------------------------

@@ -34,6 +34,11 @@ so gathered parameters and optimizer states are in the unsharded layout.
 When the head count does not divide the ``model`` size, qkv is still
 column-parallel (as in the JAX rule) but without the permutation, and its
 output is gathered before the attention.
+
+A block with the SwiGLU FFN (``mlp.w12`` / ``mlp.w3``, which the JAX package
+has no rule for) is refused on a ``model`` axis above 1: a contiguous
+column split of ``w12`` would give one rank all of ``x1`` and none of ``x2``.
+FSDP and data parallelism shard it as any block.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
 
-from ufm_torch.nn.layers import Attention, Mlp, TransformerBlock
+from ufm_torch.nn.layers import Attention, Mlp, SwiGLUFFN, TransformerBlock
 
 __all__ = [
     "MESH_AXES",
@@ -178,6 +183,9 @@ def _tp_plan(net: nn.Module, model_n: int) -> Tuple[Dict[str, object], Dict[str,
     kind = {}  # Linear name -> 0 (column-parallel) or 1 (row-parallel)
     partner, attention = {}, {}
     for name, mod in net.named_modules():
+        if isinstance(mod, SwiGLUFFN):
+            raise ValueError(f"{name}: tensor parallelism has no rule for the SwiGLU FFN (its w12 halves would "
+                             f"split apart on a model axis of {model_n}); shard it on data / fsdp only")
         if isinstance(mod, nn.Linear):
             pl = _model_placement(f"{name}.weight", tuple(mod.weight.shape), model_n)
             if pl.is_shard():
